@@ -1,0 +1,201 @@
+"""STFT / iSTFT with torch.stft / torch.istft semantics.
+
+* center=True reflect padding of n_fft//2 on both ends;
+* normalized=True multiplies by n_fft**-0.5;
+* the DC bin is dropped after analysis (bins 1..n_fft/2);
+* resynthesis reproduces the pad-one-zero-TOP-bin quirk behind
+  ``Quirks.istft_pad_top_bin``.
+
+The analysis is one DFT against (n_fft, F) cos/sin bases with the window and
+scale folded in (in float64, then cast), computed by kernel 1
+(``dsp/stft_cuda.py``) on the card. The synthesis is a matmul against folded
+inverse bases plus an overlap-add, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from dcs_net_tpu_torch.core.config import STFTConfig
+from dcs_net_tpu_torch.dsp.stft_cuda import stft_dft
+from dcs_net_tpu_torch.utils.carray import CArray
+
+
+@functools.lru_cache(maxsize=8)
+def window_np(cfg: STFTConfig) -> np.ndarray:
+    """Periodic Hann window (float64), centre-padded to n_fft."""
+    if cfg.window != "hann":
+        raise NotImplementedError(f"window {cfg.window!r}")
+    n = np.arange(cfg.win_length)
+    w = 0.5 - 0.5 * np.cos(2.0 * np.pi * n / cfg.win_length)
+    if cfg.win_length < cfg.n_fft:
+        pad = (cfg.n_fft - cfg.win_length) // 2
+        w = np.pad(w, (pad, cfg.n_fft - cfg.win_length - pad))
+    return w
+
+
+@functools.lru_cache(maxsize=8)
+def _dft_basis_eff(cfg: STFTConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """(n_fft, n_bins) analysis bases with the window and the normalized
+    scale folded in (float64 at fold time): raw frames @ basis ==
+    (frames * window) @ dft * scale."""
+    n_bins_full = cfg.n_fft // 2 + 1
+    k = np.arange(n_bins_full)
+    n = np.arange(cfg.n_fft)
+    ang = -2.0 * np.pi * np.outer(n, k) / cfg.n_fft
+    w = window_np(cfg).astype(np.float64)[:, None]
+    scale = cfg.n_fft ** -0.5 if cfg.normalized else 1.0
+    cos_b, sin_b = np.cos(ang) * w * scale, np.sin(ang) * w * scale
+    if cfg.drop_dc:
+        cos_b, sin_b = cos_b[:, 1:], sin_b[:, 1:]
+    return cos_b.astype(np.float32), sin_b.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _idft_basis_eff(cfg: STFTConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """(n_bins_full, n_fft) inverse bases with the hermitian doubling
+    weights, the normalized sqrt(N) pre-scale and the synthesis window
+    post-multiply folded in (float64 at fold time)."""
+    n_bins_full = cfg.n_fft // 2 + 1
+    k = np.arange(n_bins_full)
+    n = np.arange(cfg.n_fft)
+    ang = 2.0 * np.pi * np.outer(k, n) / cfg.n_fft
+    weights = np.full((n_bins_full, 1), 2.0)
+    weights[0] = weights[-1] = 1.0
+    w = window_np(cfg).astype(np.float64)[None, :]
+    scale = cfg.n_fft ** 0.5 if cfg.normalized else 1.0
+    cos_b = weights * np.cos(ang) / cfg.n_fft * w * scale
+    sin_b = -weights * np.sin(ang) / cfg.n_fft * w * scale
+    return cos_b.astype(np.float32), sin_b.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=32)
+def _on_device(fn, cfg: STFTConfig, device: torch.device):
+    """The constants ``fn(cfg)`` as tensors on ``device``, copied once: a
+    host-to-device copy per call would stall the host until the card drains
+    its queue."""
+    return tuple(torch.from_numpy(a).to(device) for a in fn(cfg))
+
+
+@functools.lru_cache(maxsize=16)
+def _inv_window_envelope(cfg: STFTConfig, n_frames: int,
+                         device: torch.device) -> torch.Tensor:
+    """1 / the overlap-added squared window (data-independent, floored at
+    1e-11), on ``device``."""
+    w = window_np(cfg) ** 2
+    total = cfg.n_fft + cfg.hop * (n_frames - 1)
+    env = np.zeros(total)
+    for t in range(n_frames):
+        env[t * cfg.hop:t * cfg.hop + cfg.n_fft] += w
+    inv = 1.0 / np.maximum(env, 1e-11).astype(np.float32)
+    return torch.from_numpy(inv).to(device)
+
+
+def _check_float32(cfg: STFTConfig) -> None:
+    if cfg.dft_dtype != "float32":
+        raise NotImplementedError(
+            f"dft_dtype={cfg.dft_dtype!r}: the port runs the DFT in float32 "
+            "(reduced precision is ROADMAP Queue 1 item 4)")
+
+
+def stft(x: torch.Tensor, cfg: STFTConfig) -> CArray:
+    """(..., n) real float32 signal -> CArray of shape (..., F, T).
+
+    Matches torch.stft(..., normalized=cfg.normalized)[..., 1:257, :] for the
+    default config. A CUDA tensor runs kernel 1; a CPU tensor its plain
+    version."""
+    _check_float32(cfg)
+    if cfg.center and cfg.pad_mode != "reflect":
+        raise NotImplementedError(f"pad_mode {cfg.pad_mode!r}")
+    cos_b, sin_b = _on_device(_dft_basis_eff, cfg, x.device)
+    batch_shape = x.shape[:-1]
+    pad = cfg.n_fft // 2 if cfg.center else 0
+    re, im = stft_dft(x.reshape(-1, x.shape[-1]).float().contiguous(),
+                      cos_b, sin_b, cfg.hop, pad)
+    return CArray(re.reshape(batch_shape + re.shape[-2:]),
+                  im.reshape(batch_shape + im.shape[-2:]))
+
+
+def _overlap_add(frames: torch.Tensor, cfg: STFTConfig, total: int) -> torch.Tensor:
+    """(..., T, n_fft) -> (..., total): sum of the frames at stride hop."""
+    n_frames = frames.shape[-2]
+    batch = frames.shape[:-2]
+    if cfg.n_fft % cfg.hop == 0:
+        r = cfg.n_fft // cfg.hop
+        pieces = frames.reshape(batch + (n_frames, r, cfg.hop))
+        acc = frames.new_zeros(batch + (n_frames + r - 1, cfg.hop))
+        for i in range(r):
+            acc[..., i:i + n_frames, :] += pieces[..., i, :]
+        return acc.reshape(batch + (total,))
+    out = frames.new_zeros(batch + (total,))
+    for t in range(n_frames):
+        out[..., t * cfg.hop:t * cfg.hop + cfg.n_fft] += frames[..., t, :]
+    return out
+
+
+def istft(spec: CArray, cfg: STFTConfig, *, length: Optional[int] = None
+          ) -> torch.Tensor:
+    """iSTFT of a FULL-bin spectrogram (..., n_fft//2+1, T) -> (..., n).
+
+    Matches torch.istft(center=True, normalized=cfg.normalized)."""
+    _check_float32(cfg)
+    n_bins_full = cfg.n_fft // 2 + 1
+    if spec.shape[-2] != n_bins_full:
+        raise ValueError(
+            f"istft expects {n_bins_full} bins, got {spec.shape[-2]}; "
+            "use pad_bins()/polar_to_wave() for DC-dropped spectrograms")
+    cos_b, sin_b = _on_device(_idft_basis_eff, cfg, spec.device)
+    re = spec.re.transpose(-1, -2)
+    im = spec.im.transpose(-1, -2)
+    frames = torch.matmul(re, cos_b) + torch.matmul(im, sin_b)  # (..., T, n_fft)
+    n_frames = frames.shape[-2]
+    total = cfg.n_fft + cfg.hop * (n_frames - 1)
+    out = _overlap_add(frames, cfg, total) * _inv_window_envelope(
+        cfg, n_frames, spec.device)
+    if cfg.center:
+        half = cfg.n_fft // 2
+        out = out[..., half:total - half]
+    if length is not None:
+        out = out[..., :length]
+    return out
+
+
+def pad_bins(spec: CArray, cfg: STFTConfig, *, pad_top: bool) -> CArray:
+    """Recreate a full (n_fft//2+1)-bin spectrogram from the DC-dropped one.
+
+    pad_top=True reproduces the original code's quirk: the zero goes on TOP
+    (the Nyquist slot), so the 256 content bins land one bin lower than where
+    they were analysed. pad_top=False re-inserts the zero at the DC slot."""
+    zeros = spec.re.new_zeros(spec.shape[:-2] + (1,) + spec.shape[-1:])
+    if pad_top:
+        return CArray(torch.cat([spec.re, zeros], dim=-2),
+                      torch.cat([spec.im, zeros], dim=-2))
+    return CArray(torch.cat([zeros, spec.re], dim=-2),
+                  torch.cat([zeros, spec.im], dim=-2))
+
+
+def polar_to_wave(mag: torch.Tensor, phase: torch.Tensor, cfg: STFTConfig, *,
+                  pad_top: bool = True, length: Optional[int] = None
+                  ) -> torch.Tensor:
+    """mag/phase (..., F=256, T) -> waveform."""
+    spec = CArray.from_polar(mag, phase)
+    return istft(pad_bins(spec, cfg, pad_top=pad_top), cfg, length=length)
+
+
+def spec_to_wave(spec: CArray, cfg: STFTConfig, *, atan2_eps: float,
+                 pad_top: bool = True, length: Optional[int] = None,
+                 polar: bool = True) -> torch.Tensor:
+    """CArray spectrogram -> waveform.
+
+    polar=True routes through the mag/atan2(+eps) polar decomposition of the
+    original code (not quite the identity because of the eps shift);
+    polar=False feeds the spectrogram to the iSTFT directly."""
+    if polar:
+        return polar_to_wave(spec.abs(), spec.angle(atan2_eps), cfg,
+                             pad_top=pad_top, length=length)
+    return istft(pad_bins(spec, cfg, pad_top=pad_top), cfg, length=length)
+

@@ -1,0 +1,60 @@
+"""Complex CBAM channel and spatial attention.
+
+With ``maxpool_is_avg`` (the faithful quirk) the complex "max" pool is an
+average pool, so the channel attention computes sigmoid(fc(avg) + fc(avg)).
+The spatial attention's k=7 conv is the small-Cout "same" conv of kernel 2.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from dcs_net_tpu_torch.ops import complex_layers as cl
+from dcs_net_tpu_torch.utils.carray import CArray
+
+
+class ComplexChannelAttention(nn.Module):
+    def __init__(self, channels: int, reduction: int,
+                 maxpool_is_avg: bool = True,
+                 weight_init: str = "xavier_uniform",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hidden = max(channels // reduction, 1)
+        self.maxpool_is_avg = maxpool_is_avg
+        self.fc1 = cl.ComplexConv2d(channels, hidden, 1, use_bias=False,
+                                    weight_init=weight_init, generator=generator)
+        self.fc2 = cl.ComplexConv2d(hidden, channels, 1, use_bias=False,
+                                    weight_init=weight_init, generator=generator)
+
+    def _fc(self, v: CArray) -> CArray:
+        return self.fc2(cl.complex_relu(self.fc1(v)))
+
+    def forward(self, x: CArray) -> CArray:
+        avg_out = self._fc(cl.complex_adaptive_avg_pool_1(x))
+        if self.maxpool_is_avg:
+            # the "max" branch is the avg branch again: compute it once
+            return cl.complex_sigmoid(avg_out + avg_out)
+        max_out = self._fc(cl.complex_adaptive_max_pool_1(x, faithful_avg=False))
+        return cl.complex_sigmoid(avg_out + max_out)
+
+
+class ComplexSpatialAttention(nn.Module):
+    def __init__(self, kernel_size: int = 7,
+                 weight_init: str = "xavier_uniform",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv = cl.ComplexConv2d(2, 1, kernel_size,
+                                     padding=kernel_size // 2, use_bias=False,
+                                     weight_init=weight_init,
+                                     generator=generator)
+
+    def forward(self, x: CArray) -> CArray:
+        cat = CArray(
+            torch.cat([x.re.mean(dim=-1, keepdim=True),
+                       x.re.amax(dim=-1, keepdim=True)], dim=-1),
+            torch.cat([x.im.mean(dim=-1, keepdim=True),
+                       x.im.amax(dim=-1, keepdim=True)], dim=-1))
+        return cl.complex_sigmoid(self.conv(cat))

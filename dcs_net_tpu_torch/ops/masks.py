@@ -1,0 +1,31 @@
+"""The complex ratio-mask bound on (re, im) pairs."""
+
+from __future__ import annotations
+
+import torch
+
+from dcs_net_tpu_torch.utils.carray import CArray
+
+
+def bound_crm(M: CArray, atan2_eps: float) -> CArray:
+    """tanh-compress the magnitude and keep the eps-shifted phase, with the
+    original code's double atan2 round trip: the phase is
+    atan2(tanh|M| sin(th), tanh|M| cos(th) + eps) with th =
+    atan2(M.im, M.re + eps), so bounding twice is not idempotent.
+
+    cos(atan2(b, a)) = a / hypot(a, b) and sin(atan2(b, a)) = b / hypot(a, b)
+    replace the transcendentals; at (a, b) == (0, 0) the guarded form gives
+    (0, 0) where atan2 gives angle 0, a measure-zero difference."""
+    mag_t = torch.tanh(M.abs())
+
+    def unit(a, b):  # (cos, sin) of atan2(b, a), rational
+        h2 = a * a + b * b
+        pos = h2 > 0
+        inv = torch.where(pos, torch.rsqrt(torch.where(pos, h2, torch.ones_like(h2))),
+                          torch.zeros_like(h2))
+        return a * inv, b * inv
+
+    c1, s1 = unit(M.re + atan2_eps, M.im)
+    c2, s2 = unit(mag_t * c1 + atan2_eps, mag_t * s1)
+    return CArray(mag_t * c2, mag_t * s2)
+
