@@ -6,10 +6,13 @@
 * resynthesis reproduces the pad-one-zero-TOP-bin quirk behind
   ``Quirks.istft_pad_top_bin``.
 
-The analysis is one DFT against (n_fft, F) cos/sin bases with the window and
-scale folded in (in float64, then cast), computed by kernel 1
-(``dsp/stft_cuda.py``) on the card. The synthesis is a matmul against folded
-inverse bases plus an overlap-add, as in the JAX package.
+The analysis is the windowed, scaled real DFT of every frame, computed by
+kernel 1 (``dsp/stft_cuda.py``): on the card an FFT inside the kernel, fed the
+window and twiddle tables (folded in float64, then cast), or the dense DFT
+kernel for an ``n_fft`` the FFT is not instantiated for; on the CPU the plain
+version, one product against (n_fft, F) cos/sin bases with the window and
+scale folded in. The synthesis is a matmul against folded inverse bases plus
+an overlap-add, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import numpy as np
 import torch
 
 from dcs_net_tpu_torch.core.config import STFTConfig
-from dcs_net_tpu_torch.dsp.stft_cuda import stft_dft
+from dcs_net_tpu_torch.dsp.stft_cuda import (STFTPlan, choose_entry, fft_tables,
+                                             stft_analysis)
 from dcs_net_tpu_torch.utils.carray import CArray
 
 
@@ -81,6 +85,26 @@ def _on_device(fn, cfg: STFTConfig, device: torch.device):
     return tuple(torch.from_numpy(a).to(device) for a in fn(cfg))
 
 
+@functools.lru_cache(maxsize=32)
+def _analysis_plan(cfg: STFTConfig, device: torch.device) -> STFTPlan:
+    """Kernel 1's constants for ``cfg`` on ``device``, copied once. The card
+    gets only what its entry point reads: the FFT tables, or the dense bases
+    for a size the FFT kernel does not take."""
+    scale = cfg.n_fft ** -0.5 if cfg.normalized else 1.0
+    tables = fft_tables(window_np(cfg).astype(np.float64) * scale)
+    on_cpu = torch.device(device).type == "cpu"
+    dense = on_cpu or choose_entry(cfg.n_fft, cfg.hop) == "dense"
+    cos_b, sin_b = (_on_device(_dft_basis_eff, cfg, device) if dense
+                    else (None, None))
+    if tables is not None and (on_cpu or not dense):
+        tables = tuple(torch.from_numpy(a).to(device) for a in tables)
+    else:
+        tables = None
+    return STFTPlan(cfg.n_fft, cfg.n_bins, cfg.hop,
+                    cfg.n_fft // 2 if cfg.center else 0,
+                    1 if cfg.drop_dc else 0, cos_b, sin_b, tables)
+
+
 @functools.lru_cache(maxsize=16)
 def _inv_window_envelope(cfg: STFTConfig, n_frames: int,
                          device: torch.device) -> torch.Tensor:
@@ -111,11 +135,9 @@ def stft(x: torch.Tensor, cfg: STFTConfig) -> CArray:
     _check_float32(cfg)
     if cfg.center and cfg.pad_mode != "reflect":
         raise NotImplementedError(f"pad_mode {cfg.pad_mode!r}")
-    cos_b, sin_b = _on_device(_dft_basis_eff, cfg, x.device)
     batch_shape = x.shape[:-1]
-    pad = cfg.n_fft // 2 if cfg.center else 0
-    re, im = stft_dft(x.reshape(-1, x.shape[-1]).float().contiguous(),
-                      cos_b, sin_b, cfg.hop, pad)
+    re, im = stft_analysis(x.reshape(-1, x.shape[-1]).float().contiguous(),
+                           _analysis_plan(cfg, x.device))
     return CArray(re.reshape(batch_shape + re.shape[-2:]),
                   im.reshape(batch_shape + im.shape[-2:]))
 

@@ -4,9 +4,17 @@ plain version.
 Replaces the Pallas kernel ``dcs_net_tpu/ops/pallas_tapconv.py:tapconv_valid``.
 Every decoder stage of the DCS U-Net runs through it (the unified form of the
 fused skip-concat + nearest-upsample + conv, ``ops/conv_engine.py``). On the
-H100 it is bound by float32 operations; the kernel is an implicit GEMM that
-gathers the shifted input rows into shared memory per tap and channel chunk,
-so no patch tensor reaches device memory. See the source for the design notes.
+H100 it is bound by operations. The kernel is an implicit GEMM on the tensor
+cores at float32 accuracy: every operand is split into a TF32 high and a TF32
+low part (the weights as :func:`split_tf32` does, rounding to nearest; the
+pixels by truncation, in registers) and ``lo*hi + hi*lo + hi*hi`` accumulates
+in float32 through ``wgmma`` (3xTF32). A block stages its halo tile of the input
+once per 32-channel chunk and runs all taps from it, so no patch tensor
+reaches device memory. TF32 ``wgmma`` reads the weights K-major from shared
+memory, so a small kernel of the same source (``PACK``) first rewrites
+``w`` (taps, Cin, N) into split, tiled, K-major form; :func:`pack_weights` is
+the same layout in PyTorch. The public argument layout is unchanged. See the
+source for the design notes.
 
 :func:`tapconv_valid` takes CPU tensors through the plain version and CUDA
 tensors through the kernel, never falling back between the two.
@@ -15,8 +23,10 @@ tensors through the kernel, never falling back between the two.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from dcs_net_tpu_torch.utils.cuda_lib import CudaKernel, check_cuda_operand, ptr
 
@@ -24,7 +34,52 @@ _i = ctypes.c_int
 _p = ctypes.c_void_p
 KERNEL = CudaKernel(
     "tapconv_valid", "tapconv.cu", "dcs_tapconv_valid",
-    [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p])
+    [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
+PACK = CudaKernel(
+    "tapconv_pack", "tapconv.cu", "dcs_tapconv_pack",
+    [_p, _p, _i, _i, _i, _i, _p])
+
+BK = 32     # input channels per reduction chunk of the kernel
+
+
+def tile_n(n: int) -> int:
+    """Width of the kernel's N tile for ``n`` output channels."""
+    return 8 if n <= 8 else 64 if n <= 64 else 128
+
+
+def split_tf32(t: torch.Tensor, truncate: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``t`` -> (hi, lo), both TF32 values (low 13 mantissa bits
+    zero) with hi = tf32(t), lo = tf32(t - hi). By default rounded to nearest
+    with ties away from zero, as ``cvt.rna.tf32.f32`` does and as the packing
+    kernel splits the weights: hi + lo == t up to 2^-22 |t|. With
+    ``truncate`` the low bits are dropped, as the kernel splits the pixels
+    and as the tensor cores read a float32 operand: up to 2^-20 |t|."""
+    def tf32(v):
+        bits = v.contiguous().view(torch.int32)
+        return ((bits if truncate else bits + 0x1000) & ~0x1FFF).view(torch.float32)
+    hi = tf32(t)
+    return hi, tf32(t - hi)
+
+
+def pack_weights(w: torch.Tensor, bn: int) -> torch.Tensor:
+    """w (taps, Cin, N) -> (n tiles, chunks, taps, 2, BK/4, bn, 4): per N tile
+    of ``bn`` channels, 32-channel chunk and tap, the TF32 hi and lo slabs in
+    the K-major order the kernel copies into shared memory (4 consecutive
+    input channels innermost, then the output channel), zero beyond Cin and N."""
+    taps, cin, n = w.shape
+    nt, nc = -(-n // bn), -(-cin // BK)
+    wpad = F.pad(w, (0, nt * bn - n, 0, nc * BK - cin))
+    tiles = wpad.reshape(taps, nc, BK // 4, 4, nt, bn).permute(4, 1, 0, 2, 5, 3)
+    return torch.stack(split_tf32(tiles.contiguous()), dim=3)
+
+
+def unpack_weights(wp: torch.Tensor, cin: int, n: int) -> torch.Tensor:
+    """The inverse of :func:`pack_weights`, summing hi and lo."""
+    nt, nc, taps, _, _, bn, _ = wp.shape
+    tiles = wp[:, :, :, 0] + wp[:, :, :, 1]
+    w = tiles.permute(2, 1, 3, 5, 0, 4).reshape(taps, nc * BK, nt * bn)
+    return w[:, :cin, :n].contiguous()
 
 
 def _out_shape(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int):
@@ -58,7 +113,11 @@ def tapconv_valid_plain(x: torch.Tensor, w: torch.Tensor, dh_n: int,
 def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int,
                   dw_n: int) -> torch.Tensor:
     """x (B, Hp, Wp, Cin), w (Dh*Dw, Cin, N) tap-major -> y (B, HO, WO, N)
-    with HO = Hp - Dh + 1, WO = Wp - Dw + 1; float32 accumulation."""
+    with HO = Hp - Dh + 1, WO = Wp - Dw + 1; float32 accumulation. On the
+    card the kernel picks its tile from the shape (128 or 64 pixels, two
+    halo-tile stages or one) and takes every window whose 64-pixel halo tile
+    fits shared memory, Dh * (63 + Dw) <= 931 (12 x 12 and smaller); beyond
+    that the launch is refused and the call raises."""
     if x.device.type == "cpu":
         return tapconv_valid_plain(x, w, dh_n, dw_n)
     B, ho, wo, n = _out_shape(x, w, dh_n, dw_n)
@@ -66,6 +125,10 @@ def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int,
     check_cuda_operand("x", x, dev, 4)
     check_cuda_operand("w", w, dev, 3)
     _, hp, wp, cin = x.shape
+    bn = tile_n(n)
+    packed = torch.empty((-(-n // bn), -(-cin // BK), dh_n * dw_n, 2, BK // 4,
+                          bn, 4), device=dev, dtype=torch.float32)
     y = torch.empty((B, ho, wo, n), device=dev, dtype=torch.float32)
-    KERNEL(dev, ptr(x), ptr(w), ptr(y), B, hp, wp, cin, dh_n, dw_n, n)
+    PACK(dev, ptr(w), ptr(packed), dh_n * dw_n, cin, n, bn)
+    KERNEL(dev, ptr(x), ptr(packed), ptr(y), B, hp, wp, cin, dh_n, dw_n, n, bn)
     return y

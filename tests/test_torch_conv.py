@@ -115,3 +115,123 @@ def test_use_tuned_routes_the_spatial_attention_class():
     assert not tce.use_tuned(7, (2, 2), 3, 2)
     assert not tce.use_tuned(3, (1, 1), 1, 17)
     assert not tce.use_tuned(9, (1, 1), 4, 1)   # K beyond kernel 2's bound
+
+
+def _low13(t):
+    return t.view(torch.int32) & 0x1FFF
+
+
+def test_split_tf32_parts_are_tf32_and_sum_to_the_input():
+    """hi and lo have their low 13 mantissa bits zero (TF32 values) and
+    hi + lo reproduces the float32 input to 2^-21 relative (two roundings of
+    2^-11 each: 2^-22, with a factor of two to spare)."""
+    x = torch.from_numpy(_np((64, 257), 40) * np.logspace(-6, 6, 257).astype(np.float32))
+    hi, lo = cuda_tapconv.split_tf32(x)
+    assert int(_low13(hi).abs().max()) == 0 and int(_low13(lo).abs().max()) == 0
+    back = hi.double() + lo.double()
+    assert float(((back - x.double()).abs() / x.double().abs()).max()) <= 2.0 ** -21
+    # round to nearest, ties away from zero, as cvt.rna.tf32.f32: 1 + 2^-11
+    # is a tie between 1 and 1 + 2^-10
+    tie = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11)])
+    hi, lo = cuda_tapconv.split_tf32(tie)
+    assert hi.tolist() == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10)]
+    assert lo.tolist() == [-(2.0 ** -11), 2.0 ** -11]
+
+
+def test_three_pass_tf32_product_is_as_close_as_float32():
+    """The kernel's arithmetic, emulated: lo*hi + hi*lo + hi*hi over split
+    operands (the pixels truncated, the weights rounded, as the kernel splits
+    them), accumulated in float32, at the longest reduction of the slice
+    (K = 9 * 512 = 4608). Its error against a float64 product is within 2x
+    of a float32 matmul's: the dropped lo*lo term is ~2^-22 per product."""
+    a, b = _np((96, 4608), 41), _np((4608, 80), 42, 1.0 / np.sqrt(4608))
+    ref = torch.from_numpy(a.astype(np.float64) @ b.astype(np.float64))
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+    err32 = float(((ta @ tb).double() - ref).abs().max())
+    bh, bl = cuda_tapconv.split_tf32(tb)
+    for truncate in (True, False):
+        ah, al = cuda_tapconv.split_tf32(ta, truncate=truncate)
+        assert int(_low13(ah).abs().max()) == 0 and int(_low13(al).abs().max()) == 0
+        assert float(((ah.double() + al.double() - ta.double()).abs()
+                      / ta.double().abs()).max()) <= 2.0 ** (-20 if truncate else -21)
+        three = al @ bh + ah @ bl + ah @ bh
+        assert float((three.double() - ref).abs().max()) <= 2 * err32
+    one = float(((ah @ bh).double() - ref).abs().max())
+    assert one > 20 * err32     # a single TF32 pass would not hold the band
+
+
+@pytest.mark.parametrize("taps,cin,n", [(9, 64, 32), (9, 70, 130), (4, 24, 12),
+                                        (9, 32, 8), (1, 36, 5)])
+def test_pack_weights_layout_round_trips(taps, cin, n):
+    """The K-major tiles the packing kernel writes, in PyTorch: element
+    [n tile, chunk, tap, part, j, m, i] is channel 32*chunk + 4*j + i of
+    output nt*bn + m, zero past Cin and N, and unpacking gives w back."""
+    w = torch.from_numpy(_np((taps, cin, n), 43, 0.1))
+    bn = cuda_tapconv.tile_n(n)
+    assert bn == (8 if n <= 8 else 64 if n <= 64 else 128)
+    packed = cuda_tapconv.pack_weights(w, bn)
+    assert packed.shape == (-(-n // bn), -(-cin // 32), taps, 2, 8, bn, 4)
+    assert int(_low13(packed).abs().max()) == 0
+    hi, lo = cuda_tapconv.split_tf32(w)
+    for part, want in ((0, hi), (1, lo)):
+        for nt, c, tap, j, m, i in [(0, 0, 0, 0, 0, 0), (0, (cin - 1) // 32, taps - 1,
+                                                         ((cin - 1) % 32) // 4, (n - 1) % bn,
+                                                         (cin - 1) % 4)]:
+            ch, out = 32 * c + 4 * j + i, nt * bn + m
+            assert float(packed[nt, c, tap, part, j, m, i]) == float(want[tap, ch, out])
+    full = torch.nn.functional.pad(
+        torch.ones(taps, cin, n), (0, packed.shape[0] * bn - n, 0, packed.shape[1] * 32 - cin))
+    mask = cuda_tapconv.pack_weights(full, bn)[:, :, :, 0] == 0
+    assert float(packed[:, :, :, 0][mask].abs().max() if mask.any() else 0.0) == 0.0
+    back = cuda_tapconv.unpack_weights(packed, cin, n)
+    assert back.shape == w.shape
+    assert float(((back - w).abs() / w.abs()).max()) <= 2.0 ** -21
+    x = torch.from_numpy(_np((1, 5, 6, cin), 44))
+    d = int(round(taps ** 0.5))
+    torch.testing.assert_close(cuda_tapconv.tapconv_valid(x, back, d, d),
+                               cuda_tapconv.tapconv_valid_plain(x, w, d, d),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_tapconv_cpu_tensor_takes_plain_version():
+    """A CPU tensor goes through the plain version: nothing is packed and
+    nothing launches."""
+    x, w = torch.from_numpy(_np((1, 6, 8, 16), 45)), torch.from_numpy(_np((9, 16, 8), 46))
+    before = cuda_tapconv.KERNEL.launches, cuda_tapconv.PACK.launches
+    got = cuda_tapconv.tapconv_valid(x, w, 3, 3)
+    assert (cuda_tapconv.KERNEL.launches, cuda_tapconv.PACK.launches) == before
+    torch.testing.assert_close(got, cuda_tapconv.tapconv_valid_plain(x, w, 3, 3),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("stage,zero_elements,zero_blocks", [
+    (0, 3 / 9, 3 / 9), (1, 3 / 9, 3 / 9), (2, 3 / 9, 3 / 9), (3, 3 / 9, 0.0),
+    (4, 5 / 9, 0.0), (5, 5 / 9, 0.0), (6, 5 / 9, 0.0)])
+def test_unified_decoder_weights_hold_structural_zeros(monkeypatch, stage,
+                                                       zero_elements, zero_blocks):
+    """The unified weights that each decoder stage of the product config hands
+    kernel 3 (built by the engine itself from all-ones weights at one input
+    channel, so every zero is structural): the share of zero elements, and the
+    share of (tap, N tile) blocks that are zero as a whole, which a kernel
+    could skip without touching its inner loop. Each output phase of an
+    upsampled stage reads 2 of the window's 3 rows (columns), so 1/3 of the
+    elements are zero at 2x1 stages and 5/9 at 2x2 stages; whole blocks are
+    zero only where a phase fills an N tile (dec0-dec2)."""
+    from dcs_net_tpu_torch.core.config import config_for_variant
+
+    m = config_for_variant("dcs").model
+    K, scale = m.kernel_d[stage], tuple(m.upsample[stage])
+    cout = 2 * m.dec_channels(stage)[1]           # real and imaginary columns
+    seen = []
+    monkeypatch.setattr(tce, "tapconv_valid", lambda xp, kbig, dh, dw: (
+        seen.append(kbig), cuda_tapconv.tapconv_valid(xp, kbig, dh, dw))[1])
+    tce.upsampled_conv2d_multi([torch.ones(1, 2, 2, 1)], [torch.ones(K, K, 1, cout)],
+                               scale)
+    (kbig,) = seen
+    taps, _, n = kbig.shape
+    assert taps == 9 and n == scale[0] * scale[1] * cout
+    bn = cuda_tapconv.tile_n(n)
+    tiles = torch.nn.functional.pad(kbig[:, 0], (0, -n % bn)).reshape(taps, -1, bn)
+    assert float((kbig == 0).float().mean()) == pytest.approx(zero_elements, abs=1e-6)
+    assert float((tiles.abs().sum(-1) == 0).float().mean()) == pytest.approx(
+        zero_blocks, abs=1e-6)
