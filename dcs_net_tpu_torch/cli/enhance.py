@@ -1,11 +1,13 @@
 """Enhance a wav file on the GPU:
-``python -m dcs_net_tpu_torch.cli.enhance dcs --in noisy.wav --out clean.wav``.
+``python -m dcs_net_tpu_torch.cli.enhance dcs --in noisy.wav --out clean.wav
+[--stream | --carry]``.
 
 The flags are the JAX CLI's plus ``--device`` (default cuda; ``cpu`` runs the
-kernels' plain versions). Streaming (``--stream``, ``--carry``) and
-checkpoints (``--ckpt-dir``) are not yet ported and exit with an error that
-names their ROADMAP item. Without ``--ckpt-dir`` the model has freshly
-initialised weights (seed 0).
+kernels' plain versions). ``--stream`` cuts the utterance into fixed-size
+chunks whose masks are crossfaded; ``--carry`` also threads the LSTM state
+across the chunks (streaming config preset, no overlap). Checkpoints
+(``--ckpt-dir``) are not yet ported and exit with an error that names their
+ROADMAP item: the model has freshly initialised weights (seed 0).
 """
 
 from __future__ import annotations
@@ -22,22 +24,39 @@ def main(argv=None) -> None:
     p.add_argument("--out", dest="outfile", required=True)
     p.add_argument("--ckpt-dir", default=None)
     p.add_argument("--stream", action="store_true",
-                   help="fixed-shape chunked streaming (not yet ported)")
+                   help="fixed-shape chunked streaming")
     p.add_argument("--carry", action="store_true",
-                   help="thread LSTM (h, c) across chunks (not yet ported)")
+                   help="thread LSTM (h, c) across chunks (implies --stream; "
+                        "uses the streaming config preset: unidirectional "
+                        "LSTM + time-major latent; exact chunked == full "
+                        "when --overlap 0)")
     p.add_argument("--chunk-frames", type=int, default=256)
-    p.add_argument("--chunk-batch", type=int, default=8)
-    p.add_argument("--overlap", type=int, default=None)
+    p.add_argument("--chunk-batch", type=int, default=8,
+                   help="without --carry, independent chunks run batched in "
+                        "groups of this size")
+    p.add_argument("--overlap", type=int, default=None,
+                   help="chunk overlap frames (default 64, clamped to a "
+                        "quarter of the chunk; 0 with --carry)")
     p.add_argument("--idiomatic", action="store_true")
     p.add_argument("--config-json", default=None,
                    help="load a serialized Config (overrides variant flags)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.stream or args.carry:
-        p.error("--stream/--carry: streaming enhancement is not yet ported to "
-                "dcs_net_tpu_torch (ROADMAP Queue 1 item 2); drop the flag for "
-                "full-utterance enhancement")
+    if args.carry:
+        args.stream = True
+    if args.carry and args.overlap:
+        # the state carried out of chunk c has already consumed the overlap
+        # frames that chunk c + 1 reads again
+        p.error("--carry requires --overlap 0: the carried LSTM state is "
+                "time-aligned only with non-overlapping chunk tiling "
+                "(where chunked == full exactly). Drop --overlap, or drop "
+                "--carry to stream with mask crossfade only.")
+    if args.overlap is None:
+        args.overlap = 0 if args.carry else min(64, args.chunk_frames // 4)
+    if not 0 <= args.overlap < args.chunk_frames:
+        p.error(f"--overlap must be in [0, chunk_frames): got "
+                f"{args.overlap} with --chunk-frames {args.chunk_frames}")
     if args.ckpt_dir:
         p.error("--ckpt-dir: checkpoints are not yet ported to "
                 "dcs_net_tpu_torch (ROADMAP Queue 1 item 5)")
@@ -46,14 +65,20 @@ def main(argv=None) -> None:
 
     from dcs_net_tpu_torch.core.config import Config, config_for_variant
     from dcs_net_tpu_torch.data.audio_io import read_wav, resample, write_wav
-    from dcs_net_tpu_torch.models.enhance import enhance_full
+    from dcs_net_tpu_torch.models.enhance import enhance_full, enhance_streaming
     from dcs_net_tpu_torch.models.unet import DCSNet
     from dcs_net_tpu_torch.utils.device import resolve_device
 
-    cfg = config_for_variant(args.variant, faithful=not args.idiomatic)
+    cfg = config_for_variant(args.variant, faithful=not args.idiomatic,
+                             streaming=args.carry)
     if args.config_json:
         with open(args.config_json) as f:
             cfg = Config.from_json(f.read())
+    if args.carry and cfg.model.lstm_bidir:
+        p.error("--carry needs a model with the streaming preset "
+                "(lstm_bidir=False, lstm_time_major=True): a bidirectional "
+                "LSTM cannot carry state across chunks. Drop --carry to "
+                "stream this config with mask crossfade only.")
     device = resolve_device(args.device)
     # the float32 model runs in full float32, as the JAX reference does:
     # cuDNN would otherwise run the encoder convs and the LSTM in TF32
@@ -65,10 +90,17 @@ def main(argv=None) -> None:
     print("WARNING: no --ckpt-dir; enhancing with untrained weights")
     model = DCSNet(cfg.model, cfg.quirks, device=device, seed=0)
     x = torch.from_numpy(np.ascontiguousarray(wave, np.float32))[None, :]
-    out = enhance_full(model, x, cfg)[0].cpu().numpy()
+    if args.stream:
+        out = enhance_streaming(model, x, cfg, chunk_frames=args.chunk_frames,
+                                overlap=args.overlap,
+                                carry_lstm_state=args.carry,
+                                chunk_batch=args.chunk_batch)
+    else:
+        out = enhance_full(model, x, cfg)
+    out = out[0].cpu().numpy()
     write_wav(args.outfile, out, cfg.data.sr)
     print(f"wrote {args.outfile}: {out.shape[0] / cfg.data.sr:.2f}s @ "
-          f"{cfg.data.sr} Hz (full, {device})")
+          f"{cfg.data.sr} Hz ({'stream' if args.stream else 'full'}, {device})")
 
 
 if __name__ == "__main__":

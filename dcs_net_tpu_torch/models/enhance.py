@@ -1,12 +1,25 @@
-"""Full-utterance enhancement: STFT -> U-Net mask -> masked spectrogram ->
-polar resynthesis. Frames are padded to the model's stride granularity (8)
-and the mask is trimmed back before it is applied.
+"""Utterance enhancement: STFT -> U-Net mask -> masked spectrogram -> polar
+resynthesis, over the whole utterance (:func:`enhance_full`) or streamed
+through fixed-size chunks (:func:`enhance_streaming`).
 
-The streaming (chunked) path is ROADMAP Queue 1 item 2.
+Full: frames are padded to the model's stride granularity (8) and the mask is
+trimmed back before it is applied.
+
+Streaming: the spectrogram is cut into ``chunk_frames`` windows that overlap
+by ``overlap`` frames; each chunk runs the full U-Net; the predicted masks
+are blended with a linear crossfade over the overlap, then applied. Without
+the LSTM carry the chunks are independent in eval mode and run batched in
+groups; with it they run in order, each continuing the previous one's LSTM
+state.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import Tuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -50,6 +63,121 @@ def enhance_full(model: torch.nn.Module, wave: torch.Tensor, cfg: Config
             if pad:
                 mask = mask[..., :T]
             clean = _apply_mask_pipeline(spec, mask, cfg)
+            return dsp.spec_to_wave(
+                clean, cfg.stft, atan2_eps=cfg.model.atan2_eps,
+                pad_top=cfg.quirks.istft_pad_top_bin, length=n)
+    finally:
+        model.train(was_training)
+
+
+def zero_lstm_state(cfg: Config, batch: int, device=None):
+    """The streaming LSTM carry at sequence start: a pair (real LSTM's, imag
+    LSTM's) of (h, c), each zeros (layers * directions, 2 * batch, hidden) on
+    the (re, im)-stacked batch of ``ops/lstm.py:ComplexLSTM``."""
+    m = cfg.model
+    if not m.complex_valued:
+        raise NotImplementedError(
+            "the real family (DR/DRS) is not yet ported: ROADMAP Queue 1 item 3")
+    d = 2 if m.lstm_bidir else 1
+
+    def one():
+        z = torch.zeros(m.lstm_layers * d, 2 * batch, m.lstm_hidden,
+                        dtype=torch.float32, device=device)
+        return z, torch.zeros_like(z)
+
+    return one(), one()
+
+
+@functools.lru_cache(maxsize=16)
+def _crossfade(n_chunks: int, chunk_frames: int, overlap: int,
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(w (chunk_frames,), overlap-added w (total,)) on ``device``, made
+    once. w ramps up over the first ``overlap`` frames and down over the last;
+    the sum of the chunks' weights at each frame (floored at 1e-8)
+    normalises the blend."""
+    hop = chunk_frames - overlap
+    w = np.ones(chunk_frames, np.float32)
+    if overlap > 0:
+        ramp = ((np.arange(overlap) + 1.0) / (overlap + 1.0)).astype(np.float32)
+        w[:overlap] = ramp
+        w[-overlap:] = ramp[::-1]
+    wacc = np.zeros(overlap + n_chunks * hop, np.float32)
+    for c in range(n_chunks):
+        wacc[c * hop:c * hop + chunk_frames] += w
+    wacc = np.maximum(wacc, 1e-8)
+    return torch.from_numpy(w).to(device), torch.from_numpy(wacc).to(device)
+
+
+def enhance_streaming(model: torch.nn.Module, wave: torch.Tensor, cfg: Config,
+                      chunk_frames: int = 256, overlap: int = 64,
+                      carry_lstm_state: bool = False, chunk_batch: int = 8
+                      ) -> torch.Tensor:
+    """(B, n) noisy -> (B, n) enhanced through fixed-shape chunks, in eval
+    mode. ``chunk_frames`` must be a multiple of 8. ``wave`` moves to the
+    model's device.
+
+    ``carry_lstm_state=True`` threads the LSTM (h, c) through the chunks:
+    each chunk's latent sequence continues the previous chunk's instead of
+    restarting from zeros. It needs a unidirectional LSTM
+    (``lstm_bidir=False``: a backward pass cannot stream) and is exact
+    (chunked == full pass) when the latent is flattened time-major
+    (``lstm_time_major=True``), the chunks tile without overlap and every
+    other op is chunk-local.
+
+    Without the carry the chunks are independent (eval-mode BN uses running
+    statistics, attention pools per chunk), so they run batched in groups of
+    ``chunk_batch``, chunk-major within a group; the last group holds what is
+    left."""
+    if chunk_frames % 8 != 0 or not 0 <= overlap < chunk_frames:
+        raise ValueError(
+            f"chunk_frames must be a multiple of 8 and overlap in "
+            f"[0, chunk_frames): got chunk_frames={chunk_frames}, "
+            f"overlap={overlap}")
+    if carry_lstm_state and cfg.model.lstm_bidir:
+        raise ValueError(
+            "LSTM state carry requires a unidirectional (streaming) model")
+    dev = next(model.parameters()).device
+    wave = wave.to(dev, torch.float32)
+    n = wave.shape[-1]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            spec = dsp.stft(wave, cfg.stft)  # (B, F, T)
+            B, n_bins, T = spec.shape
+            hop = chunk_frames - overlap
+            n_chunks = max(1, math.ceil(max(T - overlap, 1) / hop))
+            total = overlap + n_chunks * hop
+            # every chunk window as a view: (n_chunks, B, F, chunk_frames)
+            wins = [F.pad(p, (0, total - T)).unfold(-1, chunk_frames, hop)
+                    .permute(2, 0, 1, 3) for p in spec]
+            masks = []  # per model call (2, chunks of the call * B, F, chunk)
+            if carry_lstm_state:
+                state = zero_lstm_state(cfg, B, dev)
+                for c in range(n_chunks):
+                    mask, state = model(
+                        CArray(wins[0][c].contiguous(), wins[1][c].contiguous()),
+                        lstm_state=state, return_lstm_state=True)
+                    masks.append(torch.stack([mask.re, mask.im]))
+            else:
+                G = max(min(chunk_batch, n_chunks), 1)
+                for c in range(0, n_chunks, G):
+                    mask = model(CArray(
+                        wins[0][c:c + G].reshape(-1, n_bins, chunk_frames),
+                        wins[1][c:c + G].reshape(-1, n_bins, chunk_frames)))
+                    masks.append(torch.stack([mask.re, mask.im]))
+            # (2, n_chunks, B, F, chunk): a call's batch is chunk-major
+            chunk_masks = torch.cat(masks, dim=1).reshape(
+                2, n_chunks, B, n_bins, chunk_frames)
+            # crossfade: weight each chunk, overlap-add at stride hop in one
+            # fold, divide by the overlap-added weights
+            w, wacc = _crossfade(n_chunks, chunk_frames, overlap, dev)
+            cols = (chunk_masks * w).permute(0, 2, 3, 4, 1).reshape(
+                1, 2 * B * n_bins * chunk_frames, n_chunks)
+            blended = F.fold(cols, (1, total), (1, chunk_frames),
+                             stride=(1, hop)).reshape(2, B, n_bins, total)
+            blended = (blended / wacc)[..., :T]
+            clean = _apply_mask_pipeline(spec, CArray(blended[0], blended[1]), cfg)
             return dsp.spec_to_wave(
                 clean, cfg.stft, atan2_eps=cfg.model.atan2_eps,
                 pad_top=cfg.quirks.istft_pad_top_bin, length=n)

@@ -8,8 +8,9 @@ skip-concat + nearest upsample + convT -> BN -> LeakyReLU -> CBAM -> dropout]
 float32. Activations are NHWC (channels last) like the JAX package; the input
 and the mask are (B, F, T) re/im pairs.
 
-Kernels on this path: kernel 2 runs the 13 CBAM spatial-attention convs and
-kernel 3 the 7 decoder convs (see ``ops/conv_engine.py``).
+Kernels on this path: kernel 2 runs the 13 CBAM spatial-attention gates
+(``ops/attention.py``: pool, then conv + sigmoid + product) and kernel 3 the 7
+decoder convs (see ``ops/conv_engine.py``).
 """
 
 from __future__ import annotations
@@ -130,14 +131,14 @@ class DCSNet(nn.Module):
             skip = enc_out[m.n_layers - i]
             if m.attention:
                 skip = cl.complex_mul_bcast(skip, getattr(self, f"skip{i}_ca")(skip))
-                skip = cl.complex_mul_bcast(skip, getattr(self, f"skip{i}_sa")(skip))
+                skip = getattr(self, f"skip{i}_sa").gate(skip)
             d = getattr(self, f"dec{i}_convt")((d, skip))
             if i != m.n_layers - 1:
                 d = getattr(self, f"dec{i}_bn")(d)
                 d = cl.complex_leaky_relu(d)
                 if m.attention:
                     d = cl.complex_mul_bcast(d, getattr(self, f"dec{i}_ca")(d))
-                    d = cl.complex_mul_bcast(d, getattr(self, f"dec{i}_sa")(d))
+                    d = getattr(self, f"dec{i}_sa").gate(d)
             d = self.dropout_conv(d)
 
         # output bound in float32 (atan2/tanh of the bound are precision-sensitive)

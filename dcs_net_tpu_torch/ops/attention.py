@@ -2,7 +2,9 @@
 
 With ``maxpool_is_avg`` (the faithful quirk) the complex "max" pool is an
 average pool, so the channel attention computes sigmoid(fc(avg) + fc(avg)).
-The spatial attention's k=7 conv is the small-Cout "same" conv of kernel 2.
+The spatial attention's k=7 conv is the small-Cout "same" conv of kernel 2;
+:meth:`ComplexSpatialAttention.gate` applies the attention to its input as
+kernel 2's fused gate (pool, then conv + sigmoid + product).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from dcs_net_tpu_torch.ops import complex_layers as cl
+from dcs_net_tpu_torch.ops import cuda_conv
 from dcs_net_tpu_torch.utils.carray import CArray
 
 
@@ -50,11 +53,38 @@ class ComplexSpatialAttention(nn.Module):
                                      padding=kernel_size // 2, use_bias=False,
                                      weight_init=weight_init,
                                      generator=generator)
+        self._packed = None     # (key, packed kernel) of the last gate call
 
     def forward(self, x: CArray) -> CArray:
+        """The attention map (B, H, W, 1) alone."""
         cat = CArray(
             torch.cat([x.re.mean(dim=-1, keepdim=True),
                        x.re.amax(dim=-1, keepdim=True)], dim=-1),
             torch.cat([x.im.mean(dim=-1, keepdim=True),
                        x.im.amax(dim=-1, keepdim=True)], dim=-1))
         return cl.complex_sigmoid(self.conv(cat))
+
+    def packed_kernel(self) -> torch.Tensor:
+        """The conv's block kernel (K, K, 4, 2) over the pooled map
+        [mean re, max re, mean im, max im]. Where autograd does not follow
+        the weights (inference) it is built once and kept until a weight
+        changes: an in-place update (an optimizer step, ``load_state_dict``)
+        moves the tensor's version, a move to another device its address."""
+        wr, wi = self.conv.weight_r, self.conv.weight_i
+        if torch.is_grad_enabled() and (wr.requires_grad or wi.requires_grad):
+            return self.conv.block_kernel()
+        key = (wr.device, wr.data_ptr(), wr._version, wi.data_ptr(), wi._version)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, self.conv.block_kernel().detach().contiguous())
+        return self._packed[1]
+
+    def gate(self, x: CArray) -> CArray:
+        """x * self(x), the attention applied to its own input: kernel 2's
+        pool and gate launches on a CUDA tensor, their plain versions on a
+        CPU tensor."""
+        w = self.packed_kernel()
+        if tuple(w.shape) != (7, 7, 4, 2):
+            # another kernel size: no fused gate, the conv alone is kernel 2
+            return cl.complex_mul_bcast(x, self(x))
+        return CArray(*cuda_conv.spatial_gate(
+            x.re.contiguous(), x.im.contiguous(), w.contiguous()))

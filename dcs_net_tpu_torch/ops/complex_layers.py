@@ -70,11 +70,15 @@ class ComplexConv2d(nn.Module):
         self.weight_i = nn.Parameter(w_init(shape, generator))
         _bias_pair(self, use_bias, fan_in, features, generator)
 
+    def block_kernel(self) -> torch.Tensor:
+        """The packed real conv's kernel, HWIO (kh, kw, 2 cin, 2 cout)."""
+        wr = self.weight_r.permute(2, 3, 1, 0)
+        wi = self.weight_i.permute(2, 3, 1, 0)
+        return _block_kernel(wr, wi)
+
     def forward(self, x: CArray) -> CArray:
         packed = torch.cat([x.re, x.im], dim=-1)
-        wr = self.weight_r.permute(2, 3, 1, 0)   # HWIO
-        wi = self.weight_i.permute(2, 3, 1, 0)
-        y = ce.conv2d(packed, _block_kernel(wr, wi), self.stride, self.padding)
+        y = ce.conv2d(packed, self.block_kernel(), self.stride, self.padding)
         if self.bias_r is not None:
             y = y + _combined_bias(self.bias_r, self.bias_i)
         return CArray.unpack_channels(y, dim=-1)

@@ -1,20 +1,40 @@
-"""Kernel 2: stride-1 "same" convolution with small Cout (``csrc/conv_same.cu``)
-and its plain version.
+"""Kernel 2 (``csrc/conv_same.cu``): the stride-1 "same" convolution with small
+Cout, the CBAM spatial-attention gate built around it, and their plain
+versions.
 
 Replaces the Pallas kernel ``dcs_net_tpu/ops/pallas_conv.py:_conv_fwd_pallas``.
-On the DCS path it runs the 13 CBAM spatial-attention convs (Cin 4, Cout 2,
-K 7). On the H100 it is narrowly bound by float32 operations (33 FLOP per
-byte); the kernel reads its input once into a shared-memory tile with the
-zero halo and keeps all Cout accumulators of a pixel in registers. See the
-source for the design notes.
+On the DCS path the conv is the middle of the 13 spatial-attention gates
 
-:func:`conv2d_same_small_cout` takes CPU tensors through the plain version
-and CUDA tensors through the kernel, never falling back between the two.
+    pooled = [mean_c re, max_c re, mean_c im, max_c im]     (B, H, W, 4)
+    a      = sigmoid(conv_same(pooled, w (7, 7, 4, 2)))      (B, H, W, 2)
+    out    = x * a     (complex product, a broadcast over C) (B, H, W, C)
+
+whose pooling and product move far more bytes than the conv computes on, so
+the source has three entry points and this module three wrappers:
+
+* :func:`conv2d_same_small_cout` -- the conv alone (+ bias), any odd K <= 7,
+  Cout <= 16. The shape class (K, Cin, Cout) = (7, 4, 2) runs a
+  register-tiled body (a thread slides the 7 taps over a run of R pixels held
+  in registers; bound by float32 operations, 33 FLOP per byte); every other
+  class runs the generic one-pixel-per-thread body.
+* :func:`sa_pool` -- one read of x -> the pooled map.
+* :func:`sa_gate` -- the (7, 4, 2) conv body with a sigmoid-and-product
+  epilogue: one more read and one write of x.
+
+:func:`spatial_gate` is pool + gate, two launches, bound by the bytes of x.
+The tile of the (7, 4, 2) body is chosen here (:func:`choose_tile`) so that
+the CPU tests reach the choice; see the source for the design notes.
+
+Each wrapper takes CPU tensors through the plain version and CUDA tensors
+through the kernel, never falling back between the two. ``KERNEL.launches``
+counts the launches of kernel 2's conv body: its own entry and the gate
+entry, which runs that body with another epilogue.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,17 +43,83 @@ from dcs_net_tpu_torch.utils.cuda_lib import CudaKernel, check_cuda_operand, ptr
 
 MAX_K = 7
 MAX_COUT = 16
+TUNED_CLASS = (7, 4, 2)          # (K, Cin, Cout) of the register-tiled body
+GENERIC_TILE = (0, 0, 0)         # names the generic body to the C entry
+BLOCK_THREADS = 128              # NT in the source
+_MAX_SMEM = 48 * 1024
+
+Tile = Tuple[int, int, int]      # (R, TX, TY): TY rows x R * TX columns
 
 _i = ctypes.c_int
 _p = ctypes.c_void_p
 KERNEL = CudaKernel(
     "conv_same_small_cout", "conv_same.cu", "dcs_conv_same_small_cout",
-    [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p])
+    [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p])
+POOL = CudaKernel("sa_pool", "conv_same.cu", "dcs_sa_pool",
+                  [_p, _p, _p, _i, _i, _i, _i, _p])
+GATE = CudaKernel("sa_gate", "conv_same.cu", "dcs_sa_gate",
+                  [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p],
+                  counted_with=KERNEL)
 
 
 def applicable(kernel_size: int, cout: int) -> bool:
     """Odd K <= 7 and 1 <= Cout <= 16: the shapes kernel 2 takes."""
     return kernel_size % 2 == 1 and kernel_size <= MAX_K and 1 <= cout <= MAX_COUT
+
+
+def slot(p: int, R: int) -> int:
+    """Where pixel ``p`` of a staged row sits in shared memory (in float4
+    slots) for runs of R pixels: one slot of padding after every run, so that
+    neighbouring threads' runs start R + 1 slots apart (an odd stride) and
+    the eight threads of a quarter-warp read eight different 16-byte bank
+    groups."""
+    return p + p // R
+
+
+def _pitch(R: int, tw: int) -> int:
+    return slot(tw + 6 - 1, R) + 1
+
+
+def tile_smem_bytes(tile: Tile) -> int:
+    """Dynamic shared memory of one block: the weights, the staged tile with
+    its halo at the padded pitch, the attention map."""
+    R, tx, ty = tile
+    tw = R * tx
+    return 16 * (98 + (ty + 6) * _pitch(R, tw) + (ty * tw + 1) // 2)
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(n, 1).bit_length() - 1)
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+def choose_tile(B: int, H: int, W: int) -> Tile:
+    """The (7, 4, 2) body's tile for an image, from its shape alone.
+
+    A block has 128 threads. The tile holds about 1/256 of the pixels,
+    between 8 and 512, so that even a few thousand pixels spread over the
+    card's 132 SMs (the gate streams up to 1 KB a pixel). A thread's run is
+    R = 4 pixels in a tile of 256 or more and 2 below; the tile is 8 runs
+    wide where it has that many, and as tall as the rest allows up to 16
+    rows."""
+    pixels = B * H * W
+    tile_px = _pow2_floor(min(max(pixels // 256, 8), 512))
+    R = 4 if tile_px >= 256 else 2
+    ty = min(_pow2_ceil(H), 16, max(1, tile_px // (8 * R)))
+    tx = tile_px // (R * ty)
+    return R, tx, ty
+
+
+def _check_tile(tile: Tile) -> None:
+    R, tx, ty = tile
+    if (R not in (2, 4) or tx < 1 or ty < 1 or tx * ty > BLOCK_THREADS
+            or tile_smem_bytes(tile) > _MAX_SMEM):
+        raise ValueError(f"tile (R, TX, TY) = {tile}: need R in (2, 4), "
+                         f"TX * TY <= {BLOCK_THREADS} and at most "
+                         f"{_MAX_SMEM} bytes of shared memory")
 
 
 def _check_shapes(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> None:
@@ -48,6 +134,19 @@ def _check_shapes(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> None:
     if x.shape[-1] != cin or bias.shape[0] != cout:
         raise ValueError(f"channel mismatch: x {tuple(x.shape)}, "
                          f"w {tuple(w.shape)}, bias {tuple(bias.shape)}")
+
+
+def _check_gate_shapes(pooled: torch.Tensor, w: torch.Tensor,
+                       re: torch.Tensor, im: torch.Tensor) -> None:
+    if re.dim() != 4 or re.shape != im.shape:
+        raise ValueError(f"expected re, im (B,H,W,C) of one shape; got "
+                         f"{tuple(re.shape)}, {tuple(im.shape)}")
+    if tuple(pooled.shape) != tuple(re.shape[:3]) + (4,):
+        raise ValueError(f"pooled is {tuple(pooled.shape)}, expected "
+                         f"{tuple(re.shape[:3]) + (4,)}")
+    if tuple(w.shape) != (7, 7, 4, 2):
+        raise ValueError(f"the gate's packed kernel is (7, 7, 4, 2), got "
+                         f"{tuple(w.shape)}")
 
 
 def conv2d_same_small_cout_plain(x: torch.Tensor, w: torch.Tensor,
@@ -66,12 +165,10 @@ def conv2d_same_small_cout_plain(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-def conv2d_same_small_cout(x: torch.Tensor, w: torch.Tensor,
-                           bias: torch.Tensor) -> torch.Tensor:
-    """Stride-1 'same' cross-correlation (torch Conv2d, padding=K//2).
-    x (B, H, W, Cin), w (K, K, Cin, Cout), bias (Cout,) -> (B, H, W, Cout)."""
-    if x.device.type == "cpu":
-        return conv2d_same_small_cout_plain(x, w, bias)
+def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+                tile: Tile) -> torch.Tensor:
+    """Launch the conv entry on CUDA tensors with the body named by ``tile``:
+    ``GENERIC_TILE``, or (R, TX, TY) for the (7, 4, 2) body."""
     _check_shapes(x, w, bias)
     dev = x.device
     check_cuda_operand("x", x, dev, 4)
@@ -79,6 +176,98 @@ def conv2d_same_small_cout(x: torch.Tensor, w: torch.Tensor,
     check_cuda_operand("bias", bias, dev, 1)
     B, H, W, cin = x.shape
     K, _, _, cout = w.shape
+    if tile != GENERIC_TILE:
+        if (K, cin, cout) != TUNED_CLASS:
+            raise ValueError(f"(K, Cin, Cout) = {(K, cin, cout)} has no tiled body")
+        _check_tile(tile)
     y = torch.empty((B, H, W, cout), device=dev, dtype=torch.float32)
-    KERNEL(dev, ptr(x), ptr(w), ptr(bias), ptr(y), B, H, W, cin, K, cout)
+    KERNEL(dev, ptr(x), ptr(w), ptr(bias), ptr(y), B, H, W, cin, K, cout, *tile)
     return y
+
+
+def conv2d_same_small_cout(x: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """Stride-1 'same' cross-correlation (torch Conv2d, padding=K//2).
+    x (B, H, W, Cin), w (K, K, Cin, Cout), bias (Cout,) -> (B, H, W, Cout)."""
+    if x.device.type == "cpu":
+        return conv2d_same_small_cout_plain(x, w, bias)
+    _check_shapes(x, w, bias)
+    B, H, W, cin = x.shape
+    # the tiled body reads a pixel's 4 channels, and 4 weights, as one
+    # 16-byte word
+    tiled = ((w.shape[0], cin, w.shape[-1]) == TUNED_CLASS
+             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    return launch_conv(x, w, bias,
+                       choose_tile(B, H, W) if tiled else GENERIC_TILE)
+
+
+def sa_pool_plain(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) re, im -> (B, H, W, 4) = [mean re, max re, mean im,
+    max im] over the channels: the order in which the spatial attention's
+    packed conv reads its 2 complex input channels (mean, max)."""
+    return torch.cat([re.mean(dim=-1, keepdim=True), re.amax(dim=-1, keepdim=True),
+                      im.mean(dim=-1, keepdim=True), im.amax(dim=-1, keepdim=True)],
+                     dim=-1)
+
+
+def sa_gate_plain(pooled: torch.Tensor, w: torch.Tensor, re: torch.Tensor,
+                  im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(re + i im) * sigmoid(conv_same(pooled, w)): the conv's two output
+    channels are the attention's (a_re, a_im), broadcast over C."""
+    _check_gate_shapes(pooled, w, re, im)
+    a = torch.sigmoid(conv2d_same_small_cout_plain(
+        pooled, w, torch.zeros(2, device=w.device, dtype=w.dtype)))
+    a_re, a_im = a[..., :1], a[..., 1:]
+    return re * a_re - im * a_im, re * a_im + im * a_re
+
+
+def spatial_gate_plain(re: torch.Tensor, im: torch.Tensor, w: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The spatial-attention gate as the eager sequence of its parts."""
+    return sa_gate_plain(sa_pool_plain(re, im), w, re, im)
+
+
+def sa_pool(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """Channel mean and max of re and im, packed (B, H, W, 4)."""
+    if re.device.type == "cpu":
+        return sa_pool_plain(re, im)
+    dev = re.device
+    check_cuda_operand("re", re, dev, 4)
+    check_cuda_operand("im", im, dev, 4)
+    if re.shape != im.shape:
+        raise ValueError(f"re {tuple(re.shape)} and im {tuple(im.shape)} differ")
+    B, H, W, C = re.shape
+    pooled = torch.empty((B, H, W, 4), device=dev, dtype=torch.float32)
+    POOL(dev, ptr(re), ptr(im), ptr(pooled), B, H, W, C)
+    return pooled
+
+
+def sa_gate(pooled: torch.Tensor, w: torch.Tensor, re: torch.Tensor,
+            im: torch.Tensor, tile: Optional[Tile] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x * sigmoid(conv_same(pooled, w)) for x = re + i im (B, H, W, C),
+    pooled (B, H, W, 4), w (7, 7, 4, 2). ``tile`` defaults to
+    :func:`choose_tile`'s."""
+    if re.device.type == "cpu":
+        return sa_gate_plain(pooled, w, re, im)
+    _check_gate_shapes(pooled, w, re, im)
+    dev = re.device
+    check_cuda_operand("pooled", pooled, dev, 4)
+    check_cuda_operand("w", w, dev, 4)
+    check_cuda_operand("re", re, dev, 4)
+    check_cuda_operand("im", im, dev, 4)
+    if pooled.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("pooled and w must be 16-byte aligned")
+    B, H, W, C = re.shape
+    tile = choose_tile(B, H, W) if tile is None else tile
+    _check_tile(tile)
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    GATE(dev, ptr(pooled), ptr(w), ptr(re), ptr(im), ptr(out_re), ptr(out_im),
+         B, H, W, C, *tile)
+    return out_re, out_im
+
+
+def spatial_gate(re: torch.Tensor, im: torch.Tensor, w: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The spatial-attention gate: pool, then conv + sigmoid + product."""
+    return sa_gate(sa_pool(re, im), w, re, im)

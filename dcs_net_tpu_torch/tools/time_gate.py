@@ -1,0 +1,119 @@
+"""Kernel 2's tile choice, measured: the (7, 4, 2) conv entry and the gate
+entry at every tile the kernel takes, for the spatial-attention sites of the
+full-width DCS model.
+
+``python -m dcs_net_tpu_torch.tools.time_gate [--frames 2008] [--batch 4]``
+
+For each site (B, H, W, C) of a U-Net pass over ``--frames`` spectrogram
+frames at ``--batch`` it prints the device time per launch (CUDA graph
+replay) of the conv entry and of the gate entry with the tile that
+``ops/cuda_conv.py:choose_tile`` picks, with the best tile found by a sweep
+over R in (2, 4) and power-of-two TX and TY, and with the generic body
+(conv only); the pooling pass's time; and the site's bound for pool + gate
+(x read twice and written once, the pooled map written and read, at the
+card's memory rate). The last line sums each column over the 13 sites.
+``--frames 256 --batch 8`` gives the sites of one streaming chunk group;
+``--no-sweep`` leaves the sweep out.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+
+HBM_BYTES_PER_S = 3.35e12
+
+
+def sites(cfg, batch: int, frames: int):
+    """(B, H, W, C) of the 13 spatial-attention sites of one U-Net pass: the
+    7 skips (encoder outputs 7 ... 1) and the outputs of decoder stages 0-5,
+    which have the shapes of encoder outputs 6 ... 1."""
+    m = cfg.model
+    shapes, h, w = [], cfg.stft.n_bins, frames
+    for i in range(m.n_layers):
+        h, w = -(-h // m.stride_e[i][0]), -(-w // m.stride_e[i][1])
+        shapes.append((batch, h, w, m.enc_channels(i)[1]))
+    return shapes[::-1] + shapes[-2::-1]
+
+
+def candidate_tiles(H: int):
+    from dcs_net_tpu_torch.ops import cuda_conv as cc
+
+    out = []
+    for R in (2, 4):
+        for ty in (1, 2, 4, 8, 16):
+            for tx in (1, 2, 4, 8, 16, 32, 64, 128):
+                t = (R, tx, ty)
+                if (ty <= max(1, 2 * H) and tx * ty <= cc.BLOCK_THREADS
+                        and tx * ty >= 8
+                        and cc.tile_smem_bytes(t) <= 48 * 1024):
+                    out.append(t)
+    return out
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--frames", type=int, default=2008)
+    p.add_argument("--iters", type=int, default=20)
+    p.add_argument("--no-sweep", action="store_true",
+                   help="time the chosen tile and the generic body only")
+    args = p.parse_args(argv)
+
+    import torch
+
+    from dcs_net_tpu_torch.core.config import config_for_variant
+    from dcs_net_tpu_torch.ops import cuda_conv as cc
+    from dcs_net_tpu_torch.utils.timing import graph_ms
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(f"card: {smi}")
+    g = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn((7, 7, 4, 2), generator=g, device=dev) * 0.1
+    zb = torch.zeros(2, device=dev)
+    tot = dict(conv=0.0, conv_best=0.0, conv_generic=0.0, pool=0.0, gate=0.0,
+               gate_best=0.0, bound=0.0)
+    timed = {}
+    for site in sites(config_for_variant("dcs"), args.batch, args.frames):
+        if site not in timed:
+            B, H, W, C = site
+            re = torch.randn(site, generator=g, device=dev)
+            im = torch.randn(site, generator=g, device=dev)
+            pooled = cc.sa_pool(re, im)
+            conv, gate = {}, {}
+            sweep = [] if args.no_sweep else candidate_tiles(H)
+            for t in sweep + [cc.choose_tile(B, H, W)]:
+                if t not in conv:
+                    conv[t] = graph_ms(lambda: cc.launch_conv(pooled, w, zb, t),
+                                       args.iters)
+                    gate[t] = graph_ms(lambda: cc.sa_gate(pooled, w, re, im, t),
+                                       args.iters)
+            generic = graph_ms(
+                lambda: cc.launch_conv(pooled, w, zb, cc.GENERIC_TILE), args.iters)
+            pool = graph_ms(lambda: cc.sa_pool(re, im), args.iters)
+            bound = 4 * (6 * re.numel() + 2 * pooled.numel()) / HBM_BYTES_PER_S * 1e3
+            timed[site] = (conv, gate, generic, pool, bound)
+        conv, gate, generic, pool, bound = timed[site]
+        chosen = cc.choose_tile(*site[:3])
+        cb, gb = min(conv, key=conv.get), min(gate, key=gate.get)
+        print(f"site {site}: chosen {chosen} conv {conv[chosen]:.4f} gate "
+              f"{gate[chosen]:.4f} | best conv {cb} {conv[cb]:.4f} | best gate "
+              f"{gb} {gate[gb]:.4f} | generic conv {generic:.4f} | pool "
+              f"{pool:.4f} | pool+gate bound {bound:.4f} ms")
+        for name, d in (("conv", conv), ("gate", gate)) if not args.no_sweep else ():
+            top = sorted(d, key=d.get)[:5]
+            print(f"    {name} top 5: " + ", ".join(f"{t} {d[t]:.4f}" for t in top))
+        for k, v in (("conv", conv[chosen]), ("conv_best", conv[cb]),
+                     ("conv_generic", generic), ("pool", pool),
+                     ("gate", gate[chosen]), ("gate_best", gate[gb]),
+                     ("bound", bound)):
+            tot[k] += v
+    print("summed over the 13 sites (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()) + f" [{smi}]")
+
+
+if __name__ == "__main__":
+    main()

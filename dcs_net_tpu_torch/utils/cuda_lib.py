@@ -55,15 +55,19 @@ class CudaKernel:
     ``argtypes`` are the ctypes types of the C function's arguments, the
     trailing stream included. Calling the object launches on the current
     stream of ``device`` and raises if the C function returns a CUDA error.
+    ``counted_with`` names the kernel whose body this entry point runs with
+    another epilogue: a launch here counts there as well.
     """
 
     def __init__(self, name: str, source: str, symbol: str,
-                 argtypes: Sequence[type]):
+                 argtypes: Sequence[type],
+                 counted_with: Optional["CudaKernel"] = None):
         self.name = name
         self.source = CSRC_DIR / source
         self.symbol = symbol
         self.argtypes = list(argtypes)
         self.launches = 0
+        self.counted_with = counted_with
         self._fn = None
         self._lib = None
         KERNELS[name] = self
@@ -100,6 +104,8 @@ class CudaKernel:
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
                                f"error {rc} ({msg})")
         self.launches += 1
+        if self.counted_with is not None:
+            self.counted_with.launches += 1
 
 
 def build_all(kernels: Optional[Iterable[CudaKernel]] = None) -> float:

@@ -235,3 +235,174 @@ def test_unified_decoder_weights_hold_structural_zeros(monkeypatch, stage,
     assert float((kbig == 0).float().mean()) == pytest.approx(zero_elements, abs=1e-6)
     assert float((tiles.abs().sum(-1) == 0).float().mean()) == pytest.approx(
         zero_blocks, abs=1e-6)
+
+
+# --- kernel 2's register-tiled (7, 4, 2) body, modelled on the CPU ----------
+
+def _tiled_conv_model(x, w, bias, tile):
+    """The tiled body's indexing in numpy, for any odd K: a block stages its
+    tile plus halo (zero outside the image) with pixel p of a row at
+    ``slot(p)``; thread (tx, ty) loads the R + K - 1 pixels under its run
+    through the same slots, once per tap row, and slides the taps over that
+    window; the map goes through the block's shared tile and only pixels
+    inside the image are written."""
+    R, TX, TY = tile
+    B, H, W, cin = x.shape
+    K, cout = w.shape[0], w.shape[-1]
+    halo = K - 1
+    tw = R * TX
+    pitch = cuda_conv.slot(tw + halo - 1, R) + 1
+    y = np.full((B, H, W, cout), np.nan, np.float32)
+    for b in range(B):
+        for h0 in range(0, H, TY):
+            for w0 in range(0, W, tw):
+                xs = np.full((TY + halo, pitch, cin), np.nan, np.float32)
+                for row in range(TY + halo):
+                    for col in range(tw + halo):
+                        hh, ww = h0 - halo // 2 + row, w0 - halo // 2 + col
+                        inside = 0 <= hh < H and 0 <= ww < W
+                        xs[row, cuda_conv.slot(col, R)] = x[b, hh, ww] if inside else 0.0
+                att = np.zeros((TY, tw, cout), np.float32)
+                for ty in range(TY):
+                    for tx in range(TX):
+                        acc = np.zeros((R, cout), np.float32)
+                        for kh in range(K):
+                            win = np.stack([xs[ty + kh, cuda_conv.slot(tx * R + j, R)]
+                                            for j in range(R + halo)])
+                            for kw in range(K):
+                                acc += win[kw:kw + R] @ w[kh, kw]
+                        att[ty, tx * R:(tx + 1) * R] = acc + bias
+                hv, wv = min(TY, H - h0), min(tw, W - w0)
+                y[b, h0:h0 + hv, w0:w0 + wv] = att[:hv, :wv]
+    return y
+
+
+@pytest.mark.parametrize("shape,k,tile", [
+    ((1, 5, 11, 4), 7, (2, 4, 2)),     # W no multiple of the run, H odd
+    ((2, 3, 9, 4), 7, (4, 2, 16)),     # H below the tile height
+    ((1, 18, 70, 4), 7, (4, 8, 16)),   # the large-image tile, ragged both ways
+    ((1, 4, 3, 4), 7, (4, 1, 1)),      # W below one thread's run
+    ((1, 6, 13, 3), 5, (4, 3, 5)),
+    ((2, 7, 10, 2), 3, (2, 4, 4)),
+])
+def test_tiled_conv_model_matches_plain(shape, k, tile):
+    x, w, b = _np(shape, 50), _np((k, k, shape[-1], 2), 51, 0.1), _np((2,), 52)
+    want = cuda_conv.conv2d_same_small_cout_plain(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)).numpy()
+    got = _tiled_conv_model(x, w, b, tile)
+    assert not np.isnan(got).any()          # every pixel written, no padding read
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("R", [2, 4])
+def test_staged_slots_spread_a_quarter_warp_over_the_banks(R):
+    """A float4 load is served a quarter-warp at a time: the 8 threads of a
+    row, whose runs start R pixels apart, must hit 8 different 16-byte bank
+    groups at every window position j, for any 8 neighbouring threads
+    (unpadded rows would put them on 4 and 2 groups)."""
+    for tx0 in range(0, 32, 8):
+        for j in range(R + 6):
+            groups = {cuda_conv.slot((tx0 + t) * R + j, R) % 8 for t in range(8)}
+            assert len(groups) == 8, (R, tx0, j)
+    # no two pixels of a row share a slot, and the pitch holds the last one
+    for cols in (R * 8 + 6, R * 16 + 6, 23):
+        slots = [cuda_conv.slot(p, R) for p in range(cols)]
+        assert len(set(slots)) == cols and slots == sorted(slots)
+
+
+def test_choose_tile_gives_tiles_the_kernel_takes():
+    """Every choice passes the kernel's own limits, holds 8 to 512 pixels,
+    is no taller than the image needs and at least 8 runs wide once it has 2 rows."""
+    for B in (1, 4, 8, 32):
+        for H in (1, 2, 3, 8, 16, 33, 128, 256):
+            for W in (1, 7, 32, 251, 1004, 4000):
+                tile = cuda_conv.choose_tile(B, H, W)
+                cuda_conv._check_tile(tile)
+                R, tx, ty = tile
+                assert 8 <= R * tx * ty <= 512 and R in (2, 4)
+                assert ty <= 16 and ty < 2 * H and (tx >= 8 or ty == 1)
+    with pytest.raises(ValueError):
+        cuda_conv._check_tile((3, 8, 8))
+    with pytest.raises(ValueError):
+        cuda_conv._check_tile((4, 32, 8))       # 256 conv threads
+    with pytest.raises(ValueError):
+        cuda_conv._check_tile((4, 128, 1))      # more shared memory than 48 KB
+
+
+class _Recorder:
+    """Stands in for a CudaKernel: notes the arguments, launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, device, *args):
+        self.calls.append(args)
+
+
+@pytest.mark.parametrize("shape,k,cout,tiled", [
+    ((4, 16, 251, 4), 7, 2, True),      # the spatial-attention class
+    ((2, 16, 12, 4), 5, 8, False),      # every other class: the generic body
+    ((2, 16, 12, 4), 7, 3, False),
+    ((2, 16, 12, 2), 7, 2, False),
+    ((2, 16, 12, 4), 3, 2, False),
+])
+def test_conv_entry_routes_only_the_tuned_class_to_the_tiled_body(
+        monkeypatch, shape, k, cout, tiled):
+    """Off the CPU the wrapper launches (never the plain version): meta
+    tensors stand in for the card's, a recorder for the kernel."""
+    rec = _Recorder()
+    monkeypatch.setattr(cuda_conv, "KERNEL", rec)
+    x = torch.empty(shape, device="meta")
+    w = torch.empty((k, k, shape[-1], cout), device="meta")
+    y = cuda_conv.conv2d_same_small_cout(x, w, torch.empty(cout, device="meta"))
+    assert y.shape == shape[:3] + (cout,)
+    (args,), B, H, W = rec.calls, *shape[:3]
+    assert args[4:10] == (B, H, W, shape[-1], k, cout)
+    want = cuda_conv.choose_tile(B, H, W) if tiled else cuda_conv.GENERIC_TILE
+    assert args[10:] == want
+    with pytest.raises(ValueError):
+        cuda_conv.launch_conv(x, w, torch.empty(cout, device="meta"), (8, 1, 1))
+    if not tiled:
+        with pytest.raises(ValueError, match="no tiled body"):
+            cuda_conv.launch_conv(x, w, torch.empty(cout, device="meta"), (2, 8, 8))
+
+
+def test_spatial_gate_off_the_cpu_is_two_launches(monkeypatch):
+    pool, gate = _Recorder(), _Recorder()
+    monkeypatch.setattr(cuda_conv, "POOL", pool)
+    monkeypatch.setattr(cuda_conv, "GATE", gate)
+    re = torch.empty((4, 8, 251, 128), device="meta")
+    out_re, out_im = cuda_conv.spatial_gate(re, re, torch.empty((7, 7, 4, 2), device="meta"))
+    assert out_re.shape == re.shape and out_im.shape == re.shape
+    assert len(pool.calls) == 1 and len(gate.calls) == 1
+    assert pool.calls[0][3:] == (4, 8, 251, 128)
+    assert gate.calls[0][6:] == (4, 8, 251, 128) + cuda_conv.choose_tile(4, 8, 251)
+    with pytest.raises(ValueError, match="7, 7, 4, 2"):
+        cuda_conv.sa_gate(torch.empty((4, 8, 251, 4), device="meta"),
+                          torch.empty((5, 5, 4, 2), device="meta"), re, re)
+
+
+def test_gate_launch_counts_as_one_of_kernel_2():
+    """The gate entry runs kernel 2's conv body, so its launches count on the
+    conv's counter too; the pooling pass counts on its own only."""
+    assert cuda_conv.GATE.counted_with is cuda_conv.KERNEL
+    assert cuda_conv.POOL.counted_with is None and cuda_conv.KERNEL.counted_with is None
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 9, 16), (1, 3, 5, 1), (2, 4, 4, 6)])
+def test_spatial_gate_plain_is_the_eager_sequence(shape):
+    """pooled order [mean re, max re, mean im, max im]; out = x * sigmoid(conv)
+    as the complex product with the 2-channel map read as (a_re, a_im)."""
+    re, im = torch.from_numpy(_np(shape, 60)), torch.from_numpy(_np(shape, 61))
+    w = torch.from_numpy(_np((7, 7, 4, 2), 62, 0.3))
+    pooled = cuda_conv.sa_pool(re, im)
+    torch.testing.assert_close(pooled[..., 0], re.mean(-1))
+    torch.testing.assert_close(pooled[..., 1], re.amax(-1))
+    torch.testing.assert_close(pooled[..., 2], im.mean(-1))
+    torch.testing.assert_close(pooled[..., 3], im.amax(-1))
+    a = torch.sigmoid(torch.nn.functional.conv2d(
+        pooled.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), padding=3)).permute(0, 2, 3, 1)
+    z = torch.complex(re, im) * torch.complex(a[..., :1], a[..., 1:])
+    got_re, got_im = cuda_conv.spatial_gate(re, im, w)
+    torch.testing.assert_close(got_re, z.real, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got_im, z.imag, rtol=1e-5, atol=1e-5)

@@ -199,3 +199,85 @@ def test_bound_crm():
     m[1][0, 0, :3] = [0.0, 0.0, -4.0]
     want = jax.jit(lambda a: jmasks.bound_crm(a, 1e-6))(_jc(m))
     _close(tmasks.bound_crm(_tc(m), 1e-6), want, rtol=1e-6, atol=1e-6)
+
+
+def _loaded_spatial_attention(x, seed):
+    mod = jatt.ComplexSpatialAttention(7)
+    v = jax.jit(mod.init)(jax.random.PRNGKey(seed), _jc(x))
+    return mod, v, _load(tatt.ComplexSpatialAttention(7), v)
+
+
+def test_spatial_gate_matches_jax_attention_then_product():
+    """The fused gate (plain versions on the CPU) against the JAX spatial
+    attention followed by the complex product, and against the module's own
+    un-fused path."""
+    from dcs_net_tpu_torch.ops import cuda_conv
+
+    x = _pair((2, 16, 12, 6), 20)
+    mod, v, port = _loaded_spatial_attention(x, 8)
+    want = jax.jit(lambda vv, a: a * mod.apply(vv, a))(v, _jc(x))
+    with torch.no_grad():
+        got = port.gate(_tc(x))
+        unfused = tcl.complex_mul_bcast(_tc(x), port(_tc(x)))
+        plain = cuda_conv.spatial_gate_plain(*_tc(x), port.packed_kernel())
+    assert got.shape == (2, 16, 12, 6)
+    _close(got, want)
+    _close(CArray(*plain), want)
+    torch.testing.assert_close(got.re, unfused.re, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got.im, unfused.im, rtol=1e-5, atol=1e-5)
+
+
+def test_spatial_gate_other_kernel_size_takes_the_unfused_path():
+    x = _pair((1, 8, 9, 4), 21)
+    port = tatt.ComplexSpatialAttention(3, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        got, want = port.gate(_tc(x)), tcl.complex_mul_bcast(_tc(x), port(_tc(x)))
+    torch.testing.assert_close(got.re, want.re, rtol=0, atol=0)
+    torch.testing.assert_close(got.im, want.im, rtol=0, atol=0)
+
+
+def test_packed_kernel_is_kept_and_follows_the_weights():
+    """Without autograd the packed block kernel is built once; a
+    ``load_state_dict``, an in-place update and a dtype/device move each
+    replace it; with autograd on it is rebuilt so gradients reach the weights."""
+    gen = torch.Generator().manual_seed(1)
+    sa = tatt.ComplexSpatialAttention(7, generator=gen)
+    other = tatt.ComplexSpatialAttention(7, generator=gen)
+    x = _tc(_pair((1, 6, 7, 4), 22))
+
+    def fresh(m):
+        return m.conv.block_kernel().detach()
+
+    with torch.no_grad():
+        first = sa.packed_kernel()
+        assert first.shape == (7, 7, 4, 2) and first.is_contiguous()
+        assert sa.packed_kernel() is first                   # kept
+        torch.testing.assert_close(first, fresh(sa), rtol=0, atol=0)
+        before = sa.gate(x)
+
+        sa.load_state_dict(other.state_dict())
+        second = sa.packed_kernel()
+        assert second is not first
+        torch.testing.assert_close(second, fresh(other), rtol=0, atol=0)
+        after = sa.gate(x)
+        want = other.gate(x)
+        torch.testing.assert_close(after.re, want.re, rtol=0, atol=0)
+        assert float((after.re - before.re).abs().max()) > 1e-4
+
+        sa.conv.weight_i.mul_(0.5)                           # an optimizer step
+        third = sa.packed_kernel()
+        assert third is not second
+        torch.testing.assert_close(third, fresh(sa), rtol=0, atol=0)
+
+        sa.double()                                          # new storage
+        assert sa.packed_kernel().dtype == torch.float64
+        sa.float()
+        sa.train()
+        assert sa.packed_kernel() is sa.packed_kernel()      # no autograd: kept
+
+    assert sa.packed_kernel().requires_grad                  # autograd: rebuilt
+    out = sa.gate(x)
+    (out.re.sum() + out.im.sum()).backward()
+    assert sa.conv.weight_r.grad is not None and float(sa.conv.weight_r.grad.abs().max()) > 0
+    sa.requires_grad_(False)
+    assert sa.packed_kernel() is sa.packed_kernel()          # frozen weights: kept
