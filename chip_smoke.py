@@ -43,7 +43,25 @@ Phases (each prints one or more lines; any failure exits non-zero):
                up to 12x12, and kernel 3's packed weights bit for bit against
                the PyTorch layout helper;
   6. cli     -- a 48 kHz wav through ``python -m dcs_net_tpu_torch.cli.enhance``
-               (``main``), full and with ``--stream``, read back and checked.
+               (``main``), full and with ``--stream``, read back and checked;
+  7. train   -- the full-width DCS train step (faithful quirks, batch 32 x
+               8160 samples) on synthetic pairs written by
+               ``data/synthetic.py``: (a) launch counts of one step (kernel 1
+               once, kernels 2 and 3 forward and input gradient, 13 and 7
+               each, the fused gate never); (b) at every shape of the step,
+               the three Functions' outputs and input and weight gradients
+               (``torch.autograd.grad``) against their plain versions under
+               autograd (<= 1e-4 of max |plain|), the two input-gradient
+               launches timed as kernel rows and the weight-gradient
+               contractions printed beside ``torch.nn.grad``'s; (c) one step
+               at batch 4, dropout off, card vs CPU from the same weights:
+               loss and gradient norm rtol 1e-3, every gradient leaf in the
+               band of the JAX oracle test, the post-Adam parameters within
+               its sensitivity bound; (d) ``python -m
+               dcs_net_tpu_torch.cli.train`` for 12 batch-32 steps, a
+               checkpoint, then ``--resume`` for 12 more; (e) 10 steps on one
+               batch, dropout on: the loss falls; (f) the median step time
+               over 20 steps and audio-s/s per GPU.
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -65,6 +83,8 @@ SR = 16000
 BATCH, SECONDS = 4, 4
 REL_TOL = 1e-4                    # kernel vs plain, relative to max |plain|
 SLICE_RTOL, SLICE_ATOL = 1e-3, 3e-4
+TRAIN_BATCH, TRAIN_CROP, CARD_CPU_BATCH = 32, 8160, 4
+TRAIN_STEPS, TRAIN_N_SYNTHETIC = 12, 480      # 480 pairs: 384 train, 96 val
 # H100 SXM data sheet: HBM3 rate, float32 (non-tensor-core) peak, dense TF32
 # tensor-core peak. Kernel 3 runs float32-accurate products as three TF32
 # passes (3xTF32), so the rate its operations are held against is TF32 / 3.
@@ -92,6 +112,17 @@ KERNEL_INFO = {
     "tapconv_valid": ("dcs_net_tpu_torch/csrc/tapconv.cu",
                       "dcs_net_tpu/ops/pallas_tapconv.py:91", "3xtf32-wgmma",
                       TF32X3_FLOPS_PER_S),
+    # input gradients, which the JAX package's custom_vjp backward rules
+    # compute in XLA: the conv entry on the flipped, transposed kernel
+    # (class (7, 2, 4): the generic body), and the tap conv with its packing
+    # on the padded gradient and the flipped, transposed weights
+    "conv_same_small_cout_dgrad": ("dcs_net_tpu_torch/csrc/conv_same.cu",
+                                   "dcs_net_tpu/ops/pallas_conv.py:210",
+                                   "simt-f32-generic-input-gradient",
+                                   F32_FLOPS_PER_S),
+    "tapconv_valid_dgrad": ("dcs_net_tpu_torch/csrc/tapconv.cu",
+                            "dcs_net_tpu/ops/conv_engine.py:879",
+                            "3xtf32-wgmma-input-gradient", TF32X3_FLOPS_PER_S),
 }
 # what the slice does not launch: kernel 1's dense entry point at a size that
 # is no power of two (B, n, n_fft, hop); its FFT entry point at the other
@@ -123,6 +154,14 @@ TAPCONV_EXTRA = [((2, 10, 9, 64), (3, 3), 32), ((2, 5, 7, 24), (2, 2), 12),
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| / max |want| over one tensor or a tuple of them."""
+    if not isinstance(got, (tuple, list)):
+        got, want = (got,), (want,)
+    return (max(float((a - b).abs().max()) for a, b in zip(got, want))
+            / max(max(float(b.abs().max()) for b in want), 1e-30))
 
 
 def nvidia_smi_line() -> str:
@@ -188,7 +227,8 @@ def discover_shapes(run):
     from dcs_net_tpu_torch.ops import cuda_conv, cuda_tapconv
 
     slots = [(stft_cuda, "KERNEL"), (cuda_conv, "KERNEL"), (cuda_conv, "POOL"),
-             (cuda_conv, "GATE"), (cuda_tapconv, "KERNEL")]
+             (cuda_conv, "GATE"), (cuda_tapconv, "KERNEL"), (cuda_conv, "DGRAD"),
+             (cuda_tapconv, "DGRAD")]
     logs = [ShapeLog(getattr(mod, attr)) for mod, attr in slots]
     try:
         for (mod, attr), log in zip(slots, logs):
@@ -313,6 +353,38 @@ def kernel_cases(name, args, dev, cfg):
                 lambda: cuda_tapconv.tapconv_valid_plain(x, w, dh, dw),
                 lambda: F.conv2d(x_nchw, w_oihw),
                 nbytes, flops, None, {})
+    if name == "conv_same_small_cout_dgrad":
+        # launched with x = the upstream gradient g (B, H, W, Cout of the
+        # forward) and the dgrad kernel; the least work is the forward's
+        B, H, W, cout, K, cin = args[:6]
+        gy = randn(B, H, W, cout)
+        w = randn(K, K, cin, cout, scale=0.1)
+        wt, zero = cuda_conv.dgrad_kernel(w), torch.zeros(cin, device=dev)
+        g_nchw = gy.permute(0, 3, 1, 2).contiguous()
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        return (lambda: cuda_conv._same_conv(gy, wt, zero, dgrad=True),
+                lambda: cuda_conv.conv2d_same_small_cout_plain(gy, wt, zero),
+                lambda: torch.nn.grad.conv2d_input((B, cin, H, W), w_oihw, g_nchw,
+                                                   padding=K // 2),
+                4 * (gy.numel() + w.numel() + B * H * W * cin),
+                2 * B * H * W * K * K * cin * cout, None, {})
+    if name == "tapconv_valid_dgrad":
+        # launched on g (B, HO, WO, N) padded by (Dh - 1, Dw - 1) with the
+        # flipped, transposed weights: Cin' = N, N' = Cin. The least work is
+        # the forward's: g read, w read, dx (B, Hp, Wp, Cin) written
+        B, hp2, wp2, n, dh, dw, cin = args[:7]
+        ho, wo = hp2 - 2 * (dh - 1), wp2 - 2 * (dw - 1)
+        hp, wp = ho + dh - 1, wo + dw - 1
+        gy = randn(B, ho, wo, n)
+        w = randn(dh * dw, cin, n, scale=1.0 / math.sqrt(dh * dw * cin))
+        gp, wt = cuda_tapconv.dgrad_input(gy, dh, dw), cuda_tapconv.dgrad_weights(w)
+        g_nchw = gy.permute(0, 3, 1, 2).contiguous()
+        w_oihw = w.reshape(dh, dw, cin, n).permute(3, 2, 0, 1).contiguous()
+        return (lambda: cuda_tapconv._launch(gp, wt, dh, dw, dgrad=True),
+                lambda: cuda_tapconv.tapconv_valid_plain(gp, wt, dh, dw),
+                lambda: torch.nn.grad.conv2d_input((B, cin, hp, wp), w_oihw, g_nchw),
+                4 * (gy.numel() + w.numel() + B * hp * wp * cin),
+                2 * B * ho * wo * dh * dw * cin * n, None, {})
     raise KeyError(name)
 
 
@@ -424,32 +496,26 @@ def check_conv_off_path(dev) -> None:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    def rel(got, want):
-        if not isinstance(got, tuple):
-            got, want = (got,), (want,)
-        return (max(float((a - b).abs().max()) for a, b in zip(got, want))
-                / max(float(b.abs().max()) for b in want))
-
     w = randn(7, 7, 4, 2, scale=0.3)
     bias = randn(2)
     for B, H, W, C in GATE_EXTRA:
         re, im = randn(B, H, W, C), randn(B, H, W, C)
         pooled = cc.sa_pool_plain(re, im)
         before = cc.KERNEL.launches, cc.POOL.launches, cc.GATE.launches
-        errs = {"pool": rel(cc.sa_pool(re, im), pooled),
-                "gate": rel(cc.sa_gate(pooled, w, re, im),
-                            cc.sa_gate_plain(pooled, w, re, im)),
-                "pool+gate": rel(cc.spatial_gate(re, im, w),
-                                 cc.spatial_gate_plain(re, im, w)),
-                "conv": rel(cc.conv2d_same_small_cout(pooled, w, bias),
-                            cc.conv2d_same_small_cout_plain(pooled, w, bias))}
+        errs = {"pool": rel_err(cc.sa_pool(re, im), pooled),
+                "gate": rel_err(cc.sa_gate(pooled, w, re, im),
+                                cc.sa_gate_plain(pooled, w, re, im)),
+                "pool+gate": rel_err(cc.spatial_gate(re, im, w),
+                                     cc.spatial_gate_plain(re, im, w)),
+                "conv": rel_err(cc.conv2d_same_small_cout(pooled, w, bias),
+                                cc.conv2d_same_small_cout_plain(pooled, w, bias))}
         # the same values behind a pointer that is 4 bytes off a 16-byte line
         off = randn(re.numel() + 1)[1:].view(re.shape).copy_(re)
-        errs["gate, unaligned x"] = rel(cc.spatial_gate(off, im, w),
-                                        cc.spatial_gate_plain(re, im, w))
+        errs["gate, unaligned x"] = rel_err(cc.spatial_gate(off, im, w),
+                                            cc.spatial_gate_plain(re, im, w))
         off4 = randn(pooled.numel() + 1)[1:].view(pooled.shape).copy_(pooled)
-        errs["conv, unaligned x"] = rel(cc.conv2d_same_small_cout(off4, w, bias),
-                                        cc.conv2d_same_small_cout_plain(pooled, w, bias))
+        errs["conv, unaligned x"] = rel_err(cc.conv2d_same_small_cout(off4, w, bias),
+                                            cc.conv2d_same_small_cout_plain(pooled, w, bias))
         torch.cuda.synchronize()
         after = cc.KERNEL.launches, cc.POOL.launches, cc.GATE.launches
         if tuple(a - b for a, b in zip(after, before)) != (5, 3, 3):
@@ -463,8 +529,8 @@ def check_conv_off_path(dev) -> None:
     for shape, K, cout in CONV_EXTRA:
         x = randn(*shape)
         wk, bk = randn(K, K, shape[-1], cout, scale=0.1), randn(cout)
-        v = rel(cc.conv2d_same_small_cout(x, wk, bk),
-                cc.conv2d_same_small_cout_plain(x, wk, bk))
+        v = rel_err(cc.conv2d_same_small_cout(x, wk, bk),
+                    cc.conv2d_same_small_cout_plain(x, wk, bk))
         print(f"kernel conv_same_small_cout off the path (generic body): x {shape} "
               f"K {K} -> {cout}: rel_err={v:.3e}", flush=True)
         if not math.isfinite(v) or v > REL_TOL:
@@ -647,6 +713,321 @@ def check_streaming(model, cpu_model, cfg, dev, card):
     return shapes, launches
 
 
+def check_function_grads(shapes, dev, cfg) -> None:
+    """The three Functions at every shape of the train step, forward output
+    and input and weight gradients (``torch.autograd.grad``), against their
+    plain versions under autograd on the card."""
+    import torch
+
+    from dcs_net_tpu_torch.dsp import stft as dsp
+    from dcs_net_tpu_torch.dsp import stft_cuda
+    from dcs_net_tpu_torch.ops import cuda_conv, cuda_tapconv
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).requires_grad_()
+
+    def check(name, args, fn, plain, inputs):
+        ys = fn(*inputs)
+        ys = ys if isinstance(ys, tuple) else (ys,)
+        gys = [torch.randn(t.shape, generator=g, device=dev) for t in ys]
+        got = torch.autograd.grad(ys, inputs, gys)
+        yps = plain(*inputs)
+        yps = yps if isinstance(yps, tuple) else (yps,)
+        want = torch.autograd.grad(yps, inputs, gys)
+        torch.cuda.synchronize()
+        errs = [rel_err([y.detach() for y in ys], [y.detach() for y in yps])]
+        errs += [rel_err(a, b) for a, b in zip(got, want)]
+        print(f"train: {name} args={args} forward rel_err={errs[0]:.3e}, gradients "
+              f"rel_err=" + ", ".join(f"{e:.3e}" for e in errs[1:]), flush=True)
+        if not all(math.isfinite(e) and e <= REL_TOL for e in errs):
+            fail(f"{name} at {args}: forward or gradient error {max(errs):.3e} "
+                 f"relative to max |plain| exceeds {REL_TOL}")
+
+    for args in sorted(set(shapes["conv_same_small_cout"])):
+        B, H, W, cin, K, cout = args[:6]
+        check("conv_same_small_cout", args, cuda_conv.conv2d_same_small_cout,
+              cuda_conv.conv2d_same_small_cout_plain,
+              (randn(B, H, W, cin), randn(K, K, cin, cout, scale=0.1), randn(cout)))
+    for args in sorted(set(shapes["tapconv_valid"])):
+        B, hp, wp, cin, dh, dw, n = args[:7]
+        check("tapconv_valid", args,
+              lambda x, w: cuda_tapconv.tapconv_valid(x, w, dh, dw),
+              lambda x, w: cuda_tapconv.tapconv_valid_plain(x, w, dh, dw),
+              (randn(B, hp, wp, cin), randn(dh * dw, cin, n, scale=1 / math.sqrt(dh * dw * cin))))
+    for args in sorted(set(shapes["stft"])):
+        B, n, n_fft, hop = args[:4]
+        cos_b, sin_b = dsp._on_device(dsp._dft_basis_eff, cfg.stft, dev)
+        check("stft", args, lambda x: dsp.STFT.apply(x, cfg.stft),
+              lambda x: stft_cuda.stft_dft_plain(x, cos_b, sin_b, hop, args[-1]),
+              (randn(B, n, scale=0.3),))
+
+
+def time_weight_grads(shapes, dev, card) -> None:
+    """The weight-gradient contractions of kernels 2 and 3 at the train
+    step's shapes (PyTorch matmuls, as the JAX package leaves them to XLA),
+    summed over one step, beside ``torch.nn.grad.conv2d_weight`` and the
+    card's bound for the same work (x and g read, dw written; the forward's
+    operations at the float32 rate)."""
+    import torch
+
+    from dcs_net_tpu_torch.ops import cuda_conv, cuda_tapconv
+    from dcs_net_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 14)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    for name, calls in (("conv_same_small_cout", shapes["conv_same_small_cout"]),
+                        ("tapconv_valid", shapes["tapconv_valid"])):
+        tot = {"ms": 0.0, "library_ms": 0.0, "bytes": 0, "flops": 0}
+        for args in calls:
+            if name == "conv_same_small_cout":
+                B, H, W, cin, K, cout = args[:6]
+                x, gy = randn(B, H, W, cin), randn(B, H, W, cout)
+                ours = lambda: cuda_conv.weight_grad(x, gy, K)  # noqa: E731
+                wshape, pad, (dh, dw) = (cout, cin, K, K), K // 2, (K, K)
+                ho, wo = H, W
+            else:
+                B, hp, wp, cin, dh, dw, cout = args[:7]
+                ho, wo = hp - dh + 1, wp - dw + 1
+                x, gy = randn(B, hp, wp, cin), randn(B, ho, wo, cout)
+                ours = lambda: cuda_tapconv.weight_grad(x, gy, dh, dw)  # noqa: E731
+                wshape, pad = (cout, cin, dh, dw), 0
+            x_nchw = x.permute(0, 3, 1, 2).contiguous()
+            g_nchw = gy.permute(0, 3, 1, 2).contiguous()
+            lib = lambda: torch.nn.grad.conv2d_weight(  # noqa: E731
+                x_nchw, wshape, g_nchw, padding=pad)
+            tot["ms"] += graph_ms(ours, 10)
+            tot["library_ms"] += graph_ms(lib, 10)
+            tot["bytes"] += 4 * (x.numel() + gy.numel() + dh * dw * cin * cout)
+            tot["flops"] += 2 * B * ho * wo * dh * dw * cin * cout
+        bound = max(tot["bytes"] / HBM_BYTES_PER_S, tot["flops"] / F32_FLOPS_PER_S) * 1e3
+        print(f"train: weight gradient of {name} (the patch matrix's "
+              f"product): {len(calls)} per train step, summed ms={tot['ms']:.4f} library_ms="
+              f"{tot['library_ms']:.4f} (torch.nn.grad.conv2d_weight) bound_ms="
+              f"{bound:.4f} [{card}]", flush=True)
+
+
+def _leaf_checks(what, card_model, cpu_model, card_grads, cpu_grads) -> None:
+    """Every gradient leaf in the band of the JAX oracle test (rtol 5e-3 /
+    atol 2.5e-3 of the leaf max, mean drift < 3e-4; a leaf under 1e-5 of the
+    largest gradient is rounding residue of an exact zero and is held under
+    it on both sides); the post-Adam parameters within that test's
+    sensitivity bound; the BN running statistics in the band."""
+    import torch
+
+    floor = 1e-5 * max(float(g.abs().max()) for g in cpu_grads.values())
+    lr, eps = 1e-4, 1e-6
+    worst_band = worst_param = 0.0
+    for name, want in cpu_grads.items():
+        got = card_grads[name].cpu()
+        scale = float(want.abs().max())
+        if scale < floor:
+            if float(got.abs().max()) >= floor:
+                fail(f"{what}: gradient {name} is not zero up to rounding on the card")
+            continue
+        a, b = got / scale, want / scale
+        excess = float(((a - b).abs() - (2.5e-3 + 5e-3 * b.abs())).max())
+        drift = float((a - b).abs().mean())
+        worst_band = max(worst_band, float((a - b).abs().max()))
+        if excess > 0 or drift >= 3e-4:
+            fail(f"{what}: gradient {name} outside the band (excess {excess:.3e}, "
+                 f"mean drift {drift:.3e})")
+    card_state, cpu_state = card_model.state_dict(), cpu_model.state_dict()
+    for name, want in cpu_state.items():
+        got = card_state[name].cpu()
+        if name in cpu_grads:
+            gabs = cpu_grads[name].abs()
+            if float(gabs.max()) < floor:
+                allowed = torch.full_like(gabs, 3e-5 + 2 * lr)
+            else:
+                delta = 5e-3 * gabs + 2.5e-3 * float(gabs.max())
+                allowed = 3e-5 + lr * torch.clamp(delta / (gabs + eps), max=2.0)
+            excess = float(((got - want).abs() - allowed).max())
+            worst_param = max(worst_param, float((got - want).abs().max()))
+        else:
+            scale = max(float(want.abs().max()), 1e-12)
+            excess = float(((got - want).abs() / scale
+                            - (2.5e-3 + 5e-3 * want.abs() / scale)).max())
+        if excess > 0:
+            fail(f"{what}: post-step {name} differs by {excess:.3e} beyond its bound")
+    print(f"{what}: {len(cpu_grads)} gradient leaves within the band (max |diff| / "
+          f"leaf max {worst_band:.3e}), post-Adam parameters within the sensitivity "
+          f"bound (max |diff| {worst_param:.3e}), BN statistics within the band",
+          flush=True)
+
+
+def run_trainer(tmp, epochs, resume, card):
+    """``python -m dcs_net_tpu_torch.cli.train`` in a subprocess: returns its
+    stdout and final metrics."""
+    import ast
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "dcs_net_tpu_torch.cli.train", "dcs", "--synthetic",
+           "--synthetic-n", str(TRAIN_N_SYNTHETIC), "--batch-size", str(TRAIN_BATCH),
+           "--limit-train-batches", str(TRAIN_STEPS), "--epochs", str(epochs),
+           "--log-dir", tmp] + (["--resume"] if resume else [])
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        print(r.stdout[-3000:], r.stderr[-3000:], flush=True)
+        fail(f"the trainer exited {r.returncode}: {' '.join(cmd[2:])}")
+    final = [ln for ln in r.stdout.splitlines() if ln.startswith("final: ")]
+    if not final:
+        fail("the trainer printed no final metrics")
+    metrics = ast.literal_eval(final[-1][len("final: "):])
+    # the epoch line ends with the epoch's seconds: train steps, validation
+    epoch_s = [ln.rsplit("(", 1)[-1].rstrip("s)") for ln in r.stdout.splitlines()
+               if ln.startswith("epoch ") and ln.endswith("s)")]
+    print(f"train: cli {' '.join(cmd[3:])}: exit 0 in {wall:.1f} s (last epoch "
+          f"{epoch_s[-1] if epoch_s else '?'} s), {metrics} [{card}]", flush=True)
+    return r.stdout, metrics
+
+
+def check_train(dev, card, tmp):
+    """Phase "train", with its data, logs and checkpoints under ``tmp``.
+    Returns the kernel rows of one train step's launches (forward and input
+    gradient) and its launch counts."""
+    import dataclasses
+
+    import torch
+
+    from dcs_net_tpu_torch.cli.common import make_loaders
+    from dcs_net_tpu_torch.core.config import config_for_variant
+    from dcs_net_tpu_torch.data import synthetic
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
+    from dcs_net_tpu_torch.train.optim import make_optimizer
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    root = os.path.join(tmp, "synthetic_data")     # where the CLI's --synthetic looks
+    t0 = time.perf_counter()
+    # pairs of 0.6 s: the crop is 0.51 s, and shorter files are quicker for
+    # the trainer's loader threads to decode and resample
+    dcfg = synthetic.generate(root, n_train=TRAIN_N_SYNTHETIC, n_test=2, seconds=0.6)
+    cfg = config_for_variant("dcs")
+    cfg = cfg.replace(data=dataclasses.replace(dcfg, batch_size=TRAIN_BATCH))
+    loaders = make_loaders(cfg)
+    host = next(iter(loaders[0].epoch(0)))
+    for loader in loaders:
+        loader.close()
+    noisy = torch.from_numpy(host["noisy"]).to(dev)
+    clean = torch.from_numpy(host["clean"]).to(dev)
+    print(f"train: {TRAIN_N_SYNTHETIC} synthetic pairs written and one batch "
+          f"{tuple(noisy.shape)} loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (a) one step's launches, on a model with faithful quirks, dropout on
+    torch.manual_seed(SEED)
+    model = DCSNet(cfg.model, cfg.quirks, device=dev, seed=SEED + 11)
+    opt = make_optimizer(model.parameters(), cfg.optim)
+
+    def step():
+        return steps.train_step(model, opt, steps.batch_from_waves(noisy, clean, cfg), cfg)
+
+    shapes = discover_shapes(step)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    out = step()
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in cuda_lib.KERNELS.values()}
+    print(f"train: train_step launches {launches}, loss {float(out['loss']):.4f}",
+          flush=True)
+    want = {"stft": 1, "conv_same_small_cout": 13, "conv_same_small_cout_dgrad": 13,
+            "tapconv_valid": 7, "tapconv_pack": 7, "tapconv_valid_dgrad": 7,
+            "tapconv_pack_dgrad": 7, "sa_pool": 0, "sa_gate": 0}
+    for name, n in want.items():
+        if launches.get(name, 0) != n:
+            fail(f"kernel {name} launched {launches.get(name, 0)} times in one "
+                 f"train step, expected {n}")
+    if not math.isfinite(float(out["loss"])) or float(out["skipped"]) != 0.0:
+        fail("the train step's loss is not finite")
+
+    # (b) both directions at the step's shapes; the input gradients' rows
+    check_function_grads(shapes, dev, cfg)
+    rows = check_kernels({name: shapes[name] for name in (
+        "stft", "conv_same_small_cout", "tapconv_valid", "conv_same_small_cout_dgrad",
+        "tapconv_valid_dgrad")}, launches, dev, cfg, card, "train step")
+    time_weight_grads(shapes, dev, card)
+
+    # (c) card vs CPU, one step at batch 4 from the same weights, dropout off
+    ncfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_conv=0.0,
+                                                 dropout_fc=0.0))
+    on_card = DCSNet(ncfg.model, ncfg.quirks, device=dev, seed=SEED + 13)
+    on_cpu = DCSNet(ncfg.model, ncfg.quirks, device="cpu", seed=SEED + 13)
+    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
+    results = []
+    for m, d in ((on_card, dev), (on_cpu, torch.device("cpu"))):
+        o = make_optimizer(m.parameters(), ncfg.optim)
+        t1 = time.perf_counter()
+        r = steps.train_step(m, o, steps.batch_from_waves(
+            noisy[:CARD_CPU_BATCH].to(d), clean[:CARD_CPU_BATCH].to(d), ncfg), ncfg)
+        results.append(({k: float(v) for k, v in r.items()},
+                        {n: p.grad.detach().clone() for n, p in m.named_parameters()},
+                        time.perf_counter() - t1))
+    (card_out, card_grads, _), (cpu_out, cpu_grads, cpu_s) = results
+    print(f"train: batch {CARD_CPU_BATCH}, dropout off, card vs CPU: loss "
+          f"{card_out['loss']:.6f} vs {cpu_out['loss']:.6f}, grad norm "
+          f"{card_out['grad_norm']:.6f} vs {cpu_out['grad_norm']:.6f} (CPU step "
+          f"{cpu_s:.1f} s)", flush=True)
+    for k in ("loss", "grad_norm"):
+        if not abs(card_out[k] - cpu_out[k]) <= 1e-3 * abs(cpu_out[k]):
+            fail(f"train step card vs CPU: {k} {card_out[k]} vs {cpu_out[k]}")
+    _leaf_checks("train: card vs CPU", on_card, on_cpu, card_grads, cpu_grads)
+    del on_card, on_cpu
+
+    # (d) the trainer: 12 steps and a checkpoint, then --resume for 12 more
+    _, first = run_trainer(tmp, 1, False, card)
+    ckpt = CheckpointManager(os.path.join(tmp, "dcs", "checkpoints"))
+    if (first.get("steps") != TRAIN_STEPS or first.get("nonfinite_loss_steps") != 0
+            or ckpt.latest_step() != TRAIN_STEPS):
+        fail(f"the trainer's first run: {first}, checkpoints {ckpt.steps()}")
+    stdout, second = run_trainer(tmp, 2, True, card)
+    if (f"resumed from step {TRAIN_STEPS} (epoch 1)" not in stdout
+            or second.get("epoch") != 1 or second.get("nonfinite_loss_steps") != 0
+            or ckpt.latest_step() != 2 * TRAIN_STEPS):
+        fail(f"the trainer did not resume: {second}, checkpoints {ckpt.steps()}")
+
+    # (e) one fixed batch, dropout on, 10 steps: the loss falls
+    torch.manual_seed(SEED + 1)
+    model = DCSNet(cfg.model, cfg.quirks, device=dev, seed=SEED + 15)
+    opt = make_optimizer(model.parameters(), cfg.optim)
+    losses = torch.stack([step()["loss"] for _ in range(10)]).cpu().tolist()
+    first3, last3 = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    print(f"train: 10 steps on one batch, dropout on: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}; mean of the first 3 "
+          f"{first3:.4f}, of the last 3 {last3:.4f}", flush=True)
+    if not (all(map(math.isfinite, losses)) and last3 < first3):
+        fail("the loss did not fall over 10 steps on one batch")
+
+    # (f) the step's time at batch 32
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    walls.sort()
+    med = walls[len(walls) // 2]
+    audio_s = TRAIN_BATCH * TRAIN_CROP / cfg.data.sr
+    print(f"train: step at batch {TRAIN_BATCH} x {TRAIN_CROP} samples ({audio_s:.2f} "
+          f"audio-s): median {med:.2f} ms over 20 steps (min {walls[0]:.2f}, max "
+          f"{walls[-1]:.2f}), {audio_s / med * 1e3:.1f} audio-s/s per GPU, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
+          flush=True)
+    return rows, launches
+
+
 def main() -> int:
     import torch
 
@@ -780,6 +1161,21 @@ def main() -> int:
                 fail(f"CLI output with {flags}: sr {sr}, shape {audio.shape}")
             print(f"cli {' '.join(flags) or '(full)'}: 2 s at 48 kHz -> "
                   f"{audio.shape[0]} samples at {sr} Hz, finite", flush=True)
+
+    # phase 7: the train step and the trainer
+    with tempfile.TemporaryDirectory(prefix="dcs_train_") as tmp:
+        train_rows, train_launches = check_train(dev, card, tmp)
+    for row in rows:
+        row["launches_train"] = train_launches.get(row["name"], 0)
+    for row in train_rows:
+        if row["name"].endswith("_dgrad"):
+            row["launches_train"] = row["launches"]
+            rows.append(row)
+        else:
+            # the forward's numbers at the train step's shapes
+            next(r for r in rows if r["name"] == row["name"])["train_step"] = {
+                k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by", "max_abs_err", "shapes")}
     print(f"total: {time.perf_counter() - t0:.1f} s after the device check", flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)

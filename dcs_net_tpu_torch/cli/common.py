@@ -1,0 +1,95 @@
+"""Shared CLI plumbing of the port: the JAX CLI's flags, the config built
+from them, and the data loaders."""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+from dcs_net_tpu_torch.core.config import VARIANTS, Config, config_for_variant
+
+
+def add_common_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("variant", choices=VARIANTS,
+                   help="model variant: {dr, dc, drs, dcs}")
+    p.add_argument("--data-root", default=os.environ.get("VOICEBANK_ROOT", ""),
+                   help="VoiceBank-DEMAND root (clean/noisy_trainset_*, testset)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="generate and use synthetic fixture audio (no dataset needed)")
+    p.add_argument("--synthetic-n", type=int, default=24)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--log-dir", default=None)
+    p.add_argument("--ckpt-dir", default=None)
+    p.add_argument("--idiomatic", action="store_true",
+                   help="fix the original code's quirks instead of reproducing them")
+    p.add_argument("--streaming", action="store_true",
+                   help="streaming preset: unidirectional LSTM + time-major latent")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
+                   help="operand dtype; the port runs float32 only")
+    p.add_argument("--config-json", default=None,
+                   help="load a serialized Config (overrides other flags)")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+
+
+def check_ported(p: argparse.ArgumentParser, args) -> None:
+    """Exit through ``p.error`` for what the port does not run yet."""
+    if args.variant in ("dr", "drs"):
+        p.error(f"variant {args.variant}: the real family (DR/DRS) is not yet "
+                "ported to dcs_net_tpu_torch (ROADMAP Queue 1 item 3)")
+    if args.dtype == "bfloat16":
+        p.error("--dtype bfloat16 is not yet ported: the port runs float32 "
+                "(ROADMAP Queue 1 item 4)")
+
+
+def build_config(args) -> Config:
+    if args.config_json:
+        with open(args.config_json) as f:
+            return Config.from_json(f.read())
+    cfg = config_for_variant(args.variant, faithful=not args.idiomatic,
+                             streaming=args.streaming)
+    data_kw = {}
+    if args.synthetic:
+        root = os.path.join(args.log_dir or "runs", "synthetic_data")
+        if not os.path.exists(os.path.join(root, "clean_trainset_28spk_wav")):
+            from dcs_net_tpu_torch.data import synthetic
+
+            print(f"generating synthetic fixtures under {root}")
+            synthetic.generate(root, n_train=args.synthetic_n,
+                               n_test=max(args.synthetic_n // 4, 2))
+        data_kw["root"] = root
+    elif args.data_root:
+        data_kw["root"] = args.data_root
+    if args.batch_size:
+        data_kw["batch_size"] = args.batch_size
+    if data_kw:
+        cfg = cfg.replace(data=dataclasses.replace(cfg.data, **data_kw))
+    run_kw = {}
+    if args.epochs is not None:
+        run_kw["max_epochs"] = args.epochs
+    if args.seed is not None:
+        run_kw["seed"] = args.seed
+    if args.log_dir:
+        run_kw["log_dir"] = os.path.join(args.log_dir, args.variant)
+    run_kw["ckpt_dir"] = args.ckpt_dir or os.path.join(
+        args.log_dir or "runs", args.variant, "checkpoints")
+    return cfg.replace(run=dataclasses.replace(cfg.run, **run_kw))
+
+
+def make_loaders(cfg: Config):
+    """(train, val) loaders over the seeded partition; train drops its
+    ragged last batch."""
+    from dcs_net_tpu_torch.data.dataset import Loader, VoiceBankDataset
+    from dcs_net_tpu_torch.data.partition import make_partition
+
+    part = make_partition(cfg.data, seed=cfg.run.seed)
+    out = []
+    for name in ("train", "val"):
+        out.append(Loader(VoiceBankDataset(part[name], cfg.data, mode=name),
+                          batch_size=cfg.data.batch_size,
+                          drop_last=(name == "train"),
+                          num_workers=cfg.data.num_workers,
+                          prefetch=cfg.data.prefetch, seed=cfg.run.seed))
+    return tuple(out)

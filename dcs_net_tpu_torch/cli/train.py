@@ -1,0 +1,72 @@
+"""Train on the GPU: ``python -m dcs_net_tpu_torch.cli.train dcs [--synthetic]
+[--epochs N] [--batch-size B] [--limit-train-batches K] [--resume]``.
+
+The flags are the JAX CLI's plus ``--device`` (default cuda; ``cpu`` runs the
+kernels' plain versions). ``--resume`` restores the model, the optimizer,
+the plateau scheduler and the epoch from the latest checkpoint under the
+checkpoint directory. Not yet ported, and rejected: the real variants (DR,
+DRS), ``--dtype bfloat16`` and ``--steps-per-dispatch`` above 1.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+
+from dcs_net_tpu_torch.cli.common import (add_common_args, build_config,
+                                          check_ported, make_loaders)
+
+
+class _Capped:
+    """A loader whose epochs stop after ``cap`` batches."""
+
+    def __init__(self, loader, cap: int):
+        self.loader, self.cap = loader, cap
+
+    def epoch(self, e):
+        return itertools.islice(self.loader.epoch(e), self.cap)
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__)
+    add_common_args(p)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--limit-train-batches", type=int, default=None,
+                   help="cap train batches per epoch (smoke runs)")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="train steps fused per device dispatch; the port runs 1")
+    args = p.parse_args(argv)
+    check_ported(p, args)
+    if args.steps_per_dispatch != 1:
+        p.error("--steps-per-dispatch > 1 is not yet ported: the port runs one "
+                "train step a dispatch")
+
+    from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
+    from dcs_net_tpu_torch.train.loop import Trainer
+
+    cfg = build_config(args)
+    print(f"variant={cfg.variant} complex={cfg.model.complex_valued} "
+          f"subtractive={cfg.model.subtractive} faithful_quirks="
+          f"{cfg.quirks == cfg.quirks.__class__()} device={args.device}")
+    loaders = make_loaders(cfg)
+    train_loader, val_loader = loaders
+    trainer = Trainer(cfg, device=args.device)
+    trainer.init_state()
+    ckpt = CheckpointManager(cfg.run.ckpt_dir)
+    if args.resume and ckpt.latest_step() is not None:
+        step = trainer.restore(ckpt)
+        print(f"resumed from step {step} (epoch {trainer.epoch})")
+    if args.limit_train_batches:
+        train_loader = _Capped(train_loader, args.limit_train_batches)
+    try:
+        metrics = trainer.fit(train_loader, val_loader, ckpt=ckpt)
+    finally:
+        for loader in loaders:
+            loader.close()
+        trainer.writer.close()
+    print("final:", {k: round(v, 4) for k, v in metrics.items()})
+    return metrics
+
+
+if __name__ == "__main__":
+    main()

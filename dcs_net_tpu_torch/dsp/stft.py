@@ -13,6 +13,12 @@ kernel for an ``n_fft`` the FFT is not instantiated for; on the CPU the plain
 version, one product against (n_fft, F) cos/sin bases with the window and
 scale folded in. The synthesis is a matmul against folded inverse bases plus
 an overlap-add, as in the JAX package.
+
+Gradients. On a CUDA tensor :func:`stft` is :class:`STFT`, whose backward is
+the JAX ``_adjoint`` (``dcs_net_tpu/dsp/stft_pallas.py:152-188``) in PyTorch:
+the transposed analysis bases, an overlap-add and the transpose of the
+reflect padding (:func:`stft_adjoint`), the same matmul and overlap-add as
+the iSTFT. On a CPU tensor the plain version runs under plain autograd.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from dcs_net_tpu_torch.core.config import STFTConfig
 from dcs_net_tpu_torch.dsp.stft_cuda import (STFTPlan, choose_entry, fft_tables,
@@ -126,18 +133,57 @@ def _check_float32(cfg: STFTConfig) -> None:
             "(reduced precision is ROADMAP Queue 1 item 4)")
 
 
+def stft_adjoint(g_re: torch.Tensor, g_im: torch.Tensor, cfg: STFTConfig,
+                 n: int) -> torch.Tensor:
+    """The adjoint of the (linear) analysis of (B, n) signals: gradients
+    (B, F, T) of re and im -> (B, n). Frames g_re^T cos^T + g_im^T sin^T
+    through the folded bases, overlap-added, then the reflect padding
+    transposed: padded sample i < pad came from x[pad - i], padded sample
+    pad + n + j from x[n - 2 - j]."""
+    cos_b, sin_b = _on_device(_dft_basis_eff, cfg, g_re.device)
+    frames = (torch.matmul(g_re.transpose(-1, -2), cos_b.t())
+              + torch.matmul(g_im.transpose(-1, -2), sin_b.t()))
+    total = cfg.n_fft + cfg.hop * (frames.shape[-2] - 1)
+    acc = _overlap_add(frames, cfg, total)
+    pad = cfg.n_fft // 2 if cfg.center else 0
+    if total < n + 2 * pad:     # samples past the last frame get no gradient
+        acc = F.pad(acc, (0, n + 2 * pad - total))
+    dx = acc[..., pad:pad + n].clone()
+    if pad:
+        dx[..., 1:pad + 1] += acc[..., :pad].flip(-1)
+        dx[..., n - 1 - pad:n - 1] += acc[..., pad + n:2 * pad + n].flip(-1)
+    return dx
+
+
+class STFT(torch.autograd.Function):
+    """Kernel 1 under autograd: forward the analysis of (B, n) float32
+    signals, backward :func:`stft_adjoint`."""
+
+    @staticmethod
+    def forward(ctx, x, cfg):
+        ctx.cfg, ctx.n = cfg, x.shape[-1]
+        return stft_analysis(x, _analysis_plan(cfg, x.device))
+
+    @staticmethod
+    def backward(ctx, g_re, g_im):
+        return stft_adjoint(g_re, g_im, ctx.cfg, ctx.n), None
+
+
 def stft(x: torch.Tensor, cfg: STFTConfig) -> CArray:
     """(..., n) real float32 signal -> CArray of shape (..., F, T).
 
     Matches torch.stft(..., normalized=cfg.normalized)[..., 1:257, :] for the
-    default config. A CUDA tensor runs kernel 1; a CPU tensor its plain
-    version."""
+    default config. A CUDA tensor runs kernel 1, through :class:`STFT` where
+    autograd follows it; a CPU tensor its plain version (plain autograd)."""
     _check_float32(cfg)
     if cfg.center and cfg.pad_mode != "reflect":
         raise NotImplementedError(f"pad_mode {cfg.pad_mode!r}")
     batch_shape = x.shape[:-1]
-    re, im = stft_analysis(x.reshape(-1, x.shape[-1]).float().contiguous(),
-                           _analysis_plan(cfg, x.device))
+    x2 = x.reshape(-1, x.shape[-1]).float().contiguous()
+    if x.device.type != "cpu" and torch.is_grad_enabled() and x2.requires_grad:
+        re, im = STFT.apply(x2, cfg)
+    else:
+        re, im = stft_analysis(x2, _analysis_plan(cfg, x.device))
     return CArray(re.reshape(batch_shape + re.shape[-2:]),
                   im.reshape(batch_shape + im.shape[-2:]))
 

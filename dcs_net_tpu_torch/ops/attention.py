@@ -4,7 +4,10 @@ With ``maxpool_is_avg`` (the faithful quirk) the complex "max" pool is an
 average pool, so the channel attention computes sigmoid(fc(avg) + fc(avg)).
 The spatial attention's k=7 conv is the small-Cout "same" conv of kernel 2;
 :meth:`ComplexSpatialAttention.gate` applies the attention to its input as
-kernel 2's fused gate (pool, then conv + sigmoid + product).
+kernel 2's fused gate (pool, then conv + sigmoid + product), which is
+forward-only. Where autograd follows the input or the weights (training) the
+gate takes the un-fused form, the JAX structure: pooling, the conv (kernel 2
+under autograd), the sigmoid and the product as separate ops.
 """
 
 from __future__ import annotations
@@ -66,13 +69,11 @@ class ComplexSpatialAttention(nn.Module):
 
     def packed_kernel(self) -> torch.Tensor:
         """The conv's block kernel (K, K, 4, 2) over the pooled map
-        [mean re, max re, mean im, max im]. Where autograd does not follow
-        the weights (inference) it is built once and kept until a weight
-        changes: an in-place update (an optimizer step, ``load_state_dict``)
-        moves the tensor's version, a move to another device its address."""
+        [mean re, max re, mean im, max im], for the forward-only fused gate:
+        built once, detached, and kept until a weight changes: an in-place
+        update (an optimizer step, ``load_state_dict``) moves the tensor's
+        version, a move to another device its address."""
         wr, wi = self.conv.weight_r, self.conv.weight_i
-        if torch.is_grad_enabled() and (wr.requires_grad or wi.requires_grad):
-            return self.conv.block_kernel()
         key = (wr.device, wr.data_ptr(), wr._version, wi.data_ptr(), wi._version)
         if self._packed is None or self._packed[0] != key:
             self._packed = (key, self.conv.block_kernel().detach().contiguous())
@@ -81,10 +82,14 @@ class ComplexSpatialAttention(nn.Module):
     def gate(self, x: CArray) -> CArray:
         """x * self(x), the attention applied to its own input: kernel 2's
         pool and gate launches on a CUDA tensor, their plain versions on a
-        CPU tensor."""
+        CPU tensor. Under autograd, or at another kernel size, the un-fused
+        form, whose conv alone is kernel 2."""
+        wr, wi = self.conv.weight_r, self.conv.weight_i
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (x.re, x.im, wr, wi)):
+            return cl.complex_mul_bcast(x, self(x))
         w = self.packed_kernel()
         if tuple(w.shape) != (7, 7, 4, 2):
-            # another kernel size: no fused gate, the conv alone is kernel 2
             return cl.complex_mul_bcast(x, self(x))
         return CArray(*cuda_conv.spatial_gate(
             x.re.contiguous(), x.im.contiguous(), w.contiguous()))

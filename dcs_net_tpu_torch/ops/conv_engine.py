@@ -38,12 +38,6 @@ def use_tuned(kernel_size: int, stride: Tuple[int, int], padding: int,
             and cuda_conv.applicable(kernel_size, cout))
 
 
-@functools.lru_cache(maxsize=32)
-def _zero_bias(cout: int, device: torch.device) -> torch.Tensor:
-    """Kernel 2's bias operand for a conv without bias, made once a device."""
-    return torch.zeros(cout, device=device, dtype=torch.float32)
-
-
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int],
            padding: int) -> torch.Tensor:
     """Cross-correlation without bias: x (B, H, W, Cin), w (K, K, Cin, Cout)
@@ -51,7 +45,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int],
     K, _, _, cout = w.shape
     if use_tuned(K, stride, padding, cout):
         return cuda_conv.conv2d_same_small_cout(
-            x.contiguous(), w.contiguous(), _zero_bias(cout, x.device))
+            x.contiguous(), w.contiguous(), cuda_conv.zero_bias(cout, x.device))
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
                  stride=tuple(stride), padding=padding)
     return y.permute(0, 2, 3, 1)

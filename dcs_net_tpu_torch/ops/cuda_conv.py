@@ -27,18 +27,34 @@ the CPU tests reach the choice; see the source for the design notes.
 
 Each wrapper takes CPU tensors through the plain version and CUDA tensors
 through the kernel, never falling back between the two. ``KERNEL.launches``
-counts the launches of kernel 2's conv body: its own entry and the gate
-entry, which runs that body with another epilogue.
+counts the launches of kernel 2's conv body in the forward direction: its
+own entry and the gate entry, which runs that body with another epilogue;
+``DGRAD.launches`` counts the conv entry's launches for input gradients.
+
+Gradients. On a CUDA tensor :func:`conv2d_same_small_cout` is
+:class:`Conv2dSameSmallCout`, whose backward mirrors the JAX ``_bwd``
+(``dcs_net_tpu/ops/pallas_conv.py:198-223``): the input gradient is the same
+"same" conv of the upstream gradient with the flipped, transposed kernel,
+launched on kernel 2 (for the spatial attention, Cin 2 -> Cout 4: the
+generic body, which reads a float at a time and needs no alignment); the
+weight gradient is one contraction over every pixel (:func:`weight_grad`)
+and the bias gradient a sum, in PyTorch, as the JAX package leaves them to
+XLA. On a CPU tensor the plain version runs under plain autograd. The pool
+and gate entries are forward-only: on a CUDA tensor that autograd follows
+they raise, and ``ComplexSpatialAttention.gate`` takes the un-fused form
+instead.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from dcs_net_tpu_torch.ops import cuda_tapconv
 from dcs_net_tpu_torch.utils.cuda_lib import CudaKernel, check_cuda_operand, ptr
 
 MAX_K = 7
@@ -60,6 +76,10 @@ POOL = CudaKernel("sa_pool", "conv_same.cu", "dcs_sa_pool",
 GATE = CudaKernel("sa_gate", "conv_same.cu", "dcs_sa_gate",
                   [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p],
                   counted_with=KERNEL)
+# the conv entry launched for an input gradient: the same C function, counted
+# on its own so that a train step shows its forward and backward launches
+DGRAD = CudaKernel("conv_same_small_cout_dgrad", "conv_same.cu",
+                   "dcs_conv_same_small_cout", KERNEL.argtypes)
 
 
 def applicable(kernel_size: int, cout: int) -> bool:
@@ -166,9 +186,10 @@ def conv2d_same_small_cout_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
-                tile: Tile) -> torch.Tensor:
+                tile: Tile, dgrad: bool = False) -> torch.Tensor:
     """Launch the conv entry on CUDA tensors with the body named by ``tile``:
-    ``GENERIC_TILE``, or (R, TX, TY) for the (7, 4, 2) body."""
+    ``GENERIC_TILE``, or (R, TX, TY) for the (7, 4, 2) body. ``dgrad``
+    counts the launch as an input gradient's (``DGRAD``)."""
     _check_shapes(x, w, bias)
     dev = x.device
     check_cuda_operand("x", x, dev, 4)
@@ -181,14 +202,21 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
             raise ValueError(f"(K, Cin, Cout) = {(K, cin, cout)} has no tiled body")
         _check_tile(tile)
     y = torch.empty((B, H, W, cout), device=dev, dtype=torch.float32)
-    KERNEL(dev, ptr(x), ptr(w), ptr(bias), ptr(y), B, H, W, cin, K, cout, *tile)
+    (DGRAD if dgrad else KERNEL)(dev, ptr(x), ptr(w), ptr(bias), ptr(y),
+                                 B, H, W, cin, K, cout, *tile)
     return y
 
 
-def conv2d_same_small_cout(x: torch.Tensor, w: torch.Tensor,
-                           bias: torch.Tensor) -> torch.Tensor:
-    """Stride-1 'same' cross-correlation (torch Conv2d, padding=K//2).
-    x (B, H, W, Cin), w (K, K, Cin, Cout), bias (Cout,) -> (B, H, W, Cout)."""
+@functools.lru_cache(maxsize=32)
+def zero_bias(cout: int, device: torch.device) -> torch.Tensor:
+    """The bias operand of a conv without bias, made once a device."""
+    return torch.zeros(cout, device=device, dtype=torch.float32)
+
+
+def _same_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
+               dgrad: bool = False) -> torch.Tensor:
+    """The conv without autograd: the plain version on the CPU; on CUDA the
+    conv entry, with the body the shape class and the alignment allow."""
     if x.device.type == "cpu":
         return conv2d_same_small_cout_plain(x, w, bias)
     _check_shapes(x, w, bias)
@@ -198,7 +226,68 @@ def conv2d_same_small_cout(x: torch.Tensor, w: torch.Tensor,
     tiled = ((w.shape[0], cin, w.shape[-1]) == TUNED_CLASS
              and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
     return launch_conv(x, w, bias,
-                       choose_tile(B, H, W) if tiled else GENERIC_TILE)
+                       choose_tile(B, H, W) if tiled else GENERIC_TILE, dgrad)
+
+
+def _tracked(*tensors: torch.Tensor) -> bool:
+    """Whether autograd follows any of ``tensors``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def dgrad_kernel(w: torch.Tensor) -> torch.Tensor:
+    """(K, K, Cin, Cout) -> (K, K, Cout, Cin): the kernel whose "same" conv
+    of the upstream gradient is the input gradient (spatially flipped, input
+    and output channels swapped)."""
+    return torch.flip(w, dims=(0, 1)).transpose(2, 3).contiguous()
+
+
+def weight_grad(x: torch.Tensor, g: torch.Tensor, K: int) -> torch.Tensor:
+    """dw[kh, kw, ci, co] = sum over (b, h, w) of xpad[b, h + kh, w + kw, ci]
+    g[b, h, w, co]: kernel 3's weight gradient (a K x K tap correlation) of
+    the zero-padded input."""
+    p = K // 2
+    dw = cuda_tapconv.weight_grad(F.pad(x, (0, 0, p, p, p, p)), g, K, K)
+    return dw.reshape(K, K, x.shape[-1], g.shape[-1])
+
+
+class Conv2dSameSmallCout(torch.autograd.Function):
+    """Kernel 2 under autograd: forward the conv entry, backward the JAX
+    ``_bwd`` (input gradient on kernel 2, weight and bias gradients in
+    PyTorch)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        ctx.save_for_backward(x, w)
+        return _same_conv(x, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = _same_conv(g, dgrad_kernel(w), zero_bias(w.shape[2], g.device),
+                            dgrad=True)
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(x, g, w.shape[0])
+        if ctx.needs_input_grad[2]:
+            db = g.sum(dim=(0, 1, 2))
+        return dx, dw, db
+
+
+def conv2d_same_small_cout(x: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor) -> torch.Tensor:
+    """Stride-1 'same' cross-correlation (torch Conv2d, padding=K//2).
+    x (B, H, W, Cin), w (K, K, Cin, Cout), bias (Cout,) -> (B, H, W, Cout).
+    A CPU tensor takes the plain version (plain autograd); a CUDA tensor
+    :class:`Conv2dSameSmallCout` where autograd follows an operand, else the
+    kernel alone."""
+    if x.device.type == "cpu":
+        return conv2d_same_small_cout_plain(x, w, bias)
+    _check_shapes(x, w, bias)
+    if not _tracked(x, w, bias):
+        return _same_conv(x, w, bias)
+    return Conv2dSameSmallCout.apply(x, w, bias)
 
 
 def sa_pool_plain(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
@@ -227,10 +316,21 @@ def spatial_gate_plain(re: torch.Tensor, im: torch.Tensor, w: torch.Tensor
     return sa_gate_plain(sa_pool_plain(re, im), w, re, im)
 
 
+def _forward_only(entry: str, *tensors: torch.Tensor) -> None:
+    """The pool and gate entries have no backward: raise where autograd
+    would follow their output on the card."""
+    if _tracked(*tensors):
+        raise RuntimeError(
+            f"{entry} is forward-only: autograd follows its inputs. Take the "
+            "un-fused gate (ComplexSpatialAttention.gate does so under grad) "
+            "or call it under torch.no_grad()")
+
+
 def sa_pool(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     """Channel mean and max of re and im, packed (B, H, W, 4)."""
     if re.device.type == "cpu":
         return sa_pool_plain(re, im)
+    _forward_only("sa_pool", re, im)
     dev = re.device
     check_cuda_operand("re", re, dev, 4)
     check_cuda_operand("im", im, dev, 4)
@@ -250,6 +350,7 @@ def sa_gate(pooled: torch.Tensor, w: torch.Tensor, re: torch.Tensor,
     :func:`choose_tile`'s."""
     if re.device.type == "cpu":
         return sa_gate_plain(pooled, w, re, im)
+    _forward_only("sa_gate", pooled, w, re, im)
     _check_gate_shapes(pooled, w, re, im)
     dev = re.device
     check_cuda_operand("pooled", pooled, dev, 4)

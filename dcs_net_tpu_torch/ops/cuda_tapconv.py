@@ -18,6 +18,16 @@ source for the design notes.
 
 :func:`tapconv_valid` takes CPU tensors through the plain version and CUDA
 tensors through the kernel, never falling back between the two.
+
+Gradients. On a CUDA tensor :func:`tapconv_valid` is :class:`TapconvValid`,
+whose backward mirrors the JAX ``_updot_bwd``
+(``dcs_net_tpu/ops/conv_engine.py:850-903``). The input gradient, the
+overlap-add of g Kᵀ, is itself a VALID tap correlation: of g zero-padded by
+(Dh - 1, Dw - 1) on every side with the flipped, transposed weights
+(:func:`dgrad_weights`, Cin' = N, N' = Cin), so it runs on kernel 3 (with its
+packing launch) and comes out exactly (B, Hp, Wp, Cin). The weight gradient
+Qᵀ g is one product of the patch matrix of x with g (:func:`weight_grad`),
+in PyTorch, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -38,6 +48,12 @@ KERNEL = CudaKernel(
 PACK = CudaKernel(
     "tapconv_pack", "tapconv.cu", "dcs_tapconv_pack",
     [_p, _p, _i, _i, _i, _i, _p])
+# the same two C functions launched for an input gradient, counted on their own
+# so that a train step shows its forward and backward launches
+DGRAD = CudaKernel("tapconv_valid_dgrad", "tapconv.cu", "dcs_tapconv_valid",
+                   KERNEL.argtypes)
+DGRAD_PACK = CudaKernel("tapconv_pack_dgrad", "tapconv.cu", "dcs_tapconv_pack",
+                        PACK.argtypes)
 
 BK = 32     # input channels per reduction chunk of the kernel
 
@@ -110,16 +126,10 @@ def tapconv_valid_plain(x: torch.Tensor, w: torch.Tensor, dh_n: int,
     return y
 
 
-def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int,
-                  dw_n: int) -> torch.Tensor:
-    """x (B, Hp, Wp, Cin), w (Dh*Dw, Cin, N) tap-major -> y (B, HO, WO, N)
-    with HO = Hp - Dh + 1, WO = Wp - Dw + 1; float32 accumulation. On the
-    card the kernel picks its tile from the shape (128 or 64 pixels, two
-    halo-tile stages or one) and takes every window whose 64-pixel halo tile
-    fits shared memory, Dh * (63 + Dw) <= 931 (12 x 12 and smaller); beyond
-    that the launch is refused and the call raises."""
-    if x.device.type == "cpu":
-        return tapconv_valid_plain(x, w, dh_n, dw_n)
+def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
+            dgrad: bool = False) -> torch.Tensor:
+    """The packing and tap-conv launches on CUDA tensors; ``dgrad`` counts
+    them as an input gradient's (``DGRAD_PACK``, ``DGRAD``)."""
     B, ho, wo, n = _out_shape(x, w, dh_n, dw_n)
     dev = x.device
     check_cuda_operand("x", x, dev, 4)
@@ -129,6 +139,85 @@ def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int,
     packed = torch.empty((-(-n // bn), -(-cin // BK), dh_n * dw_n, 2, BK // 4,
                           bn, 4), device=dev, dtype=torch.float32)
     y = torch.empty((B, ho, wo, n), device=dev, dtype=torch.float32)
-    PACK(dev, ptr(w), ptr(packed), dh_n * dw_n, cin, n, bn)
-    KERNEL(dev, ptr(x), ptr(packed), ptr(y), B, hp, wp, cin, dh_n, dw_n, n, bn)
+    pack, kernel = (DGRAD_PACK, DGRAD) if dgrad else (PACK, KERNEL)
+    pack(dev, ptr(w), ptr(packed), dh_n * dw_n, cin, n, bn)
+    kernel(dev, ptr(x), ptr(packed), ptr(y), B, hp, wp, cin, dh_n, dw_n, n, bn)
     return y
+
+
+def _valid(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
+           dgrad: bool = False) -> torch.Tensor:
+    """The tap correlation without autograd: plain on the CPU, the kernel on
+    CUDA."""
+    if x.device.type == "cpu":
+        return tapconv_valid_plain(x, w, dh_n, dw_n)
+    return _launch(x, w, dh_n, dw_n, dgrad)
+
+
+def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
+    """(Dh*Dw, Cin, N) -> (Dh*Dw, N, Cin): taps in reverse order (tap (dh, dw)
+    becomes (Dh - 1 - dh, Dw - 1 - dw)), input and output channels swapped.
+    The VALID correlation of the upstream gradient, padded by (Dh - 1,
+    Dw - 1), with these weights is the input gradient."""
+    return torch.flip(w, dims=(0,)).transpose(1, 2).contiguous()
+
+
+def dgrad_input(g: torch.Tensor, dh_n: int, dw_n: int) -> torch.Tensor:
+    """g (B, HO, WO, N) -> (B, HO + 2 (Dh - 1), WO + 2 (Dw - 1), N)."""
+    return F.pad(g, (0, 0, dw_n - 1, dw_n - 1, dh_n - 1, dh_n - 1)).contiguous()
+
+
+def weight_grad(x: torch.Tensor, g: torch.Tensor, dh_n: int,
+                dw_n: int) -> torch.Tensor:
+    """dkbig = Qᵀ g, contracted over every output pixel, with Q the
+    (pixels, Dh*Dw*Cin) patch matrix of the JAX package's ``_updot_bwd``:
+    the windows of x as one strided view, copied once with the channels
+    innermost, then one product -> (Dh*Dw, Cin, N)."""
+    cin, n = x.shape[-1], g.shape[-1]
+    win = x.unfold(1, dh_n, 1).unfold(2, dw_n, 1)       # (B, HO, WO, Cin, Dh, Dw)
+    q = win.permute(0, 1, 2, 4, 5, 3).reshape(-1, dh_n * dw_n * cin)
+    return (q.t() @ g.reshape(-1, n)).reshape(dh_n * dw_n, cin, n)
+
+
+class TapconvValid(torch.autograd.Function):
+    """Kernel 3 under autograd: forward the tap conv, backward the JAX
+    ``_updot_bwd`` (input gradient on kernel 3, weight gradient in
+    PyTorch)."""
+
+    @staticmethod
+    def forward(ctx, x, w, dh_n, dw_n):
+        ctx.save_for_backward(x, w)
+        ctx.taps = (dh_n, dw_n)
+        return _valid(x, w, dh_n, dw_n)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dh_n, dw_n = ctx.taps
+        g = g.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _valid(dgrad_input(g, dh_n, dw_n), dgrad_weights(w), dh_n,
+                        dw_n, dgrad=True)
+        if ctx.needs_input_grad[1]:
+            dw = weight_grad(x, g, dh_n, dw_n)
+        return dx, dw, None, None
+
+
+def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int,
+                  dw_n: int) -> torch.Tensor:
+    """x (B, Hp, Wp, Cin), w (Dh*Dw, Cin, N) tap-major -> y (B, HO, WO, N)
+    with HO = Hp - Dh + 1, WO = Wp - Dw + 1; float32 accumulation. A CPU
+    tensor takes the plain version (plain autograd); a CUDA tensor
+    :class:`TapconvValid`. On the card the kernel picks its tile from the
+    shape (128 or 64 pixels, two halo-tile stages or one) and takes every
+    window whose 64-pixel halo tile fits shared memory, Dh * (63 + Dw) <= 931
+    (12 x 12 and smaller); beyond that the launch is refused and the call
+    raises. Where autograd follows neither operand the kernel runs without
+    the Function."""
+    if x.device.type == "cpu":
+        return tapconv_valid_plain(x, w, dh_n, dw_n)
+    _out_shape(x, w, dh_n, dw_n)
+    if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        return _launch(x, w, dh_n, dw_n)
+    return TapconvValid.apply(x, w, dh_n, dw_n)

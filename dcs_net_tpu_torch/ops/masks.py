@@ -1,10 +1,26 @@
-"""The complex ratio-mask bound on (re, im) pairs."""
+"""Complex ratio-mask math on (re, im) pairs: the target mask and the bound.
+The real family's target (``real_subtractive_target``) is not yet ported."""
 
 from __future__ import annotations
 
 import torch
 
 from dcs_net_tpu_torch.utils.carray import CArray
+
+
+def crm(S: CArray, Y: CArray, eps: float = 1e-8) -> CArray:
+    """Complex ratio mask M = (conj(Y) S) / (|Y|^2 + eps) of the target S
+    over the noisy Y, componentwise."""
+    denom = Y.re * Y.re + Y.im * Y.im + eps
+    return CArray((Y.re * S.re + Y.im * S.im) / denom,
+                  (Y.re * S.im - Y.im * S.re) / denom)
+
+
+def real_subtractive_target(noise_mag: torch.Tensor,
+                            noisy_mag: torch.Tensor) -> torch.Tensor:
+    raise NotImplementedError(
+        "the real family's target mask (DRS) is not yet ported: ROADMAP "
+        "Queue 1 item 3")
 
 
 def bound_crm(M: CArray, atan2_eps: float) -> CArray:

@@ -1,0 +1,75 @@
+"""The optimizer stack with the JAX package's semantics (``train/optim.py``),
+on PyTorch's own Adam.
+
+``torch.optim.Adam(lr=1e-4, eps=1e-6, weight_decay=1e-4, amsgrad=True)``
+couples the weight decay into the gradient (L2, not AdamW) after the global
+gradient norm is clipped to 100 (``clip_grad_norm_``); the JAX package's
+``scale_by_torch_adam`` mirrors exactly this. On the card the optimizer is
+``capturable``: its step counts live on the device beside the moments, so
+the NaN gate (``train/steps.py``) can keep a skipped step's whole state on
+the device without a host round trip; :func:`make_optimizer` creates the
+state at once for the same reason. The plateau schedule is torch's own
+``ReduceLROnPlateau`` (:func:`make_plateau`), of which the JAX package keeps a
+mirror. SWA is not yet ported (ROADMAP Queue 1 item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, List
+
+import torch
+
+from dcs_net_tpu_torch.core.config import OptimConfig
+
+
+def make_optimizer(params: Iterable[torch.nn.Parameter],
+                   cfg: OptimConfig) -> torch.optim.Adam:
+    """Adam with amsgrad and coupled L2 on ``params`` (all on one device),
+    its state created now: zero moments and a zero step count, on the
+    device (capturable) when that is CUDA."""
+    params = list(params)
+    on_card = params[0].device.type == "cuda"
+    opt = torch.optim.Adam(params, lr=cfg.lr, betas=(cfg.beta1, cfg.beta2),
+                           eps=cfg.eps, weight_decay=cfg.weight_decay,
+                           amsgrad=cfg.amsgrad, capturable=on_card)
+    for p in params:
+        st = {"step": torch.zeros((), dtype=torch.float32,
+                                  device=p.device if on_card else "cpu"),
+              "exp_avg": torch.zeros_like(p), "exp_avg_sq": torch.zeros_like(p)}
+        if cfg.amsgrad:
+            st["max_exp_avg_sq"] = torch.zeros_like(p)
+        opt.state[p] = st
+    return opt
+
+
+def optimizer_tensors(opt: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """Every tensor of the optimizer's state, step counts included."""
+    return [t for st in opt.state.values() for t in st.values()
+            if isinstance(t, torch.Tensor)]
+
+
+def global_grad_norm(grads: Iterable[torch.Tensor]) -> torch.Tensor:
+    """The L2 norm over every gradient, on the device."""
+    return torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+
+
+def step_count(opt: torch.optim.Optimizer) -> int:
+    """Adam's applied steps (the first parameter's step count; a step that
+    the NaN gate undid does not count). Reads the device."""
+    st = opt.state[opt.param_groups[0]["params"][0]]
+    return int(st["step"])
+
+
+def get_lr(opt: torch.optim.Optimizer) -> float:
+    return float(opt.param_groups[0]["lr"])
+
+
+def make_plateau(opt: torch.optim.Optimizer, cfg: OptimConfig
+                 ) -> torch.optim.lr_scheduler.ReduceLROnPlateau:
+    """ReduceLROnPlateau on the minimum of the monitored metric, relative
+    threshold; ``eps=0`` so that every reduction above ``min_lr`` is taken,
+    as in the JAX package's mirror."""
+    return torch.optim.lr_scheduler.ReduceLROnPlateau(
+        opt, mode="min", factor=cfg.plateau_factor, patience=cfg.plateau_patience,
+        threshold=cfg.plateau_threshold, min_lr=cfg.plateau_min_lr, eps=0.0)

@@ -1,0 +1,162 @@
+"""The forward + mask + loss pipeline of the complex variants (DC, DCS) and
+the train step, the port's copy of the JAX package's ``train/steps.py``.
+
+``batch_from_waves`` runs the STFT on the device (kernel 1, one launch for
+the noise, noisy and clean streams stacked). ``train_step`` is forward ->
+losses -> backward (kernels 2 and 3 carry the gradients on the card) ->
+clip -> Adam, with the NaN gate of the JAX step: where the loss, or unless
+``Quirks.nan_gate_loss_only`` the gradient norm, is not finite, the step
+leaves parameters, optimizer state (step counts included) and the BN running
+statistics exactly as they were. The gate keeps a flat copy of that state
+and selects with ``torch.where`` on the device, as the JAX step's branchless
+``where`` does: no host sync. The real family (DR, DRS) is not yet ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, List, NamedTuple, Tuple
+
+import torch
+
+from dcs_net_tpu_torch.core.config import Config
+from dcs_net_tpu_torch.dsp import stft as dsp
+from dcs_net_tpu_torch.ops import masks as M
+from dcs_net_tpu_torch.train import losses as L
+from dcs_net_tpu_torch.train.optim import optimizer_tensors
+from dcs_net_tpu_torch.utils.carray import CArray
+
+Tensor = torch.Tensor
+
+
+class Batch(NamedTuple):
+    """STFT-domain batch: CArray spectrograms (B, F, T), DC bin dropped."""
+
+    noise: CArray
+    noisy: CArray
+    clean: CArray
+
+
+def batch_from_waves(noisy: Tensor, clean: Tensor, cfg: Config) -> Batch:
+    """Waveforms (B, n) on the device -> STFT Batch; noise = noisy - clean
+    before the transform."""
+    spec = dsp.stft(torch.stack([noisy - clean, noisy, clean]), cfg.stft)
+    return Batch(noise=spec[0], noisy=spec[1], clean=spec[2])
+
+
+def _stack(*xs: CArray) -> CArray:
+    return CArray(torch.stack([x.re for x in xs]), torch.stack([x.im for x in xs]))
+
+
+def run_model_and_masks(apply_mask_net: Callable[[CArray], CArray],
+                        batch: Batch, cfg: Config) -> Dict[str, object]:
+    """Mask prediction and application, shared by train and eval: the audio
+    streams (the three references through one iSTFT, the predictions
+    through another) and the masks. ``apply_mask_net`` maps the noisy
+    spectrogram to the bounded mask."""
+    if not cfg.model.complex_valued:
+        raise NotImplementedError(
+            "the real family (DR/DRS) is not yet ported: ROADMAP Queue 1 item 3")
+    q = cfg.quirks
+    eps = cfg.model.atan2_eps
+    refs = dsp.spec_to_wave(_stack(batch.noise, batch.noisy, batch.clean),
+                            cfg.stft, atan2_eps=eps, pad_top=q.istft_pad_top_bin,
+                            polar=q.polar_resynthesis)
+    out: Dict[str, object] = {"noise_audio": refs[0], "noisy_audio": refs[1],
+                              "clean_audio": refs[2]}
+    pred_out = apply_mask_net(batch.noisy)
+    pred_mask = M.bound_crm(pred_out, eps) if q.double_bound_mask else pred_out
+    if cfg.model.subtractive:   # DCS
+        target_mask = M.bound_crm(M.crm(batch.noise, batch.noisy,
+                                        cfg.loss.crm_eps), eps)
+        pred_noise = batch.noisy * pred_mask
+        pred_clean = batch.noisy - pred_noise
+        waves = dsp.spec_to_wave(_stack(pred_noise, pred_clean), cfg.stft,
+                                 atan2_eps=eps, pad_top=q.istft_pad_top_bin,
+                                 polar=q.polar_resynthesis)
+        out.update(target_mask=target_mask, pred_mask=pred_mask,
+                   predict_noise_audio=waves[0], predict_clean_audio=waves[1])
+    else:                       # DC
+        out.update(pred_mask=pred_mask, predict_clean_audio=dsp.spec_to_wave(
+            batch.noisy * pred_mask, cfg.stft, atan2_eps=eps,
+            pad_top=q.istft_pad_top_bin, polar=q.polar_resynthesis))
+    return out
+
+
+def pipeline_losses(out: Dict[str, object], cfg: Config) -> Dict[str, Tensor]:
+    return L.calc_loss(
+        cfg, clean_audio=out["clean_audio"],
+        predict_clean_audio=out["predict_clean_audio"],
+        target_mask=out.get("target_mask"), predict_mask=out.get("pred_mask"),
+        noise_audio=out.get("noise_audio"), noisy_audio=out.get("noisy_audio"),
+        predict_noise_audio=out.get("predict_noise_audio"))
+
+
+def loss_and_grads(model: torch.nn.Module, batch: Batch, cfg: Config
+                   ) -> Tuple[Tensor, List[Tensor]]:
+    """(loss, gradient of every parameter) in train mode, without the
+    optimizer update. The BN running statistics move, as in any train-mode
+    forward."""
+    model.train()
+    params = [p for p in model.parameters() if p.requires_grad]
+    loss = pipeline_losses(run_model_and_masks(model, batch, cfg), cfg)["loss"]
+    return loss.detach(), list(torch.autograd.grad(loss, params))
+
+
+class _Snapshot:
+    """A flat copy of a list of tensors of one device and dtype, and the
+    branchless restore: ``t = where(bad, saved, t)`` for every tensor."""
+
+    def __init__(self, tensors: List[Tensor]):
+        self.tensors = tensors
+        self.saved = self._flat()
+
+    def _flat(self) -> Tensor:
+        return torch.cat([t.detach().reshape(-1) for t in self.tensors])
+
+    def restore_where(self, bad: Tensor) -> None:
+        now = self._flat()
+        torch.where(bad, self.saved, now, out=now)
+        views = now.split([t.numel() for t in self.tensors])
+        with torch.no_grad():
+            torch._foreach_copy_(self.tensors,
+                                 [v.view_as(t) for v, t in zip(views, self.tensors)])
+
+
+def train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
+               batch: Batch, cfg: Config) -> Dict[str, Tensor]:
+    """One step in train mode: forward, losses, backward, clip, Adam, NaN
+    gate. Returns the losses, ``grad_norm`` (before clipping) and, with the
+    gate on, ``skipped`` (1.0 where the step was undone), all as device
+    scalars."""
+    model.train()
+    params = [p for p in model.parameters() if p.requires_grad]
+    gated = cfg.optim.nan_skip
+    if gated:
+        snap = _Snapshot(params + list(model.buffers()) + optimizer_tensors(opt))
+    opt.zero_grad(set_to_none=True)
+    losses = pipeline_losses(run_model_and_masks(model, batch, cfg), cfg)
+    loss = losses["loss"]
+    loss.backward()
+    gnorm = torch.nn.utils.clip_grad_norm_(params, cfg.optim.clip_norm)
+    opt.step()
+    out = {k: v.detach() for k, v in losses.items()}
+    if gated:
+        bad = ~torch.isfinite(loss.detach())
+        if not cfg.quirks.nan_gate_loss_only:
+            bad = bad | ~torch.isfinite(gnorm)
+        snap.restore_where(bad)
+        out["skipped"] = bad.float()
+    out["grad_norm"] = gnorm.detach()
+    return out
+
+
+def eval_step(model: torch.nn.Module, batch: Batch, cfg: Config
+              ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """Eval-mode forward without autograd: losses and the audio streams
+    (keys without the ``_audio`` suffix)."""
+    model.eval()
+    with torch.no_grad():
+        out = run_model_and_masks(model, batch, cfg)
+        losses = pipeline_losses(out, cfg)
+    audio = {k[:-len("_audio")]: v for k, v in out.items() if k.endswith("_audio")}
+    return losses, audio

@@ -11,11 +11,13 @@ import jax
 import jax.numpy as jnp
 
 from dcs_net_tpu.ops import conv_engine as jce
+from dcs_net_tpu.ops import pallas_conv
 from dcs_net_tpu.ops.pallas_conv import _conv_fwd_pallas, _conv_fwd_xla
 from dcs_net_tpu.ops.pallas_tapconv import tapconv_valid as jax_tapconv
 
-from dcs_net_tpu_torch.ops import conv_engine as tce
+from dcs_net_tpu_torch.ops import attention, conv_engine as tce
 from dcs_net_tpu_torch.ops import cuda_conv, cuda_tapconv
+from dcs_net_tpu_torch.utils.carray import CArray
 
 
 def _np(shape, seed, scale=1.0):
@@ -406,3 +408,184 @@ def test_spatial_gate_plain_is_the_eager_sequence(shape):
     got_re, got_im = cuda_conv.spatial_gate(re, im, w)
     torch.testing.assert_close(got_re, z.real, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got_im, z.imag, rtol=1e-5, atol=1e-5)
+
+
+def _close(got, want, rel=1e-5):
+    """|got - want| <= rel * max |want|: the bound the Functions' backward
+    rules are held to against the JAX package's."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=0, atol=rel * float(np.abs(want).max()))
+
+
+def _function_grads(fn, inputs, g):
+    """Forward ``fn`` on leaf copies of ``inputs``, then backward with ``g``:
+    (output, the inputs' gradients)."""
+    leaves = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    y = fn(*leaves)
+    y.backward(torch.from_numpy(g))
+    return y.detach().numpy(), [t.grad.numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("shape,k,cout", SMALL_COUT)
+def test_conv_same_function_backward_matches_jax_bwd(shape, k, cout):
+    """Conv2dSameSmallCout's forward and backward on CPU tensors against the
+    JAX custom_vjp's forward (Pallas, interpret mode) and backward rule
+    (``pallas_conv._bwd``): dx, dw, db."""
+    x, w, b = _np(shape, 70), _np((k, k, shape[-1], cout), 71, 0.1), _np((cout,), 72)
+    g = _np(shape[:3] + (cout,), 73)
+    y, (dx, dw, db) = _function_grads(cuda_conv.Conv2dSameSmallCout.apply, (x, w, b), g)
+    want_y = _conv_fwd_pallas(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b),
+                              interpret=True)
+    want = jax.jit(pallas_conv._bwd)((jnp.asarray(x), jnp.asarray(w)), jnp.asarray(g))
+    _close(y, want_y)
+    for got, ref in zip((dx, dw, db), want):
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("shape,k,cout", SMALL_COUT)
+def test_conv_same_dgrad_is_the_forward_with_the_flipped_kernel(shape, k, cout):
+    """The input gradient of the plain conv equals the plain conv of the
+    upstream gradient with ``dgrad_kernel(w)``, Cin and Cout swapped (for
+    the spatial attention (7, 4, 2) -> (7, 2, 4)), zero bias; and the weight
+    gradient equals ``weight_grad``."""
+    x = torch.from_numpy(_np(shape, 74)).requires_grad_()
+    w = torch.from_numpy(_np((k, k, shape[-1], cout), 75, 0.1)).requires_grad_()
+    g = torch.from_numpy(_np(shape[:3] + (cout,), 76))
+    cuda_conv.conv2d_same_small_cout_plain(x, w, torch.zeros(cout)).backward(g)
+    wt = cuda_conv.dgrad_kernel(w.detach())
+    assert wt.shape == (k, k, cout, shape[-1])
+    dx = cuda_conv.conv2d_same_small_cout_plain(g, wt, torch.zeros(shape[-1]))
+    torch.testing.assert_close(dx, x.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(cuda_conv.weight_grad(x.detach(), g, k), w.grad,
+                               rtol=1e-5, atol=1e-5)
+
+
+# kernel 3's input gradient at the train step's decoder classes: dec0-dec5
+# carry many channels both ways; dec6's unified N = 2x2 phases x 2 = 8 becomes
+# the input gradient's Cin' = 8, a quarter of one 32-channel chunk
+TAPCONV_GRAD = [
+    ((2, 6, 9, 64), (3, 3), 32),
+    ((2, 10, 12, 32), (3, 3), 8),       # dec6's class: Cin' = 8, N' = 32
+    ((2, 5, 7, 24), (2, 2), 12),
+]
+
+
+@pytest.mark.parametrize("shape,taps,n", TAPCONV_GRAD)
+def test_tapconv_function_backward_matches_jax_updot(shape, taps, n):
+    """TapconvValid's forward and backward on CPU tensors against
+    ``jax.vjp`` through the JAX package's ``_updot`` custom_vjp (its XLA
+    forward on the CPU, ``_updot_bwd``): dxp and dkbig."""
+    dh_n, dw_n = taps
+    x, w = _np(shape, 77), _np((dh_n * dw_n, shape[-1], n), 78, 0.1)
+    g = _np((shape[0], shape[1] - dh_n + 1, shape[2] - dw_n + 1, n), 79)
+    y, (dx, dw) = _function_grads(
+        lambda a, b: cuda_tapconv.TapconvValid.apply(a, b, dh_n, dw_n), (x, w), g)
+    want_y, vjp = jax.vjp(lambda a, b: jce._updot(a, b, taps), jnp.asarray(x),
+                          jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(g))
+    _close(y, want_y)
+    _close(dx, want_dx)
+    _close(dw, want_dw)
+
+
+@pytest.mark.parametrize("shape,taps,n", TAPCONV_GRAD)
+def test_tapconv_dgrad_is_a_valid_tap_correlation(shape, taps, n):
+    """The input gradient of the plain tap correlation equals the plain tap
+    correlation of the upstream gradient padded by (Dh - 1, Dw - 1) with
+    ``dgrad_weights(w)`` (Cin' = N, N' = Cin), exactly (B, Hp, Wp, Cin); the
+    weight gradient equals ``weight_grad``."""
+    dh_n, dw_n = taps
+    x = torch.from_numpy(_np(shape, 80)).requires_grad_()
+    w = torch.from_numpy(_np((dh_n * dw_n, shape[-1], n), 81, 0.1)).requires_grad_()
+    g = torch.from_numpy(_np((shape[0], shape[1] - dh_n + 1, shape[2] - dw_n + 1, n), 82))
+    cuda_tapconv.tapconv_valid_plain(x, w, dh_n, dw_n).backward(g)
+    gp = cuda_tapconv.dgrad_input(g, dh_n, dw_n)
+    wt = cuda_tapconv.dgrad_weights(w.detach())
+    assert wt.shape == (dh_n * dw_n, n, shape[-1])
+    dx = cuda_tapconv.tapconv_valid_plain(gp, wt, dh_n, dw_n)
+    assert dx.shape == shape
+    torch.testing.assert_close(dx, x.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(cuda_tapconv.weight_grad(x.detach(), g, dh_n, dw_n),
+                               w.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_conv_same_off_the_cpu_carries_gradients_through_kernel_2(monkeypatch):
+    """Meta tensors stand in for the card's: the conv's output is attached to
+    Conv2dSameSmallCout, whose backward launches kernel 2 once more for the
+    input gradient (class (7, 2, 4): the generic body), counted as DGRAD."""
+    fwd, dgrad = _Recorder(), _Recorder()
+    monkeypatch.setattr(cuda_conv, "KERNEL", fwd)
+    monkeypatch.setattr(cuda_conv, "DGRAD", dgrad)
+    x = torch.empty((4, 16, 251, 4), device="meta", requires_grad=True)
+    w = torch.empty((7, 7, 4, 2), device="meta", requires_grad=True)
+    b = torch.empty(2, device="meta", requires_grad=True)
+    y = cuda_conv.conv2d_same_small_cout(x, w, b)
+    assert type(y.grad_fn).__name__ == "Conv2dSameSmallCoutBackward"
+    assert len(fwd.calls) == 1 and not dgrad.calls
+    y.backward(torch.empty_like(y))
+    (args,) = dgrad.calls
+    assert args[4:] == (4, 16, 251, 2, 7, 4) + cuda_conv.GENERIC_TILE
+    assert len(fwd.calls) == 1
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape and b.grad.shape == b.shape
+
+
+def test_tapconv_off_the_cpu_carries_gradients_through_kernel_3(monkeypatch):
+    """The tap conv's output is attached to TapconvValid; its backward packs
+    the flipped, transposed weights and launches kernel 3 on the padded
+    gradient (Cin' = N = 8, N' = Cin = 32: dec6's class), counted apart."""
+    recs = {name: _Recorder() for name in ("KERNEL", "PACK", "DGRAD", "DGRAD_PACK")}
+    for name, rec in recs.items():
+        monkeypatch.setattr(cuda_tapconv, name, rec)
+    x = torch.empty((2, 130, 258, 32), device="meta", requires_grad=True)
+    w = torch.empty((9, 32, 8), device="meta", requires_grad=True)
+    y = cuda_tapconv.tapconv_valid(x, w, 3, 3)
+    assert type(y.grad_fn).__name__ == "TapconvValidBackward"
+    y.backward(torch.empty_like(y))
+    assert [len(recs[k].calls) for k in ("KERNEL", "PACK", "DGRAD", "DGRAD_PACK")] == [1, 1, 1, 1]
+    assert recs["DGRAD"].calls[0][3:] == (2, 132, 260, 8, 3, 3, 32, cuda_tapconv.tile_n(32))
+    assert recs["DGRAD_PACK"].calls[0][2:] == (9, 8, 32, cuda_tapconv.tile_n(32))
+    assert x.grad.shape == x.shape and w.grad.shape == w.shape
+
+
+def test_fused_gate_raises_under_grad_and_the_module_unfuses(monkeypatch):
+    """The pool and gate entries are forward-only: on the card, under grad,
+    they raise. ComplexSpatialAttention.gate then takes the un-fused form,
+    whose conv is Conv2dSameSmallCout; under no_grad it keeps the fused
+    pool + gate launches."""
+    recs = {name: _Recorder() for name in ("KERNEL", "POOL", "GATE")}
+    for name, rec in recs.items():
+        monkeypatch.setattr(cuda_conv, name, rec)
+    re = torch.empty((2, 8, 20, 16), device="meta", requires_grad=True)
+    w = torch.empty((7, 7, 4, 2), device="meta")
+    with pytest.raises(RuntimeError, match="forward-only"):
+        cuda_conv.sa_pool(re, re)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        cuda_conv.sa_gate(torch.empty((2, 8, 20, 4), device="meta"), w, re, re)
+    sa = attention.ComplexSpatialAttention(7).to("meta")
+    x = CArray(re, torch.empty_like(re))
+    out = sa.gate(x)
+    assert len(recs["KERNEL"].calls) == 1 and not recs["POOL"].calls
+    assert out.re.requires_grad
+    with torch.no_grad():
+        sa.gate(x)
+    assert len(recs["POOL"].calls) == 1 and len(recs["GATE"].calls) == 1
+
+
+def test_kernels_skip_their_function_where_autograd_follows_nothing(monkeypatch):
+    """Under no_grad, or on operands that need no gradient, kernels 2 and 3
+    launch without their autograd Function (the enhance paths' host cost
+    stays as it was): one forward launch each, no grad_fn."""
+    conv, tap, pack = _Recorder(), _Recorder(), _Recorder()
+    monkeypatch.setattr(cuda_conv, "KERNEL", conv)
+    monkeypatch.setattr(cuda_tapconv, "KERNEL", tap)
+    monkeypatch.setattr(cuda_tapconv, "PACK", pack)
+    x = torch.empty((2, 16, 20, 4), device="meta", requires_grad=True)
+    w = torch.empty((7, 7, 4, 2), device="meta", requires_grad=True)
+    b = torch.empty(2, device="meta")
+    xt = torch.empty((2, 10, 12, 32), device="meta")
+    wt = torch.empty((9, 32, 8), device="meta")
+    with torch.no_grad():
+        assert cuda_conv.conv2d_same_small_cout(x, w, b).grad_fn is None
+    assert cuda_tapconv.tapconv_valid(xt, wt, 3, 3).grad_fn is None
+    assert len(conv.calls) == len(tap.calls) == len(pack.calls) == 1

@@ -239,7 +239,9 @@ def test_spatial_gate_other_kernel_size_takes_the_unfused_path():
 def test_packed_kernel_is_kept_and_follows_the_weights():
     """Without autograd the packed block kernel is built once; a
     ``load_state_dict``, an in-place update and a dtype/device move each
-    replace it; with autograd on it is rebuilt so gradients reach the weights."""
+    replace it. It serves the forward-only fused gate alone, so it stays
+    detached with autograd on; the gate then takes the un-fused form, through
+    which gradients reach the weights."""
     gen = torch.Generator().manual_seed(1)
     sa = tatt.ComplexSpatialAttention(7, generator=gen)
     other = tatt.ComplexSpatialAttention(7, generator=gen)
@@ -275,7 +277,7 @@ def test_packed_kernel_is_kept_and_follows_the_weights():
         sa.train()
         assert sa.packed_kernel() is sa.packed_kernel()      # no autograd: kept
 
-    assert sa.packed_kernel().requires_grad                  # autograd: rebuilt
+    assert not sa.packed_kernel().requires_grad              # inference only
     out = sa.gate(x)
     (out.re.sum() + out.im.sum()).backward()
     assert sa.conv.weight_r.grad is not None and float(sa.conv.weight_r.grad.abs().max()) > 0

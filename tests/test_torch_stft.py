@@ -272,3 +272,45 @@ def test_entry_point_is_chosen_from_the_shape(n_fft, hop, entry):
     assert stft_cuda.choose_entry(n_fft, hop) == entry
     tables = stft_cuda.fft_tables(np.ones(n_fft))
     assert (tables is None) == (n_fft not in stft_cuda.FFT_RADICES)
+
+
+@pytest.mark.parametrize("shape,center", [((2, 2016), True), ((1, 8160), True),
+                                          ((2, 992), False)])
+def test_stft_function_backward_matches_jax_adjoint(shape, center):
+    """The STFT Function's backward (``stft_adjoint``: basis transpose,
+    overlap-add, the reflect padding folded back) on a CPU tensor against
+    ``jax.vjp`` through ``stft_pallas`` (interpret mode), whose backward is
+    ``_adjoint``; within 1e-5 of the largest gradient."""
+    import dataclasses
+
+    jcfg = dataclasses.replace(JCFG, center=center)
+    tcfg = dataclasses.replace(TCFG, center=center)
+    x = _wave(shape, 20)
+    n_frames = 1 + (shape[1] + (TCFG.n_fft if center else 0) - TCFG.n_fft) // TCFG.hop
+    g_re, g_im = _wave((shape[0], 256, n_frames), 21), _wave((shape[0], 256, n_frames), 22)
+    with jax.default_matmul_precision("highest"):
+        _, vjp = jax.vjp(lambda v: stft_pallas(v, jcfg, True), jnp.asarray(x))
+        (want,) = vjp(JaxCArray(jnp.asarray(g_re), jnp.asarray(g_im)))
+    xt = torch.from_numpy(x).requires_grad_()
+    re, im = tdsp.STFT.apply(xt, tcfg)
+    torch.autograd.backward((re, im), (torch.from_numpy(g_re), torch.from_numpy(g_im)))
+    want = np.asarray(want)
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=0,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+def test_stft_off_the_cpu_is_the_function_and_launches_kernel_1(monkeypatch):
+    """On the card (meta tensors here) ``stft`` runs kernel 1 through the
+    STFT Function, so the spectrogram stays attached to autograd; where
+    autograd does not follow (enhance, under no_grad) it launches the kernel
+    alone."""
+    calls = []
+    monkeypatch.setattr(stft_cuda, "KERNEL", lambda dev, *args: calls.append(args))
+    x = torch.empty((3, 8160), device="meta", requires_grad=True)
+    spec = tdsp.stft(x, TCFG)
+    assert len(calls) == 1 and spec.shape == (3, 256, 256)
+    assert type(spec.re.grad_fn).__name__ == "ViewBackward0"
+    assert type(spec.re.grad_fn.next_functions[0][0]).__name__ == "STFTBackward"
+    with torch.no_grad():
+        assert tdsp.stft(x, TCFG).re.grad_fn is None
+    assert len(calls) == 2
