@@ -41,7 +41,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
                centering, kernel 2's three entries at odd and tiny shapes and
                other (K, Cin, Cout), kernel 3 at ragged shapes and at windows
                up to 12x12, and kernel 3's packed weights bit for bit against
-               the PyTorch layout helper;
+               the PyTorch layout helper; the two input-gradient entries at
+               ragged shapes (kernel 3's under every tiling that fits, its
+               flipped packing bit for bit), timed beside the routes they
+               replaced and ``conv2d_input``;
   6. cli     -- a 48 kHz wav through ``python -m dcs_net_tpu_torch.cli.enhance``
                (``main``), full and with ``--stream``, read back and checked;
   7. train   -- the full-width DCS train step (faithful quirks, batch 32 x
@@ -51,8 +54,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
                each, the fused gate never); (b) at every shape of the step,
                the three Functions' outputs and input and weight gradients
                (``torch.autograd.grad``) against their plain versions under
-               autograd (<= 1e-4 of max |plain|), the two input-gradient
-               launches timed as kernel rows and the weight-gradient
+               autograd (<= 1e-4 of max |plain|; the tap conv as the decoder
+               calls it, x and its padding), the two input-gradient
+               launches timed as kernel rows beside the routes they replaced
+               (``earlier_ms``; a slower shape is printed) and the weight-gradient
                contractions printed beside ``torch.nn.grad``'s; (c) one step
                at batch 4, dropout off, card vs CPU from the same weights:
                loss and gradient norm rtol 1e-3, every gradient leaf in the
@@ -114,15 +119,17 @@ KERNEL_INFO = {
                       TF32X3_FLOPS_PER_S),
     # input gradients, which the JAX package's custom_vjp backward rules
     # compute in XLA: the conv entry on the flipped, transposed kernel
-    # (class (7, 2, 4): the generic body), and the tap conv with its packing
-    # on the padded gradient and the flipped, transposed weights
+    # (class (7, 2, 4): the register-tiled body over float2 pixels), and the
+    # tap conv's input-gradient entry (multi-row tiles, g read unpadded, dx
+    # of the kept pixels only) with its flipped packing
     "conv_same_small_cout_dgrad": ("dcs_net_tpu_torch/csrc/conv_same.cu",
                                    "dcs_net_tpu/ops/pallas_conv.py:210",
-                                   "simt-f32-generic-input-gradient",
+                                   "simt-f32-register-tiled-input-gradient",
                                    F32_FLOPS_PER_S),
     "tapconv_valid_dgrad": ("dcs_net_tpu_torch/csrc/tapconv.cu",
                             "dcs_net_tpu/ops/conv_engine.py:879",
-                            "3xtf32-wgmma-input-gradient", TF32X3_FLOPS_PER_S),
+                            "3xtf32-wgmma-input-gradient-multirow",
+                            TF32X3_FLOPS_PER_S),
 }
 # what the slice does not launch: kernel 1's dense entry point at a size that
 # is no power of two (B, n, n_fft, hop); its FFT entry point at the other
@@ -144,6 +151,21 @@ GATE_EXTRA = [(1, 5, 3, 1), (2, 7, 9, 6), (3, 17, 129, 12), (32, 4, 8, 16),
               (1, 3, 70, 20), (1, 1, 1, 4), (2, 33, 300, 8)]
 CONV_EXTRA = [((2, 9, 40, 4), 3, 2), ((2, 16, 33, 4), 5, 8), ((1, 7, 5, 3), 7, 2),
               ((3, 20, 50, 6), 7, 16), ((32, 6, 10, 4), 7, 3)]
+# the input gradients off the path. Kernel 3's entry: H = 1, W = 1, 33, 65
+# and 130, B = 1, Cin' (the forward's N) 5, 8, 12 and 33, N' (its Cin) 5, 32
+# and 130, windows 2x2, 5x5 and 12x12, padding uneven
+# ((B, H, W), N, Cin, (Dh, Dw), (top, bottom, left, right)); kernel 2's
+# (7, 2, 4) body: odd H and W, W below a run ((B, H, W))
+DGRAD_EXTRA = [((2, 1, 65), 8, 32, (3, 3), (1, 1, 1, 1)),
+               ((3, 6, 1), 12, 5, (3, 3), (1, 1, 1, 1)),
+               ((1, 5, 33), 33, 130, (3, 3), (1, 1, 1, 1)),
+               ((2, 3, 130), 5, 32, (3, 3), (1, 1, 1, 1)),
+               ((1, 7, 40), 8, 5, (2, 2), (0, 1, 1, 0)),
+               ((2, 9, 65), 12, 130, (5, 5), (2, 2, 0, 4)),
+               ((1, 14, 33), 33, 32, (12, 12), (5, 6, 6, 5)),
+               ((32, 2, 32), 64, 128, (3, 3), (1, 1, 1, 1))]
+CONV_DGRAD_EXTRA = [(1, 5, 3), (2, 7, 9), (3, 17, 129), (32, 4, 8), (1, 1, 1),
+                    (2, 33, 300), (1, 3, 70)]
 TAPCONV_EXTRA = [((2, 10, 9, 64), (3, 3), 32), ((2, 5, 7, 24), (2, 2), 12),
                  ((2, 5, 140, 7), (3, 3), 5), ((1, 4, 300, 36), (1, 1), 130),
                  ((2, 40, 150, 40), (5, 5), 128), ((1, 9, 100, 72), (7, 7), 100),
@@ -355,7 +377,8 @@ def kernel_cases(name, args, dev, cfg):
                 nbytes, flops, None, {})
     if name == "conv_same_small_cout_dgrad":
         # launched with x = the upstream gradient g (B, H, W, Cout of the
-        # forward) and the dgrad kernel; the least work is the forward's
+        # forward) and the dgrad kernel; the least work is the forward's.
+        # earlier_ms: the generic body, which ran this class before
         B, H, W, cout, K, cin = args[:6]
         gy = randn(B, H, W, cout)
         w = randn(K, K, cin, cout, scale=0.1)
@@ -367,25 +390,48 @@ def kernel_cases(name, args, dev, cfg):
                 lambda: torch.nn.grad.conv2d_input((B, cin, H, W), w_oihw, g_nchw,
                                                    padding=K // 2),
                 4 * (gy.numel() + w.numel() + B * H * W * cin),
-                2 * B * H * W * K * K * cin * cout, None, {})
+                2 * B * H * W * K * K * cin * cout, None,
+                {"earlier_ms": lambda: cuda_conv.launch_conv(
+                    gy, wt, zero, cuda_conv.GENERIC_TILE)})
     if name == "tapconv_valid_dgrad":
-        # launched on g (B, HO, WO, N) padded by (Dh - 1, Dw - 1) with the
-        # flipped, transposed weights: Cin' = N, N' = Cin. The least work is
-        # the forward's: g read, w read, dx (B, Hp, Wp, Cin) written
-        B, hp2, wp2, n, dh, dw, cin = args[:7]
-        ho, wo = hp2 - 2 * (dh - 1), wp2 - 2 * (dw - 1)
-        hp, wp = ho + dh - 1, wo + dw - 1
+        # g (B, HO, WO, N) -> dx (B, H, W, Cin) of an input padded by pad.
+        # The least work is the forward's: g read, w read, dx written.
+        # earlier_ms: the route it replaced, the forward entry on g padded
+        # by (Dh - 1, Dw - 1) with the flipped, transposed weights (both
+        # copies), which wrote the padded input's gradient
+        B, ho, wo, n, H, W, cin, dh, dw, top, left = args[:11]
+        pad = (top, ho - H - top + dh - 1, left, wo - W - left + dw - 1)
         gy = randn(B, ho, wo, n)
         w = randn(dh * dw, cin, n, scale=1.0 / math.sqrt(dh * dw * cin))
-        gp, wt = cuda_tapconv.dgrad_input(gy, dh, dw), cuda_tapconv.dgrad_weights(w)
-        g_nchw = gy.permute(0, 3, 1, 2).contiguous()
-        w_oihw = w.reshape(dh, dw, cin, n).permute(3, 2, 0, 1).contiguous()
-        return (lambda: cuda_tapconv._launch(gp, wt, dh, dw, dgrad=True),
-                lambda: cuda_tapconv.tapconv_valid_plain(gp, wt, dh, dw),
-                lambda: torch.nn.grad.conv2d_input((B, cin, hp, wp), w_oihw, g_nchw),
-                4 * (gy.numel() + w.numel() + B * hp * wp * cin),
-                2 * B * ho * wo * dh * dw * cin * n, None, {})
+        return (lambda: cuda_tapconv._launch_dgrad(gy, w, dh, dw, pad, (H, W)),
+                lambda: cuda_tapconv.tapconv_dgrad_plain(gy, w, dh, dw, pad, (H, W)),
+                tapconv_input_grad_library(gy, w, dh, dw, pad, (H, W)),
+                4 * (gy.numel() + w.numel() + B * H * W * cin),
+                2 * B * ho * wo * dh * dw * cin * n, None,
+                {"earlier_ms": lambda: cuda_tapconv._launch(
+                    cuda_tapconv.dgrad_input(gy, dh, dw), cuda_tapconv.dgrad_weights(w),
+                    dh, dw)})
     raise KeyError(name)
+
+
+def tapconv_input_grad_library(gy, w, dh, dw, pad, hw):
+    """One ``torch.nn.grad.conv2d_input`` call for kernel 3's input
+    gradient: symmetric padding as the conv's own; otherwise the gradient of
+    the padded input, of which x's pixels are a view."""
+    import torch
+
+    B, _, _, n = gy.shape
+    cin = w.shape[1]
+    top, bottom, left, right = pad
+    H, W = hw
+    g_nchw = gy.permute(0, 3, 1, 2).contiguous()
+    w_oihw = w.reshape(dh, dw, cin, n).permute(3, 2, 0, 1).contiguous()
+    if top == bottom and left == right:
+        return lambda: torch.nn.grad.conv2d_input((B, cin, H, W), w_oihw, g_nchw,
+                                                  padding=(top, left))
+    shape = (B, cin, H + top + bottom, W + left + right)
+    return lambda: torch.nn.grad.conv2d_input(shape, w_oihw, g_nchw)[
+        :, :, top:top + H, left:left + W]
 
 
 def check_kernels(shapes, launches, dev, cfg, card, where):
@@ -432,8 +478,11 @@ def check_kernels(shapes, launches, dev, cfg, card, where):
                     fail(f"{name} at {args}: error {rel:.3e} relative to max "
                          f"|plain| exceeds {REL_TOL}")
                 if "earlier_ms" in t and t["ms"] > t["earlier_ms"]:
-                    fail(f"{name} at {args}: {t['ms']:.4f} ms, slower than the "
-                         f"body it replaced ({t['earlier_ms']:.4f} ms)")
+                    if not name.endswith("_dgrad"):
+                        fail(f"{name} at {args}: {t['ms']:.4f} ms, slower than the "
+                             f"body it replaced ({t['earlier_ms']:.4f} ms)")
+                    print(f"SLOW: {name} at {args}: {t['ms']:.4f} ms, slower than "
+                          f"the route it replaced ({t['earlier_ms']:.4f} ms)", flush=True)
                 max_abs, max_rel = max(max_abs, err), max(max_rel, rel)
             for k, v in timed[args].items():
                 tot[k] = None if v is None else tot.get(k, 0.0) + v
@@ -602,6 +651,115 @@ def check_tapconv_off_path(dev) -> None:
             fail(f"tapconv_pack at {shape}: layout differs from pack_weights")
 
 
+def check_dgrad_off_path(dev, card) -> None:
+    """The two input-gradient entries where the train step does not take
+    them, each against its plain version, timed beside the route it
+    replaced, the bound and ``conv2d_input``; kernel 3's entry under every
+    tiling that fits (flat or one row, 64 or 128 pixels), its flipped
+    packing bit for bit against ``pack_weights(dgrad_weights(w))``."""
+    import torch
+
+    from dcs_net_tpu_torch.ops import cuda_conv as cc
+    from dcs_net_tpu_torch.ops import cuda_tapconv as ct
+    from dcs_net_tpu_torch.utils.cuda_lib import ptr
+    from dcs_net_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 16)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    def forced(gy, w, dh, dw, pad, hw, flat, wgs):
+        B, ho, wo, n = gy.shape
+        cin = w.shape[1]
+        kb, bn = ct.dgrad_tiles(n, cin)
+        packed = torch.empty((-(-cin // bn), -(-n // kb), dh * dw, 2, kb // 4, bn, 4),
+                             device=dev)
+        dx = torch.empty((B,) + tuple(hw) + (cin,), device=dev)
+        ct.DGRAD_PACK(dev, ptr(w), ptr(packed), dh * dw, cin, n, kb, bn)
+        ct.DGRAD(dev, ptr(gy), ptr(packed), ptr(dx), B, ho, wo, n, hw[0], hw[1], cin,
+                 dh, dw, pad[0], pad[2], flat, wgs, kb, bn)
+        return dx, packed
+
+    for (B, H, W), n, cin, (dh, dw), pad in DGRAD_EXTRA:
+        ho, wo = H + pad[0] + pad[1] - dh + 1, W + pad[2] + pad[3] - dw + 1
+        gy = randn(B, ho, wo, n)
+        w = randn(dh * dw, cin, n, scale=1.0 / math.sqrt(dh * dw * cin))
+        want = ct.tapconv_dgrad_plain(gy, w, dh, dw, pad, (H, W))
+        errs = {"chosen": rel_err(ct._launch_dgrad(gy, w, dh, dw, pad, (H, W)), want)}
+        kb, bn = ct.dgrad_tiles(n, cin)
+        want_packed = ct.pack_weights(ct.dgrad_weights(w), bn, kb)
+        same = True
+        for flat in (0, 1):
+            for wgs in (1, 2):
+                _, arows, apw = ct.dgrad_tiling(flat, wgs, H, W, dh, dw)
+                # 128-pixel tiles need two halo stages, 64-pixel tiles one
+                nsa = wgs
+                if ct.dgrad_smem_bytes(kb, bn, nsa, n, dh * dw, arows, apw) > ct.SMEM_LIMIT:
+                    continue
+                dx, packed = forced(gy, w, dh, dw, pad, (H, W), flat, wgs)
+                errs[f"flat={flat} wgs={wgs}"] = rel_err(dx, want)
+                same &= bool((packed.view(torch.int32)
+                              == want_packed.view(torch.int32)).all())
+        torch.cuda.synchronize()
+        t = {"ms": graph_ms(lambda: ct._launch_dgrad(gy, w, dh, dw, pad, (H, W)), 5),
+             "earlier_ms": graph_ms(lambda: ct._launch(
+                 ct.dgrad_input(gy, dh, dw), ct.dgrad_weights(w), dh, dw), 5),
+             "library_ms": graph_ms(tapconv_input_grad_library(
+                 gy, w, dh, dw, pad, (H, W)), 5)}
+        nbytes = 4 * (gy.numel() + w.numel() + B * H * W * cin)
+        bound = max(nbytes / HBM_BYTES_PER_S,
+                    2 * B * ho * wo * dh * dw * cin * n / TF32X3_FLOPS_PER_S) * 1e3
+        print(f"kernel tapconv_valid_dgrad off the path: dx ({B}, {H}, {W}, {cin}) "
+              f"from N {n}, {dh}x{dw}, pad {pad}, plan "
+              f"{ct.dgrad_plan(B, H, W, n, cin, dh, dw, ct._sm_count(dev))}: "
+              + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items())
+              + f"; packing equals pack_weights(dgrad_weights(w)): {same}; "
+              + " ".join(f"{k}={v:.4f}" for k, v in t.items())
+              + f" bound_ms={bound:.4f} [{card}]", flush=True)
+        for k, v in errs.items():
+            if not math.isfinite(v) or v > REL_TOL:
+                fail(f"tapconv_valid_dgrad ({k}) at dx ({B}, {H}, {W}, {cin}), "
+                     f"{dh}x{dw}: error {v:.3e} exceeds {REL_TOL}")
+        if not same:
+            fail(f"tapconv_pack_dgrad at {dh}x{dw}, Cin {cin}, N {n}: layout "
+                 f"differs from pack_weights(dgrad_weights(w))")
+
+    w = randn(7, 7, 4, 2, scale=0.1)
+    wt, zero = cc.dgrad_kernel(w), torch.zeros(4, device=dev)
+    w_oihw = w.permute(3, 2, 0, 1).contiguous()
+    for B, H, W in CONV_DGRAD_EXTRA:
+        gy = randn(B, H, W, 2)
+        want = cc.conv2d_same_small_cout_plain(gy, wt, zero)
+        # the same values 8 bytes off a 16-byte line (the tiled body still),
+        # and 4 bytes off (the generic body)
+        off8 = randn(gy.numel() + 2)[2:].view(gy.shape).copy_(gy)
+        off4 = randn(gy.numel() + 1)[1:].view(gy.shape).copy_(gy)
+        before = cc.DGRAD.launches
+        errs = {"tiled": rel_err(cc._same_conv(gy, wt, zero, dgrad=True), want),
+                "8-byte aligned": rel_err(cc._same_conv(off8, wt, zero, dgrad=True), want),
+                "4-byte aligned": rel_err(cc._same_conv(off4, wt, zero, dgrad=True), want)}
+        torch.cuda.synchronize()
+        if cc.DGRAD.launches != before + 3:
+            fail(f"conv_same_small_cout_dgrad at {(B, H, W)} did not launch 3 times")
+        g_nchw = gy.permute(0, 3, 1, 2).contiguous()
+        t = {"ms": graph_ms(lambda: cc._same_conv(gy, wt, zero, dgrad=True), 5),
+             "earlier_ms": graph_ms(lambda: cc.launch_conv(gy, wt, zero, cc.GENERIC_TILE), 5),
+             "library_ms": graph_ms(lambda: torch.nn.grad.conv2d_input(
+                 (B, 4, H, W), w_oihw, g_nchw, padding=3), 5)}
+        nbytes = 4 * (gy.numel() + w.numel() + B * H * W * 4)
+        bound = max(nbytes / HBM_BYTES_PER_S, 2 * B * H * W * 392 / F32_FLOPS_PER_S) * 1e3
+        print(f"kernel conv_same_small_cout_dgrad off the path: g ({B}, {H}, {W}, 2) "
+              f"tile {cc.choose_tile(B, H, W)}: "
+              + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()) + "; "
+              + " ".join(f"{k}={v:.4f}" for k, v in t.items())
+              + f" bound_ms={bound:.4f} [{card}]", flush=True)
+        for k, v in errs.items():
+            if not math.isfinite(v) or v > REL_TOL:
+                fail(f"conv_same_small_cout_dgrad ({k}) at {(B, H, W)}: error "
+                     f"{v:.3e} exceeds {REL_TOL}")
+
+
 def compare_card_cpu(what: str, on_card, on_cpu) -> None:
     diff = (on_card - on_cpu).abs()
     bad = int((diff > SLICE_ATOL + SLICE_RTOL * on_cpu.abs()).sum())
@@ -718,6 +876,7 @@ def check_function_grads(shapes, dev, cfg) -> None:
     and input and weight gradients (``torch.autograd.grad``), against their
     plain versions under autograd on the card."""
     import torch
+    import torch.nn.functional as F
 
     from dcs_net_tpu_torch.dsp import stft as dsp
     from dcs_net_tpu_torch.dsp import stft_cuda
@@ -750,12 +909,16 @@ def check_function_grads(shapes, dev, cfg) -> None:
         check("conv_same_small_cout", args, cuda_conv.conv2d_same_small_cout,
               cuda_conv.conv2d_same_small_cout_plain,
               (randn(B, H, W, cin), randn(K, K, cin, cout, scale=0.1), randn(cout)))
-    for args in sorted(set(shapes["tapconv_valid"])):
-        B, hp, wp, cin, dh, dw, n = args[:7]
+    # the tap conv as the decoder calls it, x and its padding, at the shapes
+    # of the step's input-gradient launches
+    for args in sorted(set(shapes["tapconv_valid_dgrad"])):
+        B, ho, wo, n, H, W, cin, dh, dw, top, left = args[:11]
+        pad = (top, ho - H - top + dh - 1, left, wo - W - left + dw - 1)
         check("tapconv_valid", args,
-              lambda x, w: cuda_tapconv.tapconv_valid(x, w, dh, dw),
-              lambda x, w: cuda_tapconv.tapconv_valid_plain(x, w, dh, dw),
-              (randn(B, hp, wp, cin), randn(dh * dw, cin, n, scale=1 / math.sqrt(dh * dw * cin))))
+              lambda x, w: cuda_tapconv.tapconv_valid(x, w, dh, dw, pad),
+              lambda x, w: cuda_tapconv.tapconv_valid_plain(
+                  F.pad(x, (0, 0, pad[2], pad[3], pad[0], pad[1])), w, dh, dw),
+              (randn(B, H, W, cin), randn(dh * dw, cin, n, scale=1 / math.sqrt(dh * dw * cin))))
     for args in sorted(set(shapes["stft"])):
         B, n, n_fft, hop = args[:4]
         cos_b, sin_b = dsp._on_device(dsp._dft_basis_eff, cfg.stft, dev)
@@ -1142,6 +1305,7 @@ def main() -> int:
     check_stft_fft_off_path(dev, cfg)
     check_conv_off_path(dev)
     check_tapconv_off_path(dev)
+    check_dgrad_off_path(dev, card)
 
     # phase 6: CLI on a 48 kHz wav, full and streamed
     from dcs_net_tpu_torch.cli import enhance as cli

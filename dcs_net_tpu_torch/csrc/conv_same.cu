@@ -36,11 +36,12 @@
 // float32 accuracy costs three TF32 passes, 495 / 12 = 41 TFLOP/s effective,
 // below the 67 TFLOP/s of the float32 pipes.
 //
-// Design of the (K, Cin, Cout) = (7, 4, 2) body, shared by the conv and the
-// gate. A block of 128 threads owns a tile of TY rows x R*TX columns; the
-// first TX*TY threads each own a run of R pixels along W. The block stages
-// the tile plus its 3-pixel halo (zero outside the image) in shared memory,
-// one float4 per pixel (its 4 input channels), and the 392 weights beside it.
+// Design of the register-tiled body, written for (K, Cin, Cout) = (7, 4, 2)
+// and shared by the conv and the gate. A block of 128 threads owns a tile of
+// TY rows x R*TX columns; the first TX*TY threads each own a run of R pixels
+// along W. The block stages the tile plus its 3-pixel halo (zero outside the
+// image) in shared memory, one float4 per pixel (its 4 input channels), and
+// the 392 weights beside it.
 // For each of the 7 tap rows a thread loads the R + 6 pixels under its run
 // into registers once and slides the 7 taps over that window: one
 // shared-memory load of a pixel feeds up to 7 taps x 4 channels x 2 outputs,
@@ -70,6 +71,16 @@
 // its tile of x through it: a warp takes a tile row, whose pixels are
 // contiguous in NHWC, as float4 loads along (pixel, channel), multiplies by
 // the pixel's (a_re, a_im) and stores; one read and one write of x.
+//
+// The input gradient of the spatial-attention conv (the JAX package's _bwd,
+// dcs_net_tpu/ops/pallas_conv.py:210, in XLA) is the same conv of the
+// upstream gradient with the flipped, transposed kernel: class (7, 2, 4),
+// 13 launches a train step. It runs the same body as a template over
+// (Cin, Cout): a staged pixel is one float2, a tap's 8 weights are still two
+// float4 broadcasts (now one per input channel), an output pixel is one
+// float4. A half-warp's 8-byte loads span rows where a tile is fewer than 16
+// runs wide, so the row pitch is padded further (make_tile) to keep them on
+// 16 different 8-byte bank groups.
 //
 // Every other (K, Cin, Cout) takes the generic body below: one thread per
 // output pixel on an 8 x 32 tile, input chunk and weights in shared memory.
@@ -164,50 +175,92 @@ constexpr Launch kLaunch[MAXCOUT] = {
     launch<13>, launch<14>, launch<15>, launch<16>};
 
 // ---------------------------------------------------------------------------
-// the (K, Cin, Cout) = (7, 4, 2) body
+// the register-tiled body, classes (K, Cin, Cout) = (7, 4, 2) and (7, 2, 4)
 // ---------------------------------------------------------------------------
 
 constexpr int NT = 128;       // threads per block
 constexpr int HALO = 6;       // K - 1
-constexpr int NW4 = 98;       // 7 * 7 * 4 * 2 weights as float4
+constexpr int NW4 = 98;       // 7 * 7 * 8 weights as float4, either class
 constexpr int MAX_SMEM = 48 * 1024;
 
-// slot of pixel p in a staged row: one float4 of padding after every run, so
+// slot of pixel p in a staged row: one slot of padding after every run, so
 // that neighbouring threads' runs start R + 1 slots apart, an odd stride
 template <int R>
 __device__ __forceinline__ int slot(int p) { return p + p / R; }
 
-struct Tile {
-  int tx, ty;        // threads along W and H that take part in the conv
-  int tw;            // R * tx, the tile's columns
-  int pitch;         // float4 slots per staged row
-  __host__ __device__ int rows() const { return ty + HALO; }
-  __host__ __device__ int cols() const { return tw + HALO; }
-  // float4s of dynamic shared memory: weights, staged tile, attention map
-  __host__ __device__ int smem4() const {
-    return NW4 + rows() * pitch + (ty * tw + 1) / 2;
+// a pixel of C channels as one word: float4 or float2
+template <int C>
+struct Px;
+template <>
+struct Px<4> {
+  using T = float4;
+  static __device__ __forceinline__ float at(const T& v, int i) {
+    return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+  }
+  static __device__ __forceinline__ T make(const float* a) {
+    return make_float4(a[0], a[1], a[2], a[3]);
+  }
+};
+template <>
+struct Px<2> {
+  using T = float2;
+  static __device__ __forceinline__ float at(const T& v, int i) {
+    return i == 0 ? v.x : v.y;
+  }
+  static __device__ __forceinline__ T make(const float* a) {
+    return make_float2(a[0], a[1]);
   }
 };
 
-Tile make_tile(int R, int TX, int TY) {
+struct Tile {
+  int tx, ty;        // threads along W and H that take part in the conv
+  int tw;            // R * tx, the tile's columns
+  int pitch;         // pixel slots per staged row
+  int cin;           // channels a slot: 4 (float4) or 2 (float2)
+  __host__ __device__ int rows() const { return ty + HALO; }
+  __host__ __device__ int cols() const { return tw + HALO; }
+  // float4s of the staged tile and of dynamic shared memory: weights,
+  // staged tile, attention map (8 / cin floats a pixel)
+  __host__ __device__ int staged4() const { return (rows() * pitch * cin + 3) / 4; }
+  __host__ __device__ int smem4() const {
+    return NW4 + staged4() + (ty * tw * (8 / cin) + 3) / 4;
+  }
+};
+
+// For 16-byte slots (Cin = 4) a quarter-warp's 8 loads go to 8 bank groups
+// when 8 neighbouring threads' slots differ mod 8: the odd run stride does
+// that within a row (a tile is at least 8 runs wide where it has 2 rows).
+// For 8-byte slots (Cin = 2) a half-warp's 16 loads must differ mod 16, and
+// a half-warp spans rows where the tile is fewer than 16 runs wide: thread
+// (tx, ty), the ty * TX + tx-th, reads slot ty * pitch + tx * (R + 1) + j, so
+// a pitch of TX * (R + 1) mod 16 makes that (ty * TX + tx) * (R + 1) mod 16,
+// 16 different values for any 16 consecutive threads.
+Tile make_tile(int R, int TX, int TY, int cin) {
   Tile t;
   t.tx = TX;
   t.ty = TY;
   t.tw = R * TX;
+  t.cin = cin;
   t.pitch = t.tw + HALO + (t.tw + HALO - 1) / R;   // slot(cols - 1) + 1
+  if (cin == 2) t.pitch += ((TX * (R + 1) - t.pitch) % 16 + 16) % 16;
   return t;
 }
 
-// Stages the tile of x (B, H, W, 4) at (b, h0, w0) and the weights, runs the
-// 7 x 7 x 4 -> 2 taps for this thread's run of R pixels. Every thread of the
-// block must call it (it holds the block barrier); acc is meaningful for
-// threads with tid < t.tx * t.ty. Returns the attention-map region.
-template <int R>
-__device__ __forceinline__ float2* conv742_tile(
+// Stages the tile of x (B, H, W, CIN) at (b, h0, w0) and the weights, runs the
+// 7 x 7 x CIN -> COUT = 8 / CIN taps for this thread's run of R pixels. Every
+// thread of the block must call it (it holds the block barrier); acc is
+// meaningful for threads with tid < t.tx * t.ty. Returns the attention-map
+// region.
+template <int R, int CIN>
+__device__ __forceinline__ float4* conv7_tile(
     const float* __restrict__ x, const float* __restrict__ w, const Tile t,
-    float4* smem, int b, int h0, int w0, int H, int W, float (&acc)[R][2]) {
+    float4* smem, int b, int h0, int w0, int H, int W,
+    float (&acc)[R][8 / CIN]) {
+  using P = Px<CIN>;
+  using T = typename P::T;
+  constexpr int COUT = 8 / CIN;
   float4* ws4 = smem;
-  float4* xs = smem + NW4;
+  T* xs = reinterpret_cast<T*>(smem + NW4);
   const int tid = threadIdx.x;
   const int rows = t.rows(), cols = t.cols();
 
@@ -215,20 +268,21 @@ __device__ __forceinline__ float2* conv742_tile(
   // one: a thread's weight word, then its pixels four at a time
   float4 wv = make_float4(0.f, 0.f, 0.f, 0.f);
   if (tid < NW4) wv = reinterpret_cast<const float4*>(w)[tid];
-  const float4* x4 = reinterpret_cast<const float4*>(x) + (long long)b * H * W;
+  const T* xv = reinterpret_cast<const T*>(x) + (long long)b * H * W;
   const int total = rows * cols;
   for (int e0 = tid; e0 < total; e0 += 4 * NT) {
-    float4 v[4];
+    T v[4];
     int dst[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int e = e0 + u * NT;
       const int row = e / cols, col = e - row * cols;
       const int hh = h0 - HALO / 2 + row, ww = w0 - HALO / 2 + col;
-      v[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+      v[u] = P::make(zero);
       dst[u] = row * t.pitch + slot<R>(col);
       if (e < total && hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v[u] = x4[(long long)hh * W + ww];
+        v[u] = xv[(long long)hh * W + ww];
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
@@ -238,65 +292,77 @@ __device__ __forceinline__ float2* conv742_tile(
   __syncthreads();
 
 #pragma unroll
-  for (int r = 0; r < R; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int co = 0; co < COUT; ++co) acc[r][co] = 0.f;
   if (tid < t.tx * t.ty) {
     const int ty = tid / t.tx, tx = tid - ty * t.tx;
     int sl[R + HALO];
 #pragma unroll
     for (int j = 0; j < R + HALO; ++j) sl[j] = slot<R>(tx * R + j);
-    const float4* base = xs + ty * t.pitch;
+    const T* base = xs + ty * t.pitch;
 #pragma unroll 1
     for (int kh = 0; kh < 7; ++kh) {
-      const float4* row = base + kh * t.pitch;
-      float4 win[R + HALO];
+      const T* row = base + kh * t.pitch;
+      T win[R + HALO];
 #pragma unroll
       for (int j = 0; j < R + HALO; ++j) win[j] = row[sl[j]];
       const float4* wk = ws4 + kh * 14;
 #pragma unroll
       for (int kw = 0; kw < 7; ++kw) {
-        // the tap's weights w[kh][kw][ci][co]: wa = ci 0, 1; wb = ci 2, 3
+        // the tap's 8 weights w[kh][kw][ci][co], ci-major: wa the first
+        // four, wb the last four
         const float4 wa = wk[2 * kw], wb = wk[2 * kw + 1];
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float4 v = win[r + kw];
-          acc[r][0] = fmaf(v.x, wa.x, acc[r][0]);
-          acc[r][1] = fmaf(v.x, wa.y, acc[r][1]);
-          acc[r][0] = fmaf(v.y, wa.z, acc[r][0]);
-          acc[r][1] = fmaf(v.y, wa.w, acc[r][1]);
-          acc[r][0] = fmaf(v.z, wb.x, acc[r][0]);
-          acc[r][1] = fmaf(v.z, wb.y, acc[r][1]);
-          acc[r][0] = fmaf(v.w, wb.z, acc[r][0]);
-          acc[r][1] = fmaf(v.w, wb.w, acc[r][1]);
+          const T v = win[r + kw];
+#pragma unroll
+          for (int ci = 0; ci < CIN; ++ci)
+#pragma unroll
+            for (int co = 0; co < COUT; ++co) {
+              const int k = ci * COUT + co;
+              const float wt = k < 4 ? Px<4>::at(wa, k) : Px<4>::at(wb, k - 4);
+              acc[r][co] = fmaf(P::at(v, ci), wt, acc[r][co]);
+            }
         }
       }
     }
   }
-  return reinterpret_cast<float2*>(xs + rows * t.pitch);
+  return smem + NW4 + t.staged4();
 }
 
-template <int R>
+template <int R, int CIN>
 __global__ void __launch_bounds__(NT)
-conv742_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ y,
-               const Tile t, int H, int W) {
+conv7_kernel(const float* __restrict__ x, const float* __restrict__ w,
+             const float* __restrict__ bias, float* __restrict__ y,
+             const Tile t, int H, int W) {
+  constexpr int COUT = 8 / CIN;
+  using Q = Px<COUT>;
+  using T = typename Q::T;
   extern __shared__ float4 smem[];
   const int b = blockIdx.z, h0 = blockIdx.y * t.ty, w0 = blockIdx.x * t.tw;
   const int tid = threadIdx.x;
-  float acc[R][2];
-  float2* att = conv742_tile<R>(x, w, t, smem, b, h0, w0, H, W, acc);
+  float acc[R][COUT];
+  T* att = reinterpret_cast<T*>(conv7_tile<R, CIN>(x, w, t, smem, b, h0, w0, H, W, acc));
   if (tid < t.tx * t.ty) {
     const int ty = tid / t.tx, tx = tid - ty * t.tx;
-    const float b0 = bias[0], b1 = bias[1];
+    float bv[COUT];
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      att[ty * t.tw + tx * R + r] = make_float2(acc[r][0] + b0, acc[r][1] + b1);
+    for (int co = 0; co < COUT; ++co) bv[co] = bias[co];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      float o[COUT];
+#pragma unroll
+      for (int co = 0; co < COUT; ++co) o[co] = acc[r][co] + bv[co];
+      att[ty * t.tw + tx * R + r] = Q::make(o);
+    }
   }
   __syncthreads();
-  float2* y2 = reinterpret_cast<float2*>(y) + (long long)b * H * W;
+  T* yv = reinterpret_cast<T*>(y) + (long long)b * H * W;
   for (int e = tid; e < t.ty * t.tw; e += NT) {
     const int row = e / t.tw, col = e - row * t.tw;
     const int hh = h0 + row, ww = w0 + col;
-    if (hh < H && ww < W) y2[(long long)hh * W + ww] = att[e];
+    if (hh < H && ww < W) yv[(long long)hh * W + ww] = att[e];
   }
 }
 
@@ -316,7 +382,8 @@ sa_gate_kernel(const float* __restrict__ pooled, const float* __restrict__ w,
   const int b = blockIdx.z, h0 = blockIdx.y * t.ty, w0 = blockIdx.x * t.tw;
   const int tid = threadIdx.x;
   float acc[R][2];
-  float2* att = conv742_tile<R>(pooled, w, t, smem, b, h0, w0, H, W, acc);
+  float2* att = reinterpret_cast<float2*>(
+      conv7_tile<R, 4>(pooled, w, t, smem, b, h0, w0, H, W, acc));
   if (tid < t.tx * t.ty) {
     const int ty = tid / t.tx, tx = tid - ty * t.tx;
 #pragma unroll
@@ -411,10 +478,10 @@ inline bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-bool tile_ok(int R, int TX, int TY) {
+bool tile_ok(int R, int TX, int TY, int cin) {
   if ((R != 2 && R != 4) || TX < 1 || TY < 1 || TX * TY > NT)
     return false;
-  return make_tile(R, TX, TY).smem4() * 16 <= MAX_SMEM;
+  return make_tile(R, TX, TY, cin).smem4() * 16 <= MAX_SMEM;
 }
 
 bool image_ok(int B, int H, int W) {
@@ -433,9 +500,10 @@ extern "C" const char* dcs_cuda_error_string(int code) {
 
 // x (B, H, W, Cin), w (K, K, Cin, Cout), bias (Cout,), y (B, H, W, Cout); all
 // f32 and contiguous. R = 0 takes the generic body; R in {2, 4} with a
-// tile of TY rows x R * TX columns takes the (7, 4, 2) body, which needs x
-// and w 16-byte and y 8-byte aligned. Launches on `stream`, allocates nothing,
-// returns cudaGetLastError().
+// tile of TY rows x R * TX columns takes the register-tiled body, for
+// (K, Cin, Cout) = (7, 4, 2) with x and w 16-byte and y 8-byte aligned, or
+// (7, 2, 4) with x 8-byte and w and y 16-byte aligned. Launches on `stream`,
+// allocates nothing, returns cudaGetLastError().
 extern "C" int dcs_conv_same_small_cout(const float* x, const float* w,
                                         const float* bias, float* y, int B,
                                         int H, int W, int Cin, int K, int Cout,
@@ -450,16 +518,21 @@ extern "C" int dcs_conv_same_small_cout(const float* x, const float* w,
     kLaunch[Cout - 1](grid, block, s, x, w, bias, y, H, W, Cin, K);
     return static_cast<int>(cudaGetLastError());
   }
-  if (K != 7 || Cin != 4 || Cout != 2 || !tile_ok(R, TX, TY) ||
-      !aligned(x, 16) || !aligned(w, 16) || !aligned(y, 8))
+  const bool c42 = Cin == 4 && Cout == 2 && aligned(x, 16) && aligned(y, 8);
+  const bool c24 = Cin == 2 && Cout == 4 && aligned(x, 8) && aligned(y, 16);
+  if (K != 7 || !(c42 || c24) || !tile_ok(R, TX, TY, Cin) || !aligned(w, 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tile t = make_tile(R, TX, TY);
+  const Tile t = make_tile(R, TX, TY, Cin);
   const dim3 grid = tile_grid(t, B, H, W);
   const int smem = t.smem4() * 16;
-  if (R == 2)
-    conv742_kernel<2><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+  if (c42 && R == 2)
+    conv7_kernel<2, 4><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+  else if (c42)
+    conv7_kernel<4, 4><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+  else if (R == 2)
+    conv7_kernel<2, 2><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
   else
-    conv742_kernel<4><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+    conv7_kernel<4, 2><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -489,10 +562,10 @@ extern "C" int dcs_sa_gate(const float* pooled, const float* w,
                            const float* re, const float* im, float* out_re,
                            float* out_im, int B, int H, int W, int C, int R,
                            int TX, int TY, void* stream) {
-  if (!image_ok(B, H, W) || C < 1 || !tile_ok(R, TX, TY) ||
+  if (!image_ok(B, H, W) || C < 1 || !tile_ok(R, TX, TY, 4) ||
       !aligned(pooled, 16) || !aligned(w, 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tile t = make_tile(R, TX, TY);
+  const Tile t = make_tile(R, TX, TY, 4);
   const dim3 grid = tile_grid(t, B, H, W);
   const int smem = t.smem4() * 16;
   const int vec = C % 4 == 0 && aligned(re, 16) && aligned(im, 16) &&

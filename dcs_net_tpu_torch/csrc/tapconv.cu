@@ -34,7 +34,7 @@
 //   4-channel group, n, 4 channels): exactly the shared-memory image of the
 //   un-swizzled K-major core-matrix layout (8 n x 16 bytes contiguous), split
 //   into hi and lo once, so staging a B tile is one contiguous bulk copy.
-// * An M tile is a run of 64 or 128 output pixels of one output row, so the
+// * A forward M tile is a run of 64 or 128 output pixels of one output row, so the
 //   block's input is a Dh-row x (pixels + Dw - 1) x 32-channel halo tile,
 //   staged once per channel chunk with 16-byte cp.async (zero fill past the
 //   row end and past Cin); all Dh*Dw taps read it at shifted pixel offsets.
@@ -67,6 +67,29 @@
 //   12 x 12 at every N); a larger one is refused, never computed otherwise.
 // The structural zeros of the unified decoder weights are not skipped: the
 // function stays the dense tap correlation.
+//
+// The input gradient (dcs_tapconv_dgrad) runs the same kernel on the
+// upstream gradient g (B, HO, WO, N) with the taps reversed and the channel
+// axes swapped (Cin' = N reduced, N' = Cin out), as the JAX package's
+// _updot_bwd (dcs_net_tpu/ops/conv_engine.py:879) computes it in XLA. Where
+// the forward's input was x zero-padded, it writes dx (B, H, W, Cin), the
+// pixels the caller keeps, and nothing of the padding. What the kernel's
+// geometry (Geo) does about the train step's shapes:
+// * Multi-row tiles. The decoder's gradients are 32 columns wide at dec0-
+//   dec4, so a tile of one row would fill 32 of 64 wgmma rows. A "flat" tile
+//   is 64 or 128 consecutive pixels of one image over several rows; its halo
+//   tile is those rows plus Dh - 1, at the full width plus Dw - 1, and each
+//   thread finds its two fragment rows in it on its own.
+// * g read in place: halo rows and columns outside g are zero-filled at
+//   staging (cp.async with source size 0); a tap row that reads only zeros
+//   for every pixel of the tile is skipped.
+// * Weights packed once, flipped and transposed, straight from w
+//   (dcs_tapconv_pack_dgrad).
+// * Small K: at dec6 Cin' = 8 and N' = 32, so that class has 8-channel
+//   chunks (one k8 step a tap, a register set per tap, all 9 taps in one B
+//   stage) and 32-wide N tiles (m64n32k8).
+// The tiling (flat or one row, 64 or 128 pixels) is chosen by the wrapper
+// (ops/cuda_tapconv.py:dgrad_plan) from the shape alone.
 
 #include <cuda_runtime.h>
 
@@ -74,8 +97,8 @@
 
 namespace {
 
-constexpr int BK = 32;           // input channels per reduction chunk
-constexpr int APITCH = BK + 4;   // words per staged pixel (bank skew)
+constexpr int BK = 32;           // input channels per reduction chunk (8 in
+                                 // the input gradient's small-K class)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -226,6 +249,28 @@ struct Wgmma<8> {
 };
 
 template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
 struct Wgmma<64> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint32_t a0, uint32_t a1,
                                              uint32_t a2, uint32_t a3, uint64_t desc,
@@ -293,19 +338,24 @@ struct Wgmma<128> {
   }
 };
 
-// w (taps, Cin, N) -> wp tiles [n tile][chunk][tap][hi | lo][BK/4][BN][4],
-// zero beyond Cin and N; one thread per (n, 4-channel group).
-template <int BN>
+
+// w (taps, Cin, N) -> wp tiles [n tile][chunk][tap][hi | lo][KB/4][BN][4] of
+// the KB-channel chunks of the reduction, zero beyond K and N; one thread per
+// (n, 4-channel group). The forward packs w as it is (K = Cin reduced, N
+// out). FLIP packs the input gradient's weights straight from the forward's
+// w (taps, N, K): taps in reverse order, the two channel axes swapped, so
+// that reduction channel c of output n at tap t is w[taps - 1 - t][n][c].
+template <int KB, int BN, bool FLIP>
 __global__ void pack_kernel(const float* __restrict__ w, float* __restrict__ wp,
-                            int taps, int Cin, int N, int nchunks,
+                            int taps, int K, int N, int nchunks,
                             long long total) {
   const long long idx =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int n = static_cast<int>(idx % BN);
   long long rest = idx / BN;
-  const int j = static_cast<int>(rest % (BK / 4));
-  rest /= BK / 4;
+  const int j = static_cast<int>(rest % (KB / 4));
+  rest /= KB / 4;
   const int tap = static_cast<int>(rest % taps);
   rest /= taps;
   const int chunk = static_cast<int>(rest % nchunks);
@@ -314,68 +364,111 @@ __global__ void pack_kernel(const float* __restrict__ w, float* __restrict__ wp,
   uint32_t hi[4], lo[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int c = chunk * BK + 4 * j + i;
-    const float v = (c < Cin && gn < N)
-                        ? w[(static_cast<long long>(tap) * Cin + c) * N + gn]
-                        : 0.f;
+    const int c = chunk * KB + 4 * j + i;
+    float v = 0.f;
+    if (c < K && gn < N)
+      v = FLIP ? w[(static_cast<long long>(taps - 1 - tap) * N + gn) * K + c]
+               : w[(static_cast<long long>(tap) * K + c) * N + gn];
     split_tf32(v, hi[i], lo[i]);
   }
-  float* dst = wp + (((ntile * nchunks + chunk) * taps + tap) * 2) * (BK * BN) +
+  float* dst = wp + (((ntile * nchunks + chunk) * taps + tap) * 2) * (KB * BN) +
                (j * BN + n) * 4;
   *reinterpret_cast<uint4*>(dst) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-  *reinterpret_cast<uint4*>(dst + BK * BN) =
+  *reinterpret_cast<uint4*>(dst + KB * BN) =
       make_uint4(lo[0], lo[1], lo[2], lo[3]);
 }
 
-// WGS warpgroups of 64 pixels each; BN channels; TPS taps per B stage; VEC
-// floats per cp.async of x (4 when Cin % 4 == 0, else 1); RING_A: two A
-// stages, else one, refilled between chunks.
-template <int WGS, int BN, int TPS, int VEC, bool RING_A>
+// How a block's M tile maps to output pixels, and what it stages.
+struct Geo {
+  int Hg, Wg, Cg;  // the tensor read, (B, Hg, Wg, Cg): x, or the gradient g
+  int H, W, N;     // the output (B, H, W, N)
+  int oh, ow;      // output pixel (h, w) at tap (dh, dw) reads (h + oh + dh,
+                   // w + ow + dw) of the tensor read; outside it reads zero
+  int Dh, Dw;
+  int flat;        // 1: a tile is BM consecutive pixels of one image's H x W
+                   // (several rows); 0: BM pixels of one output row
+  int tiles;       // M tiles per image (flat) or per output row
+  int arows, apw;  // staged rows and pixels a row of the largest halo tile
+  int nchunks;     // KB-channel chunks of Cg
+};
+
+// WGS warpgroups of 64 pixels each; KB reduction channels per chunk (32, or
+// 8 for the input gradient's small-K class); BN channels; TPS taps per B
+// stage; VEC floats per cp.async of the tensor read (4 when Cg % 4 == 0,
+// else 1); RING_A: two A stages, else one, refilled between chunks.
+template <int WGS, int KB, int BN, int TPS, int VEC, bool RING_A>
 __global__ void __launch_bounds__(128 * WGS)
 tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
-               float* __restrict__ y, int Hp, int Wp, int Cin, int Dh, int Dw,
-               int N, int HO, int WO, int nchunks, int wtiles) {
+               float* __restrict__ y, const Geo g) {
   constexpr int NT = 128 * WGS, BM = 64 * WGS;
-  constexpr int TAPF = 2 * BK * BN;  // words of one tap's hi and lo slabs
+  // words per staged pixel: 36 or 12, so that the 8 pixels x 4 channels of
+  // a fragment load fall on 32 different banks
+  constexpr int APITCH = KB + 4;
+  constexpr int TAPF = 2 * KB * BN;  // words of one tap's hi and lo slabs
+  constexpr int KS = KB / 16 > 0 ? KB / 16 : 1;  // k8 steps a register set holds
   constexpr uint32_t LBO = BN * 16, SBO = 128;
   extern __shared__ __align__(128) float smem[];
 
-  const int taps = Dh * Dw;
+  // the tile: `count` output pixels from pix0 on, read through a halo tile
+  // of nr rows x PW pixels whose (0, 0) is (r0, c0) of the tensor read
+  int b, h_a, h_b, q0, count, PW;
+  long long pix0;
+  if (g.flat) {
+    b = blockIdx.x / g.tiles;
+    q0 = (blockIdx.x - b * g.tiles) * BM;
+    count = min(BM, g.H * g.W - q0);
+    h_a = q0 / g.W;
+    h_b = (q0 + count - 1) / g.W;
+    PW = g.W + g.Dw - 1;
+    pix0 = static_cast<long long>(b) * g.H * g.W + q0;
+  } else {
+    const int row = blockIdx.x / g.tiles;  // b * H + h
+    q0 = (blockIdx.x - row * g.tiles) * BM;  // the tile's first column
+    b = row / g.H;
+    h_a = h_b = row - b * g.H;
+    count = min(BM, g.W - q0);
+    PW = BM + g.Dw - 1;
+    pix0 = static_cast<long long>(row) * g.W + q0;
+  }
+  const int nr = h_b - h_a + g.Dh;
+  const int r0 = h_a + g.oh, c0 = (g.flat ? 0 : q0) + g.ow;
+  // the tap rows that read inside the tensor for some pixel of the tile: a
+  // row that reads only zero padding is skipped, B stages and all
+  const int dh_lo = max(0, -(h_b + g.oh)), dh_hi = min(g.Dh - 1, g.Hg - 1 - r0);
+  const int taps = g.Dh * g.Dw;
+  const int live = dh_hi >= dh_lo ? (dh_hi - dh_lo + 1) * g.Dw : 0;
   const int tps = min(TPS, taps);
-  const int ngroups = (taps + tps - 1) / tps;
-  const int nit = nchunks * ngroups;
-  const int nsb = min(3, nit), nsa = RING_A ? min(2, nchunks) : 1;
-  const int PW = BM + Dw - 1;
-  const int bstage = tps * TAPF, astage = Dh * PW * APITCH;
+  const int ngroups = (live + tps - 1) / tps;
+  const int nit = g.nchunks * ngroups;
+  // the ring sizes follow the whole window, as the host sized shared memory
+  const int nsb = min(3, g.nchunks * ((taps + tps - 1) / tps));
+  const int nsa = RING_A ? min(2, g.nchunks) : 1;
+  const int bstage = tps * TAPF, astage = g.arows * g.apw * APITCH;
   float* Bs = smem;
   float* As = smem + nsb * bstage;
   // one mbarrier per B stage, behind the tiles
   const uint32_t bars = smem_u32(As + nsa * astage);
 
   const int tid = threadIdx.x, lane = tid & 31;
-  const int wt = blockIdx.x % wtiles;
-  const int row = blockIdx.x / wtiles;  // b * HO + ho
-  const int ho = row % HO, b = row / HO;
-  const int wo0 = wt * BM;
   const int n0 = blockIdx.y * BN;
-  const float* xrow =
-      x + ((static_cast<long long>(b) * Hp + ho) * Wp + wo0) * Cin;
+  const float* xb = x + static_cast<long long>(b) * g.Hg * g.Wg * g.Cg;
 
   // copy e of a halo tile: channel group e % VPP of pixel e / VPP (rows of
   // PW pixels); a thread's copies are NT apart, walked without divisions
-  constexpr int VPP = BK / VEC;
+  constexpr int VPP = KB / VEC;
   static_assert(NT % VPP == 0, "a thread keeps its channel group");
   const int a_v = tid % VPP;
   const int a_r0 = (tid / VPP) / PW, a_p0 = (tid / VPP) % PW;
   auto load_a = [&](int chunk) {
     float* dst = As + (chunk % nsa) * astage + a_v * VEC;
-    const int c = chunk * BK + a_v * VEC;
-    const int total = Dh * PW;
+    const int c = chunk * KB + a_v * VEC;
+    const int total = nr * PW;
     int r = a_r0, p = a_p0;
     for (int rp = tid / VPP; rp < total; rp += NT / VPP) {
-      const bool ok = wo0 + p < Wp && c < Cin;
+      const int rr = r0 + r, cc = c0 + p;
+      const bool ok = rr >= 0 && rr < g.Hg && cc >= 0 && cc < g.Wg && c < g.Cg;
       const float* src =
-          ok ? xrow + (static_cast<long long>(r) * Wp + p) * Cin + c : x;
+          ok ? xb + (static_cast<long long>(rr) * g.Wg + cc) * g.Cg + c : x;
       cp_async<VEC * 4>(smem_u32(dst + rp * APITCH), src, ok ? VEC * 4 : 0);
       p += NT / VPP;
       while (p >= PW) {
@@ -385,12 +478,13 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     }
   };
   // thread 0 alone: one bulk copy brings the B stage of step `it`
+  const int tap_lo = dh_lo * g.Dw;
   auto load_b = [&](int it) {
     const int chunk = it / ngroups, grp = it - chunk * ngroups;
-    const int tap0 = grp * tps;
-    const uint32_t bytes = min(tps, taps - tap0) * TAPF * 4;
+    const int tap0 = tap_lo + grp * tps;
+    const uint32_t bytes = min(tps, tap_lo + live - tap0) * TAPF * 4;
     const float* src =
-        wp + ((static_cast<long long>(blockIdx.y) * nchunks + chunk) * taps +
+        wp + ((static_cast<long long>(blockIdx.y) * g.nchunks + chunk) * taps +
               tap0) * TAPF;
     const uint32_t bar = bars + 8 * (it % nsb);
     mbar_expect_tx(bar, bytes);
@@ -414,18 +508,31 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   }
   fence_proxy_async();
   __syncthreads();
-  if (tid == 0) load_b(0);
-  load_a(0);
-  cp_async_commit();
+  if (nit > 0) {
+    if (tid == 0) load_b(0);
+    load_a(0);
+    cp_async_commit();
+  }
 
-  // this thread's fragment rows are pixels mrow and mrow + 8 of the tile
+  // this thread's fragment rows are pixels mrow and mrow + 8 of the tile;
+  // where each sits in the halo tile (a pixel past the tile's end reads
+  // pixel 0 and is not stored)
   const int mrow = (tid >> 5) * 16 + (lane >> 2);
-  // Two register sets of split A values, one per 16-channel half of a tap's
-  // chunk: while the tensor cores run the wgmma group of one half, the thread
-  // loads and splits the other, here and across steps; at most two groups
-  // are in flight.
-  uint32_t hi[2][BK / 4] = {}, lo[2][BK / 4] = {};
-  int chunk = 0, grp = 0, dh = 0, dw = 0;
+  auto staged = [&](int m) {
+    if (m >= count) return 0;
+    if (!g.flat) return m;
+    const int q = q0 + m, hh = q / g.W;
+    return (hh - h_a) * PW + (q - hh * g.W);
+  };
+  const int base0 = staged(mrow) * APITCH + (lane & 3);
+  const int base1 = staged(mrow + 8) * APITCH + (lane & 3);
+  // Two register sets of split A values: while the tensor cores run the
+  // wgmma group of one set, the thread loads and splits the other, here and
+  // across steps; at most two groups are in flight. At KB = 32 a set is one
+  // 16-channel half of a tap's chunk, at KB = 8 one whole tap.
+  uint32_t hi[2][4 * KS] = {}, lo[2][4 * KS] = {};
+  // toff: the halo-tile pixel offset of the current tap, dh * PW + dw
+  int chunk = 0, grp = 0, dw = 0, toff = dh_lo * PW;
   for (int it = 0; it < nit; ++it) {
     mbar_wait(bars + 8 * (it % nsb), (it / nsb) & 1);  // B of step `it`
     if (grp == 0) {       // this thread's part of the chunk's halo tile
@@ -440,59 +547,71 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     __syncthreads();      // everyone's part; the groups of step it - 2,
                           // whose B stage is refilled next, have retired
     if (tid == 0 && it + 1 < nit) load_b(it + 1);
-    if (grp == 0 && RING_A && chunk + 1 < nchunks) {
+    if (grp == 0 && RING_A && chunk + 1 < g.nchunks) {
       load_a(chunk + 1);
       cp_async_commit();
     }
 
     const float* Ab = As + (chunk % nsa) * astage;
     const uint32_t Bb = smem_u32(Bs + (it % nsb) * bstage);
-    const int ntap = min(tps, taps - grp * tps);
-    for (int tt = 0; tt < ntap; ++tt) {   // tap (dh, dw) of the window
-      const float* ar = Ab + (dh * PW + dw + mrow) * APITCH + (lane & 3);
-      const uint64_t bd = make_desc(Bb + tt * TAPF * 4, LBO, SBO);
-      // the chunk's first wgmma starts a new sum: it drops what acc held
-      const bool fresh = grp == 0 && tt == 0;
-      if (++dw == Dw) {
-        dw = 0;
-        ++dh;
-      }
+    const int ntap = min(tps, live - grp * tps);
+    for (int tt = 0; tt < ntap; tt += (KB == 8 ? 2 : 1)) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float raw[BK / 4];
+      for (int set = 0; set < 2; ++set) {
+        const int t = KB == 8 ? tt + set : tt;   // the set's tap in the stage
+        if (t >= ntap) break;
+        const int half = KB == 8 ? 0 : set;      // its 16-channel half
+        const float* a0 = Ab + base0 + toff * APITCH;
+        const float* a1 = Ab + base1 + toff * APITCH;
+        const uint64_t bd = make_desc(Bb + t * TAPF * 4, LBO, SBO);
+        // the chunk's first wgmma starts a new sum: it drops what acc held
+        const bool fresh = grp == 0 && t == 0;
+        if (KB == 8 || set == 1) {  // the next tap (dh, dw) of the window
+          if (++dw == g.Dw) {
+            dw = 0;
+            toff += PW - g.Dw + 1;
+          } else {
+            ++toff;
+          }
+        }
+        float raw[4 * KS];
 #pragma unroll
-        for (int s = 0; s < BK / 16; ++s) {
-          const int k = 16 * h + 8 * s;
-          raw[4 * s] = ar[k];
-          raw[4 * s + 1] = ar[8 * APITCH + k];
-          raw[4 * s + 2] = ar[k + 4];
-          raw[4 * s + 3] = ar[8 * APITCH + k + 4];
+        for (int s = 0; s < KS; ++s) {
+          const int k = 8 * (KS * half + s);
+          raw[4 * s] = a0[k];
+          raw[4 * s + 1] = a1[k];
+          raw[4 * s + 2] = a0[k + 4];
+          raw[4 * s + 3] = a1[k + 4];
         }
         wgmma_wait<1>();  // the group that last read this register set
 #pragma unroll
-        for (int i = 0; i < BK / 4; ++i) {
-          keep(hi[h][i]);
-          keep(lo[h][i]);
-          split_trunc(raw[i], hi[h][i], lo[h][i]);
+        for (int i = 0; i < 4 * KS; ++i) {
+          keep(hi[set][i]);
+          keep(lo[set][i]);
+          split_trunc(raw[i], hi[set][i], lo[set][i]);
         }
         wgmma_fence();
 #pragma unroll
-        for (int s = 0; s < BK / 16; ++s) {
+        for (int s = 0; s < KS; ++s) {
           // the descriptor's low bits are the address in 16-byte units
-          const uint64_t dhi = bd + (((2 * h + s) * 2 * LBO) >> 4);
-          const uint64_t dlo = dhi + ((BK * BN * 4) >> 4);
-          Wgmma<BN>::mma(acc, lo[h][4 * s], lo[h][4 * s + 1], lo[h][4 * s + 2],
-                         lo[h][4 * s + 3], dhi, h + s > 0 || !fresh);
-          Wgmma<BN>::mma(acc, hi[h][4 * s], hi[h][4 * s + 1], hi[h][4 * s + 2],
-                         hi[h][4 * s + 3], dlo, 1);
-          Wgmma<BN>::mma(acc, hi[h][4 * s], hi[h][4 * s + 1], hi[h][4 * s + 2],
-                         hi[h][4 * s + 3], dhi, 1);
+          const uint64_t dhi = bd + (((KS * half + s) * 2 * LBO) >> 4);
+          const uint64_t dlo = dhi + ((KB * BN * 4) >> 4);
+          Wgmma<BN>::mma(acc, lo[set][4 * s], lo[set][4 * s + 1], lo[set][4 * s + 2],
+                         lo[set][4 * s + 3], dhi, half + s > 0 || !fresh);
+          Wgmma<BN>::mma(acc, hi[set][4 * s], hi[set][4 * s + 1], hi[set][4 * s + 2],
+                         hi[set][4 * s + 3], dlo, 1);
+          Wgmma<BN>::mma(acc, hi[set][4 * s], hi[set][4 * s + 1], hi[set][4 * s + 2],
+                         hi[set][4 * s + 3], dhi, 1);
         }
         wgmma_commit();
       }
     }
+    // a step of an odd number of one-tap sets ends on set 0, which the next
+    // step's first tap loads again
+    if (KB == 8 && (ntap & 1)) wgmma_wait<0>();
     if (++grp == ngroups) {
-      grp = dh = dw = 0;
+      grp = dw = 0;
+      toff = dh_lo * PW;
       ++chunk;
       wgmma_wait<0>();
 #pragma unroll
@@ -503,12 +622,13 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
 
   // accumulator i of a thread: row mrow + 8 * ((i / 2) % 2), column
   // 8 * (i / 4) + 2 * (lane % 4) + i % 2
+  const int N = g.N;
   const bool pairs = (N & 1) == 0;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
-    const int wo = wo0 + mrow + 8 * half;
-    if (wo >= WO) continue;
-    float* yr = y + (static_cast<long long>(row) * WO + wo) * N;
+    const int m = mrow + 8 * half;
+    if (m >= count) continue;
+    float* yr = y + (pix0 + m) * N;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = n0 + 8 * j + 2 * (lane & 3);
@@ -523,53 +643,91 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   }
 }
 
-// taps per B stage: a stage of about 32 KB whatever the tile's width
-template <int BN>
-constexpr int kTapsPerStage = BN == 8 ? 9 : BN == 64 ? 2 : 1;
+// taps per B stage: a stage of about 32 KB whatever the tile's width, every
+// tap of a 3 x 3 window at N <= 8 and in the small-K class
+template <int KB, int BN>
+constexpr int kTapsPerStage = BN == 8 || KB == 8 ? 9 : 128 / BN;
 
 constexpr size_t kSmemLimit = 227 * 1024;
 
-// shared memory of a block of `wgs` warpgroups with `nsa` A stages: the B
-// ring, the A stages and the mbarriers
-template <int BN>
-size_t smem_bytes(int wgs, int nsa, int Cin, int Dh, int Dw) {
-  const int taps = Dh * Dw;
-  const int tps = taps < kTapsPerStage<BN> ? taps : kTapsPerStage<BN>;
-  const int nchunks = (Cin + BK - 1) / BK;
+// shared memory of a block of `wgs` warpgroups with `nsa` A stages of
+// arows x apw pixels: the B ring, the A stages and the mbarriers
+template <int KB, int BN>
+size_t smem_bytes(int nsa, int Cg, int taps, int arows, int apw) {
+  const int tps = taps < kTapsPerStage<KB, BN> ? taps : kTapsPerStage<KB, BN>;
+  const int nchunks = (Cg + KB - 1) / KB;
   const int nit = nchunks * ((taps + tps - 1) / tps);
   const size_t words =
-      static_cast<size_t>(nit < 3 ? nit : 3) * tps * 2 * BK * BN +
-      static_cast<size_t>(nchunks < nsa ? nchunks : nsa) * Dh *
-          (64 * wgs + Dw - 1) * APITCH;
+      static_cast<size_t>(nit < 3 ? nit : 3) * tps * 2 * KB * BN +
+      static_cast<size_t>(nchunks < nsa ? nchunks : nsa) * arows * apw *
+          (KB + 4);
   return words * sizeof(float) + 3 * 8;
 }
 
-template <int WGS, int BN, int VEC, bool RING_A>
+template <int WGS, int KB, int BN, int VEC, bool RING_A>
 int launch(cudaStream_t s, const float* x, const float* wp, float* y, int B,
-           int Hp, int Wp, int Cin, int Dh, int Dw, int N, int HO, int WO) {
-  constexpr int BM = 64 * WGS, nsa = RING_A ? 2 : 1;
-  const int nchunks = (Cin + BK - 1) / BK;
-  const size_t smem = smem_bytes<BN>(WGS, nsa, Cin, Dh, Dw);
+           const Geo& geo) {
+  const size_t smem = smem_bytes<KB, BN>(RING_A ? 2 : 1, geo.Cg, geo.Dh * geo.Dw,
+                                         geo.arows, geo.apw);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tapconv_kernel<WGS, BN, kTapsPerStage<BN>, VEC, RING_A>;
+  auto kernel = tapconv_kernel<WGS, KB, BN, kTapsPerStage<KB, BN>, VEC, RING_A>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const int wtiles = (WO + BM - 1) / BM;
-  const long long mtiles = static_cast<long long>(B) * HO * wtiles;
+  const long long mtiles = static_cast<long long>(B) * geo.tiles *
+                           (geo.flat ? 1 : geo.H);
   if (mtiles > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(mtiles), (N + BN - 1) / BN);
-  kernel<<<grid, 128 * WGS, smem, s>>>(x, wp, y, Hp, Wp, Cin, Dh, Dw, N, HO, WO,
-                                       nchunks, wtiles);
+  dim3 grid(static_cast<unsigned>(mtiles), (geo.N + BN - 1) / BN);
+  kernel<<<grid, 128 * WGS, smem, s>>>(x, wp, y, geo);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tiling of `geo` at `wgs` warpgroups: tiles per image or row and the
+// largest halo tile. A flat tile of BM pixels covers at most
+// (BM + W - 2) / W + 1 output rows, BM / W where rows divide it.
+void set_tiles(Geo& geo, int wgs) {
+  const int BM = 64 * wgs;
+  if (geo.flat) {
+    const int HW = geo.H * geo.W;
+    geo.tiles = (HW + BM - 1) / BM;
+    int span = BM % geo.W == 0 ? BM / geo.W : (BM + geo.W - 2) / geo.W + 1;
+    geo.arows = (span < geo.H ? span : geo.H) + geo.Dh - 1;
+    geo.apw = geo.W + geo.Dw - 1;
+  } else {
+    geo.tiles = (geo.W + BM - 1) / BM;
+    geo.arows = geo.Dh;
+    geo.apw = BM + geo.Dw - 1;
+  }
+}
+
+// the instantiation for a tiling: one A stage in place of two when two do
+// not fit shared memory (the copy of a chunk's tile then waits for the chunk
+// before it); refused when one does not fit either
+template <int KB, int BN>
+int launch_tiled(cudaStream_t s, const float* x, const float* wp, float* y,
+                 int B, Geo geo, int wgs) {
+  set_tiles(geo, wgs);
+  const int taps = geo.Dh * geo.Dw;
+  const bool ring =
+      smem_bytes<KB, BN>(2, geo.Cg, taps, geo.arows, geo.apw) <= kSmemLimit;
+  const bool vec = geo.Cg % 4 == 0;
+#define DCS_LAUNCH(WGS, VEC, RING) \
+  launch<WGS, KB, BN, VEC, RING>(s, x, wp, y, B, geo)
+  if (wgs == 2) {
+    if (!ring) return static_cast<int>(cudaErrorInvalidValue);
+    return vec ? DCS_LAUNCH(2, 4, true) : DCS_LAUNCH(2, 1, true);
+  }
+  if (!ring) return vec ? DCS_LAUNCH(1, 4, false) : DCS_LAUNCH(1, 1, false);
+  return vec ? DCS_LAUNCH(1, 4, true) : DCS_LAUNCH(1, 1, true);
+#undef DCS_LAUNCH
+}
+
 template <int BN>
-int launch_bn(cudaStream_t s, const float* x, const float* wp, float* y, int B,
-              int Hp, int Wp, int Cin, int Dh, int Dw, int N, int HO, int WO) {
+int launch_forward(cudaStream_t s, const float* x, const float* wp, float* y,
+                   int B, const Geo& geo) {
   static int sms = 0;
   if (sms == 0) {
     int dev = 0;
@@ -578,25 +736,34 @@ int launch_bn(cudaStream_t s, const float* x, const float* wp, float* y, int B,
             cudaSuccess)
       return static_cast<int>(cudaGetLastError());
   }
-  // The tile is chosen from the shape alone. 64-pixel tiles when the row is
-  // that short, when 128-pixel tiles would leave half of the card's SMs
-  // without a block, or when the window is so tall or wide that the halo
-  // tiles of 128 pixels do not fit shared memory; one A stage in place of
-  // two when two do not fit even then (the copy of a chunk's tile then
-  // waits for the chunk before it).
-  const long long blocks128 = static_cast<long long>(B) * HO *
-                              ((WO + 127) / 128) * ((N + BN - 1) / BN);
-  const bool narrow = WO <= 64 || 2 * blocks128 <= sms ||
-                      smem_bytes<BN>(2, 2, Cin, Dh, Dw) > kSmemLimit;
-  const bool ring =
-      !narrow || smem_bytes<BN>(1, 2, Cin, Dh, Dw) <= kSmemLimit;
-  const bool vec = Cin % 4 == 0;
-#define DCS_LAUNCH(WGS, VEC, RING) \
-  launch<WGS, BN, VEC, RING>(s, x, wp, y, B, Hp, Wp, Cin, Dh, Dw, N, HO, WO)
-  if (!ring) return vec ? DCS_LAUNCH(1, 4, false) : DCS_LAUNCH(1, 1, false);
-  if (narrow) return vec ? DCS_LAUNCH(1, 4, true) : DCS_LAUNCH(1, 1, true);
-  return vec ? DCS_LAUNCH(2, 4, true) : DCS_LAUNCH(2, 1, true);
-#undef DCS_LAUNCH
+  // The forward tiles one output row at a time, its tile chosen from the
+  // shape alone: 64-pixel tiles when the row is that short, when 128-pixel
+  // tiles would leave half of the card's SMs without a block, or when the
+  // window is so tall or wide that the halo tiles of 128 pixels do not fit
+  // shared memory.
+  const int taps = geo.Dh * geo.Dw;
+  const long long blocks128 = static_cast<long long>(B) * geo.H *
+                              ((geo.W + 127) / 128) * ((geo.N + BN - 1) / BN);
+  const bool narrow =
+      geo.W <= 64 || 2 * blocks128 <= sms ||
+      smem_bytes<BK, BN>(2, geo.Cg, taps, geo.Dh, 128 + geo.Dw - 1) > kSmemLimit;
+  return launch_tiled<BK, BN>(s, x, wp, y, B, geo, narrow ? 1 : 2);
+}
+
+template <int KB, int BN>
+int pack(const float* w, float* wp, int taps, int K, int N, bool flip,
+         cudaStream_t s) {
+  const int nchunks = (K + KB - 1) / KB;
+  const long long total = static_cast<long long>((N + BN - 1) / BN) * nchunks *
+                          taps * (KB / 4) * BN;
+  const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
+  if (flip)
+    pack_kernel<KB, BN, true><<<blocks, 256, 0, s>>>(w, wp, taps, K, N, nchunks,
+                                                     total);
+  else
+    pack_kernel<KB, BN, false><<<blocks, 256, 0, s>>>(w, wp, taps, K, N, nchunks,
+                                                      total);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -612,25 +779,17 @@ extern "C" int dcs_tapconv_pack(const float* w, float* wp, int taps, int Cin,
                                 int N, int bn, void* stream) {
   if (taps < 1 || Cin < 1 || N < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int nchunks = (Cin + BK - 1) / BK;
-  const long long total = static_cast<long long>((N + bn - 1) / bn) * nchunks *
-                          taps * (BK / 4) * bn;
-  const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bn) {
     case 8:
-      pack_kernel<8><<<blocks, 256, 0, s>>>(w, wp, taps, Cin, N, nchunks, total);
-      break;
+      return pack<BK, 8>(w, wp, taps, Cin, N, false, s);
     case 64:
-      pack_kernel<64><<<blocks, 256, 0, s>>>(w, wp, taps, Cin, N, nchunks, total);
-      break;
+      return pack<BK, 64>(w, wp, taps, Cin, N, false, s);
     case 128:
-      pack_kernel<128><<<blocks, 256, 0, s>>>(w, wp, taps, Cin, N, nchunks, total);
-      break;
+      return pack<BK, 128>(w, wp, taps, Cin, N, false, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // x (B, Hp, Wp, Cin) f32, wp the packed weights of dcs_tapconv_pack at the
@@ -646,13 +805,76 @@ extern "C" int dcs_tapconv_valid(const float* x, const float* wp, float* y,
   if (B < 1 || Cin < 1 || N < 1 || Dh < 1 || Dw < 1 || HO < 1 || WO < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Geo geo{Hp, Wp, Cin, HO, WO, N, 0, 0, Dh, Dw, 0, 0, 0, 0, (Cin + BK - 1) / BK};
   switch (bn) {
     case 8:
-      return launch_bn<8>(s, x, wp, y, B, Hp, Wp, Cin, Dh, Dw, N, HO, WO);
+      return launch_forward<8>(s, x, wp, y, B, geo);
     case 64:
-      return launch_bn<64>(s, x, wp, y, B, Hp, Wp, Cin, Dh, Dw, N, HO, WO);
+      return launch_forward<64>(s, x, wp, y, B, geo);
     case 128:
-      return launch_bn<128>(s, x, wp, y, B, Hp, Wp, Cin, Dh, Dw, N, HO, WO);
+      return launch_forward<128>(s, x, wp, y, B, geo);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The input gradient's weights, packed straight from the forward's w (taps,
+// Cin, N): the tiles dcs_tapconv_pack would write for w with its taps
+// reversed and its channel axes swapped (reduction over N, Cin out), in
+// kb-channel chunks (32, or 8 in the small-K class) and bn-wide N tiles (32,
+// 64 or 128): ceil(Cin/bn) * ceil(N/kb) * taps * 2 * kb * bn floats.
+extern "C" int dcs_tapconv_pack_dgrad(const float* w, float* wp, int taps,
+                                      int Cin, int N, int kb, int bn,
+                                      void* stream) {
+  if (taps < 1 || Cin < 1 || N < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kb == 8 && bn == 32) return pack<8, 32>(w, wp, taps, N, Cin, true, s);
+  if (kb != BK) return static_cast<int>(cudaErrorInvalidValue);
+  switch (bn) {
+    case 32:
+      return pack<BK, 32>(w, wp, taps, N, Cin, true, s);
+    case 64:
+      return pack<BK, 64>(w, wp, taps, N, Cin, true, s);
+    case 128:
+      return pack<BK, 128>(w, wp, taps, N, Cin, true, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The input gradient of y = tapconv_valid(pad(x), w): g (B, HO, WO, N), wp
+// from dcs_tapconv_pack_dgrad at the same kb and bn, dx (B, H, W, Cin) where
+// x was padded by pad_top rows and pad_left columns before it (HO = H +
+// pad_top + pad_bottom - Dh + 1, and so for W), so that
+//   dx[b, h, w, c] = sum_{dh, dw, n} g[b, h + pad_top - dh, w + pad_left - dw, n]
+//                                    * w[dh * Dw + dw, c, n],
+// g zero outside its extent. flat = 1 tiles BM = 64 * wgs consecutive pixels
+// of an image (several short rows), 0 one output row at a time; wgs is 1 or
+// 2. All contiguous and 16-byte aligned. Launches on `stream`, allocates
+// nothing, returns cudaGetLastError(); a tiling whose halo tile does not fit
+// shared memory is cudaErrorInvalidValue.
+extern "C" int dcs_tapconv_dgrad(const float* g, const float* wp, float* dx,
+                                 int B, int HO, int WO, int N, int H, int W,
+                                 int Cin, int Dh, int Dw, int pad_top,
+                                 int pad_left, int flat, int wgs, int kb, int bn,
+                                 void* stream) {
+  if (B < 1 || HO < 1 || WO < 1 || N < 1 || H < 1 || W < 1 || Cin < 1 ||
+      Dh < 1 || Dw < 1 || pad_top < 0 || pad_left < 0 || (flat != 0 && flat != 1) ||
+      (wgs != 1 && wgs != 2) || static_cast<long long>(H) * W > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Geo geo{HO, WO, N, H, W, Cin, pad_top - (Dh - 1), pad_left - (Dw - 1), Dh, Dw,
+          flat, 0, 0, 0, (N + kb - 1) / kb};
+  if (kb == 8 && bn == 32) return launch_tiled<8, 32>(s, g, wp, dx, B, geo, wgs);
+  if (kb != BK) return static_cast<int>(cudaErrorInvalidValue);
+  switch (bn) {
+    case 32:
+      return launch_tiled<BK, 32>(s, g, wp, dx, B, geo, wgs);
+    case 64:
+      return launch_tiled<BK, 64>(s, g, wp, dx, B, geo, wgs);
+    case 128:
+      return launch_tiled<BK, 128>(s, g, wp, dx, B, geo, wgs);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

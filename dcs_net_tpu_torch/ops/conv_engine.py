@@ -97,6 +97,8 @@ def upsampled_conv2d_multi(xs: Sequence[torch.Tensor],
     kbig = torch.einsum("adt,bev,tvio->deiabo", fh, fw, w).reshape(
         Dh * Dw, w.shape[2], s_h * s_w * cout).contiguous()
     x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
-    xp = F.pad(x, (0, 0, -dw_min, dw_min + Dw - 1, -dh_min, dh_min + Dh - 1))
-    yp = tapconv_valid(xp.contiguous(), kbig, Dh, Dw)
+    # the window's zero padding goes to the tap conv, whose input gradient
+    # then writes x's own pixels only
+    pad = (-dh_min, dh_min + Dh - 1, -dw_min, dw_min + Dw - 1)
+    yp = tapconv_valid(x.contiguous(), kbig, Dh, Dw, pad)
     return _interleave_phases(yp, s_h, s_w, cout)

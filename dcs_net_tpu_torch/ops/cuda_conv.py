@@ -13,10 +13,11 @@ whose pooling and product move far more bytes than the conv computes on, so
 the source has three entry points and this module three wrappers:
 
 * :func:`conv2d_same_small_cout` -- the conv alone (+ bias), any odd K <= 7,
-  Cout <= 16. The shape class (K, Cin, Cout) = (7, 4, 2) runs a
-  register-tiled body (a thread slides the 7 taps over a run of R pixels held
-  in registers; bound by float32 operations, 33 FLOP per byte); every other
-  class runs the generic one-pixel-per-thread body.
+  Cout <= 16. The shape classes (K, Cin, Cout) = (7, 4, 2) and its input
+  gradient's (7, 2, 4) run a register-tiled body (a thread slides the 7 taps
+  over a run of R pixels held in registers; bound by float32 operations, 33
+  FLOP per byte); every other class runs the generic one-pixel-per-thread
+  body.
 * :func:`sa_pool` -- one read of x -> the pooled map.
 * :func:`sa_gate` -- the (7, 4, 2) conv body with a sigmoid-and-product
   epilogue: one more read and one write of x.
@@ -36,7 +37,7 @@ Gradients. On a CUDA tensor :func:`conv2d_same_small_cout` is
 (``dcs_net_tpu/ops/pallas_conv.py:198-223``): the input gradient is the same
 "same" conv of the upstream gradient with the flipped, transposed kernel,
 launched on kernel 2 (for the spatial attention, Cin 2 -> Cout 4: the
-generic body, which reads a float at a time and needs no alignment); the
+register-tiled body where g is 8-byte aligned, as the forward's); the
 weight gradient is one contraction over every pixel (:func:`weight_grad`)
 and the bias gradient a sum, in PyTorch, as the JAX package leaves them to
 XLA. On a CPU tensor the plain version runs under plain autograd. The pool
@@ -59,7 +60,9 @@ from dcs_net_tpu_torch.utils.cuda_lib import CudaKernel, check_cuda_operand, ptr
 
 MAX_K = 7
 MAX_COUT = 16
-TUNED_CLASS = (7, 4, 2)          # (K, Cin, Cout) of the register-tiled body
+# (K, Cin, Cout) of the register-tiled body: the spatial attention's conv
+# and its input gradient
+TILED_CLASSES = ((7, 4, 2), (7, 2, 4))
 GENERIC_TILE = (0, 0, 0)         # names the generic body to the C entry
 BLOCK_THREADS = 128              # NT in the source
 _MAX_SMEM = 48 * 1024
@@ -88,7 +91,7 @@ def applicable(kernel_size: int, cout: int) -> bool:
 
 
 def slot(p: int, R: int) -> int:
-    """Where pixel ``p`` of a staged row sits in shared memory (in float4
+    """Where pixel ``p`` of a staged row sits in shared memory (in pixel
     slots) for runs of R pixels: one slot of padding after every run, so that
     neighbouring threads' runs start R + 1 slots apart (an odd stride) and
     the eight threads of a quarter-warp read eight different 16-byte bank
@@ -96,16 +99,24 @@ def slot(p: int, R: int) -> int:
     return p + p // R
 
 
-def _pitch(R: int, tw: int) -> int:
-    return slot(tw + 6 - 1, R) + 1
+def tile_pitch(tile: Tile, cin: int = 4) -> int:
+    """Pixel slots a staged row of ``tile``: the last pixel's slot + 1. For
+    8-byte slots (Cin = 2) a half-warp's 16 loads must fall on 16 different
+    8-byte bank groups, and a half-warp spans rows where the tile is fewer
+    than 16 runs wide: the pitch is padded to TX * (R + 1) mod 16, so that
+    thread (tx, ty) reads slot (ty * TX + tx) * (R + 1) + j mod 16."""
+    R, tx, _ = tile
+    pitch = slot(R * tx + 6 - 1, R) + 1
+    return pitch + (tx * (R + 1) - pitch) % 16 if cin == 2 else pitch
 
 
-def tile_smem_bytes(tile: Tile) -> int:
+def tile_smem_bytes(tile: Tile, cin: int = 4) -> int:
     """Dynamic shared memory of one block: the weights, the staged tile with
-    its halo at the padded pitch, the attention map."""
+    its halo at the padded pitch (``cin`` floats a slot), the attention map
+    (8 / cin floats a pixel)."""
     R, tx, ty = tile
-    tw = R * tx
-    return 16 * (98 + (ty + 6) * _pitch(R, tw) + (ty * tw + 1) // 2)
+    staged = (ty + 6) * tile_pitch(tile, cin) * cin
+    return 16 * (98 + -(-staged // 4) + -(-(ty * R * tx * (8 // cin)) // 4))
 
 
 def _pow2_floor(n: int) -> int:
@@ -117,7 +128,7 @@ def _pow2_ceil(n: int) -> int:
 
 
 def choose_tile(B: int, H: int, W: int) -> Tile:
-    """The (7, 4, 2) body's tile for an image, from its shape alone.
+    """The register-tiled body's tile for an image, from its shape alone.
 
     A block has 128 threads. The tile holds about 1/256 of the pixels,
     between 8 and 512, so that even a few thousand pixels spread over the
@@ -133,10 +144,10 @@ def choose_tile(B: int, H: int, W: int) -> Tile:
     return R, tx, ty
 
 
-def _check_tile(tile: Tile) -> None:
+def _check_tile(tile: Tile, cin: int = 4) -> None:
     R, tx, ty = tile
     if (R not in (2, 4) or tx < 1 or ty < 1 or tx * ty > BLOCK_THREADS
-            or tile_smem_bytes(tile) > _MAX_SMEM):
+            or tile_smem_bytes(tile, cin) > _MAX_SMEM):
         raise ValueError(f"tile (R, TX, TY) = {tile}: need R in (2, 4), "
                          f"TX * TY <= {BLOCK_THREADS} and at most "
                          f"{_MAX_SMEM} bytes of shared memory")
@@ -188,7 +199,7 @@ def conv2d_same_small_cout_plain(x: torch.Tensor, w: torch.Tensor,
 def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                 tile: Tile, dgrad: bool = False) -> torch.Tensor:
     """Launch the conv entry on CUDA tensors with the body named by ``tile``:
-    ``GENERIC_TILE``, or (R, TX, TY) for the (7, 4, 2) body. ``dgrad``
+    ``GENERIC_TILE``, or (R, TX, TY) for the register-tiled body. ``dgrad``
     counts the launch as an input gradient's (``DGRAD``)."""
     _check_shapes(x, w, bias)
     dev = x.device
@@ -198,9 +209,9 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     B, H, W, cin = x.shape
     K, _, _, cout = w.shape
     if tile != GENERIC_TILE:
-        if (K, cin, cout) != TUNED_CLASS:
+        if (K, cin, cout) not in TILED_CLASSES:
             raise ValueError(f"(K, Cin, Cout) = {(K, cin, cout)} has no tiled body")
-        _check_tile(tile)
+        _check_tile(tile, cin)
     y = torch.empty((B, H, W, cout), device=dev, dtype=torch.float32)
     (DGRAD if dgrad else KERNEL)(dev, ptr(x), ptr(w), ptr(bias), ptr(y),
                                  B, H, W, cin, K, cout, *tile)
@@ -221,10 +232,10 @@ def _same_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         return conv2d_same_small_cout_plain(x, w, bias)
     _check_shapes(x, w, bias)
     B, H, W, cin = x.shape
-    # the tiled body reads a pixel's 4 channels, and 4 weights, as one
-    # 16-byte word
-    tiled = ((w.shape[0], cin, w.shape[-1]) == TUNED_CLASS
-             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    # the tiled body reads a pixel's channels as one 16- or 8-byte word
+    # (Cin 4 or 2) and 4 weights as one 16-byte word
+    tiled = ((w.shape[0], cin, w.shape[-1]) in TILED_CLASSES
+             and x.data_ptr() % (4 * cin) == 0 and w.data_ptr() % 16 == 0)
     return launch_conv(x, w, bias,
                        choose_tile(B, H, W) if tiled else GENERIC_TILE, dgrad)
 

@@ -21,19 +21,25 @@ tensors through the kernel, never falling back between the two.
 
 Gradients. On a CUDA tensor :func:`tapconv_valid` is :class:`TapconvValid`,
 whose backward mirrors the JAX ``_updot_bwd``
-(``dcs_net_tpu/ops/conv_engine.py:850-903``). The input gradient, the
-overlap-add of g Kᵀ, is itself a VALID tap correlation: of g zero-padded by
-(Dh - 1, Dw - 1) on every side with the flipped, transposed weights
-(:func:`dgrad_weights`, Cin' = N, N' = Cin), so it runs on kernel 3 (with its
-packing launch) and comes out exactly (B, Hp, Wp, Cin). The weight gradient
-Qᵀ g is one product of the patch matrix of x with g (:func:`weight_grad`),
-in PyTorch, as the JAX package leaves it to XLA.
+(``dcs_net_tpu/ops/conv_engine.py:850-903``). ``tapconv_valid`` takes the
+zero padding of its input as an argument (``pad``), so the backward knows
+which pixels autograd keeps. The input gradient, the overlap-add of g Kᵀ, is
+a tap correlation of g with the flipped, transposed weights (Cin' = N,
+N' = Cin) that the kernel's own input-gradient entry (``DGRAD``) computes
+for the kept pixels only, reading g unpadded, after ``DGRAD_PACK`` has
+packed the flipped weights straight from w; :func:`dgrad_plan` chooses its
+tiling from the shape. :func:`dgrad_input` and :func:`dgrad_weights` (g
+padded, the weights flipped, as copies) define the plain version
+:func:`tapconv_dgrad_plain` and are not on the kernel's path. The weight
+gradient Qᵀ g is one product of the patch matrix of the padded x with g
+(:func:`weight_grad`), in PyTorch, as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,12 +54,13 @@ KERNEL = CudaKernel(
 PACK = CudaKernel(
     "tapconv_pack", "tapconv.cu", "dcs_tapconv_pack",
     [_p, _p, _i, _i, _i, _i, _p])
-# the same two C functions launched for an input gradient, counted on their own
-# so that a train step shows its forward and backward launches
-DGRAD = CudaKernel("tapconv_valid_dgrad", "tapconv.cu", "dcs_tapconv_valid",
-                   KERNEL.argtypes)
-DGRAD_PACK = CudaKernel("tapconv_pack_dgrad", "tapconv.cu", "dcs_tapconv_pack",
-                        PACK.argtypes)
+# the input gradient: its own entry of the same kernel, and its packing
+DGRAD = CudaKernel(
+    "tapconv_valid_dgrad", "tapconv.cu", "dcs_tapconv_dgrad",
+    [_p, _p, _p] + [_i] * 15 + [_p])
+DGRAD_PACK = CudaKernel(
+    "tapconv_pack_dgrad", "tapconv.cu", "dcs_tapconv_pack_dgrad",
+    [_p, _p, _i, _i, _i, _i, _i, _p])
 
 BK = 32     # input channels per reduction chunk of the kernel
 
@@ -78,24 +85,28 @@ def split_tf32(t: torch.Tensor, truncate: bool = False
     return hi, tf32(t - hi)
 
 
-def pack_weights(w: torch.Tensor, bn: int) -> torch.Tensor:
-    """w (taps, Cin, N) -> (n tiles, chunks, taps, 2, BK/4, bn, 4): per N tile
-    of ``bn`` channels, 32-channel chunk and tap, the TF32 hi and lo slabs in
-    the K-major order the kernel copies into shared memory (4 consecutive
-    input channels innermost, then the output channel), zero beyond Cin and N."""
+def pack_weights(w: torch.Tensor, bn: int, bk: int = BK) -> torch.Tensor:
+    """w (taps, Cin, N) -> (n tiles, chunks, taps, 2, bk/4, bn, 4): per N tile
+    of ``bn`` channels, ``bk``-channel chunk and tap, the TF32 hi and lo
+    slabs in the K-major order the kernel copies into shared memory (4
+    consecutive input channels innermost, then the output channel), zero
+    beyond Cin and N."""
     taps, cin, n = w.shape
-    nt, nc = -(-n // bn), -(-cin // BK)
-    wpad = F.pad(w, (0, nt * bn - n, 0, nc * BK - cin))
-    tiles = wpad.reshape(taps, nc, BK // 4, 4, nt, bn).permute(4, 1, 0, 2, 5, 3)
+    nt, nc = -(-n // bn), -(-cin // bk)
+    wpad = F.pad(w, (0, nt * bn - n, 0, nc * bk - cin))
+    tiles = wpad.reshape(taps, nc, bk // 4, 4, nt, bn).permute(4, 1, 0, 2, 5, 3)
     return torch.stack(split_tf32(tiles.contiguous()), dim=3)
 
 
 def unpack_weights(wp: torch.Tensor, cin: int, n: int) -> torch.Tensor:
     """The inverse of :func:`pack_weights`, summing hi and lo."""
-    nt, nc, taps, _, _, bn, _ = wp.shape
+    nt, nc, taps, _, bk4, bn, _ = wp.shape
     tiles = wp[:, :, :, 0] + wp[:, :, :, 1]
-    w = tiles.permute(2, 1, 3, 5, 0, 4).reshape(taps, nc * BK, nt * bn)
+    w = tiles.permute(2, 1, 3, 5, 0, 4).reshape(taps, nc * 4 * bk4, nt * bn)
     return w[:, :cin, :n].contiguous()
+
+
+Pad = Tuple[int, int, int, int]     # (top, bottom, left, right)
 
 
 def _out_shape(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int):
@@ -113,6 +124,16 @@ def _out_shape(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int):
     return B, ho, wo, n
 
 
+def _pad(x: torch.Tensor, pad: Optional[Pad]) -> torch.Tensor:
+    """x zero-padded by ``pad`` = (top, bottom, left, right) rows and columns."""
+    if pad is None or not any(pad):
+        return x
+    if min(pad) < 0:
+        raise ValueError(f"pad {pad} must not be negative")
+    top, bottom, left, right = pad
+    return F.pad(x, (0, 0, left, right, top, bottom)).contiguous()
+
+
 def tapconv_valid_plain(x: torch.Tensor, w: torch.Tensor, dh_n: int,
                         dw_n: int) -> torch.Tensor:
     """Plain version: the sum over taps of shifted-slice (pixels x Cin) @
@@ -126,10 +147,8 @@ def tapconv_valid_plain(x: torch.Tensor, w: torch.Tensor, dh_n: int,
     return y
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
-            dgrad: bool = False) -> torch.Tensor:
-    """The packing and tap-conv launches on CUDA tensors; ``dgrad`` counts
-    them as an input gradient's (``DGRAD_PACK``, ``DGRAD``)."""
+def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int) -> torch.Tensor:
+    """The packing and tap-conv launches on CUDA tensors."""
     B, ho, wo, n = _out_shape(x, w, dh_n, dw_n)
     dev = x.device
     check_cuda_operand("x", x, dev, 4)
@@ -139,32 +158,140 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
     packed = torch.empty((-(-n // bn), -(-cin // BK), dh_n * dw_n, 2, BK // 4,
                           bn, 4), device=dev, dtype=torch.float32)
     y = torch.empty((B, ho, wo, n), device=dev, dtype=torch.float32)
-    pack, kernel = (DGRAD_PACK, DGRAD) if dgrad else (PACK, KERNEL)
-    pack(dev, ptr(w), ptr(packed), dh_n * dw_n, cin, n, bn)
-    kernel(dev, ptr(x), ptr(packed), ptr(y), B, hp, wp, cin, dh_n, dw_n, n, bn)
+    PACK(dev, ptr(w), ptr(packed), dh_n * dw_n, cin, n, bn)
+    KERNEL(dev, ptr(x), ptr(packed), ptr(y), B, hp, wp, cin, dh_n, dw_n, n, bn)
     return y
-
-
-def _valid(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
-           dgrad: bool = False) -> torch.Tensor:
-    """The tap correlation without autograd: plain on the CPU, the kernel on
-    CUDA."""
-    if x.device.type == "cpu":
-        return tapconv_valid_plain(x, w, dh_n, dw_n)
-    return _launch(x, w, dh_n, dw_n, dgrad)
 
 
 def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
     """(Dh*Dw, Cin, N) -> (Dh*Dw, N, Cin): taps in reverse order (tap (dh, dw)
     becomes (Dh - 1 - dh, Dw - 1 - dw)), input and output channels swapped.
-    The VALID correlation of the upstream gradient, padded by (Dh - 1,
-    Dw - 1), with these weights is the input gradient."""
+    With :func:`dgrad_input` it defines the plain input gradient; the
+    kernel's packing entry reads w in this order without the copy."""
     return torch.flip(w, dims=(0,)).transpose(1, 2).contiguous()
 
 
 def dgrad_input(g: torch.Tensor, dh_n: int, dw_n: int) -> torch.Tensor:
-    """g (B, HO, WO, N) -> (B, HO + 2 (Dh - 1), WO + 2 (Dw - 1), N)."""
+    """g (B, HO, WO, N) -> (B, HO + 2 (Dh - 1), WO + 2 (Dw - 1), N), zero
+    padded: the input of the plain input gradient (the kernel reads g in
+    place)."""
     return F.pad(g, (0, 0, dw_n - 1, dw_n - 1, dh_n - 1, dh_n - 1)).contiguous()
+
+
+def tapconv_dgrad_plain(g: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
+                        pad: Pad, hw: Tuple[int, int]) -> torch.Tensor:
+    """The input gradient of ``tapconv_valid(x, w, dh_n, dw_n, pad)`` for x
+    of H x W = ``hw``: the VALID correlation of g padded by (Dh - 1, Dw - 1)
+    with the flipped, transposed weights is the gradient of the padded x;
+    its interior, (B, H, W, Cin), is x's."""
+    top, _, left, _ = pad
+    dxp = tapconv_valid_plain(dgrad_input(g, dh_n, dw_n), dgrad_weights(w), dh_n, dw_n)
+    return dxp[:, top:top + hw[0], left:left + hw[1]]
+
+
+def dgrad_tiles(n: int, cin: int) -> Tuple[int, int]:
+    """(channels per reduction chunk, N tile) of the input gradient, whose
+    reduction runs over the forward's N and whose outputs are its Cin: 8 and
+    32 for at most 8 and 32 (dec6's class: one k8 step a tap, no padding of
+    K to 32 or of N to 64), else 32 and the smallest of 32, 64, 128 that
+    holds Cin."""
+    if n <= 8 and cin <= 32:
+        return 8, 32
+    return BK, 32 if cin <= 32 else 64 if cin <= 64 else 128
+
+
+SMEM_LIMIT = 227 * 1024
+SMS = 132       # the H100's SMs, where no card is at hand (meta tensors)
+
+
+def _taps_per_stage(kb: int, bn: int) -> int:
+    return 9 if bn == 8 or kb == 8 else 128 // bn
+
+
+def dgrad_smem_bytes(kb: int, bn: int, nsa: int, cg: int, taps: int,
+                     arows: int, apw: int) -> int:
+    """Shared memory of one block (``smem_bytes`` in the source): the B
+    ring, ``nsa`` halo-tile stages of arows x apw pixels, the mbarriers."""
+    tps = min(taps, _taps_per_stage(kb, bn))
+    nchunks = -(-cg // kb)
+    nit = nchunks * -(-taps // tps)
+    words = (min(nit, 3) * tps * 2 * kb * bn
+             + min(nchunks, nsa) * arows * apw * (kb + 4))
+    return 4 * words + 3 * 8
+
+
+def dgrad_tiling(flat: int, wgs: int, H: int, W: int, dh_n: int, dw_n: int
+                 ) -> Tuple[int, int, int]:
+    """(M tiles per image or output row, halo rows, halo pixels a row) of the
+    input-gradient entry (``set_tiles`` in the source): a flat tile of BM =
+    64 * wgs consecutive pixels covers at most (BM + W - 2) // W + 1 rows,
+    BM // W where rows divide it; a row tile BM pixels of one row."""
+    bm = 64 * wgs
+    if flat:
+        span = bm // W if bm % W == 0 else (bm + W - 2) // W + 1
+        return -(-H * W // bm), min(span, H) + dh_n - 1, W + dw_n - 1
+    return -(-W // bm), dh_n, bm + dw_n - 1
+
+
+def dgrad_plan(B: int, H: int, W: int, n: int, cin: int, dh_n: int, dw_n: int,
+               sms: int = SMS) -> Tuple[int, int, int, int]:
+    """(kb, bn, flat, wgs) of the input gradient at dx (B, H, W, Cin) from g's
+    N channels, from the shape alone. Images narrower than 128 columns take
+    flat tiles (several rows a tile, so a 32-column image fills the 64 wgmma
+    rows); wider ones one row a tile, as the forward. 128-pixel tiles (two
+    warpgroups sharing B) unless 64 fill the tiles' rows better (by more than
+    a tenth), 128 would leave half of the card's SMs without a block, or
+    their halo tiles do not fit shared memory twice."""
+    kb, bn = dgrad_tiles(n, cin)
+    taps = dh_n * dw_n
+
+    def fits(flat, wgs, nsa):
+        _, arows, apw = dgrad_tiling(flat, wgs, H, W, dh_n, dw_n)
+        return dgrad_smem_bytes(kb, bn, nsa, n, taps, arows, apw) <= SMEM_LIMIT
+
+    flat = int(W < 128 and fits(1, 1, 1))
+    px = H * W if flat else W
+
+    def fill(wgs):
+        bm = 64 * wgs
+        return px / (bm * -(-px // bm))
+
+    tiles2 = dgrad_tiling(flat, 2, H, W, dh_n, dw_n)[0]
+    blocks2 = B * tiles2 * (1 if flat else H) * -(-cin // bn)
+    wide = fits(flat, 2, 2) and fill(2) >= 0.9 * fill(1) and 2 * blocks2 > sms
+    return kb, bn, flat, 2 if wide else 1
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _launch_dgrad(g: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
+                  pad: Pad, hw: Tuple[int, int]) -> torch.Tensor:
+    """The input gradient's packing and kernel launches on CUDA tensors:
+    g (B, HO, WO, N), w (Dh*Dw, Cin, N) -> dx (B, H, W, Cin)."""
+    dev = g.device
+    check_cuda_operand("g", g, dev, 4)
+    check_cuda_operand("w", w, dev, 3)
+    B, ho, wo, n = g.shape
+    taps, cin, n_w = w.shape
+    H, W = hw
+    top, bottom, left, right = pad
+    if (taps != dh_n * dw_n or n_w != n or ho != H + top + bottom - dh_n + 1
+            or wo != W + left + right - dw_n + 1 or min(pad) < 0):
+        raise ValueError(f"g {tuple(g.shape)} and w {tuple(w.shape)} are not the "
+                         f"{dh_n}x{dw_n} tap conv of a {H}x{W} input padded by {pad}")
+    kb, bn, flat, wgs = dgrad_plan(B, H, W, n, cin, dh_n, dw_n, _sm_count(dev))
+    packed = torch.empty((-(-cin // bn), -(-n // kb), taps, 2, kb // 4, bn, 4),
+                         device=dev, dtype=torch.float32)
+    dx = torch.empty((B, H, W, cin), device=dev, dtype=torch.float32)
+    DGRAD_PACK(dev, ptr(w), ptr(packed), taps, cin, n, kb, bn)
+    DGRAD(dev, ptr(g), ptr(packed), ptr(dx), B, ho, wo, n, H, W, cin, dh_n, dw_n,
+          top, left, flat, wgs, kb, bn)
+    return dx
 
 
 def weight_grad(x: torch.Tensor, g: torch.Tensor, dh_n: int,
@@ -180,44 +307,52 @@ def weight_grad(x: torch.Tensor, g: torch.Tensor, dh_n: int,
 
 
 class TapconvValid(torch.autograd.Function):
-    """Kernel 3 under autograd: forward the tap conv, backward the JAX
-    ``_updot_bwd`` (input gradient on kernel 3, weight gradient in
+    """Kernel 3 under autograd: forward the tap conv of x zero-padded by
+    ``pad``, backward the JAX ``_updot_bwd`` (input gradient, of x's own
+    pixels, on kernel 3's input-gradient entry; weight gradient in
     PyTorch)."""
 
     @staticmethod
-    def forward(ctx, x, w, dh_n, dw_n):
-        ctx.save_for_backward(x, w)
-        ctx.taps = (dh_n, dw_n)
-        return _valid(x, w, dh_n, dw_n)
+    def forward(ctx, x, w, dh_n, dw_n, pad=None):
+        xp = _pad(x, pad)
+        ctx.save_for_backward(xp, w)
+        ctx.taps, ctx.pad, ctx.hw = (dh_n, dw_n), tuple(pad or (0, 0, 0, 0)), x.shape[1:3]
+        if x.device.type == "cpu":
+            return tapconv_valid_plain(xp, w, dh_n, dw_n)
+        return _launch(xp, w, dh_n, dw_n)
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
+        xp, w = ctx.saved_tensors
         dh_n, dw_n = ctx.taps
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _valid(dgrad_input(g, dh_n, dw_n), dgrad_weights(w), dh_n,
-                        dw_n, dgrad=True)
+            if g.device.type == "cpu":
+                dx = tapconv_dgrad_plain(g, w, dh_n, dw_n, ctx.pad, ctx.hw)
+            else:
+                dx = _launch_dgrad(g, w, dh_n, dw_n, ctx.pad, ctx.hw)
         if ctx.needs_input_grad[1]:
-            dw = weight_grad(x, g, dh_n, dw_n)
-        return dx, dw, None, None
+            dw = weight_grad(xp, g, dh_n, dw_n)
+        return dx, dw, None, None, None
 
 
-def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int,
-                  dw_n: int) -> torch.Tensor:
-    """x (B, Hp, Wp, Cin), w (Dh*Dw, Cin, N) tap-major -> y (B, HO, WO, N)
-    with HO = Hp - Dh + 1, WO = Wp - Dw + 1; float32 accumulation. A CPU
-    tensor takes the plain version (plain autograd); a CUDA tensor
+def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
+                  pad: Optional[Pad] = None) -> torch.Tensor:
+    """x (B, H, W, Cin) zero-padded by ``pad`` = (top, bottom, left, right)
+    to (B, Hp, Wp, Cin), w (Dh*Dw, Cin, N) tap-major -> y (B, HO, WO, N) with
+    HO = Hp - Dh + 1, WO = Wp - Dw + 1; float32 accumulation. A CPU tensor
+    takes the plain version (plain autograd); a CUDA tensor
     :class:`TapconvValid`. On the card the kernel picks its tile from the
     shape (128 or 64 pixels, two halo-tile stages or one) and takes every
     window whose 64-pixel halo tile fits shared memory, Dh * (63 + Dw) <= 931
     (12 x 12 and smaller); beyond that the launch is refused and the call
     raises. Where autograd follows neither operand the kernel runs without
     the Function."""
+    xp = _pad(x, pad)
     if x.device.type == "cpu":
-        return tapconv_valid_plain(x, w, dh_n, dw_n)
-    _out_shape(x, w, dh_n, dw_n)
+        return tapconv_valid_plain(xp, w, dh_n, dw_n)
+    _out_shape(xp, w, dh_n, dw_n)
     if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
-        return _launch(x, w, dh_n, dw_n)
-    return TapconvValid.apply(x, w, dh_n, dw_n)
+        return _launch(xp, w, dh_n, dw_n)
+    return TapconvValid.apply(x, w, dh_n, dw_n, pad)

@@ -13,7 +13,10 @@ over R in (2, 4) and power-of-two TX and TY, and with the generic body
 (x read twice and written once, the pooled map written and read, at the
 card's memory rate). The last line sums each column over the 13 sites.
 ``--frames 256 --batch 8`` gives the sites of one streaming chunk group;
-``--no-sweep`` leaves the sweep out.
+``--no-sweep`` leaves the sweep out. ``--dgrad`` sweeps the conv entry at
+the input gradient's class (7, 2, 4) instead (g (B, H, W, 2) -> (B, H, W,
+4)), beside the generic body; ``--dgrad --frames 256 --batch 32`` gives the
+13 launches of a train step.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ def sites(cfg, batch: int, frames: int):
     return shapes[::-1] + shapes[-2::-1]
 
 
-def candidate_tiles(H: int):
+def candidate_tiles(H: int, cin: int = 4):
     from dcs_net_tpu_torch.ops import cuda_conv as cc
 
     out = []
@@ -46,7 +49,7 @@ def candidate_tiles(H: int):
                 t = (R, tx, ty)
                 if (ty <= max(1, 2 * H) and tx * ty <= cc.BLOCK_THREADS
                         and tx * ty >= 8
-                        and cc.tile_smem_bytes(t) <= 48 * 1024):
+                        and cc.tile_smem_bytes(t, cin) <= 48 * 1024):
                     out.append(t)
     return out
 
@@ -58,7 +61,11 @@ def main(argv=None) -> None:
     p.add_argument("--iters", type=int, default=20)
     p.add_argument("--no-sweep", action="store_true",
                    help="time the chosen tile and the generic body only")
+    p.add_argument("--dgrad", action="store_true",
+                   help="the conv entry at the input gradient's class (7, 2, 4)")
     args = p.parse_args(argv)
+    if args.dgrad:
+        return sweep_dgrad(args)
 
     import torch
 
@@ -110,6 +117,39 @@ def main(argv=None) -> None:
                      ("conv_generic", generic), ("pool", pool),
                      ("gate", gate[chosen]), ("gate_best", gate[gb]),
                      ("bound", bound)):
+            tot[k] += v
+    print("summed over the 13 sites (ms): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()) + f" [{smi}]")
+
+
+def sweep_dgrad(args) -> None:
+    """The conv entry at class (7, 2, 4) at each site: the chosen tile, the
+    best of the sweep, the generic body; summed over the sites."""
+    import torch
+
+    from dcs_net_tpu_torch.core.config import config_for_variant
+    from dcs_net_tpu_torch.ops import cuda_conv as cc
+    from dcs_net_tpu_torch.utils.timing import graph_ms
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    g = torch.Generator(device=dev).manual_seed(0)
+    wt = cc.dgrad_kernel(torch.randn((7, 7, 4, 2), generator=g, device=dev) * 0.1)
+    zb = torch.zeros(4, device=dev)
+    tot = dict(chosen=0.0, best=0.0, generic=0.0)
+    for B, H, W, _ in sites(config_for_variant("dcs"), args.batch, args.frames):
+        gy = torch.randn((B, H, W, 2), generator=g, device=dev)
+        chosen = cc.choose_tile(B, H, W)
+        tiles = [] if args.no_sweep else candidate_tiles(H, cin=2)
+        t = {tile: graph_ms(lambda: cc.launch_conv(gy, wt, zb, tile), args.iters)
+             for tile in tiles + [chosen]}
+        generic = graph_ms(lambda: cc.launch_conv(gy, wt, zb, cc.GENERIC_TILE), args.iters)
+        best = min(t, key=t.get)
+        print(f"dgrad site ({B}, {H}, {W}): chosen {chosen} {t[chosen]:.4f} | best "
+              f"{best} {t[best]:.4f} | generic {generic:.4f} ms")
+        for k, v in (("chosen", t[chosen]), ("best", t[best]), ("generic", generic)):
             tot[k] += v
     print("summed over the 13 sites (ms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()) + f" [{smi}]")

@@ -225,8 +225,8 @@ def test_unified_decoder_weights_hold_structural_zeros(monkeypatch, stage,
     K, scale = m.kernel_d[stage], tuple(m.upsample[stage])
     cout = 2 * m.dec_channels(stage)[1]           # real and imaginary columns
     seen = []
-    monkeypatch.setattr(tce, "tapconv_valid", lambda xp, kbig, dh, dw: (
-        seen.append(kbig), cuda_tapconv.tapconv_valid(xp, kbig, dh, dw))[1])
+    monkeypatch.setattr(tce, "tapconv_valid", lambda x, kbig, dh, dw, pad: (
+        seen.append(kbig), cuda_tapconv.tapconv_valid(x, kbig, dh, dw, pad))[1])
     tce.upsampled_conv2d_multi([torch.ones(1, 2, 2, 1)], [torch.ones(K, K, 1, cout)],
                                scale)
     (kbig,) = seen
@@ -253,7 +253,9 @@ def _tiled_conv_model(x, w, bias, tile):
     K, cout = w.shape[0], w.shape[-1]
     halo = K - 1
     tw = R * TX
-    pitch = cuda_conv.slot(tw + halo - 1, R) + 1
+    # at K = 7 the source's pitch (padded further for 8-byte slots, Cin 2)
+    pitch = (cuda_conv.tile_pitch(tile, cin) if K == 7
+             else cuda_conv.slot(tw + halo - 1, R) + 1)
     y = np.full((B, H, W, cout), np.nan, np.float32)
     for b in range(B):
         for h0 in range(0, H, TY):
@@ -310,6 +312,54 @@ def test_staged_slots_spread_a_quarter_warp_over_the_banks(R):
     for cols in (R * 8 + 6, R * 16 + 6, 23):
         slots = [cuda_conv.slot(p, R) for p in range(cols)]
         assert len(set(slots)) == cols and slots == sorted(slots)
+
+
+@pytest.mark.parametrize("shape,tile", [
+    ((1, 5, 11, 2), (2, 4, 2)),        # W no multiple of the run, H odd
+    ((2, 3, 9, 2), (4, 2, 16)),        # H below the tile height
+    ((1, 18, 70, 2), (4, 8, 16)),      # the large-image tile, ragged both ways
+    ((1, 4, 3, 2), (4, 1, 1)),         # W below one thread's run
+    ((2, 9, 20, 2), (2, 3, 5)),        # a tile width that divides no half-warp
+])
+def test_tiled_conv_model_matches_plain_input_gradient_class(shape, tile):
+    """The tiled body at the input gradient's class (7, 2, 4): float2 pixels
+    at the pitch padded for 8-byte loads, 4 outputs a pixel."""
+    x, w, b = _np(shape, 53), _np((7, 7, 2, 4), 54, 0.1), _np((4,), 55)
+    want = cuda_conv.conv2d_same_small_cout_plain(
+        torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(b)).numpy()
+    got = _tiled_conv_model(x, w, b, tile)
+    assert not np.isnan(got).any()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _tiles_to_check():
+    tiles = {cuda_conv.choose_tile(B, H, W) for B in (1, 4, 32)
+             for H in (1, 2, 3, 8, 16, 32, 64, 128) for W in (1, 7, 32, 64, 128, 251)}
+    return sorted(tiles | {(4, 3, 5), (2, 5, 3), (4, 12, 2), (2, 24, 4)})
+
+
+def test_staged_slots_spread_a_half_warp_over_the_banks_at_8_bytes():
+    """A float2 load is served a half-warp at a time: the 16 threads of a
+    half-warp (over as many tile rows as it spans) must hit 16 different
+    8-byte bank groups at every window position j, for every tile
+    ``choose_tile`` gives and for tile widths that divide no half-warp. The
+    unpadded pitch would not (checked for the large-image tile)."""
+    for tile in _tiles_to_check():
+        R, tx, ty = tile
+        pitch = cuda_conv.tile_pitch(tile, 2)
+        assert pitch >= cuda_conv.tile_pitch(tile, 4)
+        active = tx * ty
+        for h0 in range(0, active, 16):
+            threads = range(h0, min(h0 + 16, active))
+            for j in range(R + 6):
+                groups = {((t // tx) * pitch + cuda_conv.slot((t % tx) * R + j, R)) % 16
+                          for t in threads}
+                assert len(groups) == len(threads), (tile, h0, j)
+        cuda_conv._check_tile(tile, 2)
+    R, tx, ty = 4, 8, 16
+    plain = cuda_conv.tile_pitch((R, tx, ty), 4)
+    groups = {((t // tx) * plain + cuda_conv.slot((t % tx) * R, R)) % 16 for t in range(16)}
+    assert len(groups) < 16
 
 
 def test_choose_tile_gives_tiles_the_kernel_takes():
@@ -510,10 +560,174 @@ def test_tapconv_dgrad_is_a_valid_tap_correlation(shape, taps, n):
                                w.grad, rtol=1e-5, atol=1e-5)
 
 
+# TAPCONV_GRAD's cases with the zero padding passed to the tap conv:
+# (top, bottom, left, right)
+TAPCONV_PADS = [(1, 1, 1, 1), (1, 1, 1, 1), (0, 1, 1, 0)]
+
+
+@pytest.mark.parametrize("case,pad", list(zip(TAPCONV_GRAD, TAPCONV_PADS)))
+def test_tapconv_function_with_pad_matches_jax_updot_of_padded_input(case, pad):
+    """TapconvValid with ``pad`` (the padding the decoder's unified conv
+    applies) on CPU tensors against ``jax.vjp`` of the JAX ``_updot`` of
+    ``jnp.pad(x, pads)``: y, dx (of x's own pixels) and dkbig."""
+    shape, taps, n = case
+    dh_n, dw_n = taps
+    top, bottom, left, right = pad
+    xshape = (shape[0], shape[1] - top - bottom, shape[2] - left - right, shape[3])
+    x, w = _np(xshape, 83), _np((dh_n * dw_n, shape[-1], n), 84, 0.1)
+    g = _np((shape[0], shape[1] - dh_n + 1, shape[2] - dw_n + 1, n), 85)
+    y, (dx, dw) = _function_grads(
+        lambda a, b: cuda_tapconv.TapconvValid.apply(a, b, dh_n, dw_n, pad), (x, w), g)
+    pads = ((0, 0), (top, bottom), (left, right), (0, 0))
+    want_y, vjp = jax.vjp(lambda a, b: jce._updot(jnp.pad(a, pads), b, taps),
+                          jnp.asarray(x), jnp.asarray(w))
+    want_dx, want_dw = vjp(jnp.asarray(g))
+    assert dx.shape == xshape
+    _close(y, want_y)
+    _close(dx, want_dx)
+    _close(dw, want_dw)
+
+
+def _dgrad_model(g, w, dh_n, dw_n, pad, hw, flat, wgs):
+    """Kernel 3's input-gradient entry, its indexing in numpy: every block
+    (a flat tile of BM = 64 * wgs consecutive pixels of one image, or BM
+    pixels of one row) stages its halo tile of g with zero fill outside g
+    (NaN past the rows and pixels it stages), skips the tap rows that read
+    only zeros, and writes its pixels of dx. Returns dx and how often each
+    pixel was written."""
+    B, HO, WO, N = g.shape
+    H, W = hw
+    cin = w.shape[1]
+    wt = np.ascontiguousarray(w[::-1].transpose(0, 2, 1))    # (taps, N, Cin)
+    oh, ow = pad[0] - (dh_n - 1), pad[2] - (dw_n - 1)
+    bm = 64 * wgs
+    tiles, arows, apw = cuda_tapconv.dgrad_tiling(flat, wgs, H, W, dh_n, dw_n)
+    dx = np.full((B * H * W, cin), np.nan, np.float32)
+    writes = np.zeros(B * H * W, np.int64)
+    for blk in range(B * tiles * (1 if flat else H)):
+        if flat:
+            b, t = divmod(blk, tiles)
+            q0 = t * bm
+            count = min(bm, H * W - q0)
+            h_a, h_b, pw, c0 = q0 // W, (q0 + count - 1) // W, W + dw_n - 1, ow
+            q = q0 + np.arange(count)
+            hrel, wrel, out = q // W - h_a, q % W, b * H * W + q
+        else:
+            row, t = divmod(blk, tiles)
+            q0 = t * bm
+            b, h_a = divmod(row, H)
+            count, h_b, pw, c0 = min(bm, W - q0), h_a, bm + dw_n - 1, q0 + ow
+            hrel, wrel = np.zeros(count, np.int64), np.arange(count)
+            out = row * W + q0 + np.arange(count)
+        nr, r0 = h_b - h_a + dh_n, h_a + oh
+        assert nr <= arows and pw <= apw
+        halo = np.full((arows, apw, N), np.nan, np.float32)
+        for r in range(nr):
+            for p in range(pw):
+                rr, cc = r0 + r, c0 + p
+                inside = 0 <= rr < HO and 0 <= cc < WO
+                halo[r, p] = g[b, rr, cc] if inside else 0.0
+        dh_lo, dh_hi = max(0, -(h_b + oh)), min(dh_n - 1, HO - 1 - r0)
+        acc = np.zeros((count, cin), np.float32)
+        for dh in range(dh_n):
+            for dw in range(dw_n):
+                a = halo[hrel + dh, wrel + dw]
+                if dh_lo <= dh <= dh_hi:
+                    acc += a @ wt[dh * dw_n + dw]
+                else:
+                    assert not a.any()          # a skipped row reads only zeros
+        dx[out] = acc
+        writes[out] += 1
+    return dx.reshape(B, H, W, cin), writes
+
+
+DGRAD_CASES = [
+    # (B, H, W, N -> Cin), (Dh, Dw), pad (top, bottom, left, right)
+    ((3, 2, 32, 8, 6), (3, 3), (1, 1, 1, 1)),      # dec0's 2 x 32, narrowed
+    ((2, 4, 32, 5, 3), (3, 3), (1, 1, 1, 1)),      # dec1
+    ((2, 8, 32, 4, 4), (3, 3), (1, 1, 1, 1)),      # dec2
+    ((1, 5, 64, 4, 2), (3, 3), (1, 1, 1, 1)),      # dec5's width, rows cut
+    ((2, 3, 33, 3, 5), (3, 3), (1, 1, 1, 1)),      # ragged: tiles cross rows
+    ((3, 1, 65, 6, 3), (3, 3), (1, 1, 1, 1)),      # H = 1: the outer tap rows skip
+    ((2, 7, 1, 4, 3), (3, 3), (1, 1, 1, 1)),       # W = 1
+    ((1, 2, 130, 4, 3), (3, 3), (1, 1, 1, 1)),     # one row a tile, ragged
+    ((2, 5, 9, 3, 4), (2, 2), (0, 1, 1, 0)),       # a 2 x 2 window
+    ((1, 6, 20, 3, 2), (5, 5), (2, 2, 0, 4)),      # 5 x 5, uneven padding
+]
+
+
+@pytest.mark.parametrize("case,taps,pad", DGRAD_CASES)
+@pytest.mark.parametrize("flat,wgs", [(1, 1), (1, 2), (0, 1), (0, 2), (None, None)])
+def test_dgrad_tiling_model_writes_each_pixel_once_and_equals_plain(case, taps, pad,
+                                                                   flat, wgs):
+    """At narrowed stage shapes and ragged ones, under each tiling (and the
+    one ``dgrad_plan`` picks), the model of the input-gradient entry writes
+    every pixel of dx exactly once and equals ``tapconv_dgrad_plain``."""
+    B, H, W, n, cin = case
+    dh_n, dw_n = taps
+    if flat is None:
+        _, _, flat, wgs = cuda_tapconv.dgrad_plan(B, H, W, n, cin, dh_n, dw_n)
+    ho = H + pad[0] + pad[1] - dh_n + 1
+    wo = W + pad[2] + pad[3] - dw_n + 1
+    g, w = _np((B, ho, wo, n), 86), _np((dh_n * dw_n, cin, n), 87, 0.2)
+    got, writes = _dgrad_model(g, w, dh_n, dw_n, pad, (H, W), flat, wgs)
+    assert (writes == 1).all()
+    want = cuda_tapconv.tapconv_dgrad_plain(torch.from_numpy(g), torch.from_numpy(w),
+                                            dh_n, dw_n, pad, (H, W))
+    np.testing.assert_allclose(got, want.numpy(), rtol=1e-5, atol=1e-5)
+
+
+# the train step's decoder stages (batch 32): dx H x W, the forward's N
+# (the input gradient's reduction) and Cin (its outputs)
+TRAIN_DGRAD_STAGES = [(2, 32, 512, 512), (4, 32, 512, 512), (8, 32, 512, 256),
+                      (16, 32, 256, 128), (32, 32, 128, 128), (64, 64, 64, 64),
+                      (128, 128, 8, 32)]
+
+
+@pytest.mark.parametrize("H,W,n,cin", TRAIN_DGRAD_STAGES)
+def test_dgrad_plan_fills_the_wgmma_rows_at_the_train_stages(H, W, n, cin):
+    """At every decoder stage of the train step at least 90 % of the M rows
+    the entry computes hold pixels of dx (one-row tiles of 64 pixels filled
+    34 of 64 at 32-column images), its halo tiles fit shared memory, and
+    dec6's class (N = 8 -> Cin 32) takes 8-channel chunks and 32-wide N
+    tiles."""
+    B = 32
+    kb, bn, flat, wgs = cuda_tapconv.dgrad_plan(B, H, W, n, cin, 3, 3)
+    tiles, arows, apw = cuda_tapconv.dgrad_tiling(flat, wgs, H, W, 3, 3)
+    rows = B * tiles * (1 if flat else H) * 64 * wgs
+    assert B * H * W / rows >= 0.9
+    assert cuda_tapconv.dgrad_smem_bytes(kb, bn, 1, n, 9, arows, apw) <= 227 * 1024
+    assert (kb, bn) == ((8, 32) if n == 8 else (32, 128 if cin > 64 else 64))
+
+
+@pytest.mark.parametrize("taps,cin,n", [(9, 32, 8), (9, 512, 256), (4, 24, 12),
+                                        (9, 5, 33), (1, 36, 5)])
+def test_dgrad_packing_layout_is_pack_weights_of_the_flipped_weights(taps, cin, n):
+    """The packing entry of the input gradient, its index math in numpy
+    (thread (n tile, chunk, tap, 4-channel group j, n) reads w[taps - 1 -
+    tap, n, 4 j + i] of the forward's w, zero past N and Cin), equals
+    ``pack_weights(dgrad_weights(w))`` at the same chunk and tile."""
+    w = _np((taps, cin, n), 88, 0.1)
+    kb, bn = cuda_tapconv.dgrad_tiles(n, cin)
+    want = cuda_tapconv.pack_weights(cuda_tapconv.dgrad_weights(torch.from_numpy(w)),
+                                      bn, kb)
+    nt, nc = -(-cin // bn), -(-n // kb)
+    t, c, tap, j, m, i = np.meshgrid(np.arange(nt), np.arange(nc), np.arange(taps),
+                                     np.arange(kb // 4), np.arange(bn), np.arange(4),
+                                     indexing="ij")
+    ch, out = c * kb + 4 * j + i, t * bn + m
+    ok = (ch < n) & (out < cin)
+    v = np.where(ok, w[taps - 1 - tap, np.minimum(out, cin - 1), np.minimum(ch, n - 1)], 0)
+    hi, lo = cuda_tapconv.split_tf32(torch.from_numpy(v.astype(np.float32)))
+    assert want.shape == (nt, nc, taps, 2, kb // 4, bn, 4)
+    assert torch.equal(want[:, :, :, 0], hi) and torch.equal(want[:, :, :, 1], lo)
+
+
 def test_conv_same_off_the_cpu_carries_gradients_through_kernel_2(monkeypatch):
     """Meta tensors stand in for the card's: the conv's output is attached to
     Conv2dSameSmallCout, whose backward launches kernel 2 once more for the
-    input gradient (class (7, 2, 4): the generic body), counted as DGRAD."""
+    input gradient (class (7, 2, 4): the register-tiled body, at the tile
+    the forward takes), counted as DGRAD."""
     fwd, dgrad = _Recorder(), _Recorder()
     monkeypatch.setattr(cuda_conv, "KERNEL", fwd)
     monkeypatch.setattr(cuda_conv, "DGRAD", dgrad)
@@ -525,27 +739,59 @@ def test_conv_same_off_the_cpu_carries_gradients_through_kernel_2(monkeypatch):
     assert len(fwd.calls) == 1 and not dgrad.calls
     y.backward(torch.empty_like(y))
     (args,) = dgrad.calls
-    assert args[4:] == (4, 16, 251, 2, 7, 4) + cuda_conv.GENERIC_TILE
+    assert args[4:] == (4, 16, 251, 2, 7, 4) + cuda_conv.choose_tile(4, 16, 251)
     assert len(fwd.calls) == 1
     assert x.grad.shape == x.shape and w.grad.shape == w.shape and b.grad.shape == b.shape
 
 
 def test_tapconv_off_the_cpu_carries_gradients_through_kernel_3(monkeypatch):
     """The tap conv's output is attached to TapconvValid; its backward packs
-    the flipped, transposed weights and launches kernel 3 on the padded
-    gradient (Cin' = N = 8, N' = Cin = 32: dec6's class), counted apart."""
+    the flipped, transposed weights straight from w and launches the
+    input-gradient entry on g unpadded, writing x's own pixels (Cin' = N =
+    8, N' = Cin = 32: dec6's class, with its small-K tiles), counted
+    apart."""
     recs = {name: _Recorder() for name in ("KERNEL", "PACK", "DGRAD", "DGRAD_PACK")}
     for name, rec in recs.items():
         monkeypatch.setattr(cuda_tapconv, name, rec)
-    x = torch.empty((2, 130, 258, 32), device="meta", requires_grad=True)
+    x = torch.empty((2, 128, 256, 32), device="meta", requires_grad=True)
     w = torch.empty((9, 32, 8), device="meta", requires_grad=True)
-    y = cuda_tapconv.tapconv_valid(x, w, 3, 3)
+    y = cuda_tapconv.tapconv_valid(x, w, 3, 3, (1, 1, 1, 1))
     assert type(y.grad_fn).__name__ == "TapconvValidBackward"
+    assert recs["KERNEL"].calls[0][3:] == (2, 130, 258, 32, 3, 3, 8, cuda_tapconv.tile_n(8))
     y.backward(torch.empty_like(y))
     assert [len(recs[k].calls) for k in ("KERNEL", "PACK", "DGRAD", "DGRAD_PACK")] == [1, 1, 1, 1]
-    assert recs["DGRAD"].calls[0][3:] == (2, 132, 260, 8, 3, 3, 32, cuda_tapconv.tile_n(32))
-    assert recs["DGRAD_PACK"].calls[0][2:] == (9, 8, 32, cuda_tapconv.tile_n(32))
+    kb, bn, flat, wgs = cuda_tapconv.dgrad_plan(2, 128, 256, 8, 32, 3, 3)
+    assert (kb, bn, flat) == (8, 32, 0)
+    assert recs["DGRAD"].calls[0][3:] == (2, 128, 256, 8, 128, 256, 32, 3, 3, 1, 1,
+                                          flat, wgs, kb, bn)
+    assert recs["DGRAD_PACK"].calls[0][2:] == (9, 32, 8, kb, bn)
     assert x.grad.shape == x.shape and w.grad.shape == w.shape
+
+
+def test_decoder_conv_off_the_cpu_takes_the_input_gradient_entry(monkeypatch):
+    """The decoder's unified conv hands the tap conv x and the window's
+    padding: on the card its backward launches the input-gradient entry
+    with that padding and returns the gradient of x's own shape; a launch
+    that fails raises out of the backward (no other route is taken)."""
+    recs = {name: _Recorder() for name in ("KERNEL", "PACK", "DGRAD", "DGRAD_PACK")}
+    for name, rec in recs.items():
+        monkeypatch.setattr(cuda_tapconv, name, rec)
+    x = torch.empty((2, 4, 32, 16), device="meta", requires_grad=True)
+    w = torch.empty((3, 3, 16, 6), device="meta", requires_grad=True)
+    y = tce.upsampled_conv2d_multi([x], [w], (2, 1))
+    assert y.shape == (2, 8, 32, 6)
+    y.backward(torch.empty_like(y))
+    (args,) = recs["DGRAD"].calls
+    assert args[3:14] == (2, 4, 32, 12, 4, 32, 16, 3, 3, 1, 1)
+    assert x.grad.shape == x.shape
+
+    def refuse(device, *args):
+        raise RuntimeError("CUDA kernel tapconv_valid_dgrad failed to launch")
+
+    monkeypatch.setattr(cuda_tapconv, "DGRAD", refuse)
+    y = tce.upsampled_conv2d_multi([x], [w], (2, 1))
+    with pytest.raises(RuntimeError, match="tapconv_valid_dgrad"):
+        y.backward(torch.empty_like(y))
 
 
 def test_fused_gate_raises_under_grad_and_the_module_unfuses(monkeypatch):
