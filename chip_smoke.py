@@ -63,10 +63,28 @@ Phases (each prints one or more lines; any failure exits non-zero):
                loss and gradient norm rtol 1e-3, every gradient leaf in the
                band of the JAX oracle test, the post-Adam parameters within
                its sensitivity bound; (d) ``python -m
-               dcs_net_tpu_torch.cli.train`` for 12 batch-32 steps, a
-               checkpoint, then ``--resume`` for 12 more; (e) 10 steps on one
-               batch, dropout on: the loss falls; (f) the median step time
-               over 20 steps and audio-s/s per GPU.
+               dcs_net_tpu_torch.cli.train`` for 8 batch-32 steps, a
+               checkpoint, then ``--resume`` for 8 more, each run with SWA
+               active (its last epoch averaged, the BN statistics refreshed
+               over 8 batches), then ``python -m
+               dcs_net_tpu_torch.cli.enhance --ckpt-dir`` on the checkpoint,
+               held against ``enhance_full`` of its weights on the CPU
+               (atol 3e-4, rtol 1e-3); (e) 10 steps on one batch, dropout on:
+               the loss falls; (f) the median step time over 20 steps and
+               audio-s/s per GPU;
+  8. real    -- the real family at full width (DRS, seeded weights, BN moved
+               off its init): (a) ``enhance_full`` on 4 requests of 4 s:
+               launch counts (kernel 2's conv entry 13 times at (K, Cin,
+               Cout) = (7, 2, 1), generic body; kernel 3 7 times, dec6 at
+               N = 4), the median of 10 calls, a 1 s request and a streamed
+               3 s one card vs CPU, and every launch against its plain
+               version; (b) DR on a 1 s request card vs CPU; (c) one batch-32
+               train step, dropout on: launch counts (the input gradients at
+               (7, 1, 2) and kernel 3's at N = 4 among them), every Function
+               against plain autograd and every launch against its plain
+               version, the median of 20 steps and the device busy time of
+               one under the profiler; (d) the step at batch 4 card vs CPU as
+               in 7 (c). Its kernel rows are named ``<kernel>_drs``.
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -89,7 +107,7 @@ BATCH, SECONDS = 4, 4
 REL_TOL = 1e-4                    # kernel vs plain, relative to max |plain|
 SLICE_RTOL, SLICE_ATOL = 1e-3, 3e-4
 TRAIN_BATCH, TRAIN_CROP, CARD_CPU_BATCH = 32, 8160, 4
-TRAIN_STEPS, TRAIN_N_SYNTHETIC = 12, 480      # 480 pairs: 384 train, 96 val
+TRAIN_STEPS, TRAIN_N_SYNTHETIC = 8, 480       # 480 pairs: 384 train, 96 val
 # H100 SXM data sheet: HBM3 rate, float32 (non-tensor-core) peak, dense TF32
 # tensor-core peak. Kernel 3 runs float32-accurate products as three TF32
 # passes (3xTF32), so the rate its operations are held against is TF32 / 3.
@@ -131,6 +149,15 @@ KERNEL_INFO = {
                             "3xtf32-wgmma-input-gradient-multirow",
                             TF32X3_FLOPS_PER_S),
 }
+# the real family's classes, rows of their own: kernel 2's conv entry at
+# (K, Cin, Cout) = (7, 2, 1) and its input gradient's (7, 1, 2) run the
+# generic body; kernel 3's shapes are DCS's but for dec6's N = 4
+KERNEL_INFO.update({
+    "conv_same_small_cout_drs": KERNEL_INFO["conv_same_small_cout"][:2]
+    + ("simt-f32-generic", F32_FLOPS_PER_S),
+    "conv_same_small_cout_dgrad_drs": KERNEL_INFO["conv_same_small_cout_dgrad"][:2]
+    + ("simt-f32-generic-input-gradient", F32_FLOPS_PER_S),
+})
 # what the slice does not launch: kernel 1's dense entry point at a size that
 # is no power of two (B, n, n_fft, hop); its FFT entry point at the other
 # sizes it is instantiated for, at odd hops and without centering
@@ -209,22 +236,27 @@ def speech_like(n_req: int, n: int, seed: int) -> np.ndarray:
 
 
 def perturb_bn(model, seed: int) -> None:
-    """Move every complex BN's gammas, betas and running statistics off their
-    init values so BN is not the identity (covariances stay positive)."""
+    """Move every BN's affine parameters and running statistics off their
+    init values so BN is not the identity (variances and covariances stay
+    positive): the complex BN's gammas, betas, means and covariances, the
+    real BN's scale, bias, mean and variance."""
     import torch
 
     from dcs_net_tpu_torch.ops.complex_layers import ComplexBatchNorm2d
+    from dcs_net_tpu_torch.ops.real_layers import BatchNorm2d
 
+    shifted = {ComplexBatchNorm2d: ("gamma_rr", "gamma_ii", "gamma_ri", "beta_r",
+                                    "beta_i", "mean_r", "mean_i", "vri"),
+               BatchNorm2d: ("scale", "bias", "mean")}
+    scaled = {ComplexBatchNorm2d: ("vrr", "vii"), BatchNorm2d: ("var",)}
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for mod in model.modules():
-            if not isinstance(mod, ComplexBatchNorm2d):
-                continue
-            for name in ("gamma_rr", "gamma_ii", "gamma_ri", "beta_r", "beta_i",
-                         "mean_r", "mean_i", "vri"):
+            kind = type(mod)
+            for name in shifted.get(kind, ()):
                 t = getattr(mod, name)
                 t.add_((torch.rand(t.shape, generator=g) * 0.2 - 0.1).to(t.device))
-            for name in ("vrr", "vii"):
+            for name in scaled.get(kind, ()):
                 t = getattr(mod, name)
                 t.mul_((torch.rand(t.shape, generator=g) * 0.8 + 0.8).to(t.device))
 
@@ -320,13 +352,15 @@ def kernel_cases(name, args, dev, cfg):
         w_oihw = w.permute(3, 2, 0, 1).contiguous()
         nbytes = 4 * (x.numel() + w.numel() + cout + B * H * W * cout)
         flops = 2 * B * H * W * K * K * cin * cout
-        # earlier_ms: the body this shape class ran before the tiled one
+        # earlier_ms: the body a tiled shape class ran before the tiled one
+        # (the generic body, which every other class still runs)
         return (lambda: cuda_conv.conv2d_same_small_cout(x, w, bias),
                 lambda: cuda_conv.conv2d_same_small_cout_plain(x, w, bias),
                 lambda: F.conv2d(x_nchw, w_oihw, bias, padding=K // 2),
                 nbytes, flops, None,
                 {"earlier_ms": lambda: cuda_conv.launch_conv(
-                    x, w, bias, cuda_conv.GENERIC_TILE)})
+                    x, w, bias, cuda_conv.GENERIC_TILE)}
+                if (K, cin, cout) in cuda_conv.TILED_CLASSES else {})
     if name in ("sa_pool", "sa_gate"):
         B, H, W, C = args[:4]
         re, im = randn(B, H, W, C), randn(B, H, W, C)
@@ -392,7 +426,8 @@ def kernel_cases(name, args, dev, cfg):
                 4 * (gy.numel() + w.numel() + B * H * W * cin),
                 2 * B * H * W * K * K * cin * cout, None,
                 {"earlier_ms": lambda: cuda_conv.launch_conv(
-                    gy, wt, zero, cuda_conv.GENERIC_TILE)})
+                    gy, wt, zero, cuda_conv.GENERIC_TILE)}
+                if (K, cout, cin) in cuda_conv.TILED_CLASSES else {})
     if name == "tapconv_valid_dgrad":
         # g (B, HO, WO, N) -> dx (B, H, W, Cin) of an input padded by pad.
         # The least work is the forward's: g read, w read, dx written.
@@ -434,17 +469,19 @@ def tapconv_input_grad_library(gy, w, dh, dw, pad, hw):
         :, :, top:top + H, left:left + W]
 
 
-def check_kernels(shapes, launches, dev, cfg, card, where):
+def check_kernels(shapes, launches, dev, cfg, card, where, suffix=""):
     """Every recorded shape, kernel vs plain on the card, each timed as
     device time per call (``graph_ms``). ``where`` names the call whose
-    launches ``shapes`` lists; returns one row per kernel, summed over them."""
+    launches ``shapes`` lists; returns one row per kernel, summed over them,
+    named ``<kernel><suffix>`` (the real family's shape classes are rows of
+    their own)."""
     import torch
 
     from dcs_net_tpu_torch.utils.timing import graph_ms
 
     rows = []
     for name, calls in shapes.items():
-        src, repl, design_name, ops_rate = KERNEL_INFO[name]
+        src, repl, design_name, ops_rate = KERNEL_INFO.get(name + suffix, KERNEL_INFO[name])
         tot = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bytes=0, flops=0)
         max_abs = max_rel = 0.0
         timed = {}
@@ -491,7 +528,7 @@ def check_kernels(shapes, launches, dev, cfg, card, where):
         t_bytes = tot.pop("bytes") / HBM_BYTES_PER_S * 1e3
         t_ops = tot.pop("flops") / ops_rate * 1e3
         rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "name": name + suffix, "route": "cuda", "source": src, "replaces": repl,
             "design": design_name, "launches": launches.get(name, 0),
             "max_abs_err": max_abs, "max_rel_err": max_rel, **tot,
             "bound_ms": max(t_bytes, t_ops),
@@ -503,7 +540,7 @@ def check_kernels(shapes, launches, dev, cfg, card, where):
                    else "not on the slice's path")
         times = " ".join(f"{k}={'null' if v is None else format(v, '.4f')}"
                          for k, v in tot.items())
-        print(f"kernel {name} ({design_name}): {on_path}, summed {times} "
+        print(f"kernel {name}{suffix} ({design_name}): {on_path}, summed {times} "
               f"bound_ms={rows[-1]['bound_ms']:.4f} ({rows[-1]['bound_by']}) "
               f"[{card}]", flush=True)
     return rows
@@ -974,31 +1011,45 @@ def time_weight_grads(shapes, dev, card) -> None:
               f"{bound:.4f} [{card}]", flush=True)
 
 
-def _leaf_checks(what, card_model, cpu_model, card_grads, cpu_grads) -> None:
+def outside_band(got, want):
+    """(outside, excess, mean drift, max |diff|) of ``got`` against the
+    oracle band of ``want``, all relative to max |want|."""
+    scale = float(want.abs().max())
+    a, b = got / scale, want / scale
+    excess = float(((a - b).abs() - (2.5e-3 + 5e-3 * b.abs())).max())
+    drift = float((a - b).abs().mean())
+    return excess > 0 or drift >= 3e-4, excess, drift, float((a - b).abs().max())
+
+
+def _leaf_checks(what, card_model, cpu_model, card_grads, cpu_grads,
+                 witness=None) -> None:
     """Every gradient leaf in the band of the JAX oracle test (rtol 5e-3 /
     atol 2.5e-3 of the leaf max, mean drift < 3e-4; a leaf under 1e-5 of the
     largest gradient is rounding residue of an exact zero and is held under
     it on both sides); the post-Adam parameters within that test's
-    sensitivity bound; the BN running statistics in the band."""
+    sensitivity bound; the BN running statistics in the band. ``witness``
+    (leaf name -> check) names the leaves that no float32 run resolves to
+    the band, each held by its own check instead (``bn_witness``)."""
     import torch
 
+    witness = witness or {}
     floor = 1e-5 * max(float(g.abs().max()) for g in cpu_grads.values())
     lr, eps = 1e-4, 1e-6
-    worst_band = worst_param = 0.0
+    worst_band = worst_drift = worst_param = 0.0
     for name, want in cpu_grads.items():
         got = card_grads[name].cpu()
-        scale = float(want.abs().max())
-        if scale < floor:
+        if name in witness:
+            witness[name](got, want)
+            continue
+        if float(want.abs().max()) < floor:
             if float(got.abs().max()) >= floor:
                 fail(f"{what}: gradient {name} is not zero up to rounding on the card")
             continue
-        a, b = got / scale, want / scale
-        excess = float(((a - b).abs() - (2.5e-3 + 5e-3 * b.abs())).max())
-        drift = float((a - b).abs().mean())
-        worst_band = max(worst_band, float((a - b).abs().max()))
-        if excess > 0 or drift >= 3e-4:
+        bad, excess, drift, rel = outside_band(got, want)
+        if bad:
             fail(f"{what}: gradient {name} outside the band (excess {excess:.3e}, "
                  f"mean drift {drift:.3e})")
+        worst_band, worst_drift = max(worst_band, rel), max(worst_drift, drift)
     card_state, cpu_state = card_model.state_dict(), cpu_model.state_dict()
     for name, want in cpu_state.items():
         got = card_state[name].cpu()
@@ -1017,10 +1068,100 @@ def _leaf_checks(what, card_model, cpu_model, card_grads, cpu_grads) -> None:
                             - (2.5e-3 + 5e-3 * want.abs() / scale)).max())
         if excess > 0:
             fail(f"{what}: post-step {name} differs by {excess:.3e} beyond its bound")
-    print(f"{what}: {len(cpu_grads)} gradient leaves within the band (max |diff| / "
-          f"leaf max {worst_band:.3e}), post-Adam parameters within the sensitivity "
-          f"bound (max |diff| {worst_param:.3e}), BN statistics within the band",
-          flush=True)
+    print(f"{what}: {len(cpu_grads) - len(witness)} gradient leaves within the band "
+          f"(max |diff| / leaf max {worst_band:.3e}, mean drift {worst_drift:.3e}), "
+          f"{len(witness)} held by their float64 witness ({', '.join(witness) or 'none'}), "
+          f"post-Adam parameters within the sensitivity bound (max |diff| "
+          f"{worst_param:.3e}), BN statistics within the band", flush=True)
+
+
+def capture_bn(model, bn):
+    """A hook on ``model.<bn>``: the dict it returns gets the module's input
+    ``x`` and the gradient ``dy`` at its output, and counts its calls."""
+    got = {"calls": 0}
+
+    def hook(mod, inputs, out):
+        got["calls"] += 1
+        got["x"] = inputs[0].detach()
+        out.register_hook(lambda g: got.__setitem__("dy", g.detach()))
+
+    getattr(model, bn).register_forward_hook(hook)
+    return got
+
+
+def bn_witness(what, bn, eps, io_card, clip_card, float64_step):
+    """Checks for the two gradient leaves of the one-channel real BN ``bn``,
+    which no float32 run resolves to the oracle band.
+
+    With y = (x - mean) r scale + bias and r = 1 / sqrt(var + eps) the
+    leaves are sums over every pixel, d bias = sum dy and d scale =
+    sum dy (x - mean) r, that cancel to a small part of their terms (the
+    next BN normalises the scale away but for its eps). So each is held in
+    two parts against ``float64_step()``, the same step on the CPU in
+    float64, which returns its clipped gradients, its ``capture_bn`` and its
+    clip factor: (1) the card's dy, the gradient arriving at the BN's
+    output, lies element by element in the oracle band of the float64 dy;
+    (2) the card's leaf equals the same sum of its own dy and x taken in
+    float64, within the rounding of a float32 sum, ceil(log2 n) units of
+    2^-24 of the magnitudes it adds (the pairwise-summation bound; for the
+    scale r (sum |dy x| + |mean| sum |dy|), the two sums autograd forms).
+    The float64 leaf, the card's, the float32 CPU's and the leaf's
+    condition (sum of |terms| over |sum|) print."""
+    import torch
+
+    state = {}
+
+    def parts():
+        if not state:
+            grads64, io64, clip64 = float64_step()
+            if io_card["calls"] != 1 or io64["calls"] != 1:
+                fail(f"{what}: {bn} ran {io_card['calls']} / {io64['calls']} times "
+                     f"in one step")
+            dy = io_card["dy"].cpu().double() * clip_card
+            dy64 = io64["dy"] * clip64
+            bad, excess, drift, rel = outside_band(dy, dy64)
+            print(f"{what}: the gradient at {bn}'s output {tuple(dy.shape)}, card vs "
+                  f"float64 CPU: max |diff| / max {rel:.3e}, mean drift {drift:.3e}",
+                  flush=True)
+            if bad:
+                fail(f"{what}: the gradient at {bn}'s output is outside the band of "
+                     f"the float64 step (excess {excess:.3e}, mean drift {drift:.3e})")
+            state.update(grads64=grads64, card=(dy, io_card["x"].cpu().double()),
+                         cpu64=(dy64, io64["x"]))
+        return state
+
+    def sums(dy, x, leaf):
+        """(the leaf, the magnitudes its float32 backward adds)"""
+        if leaf == "bias":
+            return float(dy.sum()), float(dy.abs().sum())
+        var, mean = torch.var_mean(x, correction=0)
+        r = 1.0 / torch.sqrt(var + eps)
+        return (float((dy * (x - mean)).sum() * r),
+                float(r * ((dy * x).abs().sum() + mean.abs() * dy.abs().sum())))
+
+    def check(leaf):
+        name = f"{bn}.{leaf}"
+
+        def held(got, want):
+            st = parts()
+            ref, mag = sums(*st["card"], leaf)
+            ref64, mag64 = sums(*st["cpu64"], leaf)
+            n = st["card"][0].numel()
+            tol = math.ceil(math.log2(n)) * 2.0 ** -24 * mag
+            card = float(got)
+            print(f"{what}: gradient {name}: float64 CPU "
+                  f"{float(st['grads64'][name]):.9e}, card {card:.9e}, float32 CPU "
+                  f"{float(want):.9e}; the card's dy and x summed in float64 "
+                  f"{ref:.9e}, |card - that| {abs(card - ref):.3e} = "
+                  f"{abs(card - ref) / (2.0 ** -24 * mag):.2f} units of 2^-24 of the "
+                  f"magnitudes ({n} terms, allowed {tol:.3e}); condition "
+                  f"{mag64 / max(abs(ref64), 1e-300):.3e}", flush=True)
+            if not abs(card - ref) <= tol:
+                fail(f"{what}: gradient {name} on the card is not the sum of its own "
+                     f"terms ({card:.9e} vs {ref:.9e}, allowed {tol:.3e})")
+        return held
+
+    return {f"{bn}.scale": check("scale"), f"{bn}.bias": check("bias")}
 
 
 def run_trainer(tmp, epochs, resume, card):
@@ -1052,6 +1193,113 @@ def run_trainer(tmp, epochs, resume, card):
     print(f"train: cli {' '.join(cmd[3:])}: exit 0 in {wall:.1f} s (last epoch "
           f"{epoch_s[-1] if epoch_s else '?'} s), {metrics} [{card}]", flush=True)
     return r.stdout, metrics
+
+
+def card_vs_cpu_step(what, cfg, noisy, clean, dev, seed, witness_bn=None) -> None:
+    """One train step at batch ``CARD_CPU_BATCH``, dropout off, on the card
+    and on the CPU from the same weights: loss and gradient norm rtol 1e-3,
+    every gradient leaf and the post-Adam parameters as ``_leaf_checks``;
+    the real BN ``witness_bn``'s two leaves as ``bn_witness``, against the
+    same step in float64 on the CPU."""
+    import dataclasses
+
+    import torch
+
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.train.optim import make_optimizer
+
+    ncfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_conv=0.0,
+                                                 dropout_fc=0.0))
+    on_card = DCSNet(ncfg.model, ncfg.quirks, device=dev, seed=seed)
+    on_cpu = DCSNet(ncfg.model, ncfg.quirks, device="cpu", seed=seed)
+    weights = {k: v.cpu().clone() for k, v in on_card.state_dict().items()}
+    on_cpu.load_state_dict(weights)
+    io_card = capture_bn(on_card, witness_bn) if witness_bn else None
+
+    def clip(norm):
+        return min(1.0, ncfg.optim.clip_norm / (norm + 1e-6))
+
+    def float64_step():
+        """The CPU's gradients in float64 from the same weights and waves,
+        clipped as ``train_step`` clips them, its capture and clip factor."""
+        m = DCSNet(ncfg.model, ncfg.quirks, device="cpu", seed=seed).double()
+        m.load_state_dict(weights)
+        io = capture_bn(m, witness_bn)
+        names = [n for n, p in m.named_parameters() if p.requires_grad]
+        batch = steps.batch_from_waves(noisy[:CARD_CPU_BATCH].cpu().double(),
+                                       clean[:CARD_CPU_BATCH].cpu().double(), ncfg)
+        t1 = time.perf_counter()
+        grads = steps.loss_and_grads(m, batch, ncfg)[1]
+        norm = float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(t) for t in grads])))
+        print(f"{what}: the float64 CPU step took {time.perf_counter() - t1:.1f} s, "
+              f"grad norm {norm:.6f}", flush=True)
+        return {n: t * clip(norm) for n, t in zip(names, grads)}, io, clip(norm)
+
+    results = []
+    for m, d in ((on_card, dev), (on_cpu, torch.device("cpu"))):
+        o = make_optimizer(m.parameters(), ncfg.optim)
+        t1 = time.perf_counter()
+        r = steps.train_step(m, o, steps.batch_from_waves(
+            noisy[:CARD_CPU_BATCH].to(d), clean[:CARD_CPU_BATCH].to(d), ncfg), ncfg)
+        results.append(({k: float(v) for k, v in r.items()},
+                        {n: p.grad.detach().clone() for n, p in m.named_parameters()},
+                        time.perf_counter() - t1))
+    (card_out, card_grads, _), (cpu_out, cpu_grads, cpu_s) = results
+    print(f"{what}: batch {CARD_CPU_BATCH}, dropout off, card vs CPU: loss "
+          f"{card_out['loss']:.6f} vs {cpu_out['loss']:.6f}, grad norm "
+          f"{card_out['grad_norm']:.6f} vs {cpu_out['grad_norm']:.6f} (CPU step "
+          f"{cpu_s:.1f} s)", flush=True)
+    for k in ("loss", "grad_norm"):
+        if not abs(card_out[k] - cpu_out[k]) <= 1e-3 * abs(cpu_out[k]):
+            fail(f"{what} step card vs CPU: {k} {card_out[k]} vs {cpu_out[k]}")
+    witness = None if witness_bn is None else bn_witness(
+        f"{what}: card vs CPU", witness_bn, getattr(on_card, witness_bn).eps, io_card,
+        clip(card_out["grad_norm"]), float64_step)
+    _leaf_checks(f"{what}: card vs CPU", on_card, on_cpu, card_grads, cpu_grads,
+                 witness)
+
+
+def serve_checkpoint(ckpt_dir, card) -> None:
+    """``python -m dcs_net_tpu_torch.cli.enhance dcs --ckpt-dir`` on a 1 s
+    wav at 16 kHz, on the card, against ``enhance_full`` of the checkpoint's
+    weights on the CPU (the PCM16 wav's rounding is inside the band)."""
+    import torch
+
+    from dcs_net_tpu_torch.core.config import Config
+    from dcs_net_tpu_torch.data.audio_io import read_wav, write_wav
+    from dcs_net_tpu_torch.models.enhance import enhance_full
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train.checkpoint import load_model
+
+    src, dst = os.path.join(ckpt_dir, "noisy.wav"), os.path.join(ckpt_dir, "served.wav")
+    write_wav(src, speech_like(1, SR, SEED + 16)[0], SR)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", "dcs_net_tpu_torch.cli.enhance", "dcs", "--in", src,
+           "--out", dst, "--ckpt-dir", ckpt_dir]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0 or "using config saved with checkpoint (dcs)" not in r.stdout:
+        print(r.stdout[-3000:], r.stderr[-3000:], flush=True)
+        fail(f"cli.enhance --ckpt-dir exited {r.returncode}")
+    served, sr = read_wav(dst)
+    with open(os.path.join(ckpt_dir, "config.json")) as f:
+        cfg = Config.from_json(f.read())
+    cpu_model = DCSNet(cfg.model, cfg.quirks, device="cpu")
+    step = load_model(ckpt_dir, cpu_model)
+    x, _ = read_wav(src)
+    want = enhance_full(cpu_model, torch.from_numpy(x)[None], cfg)[0]
+    print(f"train: cli.enhance --ckpt-dir (step {step}) exit 0 in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + next(ln for ln in r.stdout.splitlines() if ln.startswith("restored"))
+          + f" [{card}]", flush=True)
+    if sr != SR or served.shape != tuple(want.shape):
+        fail(f"cli.enhance --ckpt-dir wrote {served.shape} at {sr} Hz")
+    compare_card_cpu("train: the served checkpoint, 1 s", torch.from_numpy(served), want)
 
 
 def check_train(dev, card, tmp):
@@ -1121,32 +1369,11 @@ def check_train(dev, card, tmp):
     time_weight_grads(shapes, dev, card)
 
     # (c) card vs CPU, one step at batch 4 from the same weights, dropout off
-    ncfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_conv=0.0,
-                                                 dropout_fc=0.0))
-    on_card = DCSNet(ncfg.model, ncfg.quirks, device=dev, seed=SEED + 13)
-    on_cpu = DCSNet(ncfg.model, ncfg.quirks, device="cpu", seed=SEED + 13)
-    on_cpu.load_state_dict({k: v.cpu() for k, v in on_card.state_dict().items()})
-    results = []
-    for m, d in ((on_card, dev), (on_cpu, torch.device("cpu"))):
-        o = make_optimizer(m.parameters(), ncfg.optim)
-        t1 = time.perf_counter()
-        r = steps.train_step(m, o, steps.batch_from_waves(
-            noisy[:CARD_CPU_BATCH].to(d), clean[:CARD_CPU_BATCH].to(d), ncfg), ncfg)
-        results.append(({k: float(v) for k, v in r.items()},
-                        {n: p.grad.detach().clone() for n, p in m.named_parameters()},
-                        time.perf_counter() - t1))
-    (card_out, card_grads, _), (cpu_out, cpu_grads, cpu_s) = results
-    print(f"train: batch {CARD_CPU_BATCH}, dropout off, card vs CPU: loss "
-          f"{card_out['loss']:.6f} vs {cpu_out['loss']:.6f}, grad norm "
-          f"{card_out['grad_norm']:.6f} vs {cpu_out['grad_norm']:.6f} (CPU step "
-          f"{cpu_s:.1f} s)", flush=True)
-    for k in ("loss", "grad_norm"):
-        if not abs(card_out[k] - cpu_out[k]) <= 1e-3 * abs(cpu_out[k]):
-            fail(f"train step card vs CPU: {k} {card_out[k]} vs {cpu_out[k]}")
-    _leaf_checks("train: card vs CPU", on_card, on_cpu, card_grads, cpu_grads)
-    del on_card, on_cpu
+    card_vs_cpu_step("train", cfg, noisy, clean, dev, SEED + 13)
 
-    # (d) the trainer: 12 steps and a checkpoint, then --resume for 12 more
+    # (d) the trainer: 8 steps and a checkpoint, then --resume for 8 more;
+    # SWA starts at epoch int(0.8 * epochs), so each run averages its last
+    # epoch and refreshes the BN statistics over the next epoch's batches
     _, first = run_trainer(tmp, 1, False, card)
     ckpt = CheckpointManager(os.path.join(tmp, "dcs", "checkpoints"))
     if (first.get("steps") != TRAIN_STEPS or first.get("nonfinite_loss_steps") != 0
@@ -1157,6 +1384,14 @@ def check_train(dev, card, tmp):
             or second.get("epoch") != 1 or second.get("nonfinite_loss_steps") != 0
             or ckpt.latest_step() != 2 * TRAIN_STEPS):
         fail(f"the trainer did not resume: {second}, checkpoints {ckpt.steps()}")
+    for run, metrics in (("first", first), ("resumed", second)):
+        print(f"train: SWA in the {run} run: swa_n_averaged "
+              f"{metrics.get('swa_n_averaged')}, BN refresh over "
+              f"{metrics.get('bn_refresh_batches')} batches", flush=True)
+        if metrics.get("swa_n_averaged") != 1 or \
+                metrics.get("bn_refresh_batches") != TRAIN_STEPS:
+            fail(f"the {run} trainer run did not average and refresh: {metrics}")
+    serve_checkpoint(ckpt.directory, card)
 
     # (e) one fixed batch, dropout on, 10 steps: the loss falls
     torch.manual_seed(SEED + 1)
@@ -1189,6 +1424,150 @@ def check_train(dev, card, tmp):
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
           flush=True)
     return rows, launches
+
+
+def check_real(dev, card):
+    """Phase "real": the DRS U-Net at full width (the real family, whose
+    spatial attention runs kernel 2 at (K, Cin, Cout) = (7, 2, 1) and its
+    input gradient at (7, 1, 2), and whose decoder ends at kernel 3's N = 4).
+    Returns its kernel rows, named ``<kernel>_drs``."""
+    import torch
+
+    from dcs_net_tpu_torch.core.config import config_for_variant
+    from dcs_net_tpu_torch.models.enhance import enhance_full, enhance_streaming
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.train.optim import make_optimizer
+    from dcs_net_tpu_torch.utils import cuda_lib
+    from dcs_net_tpu_torch.utils.timing import profiled
+
+    def counts():
+        return {k.name: k.launches for k in cuda_lib.KERNELS.values()}
+
+    def expect(what, launches, want):
+        for name, n in want.items():
+            if launches.get(name, 0) != n:
+                fail(f"kernel {name} launched {launches.get(name, 0)} times in {what}, "
+                     f"expected {n}")
+
+    def on_cpu(model, cfg):
+        cpu = DCSNet(cfg.model, cfg.quirks, device="cpu")
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        return cpu
+
+    # (a) enhance_full, batch 4 x 4 s
+    cfg = config_for_variant("drs")
+    model = DCSNet(cfg.model, cfg.quirks, device=dev, seed=SEED + 20).eval()
+    perturb_bn(model, SEED + 21)
+    x = torch.from_numpy(speech_like(BATCH, SECONDS * SR, SEED + 22)).to(dev)
+    shapes = discover_shapes(lambda: enhance_full(model, x, cfg))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    out = enhance_full(model, x, cfg)
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"real: DRS enhance_full launches {launches}", flush=True)
+    if tuple(out.shape) != (BATCH, SECONDS * SR) or not bool(torch.isfinite(out).all()):
+        fail(f"DRS enhance_full returned {tuple(out.shape)} or non-finite samples")
+    expect("one DRS enhance call", launches, {
+        "stft": 1, "conv_same_small_cout": 13, "sa_pool": 0, "sa_gate": 0,
+        "tapconv_valid": 7, "tapconv_pack": 7})
+    walls = []
+    for _ in range(10):
+        t1 = time.perf_counter()
+        enhance_full(model, x, cfg)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    walls.sort()
+    print(f"real: DRS {BATCH} requests x {SECONDS} s: median {walls[5]:.2f} ms over "
+          f"10 calls (min {walls[0]:.2f}, max {walls[-1]:.2f}), "
+          f"{BATCH * SECONDS / walls[5] * 1e3:.1f} audio-s/s [{card}]", flush=True)
+    cpu_model = on_cpu(model, cfg)
+    short = torch.from_numpy(speech_like(1, SR, SEED + 23))
+    compare_card_cpu("real: DRS 1 s request", enhance_full(model, short.to(dev), cfg).cpu(),
+                     enhance_full(cpu_model, short, cfg))
+    three = torch.from_numpy(speech_like(1, 3 * SR, SEED + 24))
+    compare_card_cpu("real: DRS streamed 3 s request (2 chunks of 256, overlap 64)",
+                     enhance_streaming(model, three.to(dev), cfg).cpu(),
+                     enhance_streaming(cpu_model, three, cfg))
+    rows = check_kernels({"conv_same_small_cout": shapes["conv_same_small_cout"],
+                          "tapconv_valid": shapes["tapconv_valid"]},
+                         launches, dev, cfg, card, "DRS enhance call", "_drs")
+    del cpu_model
+
+    # (b) DR, card vs CPU
+    dcfg = config_for_variant("dr")
+    dr = DCSNet(dcfg.model, dcfg.quirks, device=dev, seed=SEED + 25).eval()
+    perturb_bn(dr, SEED + 26)
+    compare_card_cpu("real: DR 1 s request", enhance_full(dr, short.to(dev), dcfg).cpu(),
+                     enhance_full(on_cpu(dr, dcfg), short, dcfg))
+    del dr
+
+    # (c) the train step at batch 32 x 8160, dropout on
+    clean = torch.from_numpy(speech_like(TRAIN_BATCH, TRAIN_CROP, SEED + 27))
+    noisy = clean + 0.05 * torch.randn(clean.shape, generator=torch.Generator().manual_seed(
+        SEED + 28))
+    clean, noisy = clean.to(dev), noisy.to(dev)
+    tmodel = DCSNet(cfg.model, cfg.quirks, device=dev, seed=SEED + 29)
+    tmodel.set_dropout_generator(torch.Generator(device=dev).manual_seed(SEED + 30))
+    opt = make_optimizer(tmodel.parameters(), cfg.optim)
+
+    def step():
+        return steps.train_step(tmodel, opt, steps.batch_from_waves(noisy, clean, cfg), cfg)
+
+    tshapes = discover_shapes(step)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    r = step()
+    torch.cuda.synchronize()
+    tlaunches = counts()
+    print(f"real: DRS train_step launches {tlaunches}, loss {float(r['loss']):.4f}",
+          flush=True)
+    expect("one DRS train step", tlaunches, {
+        "stft": 1, "conv_same_small_cout": 13, "conv_same_small_cout_dgrad": 13,
+        "tapconv_valid": 7, "tapconv_pack": 7, "tapconv_valid_dgrad": 7,
+        "tapconv_pack_dgrad": 7, "sa_pool": 0, "sa_gate": 0})
+    if not math.isfinite(float(r["loss"])) or float(r["skipped"]) != 0.0:
+        fail("the DRS train step's loss is not finite")
+    check_function_grads(tshapes, dev, cfg)
+    train_rows = check_kernels({name: tshapes[name] for name in (
+        "conv_same_small_cout", "tapconv_valid", "conv_same_small_cout_dgrad",
+        "tapconv_valid_dgrad")}, tlaunches, dev, cfg, card, "DRS train step", "_drs")
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    walls.sort()
+    wall, busy, n_launch, _ = profiled(step)
+    audio_s = TRAIN_BATCH * TRAIN_CROP / cfg.data.sr
+    print(f"real: DRS step at batch {TRAIN_BATCH} x {TRAIN_CROP} samples: median "
+          f"{walls[10]:.2f} ms over 20 steps (min {walls[0]:.2f}, max {walls[-1]:.2f}), "
+          f"{audio_s / walls[10] * 1e3:.1f} audio-s/s per GPU; under the profiler "
+          f"{wall:.2f} ms, {n_launch} launches, device busy {busy:.2f} ms, idle "
+          f"share {1 - busy / walls[10]:.3f} of the median [{card}]", flush=True)
+    del tmodel, opt
+
+    # (d) card vs CPU, batch 4, dropout off; the initial BN's two leaves, sums
+    # that cancel to a small part of their terms, held by their float64 witness
+    card_vs_cpu_step("real: DRS train", cfg, noisy, clean, dev, SEED + 31,
+                     witness_bn="initial_bn")
+
+    for row in rows:
+        row["launches_train"] = tlaunches.get(row["name"][:-len("_drs")], 0)
+    for row in train_rows:
+        if row["name"].endswith("_dgrad_drs"):
+            row["launches_train"] = row["launches"]
+            rows.append(row)
+        else:
+            next(r for r in rows if r["name"] == row["name"])["train_step"] = {
+                k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                    "bound_by", "max_abs_err", "shapes")}
+    return rows
 
 
 def main() -> int:
@@ -1329,6 +1708,7 @@ def main() -> int:
     # phase 7: the train step and the trainer
     with tempfile.TemporaryDirectory(prefix="dcs_train_") as tmp:
         train_rows, train_launches = check_train(dev, card, tmp)
+    del model, cpu_model
     for row in rows:
         row["launches_train"] = train_launches.get(row["name"], 0)
     for row in train_rows:
@@ -1340,6 +1720,9 @@ def main() -> int:
             next(r for r in rows if r["name"] == row["name"])["train_step"] = {
                 k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                     "bound_by", "max_abs_err", "shapes")}
+
+    # phase 8: the real family (DR/DRS) at full width
+    rows += check_real(dev, card)
     print(f"total: {time.perf_counter() - t0:.1f} s after the device check", flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)

@@ -36,12 +36,9 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
 
 def check_ported(p: argparse.ArgumentParser, args) -> None:
     """Exit through ``p.error`` for what the port does not run yet."""
-    if args.variant in ("dr", "drs"):
-        p.error(f"variant {args.variant}: the real family (DR/DRS) is not yet "
-                "ported to dcs_net_tpu_torch (ROADMAP Queue 1 item 3)")
     if args.dtype == "bfloat16":
         p.error("--dtype bfloat16 is not yet ported: the port runs float32 "
-                "(ROADMAP Queue 1 item 4)")
+                "(ROADMAP Queue 1 item 9)")
 
 
 def build_config(args) -> Config:

@@ -1,13 +1,16 @@
 """Enhance a wav file on the GPU:
-``python -m dcs_net_tpu_torch.cli.enhance dcs --in noisy.wav --out clean.wav
-[--stream | --carry]``.
+``python -m dcs_net_tpu_torch.cli.enhance {dr,dc,drs,dcs} --in noisy.wav
+--out clean.wav [--ckpt-dir DIR] [--stream | --carry]``.
 
 The flags are the JAX CLI's plus ``--device`` (default cuda; ``cpu`` runs the
-kernels' plain versions). ``--stream`` cuts the utterance into fixed-size
-chunks whose masks are crossfaded; ``--carry`` also threads the LSTM state
-across the chunks (streaming config preset, no overlap). Checkpoints
-(``--ckpt-dir``) are not yet ported and exit with an error that names their
-ROADMAP item: the model has freshly initialised weights (seed 0).
+kernels' plain versions). ``--ckpt-dir`` serves a checkpoint that
+``cli/train.py`` wrote: the latest ``step_<N>.pt`` there, loaded straight
+onto the device, with the ``config.json`` saved beside it in place of the
+variant's (and of ``--config-json``). Without it the model has freshly
+initialised weights (seed 0), with a warning. ``--stream`` cuts the
+utterance into fixed-size chunks whose masks are crossfaded; ``--carry`` also
+threads the LSTM state across the chunks (streaming config preset, no
+overlap; a checkpoint must have been trained with it).
 """
 
 from __future__ import annotations
@@ -57,9 +60,8 @@ def main(argv=None) -> None:
     if not 0 <= args.overlap < args.chunk_frames:
         p.error(f"--overlap must be in [0, chunk_frames): got "
                 f"{args.overlap} with --chunk-frames {args.chunk_frames}")
-    if args.ckpt_dir:
-        p.error("--ckpt-dir: checkpoints are not yet ported to "
-                "dcs_net_tpu_torch (ROADMAP Queue 1 item 5)")
+
+    import os
 
     import torch
 
@@ -67,18 +69,29 @@ def main(argv=None) -> None:
     from dcs_net_tpu_torch.data.audio_io import read_wav, resample, write_wav
     from dcs_net_tpu_torch.models.enhance import enhance_full, enhance_streaming
     from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train.checkpoint import checkpoint_steps, load_model
     from dcs_net_tpu_torch.utils.device import resolve_device
 
+    if args.ckpt_dir and not checkpoint_steps(args.ckpt_dir):
+        p.error(f"--ckpt-dir {args.ckpt_dir}: no checkpoint (step_<N>.pt) there")
     cfg = config_for_variant(args.variant, faithful=not args.idiomatic,
                              streaming=args.carry)
     if args.config_json:
         with open(args.config_json) as f:
             cfg = Config.from_json(f.read())
+    if args.ckpt_dir:
+        cfg_path = os.path.join(args.ckpt_dir, "config.json")
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                cfg = Config.from_json(f.read())
+            print(f"using config saved with checkpoint ({cfg.variant})")
     if args.carry and cfg.model.lstm_bidir:
-        p.error("--carry needs a model with the streaming preset "
+        p.error("--carry needs a model trained with the streaming preset "
                 "(lstm_bidir=False, lstm_time_major=True): a bidirectional "
-                "LSTM cannot carry state across chunks. Drop --carry to "
-                "stream this config with mask crossfade only.")
+                "LSTM cannot carry state across chunks. Train one with "
+                f"`python -m dcs_net_tpu_torch.cli.train {args.variant} "
+                "--streaming`, or drop --carry to stream with mask crossfade "
+                "only.")
     device = resolve_device(args.device)
     # the float32 model runs in full float32, as the JAX reference does:
     # cuDNN would otherwise run the encoder convs and the LSTM in TF32
@@ -87,8 +100,12 @@ def main(argv=None) -> None:
     wave, sr = read_wav(args.infile)
     if sr != cfg.data.sr:
         wave = resample(wave, sr, cfg.data.sr)
-    print("WARNING: no --ckpt-dir; enhancing with untrained weights")
     model = DCSNet(cfg.model, cfg.quirks, device=device, seed=0)
+    if args.ckpt_dir:
+        step = load_model(args.ckpt_dir, model)
+        print(f"restored checkpoint step {step} from {args.ckpt_dir} onto {device}")
+    else:
+        print("WARNING: no --ckpt-dir; enhancing with untrained weights")
     x = torch.from_numpy(np.ascontiguousarray(wave, np.float32))[None, :]
     if args.stream:
         out = enhance_streaming(model, x, cfg, chunk_frames=args.chunk_frames,

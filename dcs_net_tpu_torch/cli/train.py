@@ -1,11 +1,12 @@
-"""Train on the GPU: ``python -m dcs_net_tpu_torch.cli.train dcs [--synthetic]
-[--epochs N] [--batch-size B] [--limit-train-batches K] [--resume]``.
+"""Train on the GPU: ``python -m dcs_net_tpu_torch.cli.train {dr,dc,drs,dcs}
+[--synthetic] [--epochs N] [--batch-size B] [--limit-train-batches K]
+[--resume]``.
 
 The flags are the JAX CLI's plus ``--device`` (default cuda; ``cpu`` runs the
 kernels' plain versions). ``--resume`` restores the model, the optimizer,
 the plateau scheduler and the epoch from the latest checkpoint under the
-checkpoint directory. Not yet ported, and rejected: the real variants (DR,
-DRS), ``--dtype bfloat16`` and ``--steps-per-dispatch`` above 1.
+checkpoint directory. Not yet ported, and rejected: ``--dtype bfloat16``
+(ROADMAP Queue 1 item 9) and ``--steps-per-dispatch`` above 1 (item 4).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ def main(argv=None) -> dict:
     check_ported(p, args)
     if args.steps_per_dispatch != 1:
         p.error("--steps-per-dispatch > 1 is not yet ported: the port runs one "
-                "train step a dispatch")
+                "train step a dispatch (ROADMAP Queue 1 item 4)")
 
     from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
     from dcs_net_tpu_torch.train.loop import Trainer

@@ -15,8 +15,11 @@ LSTM ``b_ih_l0``       ``bias_ih_l0``              unchanged
 BN / bias leaves       same name                   unchanged
 =====================  ==========================  =============================
 
-(the same for ``kernel_i``, ``w_hh``, ``b_hh`` and ``_reverse`` suffixes).
-A convT is any module whose name ends in ``_convt``; a linear kernel is 2-D.
+(the same for ``kernel_i``, ``w_hh``, ``b_hh`` and ``_reverse`` suffixes,
+and for the real family's ``kernel`` -> ``weight``, whose BN keeps
+``scale`` and ``bias`` as parameters and ``mean`` and ``var`` as
+statistics). A convT is any module whose name ends in ``_convt``; a linear
+kernel is 2-D.
 """
 
 from __future__ import annotations
@@ -29,7 +32,7 @@ import torch
 _CONV_TO_TORCH = (3, 2, 0, 1)   # (kh, kw, cin, cout) -> (cout, cin, kh, kw)
 _CONV_TO_JAX = (2, 3, 1, 0)
 _CONVT_PERM = (2, 3, 0, 1)      # its own inverse: (kh,kw,cin,cout) <-> (cin,cout,kh,kw)
-_STAT_NAMES = ("mean_r", "mean_i", "vrr", "vii", "vri")
+_STAT_NAMES = ("mean_r", "mean_i", "vrr", "vii", "vri", "mean", "var")
 
 
 def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
@@ -53,8 +56,8 @@ def params_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         for path, leaf in _leaves(variables.get(col, {})):
             a = np.asarray(leaf, dtype=np.float32)
             name = path[-1]
-            if name.startswith("kernel_"):
-                name = "weight_" + name[len("kernel_"):]
+            if name == "kernel" or name.startswith("kernel_"):
+                name = "weight" + name[len("kernel"):]
                 if a.ndim == 2:
                     a = a.T
                 else:
@@ -89,8 +92,8 @@ def jax_from_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
             a = a.T
         elif name.startswith("bias_ih_") or name.startswith("bias_hh_"):
             name = "b_" + name[len("bias_"):]
-        elif name.startswith("weight_"):
-            name = "kernel_" + name[len("weight_"):]
+        elif name == "weight" or name.startswith("weight_"):
+            name = "kernel" + name[len("weight"):]
             if a.ndim == 2:
                 a = a.T
             else:

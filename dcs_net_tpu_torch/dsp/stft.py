@@ -50,10 +50,10 @@ def window_np(cfg: STFTConfig) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=8)
-def _dft_basis_eff(cfg: STFTConfig) -> Tuple[np.ndarray, np.ndarray]:
+def _dft_basis_eff(cfg: STFTConfig, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
     """(n_fft, n_bins) analysis bases with the window and the normalized
-    scale folded in (float64 at fold time): raw frames @ basis ==
-    (frames * window) @ dft * scale."""
+    scale folded in (float64 at fold time), cast to ``dtype``: raw frames @
+    basis == (frames * window) @ dft * scale."""
     n_bins_full = cfg.n_fft // 2 + 1
     k = np.arange(n_bins_full)
     n = np.arange(cfg.n_fft)
@@ -63,14 +63,14 @@ def _dft_basis_eff(cfg: STFTConfig) -> Tuple[np.ndarray, np.ndarray]:
     cos_b, sin_b = np.cos(ang) * w * scale, np.sin(ang) * w * scale
     if cfg.drop_dc:
         cos_b, sin_b = cos_b[:, 1:], sin_b[:, 1:]
-    return cos_b.astype(np.float32), sin_b.astype(np.float32)
+    return cos_b.astype(dtype), sin_b.astype(dtype)
 
 
 @functools.lru_cache(maxsize=8)
-def _idft_basis_eff(cfg: STFTConfig) -> Tuple[np.ndarray, np.ndarray]:
+def _idft_basis_eff(cfg: STFTConfig, dtype=np.float32) -> Tuple[np.ndarray, np.ndarray]:
     """(n_bins_full, n_fft) inverse bases with the hermitian doubling
     weights, the normalized sqrt(N) pre-scale and the synthesis window
-    post-multiply folded in (float64 at fold time)."""
+    post-multiply folded in (float64 at fold time), cast to ``dtype``."""
     n_bins_full = cfg.n_fft // 2 + 1
     k = np.arange(n_bins_full)
     n = np.arange(cfg.n_fft)
@@ -81,19 +81,26 @@ def _idft_basis_eff(cfg: STFTConfig) -> Tuple[np.ndarray, np.ndarray]:
     scale = cfg.n_fft ** 0.5 if cfg.normalized else 1.0
     cos_b = weights * np.cos(ang) / cfg.n_fft * w * scale
     sin_b = -weights * np.sin(ang) / cfg.n_fft * w * scale
-    return cos_b.astype(np.float32), sin_b.astype(np.float32)
+    return cos_b.astype(dtype), sin_b.astype(dtype)
 
 
 @functools.lru_cache(maxsize=32)
-def _on_device(fn, cfg: STFTConfig, device: torch.device):
-    """The constants ``fn(cfg)`` as tensors on ``device``, copied once: a
-    host-to-device copy per call would stall the host until the card drains
-    its queue."""
-    return tuple(torch.from_numpy(a).to(device) for a in fn(cfg))
+def _on_device(fn, cfg: STFTConfig, device: torch.device, dtype=np.float32):
+    """The constants ``fn(cfg, dtype)`` as tensors on ``device``, copied
+    once: a host-to-device copy per call would stall the host until the card
+    drains its queue."""
+    return tuple(torch.from_numpy(a).to(device) for a in fn(cfg, dtype))
+
+
+def _work_dtype(x: torch.Tensor):
+    """float32, the kernels' type; float64 stays float64, which only the
+    plain versions on the CPU take (a float64 witness of a float32 run)."""
+    return np.float64 if x.dtype == torch.float64 else np.float32
 
 
 @functools.lru_cache(maxsize=32)
-def _analysis_plan(cfg: STFTConfig, device: torch.device) -> STFTPlan:
+def _analysis_plan(cfg: STFTConfig, device: torch.device,
+                   dtype=np.float32) -> STFTPlan:
     """Kernel 1's constants for ``cfg`` on ``device``, copied once. The card
     gets only what its entry point reads: the FFT tables, or the dense bases
     for a size the FFT kernel does not take."""
@@ -101,7 +108,7 @@ def _analysis_plan(cfg: STFTConfig, device: torch.device) -> STFTPlan:
     tables = fft_tables(window_np(cfg).astype(np.float64) * scale)
     on_cpu = torch.device(device).type == "cpu"
     dense = on_cpu or choose_entry(cfg.n_fft, cfg.hop) == "dense"
-    cos_b, sin_b = (_on_device(_dft_basis_eff, cfg, device) if dense
+    cos_b, sin_b = (_on_device(_dft_basis_eff, cfg, device, dtype) if dense
                     else (None, None))
     if tables is not None and (on_cpu or not dense):
         tables = tuple(torch.from_numpy(a).to(device) for a in tables)
@@ -113,8 +120,8 @@ def _analysis_plan(cfg: STFTConfig, device: torch.device) -> STFTPlan:
 
 
 @functools.lru_cache(maxsize=16)
-def _inv_window_envelope(cfg: STFTConfig, n_frames: int,
-                         device: torch.device) -> torch.Tensor:
+def _inv_window_envelope(cfg: STFTConfig, n_frames: int, device: torch.device,
+                         dtype=np.float32) -> torch.Tensor:
     """1 / the overlap-added squared window (data-independent, floored at
     1e-11), on ``device``."""
     w = window_np(cfg) ** 2
@@ -122,7 +129,7 @@ def _inv_window_envelope(cfg: STFTConfig, n_frames: int,
     env = np.zeros(total)
     for t in range(n_frames):
         env[t * cfg.hop:t * cfg.hop + cfg.n_fft] += w
-    inv = 1.0 / np.maximum(env, 1e-11).astype(np.float32)
+    inv = 1.0 / np.maximum(env, 1e-11).astype(dtype)
     return torch.from_numpy(inv).to(device)
 
 
@@ -130,7 +137,7 @@ def _check_float32(cfg: STFTConfig) -> None:
     if cfg.dft_dtype != "float32":
         raise NotImplementedError(
             f"dft_dtype={cfg.dft_dtype!r}: the port runs the DFT in float32 "
-            "(reduced precision is ROADMAP Queue 1 item 4)")
+            "(reduced precision is ROADMAP Queue 1 item 9)")
 
 
 def stft_adjoint(g_re: torch.Tensor, g_im: torch.Tensor, cfg: STFTConfig,
@@ -179,11 +186,13 @@ def stft(x: torch.Tensor, cfg: STFTConfig) -> CArray:
     if cfg.center and cfg.pad_mode != "reflect":
         raise NotImplementedError(f"pad_mode {cfg.pad_mode!r}")
     batch_shape = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1]).float().contiguous()
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.promote_types(x.dtype, torch.float32)
+                                       ).contiguous()
+    dtype = _work_dtype(x2)
     if x.device.type != "cpu" and torch.is_grad_enabled() and x2.requires_grad:
         re, im = STFT.apply(x2, cfg)
     else:
-        re, im = stft_analysis(x2, _analysis_plan(cfg, x.device))
+        re, im = stft_analysis(x2, _analysis_plan(cfg, x.device, dtype))
     return CArray(re.reshape(batch_shape + re.shape[-2:]),
                   im.reshape(batch_shape + im.shape[-2:]))
 
@@ -216,14 +225,15 @@ def istft(spec: CArray, cfg: STFTConfig, *, length: Optional[int] = None
         raise ValueError(
             f"istft expects {n_bins_full} bins, got {spec.shape[-2]}; "
             "use pad_bins()/polar_to_wave() for DC-dropped spectrograms")
-    cos_b, sin_b = _on_device(_idft_basis_eff, cfg, spec.device)
+    dtype = _work_dtype(spec.re)
+    cos_b, sin_b = _on_device(_idft_basis_eff, cfg, spec.device, dtype)
     re = spec.re.transpose(-1, -2)
     im = spec.im.transpose(-1, -2)
     frames = torch.matmul(re, cos_b) + torch.matmul(im, sin_b)  # (..., T, n_fft)
     n_frames = frames.shape[-2]
     total = cfg.n_fft + cfg.hop * (n_frames - 1)
     out = _overlap_add(frames, cfg, total) * _inv_window_envelope(
-        cfg, n_frames, spec.device)
+        cfg, n_frames, spec.device, dtype)
     if cfg.center:
         half = cfg.n_fft // 2
         out = out[..., half:total - half]

@@ -29,18 +29,32 @@ from dcs_net_tpu_torch.ops import masks as M
 from dcs_net_tpu_torch.utils.carray import CArray
 
 
-def _apply_mask_pipeline(spec: CArray, mask: CArray, cfg: Config) -> CArray:
-    """Masked clean-spectrogram estimate of the complex variants: with
-    ``double_bound_mask`` the mask is bounded a second time; the subtractive
-    variant removes the masked (noise) estimate from the input."""
-    if not cfg.model.complex_valued:
-        raise NotImplementedError(
-            "the real family (DR/DRS) is not yet ported: ROADMAP Queue 1 item 3")
-    if cfg.quirks.double_bound_mask:
-        mask = M.bound_crm(mask, cfg.model.atan2_eps)
-    if cfg.model.subtractive:
-        return spec - spec * mask
-    return spec * mask
+def _apply_mask_pipeline(spec: CArray, mask, cfg: Config) -> CArray:
+    """Masked clean-spectrogram estimate per variant. Complex: with
+    ``double_bound_mask`` the mask is bounded a second time, and the
+    subtractive variant removes the masked (noise) estimate from the input.
+    Real: the mask scales (or, subtractive, removes a share of) the
+    magnitude under the noisy phase."""
+    if cfg.model.complex_valued:
+        if cfg.quirks.double_bound_mask:
+            mask = M.bound_crm(mask, cfg.model.atan2_eps)
+        if cfg.model.subtractive:
+            return spec - spec * mask
+        return spec * mask
+    mag = spec.abs()
+    phase = spec.angle(cfg.model.atan2_eps)
+    clean_mag = mag - mag * mask if cfg.model.subtractive else mag * mask
+    return CArray.from_polar(clean_mag, phase)
+
+
+def _model_input(spec: CArray, cfg: Config):
+    """The spectrogram for the complex variants, its magnitude for the real."""
+    return spec if cfg.model.complex_valued else spec.abs()
+
+
+def _planes(mask) -> Tuple[torch.Tensor, ...]:
+    """A mask's real planes: (re, im) of a complex mask, (mask,) of a real."""
+    return tuple(mask) if isinstance(mask, CArray) else (mask,)
 
 
 def enhance_full(model: torch.nn.Module, wave: torch.Tensor, cfg: Config
@@ -59,7 +73,7 @@ def enhance_full(model: torch.nn.Module, wave: torch.Tensor, cfg: Config
             pad = (-T) % 8
             spec_p = CArray(F.pad(spec.re, (0, pad)),
                             F.pad(spec.im, (0, pad))) if pad else spec
-            mask = model(spec_p)
+            mask = model(_model_input(spec_p, cfg))
             if pad:
                 mask = mask[..., :T]
             clean = _apply_mask_pipeline(spec, mask, cfg)
@@ -71,21 +85,19 @@ def enhance_full(model: torch.nn.Module, wave: torch.Tensor, cfg: Config
 
 
 def zero_lstm_state(cfg: Config, batch: int, device=None):
-    """The streaming LSTM carry at sequence start: a pair (real LSTM's, imag
-    LSTM's) of (h, c), each zeros (layers * directions, 2 * batch, hidden) on
-    the (re, im)-stacked batch of ``ops/lstm.py:ComplexLSTM``."""
+    """The streaming LSTM carry at sequence start: (h, c), each zeros
+    (layers * directions, batch, hidden), for the real variants; for the
+    complex ones a pair (real LSTM's, imag LSTM's) of such states on the
+    (re, im)-stacked batch 2 * ``batch`` of ``ops/lstm.py:ComplexLSTM``."""
     m = cfg.model
-    if not m.complex_valued:
-        raise NotImplementedError(
-            "the real family (DR/DRS) is not yet ported: ROADMAP Queue 1 item 3")
     d = 2 if m.lstm_bidir else 1
 
-    def one():
-        z = torch.zeros(m.lstm_layers * d, 2 * batch, m.lstm_hidden,
+    def one(b):
+        z = torch.zeros(m.lstm_layers * d, b, m.lstm_hidden,
                         dtype=torch.float32, device=device)
         return z, torch.zeros_like(z)
 
-    return one(), one()
+    return (one(2 * batch), one(2 * batch)) if m.complex_valued else one(batch)
 
 
 @functools.lru_cache(maxsize=16)
@@ -151,33 +163,36 @@ def enhance_streaming(model: torch.nn.Module, wave: torch.Tensor, cfg: Config,
             # every chunk window as a view: (n_chunks, B, F, chunk_frames)
             wins = [F.pad(p, (0, total - T)).unfold(-1, chunk_frames, hop)
                     .permute(2, 0, 1, 3) for p in spec]
-            masks = []  # per model call (2, chunks of the call * B, F, chunk)
+            masks = []  # per model call (P, chunks of the call * B, F, chunk)
             if carry_lstm_state:
                 state = zero_lstm_state(cfg, B, dev)
                 for c in range(n_chunks):
-                    mask, state = model(
-                        CArray(wins[0][c].contiguous(), wins[1][c].contiguous()),
+                    mask, state = model(_model_input(
+                        CArray(wins[0][c].contiguous(), wins[1][c].contiguous()), cfg),
                         lstm_state=state, return_lstm_state=True)
-                    masks.append(torch.stack([mask.re, mask.im]))
+                    masks.append(torch.stack(_planes(mask)))
             else:
                 G = max(min(chunk_batch, n_chunks), 1)
                 for c in range(0, n_chunks, G):
-                    mask = model(CArray(
+                    mask = model(_model_input(CArray(
                         wins[0][c:c + G].reshape(-1, n_bins, chunk_frames),
-                        wins[1][c:c + G].reshape(-1, n_bins, chunk_frames)))
-                    masks.append(torch.stack([mask.re, mask.im]))
-            # (2, n_chunks, B, F, chunk): a call's batch is chunk-major
+                        wins[1][c:c + G].reshape(-1, n_bins, chunk_frames)), cfg))
+                    masks.append(torch.stack(_planes(mask)))
+            # (P, n_chunks, B, F, chunk), P = 2 planes of a complex mask or 1
+            # of a real one: a call's batch is chunk-major
+            P = masks[0].shape[0]
             chunk_masks = torch.cat(masks, dim=1).reshape(
-                2, n_chunks, B, n_bins, chunk_frames)
+                P, n_chunks, B, n_bins, chunk_frames)
             # crossfade: weight each chunk, overlap-add at stride hop in one
             # fold, divide by the overlap-added weights
             w, wacc = _crossfade(n_chunks, chunk_frames, overlap, dev)
             cols = (chunk_masks * w).permute(0, 2, 3, 4, 1).reshape(
-                1, 2 * B * n_bins * chunk_frames, n_chunks)
+                1, P * B * n_bins * chunk_frames, n_chunks)
             blended = F.fold(cols, (1, total), (1, chunk_frames),
-                             stride=(1, hop)).reshape(2, B, n_bins, total)
+                             stride=(1, hop)).reshape(P, B, n_bins, total)
             blended = (blended / wacc)[..., :T]
-            clean = _apply_mask_pipeline(spec, CArray(blended[0], blended[1]), cfg)
+            mask = CArray(blended[0], blended[1]) if P == 2 else blended[0]
+            clean = _apply_mask_pipeline(spec, mask, cfg)
             return dsp.spec_to_wave(
                 clean, cfg.stft, atan2_eps=cfg.model.atan2_eps,
                 pad_top=cfg.quirks.istft_pad_top_bin, length=n)

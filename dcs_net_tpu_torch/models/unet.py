@@ -1,30 +1,40 @@
-"""The DCS-Net U-Net, complex branch (DC / DCS), as one ``nn.Module``.
+"""The DCS-Net U-Net family (DR / DC / DRS / DCS) as one ``nn.Module``.
 
-Topology: complex whitening BN; 7 strided complex conv encoders (conv -> BN ->
-ReLU -> dropout); a bidirectional complex LSTM + complex linear bottleneck over
-the f-major flattened latent; 7 decoder stages of [skip CBAM -> fused
-skip-concat + nearest upsample + convT -> BN -> LeakyReLU -> CBAM -> dropout]
-(no BN/activation/CBAM after the last); the ``bound_crm`` output bound in
-float32. Activations are NHWC (channels last) like the JAX package; the input
-and the mask are (B, F, T) re/im pairs.
+Topology: BN of the input; 7 strided conv encoders (conv -> BN -> ReLU ->
+dropout); a bidirectional LSTM + linear bottleneck over the flattened latent;
+7 decoder stages of [skip CBAM -> fused skip-concat + nearest upsample +
+convT -> BN -> LeakyReLU -> CBAM -> dropout] (no BN/activation/CBAM after the
+last). The complex variants (DC, DCS) run every op as its complex counterpart
+on (re, im) pairs with half the channels, take the spectrogram and end in the
+``bound_crm`` bound; the real variants (DR, DRS) take its magnitude and end
+in a sigmoid. Activations are NHWC (channels last) like the JAX package; the
+input and the mask are (B, F, T). ``subtractive`` does not change the module,
+only how the mask is used (``models/enhance.py``, ``train/steps.py``).
 
-Kernels on this path: kernel 2 runs the 13 CBAM spatial-attention gates
-(``ops/attention.py``: pool, then conv + sigmoid + product) and kernel 3 the 7
-decoder convs (see ``ops/conv_engine.py``).
+Kernels on this path: kernel 2 runs the 13 CBAM spatial-attention convs
+(``ops/attention.py``; the complex attention as the fused gate: pool, then
+conv + sigmoid + product) and kernel 3 the 7 decoder convs (see
+``ops/conv_engine.py``).
 """
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from dcs_net_tpu_torch.core.config import ModelConfig, Quirks
 from dcs_net_tpu_torch.ops import attention as att
 from dcs_net_tpu_torch.ops import complex_layers as cl
 from dcs_net_tpu_torch.ops import masks
-from dcs_net_tpu_torch.ops.lstm import ComplexLSTM
+from dcs_net_tpu_torch.ops import real_layers as rl
+from dcs_net_tpu_torch.ops.lstm import LSTM, ComplexLSTM
 from dcs_net_tpu_torch.utils.carray import CArray
 from dcs_net_tpu_torch.utils.device import DeviceLike, resolve_device
+
+SpecLike = Union[torch.Tensor, CArray]
 
 
 class DCSNet(nn.Module):
@@ -37,14 +47,10 @@ class DCSNet(nn.Module):
                  device: DeviceLike = None, seed: int = 0):
         super().__init__()
         m = cfg
-        if not m.complex_valued:
-            raise NotImplementedError(
-                "the real family (DR/DRS) is not yet ported to "
-                "dcs_net_tpu_torch: ROADMAP Queue 1 item 3")
         if m.compute_dtype != "float32" or m.param_dtype != "float32":
             raise NotImplementedError(
                 "the port runs float32 only; reduced-precision compute is "
-                "ROADMAP Queue 1 item 4")
+                "ROADMAP Queue 1 item 9")
         if m.fc_features != m.latent_channels:
             raise ValueError(
                 f"fc_features ({m.fc_features}) must equal the latent channel "
@@ -53,97 +59,137 @@ class DCSNet(nn.Module):
         g = torch.Generator().manual_seed(seed)
         self.cfg = m
         self.quirks = quirks
+        cx = m.complex_valued
+        Conv, BN = (cl.ComplexConv2d, cl.ComplexBatchNorm2d) if cx else (
+            rl.Conv2d, rl.BatchNorm2d)
+        Drop = cl.ComplexDropout if cx else rl.Dropout
 
-        self.initial_bn = cl.ComplexBatchNorm2d(1)
+        def attention(channels: int):
+            if cx:
+                return (att.ComplexChannelAttention(
+                            channels, m.ca_reduction,
+                            maxpool_is_avg=quirks.complex_maxpool_is_avg,
+                            weight_init=m.init, generator=g),
+                        att.ComplexSpatialAttention(
+                            m.sa_kernel, weight_init=m.init, generator=g))
+            return (att.RealChannelAttention(
+                        channels, m.ca_reduction, max_only=quirks.real_ca_max_only,
+                        weight_init=m.init, generator=g),
+                    att.RealSpatialAttention(m.sa_kernel, weight_init=m.init,
+                                             generator=g))
+
+        self.initial_bn = BN(1)
         for i in range(m.n_layers):
             cin, cout = m.enc_channels(i)
-            self.add_module(f"enc{i}_conv", cl.ComplexConv2d(
+            self.add_module(f"enc{i}_conv", Conv(
                 cin, cout, m.kernel_e[i], stride=m.stride_e[i],
                 padding=m.kernel_e[i] // 2, weight_init=m.init, generator=g))
-            self.add_module(f"enc{i}_bn", cl.ComplexBatchNorm2d(cout))
-        self.dropout_conv = cl.ComplexDropout(m.dropout_conv)
-        self.dropout_fc = cl.ComplexDropout(m.dropout_fc)
+            self.add_module(f"enc{i}_bn", BN(cout))
+        self.dropout_conv = Drop(m.dropout_conv)
+        self.dropout_fc = Drop(m.dropout_fc)
 
         d = 2 if m.lstm_bidir else 1
-        self.lstm = ComplexLSTM(m.latent_channels, m.lstm_hidden,
-                                m.lstm_layers, m.lstm_bidir, generator=g)
-        self.fc = cl.ComplexLinear(m.lstm_hidden * d, m.fc_features,
-                                   weight_init=m.init, generator=g)
+        Lstm, Lin = (ComplexLSTM, cl.ComplexLinear) if cx else (LSTM, rl.Linear)
+        self.lstm = Lstm(m.latent_channels, m.lstm_hidden, m.lstm_layers,
+                         m.lstm_bidir, generator=g)
+        self.fc = Lin(m.lstm_hidden * d, m.fc_features, weight_init=m.init,
+                      generator=g)
 
+        ConvT = cl.ComplexConvTranspose2d if cx else rl.ConvTranspose2d
         for i in range(m.n_layers):
             skip_c = m._ch(m.channels[m.n_layers - i])
             cin, cout = m.dec_channels(i)
             last = i == m.n_layers - 1
             if m.attention:
-                self.add_module(f"skip{i}_ca", att.ComplexChannelAttention(
-                    skip_c, m.ca_reduction,
-                    maxpool_is_avg=quirks.complex_maxpool_is_avg,
-                    weight_init=m.init, generator=g))
-                self.add_module(f"skip{i}_sa", att.ComplexSpatialAttention(
-                    m.sa_kernel, weight_init=m.init, generator=g))
-            self.add_module(f"dec{i}_convt", cl.ComplexConvTranspose2d(
+                ca, sa = attention(skip_c)
+                self.add_module(f"skip{i}_ca", ca)
+                self.add_module(f"skip{i}_sa", sa)
+            self.add_module(f"dec{i}_convt", ConvT(
                 cin, cout, m.kernel_d[i], padding=m.kernel_d[i] // 2,
                 weight_init=m.init, upsample=m.upsample[i], generator=g))
             if not last:
-                self.add_module(f"dec{i}_bn", cl.ComplexBatchNorm2d(cout))
+                self.add_module(f"dec{i}_bn", BN(cout))
                 if m.attention:
-                    self.add_module(f"dec{i}_ca", att.ComplexChannelAttention(
-                        cout, m.ca_reduction,
-                        maxpool_is_avg=quirks.complex_maxpool_is_avg,
-                        weight_init=m.init, generator=g))
-                    self.add_module(f"dec{i}_sa", att.ComplexSpatialAttention(
-                        m.sa_kernel, weight_init=m.init, generator=g))
+                    ca, sa = attention(cout)
+                    self.add_module(f"dec{i}_ca", ca)
+                    self.add_module(f"dec{i}_sa", sa)
         self.to(dev)
 
-    def forward(self, x: CArray, lstm_state=None, return_lstm_state: bool = False):
-        """x: CArray spectrogram (B, F, T). Returns the bounded mask, a CArray
-        (B, F, T) in float32; with ``return_lstm_state=True`` returns
+    def set_dropout_generator(self, generator: Optional[torch.Generator]) -> None:
+        """Draw the dropout masks from ``generator`` (on the model's device),
+        or from the global generator where it is None."""
+        self.dropout_conv.generator = generator
+        self.dropout_fc.generator = generator
+
+    def _attend(self, name: str, x):
+        """x with the CBAM pair ``<name>_ca`` and ``<name>_sa`` applied."""
+        ca, sa = getattr(self, f"{name}_ca"), getattr(self, f"{name}_sa")
+        if self.cfg.complex_valued:
+            return sa.gate(cl.complex_mul_bcast(x, ca(x)))
+        x = x * ca(x)
+        return x * sa(x)
+
+    def forward(self, x: SpecLike, lstm_state=None, return_lstm_state: bool = False):
+        """x: CArray spectrogram (B, F, T) for the complex variants, its
+        magnitude (B, F, T) for the real ones. Returns the bounded mask of
+        the same kind in float32; with ``return_lstm_state=True`` returns
         ``(mask, lstm_state)`` for the streaming path."""
-        if not isinstance(x, CArray):
-            raise TypeError("the complex variant expects a CArray input")
         m = self.cfg
-        e = self.initial_bn(CArray(x.re[..., None], x.im[..., None]))
+        cx = m.complex_valued
+        if cx != isinstance(x, CArray):
+            raise TypeError("the complex variants take a CArray, the real ones "
+                            "a magnitude tensor")
+        if cx:
+            e = self.initial_bn(CArray(x.re[..., None], x.im[..., None]))
+            relu = cl.complex_relu
+        else:
+            e = self.initial_bn(x[..., None])
+            relu = torch.relu
         enc_out = [e]
         for i in range(m.n_layers):
             e = getattr(self, f"enc{i}_conv")(e)
             e = getattr(self, f"enc{i}_bn")(e)
-            e = self.dropout_conv(cl.complex_relu(e))
+            e = self.dropout_conv(relu(e))
             enc_out.append(e)
 
-        B, Fp, Tp, C = e.shape
+        parts = (e.re, e.im) if cx else (e,)
+        B, Fp, Tp, C = parts[0].shape
         if m.lstm_time_major:
             # streaming order: sequence over (t, f), so chunks concatenated
             # along time form one continuous sequence
-            seq = CArray(e.re.transpose(1, 2).reshape(B, Tp * Fp, C),
-                         e.im.transpose(1, 2).reshape(B, Tp * Fp, C))
+            seq = [p.transpose(1, 2).reshape(B, Tp * Fp, C) for p in parts]
         else:
             # f-major, as torch.flatten(e, 2, 3).permute(0, 2, 1) on NCHW
-            seq = e.reshape(B, Fp * Tp, C)
-        lstm_out, new_state = self.lstm(seq, lstm_state)
-        fc_out = self.dropout_fc(self.fc(lstm_out))
+            seq = [p.reshape(B, Fp * Tp, C) for p in parts]
+        lstm_out, new_state = self.lstm(CArray(*seq) if cx else seq[0], lstm_state)
+        fc_out = self.fc(lstm_out)
+        if cx or m.dropout:     # the real net gates its FC dropout, the complex not
+            fc_out = self.dropout_fc(fc_out)
+        outs = (fc_out.re, fc_out.im) if cx else (fc_out,)
         if m.lstm_time_major:
-            d = CArray(fc_out.re.reshape(B, Tp, Fp, C).transpose(1, 2),
-                       fc_out.im.reshape(B, Tp, Fp, C).transpose(1, 2))
+            outs = [p.reshape(B, Tp, Fp, C).transpose(1, 2) for p in outs]
         else:
-            d = fc_out.reshape(B, Fp, Tp, C)
+            outs = [p.reshape(B, Fp, Tp, C) for p in outs]
+        d = CArray(*outs) if cx else outs[0]
 
         for i in range(m.n_layers):
             skip = enc_out[m.n_layers - i]
             if m.attention:
-                skip = cl.complex_mul_bcast(skip, getattr(self, f"skip{i}_ca")(skip))
-                skip = getattr(self, f"skip{i}_sa").gate(skip)
+                skip = self._attend(f"skip{i}", skip)
             d = getattr(self, f"dec{i}_convt")((d, skip))
             if i != m.n_layers - 1:
                 d = getattr(self, f"dec{i}_bn")(d)
-                d = cl.complex_leaky_relu(d)
+                d = cl.complex_leaky_relu(d) if cx else F.leaky_relu(d)
                 if m.attention:
-                    d = cl.complex_mul_bcast(d, getattr(self, f"dec{i}_ca")(d))
-                    d = getattr(self, f"dec{i}_sa").gate(d)
+                    d = self._attend(f"dec{i}", d)
             d = self.dropout_conv(d)
 
         # output bound in float32 (atan2/tanh of the bound are precision-sensitive)
-        out = masks.bound_crm(CArray(d.re[..., 0].float(), d.im[..., 0].float()),
-                              m.atan2_eps)
+        if cx:
+            out = masks.bound_crm(CArray(d.re[..., 0].float(), d.im[..., 0].float()),
+                                  m.atan2_eps)
+        else:
+            out = torch.sigmoid(d[..., 0].to(torch.promote_types(d.dtype, torch.float32)))
         if return_lstm_state:
             return out, new_state
         return out

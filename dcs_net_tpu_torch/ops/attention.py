@@ -1,4 +1,11 @@
-"""Complex CBAM channel and spatial attention.
+"""CBAM channel and spatial attention, real (DR / DRS) and complex (DC / DCS).
+
+The real channel attention keeps only its max branch under the faithful
+quirk ``real_ca_max_only``. The real spatial attention's k=7 conv over
+[mean, max] is kernel 2's conv entry at the class (K, Cin, Cout) = (7, 2, 1)
+(its input gradient (7, 1, 2)), followed by a sigmoid; the fused gate below
+computes a complex product and serves the complex attention only.
+
 
 With ``maxpool_is_avg`` (the faithful quirk) the complex "max" pool is an
 average pool, so the channel attention computes sigmoid(fc(avg) + fc(avg)).
@@ -19,7 +26,47 @@ from torch import nn
 
 from dcs_net_tpu_torch.ops import complex_layers as cl
 from dcs_net_tpu_torch.ops import cuda_conv
+from dcs_net_tpu_torch.ops import real_layers as rl
 from dcs_net_tpu_torch.utils.carray import CArray
+
+
+class RealChannelAttention(nn.Module):
+    def __init__(self, channels: int, reduction: int, max_only: bool = True,
+                 weight_init: str = "xavier_uniform",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        hidden = max(channels // reduction, 1)
+        self.max_only = max_only
+        self.fc1 = rl.Conv2d(channels, hidden, 1, use_bias=False,
+                             weight_init=weight_init, generator=generator)
+        self.fc2 = rl.Conv2d(hidden, channels, 1, use_bias=False,
+                             weight_init=weight_init, generator=generator)
+
+    def _fc(self, v: torch.Tensor) -> torch.Tensor:
+        return self.fc2(torch.relu(self.fc1(v)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, 1, 1, C) attention of x (B, H, W, C)."""
+        out = self._fc(rl.adaptive_max_pool_1(x))
+        if not self.max_only:
+            out = self._fc(rl.adaptive_avg_pool_1(x)) + out
+        return torch.sigmoid(out)
+
+
+class RealSpatialAttention(nn.Module):
+    def __init__(self, kernel_size: int = 7,
+                 weight_init: str = "xavier_uniform",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.conv = rl.Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
+                              use_bias=False, weight_init=weight_init,
+                              generator=generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, 1) attention of x (B, H, W, C)."""
+        cat = torch.cat([x.mean(dim=-1, keepdim=True),
+                         x.amax(dim=-1, keepdim=True)], dim=-1)
+        return torch.sigmoid(self.conv(cat))
 
 
 class ComplexChannelAttention(nn.Module):

@@ -12,7 +12,7 @@ Weights are stored in torch layouts (conv (Cout, Cin, kh, kw), convT
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -20,13 +20,8 @@ from torch import nn
 
 from dcs_net_tpu_torch.ops import conv_engine as ce
 from dcs_net_tpu_torch.ops import initializers as init
+from dcs_net_tpu_torch.ops.real_layers import _pair, dropout_mask
 from dcs_net_tpu_torch.utils.carray import CArray
-
-Pair = Tuple[int, int]
-
-
-def _pair(k) -> Pair:
-    return (k, k) if isinstance(k, int) else tuple(k)
 
 
 def _block_kernel(wr: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
@@ -228,17 +223,21 @@ class ComplexBatchNorm2d(nn.Module):
 
 
 class ComplexDropout(nn.Module):
-    """Dropout with independent masks for re and im; the identity in eval."""
+    """Dropout with independent masks for re and im; the identity in eval.
+    The masks come from ``generator`` (the global generator where it is
+    None): ``DCSNet.set_dropout_generator`` sets it, so that a trainer can
+    key each epoch's masks."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x: CArray) -> CArray:
         if not self.training or self.rate == 0.0:
             return x
-        return CArray(F.dropout(x.re, self.rate, True),
-                      F.dropout(x.im, self.rate, True))
+        mask = dropout_mask((2,) + tuple(x.shape), x.re, self.rate, self.generator)
+        return CArray(x.re * mask[0], x.im * mask[1])
 
 
 def complex_mul_bcast(x: CArray, a: CArray) -> CArray:

@@ -94,7 +94,7 @@ def upsampled_conv2d_multi(xs: Sequence[torch.Tensor],
     w = torch.cat(list(ws), dim=2) if len(ws) > 1 else ws[0]
     # kbig[(dh, dw), ci, (r_h, r_w, co)]
     #   = sum_{t, v} Fold_h[r_h, dh, t] * Fold_w[r_w, dw, v] * w[t, v, ci, co]
-    kbig = torch.einsum("adt,bev,tvio->deiabo", fh, fw, w).reshape(
+    kbig = torch.einsum("adt,bev,tvio->deiabo", fh.to(w.dtype), fw.to(w.dtype), w).reshape(
         Dh * Dw, w.shape[2], s_h * s_w * cout).contiguous()
     x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
     # the window's zero padding goes to the tap conv, whose input gradient

@@ -1,5 +1,5 @@
-"""Complex ratio-mask math on (re, im) pairs: the target mask and the bound.
-The real family's target (``real_subtractive_target``) is not yet ported."""
+"""Mask math: the complex ratio mask on (re, im) pairs and its bound, and the
+real family's subtractive target."""
 
 from __future__ import annotations
 
@@ -18,9 +18,10 @@ def crm(S: CArray, Y: CArray, eps: float = 1e-8) -> CArray:
 
 def real_subtractive_target(noise_mag: torch.Tensor,
                             noisy_mag: torch.Tensor) -> torch.Tensor:
-    raise NotImplementedError(
-        "the real family's target mask (DRS) is not yet ported: ROADMAP "
-        "Queue 1 item 3")
+    """sigmoid(|N| / |Y|), the DRS target mask. The division is unguarded,
+    as in the JAX package: |Y| > 0 almost everywhere for real audio, and
+    sigmoid(inf) saturates to 1."""
+    return torch.sigmoid(noise_mag / noisy_mag)
 
 
 def bound_crm(M: CArray, atan2_eps: float) -> CArray:

@@ -1,19 +1,19 @@
-"""Where the time of one full-width DCS train step goes on the card.
+"""Where the time of one full-width train step goes on the card.
 
-``python -m dcs_net_tpu_torch.tools.profile_train [--batch 32] [--crop 8160]
-[--reps 20] [--top 20]``
+``python -m dcs_net_tpu_torch.tools.profile_train [--variant dcs] [--batch 32]
+[--crop 8160] [--reps 20] [--top 20]``
 
 Runs three warm-up steps and ``--reps`` timed steps of ``train_step`` (each
-ended by ``torch.cuda.synchronize()``), then one step under
-``torch.profiler`` (CPU and CUDA activities), and prints: the median step
-time and audio-seconds per second, the step's wall time under the profiler,
-its kernel launches, the device busy time (the sum of kernel self times) and
-idle share (against the profiled step's wall and against the median step
-without the profiler, which the profiler's own host work does not
-lengthen), the launches of the port's own kernels, peak device memory, and
-the kernels with the most device time, grouped by name. Weights are random
-(seed 0), the waves seeded noise: the work per step depends only on the
-shapes. TF32 is off, as in the trainer.
+ended by ``torch.cuda.synchronize()``) of ``config_for_variant(--variant)``
+(DCS by default), then one step under ``torch.profiler`` (CPU and CUDA
+activities), and prints: the median step time and audio-seconds per second,
+the step's wall time under the profiler, its kernel launches, the device busy
+time (the sum of kernel self times) and idle share (against the profiled
+step's wall and against the median step without the profiler, which the
+profiler's own host work does not lengthen), the launches of the port's own
+kernels, peak device memory, and the kernels with the most device time,
+grouped by name. Weights are random (seed 0), the waves seeded noise: the
+work per step depends only on the shapes. TF32 is off, as in the trainer.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import time
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--variant", choices=("dr", "dc", "drs", "dcs"), default="dcs")
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--crop", type=int, default=8160)
     p.add_argument("--reps", type=int, default=20)
@@ -31,17 +32,17 @@ def main(argv=None) -> None:
     args = p.parse_args(argv)
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from dcs_net_tpu_torch.core.config import config_for_variant
     from dcs_net_tpu_torch.models.unet import DCSNet
     from dcs_net_tpu_torch.train import steps
     from dcs_net_tpu_torch.train.optim import make_optimizer
     from dcs_net_tpu_torch.utils import cuda_lib
+    from dcs_net_tpu_torch.utils.timing import profiled
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = config_for_variant("dcs")
+    cfg = config_for_variant(args.variant)
     torch.manual_seed(0)
     model = DCSNet(cfg.model, cfg.quirks, device="cuda", seed=0)
     opt = make_optimizer(model.parameters(), cfg.optim)
@@ -71,21 +72,11 @@ def main(argv=None) -> None:
               f"{audio_s / med * 1e3:.1f} audio-s/s per GPU; peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     cuda_lib.reset_launch_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    wall_ms, busy_ms, launches, kernels = profiled(step)
     ours = {k.name: k.launches for k in cuda_lib.KERNELS.values() if k.launches}
-    # device time of kernels only: an annotated range (the optimizer's step)
-    # also reports device time, which would count its kernels twice
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.is_user_annotation]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    print(f"{torch.cuda.get_device_name(0)}: train_step batch {args.batch} x "
-          f"{args.crop} samples: wall {wall_ms:.2f} ms under the profiler, "
-          f"{sum(e.count for e in kernels)} kernel launches, device busy "
+    print(f"{torch.cuda.get_device_name(0)}: {args.variant} train_step batch "
+          f"{args.batch} x {args.crop} samples: wall {wall_ms:.2f} ms under the "
+          f"profiler, {launches} kernel launches, device busy "
           f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}"
           + (f" ({1 - busy_ms / med:.3f} of the median step without the "
              "profiler)" if walls else ""))

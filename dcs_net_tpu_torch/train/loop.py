@@ -1,20 +1,28 @@
 """The training loop, the port's copy of the JAX package's ``train/loop.py``:
-per epoch the train steps (NaN gate, throughput), a validation pass (losses),
-ReduceLROnPlateau on the monitored metric and a checkpoint.
+a sanity-validation pass of ``num_sanity_val_steps`` batches, then per epoch
+the train steps (NaN gate, throughput), a validation pass (losses),
+ReduceLROnPlateau on the monitored metric, SWA parameter averaging, a
+checkpoint and the ``on_validation_end`` callback; at the end the SWA
+average is swapped in and the BN statistics are refreshed for it.
 
 Faithful details kept: the plateau monitors ``val_loss`` for subtractive
-variants but the TRAIN ``speech_loss`` for plain ones. The device is told
+variants but the TRAIN ``speech_loss`` for plain ones, and stops acting (the
+learning rate is held) from the SWA start epoch on. The device is told
 nothing per step: metrics stay device scalars and are fetched every
-``log_every_n_steps`` steps and at the end of the epoch.
+``log_every_n_steps`` steps and at the end of the epoch. Each epoch's
+dropout masks come from a generator keyed by ``(seed, epoch)``, so a run
+resumed from a checkpoint draws the masks the uninterrupted run draws.
 
-Not yet ported (ROADMAP Queue 1 item 5): the sanity-val pass, SWA with its
-BN refresh, PESQ and STOI in validation, audio and histogram logging.
+Not yet ported (ROADMAP Queue 1 items 5 and 6): PESQ and STOI in
+validation, audio and histogram logging.
 """
 
 from __future__ import annotations
 
+import itertools
 import time
-from typing import Dict, Iterable, List, Optional
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -24,24 +32,43 @@ from dcs_net_tpu_torch.models.unet import DCSNet
 from dcs_net_tpu_torch.obs.logging import ThroughputMeter, Writer
 from dcs_net_tpu_torch.train import steps as S
 from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
-from dcs_net_tpu_torch.train.optim import (get_lr, make_optimizer, make_plateau,
-                                           step_count)
+from dcs_net_tpu_torch.train.optim import (SWA, get_lr, make_optimizer,
+                                           make_plateau, step_count)
 from dcs_net_tpu_torch.utils.device import DeviceLike, resolve_device
 
 HostBatch = Dict[str, np.ndarray]
+
+
+def epoch_seed(seed: int, epoch: int) -> int:
+    """The seed of epoch ``epoch``'s dropout generator: a fixed integer mix
+    of (seed, epoch), the same under every Python version."""
+    return (seed * 1_000_003 + epoch) & 0x7FFFFFFF
+
+
+@dataclass
+class TrainerCallbacks:
+    """Hook points (HPO pruning, early stop): ``on_validation_end(epoch,
+    val_metrics)`` returning True stops training."""
+
+    on_validation_end: Optional[Callable[[int, Dict[str, float]], bool]] = None
 
 
 class Trainer:
     """``Trainer(cfg, device=...)`` (CUDA unless ``device="cpu"``). Turns
     TF32 off for cuDNN and matmuls: the model trains in full float32, as the
     JAX reference does (cuDNN would otherwise run the encoder convs and the
-    LSTM in TF32)."""
+    LSTM in TF32).
+
+    SWA starts at epoch ``int(swa_start_frac * max_epochs)``. A checkpoint
+    holds the model, Adam, the plateau and the epoch but not the SWA average,
+    as in the JAX package, so a run resumed after the SWA start begins its
+    average anew at the resumed epoch."""
 
     def __init__(self, cfg: Config, device: DeviceLike = None):
         if cfg.run.steps_per_dispatch > 1:
             raise NotImplementedError(
                 "steps_per_dispatch > 1 is not yet ported: one train step a "
-                "dispatch (a CUDA graph of the step is later work)")
+                "dispatch (a CUDA graph of the step is ROADMAP Queue 1 item 4)")
         self.cfg = cfg
         self.device = resolve_device(device)
         torch.backends.cudnn.allow_tf32 = False
@@ -50,17 +77,16 @@ class Trainer:
         self.model: Optional[DCSNet] = None
         self.opt: Optional[torch.optim.Adam] = None
         self.plateau: Optional[torch.optim.lr_scheduler.ReduceLROnPlateau] = None
+        self.swa = (SWA(start_epoch=int(cfg.optim.swa_start_frac * cfg.run.max_epochs))
+                    if cfg.optim.swa else None)
         self.epoch = 0
         self._last_train_metrics: Dict[str, float] = {}
 
     # -- state --------------------------------------------------------------
     def init_state(self) -> None:
-        """Weights from ``cfg.run.seed``, fresh Adam and plateau state;
-        torch's generators (dropout) seeded from the same seed."""
-        seed = self.cfg.run.seed
-        torch.manual_seed(seed)
+        """Weights from ``cfg.run.seed``, fresh Adam and plateau state."""
         self.model = DCSNet(self.cfg.model, self.cfg.quirks, device=self.device,
-                            seed=seed)
+                            seed=self.cfg.run.seed)
         self.opt = make_optimizer(self.model.parameters(), self.cfg.optim)
         self.plateau = make_plateau(self.opt, self.cfg.optim)
 
@@ -85,6 +111,9 @@ class Trainer:
         if self.model is None:
             raise RuntimeError("call init_state() first")
         cfg = self.cfg
+        # this epoch's dropout masks, keyed as the JAX trainer keys its rng
+        self.model.set_dropout_generator(torch.Generator(device=self.device).manual_seed(
+            epoch_seed(cfg.run.seed, epoch)))
         meter = ThroughputMeter(cfg.data.batch_size * cfg.data.crop_samples / cfg.data.sr)
         t0 = time.perf_counter()
         agg: Dict[str, List[torch.Tensor]] = {}
@@ -126,18 +155,21 @@ class Trainer:
         self._last_train_metrics = out
         return out
 
-    def eval_epoch(self, batches: Iterable[HostBatch], epoch: int) -> Dict[str, float]:
-        """Eval-mode losses averaged over the batches, as ``val_<loss>`` (a
-        batch with a non-finite loss is reported and left out)."""
+    def eval_epoch(self, batches: Iterable[HostBatch], epoch: int,
+                   phase: str = "val", max_batches: Optional[int] = None
+                   ) -> Dict[str, float]:
+        """Eval-mode losses averaged over the batches (the first
+        ``max_batches``), as ``<phase>_<loss>`` (a batch with a non-finite
+        loss is reported and left out)."""
         agg: Dict[str, List[float]] = {}
-        for i, host_batch in enumerate(batches):
+        for i, host_batch in enumerate(itertools.islice(batches, max_batches)):
             losses, _ = S.eval_step(self.model, self._device_batch(host_batch), self.cfg)
             if not np.isfinite(float(losses["loss"])):
-                print(f"found a NaN in val loss! (epoch {epoch}, batch {i}, skipped)")
+                print(f"found a NaN in {phase} loss! (epoch {epoch}, batch {i}, skipped)")
                 continue
             for k, v in losses.items():
                 agg.setdefault(k, []).append(float(v))
-        out = {f"val_{k}": float(np.mean(v)) for k, v in agg.items() if v}
+        out = {f"{phase}_{k}": float(np.mean(v)) for k, v in agg.items() if v}
         self.writer.scalars(out, self.step)
         return out
 
@@ -149,11 +181,64 @@ class Trainer:
             "speech_loss", val_metrics.get("val_speech_loss", float("inf")))
 
     def end_of_epoch(self, epoch: int, val_metrics: Dict[str, float]) -> None:
-        lr = get_lr(self.opt)
-        self.plateau.step(self.monitored_metric(val_metrics))
-        if get_lr(self.opt) != lr:
-            print(f"epoch {epoch}: reducing lr {lr:.3e} -> {get_lr(self.opt):.3e}")
+        """The plateau until the SWA start epoch, then the learning rate held
+        and the parameters averaged."""
+        if self.swa is None or epoch < self.swa.start_epoch:
+            lr = get_lr(self.opt)
+            self.plateau.step(self.monitored_metric(val_metrics))
+            if get_lr(self.opt) != lr:
+                print(f"epoch {epoch}: reducing lr {lr:.3e} -> {get_lr(self.opt):.3e}")
+        if self.swa is not None:
+            self.swa.update(epoch, self.model.parameters())
         self.epoch = epoch + 1
+
+    def finalize_swa(self, train_batches: Optional[Iterable[HostBatch]] = None,
+                     max_batches: Optional[int] = None) -> int:
+        """Copy the SWA average into the parameters and, when train data is
+        given, refresh the BN running statistics for it. Returns the number
+        of batches the refresh ran."""
+        if self.swa is None or not self.swa.active:
+            return 0
+        with torch.no_grad():
+            torch._foreach_copy_(list(self.model.parameters()), self.swa.avg_params)
+        if train_batches is None:
+            return 0
+        return self.recompute_batch_stats(train_batches, max_batches)
+
+    def recompute_batch_stats(self, batches: Iterable[HostBatch],
+                              max_batches: Optional[int] = None) -> int:
+        """The BN refresh: train-mode forwards over the batches (the first
+        ``max_batches``) with the parameters and Adam untouched, under
+        ``no_grad``; the running statistics become the cumulative average of
+        the batches' own statistics (torch ``update_bn`` semantics). As in
+        the JAX package, a batch's statistic is recovered from one
+        momentum-0.1 update of the statistics the pass started from, as
+        (new - 0.9 old) / 0.1, for the complex and the real BN alike.
+        Returns the number of batches."""
+        m = 0.1
+        bufs = dict(self.model.named_buffers())
+        old = {k: v.clone() for k, v in bufs.items()}
+        avg: Optional[Dict[str, torch.Tensor]] = None
+        n = 0
+        was_training = self.model.training
+        self.model.train()
+        self.model.set_dropout_generator(torch.Generator(device=self.device).manual_seed(
+            self.cfg.run.seed ^ 0x5A5A5A))
+        try:
+            with torch.no_grad():
+                for n, host_batch in enumerate(itertools.islice(batches, max_batches), 1):
+                    noisy = self._device_batch(host_batch).noisy
+                    for k, v in bufs.items():
+                        v.copy_(old[k])
+                    self.model(noisy if self.cfg.model.complex_valued else noisy.abs())
+                    bs = {k: (v - (1 - m) * old[k]) / m for k, v in bufs.items()}
+                    avg = bs if avg is None else {
+                        k: a + (bs[k] - a) / n for k, a in avg.items()}
+                for k, v in bufs.items():
+                    v.copy_(old[k] if avg is None else avg[k])
+        finally:
+            self.model.train(was_training)
+        return n
 
     # -- checkpoints ----------------------------------------------------------
     def save(self, ckpt: CheckpointManager, epoch: int) -> str:
@@ -169,14 +254,24 @@ class Trainer:
         return self.step
 
     # -- fit ----------------------------------------------------------------
-    def fit(self, train_loader, val_loader, ckpt: Optional[CheckpointManager] = None
-            ) -> Dict[str, float]:
-        """Epochs from ``self.epoch`` to ``cfg.run.max_epochs``; returns the
-        last epoch's train and validation metrics."""
+    def fit(self, train_loader, val_loader,
+            callbacks: Optional[TrainerCallbacks] = None,
+            ckpt: Optional[CheckpointManager] = None,
+            max_epochs: Optional[int] = None) -> Dict[str, float]:
+        """The sanity-validation pass, then epochs from ``self.epoch`` to
+        ``max_epochs`` (default ``cfg.run.max_epochs``) or until
+        ``callbacks.on_validation_end`` returns True, then ``finalize_swa``
+        over the next epoch's train batches. Returns the last epoch's train
+        and validation metrics, with SWA on also ``swa_n_averaged`` and
+        ``bn_refresh_batches``."""
+        cfg = self.cfg
         if self.model is None:
             self.init_state()
+        if cfg.run.num_sanity_val_steps:
+            self.eval_epoch(val_loader.epoch(0), -1, phase="sanity",
+                            max_batches=cfg.run.num_sanity_val_steps)
         metrics: Dict[str, float] = {}
-        for epoch in range(self.epoch, self.cfg.run.max_epochs):
+        for epoch in range(self.epoch, max_epochs or cfg.run.max_epochs):
             t0 = time.perf_counter()
             train_metrics = self.train_epoch(train_loader.epoch(epoch), epoch)
             val_metrics = self.eval_epoch(val_loader.epoch(epoch), epoch)
@@ -187,5 +282,12 @@ class Trainer:
                 + f" ({time.perf_counter() - t0:.1f}s)", flush=True)
             if ckpt is not None:
                 self.save(ckpt, epoch)
+            if callbacks and callbacks.on_validation_end and \
+                    callbacks.on_validation_end(epoch, val_metrics):
+                break
+        refreshed = self.finalize_swa(train_loader.epoch(self.epoch))
+        if self.swa is not None:
+            metrics.update(swa_n_averaged=self.swa.n_averaged,
+                           bn_refresh_batches=refreshed)
         self.writer.flush()
         return metrics

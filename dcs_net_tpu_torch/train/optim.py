@@ -10,12 +10,13 @@ the NaN gate (``train/steps.py``) can keep a skipped step's whole state on
 the device without a host round trip; :func:`make_optimizer` creates the
 state at once for the same reason. The plateau schedule is torch's own
 ``ReduceLROnPlateau`` (:func:`make_plateau`), of which the JAX package keeps a
-mirror. SWA is not yet ported (ROADMAP Queue 1 item 5).
+mirror. :class:`SWA` is the JAX package's parameter average.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List
+from dataclasses import dataclass
+from typing import Iterable, List, Optional
 
 import torch
 
@@ -73,3 +74,31 @@ def make_plateau(opt: torch.optim.Optimizer, cfg: OptimConfig
     return torch.optim.lr_scheduler.ReduceLROnPlateau(
         opt, mode="min", factor=cfg.plateau_factor, patience=cfg.plateau_patience,
         threshold=cfg.plateau_threshold, min_lr=cfg.plateau_min_lr, eps=0.0)
+
+
+@dataclass
+class SWA:
+    """Equal-weight parameter averaging from ``start_epoch`` on, over a list
+    of tensors (a model's parameters, in their order): ``avg += (p - avg) /
+    (n + 1)``, as the JAX package's ``SWA``."""
+
+    start_epoch: int
+    avg_params: Optional[List[torch.Tensor]] = None
+    n_averaged: int = 0
+
+    def update(self, epoch: int, params: Iterable[torch.Tensor]) -> None:
+        if epoch < self.start_epoch:
+            return
+        params = [p.detach() for p in params]
+        if self.avg_params is None:
+            self.avg_params = [p.clone() for p in params]
+            self.n_averaged = 1
+            return
+        n = self.n_averaged
+        for a, p in zip(self.avg_params, params):
+            a.add_((p - a) / (n + 1))
+        self.n_averaged = n + 1
+
+    @property
+    def active(self) -> bool:
+        return self.avg_params is not None

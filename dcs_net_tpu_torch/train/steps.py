@@ -1,5 +1,5 @@
-"""The forward + mask + loss pipeline of the complex variants (DC, DCS) and
-the train step, the port's copy of the JAX package's ``train/steps.py``.
+"""The forward + mask + loss pipeline of the four variants and the train
+step, the port's copy of the JAX package's ``train/steps.py``.
 
 ``batch_from_waves`` runs the STFT on the device (kernel 1, one launch for
 the noise, noisy and clean streams stacked). ``train_step`` is forward ->
@@ -9,7 +9,7 @@ clip -> Adam, with the NaN gate of the JAX step: where the loss, or unless
 leaves parameters, optimizer state (step counts included) and the BN running
 statistics exactly as they were. The gate keeps a flat copy of that state
 and selects with ``torch.where`` on the device, as the JAX step's branchless
-``where`` does: no host sync. The real family (DR, DRS) is not yet ported.
+``where`` does: no host sync.
 """
 
 from __future__ import annotations
@@ -47,15 +47,13 @@ def _stack(*xs: CArray) -> CArray:
     return CArray(torch.stack([x.re for x in xs]), torch.stack([x.im for x in xs]))
 
 
-def run_model_and_masks(apply_mask_net: Callable[[CArray], CArray],
+def run_model_and_masks(apply_mask_net: Callable[[object], object],
                         batch: Batch, cfg: Config) -> Dict[str, object]:
     """Mask prediction and application, shared by train and eval: the audio
     streams (the three references through one iSTFT, the predictions
-    through another) and the masks. ``apply_mask_net`` maps the noisy
-    spectrogram to the bounded mask."""
-    if not cfg.model.complex_valued:
-        raise NotImplementedError(
-            "the real family (DR/DRS) is not yet ported: ROADMAP Queue 1 item 3")
+    through another) and the masks. ``apply_mask_net`` maps the network
+    input (the noisy spectrogram, or for the real variants its magnitude)
+    to the bounded mask."""
     q = cfg.quirks
     eps = cfg.model.atan2_eps
     refs = dsp.spec_to_wave(_stack(batch.noise, batch.noisy, batch.clean),
@@ -63,6 +61,27 @@ def run_model_and_masks(apply_mask_net: Callable[[CArray], CArray],
                             polar=q.polar_resynthesis)
     out: Dict[str, object] = {"noise_audio": refs[0], "noisy_audio": refs[1],
                               "clean_audio": refs[2]}
+    if not cfg.model.complex_valued:
+        # the magnitude is the network's input, the noisy phase resynthesizes
+        # the predictions
+        noisy_mag, noisy_phase = batch.noisy.abs(), batch.noisy.angle(eps)
+        pred_mask = apply_mask_net(noisy_mag)
+
+        def to_wave(mag, phase):
+            return dsp.polar_to_wave(mag, phase, cfg.stft, pad_top=q.istft_pad_top_bin)
+
+        if cfg.model.subtractive:   # DRS
+            pred_noise_mag = noisy_mag * pred_mask
+            pred_clean_mag = noisy_mag - pred_noise_mag
+            waves = to_wave(torch.stack([pred_noise_mag, pred_clean_mag]),
+                            torch.stack([noisy_phase, noisy_phase]))
+            out.update(target_mask=M.real_subtractive_target(batch.noise.abs(), noisy_mag),
+                       pred_mask=pred_mask, predict_noise_audio=waves[0],
+                       predict_clean_audio=waves[1])
+        else:                       # DR
+            out.update(pred_mask=pred_mask,
+                       predict_clean_audio=to_wave(noisy_mag * pred_mask, noisy_phase))
+        return out
     pred_out = apply_mask_net(batch.noisy)
     pred_mask = M.bound_crm(pred_out, eps) if q.double_bound_mask else pred_out
     if cfg.model.subtractive:   # DCS

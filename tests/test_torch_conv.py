@@ -19,6 +19,8 @@ from dcs_net_tpu_torch.ops import attention, conv_engine as tce
 from dcs_net_tpu_torch.ops import cuda_conv, cuda_tapconv
 from dcs_net_tpu_torch.utils.carray import CArray
 
+from test_torch_train import _one_torch_thread  # noqa: F401
+
 
 def _np(shape, seed, scale=1.0):
     return (np.random.default_rng(seed).standard_normal(shape) * scale
@@ -163,7 +165,7 @@ def test_three_pass_tf32_product_is_as_close_as_float32():
 
 
 @pytest.mark.parametrize("taps,cin,n", [(9, 64, 32), (9, 70, 130), (4, 24, 12),
-                                        (9, 32, 8), (1, 36, 5)])
+                                        (9, 32, 8), (1, 36, 5), (9, 32, 4)])
 def test_pack_weights_layout_round_trips(taps, cin, n):
     """The K-major tiles the packing kernel writes, in PyTorch: element
     [n tile, chunk, tap, part, j, m, i] is channel 32*chunk + 4*j + i of
@@ -397,6 +399,8 @@ class _Recorder:
     ((2, 16, 12, 4), 7, 3, False),
     ((2, 16, 12, 2), 7, 2, False),
     ((2, 16, 12, 4), 3, 2, False),
+    ((4, 64, 34, 2), 7, 1, False),      # the real attention's class (7, 2, 1)
+    ((4, 64, 34, 1), 7, 2, False),      # and its input gradient's (7, 1, 2)
 ])
 def test_conv_entry_routes_only_the_tuned_class_to_the_tiled_body(
         monkeypatch, shape, k, cout, tiled):
@@ -653,6 +657,7 @@ DGRAD_CASES = [
     ((1, 2, 130, 4, 3), (3, 3), (1, 1, 1, 1)),     # one row a tile, ragged
     ((2, 5, 9, 3, 4), (2, 2), (0, 1, 1, 0)),       # a 2 x 2 window
     ((1, 6, 20, 3, 2), (5, 5), (2, 2, 0, 4)),      # 5 x 5, uneven padding
+    ((2, 6, 20, 4, 32), (3, 3), (1, 1, 1, 1)),     # the real dec6: N = 4 -> 32
 ]
 
 
@@ -681,7 +686,7 @@ def test_dgrad_tiling_model_writes_each_pixel_once_and_equals_plain(case, taps, 
 # (the input gradient's reduction) and Cin (its outputs)
 TRAIN_DGRAD_STAGES = [(2, 32, 512, 512), (4, 32, 512, 512), (8, 32, 512, 256),
                       (16, 32, 256, 128), (32, 32, 128, 128), (64, 64, 64, 64),
-                      (128, 128, 8, 32)]
+                      (128, 128, 8, 32), (128, 128, 4, 32)]
 
 
 @pytest.mark.parametrize("H,W,n,cin", TRAIN_DGRAD_STAGES)
@@ -689,19 +694,19 @@ def test_dgrad_plan_fills_the_wgmma_rows_at_the_train_stages(H, W, n, cin):
     """At every decoder stage of the train step at least 90 % of the M rows
     the entry computes hold pixels of dx (one-row tiles of 64 pixels filled
     34 of 64 at 32-column images), its halo tiles fit shared memory, and
-    dec6's class (N = 8 -> Cin 32) takes 8-channel chunks and 32-wide N
-    tiles."""
+    dec6's class (N = 8 -> Cin 32, the real family's N = 4 -> 32) takes
+    8-channel chunks and 32-wide N tiles."""
     B = 32
     kb, bn, flat, wgs = cuda_tapconv.dgrad_plan(B, H, W, n, cin, 3, 3)
     tiles, arows, apw = cuda_tapconv.dgrad_tiling(flat, wgs, H, W, 3, 3)
     rows = B * tiles * (1 if flat else H) * 64 * wgs
     assert B * H * W / rows >= 0.9
     assert cuda_tapconv.dgrad_smem_bytes(kb, bn, 1, n, 9, arows, apw) <= 227 * 1024
-    assert (kb, bn) == ((8, 32) if n == 8 else (32, 128 if cin > 64 else 64))
+    assert (kb, bn) == ((8, 32) if n <= 8 else (32, 128 if cin > 64 else 64))
 
 
 @pytest.mark.parametrize("taps,cin,n", [(9, 32, 8), (9, 512, 256), (4, 24, 12),
-                                        (9, 5, 33), (1, 36, 5)])
+                                        (9, 5, 33), (1, 36, 5), (9, 32, 4)])
 def test_dgrad_packing_layout_is_pack_weights_of_the_flipped_weights(taps, cin, n):
     """The packing entry of the input gradient, its index math in numpy
     (thread (n tile, chunk, tap, 4-channel group j, n) reads w[taps - 1 -

@@ -26,6 +26,8 @@ from dcs_net_tpu_torch.ops import masks as tmasks
 from dcs_net_tpu_torch.ops.lstm import ComplexLSTM
 from dcs_net_tpu_torch.utils.carray import CArray
 
+from test_torch_train import _one_torch_thread  # noqa: F401
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -22,6 +22,8 @@ from dcs_net_tpu_torch.dsp import stft as tdsp
 from dcs_net_tpu_torch.dsp import stft_cuda
 from dcs_net_tpu_torch.utils.carray import CArray
 
+from test_torch_train import _one_torch_thread  # noqa: F401
+
 JCFG = JaxSTFTConfig()
 TCFG = STFTConfig()
 

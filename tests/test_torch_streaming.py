@@ -34,6 +34,8 @@ from dcs_net_tpu_torch.models.enhance import (enhance_full, enhance_streaming,
 from dcs_net_tpu_torch.models.unet import DCSNet
 from dcs_net_tpu_torch.utils.carray import CArray
 
+from test_torch_train import _one_torch_thread  # noqa: F401
+
 TINY = (1, 2, 2, 4, 4, 8, 8, 8)
 
 
