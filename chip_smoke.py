@@ -11,7 +11,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
                stft.cu (kernel 1: an FFT inside the kernel, and the dense DFT
                for the sizes the FFT is not instantiated for), conv_same.cu
                (kernel 2: the small-Cout conv, the spatial-attention pooling
-               pass and the conv with the gate's sigmoid-and-product epilogue)
+               pass and the conv with the gate's sigmoid-and-product epilogue,
+               and the real attention's pooling pass and gate)
                and tapconv.cu (kernel 3: a 3xTF32 wgmma implicit GEMM and the
                kernel that packs its weights);
   3. slice   -- full-width DCS ``enhance_full`` on 4 requests of 4 s at 16 kHz
@@ -74,17 +75,25 @@ Phases (each prints one or more lines; any failure exits non-zero):
                audio-s/s per GPU;
   8. real    -- the real family at full width (DRS, seeded weights, BN moved
                off its init): (a) ``enhance_full`` on 4 requests of 4 s:
-               launch counts (kernel 2's conv entry 13 times at (K, Cin,
-               Cout) = (7, 2, 1), generic body; kernel 3 7 times, dec6 at
-               N = 4), the median of 10 calls, a 1 s request and a streamed
-               3 s one card vs CPU, and every launch against its plain
-               version; (b) DR on a 1 s request card vs CPU; (c) one batch-32
-               train step, dropout on: launch counts (the input gradients at
-               (7, 1, 2) and kernel 3's at N = 4 among them), every Function
-               against plain autograd and every launch against its plain
-               version, the median of 20 steps and the device busy time of
-               one under the profiler; (d) the step at batch 4 card vs CPU as
-               in 7 (c). Its kernel rows are named ``<kernel>_drs``.
+               launch counts (kernel 2's real gate, pool and gate 13 times
+               each, its conv entry never; kernel 3 7 times, dec6 at N = 4),
+               the median of 10 calls, a 1 s request and a streamed 3 s one
+               card vs CPU, every launch against its plain version (the gate
+               beside the eager sequence it replaces and the sequence the
+               module ran before, on the generic conv body); (b) DR on a 1 s
+               request card vs CPU; (c) one batch-32 train step, dropout on:
+               launch counts (kernel 2's conv entry at (K, Cin, Cout) = (7,
+               2, 1) and its input gradient at (7, 1, 2) 13 times each, all
+               on the register-tiled body; kernel 3's at N = 4 among them;
+               the real gate never), every Function against plain autograd
+               and every launch against its plain version (the tiled bodies
+               beside the generic one), the median of 20 steps and the device
+               busy time of one under the profiler; (d) the step at batch 4
+               card vs CPU as in 7 (c); (e) the real gate and the tiled
+               bodies off the path: C no multiple of 4, x one float off its
+               alignment, H = 1, W below a tile, odd H and W, every R, and
+               the generic body at those shapes. Its kernel rows are named
+               ``<kernel>_drs``.
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 """
@@ -132,6 +141,14 @@ KERNEL_INFO = {
     "sa_gate": ("dcs_net_tpu_torch/csrc/conv_same.cu",
                 "dcs_net_tpu/ops/pallas_conv.py:138",
                 "conv-sigmoid-product-epilogue", F32_FLOPS_PER_S),
+    # the real attention's gate (DR / DRS): one plane pooled, the (7, 2, 1)
+    # body with a sigmoid-and-broadcast-product epilogue
+    "sa_pool_real": ("dcs_net_tpu_torch/csrc/conv_same.cu",
+                     "dcs_net_tpu/ops/pallas_conv.py:138", "channel-mean-max",
+                     F32_FLOPS_PER_S),
+    "sa_gate_real": ("dcs_net_tpu_torch/csrc/conv_same.cu",
+                     "dcs_net_tpu/ops/pallas_conv.py:138",
+                     "conv-sigmoid-broadcast-product-epilogue", F32_FLOPS_PER_S),
     "tapconv_valid": ("dcs_net_tpu_torch/csrc/tapconv.cu",
                       "dcs_net_tpu/ops/pallas_tapconv.py:91", "3xtf32-wgmma",
                       TF32X3_FLOPS_PER_S),
@@ -151,12 +168,13 @@ KERNEL_INFO = {
 }
 # the real family's classes, rows of their own: kernel 2's conv entry at
 # (K, Cin, Cout) = (7, 2, 1) and its input gradient's (7, 1, 2) run the
-# generic body; kernel 3's shapes are DCS's but for dec6's N = 4
+# register-tiled body over float2 / float pixels, two weights a tap; kernel
+# 3's shapes are DCS's but for dec6's N = 4
 KERNEL_INFO.update({
     "conv_same_small_cout_drs": KERNEL_INFO["conv_same_small_cout"][:2]
-    + ("simt-f32-generic", F32_FLOPS_PER_S),
+    + ("simt-f32-register-tiled-real", F32_FLOPS_PER_S),
     "conv_same_small_cout_dgrad_drs": KERNEL_INFO["conv_same_small_cout_dgrad"][:2]
-    + ("simt-f32-generic-input-gradient", F32_FLOPS_PER_S),
+    + ("simt-f32-register-tiled-real-input-gradient", F32_FLOPS_PER_S),
 })
 # what the slice does not launch: kernel 1's dense entry point at a size that
 # is no power of two (B, n, n_fft, hop); its FFT entry point at the other
@@ -178,6 +196,12 @@ GATE_EXTRA = [(1, 5, 3, 1), (2, 7, 9, 6), (3, 17, 129, 12), (32, 4, 8, 16),
               (1, 3, 70, 20), (1, 1, 1, 4), (2, 33, 300, 8)]
 CONV_EXTRA = [((2, 9, 40, 4), 3, 2), ((2, 16, 33, 4), 5, 8), ((1, 7, 5, 3), 7, 2),
               ((3, 20, 50, 6), 7, 16), ((32, 6, 10, 4), 7, 3)]
+# the real gate and the tiled bodies at the real classes off the path: C = 1
+# and C no multiple of 4, H = 1, W below a tile, odd H and W, batch 32
+# ((B, H, W, C)); every R of the tiled body, forced ((R, TX, TY))
+REAL_GATE_EXTRA = [(1, 5, 3, 1), (2, 7, 9, 6), (3, 17, 129, 12), (32, 4, 8, 16),
+                   (1, 1, 70, 20), (1, 1, 1, 4), (2, 33, 301, 8), (1, 3, 2, 256)]
+REAL_TILES = [(2, 4, 1), (4, 8, 16), (8, 4, 4), (8, 16, 8)]
 # the input gradients off the path. Kernel 3's entry: H = 1, W = 1, 33, 65
 # and 130, B = 1, Cin' (the forward's N) 5, 8, 12 and 33, N' (its Cin) 5, 32
 # and 130, windows 2x2, 5x5 and 12x12, padding uneven
@@ -282,7 +306,8 @@ def discover_shapes(run):
 
     slots = [(stft_cuda, "KERNEL"), (cuda_conv, "KERNEL"), (cuda_conv, "POOL"),
              (cuda_conv, "GATE"), (cuda_tapconv, "KERNEL"), (cuda_conv, "DGRAD"),
-             (cuda_tapconv, "DGRAD")]
+             (cuda_tapconv, "DGRAD"), (cuda_conv, "POOL_REAL"),
+             (cuda_conv, "GATE_REAL")]
     logs = [ShapeLog(getattr(mod, attr)) for mod, attr in slots]
     try:
         for (mod, attr), log in zip(slots, logs):
@@ -396,6 +421,49 @@ def kernel_cases(name, args, dev, cfg):
                 4 * (4 * P + w.numel() + 4 * P * C),
                 2 * P * 7 * 7 * 4 * 2 + 8 * P * C, None,
                 {"replaced_pool_and_gate_ms": replaced_sequence})
+    if name in ("sa_pool_real", "sa_gate_real"):
+        B, H, W, C = args[:4]
+        x = randn(B, H, W, C)
+        w = randn(7, 7, 2, 1, scale=0.3)
+        zero = torch.zeros(1, device=dev)
+        pooled = cuda_conv.sa_pool_real_plain(x)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        P = B * H * W
+        if name == "sa_pool_real":
+            # x read once, the pooled map written; a sum and a max per value
+            return (lambda: cuda_conv.sa_pool_real(x),
+                    lambda: cuda_conv.sa_pool_real_plain(x), None,
+                    4 * (P * C + 2 * P), 2 * P * C, None, {})
+
+        def library():
+            # the gate's function in one PyTorch conv call and two passes
+            return x * torch.sigmoid(F.conv2d(pooled.permute(0, 3, 1, 2), w_oihw,
+                                              padding=3)).permute(0, 2, 3, 1)
+
+        def eager_sequence():
+            # the whole real attention in eager PyTorch: mean, max,
+            # concatenation, F.conv2d, sigmoid, product
+            cat = torch.cat([x.mean(dim=-1, keepdim=True),
+                             x.amax(dim=-1, keepdim=True)], dim=-1)
+            a = torch.sigmoid(F.conv2d(cat.permute(0, 3, 1, 2), w_oihw, padding=3))
+            return x * a.permute(0, 2, 3, 1)
+
+        def replaced_sequence():
+            # what the module ran before the real gate: the same sequence
+            # with the conv on kernel 2's generic body
+            a = torch.sigmoid(cuda_conv.launch_conv(
+                cuda_conv.sa_pool_real_plain(x), w, zero, cuda_conv.GENERIC_TILE))
+            return x * a
+
+        # pooled map and weights read, x read once and written once; the
+        # conv, a sigmoid a pixel, a product a value
+        return (lambda: cuda_conv.sa_gate_real(pooled, w, x),
+                lambda: cuda_conv.sa_gate_real_plain(pooled, w, x),
+                library,
+                4 * (2 * P + w.numel() + 2 * P * C),
+                2 * P * 7 * 7 * 2 + 4 * P + P * C, None,
+                {"eager_pool_and_gate_ms": eager_sequence,
+                 "replaced_pool_and_gate_ms": replaced_sequence})
     if name == "tapconv_valid":
         B, hp, wp, cin, dh, dw, n = args[:7]
         x = randn(B, hp, wp, cin)
@@ -607,7 +675,7 @@ def check_conv_off_path(dev) -> None:
         if tuple(a - b for a, b in zip(after, before)) != (5, 3, 3):
             fail(f"kernel 2 at {(B, H, W, C)}: launches {before} -> {after}")
         print(f"kernel 2 off the path: x ({B}, {H}, {W}, {C}) tile "
-              f"{cc.choose_tile(B, H, W)}: " + ", ".join(
+              f"{cc.choose_tile(B, H, W, 4, 2)}: " + ", ".join(
                   f"{k} rel_err={v:.3e}" for k, v in errs.items()), flush=True)
         for k, v in errs.items():
             if not math.isfinite(v) or v > REL_TOL:
@@ -787,7 +855,7 @@ def check_dgrad_off_path(dev, card) -> None:
         nbytes = 4 * (gy.numel() + w.numel() + B * H * W * 4)
         bound = max(nbytes / HBM_BYTES_PER_S, 2 * B * H * W * 392 / F32_FLOPS_PER_S) * 1e3
         print(f"kernel conv_same_small_cout_dgrad off the path: g ({B}, {H}, {W}, 2) "
-              f"tile {cc.choose_tile(B, H, W)}: "
+              f"tile {cc.choose_tile(B, H, W, 2, 4)}: "
               + ", ".join(f"{k} rel_err={v:.3e}" for k, v in errs.items()) + "; "
               + " ".join(f"{k}={v:.4f}" for k, v in t.items())
               + f" bound_ms={bound:.4f} [{card}]", flush=True)
@@ -795,6 +863,66 @@ def check_dgrad_off_path(dev, card) -> None:
             if not math.isfinite(v) or v > REL_TOL:
                 fail(f"conv_same_small_cout_dgrad ({k}) at {(B, H, W)}: error "
                      f"{v:.3e} exceeds {REL_TOL}")
+
+
+def check_real_off_path(dev) -> None:
+    """Kernel 2 at the real classes where the DRS paths do not take it: the
+    real pool and gate at C = 1 and C no multiple of 4, H = 1, W below a
+    tile, odd H and W, on x one float off its 16-byte line, the gate at
+    every R; the conv entry at (7, 2, 1) and (7, 1, 2) routed (the tiled
+    body), forced onto every R, on an input one float off (the generic body
+    at (7, 2, 1)), and on the generic body itself, at those shapes."""
+    import torch
+
+    from dcs_net_tpu_torch.ops import cuda_conv as cc
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=dev) * scale
+
+    w = randn(7, 7, 2, 1, scale=0.3)
+    w12, b1, b2 = cc.dgrad_kernel(randn(7, 7, 2, 1, scale=0.3)), randn(1), randn(2)
+    counters = (cc.KERNEL, cc.POOL_REAL, cc.GATE_REAL)
+    for B, H, W, C in REAL_GATE_EXTRA:
+        x = randn(B, H, W, C)
+        pooled = cc.sa_pool_real_plain(x)
+        want_gate = cc.sa_gate_real_plain(pooled, w, x)
+        before = tuple(k.launches for k in counters)
+        errs = {"pool": rel_err(cc.sa_pool_real(x), pooled),
+                "gate": rel_err(cc.sa_gate_real(pooled, w, x), want_gate),
+                "pool+gate": rel_err(cc.spatial_gate_real(x, w),
+                                     cc.spatial_gate_real_plain(x, w))}
+        off = randn(x.numel() + 1)[1:].view(x.shape).copy_(x)
+        errs["pool+gate, x one float off"] = rel_err(cc.spatial_gate_real(off, w),
+                                                     cc.spatial_gate_real_plain(x, w))
+        for tile in REAL_TILES:
+            errs[f"gate {tile}"] = rel_err(cc.sa_gate_real(pooled, w, x, tile), want_gate)
+        for cls, xin, wk, bk in (((7, 2, 1), pooled, w, b1),
+                                 ((7, 1, 2), pooled[..., :1].contiguous(), w12, b2)):
+            want = cc.conv2d_same_small_cout_plain(xin, wk, bk)
+            offx = randn(xin.numel() + 1)[1:].view(xin.shape).copy_(xin)
+            errs[f"conv {cls} routed"] = rel_err(cc.conv2d_same_small_cout(xin, wk, bk), want)
+            errs[f"conv {cls} x one float off"] = rel_err(
+                cc.conv2d_same_small_cout(offx, wk, bk), want)
+            errs[f"conv {cls} generic"] = rel_err(
+                cc.launch_conv(xin, wk, bk, cc.GENERIC_TILE), want)
+            for tile in REAL_TILES:
+                errs[f"conv {cls} {tile}"] = rel_err(cc.launch_conv(xin, wk, bk, tile), want)
+        torch.cuda.synchronize()
+        after = tuple(k.launches for k in counters)
+        n_conv, n_gate = 2 * (3 + len(REAL_TILES)), 3 + len(REAL_TILES)
+        if tuple(a - b for a, b in zip(after, before)) != (n_conv, 3, n_gate):
+            fail(f"kernel 2's real classes at {(B, H, W, C)}: launches {before} -> {after}")
+        worst = max(errs, key=errs.get)
+        print(f"kernel 2 real classes off the path: x ({B}, {H}, {W}, {C}), gate tile "
+              f"{cc.gate_tile(B, H, W, 2, 1)}, conv tiles {cc.choose_tile(B, H, W, 2, 1)} / "
+              f"{cc.choose_tile(B, H, W, 1, 2)}: {len(errs)} checks, worst {worst} "
+              f"rel_err={errs[worst]:.3e}; pool {errs['pool']:.3e}, gate "
+              f"{errs['gate']:.3e}, pool+gate {errs['pool+gate']:.3e}", flush=True)
+        for k, v in errs.items():
+            if not math.isfinite(v) or v > REL_TOL:
+                fail(f"kernel 2 ({k}) at {(B, H, W, C)}: error {v:.3e} exceeds {REL_TOL}")
 
 
 def compare_card_cpu(what: str, on_card, on_cpu) -> None:
@@ -1428,9 +1556,10 @@ def check_train(dev, card, tmp):
 
 def check_real(dev, card):
     """Phase "real": the DRS U-Net at full width (the real family, whose
-    spatial attention runs kernel 2 at (K, Cin, Cout) = (7, 2, 1) and its
-    input gradient at (7, 1, 2), and whose decoder ends at kernel 3's N = 4).
-    Returns its kernel rows, named ``<kernel>_drs``."""
+    spatial attention runs kernel 2's real gate in eval, and under autograd
+    its conv entry at (K, Cin, Cout) = (7, 2, 1) and its input gradient at
+    (7, 1, 2), and whose decoder ends at kernel 3's N = 4). Returns its
+    kernel rows, named ``<kernel>_drs``."""
     import torch
 
     from dcs_net_tpu_torch.core.config import config_for_variant
@@ -1470,8 +1599,8 @@ def check_real(dev, card):
     if tuple(out.shape) != (BATCH, SECONDS * SR) or not bool(torch.isfinite(out).all()):
         fail(f"DRS enhance_full returned {tuple(out.shape)} or non-finite samples")
     expect("one DRS enhance call", launches, {
-        "stft": 1, "conv_same_small_cout": 13, "sa_pool": 0, "sa_gate": 0,
-        "tapconv_valid": 7, "tapconv_pack": 7})
+        "stft": 1, "conv_same_small_cout": 0, "sa_pool": 0, "sa_gate": 0,
+        "sa_pool_real": 13, "sa_gate_real": 13, "tapconv_valid": 7, "tapconv_pack": 7})
     walls = []
     for _ in range(10):
         t1 = time.perf_counter()
@@ -1490,9 +1619,17 @@ def check_real(dev, card):
     compare_card_cpu("real: DRS streamed 3 s request (2 chunks of 256, overlap 64)",
                      enhance_streaming(model, three.to(dev), cfg).cpu(),
                      enhance_streaming(cpu_model, three, cfg))
-    rows = check_kernels({"conv_same_small_cout": shapes["conv_same_small_cout"],
-                          "tapconv_valid": shapes["tapconv_valid"]},
-                         launches, dev, cfg, card, "DRS enhance call", "_drs")
+    rows = check_kernels({name: shapes[name] for name in (
+        "sa_pool_real", "sa_gate_real", "tapconv_valid")},
+        launches, dev, cfg, card, "DRS enhance call", "_drs")
+    pool, gate = rows[0], rows[1]
+    print(f"real: the real gate over the 13 sites of a DRS enhance call: pool + gate "
+          f"{pool['ms'] + gate['ms']:.4f} ms (bound {pool['bound_ms'] + gate['bound_ms']:.4f}) "
+          f"against the eager sequence's {gate['eager_pool_and_gate_ms']:.4f} and the "
+          f"sequence on the generic body's {gate['replaced_pool_and_gate_ms']:.4f} "
+          f"[{card}]", flush=True)
+    if pool["ms"] + gate["ms"] >= gate["eager_pool_and_gate_ms"]:
+        fail("the real gate is no faster than the eager sequence it replaces")
     del cpu_model
 
     # (b) DR, card vs CPU
@@ -1526,7 +1663,17 @@ def check_real(dev, card):
     expect("one DRS train step", tlaunches, {
         "stft": 1, "conv_same_small_cout": 13, "conv_same_small_cout_dgrad": 13,
         "tapconv_valid": 7, "tapconv_pack": 7, "tapconv_valid_dgrad": 7,
-        "tapconv_pack_dgrad": 7, "sa_pool": 0, "sa_gate": 0})
+        "tapconv_pack_dgrad": 7, "sa_pool": 0, "sa_gate": 0, "sa_pool_real": 0,
+        "sa_gate_real": 0})
+    # (B, H, W, Cin, K, Cout, R, TX, TY): R = 0 names the generic body
+    for name in ("conv_same_small_cout", "conv_same_small_cout_dgrad"):
+        generic = [a for a in tshapes[name] if a[6] == 0]
+        if generic:
+            fail(f"{name} ran the generic body in the DRS train step at {generic}")
+    print("real: the DRS train step's 13 + 13 kernel 2 launches all on the "
+          "register-tiled body, tiles "
+          + ", ".join(f"{a[1]}x{a[2]} {a[6:]}" for a in tshapes["conv_same_small_cout"]),
+          flush=True)
     if not math.isfinite(float(r["loss"])) or float(r["skipped"]) != 0.0:
         fail("the DRS train step's loss is not finite")
     check_function_grads(tshapes, dev, cfg)
@@ -1557,16 +1704,24 @@ def check_real(dev, card):
     card_vs_cpu_step("real: DRS train", cfg, noisy, clean, dev, SEED + 31,
                      witness_bn="initial_bn")
 
+    # (e) kernel 2 at the real classes off the path
+    check_real_off_path(dev)
+
+    # a row of the enhance call carries the train step's numbers under
+    # "train_step"; a kernel the enhance call does not launch (the conv entry
+    # and the input gradients) is a row of the train step's
     for row in rows:
         row["launches_train"] = tlaunches.get(row["name"][:-len("_drs")], 0)
+    enhance_rows = {r["name"]: r for r in rows}
     for row in train_rows:
-        if row["name"].endswith("_dgrad_drs"):
-            row["launches_train"] = row["launches"]
-            rows.append(row)
-        else:
-            next(r for r in rows if r["name"] == row["name"])["train_step"] = {
+        if row["name"] in enhance_rows:
+            enhance_rows[row["name"]]["train_step"] = {
                 k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                     "bound_by", "max_abs_err", "shapes")}
+        else:
+            row["launches_train"] = row["launches"]
+            row["launches_enhance"] = launches.get(row["name"][:-len("_drs")], 0)
+            rows.append(row)
     return rows
 
 
@@ -1619,8 +1774,8 @@ def main() -> int:
     if not bool(torch.isfinite(out).all()):
         fail("enhance_full returned non-finite samples")
     want = {"stft": (1, None), "conv_same_small_cout": (13, 13),
-            "sa_pool": (13, 13), "sa_gate": (13, 13),
-            "tapconv_valid": (7, 7), "tapconv_pack": (7, 7)}
+            "sa_pool": (13, 13), "sa_gate": (13, 13), "sa_pool_real": (0, 0),
+            "sa_gate_real": (0, 0), "tapconv_valid": (7, 7), "tapconv_pack": (7, 7)}
     for name, (lo, hi) in want.items():
         n = launches.get(name, 0)
         if n < lo or (hi is not None and n > hi):

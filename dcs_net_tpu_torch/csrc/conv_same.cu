@@ -19,7 +19,7 @@
 // whose pooling and product move far more bytes than the conv computes on, so
 // the file has three entry points: the conv alone (dcs_conv_same_small_cout),
 // the pooling pass (dcs_sa_pool) and the conv with a sigmoid-and-product
-// epilogue (dcs_sa_gate).
+// epilogue (dcs_sa_gate); and the real family's pair of the last two (below).
 //
 // What bounds them on the H100. The conv alone: operations, narrowly. Per
 // output pixel it reads Cin floats and writes Cout floats (24 bytes for the
@@ -81,6 +81,32 @@
 // float4. A half-warp's 8-byte loads span rows where a tile is fewer than 16
 // runs wide, so the row pitch is padded further (make_tile) to keep them on
 // 16 different 8-byte bank groups.
+//
+// The real family (DR, DRS). Its spatial attention pools one plane,
+//
+//   pooled = [mean_c x, max_c x]                                  (B, H, W, 2)
+//   out    = x * sigmoid(conv(pooled))   (a broadcast over C)     (B, H, W, C)
+//
+// so its conv is class (7, 2, 1) and its input gradient (7, 1, 2): 98
+// weights, 2 a tap, a quarter of the complex classes' operations per pixel
+// on a pixel of 8 or 4 bytes. The same body runs them as a template over
+// (Cin, Cout): a tap's 2 weights are one float2 broadcast, a staged pixel a
+// float2 or a float, an output pixel a float or a float2. At these classes
+// the window loads outnumber the FMAs' operands less (R + 6 + 7 loads for
+// 14 R FMAs a tap row), so R = 8 is offered beside 2 and 4. A warp's 4-byte
+// loads (Cin = 1) are served all 32 at once and must differ mod 32: the
+// pitch is padded to TX * (R + 1) mod 32, the 8-byte rule's at twice the
+// modulus. What the generic body spent at the small sites over an empty
+// launch was a serial chain: its staging loop waits on one global load per
+// element before the next (1064 values over 256 threads, four round trips),
+// and its 98-step tap loop is not unrolled, a shared-memory load feeding
+// each dependent FMA. The tiled body has every staging load of a thread in
+// flight at once and unrolls the taps of a row over a window in registers.
+// In eval the real attention runs as a gate of its own, as the complex one
+// does: a pooling pass (dcs_sa_pool_real, one read of x; the complex pool's
+// kernel over one plane instead of two) and the (7, 2, 1) body with a
+// sigmoid-and-product epilogue (dcs_sa_gate_real, one more read and one
+// write of x), whose product spreads a tile's pixels over all 128 threads.
 //
 // Every other (K, Cin, Cout) takes the generic body below: one thread per
 // output pixel on an 8 x 32 tile, input chunk and weights in shared memory.
@@ -175,12 +201,13 @@ constexpr Launch kLaunch[MAXCOUT] = {
     launch<13>, launch<14>, launch<15>, launch<16>};
 
 // ---------------------------------------------------------------------------
-// the register-tiled body, classes (K, Cin, Cout) = (7, 4, 2) and (7, 2, 4)
+// the register-tiled body, classes (K, Cin, Cout) = (7, 4, 2), (7, 2, 4),
+// (7, 2, 1) and (7, 1, 2)
 // ---------------------------------------------------------------------------
 
 constexpr int NT = 128;       // threads per block
 constexpr int HALO = 6;       // K - 1
-constexpr int NW4 = 98;       // 7 * 7 * 8 weights as float4, either class
+constexpr int TAPS = 49;      // K * K
 constexpr int MAX_SMEM = 48 * 1024;
 
 // slot of pixel p in a staged row: one slot of padding after every run, so
@@ -188,7 +215,7 @@ constexpr int MAX_SMEM = 48 * 1024;
 template <int R>
 __device__ __forceinline__ int slot(int p) { return p + p / R; }
 
-// a pixel of C channels as one word: float4 or float2
+// a pixel of C channels as one word: float4, float2 or float
 template <int C>
 struct Px;
 template <>
@@ -211,19 +238,35 @@ struct Px<2> {
     return make_float2(a[0], a[1]);
   }
 };
+template <>
+struct Px<1> {
+  using T = float;
+  static __device__ __forceinline__ float at(const T& v, int) { return v; }
+  static __device__ __forceinline__ T make(const float* a) { return a[0]; }
+};
+
+// the KW = Cin * Cout weights of one tap as N words of WORD floats: two
+// float4 for the complex classes (8 weights), one float2 for the real ones
+template <int KW>
+struct TapWords {
+  static constexpr int WORD = KW % 4 == 0 ? 4 : 2;
+  static constexpr int N = KW / WORD;
+  using T = typename Px<WORD>::T;
+};
 
 struct Tile {
   int tx, ty;        // threads along W and H that take part in the conv
   int tw;            // R * tx, the tile's columns
   int pitch;         // pixel slots per staged row
-  int cin;           // channels a slot: 4 (float4) or 2 (float2)
+  int cin, cout;     // channels a slot (float4, float2 or float) and a pixel out
   __host__ __device__ int rows() const { return ty + HALO; }
   __host__ __device__ int cols() const { return tw + HALO; }
-  // float4s of the staged tile and of dynamic shared memory: weights,
-  // staged tile, attention map (8 / cin floats a pixel)
+  // float4s of dynamic shared memory: weights, staged tile, attention map
+  // (cout floats a pixel)
+  __host__ __device__ int weights4() const { return (TAPS * cin * cout + 3) / 4; }
   __host__ __device__ int staged4() const { return (rows() * pitch * cin + 3) / 4; }
   __host__ __device__ int smem4() const {
-    return NW4 + staged4() + (ty * tw * (8 / cin) + 3) / 4;
+    return weights4() + staged4() + (ty * tw * cout + 3) / 4;
   }
 };
 
@@ -234,40 +277,48 @@ struct Tile {
 // a half-warp spans rows where the tile is fewer than 16 runs wide: thread
 // (tx, ty), the ty * TX + tx-th, reads slot ty * pitch + tx * (R + 1) + j, so
 // a pitch of TX * (R + 1) mod 16 makes that (ty * TX + tx) * (R + 1) mod 16,
-// 16 different values for any 16 consecutive threads.
-Tile make_tile(int R, int TX, int TY, int cin) {
+// 16 different values for any 16 consecutive threads. For 4-byte slots
+// (Cin = 1) a warp's 32 loads must differ mod 32: the same rule mod 32.
+Tile make_tile(int R, int TX, int TY, int cin, int cout) {
   Tile t;
   t.tx = TX;
   t.ty = TY;
   t.tw = R * TX;
   t.cin = cin;
+  t.cout = cout;
   t.pitch = t.tw + HALO + (t.tw + HALO - 1) / R;   // slot(cols - 1) + 1
-  if (cin == 2) t.pitch += ((TX * (R + 1) - t.pitch) % 16 + 16) % 16;
+  if (cin < 4) {
+    const int banks = 32 / cin;
+    t.pitch += ((TX * (R + 1) - t.pitch) % banks + banks) % banks;
+  }
   return t;
 }
 
 // Stages the tile of x (B, H, W, CIN) at (b, h0, w0) and the weights, runs the
-// 7 x 7 x CIN -> COUT = 8 / CIN taps for this thread's run of R pixels. Every
-// thread of the block must call it (it holds the block barrier); acc is
-// meaningful for threads with tid < t.tx * t.ty. Returns the attention-map
-// region.
-template <int R, int CIN>
-__device__ __forceinline__ float4* conv7_tile(
+// 7 x 7 x CIN -> COUT taps for this thread's run of R pixels. Every thread of
+// the block must call it (it holds the block barrier); acc is meaningful for
+// threads with tid < t.tx * t.ty. Returns the attention-map region.
+template <int R, int CIN, int COUT>
+__device__ __forceinline__ float* conv7_tile(
     const float* __restrict__ x, const float* __restrict__ w, const Tile t,
     float4* smem, int b, int h0, int w0, int H, int W,
-    float (&acc)[R][8 / CIN]) {
+    float (&acc)[R][COUT]) {
   using P = Px<CIN>;
   using T = typename P::T;
-  constexpr int COUT = 8 / CIN;
-  float4* ws4 = smem;
-  T* xs = reinterpret_cast<T*>(smem + NW4);
+  using TW = TapWords<CIN * COUT>;
+  using WT = typename TW::T;
+  constexpr int NWORDS = TAPS * TW::N;    // 98 float4 or 49 float2
+  constexpr int W4 = (TAPS * CIN * COUT + 3) / 4;   // t.weights4()
+  WT* ws = reinterpret_cast<WT*>(smem);
+  T* xs = reinterpret_cast<T*>(smem + W4);
   const int tid = threadIdx.x;
   const int rows = t.rows(), cols = t.cols();
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
 
   // every load of the block is in flight before the first store waits for
   // one: a thread's weight word, then its pixels four at a time
-  float4 wv = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (tid < NW4) wv = reinterpret_cast<const float4*>(w)[tid];
+  WT wv = Px<TW::WORD>::make(zero);
+  if (tid < NWORDS) wv = reinterpret_cast<const WT*>(w)[tid];
   const T* xv = reinterpret_cast<const T*>(x) + (long long)b * H * W;
   const int total = rows * cols;
   for (int e0 = tid; e0 < total; e0 += 4 * NT) {
@@ -278,7 +329,6 @@ __device__ __forceinline__ float4* conv7_tile(
       const int e = e0 + u * NT;
       const int row = e / cols, col = e - row * cols;
       const int hh = h0 - HALO / 2 + row, ww = w0 - HALO / 2 + col;
-      const float zero[4] = {0.f, 0.f, 0.f, 0.f};
       v[u] = P::make(zero);
       dst[u] = row * t.pitch + slot<R>(col);
       if (e < total && hh >= 0 && hh < H && ww >= 0 && ww < W)
@@ -288,7 +338,7 @@ __device__ __forceinline__ float4* conv7_tile(
     for (int u = 0; u < 4; ++u)
       if (e0 + u * NT < total) xs[dst[u]] = v[u];
   }
-  if (tid < NW4) ws4[tid] = wv;
+  if (tid < NWORDS) ws[tid] = wv;
   __syncthreads();
 
 #pragma unroll
@@ -307,43 +357,46 @@ __device__ __forceinline__ float4* conv7_tile(
       T win[R + HALO];
 #pragma unroll
       for (int j = 0; j < R + HALO; ++j) win[j] = row[sl[j]];
-      const float4* wk = ws4 + kh * 14;
+      const WT* wk = ws + kh * 7 * TW::N;
 #pragma unroll
       for (int kw = 0; kw < 7; ++kw) {
-        // the tap's 8 weights w[kh][kw][ci][co], ci-major: wa the first
-        // four, wb the last four
-        const float4 wa = wk[2 * kw], wb = wk[2 * kw + 1];
+        // the tap's weights w[kh][kw][ci][co], ci-major, as broadcast words
+        float wt[CIN * COUT];
+#pragma unroll
+        for (int i = 0; i < TW::N; ++i) {
+          const WT word = wk[kw * TW::N + i];
+#pragma unroll
+          for (int j = 0; j < TW::WORD; ++j)
+            wt[i * TW::WORD + j] = Px<TW::WORD>::at(word, j);
+        }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
           const T v = win[r + kw];
 #pragma unroll
           for (int ci = 0; ci < CIN; ++ci)
 #pragma unroll
-            for (int co = 0; co < COUT; ++co) {
-              const int k = ci * COUT + co;
-              const float wt = k < 4 ? Px<4>::at(wa, k) : Px<4>::at(wb, k - 4);
-              acc[r][co] = fmaf(P::at(v, ci), wt, acc[r][co]);
-            }
+            for (int co = 0; co < COUT; ++co)
+              acc[r][co] = fmaf(P::at(v, ci), wt[ci * COUT + co], acc[r][co]);
         }
       }
     }
   }
-  return smem + NW4 + t.staged4();
+  return reinterpret_cast<float*>(smem + W4 + t.staged4());
 }
 
-template <int R, int CIN>
+template <int R, int CIN, int COUT>
 __global__ void __launch_bounds__(NT)
 conv7_kernel(const float* __restrict__ x, const float* __restrict__ w,
              const float* __restrict__ bias, float* __restrict__ y,
              const Tile t, int H, int W) {
-  constexpr int COUT = 8 / CIN;
   using Q = Px<COUT>;
   using T = typename Q::T;
   extern __shared__ float4 smem[];
   const int b = blockIdx.z, h0 = blockIdx.y * t.ty, w0 = blockIdx.x * t.tw;
   const int tid = threadIdx.x;
   float acc[R][COUT];
-  T* att = reinterpret_cast<T*>(conv7_tile<R, CIN>(x, w, t, smem, b, h0, w0, H, W, acc));
+  T* att = reinterpret_cast<T*>(
+      conv7_tile<R, CIN, COUT>(x, w, t, smem, b, h0, w0, H, W, acc));
   if (tid < t.tx * t.ty) {
     const int ty = tid / t.tx, tx = tid - ty * t.tx;
     float bv[COUT];
@@ -383,7 +436,7 @@ sa_gate_kernel(const float* __restrict__ pooled, const float* __restrict__ w,
   const int tid = threadIdx.x;
   float acc[R][2];
   float2* att = reinterpret_cast<float2*>(
-      conv7_tile<R, 4>(pooled, w, t, smem, b, h0, w0, H, W, acc));
+      conv7_tile<R, 4, 2>(pooled, w, t, smem, b, h0, w0, H, W, acc));
   if (tid < t.tx * t.ty) {
     const int ty = tid / t.tx, tx = tid - ty * t.tx;
 #pragma unroll
@@ -429,47 +482,102 @@ sa_gate_kernel(const float* __restrict__ pooled, const float* __restrict__ w,
   }
 }
 
-// pooled[p] = (mean_c re, max_c re, mean_c im, max_c im) of pixel p. G = 2^lg
-// lanes share a pixel, each striding over the channels (as float4 when vec);
-// a shuffle tree inside the G lanes combines them.
+// pooled[p] = (mean_c, max_c) of each of the NP planes of pixel p: (mean re,
+// max re, mean im, max im) for the complex gate (NP = 2, a float4), (mean,
+// max) for the real (NP = 1, a float2). G = 2^lg lanes share a pixel, each
+// striding over the channels (as float4 when vec) and loading every plane in
+// one step; a shuffle tree inside the G lanes combines them.
+template <int NP>
 __global__ void __launch_bounds__(256)
-sa_pool_kernel(const float* __restrict__ re, const float* __restrict__ im,
+sa_pool_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
                float* __restrict__ pooled, long long P, int C, int lg,
                int vec) {
+  const float* plane[2] = {p0, p1};
   const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long pix = gt >> lg;
   const int G = 1 << lg, lane = (int)(gt & (G - 1));
-  float sr = 0.f, si = 0.f, mr = -INFINITY, mi = -INFINITY;
+  float s[NP], m[NP];
+#pragma unroll
+  for (int q = 0; q < NP; ++q) s[q] = 0.f, m[q] = -INFINITY;
   if (pix < P) {
     if (vec) {
-      const float4* r4 = reinterpret_cast<const float4*>(re + pix * C);
-      const float4* i4 = reinterpret_cast<const float4*>(im + pix * C);
       for (int i = lane; i < (C >> 2); i += G) {
-        const float4 a = r4[i], c = i4[i];
-        sr += (a.x + a.y) + (a.z + a.w);
-        si += (c.x + c.y) + (c.z + c.w);
-        mr = fmaxf(mr, fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w)));
-        mi = fmaxf(mi, fmaxf(fmaxf(c.x, c.y), fmaxf(c.z, c.w)));
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          const float4 a = __ldg(reinterpret_cast<const float4*>(plane[q] + pix * C) + i);
+          s[q] += (a.x + a.y) + (a.z + a.w);
+          m[q] = fmaxf(m[q], fmaxf(fmaxf(a.x, a.y), fmaxf(a.z, a.w)));
+        }
       }
     } else {
       for (int i = lane; i < C; i += G) {
-        const float a = re[pix * C + i], c = im[pix * C + i];
-        sr += a;
-        si += c;
-        mr = fmaxf(mr, a);
-        mi = fmaxf(mi, c);
+#pragma unroll
+        for (int q = 0; q < NP; ++q) {
+          const float a = __ldg(plane[q] + pix * C + i);
+          s[q] += a;
+          m[q] = fmaxf(m[q], a);
+        }
       }
     }
   }
   for (int o = G >> 1; o > 0; o >>= 1) {
-    sr += __shfl_xor_sync(0xffffffffu, sr, o);
-    si += __shfl_xor_sync(0xffffffffu, si, o);
-    mr = fmaxf(mr, __shfl_xor_sync(0xffffffffu, mr, o));
-    mi = fmaxf(mi, __shfl_xor_sync(0xffffffffu, mi, o));
+#pragma unroll
+    for (int q = 0; q < NP; ++q) {
+      s[q] += __shfl_xor_sync(0xffffffffu, s[q], o);
+      m[q] = fmaxf(m[q], __shfl_xor_sync(0xffffffffu, m[q], o));
+    }
   }
-  if (pix < P && lane == 0)
-    reinterpret_cast<float4*>(pooled)[pix] =
-        make_float4(sr / (float)C, mr, si / (float)C, mi);
+  if (pix < P && lane == 0) {
+    if constexpr (NP == 2)
+      reinterpret_cast<float4*>(pooled)[pix] =
+          make_float4(s[0] / (float)C, m[0], s[1] / (float)C, m[1]);
+    else
+      reinterpret_cast<float2*>(pooled)[pix] = make_float2(s[0] / (float)C, m[0]);
+  }
+}
+
+// out = x * sigmoid(conv(pooled)) for the real attention: the (7, 2, 1) body
+// over pooled (B, H, W, 2), the one-channel map broadcast over C. vec: C % 4
+// == 0 and x, out 16-byte aligned; shift: log2 of a pixel's words (C / 4 or
+// C) where that is a power of two, else -1. The tile's rows_v x cols_v pixels
+// are spread over all 128 threads: a warp a row would leave three warps
+// idle on the one-row tiles of the small images, which carry the most
+// channels.
+template <int R>
+__global__ void __launch_bounds__(NT)
+sa_gate_real_kernel(const float* __restrict__ pooled,
+                    const float* __restrict__ w, const float* __restrict__ x,
+                    float* __restrict__ out, const Tile t, int H, int W, int C,
+                    int vec, int shift) {
+  extern __shared__ float4 smem[];
+  const int b = blockIdx.z, h0 = blockIdx.y * t.ty, w0 = blockIdx.x * t.tw;
+  const int tid = threadIdx.x;
+  float acc[R][1];
+  float* att = conv7_tile<R, 2, 1>(pooled, w, t, smem, b, h0, w0, H, W, acc);
+  if (tid < t.tx * t.ty) {
+    const int ty = tid / t.tx, tx = tid - ty * t.tx;
+#pragma unroll
+    for (int r = 0; r < R; ++r) att[ty * t.tw + tx * R + r] = sigmoidf(acc[r][0]);
+  }
+  __syncthreads();
+
+  const int rows_v = min(t.ty, H - h0), cols_v = min(t.tw, W - w0);
+  const int nv = vec ? C >> 2 : C;       // words a pixel
+  const int n = cols_v * nv;             // words of a tile row, contiguous
+  const long long pix0 = ((long long)b * H + h0) * W + w0;
+#pragma unroll 4
+  for (int e = tid; e < rows_v * n; e += NT) {
+    const int row = e / n, i = e - row * n;
+    const float a = att[row * t.tw + (shift >= 0 ? i >> shift : i / nv)];
+    const long long k = (pix0 + (long long)row * W) * nv + i;
+    if (vec) {
+      const float4 v = reinterpret_cast<const float4*>(x)[k];
+      reinterpret_cast<float4*>(out)[k] =
+          make_float4(v.x * a, v.y * a, v.z * a, v.w * a);
+    } else {
+      out[k] = x[k] * a;
+    }
+  }
 }
 
 __global__ void empty_kernel() {}
@@ -478,10 +586,39 @@ inline bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-bool tile_ok(int R, int TX, int TY, int cin) {
-  if ((R != 2 && R != 4) || TX < 1 || TY < 1 || TX * TY > NT)
-    return false;
-  return make_tile(R, TX, TY, cin).smem4() * 16 <= MAX_SMEM;
+// R in {2, 4}, and 8 at the real classes (2 weights a tap)
+bool tile_ok(int R, int TX, int TY, int cin, int cout) {
+  const bool r_ok = R == 2 || R == 4 || (R == 8 && cin * cout == 2);
+  if (!r_ok || TX < 1 || TY < 1 || TX * TY > NT) return false;
+  return make_tile(R, TX, TY, cin, cout).smem4() * 16 <= MAX_SMEM;
+}
+
+// the tiled classes: (K, Cin, Cout) = (7, 4, 2), (7, 2, 4), (7, 2, 1), (7, 1, 2)
+bool tiled_class(int K, int cin, int cout) {
+  return K == 7 && ((cin == 4 && cout == 2) || (cin == 2 && cout == 4) ||
+                    (cin == 2 && cout == 1) || (cin == 1 && cout == 2));
+}
+
+// the word in which the tiled body reads a tap's weights: 16 or 8 bytes
+int tap_word_bytes(int cin, int cout) { return (cin * cout) % 4 == 0 ? 16 : 8; }
+
+template <int CIN, int COUT>
+void launch_conv7(int R, dim3 grid, int smem, cudaStream_t s, const float* x,
+                  const float* w, const float* bias, float* y, const Tile& t,
+                  int H, int W) {
+  if (R == 2)
+    conv7_kernel<2, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+  else if (CIN * COUT != 2 || R == 4)
+    conv7_kernel<4, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+  else if constexpr (CIN * COUT == 2)
+    conv7_kernel<8, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+}
+
+// log2(n) where n is a power of two, else -1
+int log2_exact(int n) {
+  for (int k = 0; k < 31; ++k)
+    if (n == (1 << k)) return k;
+  return -1;
 }
 
 bool image_ok(int B, int H, int W) {
@@ -492,6 +629,27 @@ dim3 tile_grid(const Tile& t, int B, int H, int W) {
   return dim3((W + t.tw - 1) / t.tw, (H + t.ty - 1) / t.ty, B);
 }
 
+// sa_pool_kernel<NP> over the B H W pixels of p0 (and p1), pooled aligned to
+// its word: G lanes a pixel, the least power of two >= the pixel's loads, at
+// most a warp.
+template <int NP>
+int launch_pool(const float* p0, const float* p1, float* pooled, int B, int H,
+                int W, int C, void* stream) {
+  if (!image_ok(B, H, W) || C < 1 || !aligned(pooled, 8 * NP))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = C % 4 == 0 && aligned(p0, 16) && (NP == 1 || aligned(p1, 16));
+  const int steps = vec ? C / 4 : C;
+  int lg = 0;
+  while ((1 << lg) < 32 && (1 << lg) < steps) ++lg;
+  const long long P = (long long)B * H * W;
+  const long long blocks = ((P << lg) + 255) / 256;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  sa_pool_kernel<NP><<<(unsigned)blocks, 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(p0, p1, pooled, P,
+                                                            C, lg, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" const char* dcs_cuda_error_string(int code) {
@@ -499,11 +657,12 @@ extern "C" const char* dcs_cuda_error_string(int code) {
 }
 
 // x (B, H, W, Cin), w (K, K, Cin, Cout), bias (Cout,), y (B, H, W, Cout); all
-// f32 and contiguous. R = 0 takes the generic body; R in {2, 4} with a
-// tile of TY rows x R * TX columns takes the register-tiled body, for
-// (K, Cin, Cout) = (7, 4, 2) with x and w 16-byte and y 8-byte aligned, or
-// (7, 2, 4) with x 8-byte and w and y 16-byte aligned. Launches on `stream`,
-// allocates nothing, returns cudaGetLastError().
+// f32 and contiguous. R = 0 takes the generic body; R in {2, 4} (and 8 at the
+// real classes) with a tile of TY rows x R * TX columns takes the
+// register-tiled body, for (K, Cin, Cout) = (7, 4, 2), (7, 2, 4), (7, 2, 1)
+// and (7, 1, 2), with x aligned to a pixel's 4 Cin bytes, y to 4 Cout and w to
+// the word of a tap's weights (16 bytes at the complex classes, 8 at the
+// real). Launches on `stream`, allocates nothing, returns cudaGetLastError().
 extern "C" int dcs_conv_same_small_cout(const float* x, const float* w,
                                         const float* bias, float* y, int B,
                                         int H, int W, int Cin, int K, int Cout,
@@ -518,21 +677,21 @@ extern "C" int dcs_conv_same_small_cout(const float* x, const float* w,
     kLaunch[Cout - 1](grid, block, s, x, w, bias, y, H, W, Cin, K);
     return static_cast<int>(cudaGetLastError());
   }
-  const bool c42 = Cin == 4 && Cout == 2 && aligned(x, 16) && aligned(y, 8);
-  const bool c24 = Cin == 2 && Cout == 4 && aligned(x, 8) && aligned(y, 16);
-  if (K != 7 || !(c42 || c24) || !tile_ok(R, TX, TY, Cin) || !aligned(w, 16))
+  if (!tiled_class(K, Cin, Cout) || !tile_ok(R, TX, TY, Cin, Cout) ||
+      !aligned(x, 4 * Cin) || !aligned(y, 4 * Cout) ||
+      !aligned(w, tap_word_bytes(Cin, Cout)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tile t = make_tile(R, TX, TY, Cin);
+  const Tile t = make_tile(R, TX, TY, Cin, Cout);
   const dim3 grid = tile_grid(t, B, H, W);
   const int smem = t.smem4() * 16;
-  if (c42 && R == 2)
-    conv7_kernel<2, 4><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
-  else if (c42)
-    conv7_kernel<4, 4><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
-  else if (R == 2)
-    conv7_kernel<2, 2><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+  if (Cin == 4)
+    launch_conv7<4, 2>(R, grid, smem, s, x, w, bias, y, t, H, W);
+  else if (Cin == 2 && Cout == 4)
+    launch_conv7<2, 4>(R, grid, smem, s, x, w, bias, y, t, H, W);
+  else if (Cin == 2)
+    launch_conv7<2, 1>(R, grid, smem, s, x, w, bias, y, t, H, W);
   else
-    conv7_kernel<4, 2><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+    launch_conv7<1, 2>(R, grid, smem, s, x, w, bias, y, t, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -540,18 +699,7 @@ extern "C" int dcs_conv_same_small_cout(const float* x, const float* w,
 // max im] over C; pooled 16-byte aligned.
 extern "C" int dcs_sa_pool(const float* re, const float* im, float* pooled,
                            int B, int H, int W, int C, void* stream) {
-  if (!image_ok(B, H, W) || C < 1 || !aligned(pooled, 16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = C % 4 == 0 && aligned(re, 16) && aligned(im, 16);
-  const int steps = vec ? C / 4 : C;
-  int lg = 0;
-  while ((1 << lg) < 32 && (1 << lg) < steps) ++lg;
-  const long long P = (long long)B * H * W;
-  const long long blocks = ((P << lg) + 255) / 256;
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  sa_pool_kernel<<<(unsigned)blocks, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      re, im, pooled, P, C, lg, vec);
-  return static_cast<int>(cudaGetLastError());
+  return launch_pool<2>(re, im, pooled, B, H, W, C, stream);
 }
 
 // pooled (B, H, W, 4), w (7, 7, 4, 2), re, im (B, H, W, C) -> out_re, out_im
@@ -562,18 +710,15 @@ extern "C" int dcs_sa_gate(const float* pooled, const float* w,
                            const float* re, const float* im, float* out_re,
                            float* out_im, int B, int H, int W, int C, int R,
                            int TX, int TY, void* stream) {
-  if (!image_ok(B, H, W) || C < 1 || !tile_ok(R, TX, TY, 4) ||
+  if (!image_ok(B, H, W) || C < 1 || !tile_ok(R, TX, TY, 4, 2) ||
       !aligned(pooled, 16) || !aligned(w, 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Tile t = make_tile(R, TX, TY, 4);
+  const Tile t = make_tile(R, TX, TY, 4, 2);
   const dim3 grid = tile_grid(t, B, H, W);
   const int smem = t.smem4() * 16;
   const int vec = C % 4 == 0 && aligned(re, 16) && aligned(im, 16) &&
                   aligned(out_re, 16) && aligned(out_im, 16);
-  int shift = -1;
-  if (vec)
-    for (int sft = 0; sft < 31; ++sft)
-      if ((C >> 2) == (1 << sft)) shift = sft;
+  const int shift = vec ? log2_exact(C >> 2) : -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (R == 2)
     sa_gate_kernel<2><<<grid, NT, smem, s>>>(pooled, w, re, im, out_re, out_im,
@@ -581,6 +726,41 @@ extern "C" int dcs_sa_gate(const float* pooled, const float* w,
   else
     sa_gate_kernel<4><<<grid, NT, smem, s>>>(pooled, w, re, im, out_re, out_im,
                                              t, H, W, C, vec, shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x (B, H, W, C) -> pooled (B, H, W, 2) = [mean, max] over C; pooled 8-byte
+// aligned.
+extern "C" int dcs_sa_pool_real(const float* x, float* pooled, int B, int H,
+                                int W, int C, void* stream) {
+  return launch_pool<1>(x, nullptr, pooled, B, H, W, C, stream);
+}
+
+// pooled (B, H, W, 2), w (7, 7, 2, 1), x (B, H, W, C) -> out = x *
+// sigmoid(conv_same(pooled, w)), the one-channel map broadcast over C. Tile
+// as for the conv entry at class (7, 2, 1); pooled and w 8-byte aligned.
+extern "C" int dcs_sa_gate_real(const float* pooled, const float* w,
+                                const float* x, float* out, int B, int H,
+                                int W, int C, int R, int TX, int TY,
+                                void* stream) {
+  if (!image_ok(B, H, W) || C < 1 || !tile_ok(R, TX, TY, 2, 1) ||
+      !aligned(pooled, 8) || !aligned(w, 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Tile t = make_tile(R, TX, TY, 2, 1);
+  const dim3 grid = tile_grid(t, B, H, W);
+  const int smem = t.smem4() * 16;
+  const int vec = C % 4 == 0 && aligned(x, 16) && aligned(out, 16);
+  const int shift = log2_exact(vec ? C >> 2 : C);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R == 2)
+    sa_gate_real_kernel<2><<<grid, NT, smem, s>>>(pooled, w, x, out, t, H, W,
+                                                  C, vec, shift);
+  else if (R == 4)
+    sa_gate_real_kernel<4><<<grid, NT, smem, s>>>(pooled, w, x, out, t, H, W,
+                                                  C, vec, shift);
+  else
+    sa_gate_real_kernel<8><<<grid, NT, smem, s>>>(pooled, w, x, out, t, H, W,
+                                                  C, vec, shift);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,8 +12,8 @@ input and the mask are (B, F, T). ``subtractive`` does not change the module,
 only how the mask is used (``models/enhance.py``, ``train/steps.py``).
 
 Kernels on this path: kernel 2 runs the 13 CBAM spatial-attention convs
-(``ops/attention.py``; the complex attention as the fused gate: pool, then
-conv + sigmoid + product) and kernel 3 the 7 decoder convs (see
+(``ops/attention.py``; in eval, complex and real, as the fused gate: pool,
+then conv + sigmoid + product) and kernel 3 the 7 decoder convs (see
 ``ops/conv_engine.py``).
 """
 
@@ -126,8 +126,7 @@ class DCSNet(nn.Module):
         ca, sa = getattr(self, f"{name}_ca"), getattr(self, f"{name}_sa")
         if self.cfg.complex_valued:
             return sa.gate(cl.complex_mul_bcast(x, ca(x)))
-        x = x * ca(x)
-        return x * sa(x)
+        return sa.gate(x * ca(x))
 
     def forward(self, x: SpecLike, lstm_state=None, return_lstm_state: bool = False):
         """x: CArray spectrogram (B, F, T) for the complex variants, its

@@ -3,9 +3,10 @@
 The real channel attention keeps only its max branch under the faithful
 quirk ``real_ca_max_only``. The real spatial attention's k=7 conv over
 [mean, max] is kernel 2's conv entry at the class (K, Cin, Cout) = (7, 2, 1)
-(its input gradient (7, 1, 2)), followed by a sigmoid; the fused gate below
-computes a complex product and serves the complex attention only.
-
+(its input gradient (7, 1, 2)), followed by a sigmoid;
+:meth:`RealSpatialAttention.gate` applies it to its input as kernel 2's real
+gate (pool, then conv + sigmoid + broadcast product), forward-only like the
+complex one, and un-fused under autograd.
 
 With ``maxpool_is_avg`` (the faithful quirk) the complex "max" pool is an
 average pool, so the channel attention computes sigmoid(fc(avg) + fc(avg)).
@@ -61,12 +62,34 @@ class RealSpatialAttention(nn.Module):
         self.conv = rl.Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
                               use_bias=False, weight_init=weight_init,
                               generator=generator)
+        self._packed = None     # (key, packed kernel) of the last gate call
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 1) attention of x (B, H, W, C)."""
         cat = torch.cat([x.mean(dim=-1, keepdim=True),
                          x.amax(dim=-1, keepdim=True)], dim=-1)
         return torch.sigmoid(self.conv(cat))
+
+    def packed_kernel(self) -> torch.Tensor:
+        """The conv's weight (1, 2, K, K) as the gate's (K, K, 2, 1): built
+        once, detached, and kept until the weight changes (its version or
+        its address, as :meth:`ComplexSpatialAttention.packed_kernel`)."""
+        w = self.conv.weight
+        key = (w.device, w.data_ptr(), w._version)
+        if self._packed is None or self._packed[0] != key:
+            self._packed = (key, w.detach().permute(2, 3, 1, 0).contiguous())
+        return self._packed[1]
+
+    def gate(self, x: torch.Tensor) -> torch.Tensor:
+        """x * self(x), the attention applied to its own input: kernel 2's
+        real pool and gate launches on a CUDA tensor, their plain versions
+        on a CPU tensor. Under autograd, or at another kernel size, the
+        un-fused form, whose conv alone is kernel 2."""
+        w = self.conv.weight
+        if w.shape[-1] != 7 or (torch.is_grad_enabled()
+                                and (x.requires_grad or w.requires_grad)):
+            return x * self(x)
+        return cuda_conv.spatial_gate_real(x.contiguous(), self.packed_kernel())
 
 
 class ComplexChannelAttention(nn.Module):

@@ -1,6 +1,6 @@
 """Kernel 2 (``csrc/conv_same.cu``): the stride-1 "same" convolution with small
-Cout, the CBAM spatial-attention gate built around it, and their plain
-versions.
+Cout, the CBAM spatial-attention gates built around it (complex and real), and
+their plain versions.
 
 Replaces the Pallas kernel ``dcs_net_tpu/ops/pallas_conv.py:_conv_fwd_pallas``.
 On the DCS path the conv is the middle of the 13 spatial-attention gates
@@ -10,40 +10,49 @@ On the DCS path the conv is the middle of the 13 spatial-attention gates
     out    = x * a     (complex product, a broadcast over C) (B, H, W, C)
 
 whose pooling and product move far more bytes than the conv computes on, so
-the source has three entry points and this module three wrappers:
+the source has the conv alone and a pool and a gate entry for each family,
+and this module a wrapper for each:
 
 * :func:`conv2d_same_small_cout` -- the conv alone (+ bias), any odd K <= 7,
   Cout <= 16. The shape classes (K, Cin, Cout) = (7, 4, 2) and its input
-  gradient's (7, 2, 4) run a register-tiled body (a thread slides the 7 taps
-  over a run of R pixels held in registers; bound by float32 operations, 33
-  FLOP per byte); every other class runs the generic one-pixel-per-thread
-  body.
+  gradient's (7, 2, 4), and the real attention's (7, 2, 1) and its input
+  gradient's (7, 1, 2), run a register-tiled body (a thread slides the 7
+  taps over a run of R pixels held in registers); every other class runs the
+  generic one-pixel-per-thread body.
 * :func:`sa_pool` -- one read of x -> the pooled map.
 * :func:`sa_gate` -- the (7, 4, 2) conv body with a sigmoid-and-product
   epilogue: one more read and one write of x.
+* :func:`sa_pool_real`, :func:`sa_gate_real` -- the same pair for the real
+  attention of DR / DRS: one plane pooled to [mean, max], the (7, 2, 1) body,
+  x * sigmoid(conv) broadcast over C.
 
-:func:`spatial_gate` is pool + gate, two launches, bound by the bytes of x.
-The tile of the (7, 4, 2) body is chosen here (:func:`choose_tile`) so that
-the CPU tests reach the choice; see the source for the design notes.
+:func:`spatial_gate` and :func:`spatial_gate_real` are pool + gate, two
+launches, bound by the bytes of x. The tiles of the tiled body are chosen here
+(:func:`choose_tile`, :func:`gate_tile`) so that the CPU tests reach the
+choice; see the source
+for the design notes.
 
 Each wrapper takes CPU tensors through the plain version and CUDA tensors
 through the kernel, never falling back between the two. ``KERNEL.launches``
 counts the launches of kernel 2's conv body in the forward direction: its
-own entry and the gate entry, which runs that body with another epilogue;
-``DGRAD.launches`` counts the conv entry's launches for input gradients.
+own entry and the complex gate entry, which runs that body with another
+epilogue; ``DGRAD.launches`` counts the conv entry's launches for input
+gradients. The real gate's two entries count on their own (``POOL_REAL``,
+``GATE_REAL``), so that a DR / DRS enhance call shows them apart from the
+conv entry.
 
 Gradients. On a CUDA tensor :func:`conv2d_same_small_cout` is
 :class:`Conv2dSameSmallCout`, whose backward mirrors the JAX ``_bwd``
 (``dcs_net_tpu/ops/pallas_conv.py:198-223``): the input gradient is the same
 "same" conv of the upstream gradient with the flipped, transposed kernel,
 launched on kernel 2 (for the spatial attention, Cin 2 -> Cout 4: the
-register-tiled body where g is 8-byte aligned, as the forward's); the
+register-tiled body where g is aligned to its pixel, as the forward's); the
 weight gradient is one contraction over every pixel (:func:`weight_grad`)
 and the bias gradient a sum, in PyTorch, as the JAX package leaves them to
 XLA. On a CPU tensor the plain version runs under plain autograd. The pool
-and gate entries are forward-only: on a CUDA tensor that autograd follows
-they raise, and ``ComplexSpatialAttention.gate`` takes the un-fused form
-instead.
+and gate entries, complex and real, are forward-only: on a CUDA tensor that
+autograd follows they raise, and the attention modules' ``gate`` takes the
+un-fused form instead.
 """
 
 from __future__ import annotations
@@ -61,8 +70,8 @@ from dcs_net_tpu_torch.utils.cuda_lib import CudaKernel, check_cuda_operand, ptr
 MAX_K = 7
 MAX_COUT = 16
 # (K, Cin, Cout) of the register-tiled body: the spatial attention's conv
-# and its input gradient
-TILED_CLASSES = ((7, 4, 2), (7, 2, 4))
+# and its input gradient, complex and real
+TILED_CLASSES = ((7, 4, 2), (7, 2, 4), (7, 2, 1), (7, 1, 2))
 GENERIC_TILE = (0, 0, 0)         # names the generic body to the C entry
 BLOCK_THREADS = 128              # NT in the source
 _MAX_SMEM = 48 * 1024
@@ -79,6 +88,10 @@ POOL = CudaKernel("sa_pool", "conv_same.cu", "dcs_sa_pool",
 GATE = CudaKernel("sa_gate", "conv_same.cu", "dcs_sa_gate",
                   [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p],
                   counted_with=KERNEL)
+POOL_REAL = CudaKernel("sa_pool_real", "conv_same.cu", "dcs_sa_pool_real",
+                       [_p, _p, _i, _i, _i, _i, _p])
+GATE_REAL = CudaKernel("sa_gate_real", "conv_same.cu", "dcs_sa_gate_real",
+                       [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p])
 # the conv entry launched for an input gradient: the same C function, counted
 # on its own so that a train step shows its forward and backward launches
 DGRAD = CudaKernel("conv_same_small_cout_dgrad", "conv_same.cu",
@@ -104,19 +117,32 @@ def tile_pitch(tile: Tile, cin: int = 4) -> int:
     8-byte slots (Cin = 2) a half-warp's 16 loads must fall on 16 different
     8-byte bank groups, and a half-warp spans rows where the tile is fewer
     than 16 runs wide: the pitch is padded to TX * (R + 1) mod 16, so that
-    thread (tx, ty) reads slot (ty * TX + tx) * (R + 1) + j mod 16."""
+    thread (tx, ty) reads slot (ty * TX + tx) * (R + 1) + j mod 16. For
+    4-byte slots (Cin = 1) a warp's 32 loads are served at once: the same
+    rule mod 32."""
     R, tx, _ = tile
     pitch = slot(R * tx + 6 - 1, R) + 1
-    return pitch + (tx * (R + 1) - pitch) % 16 if cin == 2 else pitch
+    if cin == 4:
+        return pitch
+    banks = 32 // cin
+    return pitch + (tx * (R + 1) - pitch) % banks
 
 
-def tile_smem_bytes(tile: Tile, cin: int = 4) -> int:
-    """Dynamic shared memory of one block: the weights, the staged tile with
-    its halo at the padded pitch (``cin`` floats a slot), the attention map
-    (8 / cin floats a pixel)."""
+def tile_smem_bytes(tile: Tile, cin: int = 4, cout: int = 2) -> int:
+    """Dynamic shared memory of one block: the 49 Cin Cout weights, the
+    staged tile with its halo at the padded pitch (``cin`` floats a slot),
+    the attention map (``cout`` floats a pixel), each in 16-byte words."""
     R, tx, ty = tile
     staged = (ty + 6) * tile_pitch(tile, cin) * cin
-    return 16 * (98 + -(-staged // 4) + -(-(ty * R * tx * (8 // cin)) // 4))
+    return 16 * (-(-49 * cin * cout // 4) + -(-staged // 4)
+                 + -(-(ty * R * tx * cout) // 4))
+
+
+def tap_word_bytes(cin: int, cout: int) -> int:
+    """The word in which the tiled body reads a tap's Cin * Cout weights:
+    two float4 at the complex classes (8 weights), one float2 at the real
+    (2)."""
+    return 16 if (cin * cout) % 4 == 0 else 8
 
 
 def _pow2_floor(n: int) -> int:
@@ -127,29 +153,63 @@ def _pow2_ceil(n: int) -> int:
     return 1 << (max(n, 1) - 1).bit_length()
 
 
-def choose_tile(B: int, H: int, W: int) -> Tile:
-    """The register-tiled body's tile for an image, from its shape alone.
-
-    A block has 128 threads. The tile holds about 1/256 of the pixels,
-    between 8 and 512, so that even a few thousand pixels spread over the
-    card's 132 SMs (the gate streams up to 1 KB a pixel). A thread's run is
-    R = 4 pixels in a tile of 256 or more and 2 below; the tile is 8 runs
-    wide where it has that many, and as tall as the rest allows up to 16
-    rows."""
-    pixels = B * H * W
-    tile_px = _pow2_floor(min(max(pixels // 256, 8), 512))
-    R = 4 if tile_px >= 256 else 2
-    ty = min(_pow2_ceil(H), 16, max(1, tile_px // (8 * R)))
-    tx = tile_px // (R * ty)
+def _narrowed(tile: Tile, cin: int, cout: int) -> Tile:
+    """``tile`` with its width halved until it fits 48 KB of shared memory at
+    class (7, Cin, Cout): one row of a very long image."""
+    R, tx, ty = tile
+    while tx > 1 and tile_smem_bytes((R, tx, ty), cin, cout) > _MAX_SMEM:
+        tx //= 2
     return R, tx, ty
 
 
-def _check_tile(tile: Tile, cin: int = 4) -> None:
+def _streaming_tile(B: int, H: int, W: int) -> Tile:
+    """A block has 128 threads. The tile holds about 1/256 of the pixels,
+    between 8 and 512, so that even a few thousand pixels spread over the
+    card's 132 SMs (a gate streams up to 1 KB a pixel). A thread's run is
+    R = 4 pixels in a tile of 256 or more and 2 below; the tile is 8 runs
+    wide where it has that many, and as tall as the rest allows up to 16
+    rows."""
+    tile_px = _pow2_floor(min(max(B * H * W // 256, 8), 512))
+    R = 4 if tile_px >= 256 else 2
+    ty = min(_pow2_ceil(H), 16, max(1, tile_px // (8 * R)))
+    return R, tile_px // (R * ty), ty
+
+
+def gate_tile(B: int, H: int, W: int, cin: int, cout: int) -> Tile:
+    """The tile of a spatial-attention gate over (B, H, W) pixels, whose
+    conv is of class (7, Cin, Cout): (4, 2) for the complex gate, (2, 1) for
+    the real. Both stream C channels a pixel after the conv, and take
+    :func:`_streaming_tile`'s rule (``tools/time_gate``, also ``--real``)."""
+    return _narrowed(_streaming_tile(B, H, W), cin, cout)
+
+
+def choose_tile(B: int, H: int, W: int, cin: int, cout: int) -> Tile:
+    """The conv entry's register-tiled tile for an image of class (7, Cin,
+    Cout), from its shape alone.
+
+    The complex classes, (7, 4, 2) and (7, 2, 4), take the gates' rule
+    (:func:`_streaming_tile`). The real classes, (7, 2, 1) and (7, 1, 2),
+    with a quarter of the operations a pixel and nothing to stream after
+    it, run faster on tiles two to eight times as large (``tools/time_gate
+    --real``): about 1/384 of the pixels, between 64 and 1024; R = 8 from
+    1024 pixels, 4 from 256, 2 below; 4 runs wide where the image has the
+    rows. A tile too wide for shared memory is narrowed."""
+    if cin * cout != 2:
+        return gate_tile(B, H, W, cin, cout)
+    tile_px = _pow2_floor(min(max(B * H * W // 384, 64), 1024))
+    R = 8 if tile_px >= 1024 else 4 if tile_px >= 256 else 2
+    ty = min(_pow2_ceil(H), 16, max(1, tile_px // (4 * R)))
+    return _narrowed((R, tile_px // (R * ty), ty), cin, cout)
+
+
+def _check_tile(tile: Tile, cin: int = 4, cout: int = 2) -> None:
     R, tx, ty = tile
-    if (R not in (2, 4) or tx < 1 or ty < 1 or tx * ty > BLOCK_THREADS
-            or tile_smem_bytes(tile, cin) > _MAX_SMEM):
-        raise ValueError(f"tile (R, TX, TY) = {tile}: need R in (2, 4), "
-                         f"TX * TY <= {BLOCK_THREADS} and at most "
+    r_ok = R in (2, 4) or (R == 8 and cin * cout == 2)
+    if (not r_ok or tx < 1 or ty < 1 or tx * ty > BLOCK_THREADS
+            or tile_smem_bytes(tile, cin, cout) > _MAX_SMEM):
+        raise ValueError(f"tile (R, TX, TY) = {tile} at (Cin, Cout) = "
+                         f"{(cin, cout)}: need R in (2, 4) (or 8 at the real "
+                         f"classes), TX * TY <= {BLOCK_THREADS} and at most "
                          f"{_MAX_SMEM} bytes of shared memory")
 
 
@@ -211,7 +271,7 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     if tile != GENERIC_TILE:
         if (K, cin, cout) not in TILED_CLASSES:
             raise ValueError(f"(K, Cin, Cout) = {(K, cin, cout)} has no tiled body")
-        _check_tile(tile, cin)
+        _check_tile(tile, cin, cout)
     y = torch.empty((B, H, W, cout), device=dev, dtype=torch.float32)
     (DGRAD if dgrad else KERNEL)(dev, ptr(x), ptr(w), ptr(bias), ptr(y),
                                  B, H, W, cin, K, cout, *tile)
@@ -232,12 +292,13 @@ def _same_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
         return conv2d_same_small_cout_plain(x, w, bias)
     _check_shapes(x, w, bias)
     B, H, W, cin = x.shape
-    # the tiled body reads a pixel's channels as one 16- or 8-byte word
-    # (Cin 4 or 2) and 4 weights as one 16-byte word
-    tiled = ((w.shape[0], cin, w.shape[-1]) in TILED_CLASSES
-             and x.data_ptr() % (4 * cin) == 0 and w.data_ptr() % 16 == 0)
-    return launch_conv(x, w, bias,
-                       choose_tile(B, H, W) if tiled else GENERIC_TILE, dgrad)
+    K, cout = w.shape[0], w.shape[-1]
+    # the tiled body reads a pixel's channels as one word of 4 Cin bytes and
+    # a tap's weights as words of 16 or 8 (its output is freshly allocated)
+    tiled = ((K, cin, cout) in TILED_CLASSES and x.data_ptr() % (4 * cin) == 0
+             and w.data_ptr() % tap_word_bytes(cin, cout) == 0)
+    return launch_conv(x, w, bias, choose_tile(B, H, W, cin, cout)
+                       if tiled else GENERIC_TILE, dgrad)
 
 
 def _tracked(*tensors: torch.Tensor) -> bool:
@@ -333,7 +394,7 @@ def _forward_only(entry: str, *tensors: torch.Tensor) -> None:
     if _tracked(*tensors):
         raise RuntimeError(
             f"{entry} is forward-only: autograd follows its inputs. Take the "
-            "un-fused gate (ComplexSpatialAttention.gate does so under grad) "
+            "un-fused gate (the attention modules' gate does so under grad) "
             "or call it under torch.no_grad()")
 
 
@@ -358,7 +419,7 @@ def sa_gate(pooled: torch.Tensor, w: torch.Tensor, re: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x * sigmoid(conv_same(pooled, w)) for x = re + i im (B, H, W, C),
     pooled (B, H, W, 4), w (7, 7, 4, 2). ``tile`` defaults to
-    :func:`choose_tile`'s."""
+    :func:`gate_tile`'s."""
     if re.device.type == "cpu":
         return sa_gate_plain(pooled, w, re, im)
     _forward_only("sa_gate", pooled, w, re, im)
@@ -371,8 +432,8 @@ def sa_gate(pooled: torch.Tensor, w: torch.Tensor, re: torch.Tensor,
     if pooled.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("pooled and w must be 16-byte aligned")
     B, H, W, C = re.shape
-    tile = choose_tile(B, H, W) if tile is None else tile
-    _check_tile(tile)
+    tile = gate_tile(B, H, W, 4, 2) if tile is None else tile
+    _check_tile(tile, 4, 2)
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
     GATE(dev, ptr(pooled), ptr(w), ptr(re), ptr(im), ptr(out_re), ptr(out_im),
          B, H, W, C, *tile)
@@ -383,3 +444,78 @@ def spatial_gate(re: torch.Tensor, im: torch.Tensor, w: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The spatial-attention gate: pool, then conv + sigmoid + product."""
     return sa_gate(sa_pool(re, im), w, re, im)
+
+
+# --- the real attention's gate (DR / DRS) ------------------------------------
+
+def _check_real_gate_shapes(pooled: torch.Tensor, w: torch.Tensor,
+                            x: torch.Tensor) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"expected x (B,H,W,C); got {tuple(x.shape)}")
+    if tuple(pooled.shape) != tuple(x.shape[:3]) + (2,):
+        raise ValueError(f"pooled is {tuple(pooled.shape)}, expected "
+                         f"{tuple(x.shape[:3]) + (2,)}")
+    if tuple(w.shape) != (7, 7, 2, 1):
+        raise ValueError(f"the real gate's kernel is (7, 7, 2, 1), got "
+                         f"{tuple(w.shape)}")
+
+
+def sa_pool_real_plain(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H, W, 2) = [mean, max] over the channels: the
+    order in which the real attention's conv reads them."""
+    return torch.cat([x.mean(dim=-1, keepdim=True), x.amax(dim=-1, keepdim=True)],
+                     dim=-1)
+
+
+def sa_gate_real_plain(pooled: torch.Tensor, w: torch.Tensor,
+                       x: torch.Tensor) -> torch.Tensor:
+    """x * sigmoid(conv_same(pooled, w)), the one-channel map broadcast over
+    C."""
+    _check_real_gate_shapes(pooled, w, x)
+    return x * torch.sigmoid(conv2d_same_small_cout_plain(
+        pooled, w, torch.zeros(1, device=w.device, dtype=w.dtype)))
+
+
+def spatial_gate_real_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The real spatial-attention gate as the eager sequence of its parts."""
+    return sa_gate_real_plain(sa_pool_real_plain(x), w, x)
+
+
+def sa_pool_real(x: torch.Tensor) -> torch.Tensor:
+    """Channel mean and max of x, packed (B, H, W, 2)."""
+    if x.device.type == "cpu":
+        return sa_pool_real_plain(x)
+    _forward_only("sa_pool_real", x)
+    dev = x.device
+    check_cuda_operand("x", x, dev, 4)
+    B, H, W, C = x.shape
+    pooled = torch.empty((B, H, W, 2), device=dev, dtype=torch.float32)
+    POOL_REAL(dev, ptr(x), ptr(pooled), B, H, W, C)
+    return pooled
+
+
+def sa_gate_real(pooled: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
+                 tile: Optional[Tile] = None) -> torch.Tensor:
+    """x * sigmoid(conv_same(pooled, w)) for x (B, H, W, C), pooled (B, H, W,
+    2), w (7, 7, 2, 1). ``tile`` defaults to :func:`gate_tile`'s."""
+    if x.device.type == "cpu":
+        return sa_gate_real_plain(pooled, w, x)
+    _forward_only("sa_gate_real", pooled, w, x)
+    _check_real_gate_shapes(pooled, w, x)
+    dev = x.device
+    check_cuda_operand("pooled", pooled, dev, 4)
+    check_cuda_operand("w", w, dev, 4)
+    check_cuda_operand("x", x, dev, 4)
+    if pooled.data_ptr() % 8 or w.data_ptr() % 8:
+        raise ValueError("pooled and w must be 8-byte aligned")
+    B, H, W, C = x.shape
+    tile = gate_tile(B, H, W, 2, 1) if tile is None else tile
+    _check_tile(tile, 2, 1)
+    out = torch.empty_like(x)
+    GATE_REAL(dev, ptr(pooled), ptr(w), ptr(x), ptr(out), B, H, W, C, *tile)
+    return out
+
+
+def spatial_gate_real(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The real spatial-attention gate: pool, then conv + sigmoid + product."""
+    return sa_gate_real(sa_pool_real(x), w, x)

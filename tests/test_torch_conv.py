@@ -335,7 +335,7 @@ def test_tiled_conv_model_matches_plain_input_gradient_class(shape, tile):
 
 
 def _tiles_to_check():
-    tiles = {cuda_conv.choose_tile(B, H, W) for B in (1, 4, 32)
+    tiles = {cuda_conv.choose_tile(B, H, W, 4, 2) for B in (1, 4, 32)
              for H in (1, 2, 3, 8, 16, 32, 64, 128) for W in (1, 7, 32, 64, 128, 251)}
     return sorted(tiles | {(4, 3, 5), (2, 5, 3), (4, 12, 2), (2, 24, 4)})
 
@@ -357,7 +357,7 @@ def test_staged_slots_spread_a_half_warp_over_the_banks_at_8_bytes():
                 groups = {((t // tx) * pitch + cuda_conv.slot((t % tx) * R + j, R)) % 16
                           for t in threads}
                 assert len(groups) == len(threads), (tile, h0, j)
-        cuda_conv._check_tile(tile, 2)
+        cuda_conv._check_tile(tile, 2, 4)
     R, tx, ty = 4, 8, 16
     plain = cuda_conv.tile_pitch((R, tx, ty), 4)
     groups = {((t // tx) * plain + cuda_conv.slot((t % tx) * R, R)) % 16 for t in range(16)}
@@ -370,7 +370,7 @@ def test_choose_tile_gives_tiles_the_kernel_takes():
     for B in (1, 4, 8, 32):
         for H in (1, 2, 3, 8, 16, 33, 128, 256):
             for W in (1, 7, 32, 251, 1004, 4000):
-                tile = cuda_conv.choose_tile(B, H, W)
+                tile = cuda_conv.choose_tile(B, H, W, 4, 2)
                 cuda_conv._check_tile(tile)
                 R, tx, ty = tile
                 assert 8 <= R * tx * ty <= 512 and R in (2, 4)
@@ -381,6 +381,9 @@ def test_choose_tile_gives_tiles_the_kernel_takes():
         cuda_conv._check_tile((4, 32, 8))       # 256 conv threads
     with pytest.raises(ValueError):
         cuda_conv._check_tile((4, 128, 1))      # more shared memory than 48 KB
+    for cin, cout in ((4, 2), (2, 4)):          # R = 8 only at the real classes
+        with pytest.raises(ValueError):
+            cuda_conv._check_tile((8, 1, 1), cin, cout)
 
 
 class _Recorder:
@@ -399,8 +402,8 @@ class _Recorder:
     ((2, 16, 12, 4), 7, 3, False),
     ((2, 16, 12, 2), 7, 2, False),
     ((2, 16, 12, 4), 3, 2, False),
-    ((4, 64, 34, 2), 7, 1, False),      # the real attention's class (7, 2, 1)
-    ((4, 64, 34, 1), 7, 2, False),      # and its input gradient's (7, 1, 2)
+    ((4, 64, 34, 2), 7, 1, True),       # the real attention's class (7, 2, 1)
+    ((4, 64, 34, 1), 7, 2, True),       # and its input gradient's (7, 1, 2)
 ])
 def test_conv_entry_routes_only_the_tuned_class_to_the_tiled_body(
         monkeypatch, shape, k, cout, tiled):
@@ -414,10 +417,13 @@ def test_conv_entry_routes_only_the_tuned_class_to_the_tiled_body(
     assert y.shape == shape[:3] + (cout,)
     (args,), B, H, W = rec.calls, *shape[:3]
     assert args[4:10] == (B, H, W, shape[-1], k, cout)
-    want = cuda_conv.choose_tile(B, H, W) if tiled else cuda_conv.GENERIC_TILE
+    want = (cuda_conv.choose_tile(B, H, W, shape[-1], cout) if tiled
+            else cuda_conv.GENERIC_TILE)
     assert args[10:] == want
+    # R = 8 is a tile only at the real classes (two weights a tap)
+    refused = (16, 1, 1) if shape[-1] * cout == 2 else (8, 1, 1)
     with pytest.raises(ValueError):
-        cuda_conv.launch_conv(x, w, torch.empty(cout, device="meta"), (8, 1, 1))
+        cuda_conv.launch_conv(x, w, torch.empty(cout, device="meta"), refused)
     if not tiled:
         with pytest.raises(ValueError, match="no tiled body"):
             cuda_conv.launch_conv(x, w, torch.empty(cout, device="meta"), (2, 8, 8))
@@ -432,7 +438,7 @@ def test_spatial_gate_off_the_cpu_is_two_launches(monkeypatch):
     assert out_re.shape == re.shape and out_im.shape == re.shape
     assert len(pool.calls) == 1 and len(gate.calls) == 1
     assert pool.calls[0][3:] == (4, 8, 251, 128)
-    assert gate.calls[0][6:] == (4, 8, 251, 128) + cuda_conv.choose_tile(4, 8, 251)
+    assert gate.calls[0][6:] == (4, 8, 251, 128) + cuda_conv.gate_tile(4, 8, 251, 4, 2)
     with pytest.raises(ValueError, match="7, 7, 4, 2"):
         cuda_conv.sa_gate(torch.empty((4, 8, 251, 4), device="meta"),
                           torch.empty((5, 5, 4, 2), device="meta"), re, re)
@@ -744,7 +750,7 @@ def test_conv_same_off_the_cpu_carries_gradients_through_kernel_2(monkeypatch):
     assert len(fwd.calls) == 1 and not dgrad.calls
     y.backward(torch.empty_like(y))
     (args,) = dgrad.calls
-    assert args[4:] == (4, 16, 251, 2, 7, 4) + cuda_conv.choose_tile(4, 16, 251)
+    assert args[4:] == (4, 16, 251, 2, 7, 4) + cuda_conv.choose_tile(4, 16, 251, 2, 4)
     assert len(fwd.calls) == 1
     assert x.grad.shape == x.shape and w.grad.shape == w.shape and b.grad.shape == b.shape
 

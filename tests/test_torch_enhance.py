@@ -173,12 +173,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     DCSNet(cfg.model, cfg.quirks, device="cpu")  # explicit CPU is fine
 
 
-def test_real_variant_not_yet_ported():
+def test_real_variant_builds_and_gives_a_sigmoid_mask():
     """The real family is built like the complex one: a DRS net at full
     width on the CPU takes a magnitude and gives a sigmoid mask of its
-    shape. The name dates from before the real family was ported, when this
-    test checked that building it raised; it is kept so that the test's
-    record runs on."""
+    shape."""
     cfg = config_for_variant("drs")
     model = DCSNet(cfg.model, cfg.quirks, device="cpu").eval()
     with torch.no_grad():

@@ -352,11 +352,11 @@ def test_tapconv_plain_at_dec6_n4_matches_pallas(hw):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
-def test_real_spatial_attention_off_the_cpu_runs_the_generic_body(monkeypatch):
+def test_real_spatial_attention_off_the_cpu_runs_the_tiled_body(monkeypatch):
     """Meta tensors stand in for the card's: the real spatial attention's
-    conv is kernel 2's conv entry at (7, 2, 1) on the generic body, and its
-    input gradient the conv entry at (7, 1, 2), generic too, counted as
-    DGRAD; nothing takes the plain version."""
+    conv is kernel 2's conv entry at (7, 2, 1) on the register-tiled body,
+    and its input gradient the conv entry at (7, 1, 2), tiled too, counted
+    as DGRAD; nothing takes the plain version."""
     fwd, dgrad = _Recorder(), _Recorder()
     monkeypatch.setattr(cuda_conv, "KERNEL", fwd)
     monkeypatch.setattr(cuda_conv, "DGRAD", dgrad)
@@ -365,10 +365,10 @@ def test_real_spatial_attention_off_the_cpu_runs_the_generic_body(monkeypatch):
     a = sa(x)
     assert a.shape == (4, 64, 34, 1)
     (args,) = fwd.calls
-    assert args[4:] == (4, 64, 34, 2, 7, 1) + cuda_conv.GENERIC_TILE
+    assert args[4:] == (4, 64, 34, 2, 7, 1) + cuda_conv.choose_tile(4, 64, 34, 2, 1)
     a.backward(torch.empty_like(a))
     (args,) = dgrad.calls
-    assert args[4:] == (4, 64, 34, 1, 7, 2) + cuda_conv.GENERIC_TILE
+    assert args[4:] == (4, 64, 34, 1, 7, 2) + cuda_conv.choose_tile(4, 64, 34, 1, 2)
     assert sa.conv.weight.grad.shape == (1, 2, 7, 7)
 
 

@@ -375,11 +375,9 @@ def test_train_cli_rejects_unported_flags(flags, message, capsys):
     assert message in capsys.readouterr().err
 
 
-def test_train_cli_rejects_the_real_variants(tmp_path, capsys):
+def test_train_cli_trains_the_real_variants(tmp_path, capsys):
     """No variant is rejected: DR and DRS train an epoch of 2 steps on the
-    CPU (a narrow three-layer net), with finite losses and a checkpoint. The
-    name dates from before the real family was ported, when the CLI rejected
-    it; it is kept so that the test's record runs on."""
+    CPU (a narrow three-layer net), with finite losses and a checkpoint."""
     dcfg = synthetic.generate(str(tmp_path / "data"), n_train=6, n_test=2, seconds=0.4)
     for variant in ("dr", "drs"):
         base = config_for_variant(variant)
