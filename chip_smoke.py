@@ -73,6 +73,21 @@ Phases (each prints one or more lines; any failure exits non-zero):
                (atol 3e-4, rtol 1e-3); (e) 10 steps on one batch, dropout on:
                the loss falls; (f) the median step time over 20 steps and
                audio-s/s per GPU;
+     eval    -- the evaluation path on what phase 7 left (its checkpoint,
+               8 synthetic test pairs, its trainer's events): (a) ``python
+               -m dcs_net_tpu_torch.cli.test --composite``: one CSV row per
+               test utterance under the JAX header, finite STOI, PESQ and
+               composite means; (b) one test utterance's eval-mode forward
+               (batch 1): launch counts (kernel 1 once, the gate 13 + 13,
+               kernel 3 7 + 7, the conv entry never alone), every launch
+               against its plain version (rows ``<kernel>_eval``), the audio
+               against the CPU's; (c) STOI, PESQ and SI-SDR of every test
+               utterance, card vs CPU, within ``EVAL_METRIC_TOL``; (d) the
+               trainer's two epochs logged finite ``val_stoi`` and
+               ``val_pesq_est``, its sanity passes none; (e) ``python -m
+               dcs_net_tpu_torch.cli.tune``, two 1-epoch trials at batch 4 on
+               40 pairs of its own, a finite best value; (f) the time per
+               test utterance of the forward and of the host metrics;
   8. real    -- the real family at full width (DRS, seeded weights, BN moved
                off its init): (a) ``enhance_full`` on 4 requests of 4 s:
                launch counts (kernel 2's real gate, pool and gate 13 times
@@ -117,6 +132,17 @@ REL_TOL = 1e-4                    # kernel vs plain, relative to max |plain|
 SLICE_RTOL, SLICE_ATOL = 1e-3, 3e-4
 TRAIN_BATCH, TRAIN_CROP, CARD_CPU_BATCH = 32, 8160, 4
 TRAIN_STEPS, TRAIN_N_SYNTHETIC = 8, 480       # 480 pairs: 384 train, 96 val
+EVAL_N_TEST = 8                               # test pairs beside them
+TUNE_BATCH, TUNE_N_SYNTHETIC = 4, 40          # 40 pairs: 32 train, 8 val
+# card vs CPU on the same weights and utterance, metrics of the two audios.
+# The audio is held to atol 3e-4 / rtol 1e-3 (phase "slice"), about 1e-3 of
+# a 0.3 peak; STOI (a mean of band-envelope correlations) and SI-SDR (an
+# energy ratio) follow the audio smoothly: within 1e-3 and 0.05 dB at that
+# band (SI-SDR's noise energy moves by ~2 x 1e-3 / 0.3 relative at the
+# narrowest ratio here, 4.34 dB per unit of it). PESQ's time alignment and
+# frame-activity choices are discrete, so a change within the band may move
+# it by a step: held to 0.1 MOS.
+EVAL_METRIC_TOL = {"stoi": 1e-3, "si_sdr": 0.05, "pesq_est": 0.1}
 # H100 SXM data sheet: HBM3 rate, float32 (non-tensor-core) peak, dense TF32
 # tensor-core peak. Kernel 3 runs float32-accurate products as three TF32
 # passes (3xTF32), so the rate its operations are held against is TF32 / 3.
@@ -1292,35 +1318,42 @@ def bn_witness(what, bn, eps, io_card, clip_card, float64_step):
     return {f"{bn}.scale": check("scale"), f"{bn}.bias": check("bias")}
 
 
+def run_cli(module, args, timeout=600):
+    """``python -m dcs_net_tpu_torch.cli.<module> <args>`` in a subprocess
+    from the repository root; returns its stdout and wall seconds, fails on
+    a non-zero exit."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    cmd = [sys.executable, "-m", f"dcs_net_tpu_torch.cli.{module}", *args]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        print(r.stdout[-3000:], r.stderr[-3000:], flush=True)
+        fail(f"cli.{module} exited {r.returncode}: {' '.join(cmd[2:])}")
+    return r.stdout, time.perf_counter() - t0
+
+
 def run_trainer(tmp, epochs, resume, card):
     """``python -m dcs_net_tpu_torch.cli.train`` in a subprocess: returns its
     stdout and final metrics."""
     import ast
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    cmd = [sys.executable, "-m", "dcs_net_tpu_torch.cli.train", "dcs", "--synthetic",
-           "--synthetic-n", str(TRAIN_N_SYNTHETIC), "--batch-size", str(TRAIN_BATCH),
-           "--limit-train-batches", str(TRAIN_STEPS), "--epochs", str(epochs),
-           "--log-dir", tmp] + (["--resume"] if resume else [])
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
-                       timeout=600)
-    wall = time.perf_counter() - t0
-    if r.returncode != 0:
-        print(r.stdout[-3000:], r.stderr[-3000:], flush=True)
-        fail(f"the trainer exited {r.returncode}: {' '.join(cmd[2:])}")
-    final = [ln for ln in r.stdout.splitlines() if ln.startswith("final: ")]
+    args = ["dcs", "--synthetic", "--synthetic-n", str(TRAIN_N_SYNTHETIC), "--batch-size",
+            str(TRAIN_BATCH), "--limit-train-batches", str(TRAIN_STEPS), "--epochs",
+            str(epochs), "--log-dir", tmp] + (["--resume"] if resume else [])
+    stdout, wall = run_cli("train", args)
+    final = [ln for ln in stdout.splitlines() if ln.startswith("final: ")]
     if not final:
         fail("the trainer printed no final metrics")
     metrics = ast.literal_eval(final[-1][len("final: "):])
     # the epoch line ends with the epoch's seconds: train steps, validation
-    epoch_s = [ln.rsplit("(", 1)[-1].rstrip("s)") for ln in r.stdout.splitlines()
+    epoch_s = [ln.rsplit("(", 1)[-1].rstrip("s)") for ln in stdout.splitlines()
                if ln.startswith("epoch ") and ln.endswith("s)")]
-    print(f"train: cli {' '.join(cmd[3:])}: exit 0 in {wall:.1f} s (last epoch "
+    print(f"train: cli {' '.join(args)}: exit 0 in {wall:.1f} s (last epoch "
           f"{epoch_s[-1] if epoch_s else '?'} s), {metrics} [{card}]", flush=True)
-    return r.stdout, metrics
+    return stdout, metrics
 
 
 def card_vs_cpu_step(what, cfg, noisy, clean, dev, seed, witness_bn=None) -> None:
@@ -1403,17 +1436,11 @@ def serve_checkpoint(ckpt_dir, card) -> None:
 
     src, dst = os.path.join(ckpt_dir, "noisy.wav"), os.path.join(ckpt_dir, "served.wav")
     write_wav(src, speech_like(1, SR, SEED + 16)[0], SR)
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
-        [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
-    cmd = [sys.executable, "-m", "dcs_net_tpu_torch.cli.enhance", "dcs", "--in", src,
-           "--out", dst, "--ckpt-dir", ckpt_dir]
-    t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True,
-                       timeout=300)
-    if r.returncode != 0 or "using config saved with checkpoint (dcs)" not in r.stdout:
-        print(r.stdout[-3000:], r.stderr[-3000:], flush=True)
-        fail(f"cli.enhance --ckpt-dir exited {r.returncode}")
+    stdout, wall = run_cli("enhance", ["dcs", "--in", src, "--out", dst, "--ckpt-dir",
+                                       ckpt_dir], timeout=300)
+    if "using config saved with checkpoint (dcs)" not in stdout:
+        print(stdout[-3000:], flush=True)
+        fail("cli.enhance --ckpt-dir did not use the checkpoint's config")
     served, sr = read_wav(dst)
     with open(os.path.join(ckpt_dir, "config.json")) as f:
         cfg = Config.from_json(f.read())
@@ -1421,9 +1448,8 @@ def serve_checkpoint(ckpt_dir, card) -> None:
     step = load_model(ckpt_dir, cpu_model)
     x, _ = read_wav(src)
     want = enhance_full(cpu_model, torch.from_numpy(x)[None], cfg)[0]
-    print(f"train: cli.enhance --ckpt-dir (step {step}) exit 0 in "
-          f"{time.perf_counter() - t0:.1f} s: "
-          + next(ln for ln in r.stdout.splitlines() if ln.startswith("restored"))
+    print(f"train: cli.enhance --ckpt-dir (step {step}) exit 0 in {wall:.1f} s: "
+          + next(ln for ln in stdout.splitlines() if ln.startswith("restored"))
           + f" [{card}]", flush=True)
     if sr != SR or served.shape != tuple(want.shape):
         fail(f"cli.enhance --ckpt-dir wrote {served.shape} at {sr} Hz")
@@ -1451,7 +1477,8 @@ def check_train(dev, card, tmp):
     t0 = time.perf_counter()
     # pairs of 0.6 s: the crop is 0.51 s, and shorter files are quicker for
     # the trainer's loader threads to decode and resample
-    dcfg = synthetic.generate(root, n_train=TRAIN_N_SYNTHETIC, n_test=2, seconds=0.6)
+    dcfg = synthetic.generate(root, n_train=TRAIN_N_SYNTHETIC, n_test=EVAL_N_TEST,
+                              seconds=0.6)
     cfg = config_for_variant("dcs")
     cfg = cfg.replace(data=dataclasses.replace(dcfg, batch_size=TRAIN_BATCH))
     loaders = make_loaders(cfg)
@@ -1552,6 +1579,175 @@ def check_train(dev, card, tmp):
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
           flush=True)
     return rows, launches
+
+
+def read_events(path):
+    """{tag: [values]} of a trainer's events.jsonl."""
+    events = {}
+    with open(path) as f:
+        for line in f:
+            e = json.loads(line)
+            events.setdefault(e["tag"], []).append(e["value"])
+    return events
+
+
+def check_eval(dev, card, tmp):
+    """Phase "eval", on what phase "train" left under ``tmp``: its
+    checkpoint, its synthetic test pairs, its trainer's events. Returns the
+    kernel rows of one test utterance's eval-mode forward, named
+    ``<kernel>_eval``."""
+    import csv
+
+    import torch
+
+    from dcs_net_tpu_torch.cli.common import make_test_loader
+    from dcs_net_tpu_torch.core.config import Config
+    from dcs_net_tpu_torch.metrics import composite as C
+    from dcs_net_tpu_torch.metrics import harness as H
+    from dcs_net_tpu_torch.metrics import pesq as P
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.train.checkpoint import load_model
+    from dcs_net_tpu_torch.train.loop import COMPOSITE_KEYS
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    t_phase = time.perf_counter()
+    ckpt_dir = os.path.join(tmp, "dcs", "checkpoints")
+    # the PESQ library must build: the trainer would only warn
+    so = P.build_library()
+    print(f"eval: PESQ library {so} (g++ {' '.join(P.GXX_FLAGS)}), key "
+          f"{'pesq_est' if P.is_estimate() else 'pesq'}", flush=True)
+
+    # (a) cli.test on the checkpoint, composite measures on
+    args = ["dcs", "--ckpt-dir", ckpt_dir, "--synthetic", "--log-dir", tmp, "--composite"]
+    _, wall = run_cli("test", args)
+    print(f"eval: cli.test {' '.join(args)}: exit 0 in {wall:.1f} s [{card}]", flush=True)
+    with open(os.path.join(tmp, "dcs-test", "per_utterance.csv")) as f:
+        rows = list(csv.reader(f))
+    header = ["id", "start", "stoi", "pesq_est", "si_sdr", *COMPOSITE_KEYS]
+    if rows[0] != header or len(rows) != 1 + EVAL_N_TEST:
+        fail(f"cli.test wrote {len(rows) - 1} rows under {rows[0]}, expected "
+             f"{EVAL_N_TEST} under {header}")
+    test = {k: v[-1] for k, v in read_events(
+        os.path.join(tmp, "dcs-test", "events.jsonl")).items()}
+    want = [f"test_{k}" for k in ("stoi", "pesq_est", *COMPOSITE_KEYS)]
+    print("eval: cli.test means " + " ".join(f"{k}={test.get(k)}" for k in want), flush=True)
+    if not all(math.isfinite(test.get(k, float("nan"))) for k in want):
+        fail(f"cli.test's means are missing or not finite: {test}")
+
+    # (b) one test utterance's eval-mode forward: launches, every launch
+    # against its plain version, the audio against the CPU's
+    with open(os.path.join(ckpt_dir, "config.json")) as f:
+        cfg = Config.from_json(f.read())
+    model = DCSNet(cfg.model, cfg.quirks, device=dev)
+    cpu_model = DCSNet(cfg.model, cfg.quirks, device="cpu")
+    load_model(ckpt_dir, model)
+    load_model(ckpt_dir, cpu_model)
+    loader = make_test_loader(cfg, batch_size=1)
+    try:
+        utterances = list(loader.epoch(0))
+    finally:
+        loader.close()
+
+    def forward(m, host, d):
+        noisy = torch.from_numpy(host["noisy"]).to(d)
+        clean = torch.from_numpy(host["clean"]).to(d)
+        return steps.eval_step(m, steps.batch_from_waves(noisy, clean, cfg), cfg)
+
+    shapes = discover_shapes(lambda: forward(model, utterances[0], dev))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    forward(model, utterances[0], dev)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in cuda_lib.KERNELS.values()}
+    print(f"eval: one test utterance {utterances[0]['noisy'].shape}, eval_step launches "
+          f"{launches}", flush=True)
+    # the gate runs the conv entry's body and counts there as well: the conv
+    # entry alone is never launched when the two counts are equal
+    want = {"stft": 1, "sa_pool": 13, "sa_gate": 13, "conv_same_small_cout": 13,
+            "tapconv_valid": 7, "tapconv_pack": 7}
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            fail(f"kernel {name} launched {n} times in one test utterance's "
+                 f"forward, expected {want.get(name, 0)}")
+    rows = check_kernels({name: shapes[name] for name in (
+        "stft", "sa_pool", "sa_gate", "tapconv_valid")}, launches, dev, cfg, card,
+        "test utterance", suffix="_eval")
+
+    # (c) every test utterance on the card and on the CPU: the audio, then
+    # STOI, PESQ and SI-SDR of each against the other's; (f) the time of
+    # the card's forward (audio on the host) and of the host's metrics
+    sr = cfg.data.sr
+    worst = dict.fromkeys(EVAL_METRIC_TOL, 0.0)
+    t_dev, t_host = [], []
+    for i, host in enumerate(utterances):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, card_audio = forward(model, host, dev)
+        card_audio = {k: v.cpu() for k, v in card_audio.items()}
+        t_dev.append(time.perf_counter() - t1)
+        _, cpu_audio = forward(cpu_model, host, "cpu")
+        compare_card_cpu(f"eval: {host['id'][0]}, streams {', '.join(cpu_audio)},",
+                         torch.stack(list(card_audio.values())),
+                         torch.stack(list(cpu_audio.values())))
+        clean = card_audio["clean"][0].numpy()
+        scores = []
+        for audio in (card_audio, cpu_audio):
+            pred = audio["predict_clean"][0].numpy()
+            t1 = time.perf_counter()
+            pq = H.pesq_metric(clean, pred, sr)
+            scores.append({"stoi": H.stoi_metric(clean, pred, sr), "pesq_est": pq,
+                           "si_sdr": H.si_sdr(clean, pred)})
+            C.composite(clean, pred, sr, pesq_mos=pq)
+            if audio is card_audio:
+                t_host.append(time.perf_counter() - t1)
+        print(f"eval: {host['id'][0]} card vs CPU: " + " ".join(
+            f"{k} {scores[0][k]:.6f} vs {scores[1][k]:.6f}" for k in EVAL_METRIC_TOL),
+            flush=True)
+        for k in EVAL_METRIC_TOL:
+            if not all(math.isfinite(s[k]) for s in scores):
+                fail(f"eval: {k} of {host['id'][0]} is not finite: {scores}")
+            worst[k] = max(worst[k], abs(scores[0][k] - scores[1][k]))
+    print("eval: largest card vs CPU differences over "
+          f"{len(utterances)} utterances: " + " ".join(
+              f"{k} {worst[k]:.3e} (limit {EVAL_METRIC_TOL[k]})" for k in worst), flush=True)
+    for k, tol in EVAL_METRIC_TOL.items():
+        if worst[k] > tol:
+            fail(f"eval: card and CPU {k} differ by {worst[k]:.3e} > {tol}")
+    t_dev.sort()
+    t_host.sort()
+    n_utt = len(utterances)
+    print(f"eval: per test utterance ({utterances[0]['noisy'].shape[1]} samples): device "
+          f"forward with the audio copied to the host median {t_dev[n_utt // 2] * 1e3:.2f} "
+          f"ms (max {t_dev[-1] * 1e3:.2f}), host metrics (STOI, PESQ, SI-SDR, "
+          f"composite) median {t_host[n_utt // 2] * 1e3:.2f} ms; cli.test {wall / n_utt:.2f} "
+          f"s per utterance with its start-up [{card}]", flush=True)
+
+    # (d) phase "train" (d)'s runs validated with metrics, their sanity
+    # passes without
+    events = read_events(os.path.join(tmp, "dcs", "events.jsonl"))
+    for tag in ("val_stoi", "val_pesq_est"):
+        vals = events.get(tag, [])
+        print(f"eval: the trainer's {tag} by epoch {vals}", flush=True)
+        if len(vals) != 2 or not all(map(math.isfinite, vals)):
+            fail(f"the trainer's 2 epochs logged {tag} {vals}")
+    if "sanity_loss" not in events or any(
+            t in events for t in ("sanity_stoi", "sanity_pesq_est")):
+        fail(f"the sanity passes logged {sorted(t for t in events if t.startswith('sanity'))}")
+
+    # (e) cli.tune, two trials of one epoch
+    args = ["dcs", "--synthetic", "--synthetic-n", str(TUNE_N_SYNTHETIC), "--batch-size",
+            str(TUNE_BATCH), "--trials", "2", "--trial-epochs", "1", "--log-dir",
+            os.path.join(tmp, "tune")]
+    out, wall = run_cli("tune", args)
+    print(f"eval: cli.tune {' '.join(args)}: exit 0 in {wall:.1f} s [{card}]", flush=True)
+    best = [ln for ln in out.splitlines() if ln.startswith("best:")]
+    print("eval: cli.tune " + " | ".join(
+        ln for ln in out.splitlines() if ln.startswith(("trial ", "best:"))), flush=True)
+    if not best or not math.isfinite(json.loads(best[-1][len("best:"):])["value"]):
+        fail(f"cli.tune printed no finite best value: {best}")
+    print(f"eval: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
 
 
 def check_real(dev, card):
@@ -1861,8 +2057,10 @@ def main() -> int:
                   f"{audio.shape[0]} samples at {sr} Hz, finite", flush=True)
 
     # phase 7: the train step and the trainer
+    # phase "eval": the evaluation path on what phase 7 left
     with tempfile.TemporaryDirectory(prefix="dcs_train_") as tmp:
         train_rows, train_launches = check_train(dev, card, tmp)
+        eval_rows = check_eval(dev, card, tmp)
     del model, cpu_model
     for row in rows:
         row["launches_train"] = train_launches.get(row["name"], 0)
@@ -1875,6 +2073,8 @@ def main() -> int:
             next(r for r in rows if r["name"] == row["name"])["train_step"] = {
                 k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                     "bound_by", "max_abs_err", "shapes")}
+
+    rows += eval_rows
 
     # phase 8: the real family (DR/DRS) at full width
     rows += check_real(dev, card)

@@ -1,5 +1,7 @@
 """Shared CLI plumbing of the port: the JAX CLI's flags, the config built
-from them, and the data loaders."""
+from them, and the data loaders: ``make_loaders`` the train and validation
+ones, ``make_test_loader`` the test set's (the JAX ``make_loaders`` returns
+all three)."""
 
 from __future__ import annotations
 
@@ -90,3 +92,16 @@ def make_loaders(cfg: Config):
                           num_workers=cfg.data.num_workers,
                           prefetch=cfg.data.prefetch, seed=cfg.run.seed))
     return tuple(out)
+
+
+def make_test_loader(cfg: Config, batch_size: int = 1):
+    """The test set's loader at ``batch_size`` (1, as the JAX
+    ``make_loaders(cfg, test_batch_size=1)`` builds it): seeded shuffle,
+    crops as the dataset's, the ragged last batch kept."""
+    from dcs_net_tpu_torch.data.dataset import Loader, VoiceBankDataset
+    from dcs_net_tpu_torch.data.partition import make_partition
+
+    part = make_partition(cfg.data, seed=cfg.run.seed)
+    return Loader(VoiceBankDataset(part["test"], cfg.data, mode="test"),
+                  batch_size=batch_size, num_workers=cfg.data.num_workers,
+                  prefetch=cfg.data.prefetch, seed=cfg.run.seed)

@@ -1,9 +1,11 @@
 """The training loop, the port's copy of the JAX package's ``train/loop.py``:
-a sanity-validation pass of ``num_sanity_val_steps`` batches, then per epoch
-the train steps (NaN gate, throughput), a validation pass (losses),
+a sanity-validation pass of ``num_sanity_val_steps`` batches (losses only),
+then per epoch the train steps (NaN gate, throughput), a validation pass
+(losses, STOI and PESQ on the host, one batch's audio written as WAVs),
 ReduceLROnPlateau on the monitored metric, SWA parameter averaging, a
 checkpoint and the ``on_validation_end`` callback; at the end the SWA
 average is swapped in and the BN statistics are refreshed for it.
+``test`` is the evaluation pass of ``cli/test.py``.
 
 Faithful details kept: the plateau monitors ``val_loss`` for subtractive
 variants but the TRAIN ``speech_loss`` for plain ones, and stops acting (the
@@ -13,23 +15,26 @@ nothing per step: metrics stay device scalars and are fetched every
 dropout masks come from a generator keyed by ``(seed, epoch)``, so a run
 resumed from a checkpoint draws the masks the uninterrupted run draws.
 
-Not yet ported (ROADMAP Queue 1 items 5 and 6): PESQ and STOI in
-validation, audio and histogram logging.
+Not yet ported (ROADMAP Queue 1 item 6): TensorBoard and histogram logging.
 """
 
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dcs_net_tpu_torch.core.config import Config
+from dcs_net_tpu_torch.metrics import composite as C
+from dcs_net_tpu_torch.metrics import harness as H
+from dcs_net_tpu_torch.metrics import pesq as P
 from dcs_net_tpu_torch.models.unet import DCSNet
-from dcs_net_tpu_torch.obs.logging import ThroughputMeter, Writer
+from dcs_net_tpu_torch.obs.logging import ThroughputMeter, Writer, log_epoch_audio
 from dcs_net_tpu_torch.train import steps as S
 from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
 from dcs_net_tpu_torch.train.optim import (SWA, get_lr, make_optimizer,
@@ -37,6 +42,7 @@ from dcs_net_tpu_torch.train.optim import (SWA, get_lr, make_optimizer,
 from dcs_net_tpu_torch.utils.device import DeviceLike, resolve_device
 
 HostBatch = Dict[str, np.ndarray]
+COMPOSITE_KEYS = ("segsnr", "llr", "wss", "csig", "cbak", "covl")
 
 
 def epoch_seed(seed: int, epoch: int) -> int:
@@ -62,9 +68,17 @@ class Trainer:
     SWA starts at epoch ``int(swa_start_frac * max_epochs)``. A checkpoint
     holds the model, Adam, the plateau and the epoch but not the SWA average,
     as in the JAX package, so a run resumed after the SWA start begins its
-    average anew at the resumed epoch."""
+    average anew at the resumed epoch.
 
-    def __init__(self, cfg: Config, device: DeviceLike = None):
+    ``pesq_fn(clean, predicted, sr)`` scores validation; by default the
+    native estimator (``metrics/pesq.py``, built here if it is not yet),
+    and none, with a printed warning, if its library fails to build or
+    load. Its key is ``pesq_est`` unless a ``pypesq``/``pesq`` wheel scores
+    (``pesq``). Scalars and audio go under ``log_dir`` (default
+    ``cfg.run.log_dir``)."""
+
+    def __init__(self, cfg: Config, device: DeviceLike = None,
+                 log_dir: Optional[str] = None, pesq_fn=None):
         if cfg.run.steps_per_dispatch > 1:
             raise NotImplementedError(
                 "steps_per_dispatch > 1 is not yet ported: one train step a "
@@ -73,7 +87,15 @@ class Trainer:
         self.device = resolve_device(device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-        self.writer = Writer(cfg.run.log_dir)
+        self.writer = Writer(log_dir or cfg.run.log_dir)
+        if pesq_fn is None:
+            try:
+                P._load()
+                pesq_fn = H.pesq_metric
+            except (OSError, RuntimeError) as e:
+                print(f"WARNING: PESQ is off, its library did not load: {e}", flush=True)
+        self.pesq_fn = pesq_fn
+        self.pesq_key = "pesq_est" if P.is_estimate() else "pesq"
         self.model: Optional[DCSNet] = None
         self.opt: Optional[torch.optim.Adam] = None
         self.plateau: Optional[torch.optim.lr_scheduler.ReduceLROnPlateau] = None
@@ -156,22 +178,116 @@ class Trainer:
         return out
 
     def eval_epoch(self, batches: Iterable[HostBatch], epoch: int,
-                   phase: str = "val", max_batches: Optional[int] = None
-                   ) -> Dict[str, float]:
-        """Eval-mode losses averaged over the batches (the first
-        ``max_batches``), as ``<phase>_<loss>`` (a batch with a non-finite
-        loss is reported and left out)."""
+                   phase: str = "val", compute_metrics: bool = True,
+                   max_batches: Optional[int] = None,
+                   per_utterance_csv: Optional[str] = None,
+                   composite: bool = False) -> Dict[str, float]:
+        """Eval-mode passes over the batches (the first ``max_batches``),
+        as the JAX trainer's ``eval_epoch``: the losses and, with
+        ``compute_metrics``, STOI and PESQ of each batch, averaged over the
+        batches as ``<phase>_<key>``; a batch with a non-finite loss is
+        reported and left out. A batch's losses and audio come to the host
+        in one copy; the metrics run there.
+
+        A batch's metric is the mean over its utterances with NaNs and
+        failures left out (0.0 if none is left). Per utterance
+        (``cfg.run.per_utterance_eval_metrics``, ``composite`` or a CSV),
+        each metric runs once an utterance, and ``per_utterance_csv`` gets a
+        row ``id,start,stoi,<pesq_key>,si_sdr`` for each, with
+        ``composite`` also SegSNR, LLR, WSS and CSIG/CBAK/COVL, whose finite
+        values are averaged over the utterances. One batch, drawn by
+        reservoir sampling from a generator keyed by (seed, epoch), has its
+        audio written (``cfg.run.val_log_sample_size`` utterances)."""
+        cfg = self.cfg
+        sr = cfg.data.sr
         agg: Dict[str, List[float]] = {}
-        for i, host_batch in enumerate(itertools.islice(batches, max_batches)):
-            losses, _ = S.eval_step(self.model, self._device_batch(host_batch), self.cfg)
-            if not np.isfinite(float(losses["loss"])):
-                print(f"found a NaN in {phase} loss! (epoch {epoch}, batch {i}, skipped)")
-                continue
-            for k, v in losses.items():
-                agg.setdefault(k, []).append(float(v))
-        out = {f"{phase}_{k}": float(np.mean(v)) for k, v in agg.items() if v}
+        sampled_audio: Dict[str, np.ndarray] = {}
+        # the sanity pass's epoch is -1; numpy seeds are non-negative
+        rng = np.random.default_rng((cfg.run.seed, epoch & 0x7FFFFFFF))
+        n_seen = 0
+        per_utt = cfg.run.per_utterance_eval_metrics or composite or bool(per_utterance_csv)
+        csv_f = None
+        if per_utterance_csv:
+            os.makedirs(os.path.dirname(per_utterance_csv) or ".", exist_ok=True)
+            csv_f = open(per_utterance_csv, "w")
+            csv_f.write(f"id,start,stoi,{self.pesq_key},si_sdr"
+                        + ("," + ",".join(COMPOSITE_KEYS) if composite else "") + "\n")
+        try:
+            for i, host_batch in enumerate(itertools.islice(batches, max_batches)):
+                losses, audio = self._eval_batch(host_batch)
+                if not np.isfinite(losses["loss"]):
+                    print(f"found a NaN in {phase} loss! (epoch {epoch}, batch {i}, skipped)")
+                    continue
+                for k, v in losses.items():
+                    agg.setdefault(k, []).append(v)
+                if compute_metrics:
+                    clean, pred = audio["clean"], audio["predict_clean"]
+                    if not per_utt:
+                        agg.setdefault("stoi", []).append(
+                            H.calc_metric(clean, pred, sr, H.stoi_metric))
+                        if self.pesq_fn is not None:
+                            agg.setdefault(self.pesq_key, []).append(
+                                H.calc_metric(clean, pred, sr, self.pesq_fn))
+                    else:
+                        self._per_utterance(host_batch, clean, pred, agg, csv_f, composite)
+                n_seen += 1
+                if rng.integers(n_seen) == 0:   # reservoir: kept with probability 1/n
+                    sampled_audio = audio
+        finally:
+            if csv_f is not None:
+                csv_f.close()
+        out = {f"{phase}_{k}": float(np.sum(v)) / len(v) for k, v in agg.items() if v}
+        if sampled_audio:
+            log_epoch_audio(self.writer, sampled_audio, self.step, sr, phase, rng,
+                            cfg.run.val_log_sample_size)
         self.writer.scalars(out, self.step)
         return out
+
+    def _eval_batch(self, host_batch: HostBatch
+                    ) -> Tuple[Dict[str, float], Dict[str, np.ndarray]]:
+        """``S.eval_step`` on one batch; its losses as floats and its audio
+        streams as (B, n) arrays, fetched from the device in one copy."""
+        losses, audio = S.eval_step(self.model, self._device_batch(host_batch), self.cfg)
+        flat = torch.cat([torch.stack(list(losses.values())).reshape(-1)]
+                         + [v.reshape(-1) for v in audio.values()]).cpu().numpy()
+        host_losses = {k: float(v) for k, v in zip(losses, flat)}
+        host_audio, at = {}, len(losses)
+        for k, v in audio.items():
+            host_audio[k] = flat[at:at + v.numel()].reshape(tuple(v.shape))
+            at += v.numel()
+        return host_losses, host_audio
+
+    def _per_utterance(self, host_batch: HostBatch, clean: np.ndarray, pred: np.ndarray,
+                       agg: Dict[str, List[float]], csv_f, composite: bool) -> None:
+        """Each metric once an utterance: the batch's NaN-dropped STOI and
+        PESQ means into ``agg``, the finite composite measures one by one,
+        and a CSV row per utterance."""
+        sr = self.cfg.data.sr
+        n = clean.shape[0]
+        ids = host_batch.get("id", [str(j) for j in range(n)])
+        starts = np.asarray(host_batch.get("start", np.zeros(n, np.int64)))
+        b_stoi, b_pesq = [], []
+        for j, utt_id in enumerate(ids):
+            try:
+                s = H.stoi_metric(clean[j], pred[j], sr)
+            except Exception:   # as calc_metric: a failure scores NaN
+                s = float("nan")
+            pq = self.pesq_fn(clean[j], pred[j], sr) if self.pesq_fn else float("nan")
+            b_stoi.append(s)
+            b_pesq.append(pq)
+            row = (f"{utt_id},{int(starts[j])},{s:.4f},{pq:.4f},"
+                   f"{H.si_sdr(clean[j], pred[j]):.4f}")
+            if composite:
+                c = C.composite(clean[j], pred[j], sr, pesq_mos=pq)
+                for k in COMPOSITE_KEYS:
+                    if np.isfinite(c[k]):
+                        agg.setdefault(k, []).append(c[k])
+                row += "," + ",".join(f"{c[k]:.4f}" for k in COMPOSITE_KEYS)
+            if csv_f is not None:
+                csv_f.write(row + "\n")
+        agg.setdefault("stoi", []).append(_nan_drop_mean(b_stoi))
+        if self.pesq_fn is not None:
+            agg.setdefault(self.pesq_key, []).append(_nan_drop_mean(b_pesq))
 
     # -- schedule -------------------------------------------------------------
     def monitored_metric(self, val_metrics: Dict[str, float]) -> float:
@@ -269,6 +385,7 @@ class Trainer:
             self.init_state()
         if cfg.run.num_sanity_val_steps:
             self.eval_epoch(val_loader.epoch(0), -1, phase="sanity",
+                            compute_metrics=False,
                             max_batches=cfg.run.num_sanity_val_steps)
         metrics: Dict[str, float] = {}
         for epoch in range(self.epoch, max_epochs or cfg.run.max_epochs):
@@ -291,3 +408,15 @@ class Trainer:
                            bn_refresh_batches=refreshed)
         self.writer.flush()
         return metrics
+
+    def test(self, test_loader) -> Dict[str, float]:
+        """The test pass: ``eval_epoch`` over epoch 0 of ``test_loader``."""
+        return self.eval_epoch(test_loader.epoch(0), 0, phase="test")
+
+
+def _nan_drop_mean(vals: List[float]) -> float:
+    """The mean of the finite values, 0.0 if there is none (``calc_metric``'s
+    rule)."""
+    a = np.asarray(vals, np.float64)
+    ok = np.isfinite(a)
+    return float(a[ok].sum() / max(ok.sum(), 1))

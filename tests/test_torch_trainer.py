@@ -6,7 +6,8 @@ port on its own: the sanity-validation pass, a callback that stops training,
 a run resumed after its first epoch equal bit for bit to the uninterrupted
 one with dropout on, and ``cli.enhance --ckpt-dir`` serving what
 ``cli.train`` wrote. The port runs on the CPU here: its kernels' plain
-versions. PESQ is off in the JAX trainer, as the port has none yet.
+versions. PESQ is off in the JAX trainer here: these tests compare training,
+and ``tests/test_torch_eval.py`` compares the validation metrics.
 """
 
 import dataclasses
@@ -236,18 +237,22 @@ def test_swa_update_matches_jax():
 
 def test_fit_runs_the_sanity_pass_and_a_callback_stops_it(data_root, tmp_path,
                                                           monkeypatch):
-    """``num_sanity_val_steps`` validation batches before epoch 0, logged as
-    ``sanity_*``; ``on_validation_end`` returning True after epoch 0 ends
-    the fit there (of 3 epochs), and the SWA finalisation still runs."""
+    """``num_sanity_val_steps`` validation batches before epoch 0, without
+    metrics (``compute_metrics=False``, as the JAX ``fit`` calls it), logged
+    as ``sanity_*``; the epoch's validation with metrics yields the keys
+    the JAX trainer yields with PESQ on (the losses, ``val_stoi``,
+    ``val_pesq_est``); ``on_validation_end`` returning True after epoch 0
+    ends the fit there (of 3 epochs), and the SWA finalisation still runs."""
     cfg = _cfg(config_for_variant, "drs", data_root, str(tmp_path / "logs"),
                epochs=3, swa_from=0)
     trainer = tloop.Trainer(cfg, device="cpu")
     calls = []
     real_eval = trainer.eval_epoch
 
-    def eval_epoch(batches, epoch, phase="val", max_batches=None):
-        calls.append((epoch, phase, max_batches))
-        return real_eval(batches, epoch, phase, max_batches)
+    def eval_epoch(batches, epoch, phase="val", compute_metrics=True, max_batches=None,
+                   **kwargs):
+        calls.append((epoch, phase, compute_metrics, max_batches))
+        return real_eval(batches, epoch, phase, compute_metrics, max_batches, **kwargs)
 
     monkeypatch.setattr(trainer, "eval_epoch", eval_epoch)
     seen = []
@@ -263,12 +268,15 @@ def test_fit_runs_the_sanity_pass_and_a_callback_stops_it(data_root, tmp_path,
         for loader in loaders:
             loader.close()
         trainer.writer.close()
-    assert calls == [(-1, "sanity", 1), (0, "val", None)]
-    assert seen == [(0, ["val_loss", "val_noise_loss", "val_speech_loss"])]
+    assert calls == [(-1, "sanity", False, 1), (0, "val", True, None)]
+    assert seen == [(0, ["val_loss", "val_noise_loss", "val_pesq_est", "val_speech_loss",
+                         "val_stoi"])]
     assert trainer.epoch == 1 and trainer.step == 2 and trainer.swa.n_averaged == 1
     with open(os.path.join(cfg.run.log_dir, "events.jsonl")) as f:
         tags = {json.loads(line).get("tag") for line in f}
     assert "sanity_loss" in tags
+    assert "sanity_stoi" not in tags and "sanity_pesq_est" not in tags
+    assert {"val_stoi", "val_pesq_est"} <= tags
 
 
 def test_fit_max_epochs_overrides_the_config(data_root, tmp_path):
