@@ -64,8 +64,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
                loss and gradient norm rtol 1e-3, every gradient leaf in the
                band of the JAX oracle test, the post-Adam parameters within
                its sensitivity bound; (d) ``python -m
-               dcs_net_tpu_torch.cli.train`` for 8 batch-32 steps, a
-               checkpoint, then ``--resume`` for 8 more, each run with SWA
+               dcs_net_tpu_torch.cli.train --steps-per-dispatch 3`` for 8
+               batch-32 steps (an eager dispatch, a CUDA graph captured and
+               replayed, 2 single steps), a checkpoint, then ``--resume``
+               for 8 more (captured anew after the restore), each run with SWA
                active (its last epoch averaged, the BN statistics refreshed
                over 8 batches), then ``python -m
                dcs_net_tpu_torch.cli.enhance --ckpt-dir`` on the checkpoint,
@@ -73,6 +75,27 @@ Phases (each prints one or more lines; any failure exits non-zero):
                (atol 3e-4, rtol 1e-3); (e) 10 steps on one batch, dropout on:
                the loss falls; (f) the median step time over 20 steps and
                audio-s/s per GPU;
+     graph   -- ``--steps-per-dispatch`` K = 8: the train steps as one CUDA
+               graph of 8 steps replayed a dispatch (``train/steps.py``), on
+               phase 7's batch (rotated and rolled into 24): (a) DCS at batch
+               32: capture seconds, the private pool, one replay's launches
+               (8 times a step's, the counts reset before the capture and read
+               after; the profiler's count of the port's kernels in a replay
+               equal to them), the median step over 5 replays and audio-s/s
+               beside phase 7 (f)'s eager median, a replay's device busy time
+               and idle share; two eager runs' drift under cuDNN's default
+               algorithms; with cuDNN's deterministic algorithms: (b) dropout
+               on, an eager dispatch and a replay against 16 eager steps
+               (losses rtol 1e-4, the state in the oracle band) and a replay
+               with the generator reseeded that must differ by over 1e-3;
+               (c) NaN waves at one inner step: skipped there only, Adam's
+               count up by 7, the state as 7 eager steps'; (d) the plateau
+               halving the lr tensor in place between replays: the next
+               replay's update as eager steps' at that lr; (e) DRS: capture,
+               the first replayed step's loss against eager from the same
+               state (rtol 1e-5), its timing as in (a); (f) ``cli.train`` at
+               the card's default K = 8, two epochs of 16 steps: 3 replays,
+               its steady audio-s/s;
      eval    -- the evaluation path on what phase 7 left (its checkpoint,
                8 synthetic test pairs, its trainer's events): (a) ``python
                -m dcs_net_tpu_torch.cli.test --composite``: one CSV row per
@@ -132,6 +155,17 @@ REL_TOL = 1e-4                    # kernel vs plain, relative to max |plain|
 SLICE_RTOL, SLICE_ATOL = 1e-3, 3e-4
 TRAIN_BATCH, TRAIN_CROP, CARD_CPU_BATCH = 32, 8160, 4
 TRAIN_STEPS, TRAIN_N_SYNTHETIC = 8, 480       # 480 pairs: 384 train, 96 val
+GRAPH_K = 8                  # train steps a CUDA graph replay, the CLI's card default
+GRAPH_TRAIN_N = 640          # the K = 8 trainer run's pairs: 512 train, 16 steps an epoch
+# the device kernels of the port's entry points, as the profiler names them
+PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "stft_kernel", "conv_same_kernel", "conv7_kernel",
+                       "sa_pool_kernel", "sa_gate_kernel", "sa_gate_real_kernel",
+                       "tapconv_kernel", "pack_kernel")
+# one train step's launches of each kernel, forward and input gradient (DCS and DRS)
+TRAIN_STEP_LAUNCHES = {"stft": 1, "conv_same_small_cout": 13, "conv_same_small_cout_dgrad": 13,
+                       "tapconv_valid": 7, "tapconv_pack": 7, "tapconv_valid_dgrad": 7,
+                       "tapconv_pack_dgrad": 7, "sa_pool": 0, "sa_gate": 0,
+                       "sa_pool_real": 0, "sa_gate_real": 0}
 EVAL_N_TEST = 8                               # test pairs beside them
 TUNE_BATCH, TUNE_N_SYNTHETIC = 4, 40          # 40 pairs: 32 train, 8 val
 # card vs CPU on the same weights and utterance, metrics of the two audios.
@@ -1335,14 +1369,17 @@ def run_cli(module, args, timeout=600):
     return r.stdout, time.perf_counter() - t0
 
 
-def run_trainer(tmp, epochs, resume, card):
+def run_trainer(tmp, epochs, resume, card, flags=(), n_pairs=TRAIN_N_SYNTHETIC,
+                steps=TRAIN_STEPS):
     """``python -m dcs_net_tpu_torch.cli.train`` in a subprocess: returns its
-    stdout and final metrics."""
+    stdout and final metrics. A run whose steps per dispatch K > 1 must
+    capture its CUDA graph and replay it (``graph_replays`` in its final
+    metrics)."""
     import ast
 
-    args = ["dcs", "--synthetic", "--synthetic-n", str(TRAIN_N_SYNTHETIC), "--batch-size",
-            str(TRAIN_BATCH), "--limit-train-batches", str(TRAIN_STEPS), "--epochs",
-            str(epochs), "--log-dir", tmp] + (["--resume"] if resume else [])
+    args = ["dcs", "--synthetic", "--synthetic-n", str(n_pairs), "--batch-size",
+            str(TRAIN_BATCH), "--limit-train-batches", str(steps), "--epochs",
+            str(epochs), "--log-dir", tmp, *flags] + (["--resume"] if resume else [])
     stdout, wall = run_cli("train", args)
     final = [ln for ln in stdout.splitlines() if ln.startswith("final: ")]
     if not final:
@@ -1353,6 +1390,13 @@ def run_trainer(tmp, epochs, resume, card):
                if ln.startswith("epoch ") and ln.endswith("s)")]
     print(f"train: cli {' '.join(args)}: exit 0 in {wall:.1f} s (last epoch "
           f"{epoch_s[-1] if epoch_s else '?'} s), {metrics} [{card}]", flush=True)
+    k = int(next(ln for ln in stdout.splitlines() if ln.startswith("variant="))
+            .rsplit("steps_per_dispatch=", 1)[1])
+    captures = [ln for ln in stdout.splitlines() if ln.startswith("graph: captured")]
+    for ln in captures:
+        print(f"train: {ln}", flush=True)
+    if k > 1 and not (captures and metrics.get("graph_replays", 0) >= 1):
+        fail(f"the trainer at {k} steps a dispatch never replayed a graph: {metrics}")
     return stdout, metrics
 
 
@@ -1506,10 +1550,7 @@ def check_train(dev, card, tmp):
     launches = {k.name: k.launches for k in cuda_lib.KERNELS.values()}
     print(f"train: train_step launches {launches}, loss {float(out['loss']):.4f}",
           flush=True)
-    want = {"stft": 1, "conv_same_small_cout": 13, "conv_same_small_cout_dgrad": 13,
-            "tapconv_valid": 7, "tapconv_pack": 7, "tapconv_valid_dgrad": 7,
-            "tapconv_pack_dgrad": 7, "sa_pool": 0, "sa_gate": 0}
-    for name, n in want.items():
+    for name, n in TRAIN_STEP_LAUNCHES.items():
         if launches.get(name, 0) != n:
             fail(f"kernel {name} launched {launches.get(name, 0)} times in one "
                  f"train step, expected {n}")
@@ -1529,12 +1570,14 @@ def check_train(dev, card, tmp):
     # (d) the trainer: 8 steps and a checkpoint, then --resume for 8 more;
     # SWA starts at epoch int(0.8 * epochs), so each run averages its last
     # epoch and refreshes the BN statistics over the next epoch's batches
-    _, first = run_trainer(tmp, 1, False, card)
+    # at 3 steps a dispatch: an eager dispatch, a capture and replay, 2 single
+    # steps; the resumed run captures anew after its restore
+    _, first = run_trainer(tmp, 1, False, card, ["--steps-per-dispatch", "3"])
     ckpt = CheckpointManager(os.path.join(tmp, "dcs", "checkpoints"))
     if (first.get("steps") != TRAIN_STEPS or first.get("nonfinite_loss_steps") != 0
             or ckpt.latest_step() != TRAIN_STEPS):
         fail(f"the trainer's first run: {first}, checkpoints {ckpt.steps()}")
-    stdout, second = run_trainer(tmp, 2, True, card)
+    stdout, second = run_trainer(tmp, 2, True, card, ["--steps-per-dispatch", "3"])
     if (f"resumed from step {TRAIN_STEPS} (epoch 1)" not in stdout
             or second.get("epoch") != 1 or second.get("nonfinite_loss_steps") != 0
             or ckpt.latest_step() != 2 * TRAIN_STEPS):
@@ -1578,7 +1621,294 @@ def check_train(dev, card, tmp):
           f"{walls[-1]:.2f}), {audio_s / med * 1e3:.1f} audio-s/s per GPU, peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]",
           flush=True)
-    return rows, launches
+    return rows, launches, (noisy, clean, med)
+
+
+def graph_waves(noisy, clean, n):
+    """``n`` host batches (n, B, crop) made from one device batch: batch i is
+    it with its utterances rotated by i and each rolled by 509 i samples."""
+    import torch
+
+    return tuple(torch.from_numpy(np.stack([
+        np.roll(np.roll(a, i, axis=0), 509 * i, axis=1) for i in range(n)]))
+        for a in (noisy.cpu().numpy(), clean.cpu().numpy()))
+
+
+def port_launches(kernels) -> int:
+    """The port's kernel launches among a profile's device kernels."""
+    import re
+
+    pattern = re.compile(r"\b(?:" + "|".join(PORT_KERNEL_SYMBOLS) + r")\b")
+    return sum(e.count for e in kernels if pattern.search(e.key))
+
+
+def time_graph(what, scanned, launches, x, y, eager_ms, card):
+    """A captured step's time: the median over 5 replays (each dispatch,
+    its waves' copy included, ended by a synchronize) per train step and the
+    audio-s/s per GPU, beside ``eager_ms``; one replay under the profiler:
+    device kernels (the port's among them, held to ``launches``, the
+    capture's counts), busy time and idle share. Returns the per-step
+    median."""
+    import torch
+
+    from dcs_net_tpu_torch.utils import cuda_lib
+    from dcs_net_tpu_torch.utils.timing import profiled
+
+    k = scanned.k
+    counted = sum(launches[kn.name] for kn in cuda_lib.KERNELS.values()
+                  if kn.counted_with is None)
+    walls = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        scanned(x, y)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3 / k)
+    walls.sort()
+    med = walls[2]
+    wall, busy, n_launch, kernels = profiled(lambda: scanned(x, y))
+    ours = port_launches(kernels)
+    audio_s = TRAIN_BATCH * TRAIN_CROP / SR
+    print(f"graph: {what}: {k} steps a replay at batch {TRAIN_BATCH} x {TRAIN_CROP}: "
+          f"median {med:.2f} ms a step over 5 replays (min {walls[0]:.2f}, max "
+          f"{walls[-1]:.2f}), {audio_s / med * 1e3:.1f} audio-s/s per GPU, against "
+          f"{eager_ms:.2f} ms a step eager ({audio_s / eager_ms * 1e3:.1f} audio-s/s); "
+          f"one replay under the profiler: wall {wall:.2f} ms, {n_launch} device "
+          f"kernels ({ours} of the port's), busy {busy:.2f} ms ({busy / k:.2f} a step), "
+          f"idle share {1 - busy / wall:.3f} ({1 - busy / (k * med):.3f} of the "
+          f"median) [{card}]", flush=True)
+    if ours != counted:
+        fail(f"{what}: the profiler saw {ours} launches of the port's kernels in one "
+             f"replay, the capture counted {counted}")
+    return med
+
+
+def capture_graph(what, model, opt, cfg, x, y, between=None):
+    """An eager dispatch of ``GRAPH_K`` steps (waves 0..K-1), ``between()``
+    if given, then the capture and first replay (waves K..2K-1), the launch
+    counts set to 0 just before it and read just after: one replay's
+    launches, ``GRAPH_K`` times a step's. Returns the scanned step, both
+    dispatches' losses and the counts."""
+    import torch
+
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    k = GRAPH_K
+    scanned = steps.make_scanned_train_step(model, opt, cfg, k)
+    first = scanned(x[:k], y[:k])["loss"].clone()
+    if between is not None:
+        between()
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    second = scanned(x[k:2 * k], y[k:2 * k])["loss"].clone()
+    torch.cuda.synchronize()
+    launches = {kn.name: kn.launches for kn in cuda_lib.KERNELS.values()}
+    print(f"graph: {what}: captured {k} train steps in {scanned.capture_s:.2f} s, "
+          f"private pool {scanned.pool_bytes / 2**30:.2f} GiB, one replay's launches "
+          f"{ {n: c for n, c in launches.items() if c} }", flush=True)
+    for name, n in TRAIN_STEP_LAUNCHES.items():
+        if launches.get(name, 0) != k * n:
+            fail(f"{what}: kernel {name} launched {launches.get(name, 0)} times in one "
+                 f"replay of {k} steps, expected {k * n}")
+    losses = torch.cat([first, second]).tolist()
+    if not all(map(math.isfinite, losses)):
+        fail(f"{what}: a non-finite loss in the graphed steps: {losses}")
+    return scanned, losses, launches
+
+
+def state_band(what, got_model, want_model) -> None:
+    """Every parameter and BN statistic of ``got_model`` in the oracle band
+    of ``want_model``'s."""
+    worst = 0.0
+    want_state = want_model.state_dict()
+    for name, got in got_model.state_dict().items():
+        want = want_state[name]
+        if not want.is_floating_point():
+            continue
+        bad, excess, drift, rel = outside_band(got.double().cpu(), want.double().cpu())
+        if bad:
+            fail(f"{what}: {name} outside the band (excess {excess:.3e}, mean drift "
+                 f"{drift:.3e})")
+        worst = max(worst, float((got - want).abs().max()))
+    print(f"{what}: every parameter and BN statistic within the band, max |diff| "
+          f"{worst:.3e}", flush=True)
+
+
+def check_graph(dev, card, tmp, noisy, clean, eager_ms):
+    """Phase "graph": ``--steps-per-dispatch`` K > 1 on the card, one CUDA
+    graph of K train steps replayed a dispatch, on phase "train"'s batch.
+    Returns one replay's launch counts, DCS's and DRS's."""
+    import dataclasses
+
+    import torch
+
+    from dcs_net_tpu_torch.core.config import config_for_variant
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.train.optim import (get_lr, make_optimizer, make_plateau,
+                                               optimizer_tensors, step_count)
+
+    t_phase = time.perf_counter()
+    k = GRAPH_K
+    cfg = config_for_variant("dcs")
+    x, y = graph_waves(noisy, clean, 3 * k)
+
+    def model_pair(c, seed, gen_seed=None):
+        """Two models (and optimizers) of the same weights, each with its own
+        dropout generator seeded ``gen_seed``."""
+        out = []
+        for _ in range(2):
+            m = DCSNet(c.model, c.quirks, device=dev, seed=seed)
+            if gen_seed is not None:
+                m.set_dropout_generator(torch.Generator(device=dev).manual_seed(gen_seed))
+            out += [m, make_optimizer(m.parameters(), c.optim)]
+        return out
+
+    def eager(m, o, c, idx):
+        return [float(steps.train_step(m, o, steps.batch_from_waves(
+            x[i].to(dev), y[i].to(dev), c), c)["loss"]) for i in idx]
+
+    # (a) DCS at batch 32 with K = 8: capture, launches, replay time
+    model = DCSNet(cfg.model, cfg.quirks, device=dev, seed=SEED + 40)
+    model.set_dropout_generator(torch.Generator(device=dev).manual_seed(SEED + 41))
+    scanned, _, launches = capture_graph("DCS", model, make_optimizer(
+        model.parameters(), cfg.optim), cfg, x, y)
+    time_graph("DCS", scanned, launches, x[:k], y[:k], eager_ms, card)
+    del model, scanned
+    torch.cuda.empty_cache()
+
+    # (b)-(d) are held against eager steps with cuDNN's deterministic
+    # algorithms on both sides: its default backward ones sum with atomics,
+    # so two eager runs from one state part after a few steps, as this shows
+    a, oa, b, ob = model_pair(cfg, SEED + 42, SEED + 43)
+    la, lb = eager(a, oa, cfg, range(2 * k)), eager(b, ob, cfg, range(2 * k))
+    print(f"graph: two eager runs of {2 * k} steps from one state, cuDNN's default "
+          f"algorithms: relative loss difference {abs(la[k] - lb[k]) / abs(lb[k]):.3e} "
+          f"at step {k + 1}, {max(abs(x - w) / abs(w) for x, w in zip(la, lb)):.3e} at "
+          f"most", flush=True)
+    del a, oa, b, ob
+    torch.backends.cudnn.deterministic = True
+    try:
+        # (b) dropout on: 16 steps, an eager dispatch and a replay, against 16
+        # eager steps; a witness replay with the generator reseeded
+        a, oa, b, ob = model_pair(cfg, SEED + 42, SEED + 43)
+        sa = steps.make_scanned_train_step(a, oa, cfg, k)
+        got = sa(x[:k], y[:k])["loss"].tolist()
+        kept = [t.detach().clone() for t in
+                list(a.parameters()) + list(a.buffers()) + optimizer_tensors(oa)]
+        got += sa(x[k:2 * k], y[k:2 * k])["loss"].tolist()
+        want = eager(b, ob, cfg, range(2 * k))
+        err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        print(f"graph: (b) dropout on, {2 * k} steps (an eager dispatch and a replay) "
+              f"against {2 * k} eager steps: max relative loss difference {err:.3e} "
+              f"(limit 1e-4)", flush=True)
+        if not err <= 1e-4:
+            fail(f"graph (b): the graphed steps' losses {got} are not eager's {want}")
+        state_band("graph: (b) after 16 steps", a, b)
+        for t, v in zip(list(a.parameters()) + list(a.buffers()) + optimizer_tensors(oa),
+                        kept):
+            with torch.no_grad():
+                t.copy_(v)
+        a.dropout_generator.manual_seed(SEED + 44)
+        witness = sa(x[k:2 * k], y[k:2 * k])["loss"].tolist()
+        werr = max(abs(g - w) / abs(w) for g, w in zip(witness, want[k:]))
+        print(f"graph: (b) witness: the replay with the generator reseeded differs "
+              f"by {werr:.3e} (must exceed 1e-3)", flush=True)
+        if not werr > 1e-3:
+            fail("graph (b): a replay with other dropout masks agreed with eager")
+        del a, oa, b, ob, sa
+        torch.cuda.empty_cache()
+
+        # (c) dropout off, inner step j's waves NaN: the gate inside the graph
+        ncfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_conv=0.0,
+                                                     dropout_fc=0.0))
+        c, oc, d, od = model_pair(ncfg, SEED + 45)
+        sc = steps.make_scanned_train_step(c, oc, ncfg, k)
+        sc(x[:k], y[:k])
+        j = 3
+        xn, yn = x[k:2 * k].clone(), y[k:2 * k].clone()
+        xn[j], yn[j] = float("nan"), float("nan")
+        before = step_count(oc)
+        out = sc(xn, yn)
+        skipped = out["skipped"].tolist()
+        applied = step_count(oc) - before
+        eager(d, od, ncfg, list(range(k)) + [k + i for i in range(k) if i != j])
+        print(f"graph: (c) NaN waves at inner step {j}: skipped {skipped}, Adam's "
+              f"step count rose by {applied}", flush=True)
+        if skipped != [1.0 if i == j else 0.0 for i in range(k)] or applied != k - 1:
+            fail("graph (c): the NaN gate inside the graph did not skip exactly "
+                 f"step {j}")
+        state_band("graph: (c) the NaN dispatch against 7 eager steps", c, d)
+
+        # (d) the plateau halves the lr in place between replays
+        lr_t = oc.param_groups[0]["lr"]
+        lr0 = get_lr(oc)
+        for o in (oc, od):
+            plateau = make_plateau(o, dataclasses.replace(
+                ncfg.optim, plateau_factor=0.5, plateau_patience=0))
+            plateau.step(1.0)
+            plateau.step(2.0)
+        p_c = torch.cat([p.detach().reshape(-1) for p in c.parameters()])
+        p_d = torch.cat([p.detach().reshape(-1) for p in d.parameters()])
+        sc(x[2 * k:], y[2 * k:])
+        eager(d, od, ncfg, range(2 * k, 3 * k))
+        up_c = torch.cat([p.detach().reshape(-1) for p in c.parameters()]) - p_c
+        up_d = torch.cat([p.detach().reshape(-1) for p in d.parameters()]) - p_d
+        uerr = float((up_c - up_d).abs().max() / up_d.abs().max())
+        print(f"graph: (d) lr {lr0:.3e} -> {get_lr(oc):.3e} in place (the same tensor: "
+              f"{oc.param_groups[0]['lr'] is lr_t}); the next replay's update against "
+              f"eager steps at that lr: max |diff| / max |update| {uerr:.3e} (limit "
+              f"1e-3; at the old lr it would be about 1)", flush=True)
+        if oc.param_groups[0]["lr"] is not lr_t or get_lr(oc) != lr0 / 2 or uerr > 1e-3:
+            fail("graph (d): the replay did not take the plateau's lr")
+        state_band("graph: (d) after the replay at half the lr", c, d)
+        del c, oc, d, od, sc
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (e) DRS: capture, the first inner step's loss against eager from the same
+    # state (no update between), and its time beside eager steps
+    rcfg = config_for_variant("drs")
+    e, oe, f, of = model_pair(rcfg, SEED + 46, SEED + 47)
+    eager_first = []
+
+    def first_step_on_f():
+        """f takes e's state after its eager dispatch; its loss on the next
+        waves is the replay's first step's."""
+        f.load_state_dict(e.state_dict())
+        f.dropout_generator.set_state(e.dropout_generator.get_state())
+        eager_first.append(float(steps.loss_and_grads(f, steps.batch_from_waves(
+            x[k].to(dev), y[k].to(dev), rcfg), rcfg)[0]))
+
+    se, losses, rlaunches = capture_graph("DRS", e, oe, rcfg, x, y, first_step_on_f)
+    want = eager_first[0]
+    print(f"graph: (e) DRS first replayed step's loss {losses[k]:.7f}, eager from the "
+          f"same state {want:.7f}", flush=True)
+    if not abs(losses[k] - want) <= 1e-5 * abs(want):
+        fail("graph (e): the DRS replay's first step is not eager's")
+    walls = []
+    for i in range(6):
+        t1 = time.perf_counter()
+        eager(f, of, rcfg, [i])
+        walls.append((time.perf_counter() - t1) * 1e3)
+    time_graph("DRS", se, rlaunches, x[:k], y[:k], sorted(walls[1:])[2], card)
+    del e, oe, f, of, se
+    torch.cuda.empty_cache()
+
+    # (f) the trainer at the CLI's card default, 8 steps a dispatch: two
+    # epochs of 16 steps, an eager dispatch, then three replays
+    _, metrics = run_trainer(os.path.join(tmp, "k8"), 2, False, card, (),
+                             GRAPH_TRAIN_N, 2 * k)
+    print(f"graph: (f) the trainer at {k} steps a dispatch: {metrics.get('graph_replays')} "
+          f"replays, steady {metrics.get('steady_audio_seconds_per_s')} audio-s/s "
+          f"per GPU, {metrics.get('audio_seconds_per_s')} over its last epoch [{card}]",
+          flush=True)
+    if (metrics.get("graph_replays", 0) < 2 or metrics.get("steps") != 2 * k
+            or metrics.get("nonfinite_loss_steps") != 0):
+        fail(f"graph (f): the trainer at {k} steps a dispatch: {metrics}")
+    print(f"graph: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, rlaunches
 
 
 def read_events(path):
@@ -1856,11 +2186,7 @@ def check_real(dev, card):
     tlaunches = counts()
     print(f"real: DRS train_step launches {tlaunches}, loss {float(r['loss']):.4f}",
           flush=True)
-    expect("one DRS train step", tlaunches, {
-        "stft": 1, "conv_same_small_cout": 13, "conv_same_small_cout_dgrad": 13,
-        "tapconv_valid": 7, "tapconv_pack": 7, "tapconv_valid_dgrad": 7,
-        "tapconv_pack_dgrad": 7, "sa_pool": 0, "sa_gate": 0, "sa_pool_real": 0,
-        "sa_gate_real": 0})
+    expect("one DRS train step", tlaunches, TRAIN_STEP_LAUNCHES)
     # (B, H, W, Cin, K, Cout, R, TX, TY): R = 0 names the generic body
     for name in ("conv_same_small_cout", "conv_same_small_cout_dgrad"):
         generic = [a for a in tshapes[name] if a[6] == 0]
@@ -2058,8 +2384,12 @@ def main() -> int:
 
     # phase 7: the train step and the trainer
     # phase "eval": the evaluation path on what phase 7 left
+    # phase "graph": the train steps as one CUDA graph replay a dispatch
     with tempfile.TemporaryDirectory(prefix="dcs_train_") as tmp:
-        train_rows, train_launches = check_train(dev, card, tmp)
+        train_rows, train_launches, (noisy, clean, eager_ms) = check_train(dev, card, tmp)
+        graph_launches, drs_graph_launches = check_graph(dev, card, tmp, noisy, clean,
+                                                         eager_ms)
+        del noisy, clean
         eval_rows = check_eval(dev, card, tmp)
     del model, cpu_model
     for row in rows:
@@ -2073,11 +2403,16 @@ def main() -> int:
             next(r for r in rows if r["name"] == row["name"])["train_step"] = {
                 k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                     "bound_by", "max_abs_err", "shapes")}
+    for row in rows:
+        row["launches_graph_replay"] = graph_launches.get(row["name"], 0)
 
     rows += eval_rows
 
     # phase 8: the real family (DR/DRS) at full width
-    rows += check_real(dev, card)
+    real_rows = check_real(dev, card)
+    for row in real_rows:
+        row["launches_graph_replay"] = drs_graph_launches.get(row["name"][:-len("_drs")], 0)
+    rows += real_rows
     print(f"total: {time.perf_counter() - t0:.1f} s after the device check", flush=True)
 
     print(json.dumps({"kernels": rows}), flush=True)

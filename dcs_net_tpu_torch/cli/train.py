@@ -1,17 +1,21 @@
 """Train on the GPU: ``python -m dcs_net_tpu_torch.cli.train {dr,dc,drs,dcs}
-[--synthetic] [--epochs N] [--batch-size B] [--limit-train-batches K]
-[--resume]``.
+[--synthetic] [--epochs N] [--batch-size B] [--limit-train-batches N]
+[--steps-per-dispatch K] [--resume]``.
 
 The flags are the JAX CLI's plus ``--device`` (default cuda; ``cpu`` runs the
 kernels' plain versions). ``--resume`` restores the model, the optimizer,
 the plateau scheduler and the epoch from the latest checkpoint under the
-checkpoint directory. Not yet ported, and rejected: ``--dtype bfloat16``
-(ROADMAP Queue 1 item 9) and ``--steps-per-dispatch`` above 1 (item 4).
+checkpoint directory. ``--steps-per-dispatch K`` runs K train steps a
+dispatch, on the card as one CUDA graph replay (default 8 there, 1 with
+``--device cpu``, as the JAX CLI's default is 8 on an accelerator); it
+overrides ``--config-json``'s value, as in the JAX CLI. Not yet ported, and
+rejected: ``--dtype bfloat16`` (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 
 from dcs_net_tpu_torch.cli.common import (add_common_args, build_config,
@@ -34,21 +38,26 @@ def main(argv=None) -> dict:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--limit-train-batches", type=int, default=None,
                    help="cap train batches per epoch (smoke runs)")
-    p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="train steps fused per device dispatch; the port runs 1")
+    p.add_argument("--steps-per-dispatch", type=int, default=None,
+                   help="train steps per device dispatch, on the card one CUDA "
+                        "graph replay; default 8 on the card, 1 on the CPU")
     args = p.parse_args(argv)
     check_ported(p, args)
-    if args.steps_per_dispatch != 1:
-        p.error("--steps-per-dispatch > 1 is not yet ported: the port runs one "
-                "train step a dispatch (ROADMAP Queue 1 item 4)")
+    k = args.steps_per_dispatch
+    if k is None:
+        k = 1 if args.device == "cpu" else 8
+    if k < 1:
+        p.error(f"--steps-per-dispatch must be at least 1, got {k}")
 
     from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
     from dcs_net_tpu_torch.train.loop import Trainer
 
     cfg = build_config(args)
+    cfg = cfg.replace(run=dataclasses.replace(cfg.run, steps_per_dispatch=k))
     print(f"variant={cfg.variant} complex={cfg.model.complex_valued} "
           f"subtractive={cfg.model.subtractive} faithful_quirks="
-          f"{cfg.quirks == cfg.quirks.__class__()} device={args.device}")
+          f"{cfg.quirks == cfg.quirks.__class__()} device={args.device} "
+          f"steps_per_dispatch={k}")
     loaders = make_loaders(cfg)
     train_loader, val_loader = loaders
     trainer = Trainer(cfg, device=args.device)

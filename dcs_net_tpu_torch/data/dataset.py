@@ -9,7 +9,9 @@ overlapped with the device's work by a background thread that keeps
 load, equal clean and noisy lengths, a crop of ``crop_samples`` (8160), zero
 right-pad for short utterances and a uniform random start otherwise, the same
 seeded crop starts and shuffles (so both packages yield the same batches),
-and a check for non-finite samples per item.
+and a check for non-finite samples per item. The loader runs numpy only: its
+threads make no CUDA call, so they may prefetch while the trainer captures a
+CUDA graph (a capture forbids such calls from any thread).
 """
 
 from __future__ import annotations

@@ -121,6 +121,12 @@ class DCSNet(nn.Module):
         self.dropout_conv.generator = generator
         self.dropout_fc.generator = generator
 
+    @property
+    def dropout_generator(self) -> Optional[torch.Generator]:
+        """The generator the dropout masks are drawn from (None: the global
+        one)."""
+        return self.dropout_conv.generator
+
     def _attend(self, name: str, x):
         """x with the CBAM pair ``<name>_ca`` and ``<name>_sa`` applied."""
         ca, sa = getattr(self, f"{name}_ca"), getattr(self, f"{name}_sa")

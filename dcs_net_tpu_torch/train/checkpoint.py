@@ -22,6 +22,7 @@ from typing import Dict, List, Optional
 import torch
 
 from dcs_net_tpu_torch.core.config import Config
+from dcs_net_tpu_torch.train.optim import load_optimizer_state
 
 FORMAT_VERSION = 1
 MAX_TO_KEEP = 3         # the newest steps kept on disk
@@ -96,9 +97,10 @@ class CheckpointManager:
         return path
 
     def restore(self, model: torch.nn.Module, opt: torch.optim.Optimizer) -> Dict:
-        """Load the latest step into ``model`` and ``opt``; returns the
-        ``extra`` dict saved with it."""
+        """Load the latest step into ``model`` and ``opt`` (the learning
+        rate in place, ``load_optimizer_state``); returns the ``extra`` dict
+        saved with it."""
         payload = _load(self.directory, "cpu")
         model.load_state_dict(payload["model"])
-        opt.load_state_dict(payload["optim"])
+        load_optimizer_state(opt, payload["optim"])
         return payload["extra"]

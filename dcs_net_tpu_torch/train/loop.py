@@ -10,10 +10,13 @@ average is swapped in and the BN statistics are refreshed for it.
 Faithful details kept: the plateau monitors ``val_loss`` for subtractive
 variants but the TRAIN ``speech_loss`` for plain ones, and stops acting (the
 learning rate is held) from the SWA start epoch on. The device is told
-nothing per step: metrics stay device scalars and are fetched every
-``log_every_n_steps`` steps and at the end of the epoch. Each epoch's
-dropout masks come from a generator keyed by ``(seed, epoch)``, so a run
-resumed from a checkpoint draws the masks the uninterrupted run draws.
+nothing per step: metrics stay on the device and are fetched when a log is
+due and at the end of the epoch. With ``steps_per_dispatch`` K > 1 the
+steps go K to a dispatch, through ``train/steps.py``'s scanned step (on the
+card one CUDA graph replay), as the JAX trainer groups them. Each epoch's
+dropout masks come from the trainer's one generator, reseeded in place from
+``(seed, epoch)``, so a run resumed from a checkpoint draws the masks the
+uninterrupted run draws, and a captured graph keeps drawing from it.
 
 Not yet ported (ROADMAP Queue 1 item 6): TensorBoard and histogram logging.
 """
@@ -79,12 +82,9 @@ class Trainer:
 
     def __init__(self, cfg: Config, device: DeviceLike = None,
                  log_dir: Optional[str] = None, pesq_fn=None):
-        if cfg.run.steps_per_dispatch > 1:
-            raise NotImplementedError(
-                "steps_per_dispatch > 1 is not yet ported: one train step a "
-                "dispatch (a CUDA graph of the step is ROADMAP Queue 1 item 4)")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self._dropout = torch.Generator(device=self.device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         self.writer = Writer(log_dir or cfg.run.log_dir)
@@ -103,6 +103,7 @@ class Trainer:
                     if cfg.optim.swa else None)
         self.epoch = 0
         self._last_train_metrics: Dict[str, float] = {}
+        self._scanned: Optional[S.ScannedTrainStep] = None
 
     # -- state --------------------------------------------------------------
     def init_state(self) -> None:
@@ -111,6 +112,7 @@ class Trainer:
                             seed=self.cfg.run.seed)
         self.opt = make_optimizer(self.model.parameters(), self.cfg.optim)
         self.plateau = make_plateau(self.opt, self.cfg.optim)
+        self._scanned = None
 
     @property
     def step(self) -> int:
@@ -124,58 +126,111 @@ class Trainer:
 
     # -- epochs -------------------------------------------------------------
     def train_epoch(self, batches: Iterable[HostBatch], epoch: int) -> Dict[str, float]:
-        """One pass of train steps. Returns the metric means over the epoch,
-        ``steps`` and ``nonfinite_loss_steps`` (steps whose loss was not
-        finite), ``audio_seconds_per_s`` (per GPU, host clock, the epoch
-        ended by fetching its metrics) and ``steady_audio_seconds_per_s``,
-        the same after the first step (its warm-up left out: the first
-        batch's load, the device's first-use initialisation)."""
+        """One pass of train steps, ``cfg.run.steps_per_dispatch`` (K) to a
+        dispatch: K host batches stacked into one call of the scanned step
+        (captured at its second call on the card, replayed from then on),
+        the epoch's last ``len % K`` batches as single steps, as the JAX
+        trainer groups them. Logs the dispatch's last step when a multiple
+        of ``log_every_n_steps`` falls within it. Returns the metric means
+        over the dispatches, each its last step's metrics (a single step is
+        its own dispatch), as the JAX trainer averages them; ``steps``
+        (every step) and ``nonfinite_loss_steps`` (steps whose loss was not
+        finite, every inner step counted); ``audio_seconds_per_s`` (per GPU,
+        host clock, the epoch ended by fetching its metrics) and
+        ``steady_audio_seconds_per_s``, the same after the first dispatch
+        and after the one that captured the graph (their warm-up left out:
+        the first batch's load, the device's first-use initialisation, the
+        capture)."""
         if self.model is None:
             raise RuntimeError("call init_state() first")
         cfg = self.cfg
+        k = max(cfg.run.steps_per_dispatch, 1)
+        if k > 1 and self._scanned is None:
+            self._scanned = S.make_scanned_train_step(self.model, self.opt, cfg, k)
         # this epoch's dropout masks, keyed as the JAX trainer keys its rng
-        self.model.set_dropout_generator(torch.Generator(device=self.device).manual_seed(
-            epoch_seed(cfg.run.seed, epoch)))
+        self._dropout.manual_seed(epoch_seed(cfg.run.seed, epoch))
+        self.model.set_dropout_generator(self._dropout)
         meter = ThroughputMeter(cfg.data.batch_size * cfg.data.crop_samples / cfg.data.sr)
         t0 = time.perf_counter()
-        agg: Dict[str, List[torch.Tensor]] = {}
+        keys: List[str] = []
+        rows: List[torch.Tensor] = []   # a dispatch's metrics, (keys, its steps)
         gstep = self.step
+        n = n_first = 0
         t_first = None
-        for host_batch in batches:
-            metrics = S.train_step(self.model, self.opt,
-                                   self._device_batch(host_batch), cfg)
-            meter.tick()
-            if t_first is None:     # the first step's end: one sync an epoch
+
+        def record(metrics: Dict[str, torch.Tensor], restart: bool) -> None:
+            """Keep a dispatch's metrics on the device; with ``restart`` (or
+            at the first dispatch) wait for the device and restart the
+            steady clock after it."""
+            nonlocal gstep, n, n_first, t_first
+            if not keys:
+                keys.extend(metrics)
+            block = torch.stack([metrics[key].reshape(-1) for key in keys])
+            rows.append(block)
+            ticks = block.shape[1]
+            for _ in range(ticks):
+                meter.tick()
+            gstep += ticks
+            n += ticks
+            if t_first is None or restart:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-                t_first = time.perf_counter()
-            gstep += 1
-            for k, v in metrics.items():
-                agg.setdefault(k, []).append(v)
-            if gstep % cfg.run.log_every_n_steps == 0:
-                self.writer.scalars({k: float(v) for k, v in metrics.items()},
-                                    gstep, prefix="train/")
+                t_first, n_first = time.perf_counter(), n
+            if gstep % cfg.run.log_every_n_steps < ticks:
+                self.writer.scalars(dict(zip(keys, block[:, -1].tolist())), gstep,
+                                    prefix="train/")
                 self.writer.scalar("train/lr", get_lr(self.opt), gstep)
                 if meter.audio_seconds_per_sec:
                     self.writer.scalar("perf/audio_seconds_per_s",
                                        meter.audio_seconds_per_sec, gstep)
-        if not agg:
+
+        def single(host_batch: HostBatch) -> None:
+            record(S.train_step(self.model, self.opt, self._device_batch(host_batch),
+                                cfg), False)
+
+        pending: List[HostBatch] = []
+        for host_batch in batches:
+            if k == 1:
+                single(host_batch)
+                continue
+            pending.append(host_batch)
+            if len(pending) == k:
+                record(*self._dispatch(pending))
+                pending = []
+        for host_batch in pending:      # the ragged tail: single steps
+            single(host_batch)
+        if not rows:
             return {"epoch": epoch, "steps": 0}
-        # one fetch per key: the fence that makes the epoch's wall time true
-        stacked = {k: torch.stack(v).double().cpu().numpy() for k, v in agg.items()}
+        # one fetch: the fence that makes the epoch's wall time true
+        host = torch.cat(rows, dim=1).double().cpu().numpy()
         t_end = time.perf_counter()
         dt = t_end - t0
-        out: Dict[str, float] = {k: float(v.mean()) for k, v in stacked.items()}
-        n = len(stacked["loss"])
-        out.update(epoch=epoch, steps=n,
-                   nonfinite_loss_steps=int((~np.isfinite(stacked["loss"])).sum()))
+        last = np.cumsum([r.shape[1] for r in rows]) - 1
+        out: Dict[str, float] = {key: float(host[i, last].mean())
+                                 for i, key in enumerate(keys)}
+        out.update(epoch=epoch, steps=n, nonfinite_loss_steps=int(
+            (~np.isfinite(host[keys.index("loss")])).sum()))
         if dt > 0:
             out["audio_seconds_per_s"] = n * meter.aps / dt
-        if n > 1:
+        if n > n_first:
             out["steady_audio_seconds_per_s"] = (
-                (n - 1) * meter.aps / (t_end - t_first))
+                (n - n_first) * meter.aps / (t_end - t_first))
         self._last_train_metrics = out
         return out
+
+    def _dispatch(self, host_batches: List[HostBatch]
+                  ) -> Tuple[Dict[str, torch.Tensor], bool]:
+        """K host batches through the scanned step: (its metrics, whether
+        this call captured the graph). Prints a line at the capture."""
+        scanned = self._scanned
+        uncaptured = scanned.graph is None
+        metrics = scanned(torch.from_numpy(np.stack([b["noisy"] for b in host_batches])),
+                          torch.from_numpy(np.stack([b["clean"] for b in host_batches])))
+        captured = uncaptured and scanned.graph is not None
+        if captured:
+            print(f"graph: captured {scanned.k} train steps in {scanned.capture_s:.2f} s, "
+                  f"private pool {scanned.pool_bytes / 2**20:.1f} MiB", flush=True)
+        return metrics, captured
 
     def eval_epoch(self, batches: Iterable[HostBatch], epoch: int,
                    phase: str = "val", compute_metrics: bool = True,
@@ -338,8 +393,8 @@ class Trainer:
         n = 0
         was_training = self.model.training
         self.model.train()
-        self.model.set_dropout_generator(torch.Generator(device=self.device).manual_seed(
-            self.cfg.run.seed ^ 0x5A5A5A))
+        self._dropout.manual_seed(self.cfg.run.seed ^ 0x5A5A5A)
+        self.model.set_dropout_generator(self._dropout)
         try:
             with torch.no_grad():
                 for n, host_batch in enumerate(itertools.islice(batches, max_batches), 1):
@@ -363,8 +418,11 @@ class Trainer:
 
     def restore(self, ckpt: CheckpointManager) -> int:
         """Load the latest checkpoint into the model and optimizer and move
-        the loop past its epoch; returns the restored step."""
+        the loop past its epoch; returns the restored step. A captured graph
+        is thrown away (the optimizer's state tensors are new): the next
+        epoch warms up and captures anew."""
         extra = ckpt.restore(self.model, self.opt)
+        self._scanned = None
         self.epoch = int(extra["epoch"]) + 1
         self.plateau.load_state_dict(extra["plateau"])
         return self.step
@@ -379,7 +437,8 @@ class Trainer:
         ``callbacks.on_validation_end`` returns True, then ``finalize_swa``
         over the next epoch's train batches. Returns the last epoch's train
         and validation metrics, with SWA on also ``swa_n_averaged`` and
-        ``bn_refresh_batches``."""
+        ``bn_refresh_batches``, and where a CUDA graph of the steps was
+        captured, ``graph_replays`` (since the last capture)."""
         cfg = self.cfg
         if self.model is None:
             self.init_state()
@@ -406,6 +465,8 @@ class Trainer:
         if self.swa is not None:
             metrics.update(swa_n_averaged=self.swa.n_averaged,
                            bn_refresh_batches=refreshed)
+        if self._scanned is not None and self._scanned.graph is not None:
+            metrics["graph_replays"] = self._scanned.replays
         self.writer.flush()
         return metrics
 

@@ -8,9 +8,12 @@ gradient norm is clipped to 100 (``clip_grad_norm_``); the JAX package's
 ``capturable``: its step counts live on the device beside the moments, so
 the NaN gate (``train/steps.py``) can keep a skipped step's whole state on
 the device without a host round trip; :func:`make_optimizer` creates the
-state at once for the same reason. The plateau schedule is torch's own
-``ReduceLROnPlateau`` (:func:`make_plateau`), of which the JAX package keeps a
-mirror. :class:`SWA` is the JAX package's parameter average.
+state at once for the same reason. There the learning rate is a 0-d device
+tensor too, so that a CUDA graph of the step (``train/steps.py``) reads it
+at every replay: the plateau schedule, torch's own ``ReduceLROnPlateau``
+(:func:`make_plateau`, of which the JAX package keeps a mirror), fills it in
+place, and a restore writes into it (:func:`load_optimizer_state`). On the
+CPU it is a float. :class:`SWA` is the JAX package's parameter average.
 """
 
 from __future__ import annotations
@@ -27,10 +30,13 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
                    cfg: OptimConfig) -> torch.optim.Adam:
     """Adam with amsgrad and coupled L2 on ``params`` (all on one device),
     its state created now: zero moments and a zero step count, on the
-    device (capturable) when that is CUDA."""
+    device (capturable) when that is CUDA, and there the learning rate a
+    float32 device scalar."""
     params = list(params)
     on_card = params[0].device.type == "cuda"
-    opt = torch.optim.Adam(params, lr=cfg.lr, betas=(cfg.beta1, cfg.beta2),
+    lr = (torch.tensor(cfg.lr, dtype=torch.float32, device=params[0].device)
+          if on_card else cfg.lr)
+    opt = torch.optim.Adam(params, lr=lr, betas=(cfg.beta1, cfg.beta2),
                            eps=cfg.eps, weight_decay=cfg.weight_decay,
                            amsgrad=cfg.amsgrad, capturable=on_card)
     for p in params:
@@ -41,6 +47,20 @@ def make_optimizer(params: Iterable[torch.nn.Parameter],
             st["max_exp_avg_sq"] = torch.zeros_like(p)
         opt.state[p] = st
     return opt
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer, state: dict) -> None:
+    """``opt.load_state_dict(state)`` that keeps each group's learning rate
+    of the kind it had: a device tensor stays the same tensor (a captured
+    step reads it), given the saved value; a float stays a float."""
+    lrs = [g["lr"] for g in opt.param_groups]
+    opt.load_state_dict(state)
+    for g, lr in zip(opt.param_groups, lrs):
+        if isinstance(lr, torch.Tensor):
+            lr.fill_(float(g["lr"]))
+            g["lr"] = lr
+        else:
+            g["lr"] = float(g["lr"])
 
 
 def optimizer_tensors(opt: torch.optim.Optimizer) -> List[torch.Tensor]:

@@ -10,11 +10,16 @@ leaves parameters, optimizer state (step counts included) and the BN running
 statistics exactly as they were. The gate keeps a flat copy of that state
 and selects with ``torch.where`` on the device, as the JAX step's branchless
 ``where`` does: no host sync.
+
+``make_scanned_train_step`` is the JAX scanned step (K steps a dispatch) in
+the port: on the card one CUDA graph of K train steps, STFT included,
+replayed once a dispatch; on the CPU the same K steps run eagerly.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Tuple
+import time
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -179,3 +184,116 @@ def eval_step(model: torch.nn.Module, batch: Batch, cfg: Config
         losses = pipeline_losses(out, cfg)
     audio = {k[:-len("_audio")]: v for k, v in out.items() if k.endswith("_audio")}
     return losses, audio
+
+
+def make_scanned_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
+                            cfg: Config, k: int) -> "ScannedTrainStep":
+    """K train steps per dispatch, the JAX ``make_scanned_train_step``
+    (``lax.scan`` over stacked waves, the STFT inside the body): a callable
+    that takes noisy and clean waves (K, B, crop) on the host and returns
+    every inner step's metrics as (K,) tensors."""
+    return ScannedTrainStep(model, opt, cfg, k)
+
+
+class ScannedTrainStep:
+    """K train steps (STFT -> forward -> losses -> backward -> clip -> Adam
+    -> NaN gate, each) per call, in order.
+
+    On the CPU the K steps run eagerly: the plain version. On the card the
+    first call runs them eagerly too, reading the waves from static device
+    buffers (K, B, crop): real training that also warms up every lazily made
+    constant and library plan. The second call captures the K steps into one
+    ``torch.cuda.CUDAGraph`` (capture executes nothing), and every call from
+    then on replays it. The waves come in through one pinned host stack,
+    copied with ``non_blocking=True``; before the host overwrites that stack
+    it waits for the last copy out of it, so the host runs at most one
+    dispatch ahead. The metrics are written into static (K,) device tensors,
+    which the next call overwrites: read or copy them before. A capture or
+    replay error raises; nothing falls back to eager steps.
+
+    What the graph holds: the parameters, BN buffers, Adam state and its
+    learning-rate tensor, all updated in place, and the model's dropout
+    generator, registered with the graph, which replays draw from where it
+    stands (reseed it in place, ``manual_seed``, never swap it: a call with
+    another generator on the model raises). After a replay the parameters'
+    ``.grad`` are stale; the graph's own gradient buffers hold the last
+    inner step's. ``capture_s`` and ``pool_bytes`` (device memory the
+    capture reserved for its private pool) are set by the capture."""
+
+    def __init__(self, model: torch.nn.Module, opt: torch.optim.Optimizer,
+                 cfg: Config, k: int):
+        if k < 1:
+            raise ValueError(f"k must be at least 1, got {k}")
+        self.model, self.opt, self.cfg, self.k = model, opt, cfg, k
+        self.device = next(model.parameters()).device
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.replays = 0
+        self.capture_s = 0.0
+        self.pool_bytes = 0
+        self._generator = None
+        self._waves = self._pinned = self._copied = None
+        self._out: Optional[Dict[str, Tensor]] = None
+
+    def _steps(self, noisy: Tensor, clean: Tensor, out: Dict[str, Tensor]
+               ) -> Dict[str, Tensor]:
+        for i in range(self.k):
+            m = train_step(self.model, self.opt,
+                           batch_from_waves(noisy[i], clean[i], self.cfg), self.cfg)
+            for key, v in m.items():
+                if key not in out:
+                    out[key] = v.new_empty(self.k)
+                out[key][i] = v
+        return out
+
+    def _stage(self, noisy: Tensor, clean: Tensor) -> None:
+        """The host waves into the static device buffers, through the
+        pinned stack."""
+        shape = (2, self.k) + tuple(noisy.shape[1:])
+        if noisy.shape != clean.shape or tuple(noisy.shape[:1]) != (self.k,):
+            raise ValueError(f"noisy {tuple(noisy.shape)} and clean "
+                             f"{tuple(clean.shape)} are not both (K={self.k}, B, n)")
+        if self._waves is None:
+            self._pinned = torch.empty(shape, dtype=torch.float32, pin_memory=True)
+            self._waves = torch.empty(shape, dtype=torch.float32, device=self.device)
+            self._copied = torch.cuda.Event()
+        elif tuple(self._waves.shape) != shape:
+            raise ValueError(f"waves {shape[1:]} after {tuple(self._waves.shape[1:])}: "
+                             "a captured step takes one shape")
+        else:
+            self._copied.synchronize()
+        self._pinned[0].copy_(noisy)
+        self._pinned[1].copy_(clean)
+        self._waves.copy_(self._pinned, non_blocking=True)
+        self._copied.record()
+
+    def _capture(self) -> None:
+        gen = self.model.dropout_generator
+        graph = torch.cuda.CUDAGraph()
+        if gen is not None:
+            graph.register_generator_state(gen)
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()    # as the capture does first: reserved is then in use
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            self._steps(self._waves[0], self._waves[1], self._out)
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        self.graph, self._generator = graph, gen
+
+    def __call__(self, noisy: Tensor, clean: Tensor) -> Dict[str, Tensor]:
+        if self.device.type == "cpu":
+            return self._steps(noisy, clean, {})
+        self._stage(noisy, clean)
+        if self._out is None:       # the first call: eager, the warm-up
+            self._out = {}
+            return self._steps(self._waves[0], self._waves[1], self._out)
+        if self.graph is None:
+            self._capture()
+        if self.model.dropout_generator is not self._generator:
+            raise RuntimeError("the model's dropout generator is not the one the "
+                               "graph was captured with; reseed that one in place")
+        self.graph.replay()
+        self.replays += 1
+        return self._out

@@ -10,7 +10,9 @@ library, and :func:`build_all` builds every kernel at once (one ``nvcc`` per
 source, all started together).
 
 A :class:`CudaKernel` counts its launches in ``launches``; only a successful
-launch of its kernel adds one.
+launch of its kernel adds one. A launch goes on the current stream, so under
+CUDA graph capture (``train/steps.py``'s scanned step) it joins the graph:
+it counts once there, at the capture, and a replay counts nothing.
 """
 
 from __future__ import annotations

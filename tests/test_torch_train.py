@@ -367,12 +367,34 @@ def test_trainer_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("flags,message", [
     (["--dtype", "bfloat16"], "not yet ported"),
-    (["--steps-per-dispatch", "8"], "not yet ported"),
+    (["--steps-per-dispatch", "2"], None),
 ], ids=["bf16", "scan"])
-def test_train_cli_rejects_unported_flags(flags, message, capsys):
-    with pytest.raises(SystemExit):
-        cli_train.main(["dcs", "--device", "cpu", *flags])
-    assert message in capsys.readouterr().err
+def test_train_cli_rejects_unported_flags(flags, message, capsys, tmp_path):
+    """A flag the port does not run yet exits with its message (``--dtype
+    bfloat16``). ``--steps-per-dispatch`` is ported and accepted (message
+    None): at 2 on the CPU the CLI trains an epoch of 3 steps, a dispatch of
+    2 and a single step, then resumes for a second."""
+    if message is not None:
+        with pytest.raises(SystemExit):
+            cli_train.main(["dcs", "--device", "cpu", *flags])
+        assert message in capsys.readouterr().err
+        return
+    dcfg = synthetic.generate(str(tmp_path / "data"), n_train=8, n_test=2, seconds=0.4)
+    base = _tiny(config_for_variant("dcs"))
+    cfg = base.replace(
+        data=dataclasses.replace(dcfg, crop_samples=CROP, batch_size=BATCH, num_workers=1),
+        run=dataclasses.replace(base.run, ckpt_dir=str(tmp_path / "ckpt"),
+                                log_dir=str(tmp_path / "logs")))
+    path = tmp_path / "config.json"
+    for epochs, resume in ((1, []), (2, ["--resume"])):
+        path.write_text(cfg.replace(run=dataclasses.replace(
+            cfg.run, max_epochs=epochs)).to_json())
+        metrics = cli_train.main(["dcs", "--config-json", str(path), "--device", "cpu",
+                                  *flags, *resume])
+        assert "steps_per_dispatch=2" in capsys.readouterr().out
+        assert metrics["epoch"] == epochs - 1 and metrics["steps"] == 3
+        assert metrics["nonfinite_loss_steps"] == 0 and np.isfinite(metrics["loss"])
+    assert CheckpointManager(str(tmp_path / "ckpt")).latest_step() == 6
 
 
 def test_train_cli_trains_the_real_variants(tmp_path, capsys):
