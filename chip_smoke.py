@@ -34,15 +34,24 @@ Phases (each prints one or more lines; any failure exits non-zero):
                call (CUDA graph replay), the plain version's, one PyTorch
                library call's and the card's bound for the function; kernel
                2's conv entry at the gate's shapes of the full-utterance call
-               and of a streaming chunk group, beside the body it replaced
-               and an empty launch; the same for what the slice does not
-               launch: kernel 1's dense entry point at a size that is no
+               and of a streaming chunk group (rows ``<kernel>_stream``),
+               beside the body it replaced and an empty launch; kernel 3's
+               forward beside the route it replaced (one-row tiles, no
+               split, on a padded copy of x: ``earlier_ms``; a shape slower
+               than it fails), and at one 4 s request at batch 1 (``enhance_full``
+               as the enhance CLI calls it: its launches, row
+               ``tapconv_valid_request``); the same for what the slice does
+               not launch: kernel 1's dense entry point at a size that is no
                power of two; then, against the plain version only, kernel 1's
                FFT entry point at its other sizes, at odd hops and without
                centering, kernel 2's three entries at odd and tiny shapes and
                other (K, Cin, Cout), kernel 3 at ragged shapes and at windows
-               up to 12x12, and kernel 3's packed weights bit for bit against
-               the PyTorch layout helper; the two input-gradient entries at
+               up to 12x12 (also reading x in place through a padding), and
+               kernel 3's packed weights bit for bit against the PyTorch
+               layout helper; kernel 3's forward under every (flat, wgs, S)
+               at dec0-dec2 at batch 1 and at a chunk group (the sweep:
+               each time beside the plan's pick, ``F.conv2d`` and the
+               one-row route); the two input-gradient entries at
                ragged shapes (kernel 3's under every tiling that fits, its
                flipped packing bit for bit), timed beside the routes they
                replaced and ``conv2d_input``;
@@ -138,6 +147,7 @@ The last lines are the kernels JSON, the nvidia-smi line and
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import os
@@ -210,8 +220,8 @@ KERNEL_INFO = {
                      "dcs_net_tpu/ops/pallas_conv.py:138",
                      "conv-sigmoid-broadcast-product-epilogue", F32_FLOPS_PER_S),
     "tapconv_valid": ("dcs_net_tpu_torch/csrc/tapconv.cu",
-                      "dcs_net_tpu/ops/pallas_tapconv.py:91", "3xtf32-wgmma",
-                      TF32X3_FLOPS_PER_S),
+                      "dcs_net_tpu/ops/pallas_tapconv.py:91",
+                      "3xtf32-wgmma-in-place-flat-split", TF32X3_FLOPS_PER_S),
     # input gradients, which the JAX package's custom_vjp backward rules
     # compute in XLA: the conv entry on the flipped, transposed kernel
     # (class (7, 2, 4): the register-tiled body over float2 pixels), and the
@@ -275,6 +285,10 @@ DGRAD_EXTRA = [((2, 1, 65), 8, 32, (3, 3), (1, 1, 1, 1)),
                ((2, 9, 65), 12, 130, (5, 5), (2, 2, 0, 4)),
                ((1, 14, 33), 33, 32, (12, 12), (5, 6, 6, 5)),
                ((32, 2, 32), 64, 128, (3, 3), (1, 1, 1, 1))]
+# kernel 3's forward at the shapes where the plan splits the reduction:
+# dec0-dec2 at batch 1 and at a streaming chunk group ((B, H, W, Cin, N))
+FORWARD_SWEEP = [(1, 2, 32, 512, 512), (1, 4, 32, 512, 512), (1, 8, 32, 512, 256),
+                 (8, 2, 32, 512, 512), (8, 4, 32, 512, 512), (8, 8, 32, 512, 256)]
 CONV_DGRAD_EXTRA = [(1, 5, 3), (2, 7, 9), (3, 17, 129), (32, 4, 8), (1, 1, 1),
                     (2, 33, 300), (1, 3, 70)]
 TAPCONV_EXTRA = [((2, 10, 9, 64), (3, 3), 32), ((2, 5, 7, 24), (2, 2), 12),
@@ -525,18 +539,22 @@ def kernel_cases(name, args, dev, cfg):
                 {"eager_pool_and_gate_ms": eager_sequence,
                  "replaced_pool_and_gate_ms": replaced_sequence})
     if name == "tapconv_valid":
-        B, hp, wp, cin, dh, dw, n = args[:7]
-        x = randn(B, hp, wp, cin)
+        # x (B, H, W, Cin) read in place as zero-padded by pad. earlier_ms:
+        # the route it replaced, one-row tiles without a split on a padded
+        # copy of x
+        B, H, W, cin, ho, wo, n, dh, dw, top, left = args[:11]
+        pad = tapconv_pad(args)
+        x = randn(B, H, W, cin)
         w = randn(dh * dw, cin, n, scale=1.0 / math.sqrt(dh * dw * cin))
-        x_nchw = x.permute(0, 3, 1, 2).contiguous()
-        w_oihw = w.reshape(dh, dw, cin, n).permute(3, 2, 0, 1).contiguous()
-        ho, wo = hp - dh + 1, wp - dw + 1
+        earlier = one_row_plan(B, ho, wo, cin, n, dh, dw, cuda_tapconv._sm_count(dev))
         nbytes = 4 * (x.numel() + w.numel() + B * ho * wo * n)
         flops = 2 * B * ho * wo * dh * dw * cin * n
-        return (lambda: cuda_tapconv.tapconv_valid(x, w, dh, dw),
-                lambda: cuda_tapconv.tapconv_valid_plain(x, w, dh, dw),
-                lambda: F.conv2d(x_nchw, w_oihw),
-                nbytes, flops, None, {})
+        return (lambda: cuda_tapconv.tapconv_valid(x, w, dh, dw, pad),
+                lambda: cuda_tapconv.tapconv_valid_plain(cuda_tapconv._pad(x, pad), w, dh, dw),
+                tapconv_library(x, w, dh, dw, pad),
+                nbytes, flops, None,
+                {"earlier_ms": lambda: cuda_tapconv._launch(
+                    cuda_tapconv._pad(x, pad), w, dh, dw, plan=earlier)})
     if name == "conv_same_small_cout_dgrad":
         # launched with x = the upstream gradient g (B, H, W, Cout of the
         # forward) and the dgrad kernel; the least work is the forward's.
@@ -575,6 +593,43 @@ def kernel_cases(name, args, dev, cfg):
                     cuda_tapconv.dgrad_input(gy, dh, dw), cuda_tapconv.dgrad_weights(w),
                     dh, dw)})
     raise KeyError(name)
+
+
+def tapconv_pad(args):
+    """(top, bottom, left, right) of a recorded forward launch of kernel 3,
+    (B, H, W, Cin, HO, WO, N, Dh, Dw, top, left, ...)."""
+    _, H, W, _, ho, wo, _, dh, dw, top, left = args[:11]
+    return top, ho + dh - 1 - H - top, left, wo + dw - 1 - W - left
+
+
+def one_row_plan(B, ho, wo, cin, n, dh, dw, sms):
+    """The forward route the entry took before ``forward_plan``, as a plan
+    (bn, flat, wgs, split): one-row tiles, the full N tile, no split;
+    64-pixel tiles where the row is that short, where 128-pixel tiles would
+    leave half of the card's SMs without a block, or where two 128-pixel
+    halo tiles do not fit shared memory."""
+    from dcs_net_tpu_torch.ops import cuda_tapconv as ct
+
+    bn = ct.tile_n(n)
+    blocks128 = B * ho * -(-wo // 128) * -(-n // bn)
+    _, arows, apw = ct.tiling(0, 2, ho, wo, dh, dw)
+    narrow = (wo <= 64 or 2 * blocks128 <= sms
+              or ct.smem_bytes(ct.BK, bn, 2, cin, dh * dw, arows, apw) > ct.SMEM_LIMIT)
+    return bn, 0, 1 if narrow else 2, 1
+
+
+def tapconv_library(x, w, dh, dw, pad):
+    """One ``F.conv2d`` call for kernel 3's forward: the conv's own padding
+    where it is symmetric, else on a padded copy."""
+    import torch.nn.functional as F
+
+    cin, n = w.shape[1:]
+    top, bottom, left, right = pad
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    w_oihw = w.reshape(dh, dw, cin, n).permute(3, 2, 0, 1).contiguous()
+    if top == bottom and left == right:
+        return lambda: F.conv2d(x_nchw, w_oihw, padding=(top, left))
+    return lambda: F.conv2d(F.pad(x_nchw, (left, right, top, bottom)), w_oihw)
 
 
 def tapconv_input_grad_library(gy, w, dh, dw, pad, hw):
@@ -790,8 +845,9 @@ def check_stft_fft_off_path(dev, cfg) -> None:
 
 def check_tapconv_off_path(dev) -> None:
     """Kernel 3 where the slice does not take it: ragged pixel runs, channel
-    counts that fill no chunk or tile, other windows; and the weights its
-    packing kernel writes, bit for bit against ``pack_weights``."""
+    counts that fill no chunk or tile, other windows, each also read in
+    place through a padding; and the weights its packing kernel writes, bit
+    for bit against ``pack_weights``."""
     import torch
 
     from dcs_net_tpu_torch.ops import cuda_tapconv as ct
@@ -801,8 +857,14 @@ def check_tapconv_off_path(dev) -> None:
     for shape, (dh, dw), n in TAPCONV_EXTRA:
         x = torch.randn(shape, generator=g, device=dev)
         w = torch.randn((dh * dw, shape[-1], n), generator=g, device=dev) * 0.1
-        got, want = ct.tapconv_valid(x, w, dh, dw), ct.tapconv_valid_plain(x, w, dh, dw)
-        rel = float((got - want).abs().max()) / float(want.abs().max())
+        want = ct.tapconv_valid_plain(x, w, dh, dw)
+        # the same values with their outer rows and columns zero: x's
+        # interior read in place, padded by them
+        pad = (min(1, shape[1] - 1), 0, min(2, shape[2] - 1), 0)
+        inner = x[:, pad[0]:, pad[2]:].contiguous()
+        rel = max(rel_err(ct.tapconv_valid(x, w, dh, dw), want),
+                  rel_err(ct.tapconv_valid(inner, w, dh, dw, pad), ct.tapconv_valid_plain(
+                      ct._pad(inner, pad), w, dh, dw)))
         want_packed = ct.pack_weights(w, ct.tile_n(n))
         packed = torch.empty_like(want_packed)
         ct.PACK(dev, ptr(w), ptr(packed), dh * dw, shape[-1], n, ct.tile_n(n))
@@ -814,6 +876,48 @@ def check_tapconv_off_path(dev) -> None:
             fail(f"tapconv_valid at {shape}: error {rel:.3e} exceeds {REL_TOL}")
         if not same:
             fail(f"tapconv_pack at {shape}: layout differs from pack_weights")
+
+
+def check_forward_sweep(dev, card) -> None:
+    """Kernel 3's forward where the plan splits the reduction: dec0-dec2 at
+    batch 1 (a test utterance) and at a streaming chunk group (batch 8),
+    under every (flat, wgs, S) that fits, each against the plain version and
+    timed beside ``F.conv2d`` and the one-row route, so that the plan's pick
+    reads against the sweep's best."""
+    import torch
+
+    from dcs_net_tpu_torch.ops import cuda_tapconv as ct
+    from dcs_net_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    pad, sms = (1, 1, 1, 1), ct._sm_count(dev)
+    for B, H, W, cin, n in FORWARD_SWEEP:
+        x = torch.randn((B, H, W, cin), generator=g, device=dev)
+        w = torch.randn((9, cin, n), generator=g, device=dev) / math.sqrt(9 * cin)
+        want = ct.tapconv_valid_plain(ct._pad(x, pad), w, 3, 3)
+        chosen = ct.forward_plan(B, H, W, cin, n, 3, 3, pad, dev)
+        times, bn = {}, ct.tile_n(n)
+        for flat, wgs, split in itertools.product((0, 1), (1, 2), (1, 2, 4, 8)):
+            _, arows, apw = ct.tiling(flat, wgs, H, W, 3, 3)
+            if (split > -(-cin // ct.BK) or ct.launch_smem(bn, wgs, cin, 9, arows, apw, split)
+                    > ct.SMEM_LIMIT):
+                continue
+            plan = (bn, flat, wgs, split)
+            rel = rel_err(ct._launch(x, w, 3, 3, pad, plan), want)
+            if not math.isfinite(rel) or rel > REL_TOL:
+                fail(f"tapconv_valid at {(B, H, W, cin, n)} under {plan}: error "
+                     f"{rel:.3e} exceeds {REL_TOL}")
+            times[plan] = graph_ms(lambda: ct._launch(x, w, 3, 3, pad, plan), 10)
+        library = graph_ms(tapconv_library(x, w, 3, 3, pad), 10)
+        earlier = one_row_plan(B, H, W, cin, n, 3, 3, sms)
+        earlier_ms = graph_ms(lambda: ct._launch(ct._pad(x, pad), w, 3, 3, plan=earlier), 10)
+        best = min(times, key=times.get)
+        print(f"kernel tapconv_valid sweep: x ({B}, {H}, {W}, {cin}) -> N {n}, 3x3, "
+              f"pad {pad}; (bn, flat, wgs, S) ms: "
+              + ", ".join(f"{p}={t:.4f}" for p, t in times.items())
+              + f"; the plan {chosen} {times[chosen]:.4f} ms, the sweep's best {best} "
+              f"{times[best]:.4f}, the one-row route {earlier_ms:.4f}, library_ms="
+              f"{library:.4f} (F.conv2d) [{card}]", flush=True)
 
 
 def check_dgrad_off_path(dev, card) -> None:
@@ -857,10 +961,10 @@ def check_dgrad_off_path(dev, card) -> None:
         same = True
         for flat in (0, 1):
             for wgs in (1, 2):
-                _, arows, apw = ct.dgrad_tiling(flat, wgs, H, W, dh, dw)
+                _, arows, apw = ct.tiling(flat, wgs, H, W, dh, dw)
                 # 128-pixel tiles need two halo stages, 64-pixel tiles one
                 nsa = wgs
-                if ct.dgrad_smem_bytes(kb, bn, nsa, n, dh * dw, arows, apw) > ct.SMEM_LIMIT:
+                if ct.smem_bytes(kb, bn, nsa, n, dh * dw, arows, apw) > ct.SMEM_LIMIT:
                     continue
                 dx, packed = forced(gy, w, dh, dw, pad, (H, W), flat, wgs)
                 errs[f"flat={flat} wgs={wgs}"] = rel_err(dx, want)
@@ -1096,6 +1200,34 @@ def check_streaming(model, cpu_model, cfg, dev, card):
     return shapes, launches
 
 
+def check_request(model, cfg, dev, card):
+    """One request of 4 s at batch 1, ``enhance_full`` as ``cli/enhance.py``
+    calls it: its launches (kernel 3 7 + 7, the counts reset just before and
+    read just after) and kernel 3's row ``tapconv_valid_request`` at its
+    shapes."""
+    import torch
+
+    from dcs_net_tpu_torch.models.enhance import enhance_full
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    x = torch.from_numpy(speech_like(1, SECONDS * SR, SEED + 19)).to(dev)
+    shapes = discover_shapes(lambda: enhance_full(model, x, cfg))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    out = enhance_full(model, x, cfg)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in cuda_lib.KERNELS.values()}
+    print(f"request: enhance_full, 1 request x {SECONDS} s: launches {launches}", flush=True)
+    if tuple(out.shape) != (1, SECONDS * SR) or not bool(torch.isfinite(out).all()):
+        fail(f"enhance_full at batch 1 returned {tuple(out.shape)} or non-finite samples")
+    for name in ("tapconv_valid", "tapconv_pack"):
+        if launches.get(name, 0) != 7:
+            fail(f"kernel {name} launched {launches.get(name, 0)} times in one "
+                 f"request, expected 7")
+    return check_kernels({"tapconv_valid": shapes["tapconv_valid"]}, launches, dev, cfg,
+                         card, f"{SECONDS} s request", "_request")
+
+
 def check_function_grads(shapes, dev, cfg) -> None:
     """The three Functions at every shape of the train step, forward output
     and input and weight gradients (``torch.autograd.grad``), against their
@@ -1179,9 +1311,10 @@ def time_weight_grads(shapes, dev, card) -> None:
                 wshape, pad, (dh, dw) = (cout, cin, K, K), K // 2, (K, K)
                 ho, wo = H, W
             else:
-                B, hp, wp, cin, dh, dw, cout = args[:7]
-                ho, wo = hp - dh + 1, wp - dw + 1
-                x, gy = randn(B, hp, wp, cin), randn(B, ho, wo, cout)
+                B, H, W, cin, ho, wo, cout, dh, dw = args[:9]
+                top, bottom, left, right = tapconv_pad(args)
+                x = randn(B, H + top + bottom, W + left + right, cin)
+                gy = randn(B, ho, wo, cout)
                 ours = lambda: cuda_tapconv.weight_grad(x, gy, dh, dw)  # noqa: E731
                 wshape, pad = (cout, cin, dh, dw), 0
             x_nchw = x.permute(0, 3, 1, 2).contiguous()
@@ -2343,24 +2476,23 @@ def main() -> int:
               "sa_pool": shapes["sa_pool"], "sa_gate": shapes["sa_gate"],
               "tapconv_valid": shapes["tapconv_valid"]}
     rows = check_kernels(shapes, launches, dev, cfg, card, "enhance call")
+    for row in rows:
+        if row["name"] == "conv_same_small_cout":
+            row["empty_launch_ms"] = floor
+    # one streaming chunk group's launches, rows <kernel>_stream; their
+    # launch counts are the 30 s streaming call's
     group = {"stft": stream_shapes["stft"],
              "conv_same_small_cout": conv_shapes(stream_shapes["sa_gate"][:13]),
              "sa_pool": stream_shapes["sa_pool"][:13],
              "sa_gate": stream_shapes["sa_gate"][:13],
              "tapconv_valid": stream_shapes["tapconv_valid"][:7]}
-    stream_rows = {r["name"]: r for r in check_kernels(
-        group, stream_launches, dev, cfg, card, "streaming chunk group")}
-    for row in rows:
-        row["launches_stream"] = stream_launches.get(row["name"], 0)
-        if row["name"] in stream_rows:
-            row["chunk_group"] = {k: stream_rows[row["name"]][k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "max_abs_err", "shapes")}
-        if row["name"] == "conv_same_small_cout":
-            row["empty_launch_ms"] = floor
+    rows += check_kernels(group, stream_launches, dev, cfg, card, "streaming chunk group",
+                          "_stream")
+    rows += check_request(model, cfg, dev, card)
     check_stft_fft_off_path(dev, cfg)
     check_conv_off_path(dev)
     check_tapconv_off_path(dev)
+    check_forward_sweep(dev, card)
     check_dgrad_off_path(dev, card)
 
     # phase 6: CLI on a 48 kHz wav, full and streamed

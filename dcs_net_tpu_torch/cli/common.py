@@ -40,7 +40,7 @@ def check_ported(p: argparse.ArgumentParser, args) -> None:
     """Exit through ``p.error`` for what the port does not run yet."""
     if args.dtype == "bfloat16":
         p.error("--dtype bfloat16 is not yet ported: the port runs float32 "
-                "(ROADMAP Queue 1 item 9)")
+                "(ROADMAP Queue 1 item 5)")
 
 
 def build_config(args) -> Config:

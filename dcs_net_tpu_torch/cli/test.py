@@ -41,7 +41,8 @@ def main(argv=None) -> dict:
     if not checkpoint_steps(cfg.run.ckpt_dir):
         raise SystemExit(f"no checkpoint found under {cfg.run.ckpt_dir}")
     out_dir = cfg.run.log_dir + "-test"
-    trainer = Trainer(cfg, device=device, log_dir=out_dir)
+    trainer = Trainer(cfg, device=device, log_dir=out_dir,
+                      use_tensorboard=not args.no_tensorboard)
     trainer.init_state()
     step = trainer.restore(CheckpointManager(cfg.run.ckpt_dir))
     print(f"restored step {step} from {cfg.run.ckpt_dir}")

@@ -8,8 +8,10 @@ the plateau scheduler and the epoch from the latest checkpoint under the
 checkpoint directory. ``--steps-per-dispatch K`` runs K train steps a
 dispatch, on the card as one CUDA graph replay (default 8 there, 1 with
 ``--device cpu``, as the JAX CLI's default is 8 on an accelerator); it
-overrides ``--config-json``'s value, as in the JAX CLI. Not yet ported, and
-rejected: ``--dtype bfloat16`` (ROADMAP Queue 1 item 9).
+overrides ``--config-json``'s value, as in the JAX CLI. ``--no-tensorboard``
+reaches the ``Trainer`` as ``use_tensorboard=False``; the port writes no
+TensorBoard yet, only its JSON lines and WAVs. Not yet ported, and rejected:
+``--dtype bfloat16`` (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__)
     add_common_args(p)
     p.add_argument("--resume", action="store_true")
+    p.add_argument("--no-tensorboard", action="store_true")
     p.add_argument("--limit-train-batches", type=int, default=None,
                    help="cap train batches per epoch (smoke runs)")
     p.add_argument("--steps-per-dispatch", type=int, default=None,
@@ -60,7 +63,8 @@ def main(argv=None) -> dict:
           f"steps_per_dispatch={k}")
     loaders = make_loaders(cfg)
     train_loader, val_loader = loaders
-    trainer = Trainer(cfg, device=args.device)
+    trainer = Trainer(cfg, device=args.device,
+                      use_tensorboard=not args.no_tensorboard)
     trainer.init_state()
     ckpt = CheckpointManager(cfg.run.ckpt_dir)
     if args.resume and ckpt.latest_step() is not None:

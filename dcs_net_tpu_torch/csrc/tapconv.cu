@@ -4,10 +4,12 @@
 // Replaces the Pallas kernel dcs_net_tpu/ops/pallas_tapconv.py:tapconv_valid
 // (kernel _kernel):
 //
-//   y[b, h, w, n] = sum_{dh < Dh, dw < Dw, ci} x[b, h+dh, w+dw, ci]
+//   y[b, h, w, n] = sum_{dh < Dh, dw < Dw, ci} xp[b, h+dh, w+dw, ci]
 //                                              * w[dh*Dw + dw, ci, n]
 //
-// x (B, Hp, Wp, Cin), w (Dh*Dw, Cin, N), y (B, Hp-Dh+1, Wp-Dw+1, N), float32.
+// xp = x (B, H, W, Cin) zero-padded by (top, bottom, left, right) to
+// (B, Hp, Wp, Cin), w (Dh*Dw, Cin, N), y (B, Hp-Dh+1, Wp-Dw+1, N), float32;
+// the kernel reads x itself, never a padded copy.
 // Every decoder stage of the DCS U-Net reduces to this op (the fused
 // skip-concat + nearest-upsample + 3x3 conv in its unified form, Dh = Dw = 3),
 // with Cin from 32 to 512 and N from 8 to 512.
@@ -34,10 +36,18 @@
 //   4-channel group, n, 4 channels): exactly the shared-memory image of the
 //   un-swizzled K-major core-matrix layout (8 n x 16 bytes contiguous), split
 //   into hi and lo once, so staging a B tile is one contiguous bulk copy.
-// * A forward M tile is a run of 64 or 128 output pixels of one output row, so the
-//   block's input is a Dh-row x (pixels + Dw - 1) x 32-channel halo tile,
-//   staged once per channel chunk with 16-byte cp.async (zero fill past the
-//   row end and past Cin); all Dh*Dw taps read it at shifted pixel offsets.
+// * An M tile is 64 or 128 output pixels: a run of one output row, or, where
+//   the output is narrower than 128 columns, a "flat" run of consecutive
+//   pixels of one image over several rows (32-column decoder images would
+//   fill 32 of a row tile's 64 wgmma rows). The block's input is the halo
+//   tile of those pixels (their rows plus Dh - 1, their columns plus Dw - 1)
+//   in 32-channel chunks, staged once per chunk with 16-byte cp.async; all
+//   Dh*Dw taps read it at shifted pixel offsets, each thread finding its two
+//   fragment rows in it on its own.
+// * The input is read in place: the zero padding of the decoder's unified
+//   conv is the halo's rows and columns outside x, zero-filled at staging
+//   (cp.async with source size 0), and a tap row that reads only zeros for
+//   every pixel of the tile is skipped, B stages and all.
 //   A tap shift is not a multiple of the 8-row core matrix, which is why A
 //   goes through registers: each thread loads its 4 fragment values per k8
 //   step from the halo tile (pixel pitch 36 words: conflict-free), splits
@@ -58,13 +68,26 @@
 //   that grows with the length of the chain, so a chain runs over one channel
 //   chunk only and the chunks are added with float32 adds.
 // * Tiles: 128 pixels x 128 channels (two warpgroups sharing B), 64 pixels
-//   when that still fills the card's SMs in one wave (dec0), 64-wide N tiles
-//   for N <= 64 (two taps a B stage, so a step does as much work between
-//   barriers), and an m64n8 instantiation for N <= 8 whose B stage holds
-//   every tap, so a block runs one step per channel chunk and several blocks
-//   share an SM. Ragged row ends are masked at the store. Any window whose
-//   64-pixel halo tile fits shared memory beside the B ring is taken (up to
-//   12 x 12 at every N); a larger one is refused, never computed otherwise.
+//   where 128 would fill the tile's rows worse or leave half of the card's
+//   SMs without a block, 64-wide N tiles for N <= 64 (two taps a B stage,
+//   so a step does as much work between barriers), and an m64n8
+//   instantiation for N <= 8 whose B stage holds every tap, so a block runs
+//   one step per channel chunk and several blocks share an SM. Ragged tile
+//   ends are masked at the store. Any window whose 64-pixel halo tile fits
+//   shared memory beside the B ring is taken (up to 12 x 12 at every N); a
+//   larger one is refused, never computed otherwise.
+// * A split of the reduction where the grid leaves the card idle (batch 1,
+//   a single request, a streaming chunk group: a few tiles at Cin = 512): the
+//   channel chunks are divided among S <= 8 blocks of one output tile, a
+//   thread-block cluster along gridDim.z. Each runs its chunks as above;
+//   then each writes its partial tile into its own shared memory (the rings
+//   are idle by then), and after a cluster barrier rank r adds the r-th
+//   slice of rows over ranks 0..S-1, in that order, from the ranks' shared
+//   memory (distributed shared memory) and stores it. No atomics: the sum
+//   has one order, so two runs, and a CUDA graph replay against eager
+//   launches, give the same bits.
+// The tiling and S are chosen by the wrapper from the shape alone
+// (ops/cuda_tapconv.py:forward_plan).
 // The structural zeros of the unified decoder weights are not skipped: the
 // function stays the dense tap correlation.
 //
@@ -73,24 +96,16 @@
 // axes swapped (Cin' = N reduced, N' = Cin out), as the JAX package's
 // _updot_bwd (dcs_net_tpu/ops/conv_engine.py:879) computes it in XLA. Where
 // the forward's input was x zero-padded, it writes dx (B, H, W, Cin), the
-// pixels the caller keeps, and nothing of the padding. What the kernel's
-// geometry (Geo) does about the train step's shapes:
-// * Multi-row tiles. The decoder's gradients are 32 columns wide at dec0-
-//   dec4, so a tile of one row would fill 32 of 64 wgmma rows. A "flat" tile
-//   is 64 or 128 consecutive pixels of one image over several rows; its halo
-//   tile is those rows plus Dh - 1, at the full width plus Dw - 1, and each
-//   thread finds its two fragment rows in it on its own.
-// * g read in place: halo rows and columns outside g are zero-filled at
-//   staging (cp.async with source size 0); a tap row that reads only zeros
-//   for every pixel of the tile is skipped.
-// * Weights packed once, flipped and transposed, straight from w
-//   (dcs_tapconv_pack_dgrad).
-// * Small K: at dec6 Cin' = 8 and N' = 32, so that class has 8-channel
-//   chunks (one k8 step a tap, a register set per tap, all 9 taps in one B
-//   stage) and 32-wide N tiles (m64n32k8).
+// pixels the caller keeps, and nothing of the padding. It reads g in place
+// and takes flat tiles as the forward does; its weights are packed once,
+// flipped and transposed, straight from w (dcs_tapconv_pack_dgrad). Small
+// K: at dec6 Cin' = 8 and N' = 32, so that class has 8-channel chunks (one
+// k8 step a tap, a register set per tap, all 9 taps in one B stage) and
+// 32-wide N tiles (m64n32k8).
 // The tiling (flat or one row, 64 or 128 pixels) is chosen by the wrapper
-// (ops/cuda_tapconv.py:dgrad_plan) from the shape alone.
+// (ops/cuda_tapconv.py:dgrad_plan) from the shape alone; it has no split.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -392,10 +407,17 @@ struct Geo {
   int nchunks;     // KB-channel chunks of Cg
 };
 
+// words a row of a block's partial tile takes in a split (BN + 8: the
+// float2 stores of a half warp fall on 32 different banks)
+template <int BN>
+constexpr int kPartPitch = BN + 8;
+
 // WGS warpgroups of 64 pixels each; KB reduction channels per chunk (32, or
 // 8 for the input gradient's small-K class); BN channels; TPS taps per B
 // stage; VEC floats per cp.async of the tensor read (4 when Cg % 4 == 0,
-// else 1); RING_A: two A stages, else one, refilled between chunks.
+// else 1); RING_A: two A stages, else one, refilled between chunks. The
+// grid is (M tiles, N tiles, S): with S > 1 a cluster of the S blocks of
+// one output tile splits its channel chunks.
 template <int WGS, int KB, int BN, int TPS, int VEC, bool RING_A>
 __global__ void __launch_bounds__(128 * WGS)
 tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
@@ -439,15 +461,21 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   const int live = dh_hi >= dh_lo ? (dh_hi - dh_lo + 1) * g.Dw : 0;
   const int tps = min(TPS, taps);
   const int ngroups = (live + tps - 1) / tps;
-  const int nit = g.nchunks * ngroups;
+  // this block's share of the reduction: chunks [c_lo, c_hi) of rank
+  // blockIdx.z of the split (every chunk without one)
+  const int S = gridDim.z, rank = blockIdx.z;
+  const int c_lo = rank * g.nchunks / S, c_hi = (rank + 1) * g.nchunks / S;
+  const int nit = (c_hi - c_lo) * ngroups;
   // the ring sizes follow the whole window, as the host sized shared memory
   const int nsb = min(3, g.nchunks * ((taps + tps - 1) / tps));
   const int nsa = RING_A ? min(2, g.nchunks) : 1;
   const int bstage = tps * TAPF, astage = g.arows * g.apw * APITCH;
   float* Bs = smem;
   float* As = smem + nsb * bstage;
-  // one mbarrier per B stage, behind the tiles
-  const uint32_t bars = smem_u32(As + nsa * astage);
+  // one mbarrier per B stage, behind the tiles and behind the partial tile
+  // of a split, which reuses the rings' words after the main loop
+  const int ring = nsb * bstage + nsa * astage, part = BM * kPartPitch<BN>;
+  const uint32_t bars = smem_u32(smem + (S > 1 && part > ring ? part : ring));
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int n0 = blockIdx.y * BN;
@@ -480,7 +508,7 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   // thread 0 alone: one bulk copy brings the B stage of step `it`
   const int tap_lo = dh_lo * g.Dw;
   auto load_b = [&](int it) {
-    const int chunk = it / ngroups, grp = it - chunk * ngroups;
+    const int k = it / ngroups, grp = it - k * ngroups, chunk = c_lo + k;
     const int tap0 = tap_lo + grp * tps;
     const uint32_t bytes = min(tps, tap_lo + live - tap0) * TAPF * 4;
     const float* src =
@@ -510,7 +538,7 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   __syncthreads();
   if (nit > 0) {
     if (tid == 0) load_b(0);
-    load_a(0);
+    load_a(c_lo);
     cp_async_commit();
   }
 
@@ -532,11 +560,11 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   // 16-channel half of a tap's chunk, at KB = 8 one whole tap.
   uint32_t hi[2][4 * KS] = {}, lo[2][4 * KS] = {};
   // toff: the halo-tile pixel offset of the current tap, dh * PW + dw
-  int chunk = 0, grp = 0, dw = 0, toff = dh_lo * PW;
+  int chunk = c_lo, grp = 0, dw = 0, toff = dh_lo * PW;
   for (int it = 0; it < nit; ++it) {
     mbar_wait(bars + 8 * (it % nsb), (it / nsb) & 1);  // B of step `it`
     if (grp == 0) {       // this thread's part of the chunk's halo tile
-      if (!RING_A && chunk > 0) {
+      if (!RING_A && chunk > c_lo) {
         __syncthreads();  // every thread has read the last chunk's tile
         load_a(chunk);
         cp_async_commit();
@@ -547,7 +575,7 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     __syncthreads();      // everyone's part; the groups of step it - 2,
                           // whose B stage is refilled next, have retired
     if (tid == 0 && it + 1 < nit) load_b(it + 1);
-    if (grp == 0 && RING_A && chunk + 1 < g.nchunks) {
+    if (grp == 0 && RING_A && chunk + 1 < c_hi) {
       load_a(chunk + 1);
       cp_async_commit();
     }
@@ -623,24 +651,69 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   // accumulator i of a thread: row mrow + 8 * ((i / 2) % 2), column
   // 8 * (i / 4) + 2 * (lane % 4) + i % 2
   const int N = g.N;
-  const bool pairs = (N & 1) == 0;
+  if (S == 1) {
+    const bool pairs = (N & 1) == 0;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int m = mrow + 8 * half;
-    if (m >= count) continue;
-    float* yr = y + (pix0 + m) * N;
+    for (int half = 0; half < 2; ++half) {
+      const int m = mrow + 8 * half;
+      if (m >= count) continue;
+      float* yr = y + (pix0 + m) * N;
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      const int n = n0 + 8 * j + 2 * (lane & 3);
-      const float v0 = sum[4 * j + 2 * half], v1 = sum[4 * j + 2 * half + 1];
-      if (pairs && n + 1 < N) {
-        *reinterpret_cast<float2*>(yr + n) = make_float2(v0, v1);
-      } else {
-        if (n < N) yr[n] = v0;
-        if (n + 1 < N) yr[n + 1] = v1;
+      for (int j = 0; j < BN / 8; ++j) {
+        const int n = n0 + 8 * j + 2 * (lane & 3);
+        const float v0 = sum[4 * j + 2 * half], v1 = sum[4 * j + 2 * half + 1];
+        if (pairs && n + 1 < N) {
+          *reinterpret_cast<float2*>(yr + n) = make_float2(v0, v1);
+        } else {
+          if (n < N) yr[n] = v0;
+          if (n + 1 < N) yr[n + 1] = v1;
+        }
       }
     }
+    return;
   }
+
+  // The split: every rank writes its partial tile (BM rows, pitch PP) into
+  // its own shared memory, then rank r adds rows [r BM / S, (r + 1) BM / S)
+  // over the ranks 0, 1, ..., S - 1 in that order and stores them.
+  constexpr int PP = kPartPitch<BN>, Q = BN / 4;  // Q: float4s a row
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __syncthreads();  // both warpgroups' wgmma have read their last B stage
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float* pr = smem + (mrow + 8 * half) * PP + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+      *reinterpret_cast<float2*>(pr + 8 * j) =
+          make_float2(sum[4 * j + 2 * half], sum[4 * j + 2 * half + 1]);
+  }
+  cluster.sync();  // every rank's partial tile is written
+  const int m_lo = rank * BM / S, m_hi = min((rank + 1) * BM / S, count);
+  const bool quads = (N & 3) == 0;
+  for (int e = tid; e < (m_hi - m_lo) * Q; e += NT) {
+    const int r = e / Q, c = 4 * (e - r * Q), m = m_lo + r;
+    float4* src = reinterpret_cast<float4*>(smem + m * PP + c);
+    float4 v = *cluster.map_shared_rank(src, 0);
+    for (int k = 1; k < S; ++k) {
+      const float4 p = *cluster.map_shared_rank(src, k);
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    float* yr = y + (pix0 + m) * N;
+    const int n = n0 + c;
+    if (quads && n + 3 < N) {
+      *reinterpret_cast<float4*>(yr + n) = v;
+    } else {
+      if (n < N) yr[n] = v.x;
+      if (n + 1 < N) yr[n + 1] = v.y;
+      if (n + 2 < N) yr[n + 2] = v.z;
+      if (n + 3 < N) yr[n + 3] = v.w;
+    }
+  }
+  cluster.sync();  // no rank leaves while another reads its shared memory
 }
 
 // taps per B stage: a stage of about 32 KB whatever the tile's width, every
@@ -650,10 +723,11 @@ constexpr int kTapsPerStage = BN == 8 || KB == 8 ? 9 : 128 / BN;
 
 constexpr size_t kSmemLimit = 227 * 1024;
 
-// shared memory of a block of `wgs` warpgroups with `nsa` A stages of
-// arows x apw pixels: the B ring, the A stages and the mbarriers
+// shared memory of a block with `nsa` A stages of arows x apw pixels: the B
+// ring, the A stages (or, where larger, the partial tile of `part_rows`
+// rows of a split) and the mbarriers
 template <int KB, int BN>
-size_t smem_bytes(int nsa, int Cg, int taps, int arows, int apw) {
+size_t smem_bytes(int nsa, int Cg, int taps, int arows, int apw, int part_rows) {
   const int tps = taps < kTapsPerStage<KB, BN> ? taps : kTapsPerStage<KB, BN>;
   const int nchunks = (Cg + KB - 1) / KB;
   const int nit = nchunks * ((taps + tps - 1) / tps);
@@ -661,14 +735,16 @@ size_t smem_bytes(int nsa, int Cg, int taps, int arows, int apw) {
       static_cast<size_t>(nit < 3 ? nit : 3) * tps * 2 * KB * BN +
       static_cast<size_t>(nchunks < nsa ? nchunks : nsa) * arows * apw *
           (KB + 4);
-  return words * sizeof(float) + 3 * 8;
+  const size_t part = static_cast<size_t>(part_rows) * kPartPitch<BN>;
+  return (words > part ? words : part) * sizeof(float) + 3 * 8;
 }
 
 template <int WGS, int KB, int BN, int VEC, bool RING_A>
 int launch(cudaStream_t s, const float* x, const float* wp, float* y, int B,
-           const Geo& geo) {
-  const size_t smem = smem_bytes<KB, BN>(RING_A ? 2 : 1, geo.Cg, geo.Dh * geo.Dw,
-                                         geo.arows, geo.apw);
+           const Geo& geo, int split) {
+  const size_t smem =
+      smem_bytes<KB, BN>(RING_A ? 2 : 1, geo.Cg, geo.Dh * geo.Dw, geo.arows,
+                         geo.apw, split > 1 ? 64 * WGS : 0);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = tapconv_kernel<WGS, KB, BN, kTapsPerStage<KB, BN>, VEC, RING_A>;
   if (smem > 48 * 1024) {
@@ -680,8 +756,26 @@ int launch(cudaStream_t s, const float* x, const float* wp, float* y, int B,
   const long long mtiles = static_cast<long long>(B) * geo.tiles *
                            (geo.flat ? 1 : geo.H);
   if (mtiles > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(mtiles), (geo.N + BN - 1) / BN);
-  kernel<<<grid, 128 * WGS, smem, s>>>(x, wp, y, geo);
+  const dim3 grid(static_cast<unsigned>(mtiles), (geo.N + BN - 1) / BN, split);
+  if (split == 1) {
+    kernel<<<grid, 128 * WGS, smem, s>>>(x, wp, y, geo);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the S blocks of one output tile form a cluster along z
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(128 * WGS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, wp, y, geo);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -708,14 +802,14 @@ void set_tiles(Geo& geo, int wgs) {
 // before it); refused when one does not fit either
 template <int KB, int BN>
 int launch_tiled(cudaStream_t s, const float* x, const float* wp, float* y,
-                 int B, Geo geo, int wgs) {
+                 int B, Geo geo, int wgs, int split) {
   set_tiles(geo, wgs);
   const int taps = geo.Dh * geo.Dw;
-  const bool ring =
-      smem_bytes<KB, BN>(2, geo.Cg, taps, geo.arows, geo.apw) <= kSmemLimit;
+  const bool ring = smem_bytes<KB, BN>(2, geo.Cg, taps, geo.arows, geo.apw,
+                                       split > 1 ? 64 * wgs : 0) <= kSmemLimit;
   const bool vec = geo.Cg % 4 == 0;
 #define DCS_LAUNCH(WGS, VEC, RING) \
-  launch<WGS, KB, BN, VEC, RING>(s, x, wp, y, B, geo)
+  launch<WGS, KB, BN, VEC, RING>(s, x, wp, y, B, geo, split)
   if (wgs == 2) {
     if (!ring) return static_cast<int>(cudaErrorInvalidValue);
     return vec ? DCS_LAUNCH(2, 4, true) : DCS_LAUNCH(2, 1, true);
@@ -723,31 +817,6 @@ int launch_tiled(cudaStream_t s, const float* x, const float* wp, float* y,
   if (!ring) return vec ? DCS_LAUNCH(1, 4, false) : DCS_LAUNCH(1, 1, false);
   return vec ? DCS_LAUNCH(1, 4, true) : DCS_LAUNCH(1, 1, true);
 #undef DCS_LAUNCH
-}
-
-template <int BN>
-int launch_forward(cudaStream_t s, const float* x, const float* wp, float* y,
-                   int B, const Geo& geo) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-            cudaSuccess)
-      return static_cast<int>(cudaGetLastError());
-  }
-  // The forward tiles one output row at a time, its tile chosen from the
-  // shape alone: 64-pixel tiles when the row is that short, when 128-pixel
-  // tiles would leave half of the card's SMs without a block, or when the
-  // window is so tall or wide that the halo tiles of 128 pixels do not fit
-  // shared memory.
-  const int taps = geo.Dh * geo.Dw;
-  const long long blocks128 = static_cast<long long>(B) * geo.H *
-                              ((geo.W + 127) / 128) * ((geo.N + BN - 1) / BN);
-  const bool narrow =
-      geo.W <= 64 || 2 * blocks128 <= sms ||
-      smem_bytes<BK, BN>(2, geo.Cg, taps, geo.Dh, 128 + geo.Dw - 1) > kSmemLimit;
-  return launch_tiled<BK, BN>(s, x, wp, y, B, geo, narrow ? 1 : 2);
 }
 
 template <int KB, int BN>
@@ -792,30 +861,72 @@ extern "C" int dcs_tapconv_pack(const float* w, float* wp, int taps, int Cin,
   }
 }
 
-// x (B, Hp, Wp, Cin) f32, wp the packed weights of dcs_tapconv_pack at the
-// same bn, y (B, Hp-Dh+1, Wp-Dw+1, N) f32; all contiguous and 16-byte
-// aligned. Launches on `stream`, allocates nothing, returns
-// cudaGetLastError(); a window whose 64-pixel halo tile does not fit shared
-// memory beside the B ring (Dh * (63 + Dw) > 931 pixels at N > 8) is
-// cudaErrorInvalidValue.
+// y = the tap correlation of x zero-padded by pad_top rows and pad_left
+// columns before it (and by what HO and WO imply after it):
+//   y[b, h, w, n] = sum_{dh, dw, c} x[b, h + dh - pad_top, w + dw - pad_left, c]
+//                                   * w[dh * Dw + dw, c, n],
+// x zero outside its extent. x (B, H, W, Cin) f32, read in place; wp the
+// packed weights of dcs_tapconv_pack at the same bn (8, 64 or 128);
+// y (B, HO, WO, N) f32. flat = 1 tiles BM = 64 * wgs consecutive output
+// pixels of an image (several short rows), 0 one output row at a time; wgs
+// is 1 or 2; split (1 to 8) blocks of one output tile divide the channel
+// chunks among them, a cluster that adds their partial tiles in rank order.
+// All contiguous and 16-byte aligned. Launches on `stream`, allocates
+// nothing, returns cudaGetLastError(); a tiling whose halo tile does not
+// fit shared memory beside the B ring (at 64 pixels, Dh * (63 + Dw) > 931
+// at N > 8) is cudaErrorInvalidValue.
 extern "C" int dcs_tapconv_valid(const float* x, const float* wp, float* y,
-                                 int B, int Hp, int Wp, int Cin, int Dh, int Dw,
-                                 int N, int bn, void* stream) {
-  const int HO = Hp - Dh + 1, WO = Wp - Dw + 1;
-  if (B < 1 || Cin < 1 || N < 1 || Dh < 1 || Dw < 1 || HO < 1 || WO < 1)
+                                 int B, int H, int W, int Cin, int HO, int WO,
+                                 int N, int Dh, int Dw, int pad_top,
+                                 int pad_left, int flat, int wgs, int bn,
+                                 int split, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || HO < 1 || WO < 1 || N < 1 ||
+      Dh < 1 || Dw < 1 || pad_top < 0 || pad_left < 0 || (flat != 0 && flat != 1) ||
+      (wgs != 1 && wgs != 2) || split < 1 || split > 8 ||
+      static_cast<long long>(HO) * WO > 2147483647LL)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Geo geo{Hp, Wp, Cin, HO, WO, N, 0, 0, Dh, Dw, 0, 0, 0, 0, (Cin + BK - 1) / BK};
+  Geo geo{H, W, Cin, HO, WO, N, -pad_top, -pad_left, Dh, Dw,
+          flat, 0, 0, 0, (Cin + BK - 1) / BK};
   switch (bn) {
     case 8:
-      return launch_forward<8>(s, x, wp, y, B, geo);
+      return launch_tiled<BK, 8>(s, x, wp, y, B, geo, wgs, split);
     case 64:
-      return launch_forward<64>(s, x, wp, y, B, geo);
+      return launch_tiled<BK, 64>(s, x, wp, y, B, geo, wgs, split);
     case 128:
-      return launch_forward<128>(s, x, wp, y, B, geo);
+      return launch_tiled<BK, 128>(s, x, wp, y, B, geo, wgs, split);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// How many clusters of `split` blocks of the kernel at `wgs` warpgroups and
+// `smem` bytes of dynamic shared memory the card runs at once
+// (cudaOccupancyMaxActiveClusters), into *clusters: the wrapper counts a
+// split's waves by it. A cluster's blocks must share one GPC, so this is
+// fewer than SMs / split: on the H100 at one block an SM, 66 clusters of 2,
+// 30 of 4 and 15 of 8.
+extern "C" int dcs_tapconv_clusters(int wgs, int smem, int split, int* clusters) {
+  if ((wgs != 1 && wgs != 2) || split < 1 || split > 8 || smem < 0 ||
+      static_cast<size_t>(smem) > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = wgs == 2 ? tapconv_kernel<2, BK, 128, kTapsPerStage<BK, 128>, 4, true>
+                         : tapconv_kernel<1, BK, 128, kTapsPerStage<BK, 128>, 4, true>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, split);
+  cfg.blockDim = dim3(128 * wgs);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
 }
 
 // The input gradient's weights, packed straight from the forward's w (taps,
@@ -866,15 +977,15 @@ extern "C" int dcs_tapconv_dgrad(const float* g, const float* wp, float* dx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Geo geo{HO, WO, N, H, W, Cin, pad_top - (Dh - 1), pad_left - (Dw - 1), Dh, Dw,
           flat, 0, 0, 0, (N + kb - 1) / kb};
-  if (kb == 8 && bn == 32) return launch_tiled<8, 32>(s, g, wp, dx, B, geo, wgs);
+  if (kb == 8 && bn == 32) return launch_tiled<8, 32>(s, g, wp, dx, B, geo, wgs, 1);
   if (kb != BK) return static_cast<int>(cudaErrorInvalidValue);
   switch (bn) {
     case 32:
-      return launch_tiled<BK, 32>(s, g, wp, dx, B, geo, wgs);
+      return launch_tiled<BK, 32>(s, g, wp, dx, B, geo, wgs, 1);
     case 64:
-      return launch_tiled<BK, 64>(s, g, wp, dx, B, geo, wgs);
+      return launch_tiled<BK, 64>(s, g, wp, dx, B, geo, wgs, 1);
     case 128:
-      return launch_tiled<BK, 128>(s, g, wp, dx, B, geo, wgs);
+      return launch_tiled<BK, 128>(s, g, wp, dx, B, geo, wgs, 1);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -137,7 +137,7 @@ def _check_float32(cfg: STFTConfig) -> None:
     if cfg.dft_dtype != "float32":
         raise NotImplementedError(
             f"dft_dtype={cfg.dft_dtype!r}: the port runs the DFT in float32 "
-            "(reduced precision is ROADMAP Queue 1 item 9)")
+            "(reduced precision is ROADMAP Queue 1 item 5)")
 
 
 def stft_adjoint(g_re: torch.Tensor, g_im: torch.Tensor, cfg: STFTConfig,

@@ -50,7 +50,7 @@ class DCSNet(nn.Module):
         if m.compute_dtype != "float32" or m.param_dtype != "float32":
             raise NotImplementedError(
                 "the port runs float32 only; reduced-precision compute is "
-                "ROADMAP Queue 1 item 9")
+                "ROADMAP Queue 1 item 5")
         if m.fc_features != m.latent_channels:
             raise ValueError(
                 f"fc_features ({m.fc_features}) must equal the latent channel "

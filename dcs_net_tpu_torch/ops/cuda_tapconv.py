@@ -10,11 +10,17 @@ low part (the weights as :func:`split_tf32` does, rounding to nearest; the
 pixels by truncation, in registers) and ``lo*hi + hi*lo + hi*hi`` accumulates
 in float32 through ``wgmma`` (3xTF32). A block stages its halo tile of the input
 once per 32-channel chunk and runs all taps from it, so no patch tensor
-reaches device memory. TF32 ``wgmma`` reads the weights K-major from shared
-memory, so a small kernel of the same source (``PACK``) first rewrites
-``w`` (taps, Cin, N) into split, tiled, K-major form; :func:`pack_weights` is
-the same layout in PyTorch. The public argument layout is unchanged. See the
-source for the design notes.
+reaches device memory. It reads x itself: the zero padding the decoder's
+unified conv asks for (``pad``) is zero fill at staging, never a padded
+copy. TF32 ``wgmma`` reads the weights K-major from shared memory, so a
+small kernel of the same source (``PACK``) first rewrites ``w`` (taps, Cin,
+N) into split, tiled, K-major form; :func:`pack_weights` is the same layout
+in PyTorch. :func:`forward_plan` chooses the tiling from the shape alone:
+flat multi-row tiles for images narrower than 128 columns, and where the
+grid would leave the card idle (batch 1, a streaming chunk group) the tiling
+and a split of the channel chunks among a cluster of blocks that adds its
+partial tiles in a fixed order, by a cost model measured on the H100. The
+public argument layout is unchanged. See the source for the design notes.
 
 :func:`tapconv_valid` takes CPU tensors through the plain version and CUDA
 tensors through the kernel, never falling back between the two.
@@ -39,18 +45,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from dcs_net_tpu_torch.utils.cuda_lib import CudaKernel, check_cuda_operand, ptr
+from dcs_net_tpu_torch.utils.cuda_lib import KERNELS, CudaKernel, check_cuda_operand, ptr
 
 _i = ctypes.c_int
 _p = ctypes.c_void_p
 KERNEL = CudaKernel(
     "tapconv_valid", "tapconv.cu", "dcs_tapconv_valid",
-    [_p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
+    [_p, _p, _p] + [_i] * 15 + [_p])
 PACK = CudaKernel(
     "tapconv_pack", "tapconv.cu", "dcs_tapconv_pack",
     [_p, _p, _i, _i, _i, _i, _p])
@@ -109,15 +115,27 @@ def unpack_weights(wp: torch.Tensor, cin: int, n: int) -> torch.Tensor:
 Pad = Tuple[int, int, int, int]     # (top, bottom, left, right)
 
 
-def _out_shape(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int):
+def _pads(pad: Optional[Pad]) -> Pad:
+    pad = tuple(pad or (0, 0, 0, 0))
+    if len(pad) != 4 or min(pad) < 0:
+        raise ValueError(f"pad {pad} must be four non-negative (top, bottom, "
+                         f"left, right)")
+    return pad
+
+
+def _out_shape(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
+               pad: Optional[Pad] = None):
+    """(B, HO, WO, N) of the tap conv of x zero-padded by ``pad``."""
     if x.dim() != 4 or w.dim() != 3:
-        raise ValueError(f"expected x (B,Hp,Wp,Cin), w (Dh*Dw,Cin,N); got "
+        raise ValueError(f"expected x (B,H,W,Cin), w (Dh*Dw,Cin,N); got "
                          f"{tuple(x.shape)}, {tuple(w.shape)}")
-    B, hp, wp, cin = x.shape
+    B, h, wd, cin = x.shape
     taps, cin_w, n = w.shape
     if taps != dh_n * dw_n or cin_w != cin:
         raise ValueError(f"w {tuple(w.shape)} does not match {dh_n}x{dw_n} "
                          f"taps over Cin {cin}")
+    top, bottom, left, right = _pads(pad)
+    hp, wp = h + top + bottom, wd + left + right
     ho, wo = hp - dh_n + 1, wp - dw_n + 1
     if ho < 1 or wo < 1:
         raise ValueError(f"input {hp}x{wp} smaller than the {dh_n}x{dw_n} window")
@@ -125,12 +143,12 @@ def _out_shape(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int):
 
 
 def _pad(x: torch.Tensor, pad: Optional[Pad]) -> torch.Tensor:
-    """x zero-padded by ``pad`` = (top, bottom, left, right) rows and columns."""
-    if pad is None or not any(pad):
+    """x zero-padded by ``pad`` = (top, bottom, left, right) rows and columns:
+    the plain version's input and the weight gradient's; the kernel reads x
+    in place."""
+    top, bottom, left, right = _pads(pad)
+    if not any((top, bottom, left, right)):
         return x
-    if min(pad) < 0:
-        raise ValueError(f"pad {pad} must not be negative")
-    top, bottom, left, right = pad
     return F.pad(x, (0, 0, left, right, top, bottom)).contiguous()
 
 
@@ -147,19 +165,25 @@ def tapconv_valid_plain(x: torch.Tensor, w: torch.Tensor, dh_n: int,
     return y
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int) -> torch.Tensor:
-    """The packing and tap-conv launches on CUDA tensors."""
-    B, ho, wo, n = _out_shape(x, w, dh_n, dw_n)
+def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
+            pad: Optional[Pad] = None,
+            plan: Optional[Tuple[int, int, int, int]] = None) -> torch.Tensor:
+    """The packing and tap-conv launches on CUDA tensors: x (B, H, W, Cin)
+    read in place as zero-padded by ``pad``, at ``plan`` = (bn, flat, wgs,
+    split), by default :func:`forward_plan`'s."""
+    B, ho, wo, n = _out_shape(x, w, dh_n, dw_n, pad)
     dev = x.device
     check_cuda_operand("x", x, dev, 4)
     check_cuda_operand("w", w, dev, 3)
-    _, hp, wp, cin = x.shape
-    bn = tile_n(n)
+    _, H, W, cin = x.shape
+    top, _, left, _ = _pads(pad)
+    bn, flat, wgs, split = plan or forward_plan(B, H, W, cin, n, dh_n, dw_n, pad, dev)
     packed = torch.empty((-(-n // bn), -(-cin // BK), dh_n * dw_n, 2, BK // 4,
                           bn, 4), device=dev, dtype=torch.float32)
     y = torch.empty((B, ho, wo, n), device=dev, dtype=torch.float32)
     PACK(dev, ptr(w), ptr(packed), dh_n * dw_n, cin, n, bn)
-    KERNEL(dev, ptr(x), ptr(packed), ptr(y), B, hp, wp, cin, dh_n, dw_n, n, bn)
+    KERNEL(dev, ptr(x), ptr(packed), ptr(y), B, H, W, cin, ho, wo, n, dh_n, dw_n,
+           top, left, flat, wgs, bn, split)
     return y
 
 
@@ -208,24 +232,26 @@ def _taps_per_stage(kb: int, bn: int) -> int:
     return 9 if bn == 8 or kb == 8 else 128 // bn
 
 
-def dgrad_smem_bytes(kb: int, bn: int, nsa: int, cg: int, taps: int,
-                     arows: int, apw: int) -> int:
+def smem_bytes(kb: int, bn: int, nsa: int, cg: int, taps: int, arows: int,
+               apw: int, part_rows: int = 0) -> int:
     """Shared memory of one block (``smem_bytes`` in the source): the B
-    ring, ``nsa`` halo-tile stages of arows x apw pixels, the mbarriers."""
+    ring and ``nsa`` halo-tile stages of arows x apw pixels, or, where
+    larger, the partial tile of ``part_rows`` rows of a split; the
+    mbarriers."""
     tps = min(taps, _taps_per_stage(kb, bn))
     nchunks = -(-cg // kb)
     nit = nchunks * -(-taps // tps)
     words = (min(nit, 3) * tps * 2 * kb * bn
              + min(nchunks, nsa) * arows * apw * (kb + 4))
-    return 4 * words + 3 * 8
+    return 4 * max(words, part_rows * (bn + 8)) + 3 * 8
 
 
-def dgrad_tiling(flat: int, wgs: int, H: int, W: int, dh_n: int, dw_n: int
-                 ) -> Tuple[int, int, int]:
-    """(M tiles per image or output row, halo rows, halo pixels a row) of the
-    input-gradient entry (``set_tiles`` in the source): a flat tile of BM =
-    64 * wgs consecutive pixels covers at most (BM + W - 2) // W + 1 rows,
-    BM // W where rows divide it; a row tile BM pixels of one row."""
+def tiling(flat: int, wgs: int, H: int, W: int, dh_n: int, dw_n: int
+           ) -> Tuple[int, int, int]:
+    """(M tiles per image or output row, halo rows, halo pixels a row) of an
+    output H x W (``set_tiles`` in the source): a flat tile of BM = 64 * wgs
+    consecutive pixels covers at most (BM + W - 2) // W + 1 rows, BM // W
+    where rows divide it; a row tile BM pixels of one row."""
     bm = 64 * wgs
     if flat:
         span = bm // W if bm % W == 0 else (bm + W - 2) // W + 1
@@ -233,21 +259,24 @@ def dgrad_tiling(flat: int, wgs: int, H: int, W: int, dh_n: int, dw_n: int
     return -(-W // bm), dh_n, bm + dw_n - 1
 
 
-def dgrad_plan(B: int, H: int, W: int, n: int, cin: int, dh_n: int, dw_n: int,
-               sms: int = SMS) -> Tuple[int, int, int, int]:
-    """(kb, bn, flat, wgs) of the input gradient at dx (B, H, W, Cin) from g's
-    N channels, from the shape alone. Images narrower than 128 columns take
-    flat tiles (several rows a tile, so a 32-column image fills the 64 wgmma
-    rows); wider ones one row a tile, as the forward. 128-pixel tiles (two
-    warpgroups sharing B) unless 64 fill the tiles' rows better (by more than
-    a tenth), 128 would leave half of the card's SMs without a block, or
-    their halo tiles do not fit shared memory twice."""
-    kb, bn = dgrad_tiles(n, cin)
+def _m_tiles(B: int, H: int, W: int, dh_n: int, dw_n: int, flat: int, wgs: int) -> int:
+    return B * tiling(flat, wgs, H, W, dh_n, dw_n)[0] * (1 if flat else H)
+
+
+def _tile_plan(B: int, H: int, W: int, cg: int, n: int, kb: int, bn: int,
+               dh_n: int, dw_n: int, sms: int) -> Tuple[int, int]:
+    """(flat, wgs) for an output (B, H, W, n) reduced over ``cg`` channels,
+    from the shape alone. Images narrower than 128 columns take flat tiles
+    (several rows a tile, so a 32-column image fills the 64 wgmma rows);
+    wider ones one row a tile. 128-pixel tiles (two warpgroups sharing B)
+    unless 64 fill the tiles' rows better (by more than a tenth), 128 would
+    leave half of the card's SMs without a block, or their halo tiles do not
+    fit shared memory twice."""
     taps = dh_n * dw_n
 
     def fits(flat, wgs, nsa):
-        _, arows, apw = dgrad_tiling(flat, wgs, H, W, dh_n, dw_n)
-        return dgrad_smem_bytes(kb, bn, nsa, n, taps, arows, apw) <= SMEM_LIMIT
+        _, arows, apw = tiling(flat, wgs, H, W, dh_n, dw_n)
+        return smem_bytes(kb, bn, nsa, cg, taps, arows, apw) <= SMEM_LIMIT
 
     flat = int(W < 128 and fits(1, 1, 1))
     px = H * W if flat else W
@@ -256,10 +285,106 @@ def dgrad_plan(B: int, H: int, W: int, n: int, cin: int, dh_n: int, dw_n: int,
         bm = 64 * wgs
         return px / (bm * -(-px // bm))
 
-    tiles2 = dgrad_tiling(flat, 2, H, W, dh_n, dw_n)[0]
-    blocks2 = B * tiles2 * (1 if flat else H) * -(-cin // bn)
+    blocks2 = _m_tiles(B, H, W, dh_n, dw_n, flat, 2) * -(-n // bn)
     wide = fits(flat, 2, 2) and fill(2) >= 0.9 * fill(1) and 2 * blocks2 > sms
-    return kb, bn, flat, 2 if wide else 1
+    return flat, 2 if wide else 1
+
+
+def dgrad_plan(B: int, H: int, W: int, n: int, cin: int, dh_n: int, dw_n: int,
+               sms: int = SMS) -> Tuple[int, int, int, int]:
+    """(kb, bn, flat, wgs) of the input gradient at dx (B, H, W, Cin) from g's
+    N channels, from the shape alone (:func:`_tile_plan`)."""
+    kb, bn = dgrad_tiles(n, cin)
+    return (kb, bn) + _tile_plan(B, H, W, n, cin, kb, bn, dh_n, dw_n, sms)
+
+
+# The forward's time where its grid is under half a wave, as chip_smoke.py's
+# sweep of kernel 3 measured it on the H100 (80GB HBM3, 700 W) at dec0-dec2
+# at batch 1 and 8: about STEP_MS[wgs] for each tap and channel chunk a
+# block runs (the A side's loads and splits and the wgmma instructions, not
+# the weights' bytes), times the waves of clusters the grid takes. Fitted
+# to the sweep's lines by tools/fit_tapconv_plan.py.
+STEP_MS = {1: 0.00094, 2: 0.00126}
+# cudaOccupancyMaxActiveClusters on the H100 at one block an SM, by cluster
+# size: the figures where no card is at hand (meta tensors)
+H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
+
+
+@functools.lru_cache(maxsize=64)
+def _clusters_at_once(device: torch.device, wgs: int, smem: int, split: int) -> int:
+    """Clusters of ``split`` blocks at ``wgs`` warpgroups and ``smem`` bytes
+    of shared memory that the card runs at once (``dcs_tapconv_clusters``)."""
+    if device.type != "cuda":
+        return H100_CLUSTERS[split]
+    # through the registry: KERNEL itself may be wrapped (shape logs, tests)
+    fn = KERNELS["tapconv_valid"].library_function(
+        "dcs_tapconv_clusters", [_i, _i, _i, ctypes.POINTER(_i)])
+    out = _i(0)
+    with torch.cuda.device(device):
+        rc = fn(wgs, smem, split, ctypes.byref(out))
+    if rc != 0 or out.value < 1:
+        raise RuntimeError(f"dcs_tapconv_clusters({wgs}, {smem}, {split}) failed: "
+                           f"error {rc}, {out.value} clusters")
+    return out.value
+
+
+def launch_smem(bn: int, wgs: int, cin: int, taps: int, arows: int, apw: int,
+                split: int) -> int:
+    """Shared memory of one forward block as the source sizes it: two halo
+    stages where they fit (always at two warpgroups), else one; the partial
+    tile of a split."""
+    part = 64 * wgs if split > 1 else 0
+    two = smem_bytes(BK, bn, 2, cin, taps, arows, apw, part)
+    return two if two <= SMEM_LIMIT or wgs == 2 else smem_bytes(
+        BK, bn, 1, cin, taps, arows, apw, part)
+
+
+def _live_taps(flat: int, wgs: int, H: int, HO: int, WO: int, top: int,
+               dh_n: int, dw_n: int) -> List[int]:
+    """Taps each M tile of one image runs: the tap rows that read inside the
+    input's H rows for some output row of the tile (the kernel skips the
+    others), times Dw."""
+    bm, hw = 64 * wgs, HO * WO
+    spans = ([(q, min(q + bm, hw) - 1) for q in range(0, hw, bm)] if flat
+             else [(h * WO, h * WO) for h in range(HO) for _ in range(0, WO, bm)])
+    return [dw_n * max(0, min(dh_n - 1, H - 1 - (qa // WO - top))
+                       - max(0, top - qb // WO) + 1) for qa, qb in spans]
+
+
+def forward_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
+                 pad: Pad = (0, 0, 0, 0), device: torch.device = torch.device("meta")
+                 ) -> Tuple[int, int, int, int]:
+    """(bn, flat, wgs, split) of the forward of x (B, H, W, Cin) zero-padded
+    by ``pad`` to N = ``n`` channels on ``device``, from the shape alone: the
+    N tile of :func:`tile_n` and the tiling of :func:`_tile_plan`. Where that
+    grid leaves more than half of the card's SMs without a block (batch 1, a
+    streaming chunk group), the tiling (flat or one row, 64 or 128 pixels)
+    and the split (1, 2, 4 or 8 blocks of one output tile, each with at least
+    one 32-channel chunk) of the least modelled time: the taps and chunks a
+    block runs at ``STEP_MS``, times the waves of clusters the card runs
+    (:func:`_clusters_at_once`); of equal times, the fewer taps streamed."""
+    top, bottom, left, right = _pads(pad)
+    HO, WO = H + top + bottom - dh_n + 1, W + left + right - dw_n + 1
+    bn, nt = tile_n(n), -(-n // tile_n(n))
+    flat, wgs = _tile_plan(B, HO, WO, cin, n, BK, bn, dh_n, dw_n, _sm_count(device))
+    if 2 * _m_tiles(B, HO, WO, dh_n, dw_n, flat, wgs) * nt > _sm_count(device):
+        return bn, flat, wgs, 1
+    nchunks = -(-cin // BK)
+    best, plan = None, (bn, flat, wgs, 1)
+    for flat, wgs in ((0, 1), (0, 2), (1, 1), (1, 2)):
+        if flat and WO >= 128:
+            continue
+        _, arows, apw = tiling(flat, wgs, HO, WO, dh_n, dw_n)
+        taps = _live_taps(flat, wgs, H, HO, WO, top, dh_n, dw_n)
+        for split in (1, 2, 4, 8):
+            smem = launch_smem(bn, wgs, cin, dh_n * dw_n, arows, apw, split)
+            if split > nchunks or smem > SMEM_LIMIT:
+                break
+            waves = -(-B * len(taps) * nt // _clusters_at_once(device, wgs, smem, split))
+            key = (waves * -(-nchunks // split) * max(taps) * STEP_MS[wgs], B * sum(taps))
+            if best is None or key < best:
+                best, plan = key, (bn, flat, wgs, split)
+    return plan
 
 
 @functools.lru_cache(maxsize=8)
@@ -308,22 +433,21 @@ def weight_grad(x: torch.Tensor, g: torch.Tensor, dh_n: int,
 
 class TapconvValid(torch.autograd.Function):
     """Kernel 3 under autograd: forward the tap conv of x zero-padded by
-    ``pad``, backward the JAX ``_updot_bwd`` (input gradient, of x's own
-    pixels, on kernel 3's input-gradient entry; weight gradient in
-    PyTorch)."""
+    ``pad`` (x read in place), backward the JAX ``_updot_bwd`` (input
+    gradient, of x's own pixels, on kernel 3's input-gradient entry; weight
+    gradient in PyTorch, on the padded x)."""
 
     @staticmethod
     def forward(ctx, x, w, dh_n, dw_n, pad=None):
-        xp = _pad(x, pad)
-        ctx.save_for_backward(xp, w)
-        ctx.taps, ctx.pad, ctx.hw = (dh_n, dw_n), tuple(pad or (0, 0, 0, 0)), x.shape[1:3]
+        ctx.save_for_backward(x, w)
+        ctx.taps, ctx.pad, ctx.hw = (dh_n, dw_n), _pads(pad), x.shape[1:3]
         if x.device.type == "cpu":
-            return tapconv_valid_plain(xp, w, dh_n, dw_n)
-        return _launch(xp, w, dh_n, dw_n)
+            return tapconv_valid_plain(_pad(x, pad), w, dh_n, dw_n)
+        return _launch(x, w, dh_n, dw_n, pad)
 
     @staticmethod
     def backward(ctx, g):
-        xp, w = ctx.saved_tensors
+        x, w = ctx.saved_tensors
         dh_n, dw_n = ctx.taps
         g = g.contiguous()
         dx = dw = None
@@ -333,7 +457,7 @@ class TapconvValid(torch.autograd.Function):
             else:
                 dx = _launch_dgrad(g, w, dh_n, dw_n, ctx.pad, ctx.hw)
         if ctx.needs_input_grad[1]:
-            dw = weight_grad(xp, g, dh_n, dw_n)
+            dw = weight_grad(_pad(x, ctx.pad), g, dh_n, dw_n)
         return dx, dw, None, None, None
 
 
@@ -342,17 +466,16 @@ def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
     """x (B, H, W, Cin) zero-padded by ``pad`` = (top, bottom, left, right)
     to (B, Hp, Wp, Cin), w (Dh*Dw, Cin, N) tap-major -> y (B, HO, WO, N) with
     HO = Hp - Dh + 1, WO = Wp - Dw + 1; float32 accumulation. A CPU tensor
-    takes the plain version (plain autograd); a CUDA tensor
-    :class:`TapconvValid`. On the card the kernel picks its tile from the
-    shape (128 or 64 pixels, two halo-tile stages or one) and takes every
-    window whose 64-pixel halo tile fits shared memory, Dh * (63 + Dw) <= 931
-    (12 x 12 and smaller); beyond that the launch is refused and the call
-    raises. Where autograd follows neither operand the kernel runs without
-    the Function."""
-    xp = _pad(x, pad)
+    takes the plain version on the padded x (plain autograd); a CUDA tensor
+    :class:`TapconvValid`, whose kernel reads x in place at
+    :func:`forward_plan`'s tiling. Every window whose 64-pixel halo tile
+    fits shared memory, Dh * (63 + Dw) <= 931 (12 x 12 and smaller), is
+    taken; beyond that the launch is refused and the call raises. Where
+    autograd follows neither operand the kernel runs without the
+    Function."""
     if x.device.type == "cpu":
-        return tapconv_valid_plain(xp, w, dh_n, dw_n)
-    _out_shape(xp, w, dh_n, dw_n)
+        return tapconv_valid_plain(_pad(x, pad), w, dh_n, dw_n)
+    _out_shape(x, w, dh_n, dw_n, pad)
     if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
-        return _launch(xp, w, dh_n, dw_n)
+        return _launch(x, w, dh_n, dw_n, pad)
     return TapconvValid.apply(x, w, dh_n, dw_n, pad)

@@ -18,7 +18,7 @@ dropout masks come from the trainer's one generator, reseeded in place from
 ``(seed, epoch)``, so a run resumed from a checkpoint draws the masks the
 uninterrupted run draws, and a captured graph keeps drawing from it.
 
-Not yet ported (ROADMAP Queue 1 item 6): TensorBoard and histogram logging.
+Not yet ported (ROADMAP Queue 1 item 4): TensorBoard and histogram logging.
 """
 
 from __future__ import annotations
@@ -78,11 +78,14 @@ class Trainer:
     and none, with a printed warning, if its library fails to build or
     load. Its key is ``pesq_est`` unless a ``pypesq``/``pesq`` wheel scores
     (``pesq``). Scalars and audio go under ``log_dir`` (default
-    ``cfg.run.log_dir``)."""
+    ``cfg.run.log_dir``). ``use_tensorboard`` is the JAX ``Trainer``'s
+    parameter, kept for its callers; the port writes no TensorBoard yet."""
 
     def __init__(self, cfg: Config, device: DeviceLike = None,
-                 log_dir: Optional[str] = None, pesq_fn=None):
+                 log_dir: Optional[str] = None, use_tensorboard: bool = True,
+                 pesq_fn=None):
         self.cfg = cfg
+        self.use_tensorboard = use_tensorboard
         self.device = resolve_device(device)
         self._dropout = torch.Generator(device=self.device)
         torch.backends.cudnn.allow_tf32 = False

@@ -96,6 +96,15 @@ class CudaKernel:
             self._lib, self._fn = lib, fn
         return self._fn
 
+    def library_function(self, symbol: str, argtypes: Sequence[type]):
+        """Another C function of this kernel's library (a query, not a
+        launch: nothing is counted), built and loaded on first use; it
+        returns an int."""
+        self._load()
+        fn = getattr(self._lib, symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        return fn
+
     def __call__(self, device: torch.device, *args) -> None:
         fn = self._load()
         stream = torch.cuda.current_stream(device).cuda_stream

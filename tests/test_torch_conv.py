@@ -19,6 +19,7 @@ from dcs_net_tpu_torch.ops import attention, conv_engine as tce
 from dcs_net_tpu_torch.ops import cuda_conv, cuda_tapconv
 from dcs_net_tpu_torch.utils.carray import CArray
 
+from test_torch_tapconv_fwd import entry_model
 from test_torch_train import _one_torch_thread  # noqa: F401
 
 
@@ -599,56 +600,16 @@ def test_tapconv_function_with_pad_matches_jax_updot_of_padded_input(case, pad):
 
 
 def _dgrad_model(g, w, dh_n, dw_n, pad, hw, flat, wgs):
-    """Kernel 3's input-gradient entry, its indexing in numpy: every block
-    (a flat tile of BM = 64 * wgs consecutive pixels of one image, or BM
-    pixels of one row) stages its halo tile of g with zero fill outside g
-    (NaN past the rows and pixels it stages), skips the tap rows that read
-    only zeros, and writes its pixels of dx. Returns dx and how often each
-    pixel was written."""
-    B, HO, WO, N = g.shape
-    H, W = hw
-    cin = w.shape[1]
+    """Kernel 3's input-gradient entry, its indexing in numpy: the entry's
+    model (``entry_model``: flat or one-row tiles, zero fill outside the
+    tensor read, skipped tap rows) on g read in place with the flipped,
+    transposed weights, at (oh, ow) = (top - (Dh - 1), left - (Dw - 1)),
+    without a split. Returns dx and how often each pixel was written."""
     wt = np.ascontiguousarray(w[::-1].transpose(0, 2, 1))    # (taps, N, Cin)
-    oh, ow = pad[0] - (dh_n - 1), pad[2] - (dw_n - 1)
-    bm = 64 * wgs
-    tiles, arows, apw = cuda_tapconv.dgrad_tiling(flat, wgs, H, W, dh_n, dw_n)
-    dx = np.full((B * H * W, cin), np.nan, np.float32)
-    writes = np.zeros(B * H * W, np.int64)
-    for blk in range(B * tiles * (1 if flat else H)):
-        if flat:
-            b, t = divmod(blk, tiles)
-            q0 = t * bm
-            count = min(bm, H * W - q0)
-            h_a, h_b, pw, c0 = q0 // W, (q0 + count - 1) // W, W + dw_n - 1, ow
-            q = q0 + np.arange(count)
-            hrel, wrel, out = q // W - h_a, q % W, b * H * W + q
-        else:
-            row, t = divmod(blk, tiles)
-            q0 = t * bm
-            b, h_a = divmod(row, H)
-            count, h_b, pw, c0 = min(bm, W - q0), h_a, bm + dw_n - 1, q0 + ow
-            hrel, wrel = np.zeros(count, np.int64), np.arange(count)
-            out = row * W + q0 + np.arange(count)
-        nr, r0 = h_b - h_a + dh_n, h_a + oh
-        assert nr <= arows and pw <= apw
-        halo = np.full((arows, apw, N), np.nan, np.float32)
-        for r in range(nr):
-            for p in range(pw):
-                rr, cc = r0 + r, c0 + p
-                inside = 0 <= rr < HO and 0 <= cc < WO
-                halo[r, p] = g[b, rr, cc] if inside else 0.0
-        dh_lo, dh_hi = max(0, -(h_b + oh)), min(dh_n - 1, HO - 1 - r0)
-        acc = np.zeros((count, cin), np.float32)
-        for dh in range(dh_n):
-            for dw in range(dw_n):
-                a = halo[hrel + dh, wrel + dw]
-                if dh_lo <= dh <= dh_hi:
-                    acc += a @ wt[dh * dw_n + dw]
-                else:
-                    assert not a.any()          # a skipped row reads only zeros
-        dx[out] = acc
-        writes[out] += 1
-    return dx.reshape(B, H, W, cin), writes
+    kb, _ = cuda_tapconv.dgrad_tiles(g.shape[-1], w.shape[1])
+    dx, _, stored = entry_model(g, wt, dh_n, dw_n, pad[0] - (dh_n - 1),
+                                pad[2] - (dw_n - 1), hw, flat, wgs, 1, kb)
+    return dx, stored
 
 
 DGRAD_CASES = [
@@ -704,10 +665,10 @@ def test_dgrad_plan_fills_the_wgmma_rows_at_the_train_stages(H, W, n, cin):
     8-channel chunks and 32-wide N tiles."""
     B = 32
     kb, bn, flat, wgs = cuda_tapconv.dgrad_plan(B, H, W, n, cin, 3, 3)
-    tiles, arows, apw = cuda_tapconv.dgrad_tiling(flat, wgs, H, W, 3, 3)
+    tiles, arows, apw = cuda_tapconv.tiling(flat, wgs, H, W, 3, 3)
     rows = B * tiles * (1 if flat else H) * 64 * wgs
     assert B * H * W / rows >= 0.9
-    assert cuda_tapconv.dgrad_smem_bytes(kb, bn, 1, n, 9, arows, apw) <= 227 * 1024
+    assert cuda_tapconv.smem_bytes(kb, bn, 1, n, 9, arows, apw) <= 227 * 1024
     assert (kb, bn) == ((8, 32) if n <= 8 else (32, 128 if cin > 64 else 64))
 
 
@@ -756,7 +717,8 @@ def test_conv_same_off_the_cpu_carries_gradients_through_kernel_2(monkeypatch):
 
 
 def test_tapconv_off_the_cpu_carries_gradients_through_kernel_3(monkeypatch):
-    """The tap conv's output is attached to TapconvValid; its backward packs
+    """The tap conv's output is attached to TapconvValid, whose forward hands
+    the kernel x unpadded with the padding offsets; its backward packs
     the flipped, transposed weights straight from w and launches the
     input-gradient entry on g unpadded, writing x's own pixels (Cin' = N =
     8, N' = Cin = 32: dec6's class, with its small-K tiles), counted
@@ -768,7 +730,9 @@ def test_tapconv_off_the_cpu_carries_gradients_through_kernel_3(monkeypatch):
     w = torch.empty((9, 32, 8), device="meta", requires_grad=True)
     y = cuda_tapconv.tapconv_valid(x, w, 3, 3, (1, 1, 1, 1))
     assert type(y.grad_fn).__name__ == "TapconvValidBackward"
-    assert recs["KERNEL"].calls[0][3:] == (2, 130, 258, 32, 3, 3, 8, cuda_tapconv.tile_n(8))
+    bn, flat, wgs, split = cuda_tapconv.forward_plan(2, 128, 256, 32, 8, 3, 3, (1, 1, 1, 1))
+    assert recs["KERNEL"].calls[0][3:] == (2, 128, 256, 32, 128, 256, 8, 3, 3, 1, 1,
+                                           flat, wgs, bn, split)
     y.backward(torch.empty_like(y))
     assert [len(recs[k].calls) for k in ("KERNEL", "PACK", "DGRAD", "DGRAD_PACK")] == [1, 1, 1, 1]
     kb, bn, flat, wgs = cuda_tapconv.dgrad_plan(2, 128, 256, 8, 32, 3, 3)

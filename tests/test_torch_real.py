@@ -374,8 +374,9 @@ def test_real_spatial_attention_off_the_cpu_runs_the_tiled_body(monkeypatch):
 
 def test_real_decoder_last_stage_off_the_cpu_runs_kernel_3_at_n4(monkeypatch):
     """dec6 of DR/DRS: the convT from 2 x 16 channels to 1 with upsample
-    (2, 2) is kernel 3 at N = 4, packed into an 8-wide N tile; its input
-    gradient reduces over those 4 channels in the 8-channel-chunk class."""
+    (2, 2) is kernel 3 at N = 4, packed into an 8-wide N tile, reading the
+    concatenation unpadded; its input gradient reduces over those 4 channels
+    in the 8-channel-chunk class."""
     recs = {name: _Recorder() for name in ("KERNEL", "PACK", "DGRAD", "DGRAD_PACK")}
     for name, rec in recs.items():
         monkeypatch.setattr(cuda_tapconv, name, rec)
@@ -385,8 +386,10 @@ def test_real_decoder_last_stage_off_the_cpu_runs_kernel_3_at_n4(monkeypatch):
     y = convt((d, skip))
     assert y.shape == (2, 128, 128, 1)
     assert recs["PACK"].calls[0][2:] == (9, 32, 4, 8)
-    assert recs["KERNEL"].calls[0][3:] == (2, 66, 66, 32, 3, 3, 4, cuda_tapconv.tile_n(4))
-    assert cuda_tapconv.tile_n(4) == 8
+    bn, flat, wgs, split = cuda_tapconv.forward_plan(2, 64, 64, 32, 4, 3, 3, (1, 1, 1, 1))
+    assert recs["KERNEL"].calls[0][3:] == (2, 64, 64, 32, 64, 64, 4, 3, 3, 1, 1,
+                                           flat, wgs, bn, split)
+    assert bn == cuda_tapconv.tile_n(4) == 8
     y.backward(torch.empty_like(y))
     kb, bn, flat, wgs = cuda_tapconv.dgrad_plan(2, 64, 64, 4, 32, 3, 3)
     assert (kb, bn, flat) == (8, 32, 1)

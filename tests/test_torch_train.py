@@ -397,6 +397,31 @@ def test_train_cli_rejects_unported_flags(flags, message, capsys, tmp_path):
     assert CheckpointManager(str(tmp_path / "ckpt")).latest_step() == 6
 
 
+def test_train_cli_takes_no_tensorboard(tmp_path, monkeypatch):
+    """``--no-tensorboard``, a flag of the JAX train CLI, is accepted: with
+    ``--synthetic`` the CLI trains one capped epoch (the variant's config
+    narrowed) and hands the Trainer ``use_tensorboard=False``."""
+    from dcs_net_tpu_torch.train import loop as tloop
+
+    monkeypatch.setattr(cli_common, "config_for_variant",
+                        lambda variant, **kw: _tiny(config_for_variant(variant, **kw)))
+    seen = []
+
+    class Recording(tloop.Trainer):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            seen.append(self.use_tensorboard)
+
+    monkeypatch.setattr(tloop, "Trainer", Recording)
+    metrics = cli_train.main(["dcs", "--synthetic", "--synthetic-n", "8", "--log-dir",
+                              str(tmp_path), "--device", "cpu", "--no-tensorboard",
+                              "--epochs", "1", "--limit-train-batches", "1"])
+    assert seen == [False]
+    assert metrics["steps"] == 1 and metrics["nonfinite_loss_steps"] == 0
+    assert np.isfinite(metrics["loss"]) and np.isfinite(metrics["val_loss"])
+    assert os.path.exists(tmp_path / "dcs" / "events.jsonl")
+
+
 def test_train_cli_trains_the_real_variants(tmp_path, capsys):
     """No variant is rejected: DR and DRS train an epoch of 2 steps on the
     CPU (a narrow three-layer net), with finite losses and a checkpoint."""
