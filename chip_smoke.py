@@ -105,6 +105,22 @@ Phases (each prints one or more lines; any failure exits non-zero):
                state (rtol 1e-5), its timing as in (a); (f) ``cli.train`` at
                the card's default K = 8, two epochs of 16 steps: 3 replays,
                its steady audio-s/s;
+     loader  -- the native audio front end (``data/native_loader.py``,
+               ``csrc/audioio.cc``) on 1280 synthetic pairs of 3 s at 48 kHz:
+               (a) the library built with g++ from the checkout (its output
+               printed if it fails) and the host's CPU count; (b) two native
+               batches of 32 x 8160 against the numpy path's (ids and starts
+               equal, samples within 1e-5) and the windowed fill against the
+               faithful one (bit for bit); (c) the loader alone
+               (``tools/profile_loader.py``): batches/s of the numpy path, the
+               faithful fill and the windowed one at 2 workers and at the
+               CPU count over 16 batches, and each part's ms per item; (d) ``cli.train`` at K
+               = 8 with the default prefetch, 2 epochs of 32 steps, once on
+               the native front end (it must print ``loader=native``) and once
+               with ``DCSNET_TORCH_AUDIOIO_SO`` naming a missing file (the
+               numpy path): the steady audio-s/s of each epoch beside phase
+               "graph" (a)'s step rate, and the dispatch cycle reckoned from
+               (c);
      eval    -- the evaluation path on what phase 7 left (its checkpoint,
                8 synthetic test pairs, its trainer's events): (a) ``python
                -m dcs_net_tpu_torch.cli.test --composite``: one CSV row per
@@ -167,6 +183,13 @@ TRAIN_BATCH, TRAIN_CROP, CARD_CPU_BATCH = 32, 8160, 4
 TRAIN_STEPS, TRAIN_N_SYNTHETIC = 8, 480       # 480 pairs: 384 train, 96 val
 GRAPH_K = 8                  # train steps a CUDA graph replay, the CLI's card default
 GRAPH_TRAIN_N = 640          # the K = 8 trainer run's pairs: 512 train, 16 steps an epoch
+# phase "loader": a tree of pairs of one length, 3 s at 48 kHz (VoiceBank's
+# training utterances last several seconds, of many lengths), 1024 train (an
+# epoch of 32 steps at batch 32: four dispatches of K = 8) and 256 val; two
+# epochs a trainer run
+LOADER_SECONDS, LOADER_N_SYNTHETIC, LOADER_EPOCHS = 3.0, 1280, 2
+LOADER_RATE_BATCHES = 16     # batches a loader-alone rate is timed over
+NATIVE_TOL = 1e-5            # native batches against the numpy path's
 # the device kernels of the port's entry points, as the profiler names them
 PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "stft_kernel", "conv_same_kernel", "conv7_kernel",
                        "sa_pool_kernel", "sa_gate_kernel", "sa_gate_real_kernel",
@@ -1485,12 +1508,12 @@ def bn_witness(what, bn, eps, io_card, clip_card, float64_step):
     return {f"{bn}.scale": check("scale"), f"{bn}.bias": check("bias")}
 
 
-def run_cli(module, args, timeout=600):
+def run_cli(module, args, timeout=600, env=None):
     """``python -m dcs_net_tpu_torch.cli.<module> <args>`` in a subprocess
-    from the repository root; returns its stdout and wall seconds, fails on
-    a non-zero exit."""
+    from the repository root, ``env`` added to its environment; returns its
+    stdout and wall seconds, fails on a non-zero exit."""
     repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+    env = dict(os.environ, **(env or {}), PYTHONPATH=os.pathsep.join(
         [repo] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     cmd = [sys.executable, "-m", f"dcs_net_tpu_torch.cli.{module}", *args]
     t0 = time.perf_counter()
@@ -1503,17 +1526,20 @@ def run_cli(module, args, timeout=600):
 
 
 def run_trainer(tmp, epochs, resume, card, flags=(), n_pairs=TRAIN_N_SYNTHETIC,
-                steps=TRAIN_STEPS):
-    """``python -m dcs_net_tpu_torch.cli.train`` in a subprocess: returns its
-    stdout and final metrics. A run whose steps per dispatch K > 1 must
-    capture its CUDA graph and replay it (``graph_replays`` in its final
-    metrics)."""
+                steps=TRAIN_STEPS, data_root=None, env=None):
+    """``python -m dcs_net_tpu_torch.cli.train`` in a subprocess, on
+    ``n_pairs`` synthetic pairs of its own or the tree at ``data_root``:
+    returns its stdout and final metrics. A run whose steps per dispatch K >
+    1 must capture its CUDA graph and replay it (``graph_replays`` in its
+    final metrics)."""
     import ast
 
-    args = ["dcs", "--synthetic", "--synthetic-n", str(n_pairs), "--batch-size",
-            str(TRAIN_BATCH), "--limit-train-batches", str(steps), "--epochs",
-            str(epochs), "--log-dir", tmp, *flags] + (["--resume"] if resume else [])
-    stdout, wall = run_cli("train", args)
+    data = (["--data-root", data_root] if data_root
+            else ["--synthetic", "--synthetic-n", str(n_pairs)])
+    args = ["dcs", *data, "--batch-size", str(TRAIN_BATCH), "--limit-train-batches",
+            str(steps), "--epochs", str(epochs), "--log-dir", tmp, *flags] + (
+        ["--resume"] if resume else [])
+    stdout, wall = run_cli("train", args, env=env)
     final = [ln for ln in stdout.splitlines() if ln.startswith("final: ")]
     if not final:
         fail("the trainer printed no final metrics")
@@ -1641,7 +1667,8 @@ def check_train(dev, card, tmp):
 
     import torch
 
-    from dcs_net_tpu_torch.cli.common import make_loaders
+    from dcs_net_tpu_torch.data.dataset import Loader, VoiceBankDataset
+    from dcs_net_tpu_torch.data.partition import make_partition
     from dcs_net_tpu_torch.core.config import config_for_variant
     from dcs_net_tpu_torch.data import synthetic
     from dcs_net_tpu_torch.models.unet import DCSNet
@@ -1658,10 +1685,16 @@ def check_train(dev, card, tmp):
                               seconds=0.6)
     cfg = config_for_variant("dcs")
     cfg = cfg.replace(data=dataclasses.replace(dcfg, batch_size=TRAIN_BATCH))
-    loaders = make_loaders(cfg)
-    host = next(iter(loaders[0].epoch(0)))
-    for loader in loaders:
-        loader.close()
+    # the first train batch as the CLI's loader draws it, from the numpy path
+    # as before the native front end became the default: the card-vs-CPU
+    # step (c) holds DCS's input-BN gradients to a band that float32 does not
+    # resolve at every input (the native batch, within 6e-8 of this one,
+    # puts initial_bn.gamma_rr outside it; PERF.md section 7)
+    loader = Loader(VoiceBankDataset(make_partition(cfg.data, seed=cfg.run.seed)["train"],
+                                     cfg.data, "train"), TRAIN_BATCH, drop_last=True,
+                    seed=cfg.run.seed, use_native=False)
+    host = next(iter(loader.epoch(0)))
+    loader.close()
     noisy = torch.from_numpy(host["noisy"]).to(dev)
     clean = torch.from_numpy(host["clean"]).to(dev)
     print(f"train: {TRAIN_N_SYNTHETIC} synthetic pairs written and one batch "
@@ -1870,7 +1903,8 @@ def state_band(what, got_model, want_model) -> None:
 def check_graph(dev, card, tmp, noisy, clean, eager_ms):
     """Phase "graph": ``--steps-per-dispatch`` K > 1 on the card, one CUDA
     graph of K train steps replayed a dispatch, on phase "train"'s batch.
-    Returns one replay's launch counts, DCS's and DRS's."""
+    Returns one replay's launch counts, DCS's and DRS's, and (a)'s median
+    DCS step in ms."""
     import dataclasses
 
     import torch
@@ -1906,7 +1940,7 @@ def check_graph(dev, card, tmp, noisy, clean, eager_ms):
     model.set_dropout_generator(torch.Generator(device=dev).manual_seed(SEED + 41))
     scanned, _, launches = capture_graph("DCS", model, make_optimizer(
         model.parameters(), cfg.optim), cfg, x, y)
-    time_graph("DCS", scanned, launches, x[:k], y[:k], eager_ms, card)
+    step_ms = time_graph("DCS", scanned, launches, x[:k], y[:k], eager_ms, card)
     del model, scanned
     torch.cuda.empty_cache()
 
@@ -2041,7 +2075,113 @@ def check_graph(dev, card, tmp, noisy, clean, eager_ms):
             or metrics.get("nonfinite_loss_steps") != 0):
         fail(f"graph (f): the trainer at {k} steps a dispatch: {metrics}")
     print(f"graph: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches, rlaunches
+    return launches, rlaunches, step_ms
+
+
+def check_loader(card, tmp, graph_step_ms):
+    """Phase "loader": the native audio front end on the card's host, and the
+    K = 8 trainer fed by it and by the numpy path, on 3 s pairs."""
+    import re
+
+    from dcs_net_tpu_torch.core.config import DataConfig
+    from dcs_net_tpu_torch.data import native_loader, synthetic
+    from dcs_net_tpu_torch.data.dataset import Loader, VoiceBankDataset
+    from dcs_net_tpu_torch.data.partition import make_partition
+    from dcs_net_tpu_torch.tools import profile_loader
+
+    t_phase = time.perf_counter()
+    cpus = os.cpu_count()
+    host = f"{card}; host CPUs {cpus}"
+
+    # (a) the library, built here from the checkout's source
+    t0 = time.perf_counter()
+    try:
+        so = native_loader.build_library()
+    except RuntimeError as e:
+        print(e, flush=True)
+        fail("loader (a): the native front end did not build")
+    if not native_loader.native_available():
+        fail(f"loader (a): the native front end does not load: {native_loader.load_error()}")
+    print(f"loader: (a) {so} built or found in {time.perf_counter() - t0:.2f} s "
+          f"(g++ {' '.join(native_loader.GXX_FLAGS)}); host CPUs {cpus}", flush=True)
+    root = os.path.join(tmp, "loader_data")
+    t0 = time.perf_counter()
+    synthetic.generate(root, n_train=LOADER_N_SYNTHETIC, n_test=2, seconds=LOADER_SECONDS)
+    print(f"loader: wrote {LOADER_N_SYNTHETIC} pairs of {LOADER_SECONDS} s at 48 kHz "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # (b) native batches against the numpy path's on this host
+    cfg = DataConfig(root=root, batch_size=TRAIN_BATCH, crop_samples=TRAIN_CROP)
+    ds = VoiceBankDataset(make_partition(cfg, seed=SEED)["train"], cfg, "train")
+    nat = Loader(ds, TRAIN_BATCH, drop_last=True, seed=SEED, use_native=True)
+    py = Loader(ds, TRAIN_BATCH, drop_last=True, seed=SEED, use_native=False)
+    worst = 0.0
+    try:
+        for a, b in itertools.islice(zip(nat.epoch(0), py.epoch(0)), 2):
+            if a["id"] != b["id"] or not np.array_equal(a["start"], b["start"]):
+                fail("loader (b): the native and numpy batches differ in ids or starts")
+            worst = max(worst, float(np.abs(a["clean"] - b["clean"]).max()),
+                        float(np.abs(a["noisy"] - b["noisy"]).max()))
+            full = native_loader.fill_batch_full(
+                [os.path.join(ds.clean_dir, u + ".wav") for u in a["id"]],
+                [os.path.join(ds.noisy_dir, u + ".wav") for u in a["id"]], a["start"],
+                TRAIN_CROP)
+            if not (np.array_equal(full[0], a["clean"]) and np.array_equal(full[1], a["noisy"])):
+                fail("loader (b): the windowed fill differs from the faithful one")
+    finally:
+        nat.close()
+        py.close()
+    print(f"loader: (b) 2 batches of {TRAIN_BATCH} x {TRAIN_CROP}, native against numpy: "
+          f"ids and starts equal, max |diff| {worst:.3e} (limit {NATIVE_TOL}); the "
+          f"windowed fill equal to the faithful one bit for bit", flush=True)
+    if not worst <= NATIVE_TOL:
+        fail("loader (b): the native batches are not the numpy path's")
+
+    # (c) the loader alone
+    prof = profile_loader.profile(root, TRAIN_BATCH, TRAIN_CROP, sorted({2, cpus}), 32,
+                                  LOADER_RATE_BATCHES)
+    print(f"loader: (c) [{host}]", flush=True)
+
+    # (d) the trainer at K = 8, default prefetch, on each front end
+    audio_s = TRAIN_BATCH * TRAIN_CROP / SR
+    graph_rate = audio_s / graph_step_ms * 1e3
+    steps = len(ds) // TRAIN_BATCH
+    runs = {"native": {}, "numpy": {
+        native_loader.ENV_SO: os.path.join(tmp, "no_such_dir", "libaudioio.so")}}
+    for label, env in runs.items():
+        stdout, metrics = run_trainer(os.path.join(tmp, f"loader_{label}"), LOADER_EPOCHS,
+                                      False, card, (), steps=steps, data_root=root, env=env)
+        line = next((ln for ln in stdout.splitlines() if ln.startswith("loader=")), "")
+        steady = [float(v) for v in re.findall(r"\bsteady_audio_seconds_per_s=(\S+)", stdout)]
+        print(f"loader: (d) the trainer at K = {GRAPH_K} on the {label} front end "
+              f"({line}): {LOADER_EPOCHS} epochs of {steps} steps, steady "
+              f"{', '.join(f'{v:.1f}' for v in steady)} audio-s/s per GPU by epoch, "
+              f"{metrics.get('audio_seconds_per_s')} over its last epoch, "
+              f"{metrics.get('graph_replays')} replays since the capture; the graphed step "
+              f"alone (graph (a)) {graph_rate:.1f} audio-s/s [{host}]", flush=True)
+        if label == "native" and line != "loader=native":
+            fail(f"loader (d): the trainer did not take the native front end: {line!r}")
+        if label == "numpy" and not line.startswith("loader=python (native front end "
+                                                    "unavailable"):
+            fail(f"loader (d): the trainer with the library missing printed {line!r}")
+        if (metrics.get("steps") != steps or metrics.get("nonfinite_loss_steps") != 0
+                or len(steady) != LOADER_EPOCHS):
+            fail(f"loader (d): the trainer on the {label} front end: {metrics}")
+        # the steady cycle of a dispatch reckoned from the loader alone: the
+        # producer runs at most prefetch + 1 = 3 batches ahead of a replay R
+        # that takes K = 8, so about max(R, 3L) + 5L with L its time a batch
+        workers = 2
+        fe = "native-windowed" if label == "native" else "numpy"
+        L = 1.0 / prof["rate"][fe][workers]
+        R = GRAPH_K * graph_step_ms / 1e3
+        cycle = max(R, 3 * L) + 5 * L
+        print(f"loader: (d) reckoning for the {label} front end: L {L * 1e3:.1f} ms a "
+              f"batch at {workers} workers, R {R * 1e3:.1f} ms a replay: max(R, 3L) + 5L "
+              f"= {cycle * 1e3:.1f} ms a dispatch, {GRAPH_K * audio_s / cycle:.1f} "
+              f"audio-s/s; with a prefetch of K or more max(R, 8L) = "
+              f"{max(R, 8 * L) * 1e3:.1f} ms, {GRAPH_K * audio_s / max(R, 8 * L):.1f} "
+              f"audio-s/s", flush=True)
+    print(f"loader: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def read_events(path):
@@ -2515,13 +2655,15 @@ def main() -> int:
                   f"{audio.shape[0]} samples at {sr} Hz, finite", flush=True)
 
     # phase 7: the train step and the trainer
-    # phase "eval": the evaluation path on what phase 7 left
     # phase "graph": the train steps as one CUDA graph replay a dispatch
+    # phase "loader": the native audio front end and the K = 8 trainer on it
+    # phase "eval": the evaluation path on what phase 7 left
     with tempfile.TemporaryDirectory(prefix="dcs_train_") as tmp:
         train_rows, train_launches, (noisy, clean, eager_ms) = check_train(dev, card, tmp)
-        graph_launches, drs_graph_launches = check_graph(dev, card, tmp, noisy, clean,
-                                                         eager_ms)
+        graph_launches, drs_graph_launches, graph_step_ms = check_graph(
+            dev, card, tmp, noisy, clean, eager_ms)
         del noisy, clean
+        check_loader(card, tmp, graph_step_ms)
         eval_rows = check_eval(dev, card, tmp)
     del model, cpu_model
     for row in rows:

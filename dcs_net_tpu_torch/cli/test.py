@@ -48,6 +48,7 @@ def main(argv=None) -> dict:
     print(f"restored step {step} from {cfg.run.ckpt_dir}")
     csv_path = os.path.join(out_dir, "per_utterance.csv")
     test_loader = make_test_loader(cfg, batch_size=1)
+    print(f"loader={test_loader.front_end}", flush=True)
     try:
         metrics = trainer.eval_epoch(test_loader.epoch(0), 0, phase="test",
                                      max_batches=args.limit_batches,

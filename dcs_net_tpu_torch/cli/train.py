@@ -63,6 +63,7 @@ def main(argv=None) -> dict:
           f"steps_per_dispatch={k}")
     loaders = make_loaders(cfg)
     train_loader, val_loader = loaders
+    print(f"loader={train_loader.front_end}", flush=True)
     trainer = Trainer(cfg, device=args.device,
                       use_tensorboard=not args.no_tensorboard)
     trainer.init_state()

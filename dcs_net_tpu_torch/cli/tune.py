@@ -94,10 +94,12 @@ def main(argv=None) -> Dict:
     args = p.parse_args(argv)
     check_ported(p, args)
 
+    from dcs_net_tpu_torch.data.dataset import choose_front_end
     from dcs_net_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     base_cfg = build_config(args)
+    print(f"loader={choose_front_end(base_cfg.data)[1]}", flush=True)
 
     try:
         import optuna

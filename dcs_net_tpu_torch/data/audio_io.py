@@ -1,6 +1,8 @@
 """Host-side WAV decode/encode and the polyphase windowed-sinc resampler
 (torchaudio's design: lowpass_filter_width 6, rolloff 0.99, Hann-squared
-window), in numpy."""
+window), in numpy; ``resample_torch``, the same resampler on a tensor, the
+JAX package's ``resample_jax``. The module imports torch only inside
+``resample_torch``: the data loader's threads use the rest."""
 
 from __future__ import annotations
 
@@ -85,3 +87,22 @@ def resample(x: np.ndarray, orig_freq: int, new_freq: int) -> np.ndarray:
     phases = xp[..., idx] @ kernels.T            # (..., frames, new)
     out = phases.reshape(x.shape[:-1] + (-1,))   # interleaved phases
     return out[..., :target_len].astype(np.float32)
+
+
+def resample_torch(x, orig_freq: int, new_freq: int):
+    """:func:`resample` of a (..., n) float32 tensor on its device: one
+    ``F.conv1d`` with stride ``orig`` and one output channel per phase (for
+    48 -> 16 kHz a single stride-3 conv)."""
+    import torch
+    import torch.nn.functional as F
+
+    if orig_freq == new_freq:
+        return x
+    kernels, width, orig, new = sinc_resample_kernel(orig_freq, new_freq)
+    n = x.shape[-1]
+    target_len = int(math.ceil(new * n / orig))
+    xp = F.pad(x.reshape(-1, 1, n), (width, width + orig))
+    w = torch.as_tensor(kernels, dtype=x.dtype, device=x.device)[:, None, :]
+    out = F.conv1d(xp, w, stride=orig)                 # (B, new, frames)
+    out = out.transpose(1, 2).reshape(xp.shape[0], -1)  # interleaved phases
+    return out[:, :target_len].reshape(x.shape[:-1] + (target_len,))

@@ -1,30 +1,37 @@
 """VoiceBank-DEMAND waveform loader, the port's copy of the JAX package's
-``data/dataset.py`` without its native C++ front end.
+``data/dataset.py``.
 
 The host ships raw 16 kHz waveform crops; the STFT runs on the device inside
 the step (``train/steps.py:batch_from_waves``). Host work per item is the wav
 decode, the 48 kHz -> 16 kHz polyphase resample and the pad-or-random crop,
 overlapped with the device's work by a background thread that keeps
-``prefetch`` batches ready. The semantics are the JAX package's: normalise on
-load, equal clean and noisy lengths, a crop of ``crop_samples`` (8160), zero
-right-pad for short utterances and a uniform random start otherwise, the same
-seeded crop starts and shuffles (so both packages yield the same batches),
-and a check for non-finite samples per item. The loader runs numpy only: its
-threads make no CUDA call, so they may prefetch while the trainer captures a
-CUDA graph (a capture forbids such calls from any thread).
+``prefetch`` batches ready. Two front ends do it, with the JAX package's rule
+between them: the native one (``data/native_loader.py``, a whole batch in one
+C call that reads only each crop's window) when its library builds and
+``load_into_ram`` is off, else numpy on ``num_workers`` threads. The
+semantics are the JAX package's: normalise on load, equal clean and noisy
+lengths, a crop of ``crop_samples`` (8160), zero right-pad for short
+utterances and a uniform random start otherwise, the same seeded crop starts
+and shuffles (so both packages, and both front ends, yield the same batches),
+and a check for non-finite samples per item. The loader makes no CUDA call
+and imports no torch, so its threads may prefetch while the trainer captures
+a CUDA graph (a capture forbids such calls from any thread).
 """
 
 from __future__ import annotations
 
+import math
 import os
 import queue
 import threading
+import wave
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
 from dcs_net_tpu_torch.core.config import DataConfig
+from dcs_net_tpu_torch.data import native_loader
 from dcs_net_tpu_torch.data import partition as P
 from dcs_net_tpu_torch.data.audio_io import read_wav, resample
 
@@ -80,30 +87,78 @@ class VoiceBankDataset:
                     f"Found inf/-inf/nan in {name} audio for {utt_id}")
         return {"clean": clean, "noisy": noisy, "id": utt_id, "start": start}
 
+    def full_utterance(self, index: int) -> Dict[str, object]:
+        """The uncropped item (the streaming-enhance path's)."""
+        utt_id = self.ids[index]
+        clean, noisy = self._load(utt_id)
+        return {"clean": clean, "noisy": noisy, "id": utt_id, "start": 0}
+
+
+def choose_front_end(cfg: DataConfig, use_native: Optional[bool] = None
+                     ) -> Tuple[bool, str]:
+    """(whether the native front end serves, ``"native"`` or ``"python
+    (<why>)"``). ``use_native`` None takes the JAX rule: native when its
+    library builds and ``load_into_ram`` is off."""
+    if use_native is None:
+        if cfg.load_into_ram:
+            return False, "python (load_into_ram)"
+        if not native_loader.native_available():
+            return False, f"python (native front end unavailable: {native_loader.load_error()})"
+        return True, "native"
+    return use_native, "native" if use_native else "python (use_native=False)"
+
 
 class Loader:
     """Batch iterator with a seeded shuffle each epoch and background
     prefetch.
-    Items of a batch are read by a pool of ``num_workers`` threads (the wav
-    decode and the resample run in numpy, which releases the interpreter
-    lock); :meth:`close` ends the pool."""
+    On the native front end (:func:`choose_front_end`; ``front_end`` names
+    the one taken) a batch is one C call on ``num_workers`` threads; on the
+    numpy one its items are read by a pool of ``num_workers`` threads (the
+    wav decode and the resample run in numpy, which releases the interpreter
+    lock). Both draw each item's crop start from the same per-item
+    generator. :meth:`close` ends the pool."""
 
     def __init__(self, dataset: VoiceBankDataset, batch_size: int,
-                 drop_last: bool = False,
-                 num_workers: int = 2, prefetch: int = 2, seed: int = 0):
+                 shuffle: bool = True, drop_last: bool = False,
+                 num_workers: int = 2, prefetch: int = 2, seed: int = 0,
+                 use_native: Optional[bool] = None):
         self.ds = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.drop_last = drop_last
+        self.num_workers = max(num_workers, 1)
         self.prefetch = prefetch
         self.seed = seed
-        self._pool = ThreadPoolExecutor(max(num_workers, 1))
+        self.use_native, self.front_end = choose_front_end(dataset.cfg, use_native)
+        self._lengths: Optional[List[int]] = None
+        self._pool = ThreadPoolExecutor(self.num_workers)
 
     def close(self) -> None:
         self._pool.shutdown(wait=True)
 
+    def __len__(self) -> int:
+        n = len(self.ds)
+        if self.drop_last:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _utt_lengths(self) -> List[int]:
+        """Each utterance's length at ``cfg.sr``, from its clean wav's
+        header: ``ceil(sr * n / file_sr)``, the resampler's output length."""
+        if self._lengths is None:
+            out = []
+            for utt_id in self.ds.ids:
+                with wave.open(os.path.join(self.ds.clean_dir, utt_id + ".wav"),
+                               "rb") as w:
+                    n, sr = w.getnframes(), w.getframerate()
+                out.append(int(math.ceil(self.ds.cfg.sr * n / sr)))
+            self._lengths = out
+        return self._lengths
+
     def _batches(self, epoch: int) -> List[List[int]]:
         order = np.arange(len(self.ds))
-        np.random.default_rng((self.seed, epoch)).shuffle(order)
+        if self.shuffle:
+            np.random.default_rng((self.seed, epoch)).shuffle(order)
         out = [order[i:i + self.batch_size].tolist()
                for i in range(0, len(order), self.batch_size)]
         if self.drop_last and out and len(out[-1]) < self.batch_size:
@@ -115,7 +170,7 @@ class Loader:
         crop_seeds = np.random.default_rng((self.seed, epoch, 1)).integers(
             0, 2 ** 31, size=len(self.ds))
 
-        def fetch(idxs: List[int]) -> Dict[str, object]:
+        def fetch_python(idxs: List[int]) -> Dict[str, object]:
             items = list(self._pool.map(
                 lambda i: self.ds.get(
                     i, np.random.default_rng(int(crop_seeds[i]) + epoch)), idxs))
@@ -123,6 +178,26 @@ class Loader:
                     "noisy": np.stack([it["noisy"] for it in items]),
                     "id": [it["id"] for it in items],
                     "start": np.asarray([it["start"] for it in items])}
+
+        def fetch_native(idxs: List[int]) -> Dict[str, object]:
+            lengths = self._utt_lengths()
+            win = self.ds.cfg.crop_samples
+            starts = []
+            for i in idxs:
+                n = lengths[i]
+                rng_i = np.random.default_rng(int(crop_seeds[i]) + epoch)
+                starts.append(int(rng_i.integers(0, n - win)) if n > win else 0)
+            ids = [self.ds.ids[i] for i in idxs]
+            clean, noisy = native_loader.fill_batch(
+                [os.path.join(self.ds.clean_dir, u + ".wav") for u in ids],
+                [os.path.join(self.ds.noisy_dir, u + ".wav") for u in ids],
+                starts, win, normalize=self.ds.cfg.normalize_audio,
+                orig_freq=self.ds.cfg.file_sr, new_freq=self.ds.cfg.sr,
+                n_threads=self.num_workers)
+            return {"clean": clean, "noisy": noisy, "id": ids,
+                    "start": np.asarray(starts)}
+
+        fetch = fetch_native if self.use_native else fetch_python
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()

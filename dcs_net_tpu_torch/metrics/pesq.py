@@ -2,37 +2,35 @@
 package's ``native/pesq/pesq.cc``), through ``ctypes``.
 
 The library is host C++, built with ``g++`` at the first call (never at
-import) into ``build/dcs_net_tpu_torch/libpesq.so`` at the repository root.
-The build is atomic: ``g++`` writes a name of its own in that directory,
-then ``os.replace`` puts it in place, all under an exclusive ``fcntl.flock``
-on ``libpesq.lock`` there, so processes that build at once (parallel test
-workers, a trainer and its subprocesses) never load a half-written library:
-the first builds, the others wait and load its file. A library older than
-its source is rebuilt. ``DCSNET_TORCH_PESQ_SO`` names a prebuilt library
-instead. Where a ``pypesq`` or ``pesq`` wheel is importable it is used, for
+import) into ``build/dcs_net_tpu_torch/libpesq.so`` at the repository root,
+atomically (``utils/host_lib.py``); ``DCSNET_TORCH_PESQ_SO`` names a prebuilt
+library instead. Where a ``pypesq`` or ``pesq`` wheel is importable it is used, for
 bit-exactness with the original code's scores.
 """
 
 from __future__ import annotations
 
 import ctypes
-import fcntl
-import os
-import subprocess
-import threading
 from pathlib import Path
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 
-from dcs_net_tpu_torch.utils.cuda_lib import BUILD_DIR, CSRC_DIR
+from dcs_net_tpu_torch.utils.host_lib import BUILD_DIR, HostLibrary
 
-SOURCE = CSRC_DIR / "pesq.cc"
 ENV_SO = "DCSNET_TORCH_PESQ_SO"
 GXX_FLAGS = ("-O2", "-shared", "-fPIC")
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+
+def _bind(lib: ctypes.CDLL) -> None:
+    lib.pesq_mos.restype = ctypes.c_double
+    lib.pesq_mos.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int]
+
+
+_LIBRARY = HostLibrary("pesq", "pesq.cc", ENV_SO, GXX_FLAGS, _bind)
+SOURCE = _LIBRARY.source
 
 
 def _find_external() -> Tuple[str, Optional[Callable]]:
@@ -64,34 +62,13 @@ def build_library(build_dir: Path = BUILD_DIR) -> Path:
     """Build ``libpesq.so`` from ``csrc/pesq.cc`` under ``build_dir`` unless a
     library newer than the source is there; returns its path. Raises with
     the compiler's output if ``g++`` fails."""
-    build_dir = Path(build_dir)
-    build_dir.mkdir(parents=True, exist_ok=True)
-    so = build_dir / "libpesq.so"
-    with open(build_dir / "libpesq.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if so.exists() and so.stat().st_mtime >= SOURCE.stat().st_mtime:
-            return so
-        tmp = build_dir / f"libpesq.{os.getpid()}.tmp.so"
-        r = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(SOURCE)],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"g++ failed to build {SOURCE}:\n{r.stdout}{r.stderr}")
-        os.replace(tmp, so)
-    return so
+    return _LIBRARY.build(build_dir)
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(os.environ.get(ENV_SO) or build_library()))
-            lib.pesq_mos.restype = ctypes.c_double
-            lib.pesq_mos.argtypes = [
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-                ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int]
-            _lib = lib
-    return _lib
+    """The library, built or named by ``DCSNET_TORCH_PESQ_SO`` at the first
+    call; raises if it neither builds nor loads."""
+    return _LIBRARY.load()
 
 
 def pesq(clean: np.ndarray, degraded: np.ndarray, sr: int = 16000) -> float:

@@ -28,9 +28,8 @@ from typing import Dict, Iterable, List, Optional, Sequence
 
 import torch
 
-_PKG_DIR = Path(__file__).resolve().parents[1]
-CSRC_DIR = _PKG_DIR / "csrc"
-BUILD_DIR = _PKG_DIR.parent / "build" / "dcs_net_tpu_torch"
+from dcs_net_tpu_torch.utils.host_lib import BUILD_DIR, CSRC_DIR
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 

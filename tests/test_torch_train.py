@@ -269,8 +269,9 @@ def test_dropout_gradients_are_finite_thanks_to_the_abs_guard(monkeypatch):
 def test_data_pipeline_yields_the_jax_packages_batches(tmp_path):
     """Synthetic fixtures, the partition and the loader's seeded crops and
     shuffles are the JAX package's, so both packages train on the same
-    batches (the JAX loader on its Python path, the port has no native
-    loader)."""
+    batches: both loaders on their numpy paths, equal bit for bit (the
+    native front ends are held against each other, and against this path,
+    in ``test_torch_native_loader.py``)."""
     troot, jroot = str(tmp_path / "port"), str(tmp_path / "jax")
     tcfg = synthetic.generate(troot, n_train=6, n_test=2, seconds=0.6)
     jcfg = jsynthetic.generate(jroot, n_train=6, n_test=2, seconds=0.6)
@@ -279,7 +280,7 @@ def test_data_pipeline_yields_the_jax_packages_batches(tmp_path):
     tcfg = dataclasses.replace(tcfg, crop_samples=CROP)
     jcfg = dataclasses.replace(jcfg, crop_samples=CROP)
     tl = dataset.Loader(dataset.VoiceBankDataset(tpart["train"], tcfg, "train"),
-                        batch_size=2, drop_last=True, seed=1)
+                        batch_size=2, drop_last=True, seed=1, use_native=False)
     jl = jdataset.Loader(jdataset.VoiceBankDataset(jpart["train"], jcfg, "train"),
                          batch_size=2, drop_last=True, seed=1, use_native=False)
     try:
