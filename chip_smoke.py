@@ -19,7 +19,22 @@ Phases (each prints one or more lines; any failure exits non-zero):
                (seeded weights, BN statistics moved off their init): checks
                shape, finiteness and each kernel's launch count in that call,
                times the call, and holds a 1 s request on the card against
-               the same weights on the CPU (atol 3e-4, rtol 1e-3);
+               the same weights on the CPU (atol 3e-4, rtol 1e-3); then the
+               call as one CUDA graph (``models/graphed.py``, as the enhance
+               CLI runs it; lines "graphed: ..."): graphed against eager bit
+               for bit under cuDNN's deterministic algorithms (the largest
+               difference under its defaults printed), a replay's launches
+               counted at the capture (1 STFT, 13 + 13 gates, 7 + 7 tap
+               convs), the 1 s request graphed against the CPU, ms a call
+               graphed and eager, capture seconds and pool bytes; busy time
+               and idle share of a graphed and an eager call, each from a
+               profiler window that lost no kernel records (a warm-up step
+               first; two windows agree on the call's kernel count), the
+               port's kernels in each held to the eager call's launch
+               counts; and the keep-alive
+               check: a 1 s request captured, 20 other lengths captured in
+               the same cache (the window-envelope cache holds 16), the
+               replay equal to the eager output bit for bit;
   4. stream  -- full-width DCS ``enhance_streaming``: (a) one 30 s request,
                256-frame chunks overlapping by 64 in groups of 8: shape,
                finiteness, launch counts (1 STFT; 13 gates and 7 tap convs a
@@ -28,6 +43,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
                chunk-local ops (1x1 convs, no attention) chunked == full pass
                on the card within 1e-4; with the product's ops finite, its
                correlation with the full pass printed, and 2 s card vs CPU;
+               (a) and (b) also graphed as in phase 3 (a group of 8 chunks,
+               or a carried chunk with its LSTM state, one replay);
   5. kernels -- each kernel against its plain PyTorch version on the card at
                every shape the slice launched it with (error relative to
                max |plain| <= 1e-4, TF32 off), with its device time per
@@ -129,7 +146,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
                (batch 1): launch counts (kernel 1 once, the gate 13 + 13,
                kernel 3 7 + 7, the conv entry never alone), every launch
                against its plain version (rows ``<kernel>_eval``), the audio
-               against the CPU's; (c) STOI, PESQ and SI-SDR of every test
+               against the CPU's, and the forward graphed as in phase 3 (one
+               graph a batch shape, as the trainer runs it); (c) STOI, PESQ and SI-SDR of every test
                utterance, card vs CPU, within ``EVAL_METRIC_TOL``; (d) the
                trainer's two epochs logged finite ``val_stoi`` and
                ``val_pesq_est``, its sanity passes none; (e) ``python -m
@@ -141,7 +159,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
                launch counts (kernel 2's real gate, pool and gate 13 times
                each, its conv entry never; kernel 3 7 times, dec6 at N = 4),
                the median of 10 calls, a 1 s request and a streamed 3 s one
-               card vs CPU, every launch against its plain version (the gate
+               card vs CPU, the call graphed as in phase 3, every launch
+               against its plain version (the gate
                beside the eager sequence it replaces and the sequence the
                module ran before, on the generic conv body); (b) DR on a 1 s
                request card vs CPU; (c) one batch-32 train step, dropout on:
@@ -199,6 +218,12 @@ TRAIN_STEP_LAUNCHES = {"stft": 1, "conv_same_small_cout": 13, "conv_same_small_c
                        "tapconv_valid": 7, "tapconv_pack": 7, "tapconv_valid_dgrad": 7,
                        "tapconv_pack_dgrad": 7, "sa_pool": 0, "sa_gate": 0,
                        "sa_pool_real": 0, "sa_gate_real": 0}
+# the launches of one eval-mode DCS forward (the gate counts as the conv
+# entry too), and of DRS's: a replay of a graph that holds one forward
+DCS_EVAL_FORWARD = {"sa_pool": 13, "sa_gate": 13, "conv_same_small_cout": 13,
+                    "tapconv_valid": 7, "tapconv_pack": 7}
+DRS_EVAL_FORWARD = {"sa_pool_real": 13, "sa_gate_real": 13, "tapconv_valid": 7,
+                    "tapconv_pack": 7}
 EVAL_N_TEST = 8                               # test pairs beside them
 TUNE_BATCH, TUNE_N_SYNTHETIC = 4, 40          # 40 pairs: 32 train, 8 val
 # card vs CPU on the same weights and utterance, metrics of the two audios.
@@ -1121,6 +1146,156 @@ def compare_card_cpu(what: str, on_card, on_cpu) -> None:
         fail(f"card and CPU disagree on {what}")
 
 
+def launch_counts():
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    return {k.name: k.launches for k in cuda_lib.KERNELS.values() if k.launches}
+
+
+def counted(launches) -> int:
+    """Launches of distinct kernels: an entry point counted with another
+    (the gate, counted as the conv entry too) once."""
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    return sum(n for name, n in launches.items()
+               if cuda_lib.KERNELS[name].counted_with is None)
+
+
+def median_ms(fn, reps):
+    """The median of ``reps`` calls of ``fn``, host clock, each ended by a
+    synchronize."""
+    import torch
+
+    walls = []
+    for _ in range(reps):
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    walls.sort()
+    return walls[reps // 2]
+
+
+def check_graphed(what, run, replay_launches, card, cpu_case=None, reps=5):
+    """One path through ``models/graphed.py`` against its eager version on
+    the card. ``run(graphs)`` returns a tensor on the card (eager where
+    ``graphs`` is None); ``replay_launches`` are the launches a replay of its
+    one graph must make, counted at the capture. With cuDNN's deterministic
+    algorithms on both sides: three graphed calls (the warm-up, the capture,
+    replays) equal to eager bit for bit; under cuDNN's defaults the largest
+    graphed-eager difference, printed. ``cpu_case`` = (run_short, want):
+    ``run_short(graphs)`` after its capture against the CPU's ``want`` in the
+    slice's band. Prints ms a call graphed and eager (median of ``reps``), a
+    replay's launches, capture seconds and the pool; then, each from a
+    profiler window that lost no kernel records (``profiled_whole``), a
+    graphed and an eager call's busy time and idle share, the port's kernels
+    in each held to the eager call's launch counts."""
+    import torch
+
+    from dcs_net_tpu_torch.models.graphed import GraphCache
+    from dcs_net_tpu_torch.utils import cuda_lib
+    from dcs_net_tpu_torch.utils.timing import profiled_whole
+
+    loose = GraphCache()
+    eager = run(None)
+    for _ in range(3):
+        graphed = run(loose)
+    d_default = float((graphed - eager).abs().max())
+    del loose, graphed
+    torch.backends.cudnn.deterministic = True
+    try:
+        run(None)
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        eager = run(None)
+        torch.cuda.synchronize()
+        eager_launches = launch_counts()
+        graphs = GraphCache()
+        outs = [run(graphs) for _ in range(3)]
+        (entry,) = graphs.entries.values()
+        same = [bool(torch.equal(o, eager)) for o in outs]
+        d_det = max(float((o - eager).abs().max()) for o in outs)
+        if entry.launches != replay_launches:
+            fail(f"{what}: a replay's launches {entry.launches} (counted at the "
+                 f"capture), expected {replay_launches}")
+        eager_ms = median_ms(lambda: run(None), reps)
+        graph_ms = median_ms(lambda: run(graphs), reps)
+        if cpu_case is not None:
+            run_short, want = cpu_case
+            short = GraphCache()
+            for _ in range(3):
+                got = run_short(short)
+            compare_card_cpu(f"{what}, graphed", got.cpu(), want)
+        windows = {how: profiled_whole(lambda: run(g)) for how, g in
+                   (("graphed", graphs), ("eager", None))}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"graphed: {what}: graphed == eager bit for bit {same} (max |diff| "
+          f"{d_det:.3e}; under cuDNN's default algorithms {d_default:.3e}); "
+          f"{graph_ms:.2f} ms a call graphed against {eager_ms:.2f} eager (median of "
+          f"{reps}); a replay's launches {entry.launches} ({counted(entry.launches)} "
+          f"kernels), the eager call's {counted(eager_launches)}; capture "
+          f"{entry.capture_s:.3f} s, pool {entry.pool_bytes} bytes [{card}]", flush=True)
+    if not all(same):
+        fail(f"{what}: graphed and eager differ by {d_det:.3e} under cuDNN's "
+             "deterministic algorithms")
+    medians = {"graphed": graph_ms, "eager": eager_ms}
+    for how, (window, taken) in windows.items():
+        if window is None:
+            fail(f"{what}: no two of {taken} profiler windows of a {how} call agreed "
+                 "on its kernel count")
+        wall, busy, n, kernels = window
+        ours = port_launches(kernels)
+        print(f"graphed: {what}: {how} busy {busy:.2f} ms, idle share "
+              f"{1 - busy / medians[how]:.3f} of the median {medians[how]:.2f} ms "
+              f"({1 - busy / wall:.3f} under the profiler, wall {wall:.2f} ms); "
+              f"{n} device kernels, {ours} of the port's, in the first of {taken} "
+              f"windows with the call's count [{card}]", flush=True)
+        if ours != counted(eager_launches):
+            fail(f"{what}: the profiler saw {ours} launches of the port's kernels in a "
+                 f"{how} call, the eager call counted {counted(eager_launches)}")
+
+
+def check_keep_alive(model, cfg, dev, card, others=20):
+    """A graph's device constants outlive the caches that made them: a DCS
+    request at batch 1 captured at length A, then ``others`` other lengths
+    (more than ``_inv_window_envelope``'s 16) each warmed up and captured
+    through the same cache, then A replayed: equal to A's eager output bit
+    for bit (cuDNN's deterministic algorithms)."""
+    import torch
+
+    from dcs_net_tpu_torch.dsp import stft as dsp
+    from dcs_net_tpu_torch.models.enhance import _enhance_full, enhance_full
+    from dcs_net_tpu_torch.models.graphed import GraphCache
+
+    lengths = [SR + 160 * i for i in range(others + 1)]
+    waves = {n: torch.from_numpy(speech_like(1, n, SEED + 40 + i)).to(dev)
+             for i, n in enumerate(lengths)}
+    torch.backends.cudnn.deterministic = True
+    try:
+        graphs = GraphCache()
+        a = lengths[0]
+        want = enhance_full(model, waves[a], cfg)
+        for _ in range(2):
+            enhance_full(model, waves[a], cfg, graphs=graphs)
+        for n in lengths[1:]:
+            for _ in range(2):
+                enhance_full(model, waves[n], cfg, graphs=graphs)
+        got = enhance_full(model, waves[a], cfg, graphs=graphs)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    entry = graphs.entry(_enhance_full, waves[a], model=model, cfg=cfg)
+    env = dsp._inv_window_envelope.cache_info()
+    d = float((got - want).abs().max())
+    print(f"graphed: keep-alive: a 1 s request captured, then {others} other lengths "
+          f"captured in the same cache ({len(graphs)} entries; the envelope cache "
+          f"{env.currsize} of {env.maxsize} held, {env.misses} misses), then replayed: "
+          f"max |replay - eager| {d:.3e}, {entry.replays} replays [{card}]", flush=True)
+    if not bool(torch.equal(got, want)) or entry.replays != 2:
+        fail("keep-alive: the replay after other lengths is not the eager output")
+
+
 def check_streaming(model, cpu_model, cfg, dev, card):
     """Phase "stream". Returns the kernel shapes and launch counts of the
     30 s streaming call."""
@@ -1170,9 +1345,16 @@ def check_streaming(model, cpu_model, cfg, dev, card):
           f"steady {t_steady * 1e3:.1f} ms per call, {seconds / t_steady:.1f} "
           f"audio-s/s [{card}]", flush=True)
     short = torch.from_numpy(speech_like(1, 3 * SR, SEED + 6))
-    compare_card_cpu("stream: 3 s request (2 chunks of 256, overlap 64)",
-                     enhance_streaming(model, short.to(dev), cfg).cpu(),
-                     enhance_streaming(cpu_model, short, cfg))
+    cpu_short = enhance_streaming(cpu_model, short, cfg)
+    compare_card_cpu("stream: 3 s request (8 chunks of 256, overlap 64: one group)",
+                     enhance_streaming(model, short.to(dev), cfg).cpu(), cpu_short)
+    # every group of G * B = 8 chunks one replay of one graph
+    check_graphed(f"stream: DCS enhance_streaming, {seconds} s, {n_groups} groups of "
+                  f"{group}", lambda g, model=model, x=x, cfg=cfg: enhance_streaming(
+                      model, x, cfg, chunk_frames=chunk, overlap=overlap,
+                      chunk_batch=group, graphs=g), DCS_EVAL_FORWARD, card,
+                  (lambda g: enhance_streaming(model, short.to(dev), cfg, graphs=g),
+                   cpu_short))
 
     # (b) the LSTM carry. Chunked == full pass only where every other op is
     # chunk-local, so exactness is held on a full-width model with 1x1 convs
@@ -1217,9 +1399,17 @@ def check_streaming(model, cpu_model, cfg, dev, card):
     scpu.load_state_dict({k: v.cpu() for k, v in smodel.state_dict().items()})
     short = torch.from_numpy(speech_like(1, 2 * SR, SEED + 8))
     kw = dict(chunk_frames=64, overlap=0, carry_lstm_state=True)
-    compare_card_cpu("stream: carry, 2 s request (4 chunks of 64)",
-                     enhance_streaming(smodel, short.to(dev), scfg, **kw).cpu(),
-                     enhance_streaming(scpu, short, scfg, **kw))
+    cpu_short = enhance_streaming(scpu, short, scfg, **kw)
+    compare_card_cpu("stream: carry, 2 s request (16 chunks of 64)",
+                     enhance_streaming(smodel, short.to(dev), scfg, **kw).cpu(), cpu_short)
+    # every chunk one replay of one graph, its LSTM state in and out
+    check_graphed("stream: carry, streaming preset, 10 s in chunks of 256",
+                  lambda g, m=smodel, x=x10, c=scfg: enhance_streaming(
+                      m, x, c, chunk_frames=chunk, overlap=0, carry_lstm_state=True,
+                      graphs=g),
+                  DCS_EVAL_FORWARD, card,
+                  (lambda g: enhance_streaming(smodel, short.to(dev), scfg, **kw, graphs=g),
+                   cpu_short))
     return shapes, launches
 
 
@@ -1811,14 +2001,14 @@ def port_launches(kernels) -> int:
 def time_graph(what, scanned, launches, x, y, eager_ms, card):
     """A captured step's time: the median over 5 replays (each dispatch,
     its waves' copy included, ended by a synchronize) per train step and the
-    audio-s/s per GPU, beside ``eager_ms``; one replay under the profiler:
-    device kernels (the port's among them, held to ``launches``, the
-    capture's counts), busy time and idle share. Returns the per-step
-    median."""
+    audio-s/s per GPU, beside ``eager_ms``; one replay under the profiler,
+    in a window that lost no kernel records (``profiled_whole``): device
+    kernels (the port's among them, held to ``launches``, the capture's
+    counts), busy time and idle share. Returns the per-step median."""
     import torch
 
     from dcs_net_tpu_torch.utils import cuda_lib
-    from dcs_net_tpu_torch.utils.timing import profiled
+    from dcs_net_tpu_torch.utils.timing import profiled_whole
 
     k = scanned.k
     counted = sum(launches[kn.name] for kn in cuda_lib.KERNELS.values()
@@ -1831,14 +2021,19 @@ def time_graph(what, scanned, launches, x, y, eager_ms, card):
         walls.append((time.perf_counter() - t1) * 1e3 / k)
     walls.sort()
     med = walls[2]
-    wall, busy, n_launch, kernels = profiled(lambda: scanned(x, y))
+    window, taken = profiled_whole(lambda: scanned(x, y))
+    if window is None:
+        fail(f"{what}: no two of {taken} profiler windows of a replay agreed on its "
+             "kernel count")
+    wall, busy, n_launch, kernels = window
     ours = port_launches(kernels)
     audio_s = TRAIN_BATCH * TRAIN_CROP / SR
     print(f"graph: {what}: {k} steps a replay at batch {TRAIN_BATCH} x {TRAIN_CROP}: "
           f"median {med:.2f} ms a step over 5 replays (min {walls[0]:.2f}, max "
           f"{walls[-1]:.2f}), {audio_s / med * 1e3:.1f} audio-s/s per GPU, against "
           f"{eager_ms:.2f} ms a step eager ({audio_s / eager_ms * 1e3:.1f} audio-s/s); "
-          f"one replay under the profiler: wall {wall:.2f} ms, {n_launch} device "
+          f"one replay under the profiler (the first of {taken} windows with its "
+          f"count): wall {wall:.2f} ms, {n_launch} device "
           f"kernels ({ours} of the port's), busy {busy:.2f} ms ({busy / k:.2f} a step), "
           f"idle share {1 - busy / wall:.3f} ({1 - busy / (k * med):.3f} of the "
           f"median) [{card}]", flush=True)
@@ -2276,6 +2471,20 @@ def check_eval(dev, card, tmp):
     rows = check_kernels({name: shapes[name] for name in (
         "stft", "sa_pool", "sa_gate", "tapconv_valid")}, launches, dev, cfg, card,
         "test utterance", suffix="_eval")
+    # the same forward as one CUDA graph a batch shape, as the trainer runs it
+    waves = [torch.from_numpy(utterances[0][k]) for k in ("noisy", "clean")]
+
+    def flat(out, losses=True):
+        return torch.cat(([torch.stack(list(out[0].values())).reshape(-1)] if losses else [])
+                         + [v.reshape(-1) for v in out[1].values()])
+
+    check_graphed("eval: one test utterance's eval forward, batch 1",
+                  lambda g, model=model, waves=waves, cfg=cfg: flat(
+                      steps.eval_waves(model, *(w.to(dev) for w in waves), cfg, g)),
+                  {"stft": 1, **DCS_EVAL_FORWARD}, card,
+                  (lambda g: flat(steps.eval_waves(model, *(w.to(dev) for w in waves), cfg, g),
+                                  losses=False),
+                   flat(steps.eval_waves(cpu_model, *waves, cfg), losses=False)))
 
     # (c) every test utterance on the card and on the CPU: the audio, then
     # STOI, PESQ and SI-SDR of each against the other's; (f) the time of
@@ -2412,8 +2621,13 @@ def check_real(dev, card):
           f"{BATCH * SECONDS / walls[5] * 1e3:.1f} audio-s/s [{card}]", flush=True)
     cpu_model = on_cpu(model, cfg)
     short = torch.from_numpy(speech_like(1, SR, SEED + 23))
+    cpu_short = enhance_full(cpu_model, short, cfg)
     compare_card_cpu("real: DRS 1 s request", enhance_full(model, short.to(dev), cfg).cpu(),
-                     enhance_full(cpu_model, short, cfg))
+                     cpu_short)
+    check_graphed(f"real: DRS enhance_full, {BATCH} requests x {SECONDS} s",
+                  lambda g, model=model, x=x, cfg=cfg: enhance_full(model, x, cfg, graphs=g),
+                  {"stft": 1, **DRS_EVAL_FORWARD}, card,
+                  (lambda g: enhance_full(model, short.to(dev), cfg, graphs=g), cpu_short))
     three = torch.from_numpy(speech_like(1, 3 * SR, SEED + 24))
     compare_card_cpu("real: DRS streamed 3 s request (2 chunks of 256, overlap 64)",
                      enhance_streaming(model, three.to(dev), cfg).cpu(),
@@ -2595,6 +2809,12 @@ def main() -> int:
     cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
     on_cpu = enhance_full(cpu_model, short, cfg)
     compare_card_cpu("slice: 1 s request", on_card, on_cpu)
+    # the same call as one CUDA graph a (B, n), as cli/enhance.py runs it
+    check_graphed(f"slice: DCS enhance_full, {BATCH} requests x {SECONDS} s",
+                  lambda g, model=model, x=x, cfg=cfg: enhance_full(model, x, cfg, graphs=g),
+                  {"stft": 1, **DCS_EVAL_FORWARD}, card,
+                  (lambda g: enhance_full(model, short.to(dev), cfg, graphs=g), on_cpu))
+    check_keep_alive(model, cfg, dev, card)
 
     # phase 4: streaming
     stream_shapes, stream_launches = check_streaming(model, cpu_model, cfg, dev, card)

@@ -10,7 +10,9 @@ variant's (and of ``--config-json``). Without it the model has freshly
 initialised weights (seed 0), with a warning. ``--stream`` cuts the
 utterance into fixed-size chunks whose masks are crossfaded; ``--carry`` also
 threads the LSTM state across the chunks (streaming config preset, no
-overlap; a checkpoint must have been trained with it).
+overlap; a checkpoint must have been trained with it). On the card the
+fixed-shape parts run through a ``models/graphed.py`` ``GraphCache``: a
+stream's groups (or carried chunks) from the third on replay one CUDA graph.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ def main(argv=None) -> None:
     from dcs_net_tpu_torch.core.config import Config, config_for_variant
     from dcs_net_tpu_torch.data.audio_io import read_wav, resample, write_wav
     from dcs_net_tpu_torch.models.enhance import enhance_full, enhance_streaming
+    from dcs_net_tpu_torch.models.graphed import GraphCache
     from dcs_net_tpu_torch.models.unet import DCSNet
     from dcs_net_tpu_torch.train.checkpoint import checkpoint_steps, load_model
     from dcs_net_tpu_torch.utils.device import resolve_device
@@ -107,13 +110,16 @@ def main(argv=None) -> None:
     else:
         print("WARNING: no --ckpt-dir; enhancing with untrained weights")
     x = torch.from_numpy(np.ascontiguousarray(wave, np.float32))[None, :]
+    # on the card the fixed-shape parts run as CUDA graphs: a single call's
+    # first use of a shape is eager, so this costs it nothing
+    graphs = GraphCache()
     if args.stream:
         out = enhance_streaming(model, x, cfg, chunk_frames=args.chunk_frames,
                                 overlap=args.overlap,
                                 carry_lstm_state=args.carry,
-                                chunk_batch=args.chunk_batch)
+                                chunk_batch=args.chunk_batch, graphs=graphs)
     else:
-        out = enhance_full(model, x, cfg)
+        out = enhance_full(model, x, cfg, graphs=graphs)
     out = out[0].cpu().numpy()
     write_wav(args.outfile, out, cfg.data.sr)
     print(f"wrote {args.outfile}: {out.shape[0] / cfg.data.sr:.2f}s @ "

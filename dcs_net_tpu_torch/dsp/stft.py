@@ -34,6 +34,7 @@ from dcs_net_tpu_torch.core.config import STFTConfig
 from dcs_net_tpu_torch.dsp.stft_cuda import (STFTPlan, choose_entry, fft_tables,
                                              stft_analysis)
 from dcs_net_tpu_torch.utils.carray import CArray
+from dcs_net_tpu_torch.utils.device import device_cache
 
 
 @functools.lru_cache(maxsize=8)
@@ -84,7 +85,7 @@ def _idft_basis_eff(cfg: STFTConfig, dtype=np.float32) -> Tuple[np.ndarray, np.n
     return cos_b.astype(dtype), sin_b.astype(dtype)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(32)
 def _on_device(fn, cfg: STFTConfig, device: torch.device, dtype=np.float32):
     """The constants ``fn(cfg, dtype)`` as tensors on ``device``, copied
     once: a host-to-device copy per call would stall the host until the card
@@ -98,7 +99,7 @@ def _work_dtype(x: torch.Tensor):
     return np.float64 if x.dtype == torch.float64 else np.float32
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(32)
 def _analysis_plan(cfg: STFTConfig, device: torch.device,
                    dtype=np.float32) -> STFTPlan:
     """Kernel 1's constants for ``cfg`` on ``device``, copied once. The card
@@ -119,7 +120,7 @@ def _analysis_plan(cfg: STFTConfig, device: torch.device,
                     1 if cfg.drop_dc else 0, cos_b, sin_b, tables)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(16)
 def _inv_window_envelope(cfg: STFTConfig, n_frames: int, device: torch.device,
                          dtype=np.float32) -> torch.Tensor:
     """1 / the overlap-added squared window (data-independent, floored at

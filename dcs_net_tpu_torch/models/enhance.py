@@ -9,15 +9,21 @@ Streaming: the spectrogram is cut into ``chunk_frames`` windows that overlap
 by ``overlap`` frames; each chunk runs the full U-Net; the predicted masks
 are blended with a linear crossfade over the overlap, then applied. Without
 the LSTM carry the chunks are independent in eval mode and run batched in
-groups; with it they run in order, each continuing the previous one's LSTM
-state.
+groups of one shape (the last padded as the JAX package pads it); with it
+they run in order, each continuing the previous one's LSTM state.
+
+Graphs: given a ``models/graphed.py`` ``GraphCache`` (``graphs=``), each
+path runs its fixed-shape part through it, the port's ``jax.jit`` and
+``lax.scan``: the whole of :func:`enhance_full` is one graph a (B, n); a
+stream's group forward one graph a (G * B) whatever the length; a carried
+stream's chunk forward, its LSTM state in and out, one graph a B. Without a
+cache the same functions run eagerly, the plain path the graphs are held to.
 """
 
 from __future__ import annotations
 
-import functools
 import math
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,8 +31,10 @@ import torch.nn.functional as F
 
 from dcs_net_tpu_torch.core.config import Config
 from dcs_net_tpu_torch.dsp import stft as dsp
+from dcs_net_tpu_torch.models.graphed import GraphCache, call
 from dcs_net_tpu_torch.ops import masks as M
 from dcs_net_tpu_torch.utils.carray import CArray
+from dcs_net_tpu_torch.utils.device import device_cache
 
 
 def _apply_mask_pipeline(spec: CArray, mask, cfg: Config) -> CArray:
@@ -57,29 +65,35 @@ def _planes(mask) -> Tuple[torch.Tensor, ...]:
     return tuple(mask) if isinstance(mask, CArray) else (mask,)
 
 
-def enhance_full(model: torch.nn.Module, wave: torch.Tensor, cfg: Config
-                 ) -> torch.Tensor:
+def _enhance_full(wave: torch.Tensor, model: torch.nn.Module, cfg: Config
+                  ) -> torch.Tensor:
+    """The whole of :func:`enhance_full` on the model's device, in eval mode
+    and without autograd: STFT, frame padding, the net, the mask pipeline,
+    the iSTFT."""
+    n = wave.shape[-1]
+    spec = dsp.stft(wave, cfg.stft)  # (B, F, T)
+    T = spec.shape[-1]
+    pad = (-T) % 8
+    spec_p = CArray(F.pad(spec.re, (0, pad)), F.pad(spec.im, (0, pad))) if pad else spec
+    mask = model(_model_input(spec_p, cfg))
+    if pad:
+        mask = mask[..., :T]
+    clean = _apply_mask_pipeline(spec, mask, cfg)
+    return dsp.spec_to_wave(clean, cfg.stft, atan2_eps=cfg.model.atan2_eps,
+                            pad_top=cfg.quirks.istft_pad_top_bin, length=n)
+
+
+def enhance_full(model: torch.nn.Module, wave: torch.Tensor, cfg: Config,
+                 graphs: Optional[GraphCache] = None) -> torch.Tensor:
     """(B, n) noisy -> (B, n) enhanced, one forward over the whole
-    spectrogram in eval mode. ``wave`` moves to the model's device."""
+    spectrogram in eval mode. ``wave`` moves to the model's device. With
+    ``graphs`` the call is one CUDA graph a (B, n) on the card."""
     dev = next(model.parameters()).device
     wave = wave.to(dev, torch.float32)
-    n = wave.shape[-1]
     was_training = model.training
     model.eval()
     try:
-        with torch.no_grad():
-            spec = dsp.stft(wave, cfg.stft)  # (B, F, T)
-            T = spec.shape[-1]
-            pad = (-T) % 8
-            spec_p = CArray(F.pad(spec.re, (0, pad)),
-                            F.pad(spec.im, (0, pad))) if pad else spec
-            mask = model(_model_input(spec_p, cfg))
-            if pad:
-                mask = mask[..., :T]
-            clean = _apply_mask_pipeline(spec, mask, cfg)
-            return dsp.spec_to_wave(
-                clean, cfg.stft, atan2_eps=cfg.model.atan2_eps,
-                pad_top=cfg.quirks.istft_pad_top_bin, length=n)
+        return call(graphs, _enhance_full, wave, model=model, cfg=cfg)
     finally:
         model.train(was_training)
 
@@ -100,7 +114,7 @@ def zero_lstm_state(cfg: Config, batch: int, device=None):
     return (one(2 * batch), one(2 * batch)) if m.complex_valued else one(batch)
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(16)
 def _crossfade(n_chunks: int, chunk_frames: int, overlap: int,
                device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
     """(w (chunk_frames,), overlap-added w (total,)) on ``device``, made
@@ -120,10 +134,33 @@ def _crossfade(n_chunks: int, chunk_frames: int, overlap: int,
     return torch.from_numpy(w).to(device), torch.from_numpy(wacc).to(device)
 
 
+def _group_masks(re: torch.Tensor, im: torch.Tensor, model: torch.nn.Module,
+                 cfg: Config) -> torch.Tensor:
+    """One group of chunk spectrograms (N, F, chunk) -> its mask planes
+    (P, N, F, chunk), P = 2 of a complex mask or 1 of a real one."""
+    return torch.stack(_planes(model(_model_input(CArray(re, im), cfg))))
+
+
+def _flat_state(state, cfg: Config) -> List[torch.Tensor]:
+    """``zero_lstm_state``'s layout as a flat list: (h, c), or the complex
+    net's (h, c) of its real LSTM then of its imaginary one."""
+    return [t for s in state for t in s] if cfg.model.complex_valued else list(state)
+
+
+def _carried_chunk(re: torch.Tensor, im: torch.Tensor, *state: torch.Tensor,
+                   model: torch.nn.Module, cfg: Config) -> Tuple[torch.Tensor, ...]:
+    """One chunk (B, F, chunk) and the LSTM state as flat tensors -> its mask
+    planes (P, B, F, chunk) and the next state, flat."""
+    state = ((state[:2], state[2:]) if cfg.model.complex_valued else state)
+    mask, state = model(_model_input(CArray(re, im), cfg), lstm_state=state,
+                        return_lstm_state=True)
+    return (torch.stack(_planes(mask)), *_flat_state(state, cfg))
+
+
 def enhance_streaming(model: torch.nn.Module, wave: torch.Tensor, cfg: Config,
                       chunk_frames: int = 256, overlap: int = 64,
-                      carry_lstm_state: bool = False, chunk_batch: int = 8
-                      ) -> torch.Tensor:
+                      carry_lstm_state: bool = False, chunk_batch: int = 8,
+                      graphs: Optional[GraphCache] = None) -> torch.Tensor:
     """(B, n) noisy -> (B, n) enhanced through fixed-shape chunks, in eval
     mode. ``chunk_frames`` must be a multiple of 8. ``wave`` moves to the
     model's device.
@@ -134,12 +171,17 @@ def enhance_streaming(model: torch.nn.Module, wave: torch.Tensor, cfg: Config,
     (``lstm_bidir=False``: a backward pass cannot stream) and is exact
     (chunked == full pass) when the latent is flattened time-major
     (``lstm_time_major=True``), the chunks tile without overlap and every
-    other op is chunk-local.
+    other op is chunk-local. Every request starts from zeros.
 
     Without the carry the chunks are independent (eval-mode BN uses running
     statistics, attention pools per chunk), so they run batched in groups of
-    ``chunk_batch``, chunk-major within a group; the last group holds what is
-    left."""
+    ``G = min(chunk_batch, n_chunks)``, chunk-major within a group. Every
+    group has G chunks: as in the JAX package, the last group's windows past
+    the end clip to the last frame, and their masks are dropped.
+
+    With ``graphs`` the group forward (or, with the carry, the chunk
+    forward) is a CUDA graph on the card; the STFT, the windows, the
+    crossfade and the iSTFT run eagerly."""
     if chunk_frames % 8 != 0 or not 0 <= overlap < chunk_frames:
         raise ValueError(
             f"chunk_frames must be a multiple of 8 and overlap in "
@@ -160,29 +202,39 @@ def enhance_streaming(model: torch.nn.Module, wave: torch.Tensor, cfg: Config,
             hop = chunk_frames - overlap
             n_chunks = max(1, math.ceil(max(T - overlap, 1) / hop))
             total = overlap + n_chunks * hop
-            # every chunk window as a view: (n_chunks, B, F, chunk_frames)
-            wins = [F.pad(p, (0, total - T)).unfold(-1, chunk_frames, hop)
-                    .permute(2, 0, 1, 3) for p in spec]
+            G = 1 if carry_lstm_state else max(min(chunk_batch, n_chunks), 1)
+            n_pad = -(-n_chunks // G) * G
+            # every chunk window as a view: (n_pad, B, F, chunk_frames); past
+            # ``total`` the last frame repeats, where the JAX package clips
+            # the padding chunks' windows to it
+            wins = []
+            for p in spec:
+                p = F.pad(p, (0, total - T))
+                if n_pad > n_chunks:
+                    p = torch.cat([p, p[..., -1:].expand(
+                        B, n_bins, (n_pad - n_chunks) * hop)], dim=-1)
+                wins.append(p.unfold(-1, chunk_frames, hop).permute(2, 0, 1, 3))
             masks = []  # per model call (P, chunks of the call * B, F, chunk)
             if carry_lstm_state:
-                state = zero_lstm_state(cfg, B, dev)
+                state = _flat_state(zero_lstm_state(cfg, B, dev), cfg)
                 for c in range(n_chunks):
-                    mask, state = model(_model_input(
-                        CArray(wins[0][c].contiguous(), wins[1][c].contiguous()), cfg),
-                        lstm_state=state, return_lstm_state=True)
-                    masks.append(torch.stack(_planes(mask)))
+                    mask, *state = call(graphs, _carried_chunk, wins[0][c].contiguous(),
+                                        wins[1][c].contiguous(), *state,
+                                        model=model, cfg=cfg)
+                    masks.append(mask)
             else:
-                G = max(min(chunk_batch, n_chunks), 1)
-                for c in range(0, n_chunks, G):
-                    mask = model(_model_input(CArray(
+                for c in range(0, n_pad, G):
+                    masks.append(call(
+                        graphs, _group_masks,
                         wins[0][c:c + G].reshape(-1, n_bins, chunk_frames),
-                        wins[1][c:c + G].reshape(-1, n_bins, chunk_frames)), cfg))
-                    masks.append(torch.stack(_planes(mask)))
+                        wins[1][c:c + G].reshape(-1, n_bins, chunk_frames),
+                        model=model, cfg=cfg))
             # (P, n_chunks, B, F, chunk), P = 2 planes of a complex mask or 1
-            # of a real one: a call's batch is chunk-major
+            # of a real one: a call's batch is chunk-major; the padding
+            # chunks' masks dropped
             P = masks[0].shape[0]
             chunk_masks = torch.cat(masks, dim=1).reshape(
-                P, n_chunks, B, n_bins, chunk_frames)
+                P, n_pad, B, n_bins, chunk_frames)[:, :n_chunks]
             # crossfade: weight each chunk, overlap-add at stride hop in one
             # fold, divide by the overlap-added weights
             w, wacc = _crossfade(n_chunks, chunk_frames, overlap, dev)

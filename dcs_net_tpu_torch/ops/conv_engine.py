@@ -18,7 +18,6 @@ TPU-only reformulations (tap-fold, space-to-depth, row-dot, phase folds):
 
 from __future__ import annotations
 
-import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -27,6 +26,7 @@ import torch.nn.functional as F
 
 from dcs_net_tpu_torch.ops import cuda_conv
 from dcs_net_tpu_torch.ops.cuda_tapconv import tapconv_valid
+from dcs_net_tpu_torch.utils.device import device_cache
 
 
 def use_tuned(kernel_size: int, stride: Tuple[int, int], padding: int,
@@ -51,7 +51,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int],
     return y.permute(0, 2, 3, 1)
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(32)
 def _unified_fold(K: int, p: int, s: int, device: torch.device
                   ) -> Tuple[int, torch.Tensor]:
     """(d_min, Fold (s, D, K)) on ``device``: Fold[r, d, t] == 1 iff tap t of

@@ -58,7 +58,6 @@ un-fused form instead.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional, Tuple
 
 import torch
@@ -66,6 +65,7 @@ import torch.nn.functional as F
 
 from dcs_net_tpu_torch.ops import cuda_tapconv
 from dcs_net_tpu_torch.utils.cuda_lib import CudaKernel, check_cuda_operand, ptr
+from dcs_net_tpu_torch.utils.device import device_cache
 
 MAX_K = 7
 MAX_COUT = 16
@@ -278,7 +278,7 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     return y
 
 
-@functools.lru_cache(maxsize=32)
+@device_cache(32)
 def zero_bias(cout: int, device: torch.device) -> torch.Tensor:
     """The bias operand of a conv without bias, made once a device."""
     return torch.zeros(cout, device=device, dtype=torch.float32)

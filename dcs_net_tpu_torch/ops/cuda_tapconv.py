@@ -51,6 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from dcs_net_tpu_torch.utils.cuda_lib import KERNELS, CudaKernel, check_cuda_operand, ptr
+from dcs_net_tpu_torch.utils.device import device_cache
 
 _i = ctypes.c_int
 _p = ctypes.c_void_p
@@ -310,10 +311,12 @@ STEP_MS = {1: 0.00094, 2: 0.00126}
 H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(64)
 def _clusters_at_once(device: torch.device, wgs: int, smem: int, split: int) -> int:
     """Clusters of ``split`` blocks at ``wgs`` warpgroups and ``smem`` bytes
-    of shared memory that the card runs at once (``dcs_tapconv_clusters``)."""
+    of shared memory that the card runs at once (``dcs_tapconv_clusters``).
+    A device cache: a graph's warm-up asks the library, its capture reads
+    the answer from the graph's entry."""
     if device.type != "cuda":
         return H100_CLUSTERS[split]
     # through the registry: KERNEL itself may be wrapped (shape logs, tests)

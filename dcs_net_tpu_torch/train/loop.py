@@ -16,7 +16,10 @@ steps go K to a dispatch, through ``train/steps.py``'s scanned step (on the
 card one CUDA graph replay), as the JAX trainer groups them. Each epoch's
 dropout masks come from the trainer's one generator, reseeded in place from
 ``(seed, epoch)``, so a run resumed from a checkpoint draws the masks the
-uninterrupted run draws, and a captured graph keeps drawing from it.
+uninterrupted run draws, and a captured graph keeps drawing from it. The
+eval-mode forward of validation and the test pass goes through the trainer's
+``GraphCache`` (one CUDA graph a batch shape on the card), dropped with the
+train graph at a restore or a new model.
 
 Not yet ported (ROADMAP Queue 1 item 4): TensorBoard and histogram logging.
 """
@@ -36,6 +39,7 @@ from dcs_net_tpu_torch.core.config import Config
 from dcs_net_tpu_torch.metrics import composite as C
 from dcs_net_tpu_torch.metrics import harness as H
 from dcs_net_tpu_torch.metrics import pesq as P
+from dcs_net_tpu_torch.models.graphed import GraphCache
 from dcs_net_tpu_torch.models.unet import DCSNet
 from dcs_net_tpu_torch.obs.logging import ThroughputMeter, Writer, log_epoch_audio
 from dcs_net_tpu_torch.train import steps as S
@@ -107,6 +111,7 @@ class Trainer:
         self.epoch = 0
         self._last_train_metrics: Dict[str, float] = {}
         self._scanned: Optional[S.ScannedTrainStep] = None
+        self._eval_graphs = GraphCache()
 
     # -- state --------------------------------------------------------------
     def init_state(self) -> None:
@@ -116,16 +121,19 @@ class Trainer:
         self.opt = make_optimizer(self.model.parameters(), self.cfg.optim)
         self.plateau = make_plateau(self.opt, self.cfg.optim)
         self._scanned = None
+        self._eval_graphs.clear()
 
     @property
     def step(self) -> int:
         """Applied steps (a step the NaN gate undid does not count)."""
         return step_count(self.opt)
 
+    def _device_waves(self, host_batch: HostBatch) -> Tuple[torch.Tensor, torch.Tensor]:
+        return tuple(torch.from_numpy(np.ascontiguousarray(host_batch[k])).to(self.device)
+                     for k in ("noisy", "clean"))
+
     def _device_batch(self, host_batch: HostBatch) -> S.Batch:
-        noisy = torch.from_numpy(np.ascontiguousarray(host_batch["noisy"])).to(self.device)
-        clean = torch.from_numpy(np.ascontiguousarray(host_batch["clean"])).to(self.device)
-        return S.batch_from_waves(noisy, clean, self.cfg)
+        return S.batch_from_waves(*self._device_waves(host_batch), self.cfg)
 
     # -- epochs -------------------------------------------------------------
     def train_epoch(self, batches: Iterable[HostBatch], epoch: int) -> Dict[str, float]:
@@ -303,9 +311,12 @@ class Trainer:
 
     def _eval_batch(self, host_batch: HostBatch
                     ) -> Tuple[Dict[str, float], Dict[str, np.ndarray]]:
-        """``S.eval_step`` on one batch; its losses as floats and its audio
-        streams as (B, n) arrays, fetched from the device in one copy."""
-        losses, audio = S.eval_step(self.model, self._device_batch(host_batch), self.cfg)
+        """``S.eval_step`` on one batch, through the trainer's graph cache
+        (on the card one CUDA graph a batch shape, captured at its second
+        batch); its losses as floats and its audio streams as (B, n) arrays,
+        fetched from the device in one copy."""
+        losses, audio = S.eval_waves(self.model, *self._device_waves(host_batch), self.cfg,
+                                     self._eval_graphs)
         flat = torch.cat([torch.stack(list(losses.values())).reshape(-1)]
                          + [v.reshape(-1) for v in audio.values()]).cpu().numpy()
         host_losses = {k: float(v) for k, v in zip(losses, flat)}
@@ -423,9 +434,10 @@ class Trainer:
         """Load the latest checkpoint into the model and optimizer and move
         the loop past its epoch; returns the restored step. A captured graph
         is thrown away (the optimizer's state tensors are new): the next
-        epoch warms up and captures anew."""
+        epoch warms up and captures anew. So are the eval graphs."""
         extra = ckpt.restore(self.model, self.opt)
         self._scanned = None
+        self._eval_graphs.clear()
         self.epoch = int(extra["epoch"]) + 1
         self.plateau.load_state_dict(extra["plateau"])
         return self.step

@@ -11,6 +11,10 @@ statistics exactly as they were. The gate keeps a flat copy of that state
 and selects with ``torch.where`` on the device, as the JAX step's branchless
 ``where`` does: no host sync.
 
+``eval_waves`` is the eval step from the waves, STFT included, through a
+``models/graphed.py`` ``GraphCache`` where one is given (on the card one
+CUDA graph a batch shape, the JAX package's jitted eval step).
+
 ``make_scanned_train_step`` is the JAX scanned step (K steps a dispatch) in
 the port: on the card one CUDA graph of K train steps, STFT included,
 replayed once a dispatch; on the CPU the same K steps run eagerly.
@@ -25,10 +29,12 @@ import torch
 
 from dcs_net_tpu_torch.core.config import Config
 from dcs_net_tpu_torch.dsp import stft as dsp
+from dcs_net_tpu_torch.models.graphed import GraphCache, call
 from dcs_net_tpu_torch.ops import masks as M
 from dcs_net_tpu_torch.train import losses as L
 from dcs_net_tpu_torch.train.optim import optimizer_tensors
 from dcs_net_tpu_torch.utils.carray import CArray
+from dcs_net_tpu_torch.utils.device import holding
 
 Tensor = torch.Tensor
 
@@ -186,6 +192,21 @@ def eval_step(model: torch.nn.Module, batch: Batch, cfg: Config
     return losses, audio
 
 
+def _eval_from_waves(noisy: Tensor, clean: Tensor, model: torch.nn.Module, cfg: Config
+                     ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    return eval_step(model, batch_from_waves(noisy, clean, cfg), cfg)
+
+
+def eval_waves(model: torch.nn.Module, noisy: Tensor, clean: Tensor, cfg: Config,
+               graphs: Optional[GraphCache] = None
+               ) -> Tuple[Dict[str, Tensor], Dict[str, Tensor]]:
+    """:func:`eval_step` on waves (B, n) on the model's device, the STFT
+    included; with ``graphs`` one CUDA graph a batch shape on the card, the
+    JAX package's jitted eval step."""
+    model.eval()
+    return call(graphs, _eval_from_waves, noisy, clean, model=model, cfg=cfg)
+
+
 def make_scanned_train_step(model: torch.nn.Module, opt: torch.optim.Optimizer,
                             cfg: Config, k: int) -> "ScannedTrainStep":
     """K train steps per dispatch, the JAX ``make_scanned_train_step``
@@ -218,7 +239,10 @@ class ScannedTrainStep:
     another generator on the model raises). After a replay the parameters'
     ``.grad`` are stale; the graph's own gradient buffers hold the last
     inner step's. ``capture_s`` and ``pool_bytes`` (device memory the
-    capture reserved for its private pool) are set by the capture."""
+    capture reserved for its private pool) are set by the capture. The
+    device constants the steps read (``utils/device.py:device_cache``) are
+    held from the warm-up on, as a ``models/graphed.py`` entry holds its
+    own."""
 
     def __init__(self, model: torch.nn.Module, opt: torch.optim.Optimizer,
                  cfg: Config, k: int):
@@ -231,6 +255,8 @@ class ScannedTrainStep:
         self.capture_s = 0.0
         self.pool_bytes = 0
         self._generator = None
+        # the device constants the graph reads, held while it lives
+        self._constants: Dict = {}
         self._waves = self._pinned = self._copied = None
         self._out: Optional[Dict[str, Tensor]] = None
 
@@ -288,9 +314,11 @@ class ScannedTrainStep:
         self._stage(noisy, clean)
         if self._out is None:       # the first call: eager, the warm-up
             self._out = {}
-            return self._steps(self._waves[0], self._waves[1], self._out)
+            with holding(self._constants):
+                return self._steps(self._waves[0], self._waves[1], self._out)
         if self.graph is None:
-            self._capture()
+            with holding(self._constants):
+                self._capture()
         if self.model.dropout_generator is not self._generator:
             raise RuntimeError("the model's dropout generator is not the one the "
                                "graph was captured with; reseed that one in place")

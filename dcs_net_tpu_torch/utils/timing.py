@@ -1,11 +1,12 @@
 """Device time of a function on the card: with the host's dispatch left out
 (:func:`graph_ms`), and the busy time of one call under the profiler
-(:func:`profiled`)."""
+(:func:`profiled`; :func:`profiled_whole` where the window must hold every
+kernel record)."""
 
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -37,19 +38,46 @@ def graph_ms(fn: Callable[[], object], iters: int) -> float:
 
 def profiled(fn: Callable[[], object]) -> Tuple[float, float, int, List]:
     """One call of ``fn`` under ``torch.profiler`` (CPU and CUDA activities),
-    ended by a synchronize: (wall ms, device busy ms, kernel launches, the
-    kernels' profiler events). Busy is the sum of the kernels' self device
-    times; an annotated range (the optimizer's step) also reports device
-    time and is left out, so that its kernels count once."""
-    from torch.profiler import ProfilerActivity, profile
+    ended by a synchronize, after a warm-up call in the same session whose
+    records are dropped: (wall ms, device busy ms, kernel launches, the
+    kernels' profiler events), all of the second call. Busy is the sum of
+    the kernels' self device times; an annotated range (the optimizer's
+    step) also reports device time and is left out, so that its kernels
+    count once. The warm-up step: a window opened without one after a large
+    window loses the records of its first kernels; with the step none did
+    (``tools/profile_windows.py`` on the H100)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        prof.step()
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not e.is_user_annotation]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     return wall_ms, busy_ms, sum(e.count for e in kernels), kernels
+
+
+def profiled_whole(fn: Callable[[], object], tries: int = 6
+                   ) -> Tuple[Optional[Tuple[float, float, int, List]], int]:
+    """:func:`profiled` windows of ``fn``, a call that launches the same
+    kernels every time, until two agree on the largest kernel count seen:
+    a window, warm-up step and all, still loses records now and then, and
+    never gains any, so that count is the call's.
+    Returns the first window with it and the windows taken, or None and
+    ``tries`` where no two agreed."""
+    seen = []
+    for _ in range(tries):
+        seen.append(profiled(fn))
+        top = max(w[2] for w in seen)
+        whole = [w for w in seen if w[2] == top]
+        if len(whole) >= 2:
+            return whole[0], len(seen)
+    return None, len(seen)

@@ -31,6 +31,7 @@ from dcs_net_tpu_torch.data.audio_io import write_wav
 from dcs_net_tpu_torch.models import enhance as tenh
 from dcs_net_tpu_torch.models.enhance import (enhance_full, enhance_streaming,
                                               zero_lstm_state)
+from dcs_net_tpu_torch.models.graphed import GraphCache
 from dcs_net_tpu_torch.models.unet import DCSNet
 from dcs_net_tpu_torch.utils.carray import CArray
 
@@ -179,17 +180,20 @@ def test_crossfade_weights_normalise_to_one():
     torch.testing.assert_close(acc / wacc, torch.ones_like(acc))
 
 
-@pytest.mark.parametrize("carry,overlap,chunk_batch", [(False, 16, 3), (True, 0, 8)])
-def test_enhance_streaming_matches_jax(carry, overlap, chunk_batch):
-    """Same wave and weights through both packages: 4 chunks of 64 frames,
-    which groups of 3 do not divide. Band of ``test_torch_enhance.py``."""
+@pytest.mark.parametrize("carry,overlap,chunk_batch,n", [
+    (False, 16, 3, 6400), (True, 0, 8, 6400), (False, 16, 2, 8000)])
+def test_enhance_streaming_matches_jax(carry, overlap, chunk_batch, n):
+    """Same wave and weights through both packages: 4 chunks of 64 frames
+    (6400 samples), which groups of 3 do not divide, or 5 (8000) in groups
+    of 2: both packages pad the last group. Band of
+    ``test_torch_enhance.py``."""
     jcfg = _tiny(jax_config_for_variant("dcs"), streaming=carry)
     tcfg = _tiny(config_for_variant("dcs"), streaming=carry)
     model = JaxDCSNet(jcfg.model, jcfg.quirks)
     dummy = jax.jit(lambda w: jdsp.stft(w, jcfg.stft))(jnp.zeros((1, 2016)))
     variables = jax.jit(lambda k, s: model.init(k, s, train=False))(
         jax.random.PRNGKey(0), dummy)
-    wave = _wave((2, 6400), 11)
+    wave = _wave((2, n), 11)
     want = jax.jit(lambda v, w: jax_enhance_streaming(
         model, v, w, jcfg, chunk_frames=64, overlap=overlap,
         carry_lstm_state=carry, chunk_batch=chunk_batch))(variables, jnp.asarray(wave))
@@ -199,8 +203,33 @@ def test_enhance_streaming_matches_jax(carry, overlap, chunk_batch):
     got = enhance_streaming(port, torch.from_numpy(wave), tcfg, chunk_frames=64,
                             overlap=overlap, carry_lstm_state=carry,
                             chunk_batch=chunk_batch)
-    assert got.shape == (2, 6400)
+    assert got.shape == (2, n)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-3, atol=3e-4)
+
+
+def test_padded_last_group_matches_ragged_grouping(monkeypatch):
+    """5 chunks in groups of 2: the padded last group (its second chunk's
+    windows clip to the last frame, its masks dropped) against the last
+    group run ragged, on its one real chunk, as the port grouped before."""
+    cfg = _tiny(config_for_variant("dcs"), streaming=False)
+    model = DCSNet(cfg.model, cfg.quirks, device="cpu", seed=4)
+    wave = torch.from_numpy(_wave((2, 8000), 12))     # T = 251: 5 chunks of 64 / 16
+    kw = dict(chunk_frames=64, overlap=16, chunk_batch=2)
+    padded_groups = []
+    group_masks = tenh._group_masks
+
+    def ragged(re, im, model, cfg):
+        padded_groups.append(re.shape[0])
+        if len(padded_groups) < 3:
+            return group_masks(re, im, model=model, cfg=cfg)
+        real = group_masks(re[:2], im[:2], model=model, cfg=cfg)   # one chunk of B = 2
+        return torch.cat([real, torch.zeros_like(real)], dim=1)
+
+    padded = enhance_streaming(model, wave, cfg, **kw)
+    monkeypatch.setattr(tenh, "_group_masks", ragged)
+    got = enhance_streaming(model, wave, cfg, **kw)
+    assert padded_groups == [4, 4, 4]
+    torch.testing.assert_close(padded, got, rtol=0, atol=1e-6)
 
 
 def _cli(tmp_path, monkeypatch, flags, config=None):
@@ -244,6 +273,7 @@ def _cli(tmp_path, monkeypatch, flags, config=None):
 ])
 def test_cli_streaming_argument_rules(tmp_path, monkeypatch, flags, want):
     (name, cfg, kw), = _cli(tmp_path, monkeypatch, flags)
+    assert isinstance(kw.pop("graphs"), GraphCache)
     assert (name, kw) == want
     assert cfg.model.lstm_bidir == ("--carry" not in flags)
 
