@@ -8,8 +8,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
                ``nvidia-smi --query-gpu=name,power.limit`` gives them;
   2. build   -- compiles the three kernel sources of dcs_net_tpu_torch/csrc
                with nvcc for sm_90a (one process per source, in parallel):
-               stft.cu (kernel 1: an FFT inside the kernel, and the dense DFT
-               for the sizes the FFT is not instantiated for), conv_same.cu
+               stft.cu (kernel 1: an FFT inside the kernel for every even
+               n_fft up to 2048 whose half is 7-smooth, and the dense DFT on
+               the tensor cores for the rest), conv_same.cu
                (kernel 2: the small-Cout conv, the spatial-attention pooling
                pass and the conv with the gate's sigmoid-and-product epilogue,
                and the real attention's pooling pass and gate)
@@ -58,10 +59,16 @@ Phases (each prints one or more lines; any failure exits non-zero):
                than it fails), and at one 4 s request at batch 1 (``enhance_full``
                as the enhance CLI calls it: its launches, row
                ``tapconv_valid_request``); the same for what the slice does
-               not launch: kernel 1's dense entry point at a size that is no
-               power of two; then, against the plain version only, kernel 1's
-               FFT entry point at its other sizes, at odd hops and without
-               centering, kernel 2's three entries at odd and tiny shapes and
+               not launch: kernel 1 off the paths, rows of their own
+               (``stft_1b_*``, the FFT entry at sizes that took the dense DFT
+               before; ``stft_1c_*``, the dense entry at the sizes left to
+               it; each launching the entry ``choose_entry`` names once a
+               call, with ``torch.stft``'s time); then, against the plain
+               version only, kernel 1's FFT entry at its other sizes (every
+               codelet, one to four stages, 8, 16 and 32 frames a block), at
+               odd hops and without centering, and its dense entry at odd
+               and large n_fft, hop above n_fft and every cluster split,
+               kernel 2's three entries at odd and tiny shapes and
                other (K, Cin, Cout), kernel 3 at ragged shapes and at windows
                up to 12x12 (also reading x in place through a padding), and
                kernel 3's packed weights bit for bit against the PyTorch
@@ -178,6 +185,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
                ``<kernel>_drs``.
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --stft-only`` runs phases 1 and 2 and then kernel 1
+alone: its off-path checks, row 1 at the enhance shape and rows 1b and 1c,
+with the same last lines (the kernels JSON holding those rows).
 """
 
 from __future__ import annotations
@@ -210,7 +221,8 @@ LOADER_SECONDS, LOADER_N_SYNTHETIC, LOADER_EPOCHS = 3.0, 1280, 2
 LOADER_RATE_BATCHES = 16     # batches a loader-alone rate is timed over
 NATIVE_TOL = 1e-5            # native batches against the numpy path's
 # the device kernels of the port's entry points, as the profiler names them
-PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "stft_kernel", "conv_same_kernel", "conv7_kernel",
+PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "stft_fft_mixed_kernel", "stft_dense_kernel",
+                       "conv_same_kernel", "conv7_kernel",
                        "sa_pool_kernel", "sa_gate_kernel", "sa_gate_real_kernel",
                        "tapconv_kernel", "pack_kernel")
 # one train step's launches of each kernel, forward and input gradient (DCS and DRS)
@@ -249,7 +261,7 @@ KERNEL_INFO = {
     "stft": ("dcs_net_tpu_torch/csrc/stft.cu", "dcs_net_tpu/dsp/stft_pallas.py:120",
              "fft", F32_FLOPS_PER_S),
     "stft_dense": ("dcs_net_tpu_torch/csrc/stft.cu", "dcs_net_tpu/dsp/stft_pallas.py:120",
-                   "dense-dft", F32_FLOPS_PER_S),
+                   "3xtf32-wgmma-dense-dft", F32_FLOPS_PER_S),
     "conv_same_small_cout": ("dcs_net_tpu_torch/csrc/conv_same.cu",
                              "dcs_net_tpu/ops/pallas_conv.py:138",
                              "simt-f32-register-tiled", F32_FLOPS_PER_S),
@@ -294,18 +306,51 @@ KERNEL_INFO.update({
     "conv_same_small_cout_dgrad_drs": KERNEL_INFO["conv_same_small_cout_dgrad"][:2]
     + ("simt-f32-register-tiled-real-input-gradient", F32_FLOPS_PER_S),
 })
-# what the slice does not launch: kernel 1's dense entry point at a size that
-# is no power of two (B, n, n_fft, hop); its FFT entry point at the other
-# sizes it is instantiated for, at odd hops and without centering
-# (B, n, n_fft, hop, center, drop_dc); and kernel 3 at ragged shapes and at
-# windows whose halo tiles need the 64-pixel tile (5x5 over a long row) or a
-# single halo-tile stage (7x7, 12x12) to fit shared memory
-# ((B, Hp, Wp, Cin), (Dh, Dw), N)
-DENSE_STFT_CASE = (2, 12000, 400, 100)
+# kernel 1 off the paths, rows of their own in the kernels line, each
+# (B, n, n_fft, hop), centred with the DC bin dropped as the model's: row 1b,
+# the FFT entry at sizes that took the dense DFT before (the first is that
+# row's old case), and row 1c, the dense entry at sizes left to it
+STFT_ROWS = {"1b": [(2, 12000, 400, 100), (4, 64000, 400, 100), (4, 64000, 320, 160),
+                    (4, 64000, 1024, 256), (4, 192000, 960, 480)],
+             "1c": [(2, 12000, 352, 32), (4, 64000, 352, 32), (4, 192000, 4096, 1024)]}
+
+
+def stft_row_name(row, B, n, n_fft, hop):
+    return f"stft_{row}_{n_fft}_{hop}_{B}x{n}"
+
+
+for _row, _cases in STFT_ROWS.items():
+    for _case in _cases:
+        KERNEL_INFO[stft_row_name(_row, *_case)] = KERNEL_INFO[
+            "stft" if _row == "1b" else "stft_dense"][:2] + (
+            "mixed-radix-fft" if _row == "1b" else "3xtf32-wgmma-dense-dft", F32_FLOPS_PER_S)
+
+# what the slice does not launch, against the plain version only: kernel 1's
+# FFT entry at its other sizes (every codelet as a first and a later stage,
+# one to four stages, 8, 16 and 32 frames a block), at odd hops and without
+# centering; its dense entry at odd n_fft, n_fft above 2048, hop above n_fft
+# and cluster splits of 1, 2, 4 and 8 ((B, n, n_fft, hop, center, drop_dc));
+# and kernel 3 at ragged shapes and at windows whose halo tiles need the
+# 64-pixel tile (5x5 over a long row) or a single halo-tile stage (7x7,
+# 12x12) to fit shared memory ((B, Hp, Wp, Cin), (Dh, Dw), N)
 FFT_STFT_EXTRA = [(2, 3000, 64, 16, True, True), (3, 5000, 128, 32, False, False),
                   (2, 9000, 256, 64, True, True), (2, 4100, 128, 31, True, True),
                   (1, 2000, 64, 7, False, False), (2, 7000, 512, 33, True, True),
-                  (1, 6000, 256, 1, False, True), (2, 9000, 512, 512, True, False)]
+                  (1, 6000, 256, 1, False, True), (2, 9000, 512, 512, True, False),
+                  (1, 3000, 16, 5, True, True), (1, 3000, 28, 3, False, True),
+                  (2, 3000, 36, 9, True, True), (1, 3000, 40, 11, True, False),
+                  (1, 3000, 42, 7, False, True), (1, 5000, 98, 49, True, True),
+                  (1, 5000, 162, 41, False, True), (1, 5000, 392, 97, True, True),
+                  (1, 5000, 450, 151, True, True), (2, 9000, 320, 161, True, True),
+                  (1, 7000, 400, 99, False, True), (2, 9000, 480, 97, True, False),
+                  (1, 12000, 640, 160, False, False), (2, 20000, 960, 481, True, True),
+                  (1, 20000, 1024, 255, False, True), (1, 30000, 2048, 511, True, True),
+                  (1, 30000, 1250, 313, True, False), (1, 30000, 1750, 1750, False, True),
+                  (16, 160000, 400, 100, True, True), (32, 64000, 1024, 256, True, True)]
+DENSE_STFT_EXTRA = [(1, 4000, 352, 32, True, True), (1, 3000, 1100, 275, True, True),
+                    (1, 2000, 401, 100, False, True), (2, 5000, 22, 5, True, False),
+                    (1, 20000, 4096, 1024, False, True), (1, 3000, 512, 1024, True, True),
+                    (3, 7000, 2050, 300, True, True)]
 # kernel 2 where the slice does not take it. The tiled (7, 4, 2) body and the
 # gate: odd H and W, W below one thread's run, batch 1 and 32, C = 1 and C no
 # multiple of 4 ((B, H, W, C)); the generic body: K = 3 and 5, Cout = 8,
@@ -422,7 +467,8 @@ class ShapeLog:
 
 def discover_shapes(run):
     """Run ``run()`` with every kernel wrapped in a ShapeLog; return
-    {kernel name: [int-args per launch]}."""
+    {kernel name: [int-args per launch]}, kernel 1's launches as STFT cases
+    (:func:`stft_launch_case`)."""
     from dcs_net_tpu_torch.dsp import stft_cuda
     from dcs_net_tpu_torch.ops import cuda_conv, cuda_tapconv
 
@@ -438,7 +484,17 @@ def discover_shapes(run):
     finally:
         for (mod, attr), log in zip(slots, logs):
             setattr(mod, attr, log.kernel)
-    return {log.kernel.name: log.calls for log in logs}
+    shapes = {log.kernel.name: log.calls for log in logs}
+    shapes["stft"] = [stft_launch_case(a) for a in shapes["stft"]]
+    return shapes
+
+
+def stft_launch_case(args):
+    """(B, n, n_fft, hop, center, drop_dc) of one recorded launch of kernel
+    1's FFT entry, whose integer arguments are (B, n, n_fft, hop, first_bin,
+    F, T, pad, r1, r2, r3, r4, ft)."""
+    B, n, n_fft, hop, first_bin, _, _, pad = args[:8]
+    return (B, n, n_fft, hop, pad > 0, first_bin == 1)
 
 
 def kernel_cases(name, args, dev, cfg):
@@ -461,32 +517,44 @@ def kernel_cases(name, args, dev, cfg):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    if name in ("stft", "stft_dense"):
-        if name == "stft":
-            B, n, n_fft, hop, first_bin, n_bins, T, pad = args
-            scfg = cfg.stft
-        else:
-            B, n, n_fft, hop, n_bins, T, pad = args
-            scfg = dataclasses.replace(cfg.stft, n_fft=n_fft, hop=hop, win_length=n_fft)
-        entry = stft_cuda.choose_entry(n_fft, hop)
-        if entry != {"stft": "fft", "stft_dense": "dense"}[name]:
-            fail(f"n_fft {n_fft}, hop {hop} names the {entry} entry point, not {name}")
+    if name.startswith("stft"):
+        # one case of kernel 1: its own STFT configuration
+        B, n, n_fft, hop, center, drop_dc = args
+        scfg = dataclasses.replace(cfg.stft, n_fft=n_fft, hop=hop, win_length=n_fft,
+                                   center=center, drop_dc=drop_dc)
+        dense = stft_cuda.choose_entry(n_fft, hop) == "dense"
+        if dense != name.startswith(("stft_dense", "stft_1c")):
+            fail(f"{name}: n_fft {n_fft}, hop {hop} names the "
+                 f"{'dense' if dense else 'fft'} entry point")
         plan = dsp._analysis_plan(scfg, dev)
         cos_b, sin_b = dsp._on_device(dsp._dft_basis_eff, scfg, dev)
         x = randn(B, n, scale=0.3)
         win = torch.from_numpy(dsp.window_np(scfg).astype(np.float32)).to(dev)
-        # least traffic: the signal, the window and twiddle tables (the
-        # (n_fft, F) bases for the dense entry point), the output
-        consts = (sum(t.numel() for t in plan.fft) if name == "stft"
-                  else 2 * n_fft * n_bins)
-        nbytes = 4 * (B * n + consts + 2 * B * n_bins * T)
+        T, n_bins = scfg.num_frames(n), scfg.n_bins
+        print(f"kernel {name} args={args}: {stft_launch_text(n_fft, hop, B, T, n_bins)}",
+              flush=True)
+        # least traffic: the signal, the window and the output (twiddle
+        # tables and the dense entry's basis are the kernels' own choice)
+        nbytes = 4 * (B * n + n_fft + 2 * B * n_bins * T)
         # least work: a real-input FFT per frame, 2.5 n log2 n flops; the
         # dense entry point does 2 dots of n_fft per bin and frame
         flops = int(B * T * 2.5 * n_fft * math.log2(n_fft))
-        dft_flops = None if name == "stft" else 2 * 2 * B * T * n_bins * n_fft
-        return (lambda: stft_cuda.stft_analysis(x, plan),
-                lambda: stft_cuda.stft_dft_plain(x, cos_b, sin_b, hop, pad),
-                lambda: torch.stft(x, n_fft, hop, n_fft, win, center=pad > 0,
+        dft_flops = 2 * 2 * B * T * n_bins * n_fft if dense else None
+
+        def kern():
+            before = stft_cuda.KERNEL.launches, stft_cuda.KERNEL_DENSE.launches
+            out = stft_cuda.stft_analysis(x, plan)
+            got = (stft_cuda.KERNEL.launches - before[0],
+                   stft_cuda.KERNEL_DENSE.launches - before[1])
+            if got != ((0, 1) if dense else (1, 0)):
+                fail(f"{name} at {args}: one call launched the FFT and the dense "
+                     f"entry {got} times, expected once the "
+                     f"{'dense' if dense else 'FFT'} entry")
+            return out
+
+        return (kern,
+                lambda: stft_cuda.stft_dft_plain(x, cos_b, sin_b, hop, plan.pad),
+                lambda: torch.stft(x, n_fft, hop, n_fft, win, center=center,
                                    pad_mode="reflect", normalized=True,
                                    return_complex=True),
                 nbytes, flops, dft_flops, {})
@@ -734,9 +802,11 @@ def check_kernels(shapes, launches, dev, cfg, card, where, suffix=""):
                      "library_ms": None if lib is None else graph_ms(lib, iters)}
                 t.update({k: graph_ms(fn, iters) for k, fn in extras.items()})
                 timed[args] = t
+                # only the dense STFT entry reports its own operations: 3xTF32
                 design = ("" if design_flops is None else
-                          f" design_ceiling_ms={design_flops / F32_FLOPS_PER_S * 1e3:.4f}"
-                          f" (its own {design_flops / 1e9:.2f} GFLOP at the float32 rate)")
+                          f" design_ceiling_ms={design_flops / TF32X3_FLOPS_PER_S * 1e3:.4f}"
+                          f" (its own {design_flops / 1e9:.2f} GFLOP at the 3xTF32 rate, "
+                          f"{TF32X3_FLOPS_PER_S / 1e12:.0f} TFLOP/s)")
                 times = " ".join(f"{k}={'null' if v is None else format(v, '.4f')}"
                                  for k, v in t.items())
                 print(f"kernel {name} args={args} max_abs_err={err:.3e} "
@@ -855,10 +925,34 @@ def check_conv_off_path(dev) -> None:
                  f"{v:.3e} exceeds {REL_TOL}")
 
 
-def check_stft_fft_off_path(dev, cfg) -> None:
-    """Kernel 1's FFT entry point where the slice does not take it: every
-    size it is instantiated for, odd hops (a lane's sample pair then starts
-    at an odd word of the skewed span), no centering, the DC bin kept."""
+def stft_launch_text(n_fft, hop, B, T, n_bins) -> str:
+    """How kernel 1 runs one shape on this card: the FFT entry's radices and
+    frames a block, or the dense entry's cluster split; with the shared
+    memory a block and the blocks an SM (the occupancy calculator), but for
+    the compiled n_fft 512."""
+    from dcs_net_tpu_torch.dsp import stft_cuda
+
+    if stft_cuda.choose_entry(n_fft, hop) == "fft":
+        ft = stft_cuda.fft_tile_frames(n_fft, hop, B, T)
+        how = f"radices {stft_cuda.fft_radices(n_fft)}, {ft} frames a block"
+        if n_fft == stft_cuda.FFT_COMPILED:
+            return how + ", the compiled kernel"
+        entry, smem = "fft", stft_cuda.fft_smem_bytes(n_fft, hop, ft)
+    else:
+        entry, smem = "dense", stft_cuda.DENSE_SMEM
+        split = stft_cuda.dense_split(n_fft, n_bins, B, T,
+                                      stft_cuda.blocks_per_sm(entry, smem))
+        how = f"split {split}"
+    return (how + f", {smem} B of shared memory, "
+            f"{stft_cuda.blocks_per_sm(entry, smem)} blocks an SM")
+
+
+def check_stft_off_path(dev, cfg) -> None:
+    """Kernel 1 where the slice does not take it, against the plain version:
+    the FFT entry at every size of ``FFT_STFT_EXTRA`` (odd hops put a lane's
+    sample pair at an odd word of the skewed span; no centering; the DC bin
+    kept), the dense entry at ``DENSE_STFT_EXTRA``; each call launching the
+    entry ``choose_entry`` names once. Row 1's size keeps its (16, 16)."""
     import dataclasses
 
     import torch
@@ -866,29 +960,37 @@ def check_stft_fft_off_path(dev, cfg) -> None:
     from dcs_net_tpu_torch.dsp import stft as dsp
     from dcs_net_tpu_torch.dsp import stft_cuda
 
+    if stft_cuda.fft_radices(cfg.stft.n_fft) != (16, 16):
+        fail(f"n_fft {cfg.stft.n_fft} plans {stft_cuda.fft_radices(cfg.stft.n_fft)}, "
+             f"not the compiled (16, 16)")
     g = torch.Generator(device=dev).manual_seed(SEED + 9)
-    for B, n, n_fft, hop, center, drop_dc in FFT_STFT_EXTRA:
-        scfg = dataclasses.replace(cfg.stft, n_fft=n_fft, hop=hop, win_length=n_fft,
-                                   center=center, drop_dc=drop_dc)
-        if stft_cuda.choose_entry(n_fft, hop) != "fft":
-            fail(f"n_fft {n_fft}, hop {hop} does not name the FFT entry point")
-        plan = dsp._analysis_plan(scfg, dev)
-        cos_b, sin_b = dsp._on_device(dsp._dft_basis_eff, scfg, dev)
-        x = torch.randn((B, n), generator=g, device=dev) * 0.3
-        before = stft_cuda.KERNEL.launches
-        got = stft_cuda.stft_analysis(x, plan)
-        want = stft_cuda.stft_dft_plain(x, cos_b, sin_b, hop, plan.pad)
-        torch.cuda.synchronize()
-        if stft_cuda.KERNEL.launches != before + 1:
-            fail(f"stft at n_fft {n_fft}, hop {hop} did not launch the FFT kernel")
-        rel = (max(float((a - b).abs().max()) for a, b in zip(got, want))
-               / max(float(b.abs().max()) for b in want))
-        print(f"kernel stft off the path: x ({B}, {n}) n_fft {n_fft} hop {hop} "
-              f"center {center} drop_dc {drop_dc} -> {tuple(got[0].shape)}: "
-              f"rel_err={rel:.3e}", flush=True)
-        if got[0].shape != want[0].shape or not math.isfinite(rel) or rel > REL_TOL:
-            fail(f"stft (fft) at n_fft {n_fft}, hop {hop}: error {rel:.3e} "
-                 f"exceeds {REL_TOL}")
+    for entry, cases in (("fft", FFT_STFT_EXTRA), ("dense", DENSE_STFT_EXTRA)):
+        for B, n, n_fft, hop, center, drop_dc in cases:
+            scfg = dataclasses.replace(cfg.stft, n_fft=n_fft, hop=hop, win_length=n_fft,
+                                       center=center, drop_dc=drop_dc)
+            if stft_cuda.choose_entry(n_fft, hop) != entry:
+                fail(f"n_fft {n_fft}, hop {hop} does not name the {entry} entry point")
+            plan = dsp._analysis_plan(scfg, dev)
+            cos_b, sin_b = dsp._on_device(dsp._dft_basis_eff, scfg, dev)
+            x = torch.randn((B, n), generator=g, device=dev) * 0.3
+            before = stft_cuda.KERNEL.launches, stft_cuda.KERNEL_DENSE.launches
+            got = stft_cuda.stft_analysis(x, plan)
+            want = stft_cuda.stft_dft_plain(x, cos_b, sin_b, hop, plan.pad)
+            torch.cuda.synchronize()
+            launched = (stft_cuda.KERNEL.launches - before[0],
+                        stft_cuda.KERNEL_DENSE.launches - before[1])
+            if launched != ((1, 0) if entry == "fft" else (0, 1)):
+                fail(f"stft at n_fft {n_fft}, hop {hop} launched the FFT and the dense "
+                     f"entry {launched} times, expected once the {entry} entry")
+            rel = (max(float((a - b).abs().max()) for a, b in zip(got, want))
+                   / max(float(b.abs().max()) for b in want))
+            how = stft_launch_text(n_fft, hop, B, got[0].shape[-1], scfg.n_bins)
+            print(f"kernel stft ({entry}) off the path: x ({B}, {n}) n_fft {n_fft} "
+                  f"hop {hop} center {center} drop_dc {drop_dc} -> "
+                  f"{tuple(got[0].shape)}, {how}: rel_err={rel:.3e}", flush=True)
+            if got[0].shape != want[0].shape or not math.isfinite(rel) or rel > REL_TOL:
+                fail(f"stft ({entry}) at n_fft {n_fft}, hop {hop}: error {rel:.3e} "
+                     f"exceeds {REL_TOL}")
 
 
 def check_tapconv_off_path(dev) -> None:
@@ -1490,10 +1592,11 @@ def check_function_grads(shapes, dev, cfg) -> None:
                   F.pad(x, (0, 0, pad[2], pad[3], pad[0], pad[1])), w, dh, dw),
               (randn(B, H, W, cin), randn(dh * dw, cin, n, scale=1 / math.sqrt(dh * dw * cin))))
     for args in sorted(set(shapes["stft"])):
-        B, n, n_fft, hop = args[:4]
+        B, n, n_fft, hop, center = args[:5]
         cos_b, sin_b = dsp._on_device(dsp._dft_basis_eff, cfg.stft, dev)
+        pad = n_fft // 2 if center else 0
         check("stft", args, lambda x: dsp.STFT.apply(x, cfg.stft),
-              lambda x: stft_cuda.stft_dft_plain(x, cos_b, sin_b, hop, args[-1]),
+              lambda x: stft_cuda.stft_dft_plain(x, cos_b, sin_b, hop, pad),
               (randn(B, n, scale=0.3),))
 
 
@@ -2734,8 +2837,15 @@ def check_real(dev, card):
     return rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--stft-only", action="store_true",
+                    help="after the build, check and time kernel 1 alone")
+    args = ap.parse_args(argv)
 
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2760,8 +2870,21 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = cuda_lib.build_all()
     print(f"build: {len(cuda_lib.KERNELS)} kernels ({', '.join(cuda_lib.KERNELS)}) "
-          f"built in {build_s:.1f} s (nvcc {cuda_lib.find_nvcc()}), "
-          f"into {cuda_lib.BUILD_DIR}", flush=True)
+          f"built in {build_s:.1f} s (nvcc {cuda_lib.find_nvcc()}; each source's "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(cuda_lib.BUILD_SECONDS.items()))
+          + f"), into {cuda_lib.BUILD_DIR}", flush=True)
+
+    if args.stft_only:
+        cfg = config_for_variant("dcs")
+        t1 = time.perf_counter()
+        check_stft_off_path(dev, cfg)
+        rows = check_kernels({"stft": [(BATCH, SECONDS * SR, cfg.stft.n_fft, cfg.stft.hop,
+                                        True, True)]}, {}, dev, cfg, card, "call")
+        rows += check_kernels({stft_row_name(row, *case): [case + (True, True)]
+                               for row, cases in STFT_ROWS.items() for case in cases},
+                              {}, dev, cfg, card, "call")
+        print(f"kernel 1 alone: {time.perf_counter() - t1:.1f} s", flush=True)
+        return finish(rows, smi)
 
     # phase 3: the slice at full width
     cfg = config_for_variant("dcs")
@@ -2822,8 +2945,6 @@ def main() -> int:
     # phase 5: kernels against their plain versions, at the slice's shapes.
     # Kernel 2's conv entry is held at the shapes the gate entry ran its body
     # at: the 13 of the full-utterance call and those of one chunk group.
-    B, n, n_fft, hop = DENSE_STFT_CASE
-    dense_args = (B, n, n_fft, hop, n_fft // 2, 1 + n // hop, n_fft // 2)
     floor = empty_launch_ms()
     print(f"kernel floor: an empty launch takes {floor:.4f} ms of device time "
           f"[{card}]", flush=True)
@@ -2831,7 +2952,7 @@ def main() -> int:
     def conv_shapes(gate_calls):
         return [a[:3] + (4, 7, 2) for a in gate_calls]
 
-    shapes = {"stft": shapes["stft"], "stft_dense": [dense_args],
+    shapes = {"stft": shapes["stft"],
               "conv_same_small_cout": conv_shapes(shapes["sa_gate"]),
               "sa_pool": shapes["sa_pool"], "sa_gate": shapes["sa_gate"],
               "tapconv_valid": shapes["tapconv_valid"]}
@@ -2839,6 +2960,13 @@ def main() -> int:
     for row in rows:
         if row["name"] == "conv_same_small_cout":
             row["empty_launch_ms"] = floor
+    # kernel 1 off the paths: row 1b on the FFT entry, row 1c on the dense one
+    t1 = time.perf_counter()
+    rows += check_kernels({stft_row_name(row, *case): [case + (True, True)]
+                           for row, cases in STFT_ROWS.items() for case in cases},
+                          launches, dev, cfg, card, "enhance call")
+    print(f"kernel 1 off the paths: {sum(map(len, STFT_ROWS.values()))} rows in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
     # one streaming chunk group's launches, rows <kernel>_stream; their
     # launch counts are the 30 s streaming call's
     group = {"stft": stream_shapes["stft"],
@@ -2849,7 +2977,7 @@ def main() -> int:
     rows += check_kernels(group, stream_launches, dev, cfg, card, "streaming chunk group",
                           "_stream")
     rows += check_request(model, cfg, dev, card)
-    check_stft_fft_off_path(dev, cfg)
+    check_stft_off_path(dev, cfg)
     check_conv_off_path(dev)
     check_tapconv_off_path(dev)
     check_forward_sweep(dev, card)
@@ -2908,6 +3036,12 @@ def main() -> int:
         row["launches_graph_replay"] = drs_graph_launches.get(row["name"][:-len("_drs")], 0)
     rows += real_rows
     print(f"total: {time.perf_counter() - t0:.1f} s after the device check", flush=True)
+    return finish(rows, smi)
+
+
+def finish(rows, smi) -> int:
+    """The last lines: the kernels JSON, the nvidia-smi line, the verdict."""
+    import torch
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

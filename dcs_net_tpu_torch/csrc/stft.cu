@@ -15,135 +15,364 @@
 // T=2001, F=256, n_fft=512) the function must move ~17.4 MB (input 1 MB,
 // output 16.4 MB, ~0.005 ms at the HBM rate) and an FFT needs ~0.09 GFLOP.
 //
-// Entry point dcs_stft_fft (power-of-two n_fft of 64, 128, 256 or 512): an FFT
-// inside the kernel, so the work is the FFT's and the kernel is bound by the
-// output it writes. One block owns 32 consecutive frames of one batch row and
-// one lane owns one frame, so every shared-memory access of a warp is a row
-// of 32 consecutive words whatever the butterfly stride, and every twiddle
-// and window value is the same for the whole warp (read through the
-// read-only cache, one broadcast per warp). Steps:
-//   1. the tile's contiguous sample span, hop*31 + n_fft samples, is staged
-//      once in shared memory (frames overlap n_fft/hop-fold; reflect padding
-//      is index math). Frames start `hop` words apart, which for hop = 32
-//      would put a warp's 32 frames in one bank: the span is stored skewed by
-//      one word per 32;
-//   2. the real frame of n_fft points is packed into N2 = n_fft/2 complex
-//      points z[n] = x[2n] w[2n] + i x[2n+1] w[2n+1] and transformed as
-//      N2 = R1 * R2 (16 x 16 for n_fft = 512): a warp takes one residue
-//      q = n mod R2, runs the radix-R1 DFT over r (n = q + R2 r) in
-//      registers, multiplies by the twiddles exp(-2 pi i q k1 / N2) and writes
-//      the R1 results to rows k1 + R1 q of a (N2, 32) complex tile in shared
-//      memory;
-//   3. a warp takes one k1, reads rows k1 + R1 q, runs the radix-R2 DFT over
-//      q in registers and writes Z[k1 + R1 k2] back in place (row k1 + R1 k2);
+// Entry point dcs_stft_fft: an FFT inside the kernel, so the work is the
+// FFT's and the kernel is bound by the output it writes. It takes every even
+// n_fft from 16 to 2048 whose half N2 = n_fft/2 has no prime factor above 7,
+// as a plan of 1-4 in-register stages of radix <= 16 chosen on the host
+// (dsp/stft_cuda.py:fft_radices; 200 = 8 x 5 x 5, 1024 = 16 x 8 x 8; four
+// stages only for 625 and 875). A block owns `ft` consecutive frames of one
+// batch row and a group of ft lanes owns one row of the tile, one lane a
+// frame, so every shared-memory access of a lane group is a row of ft
+// consecutive float2 whatever the butterfly stride, and every twiddle and
+// window value is the same for the group (read through the read-only
+// cache, one broadcast). Steps:
+//   1. the tile's contiguous sample span, hop*(ft-1) + n_fft samples, is
+//      staged once in shared memory (frames overlap n_fft/hop-fold; reflect
+//      padding is index math). Frames start `hop` words apart, which for
+//      hop = 32 would put a warp's 32 frames in one bank: the span is stored
+//      skewed by one word per 32;
+//   2. the real frame of n_fft points is packed into N2 complex points
+//      z[n] = x[2n] w[2n] + i x[2n+1] w[2n+1]; stage 1 (radix R1, Q1 = N2/R1)
+//      takes one residue q = n mod Q1, runs the radix-R1 DFT over r
+//      (n = q + Q1 r) in registers, multiplies by the twiddles
+//      exp(-2 pi i q k1 / N2) and writes the R1 results to rows k1 + R1 q of
+//      an (N2, ft) complex tile in shared memory;
+//   3. each later stage s (radix Rs, Qs the product of the radices after it)
+//      is a decimation in frequency in place: one item reads rows
+//      k1 + R1 (q + Qs r + Rs Qs h), r < Rs, runs the radix-Rs DFT, twiddles
+//      output ks by exp(-2 pi i q ks / (Rs Qs)) (not after the last stage)
+//      and writes it back to row k1 + R1 (q + Qs ks + Rs Qs h). Output
+//      k = k1 + R1 k2 + R1 R2 k3 + ... then lies at row
+//      k1 + R1 (Q2 k2 + ... + QS kS), a table on the host (`rows`);
 //   4. the split step turns Z into the real signal's bins,
 //      X[k] = E + exp(-2 pi i k / n_fft) O with E = (Z[k] + conj Z[N2-k]) / 2,
 //      O = (Z[k] - conj Z[N2-k]) / 2i (indices mod N2; the halves are folded
 //      into the window table), for the bins first_bin .. first_bin + F - 1
-//      only, and writes (B, F, T) directly: a warp writes 32 consecutive
-//      frames of one bin, one full 128-byte line.
-// No dense basis is read and no transpose pass runs.
+//      only, and writes (B, F, T) directly: a lane group writes ft
+//      consecutive frames of one bin.
+// No dense basis is read and no transpose pass runs. n_fft 512, the enhance
+// and train paths' size (two stages of 16, ft = 32), runs the compiled
+// stft_fft_kernel<16, 16>; every other size runs
+// stft_fft_mixed_kernel, whose stages switch at run time over one codelet
+// template a radix (12 radices, two stage forms: a bounded set of
+// instantiations). The codelets: radix-2 decimation in time for powers of
+// two (twiddles the 16th roots of unity), the symmetric direct DFT for 3, 5
+// and 7, and one Cooley-Tukey step for 6, 9, 10, 12, 14 and 15, their
+// constants immediates (root_entry, a switch on compile-time constants: no
+// load and no constant bank of the module's own). The span and the tables are
+// staged by cp.async, all in flight at once. The (N2, ft) tile takes 8 N2 ft
+// bytes: 256 KB at N2 = 1024 and ft = 32, over the 227 KB a block may have,
+// so the host halves ft (32, 16, 8) until the block fits, and also while
+// the grid gives fewer than two blocks an SM (dsp/stft_cuda.py:
+// fft_tile_frames). Blocks an SM (80 registers a thread, 256 threads; the
+// occupancy calculator through dcs_stft_blocks_per_sm): 3 up to
+// 73 KB of shared memory a block (N2 = 200 at ft = 8, hop 100: 23 KB; at
+// ft = 32: 71 KB; N2 = 625 at ft = 8: 73 KB), 2 at 100 KB (N2 = 512, ft = 16,
+// hop 256), 1 from 118 KB (N2 = 1024 at ft = 8, hop 511; N2 = 875 at hop
+// 1750: 139 KB).
 //
-// Entry point dcs_stft_forward (any n_fft, generic (n_fft, F) bases): the
-// dense DFT, 2*2*B*T*F*n_fft float32 FMAs (4.2 GFLOP at the enhance shape, a
-// ceiling of ~0.06 ms at the float32 rate). It serves the sizes the FFT
-// kernel is not instantiated for. One block per (tile of 64 frames, tile of
-// 64 bins, batch row) stages the sample span as above, streams both bases
-// through shared memory in 32-row chunks, and each thread keeps a 4-frame x
-// 4-bin tile of cos and sin accumulators in registers.
+// Entry point dcs_stft_forward: the dense DFT for the sizes the FFT entry
+// does not take (odd n_fft, a half with a prime factor >= 11, n_fft > 2048,
+// hop > n_fft), an implicit GEMM on the tensor cores: frames (A, frames x
+// n_fft, read from x with the reflect padding as index math) times the folded
+// basis (B, n_fft x 2F: cos and sin of 32 bins a 64-column block), written
+// straight to (B, F, T). float32 accuracy from TF32 tensor cores by 3xTF32:
+// three products (lo*hi, hi*lo, hi*hi) into one float32 sum, the frames
+// split into hi and lo in registers (truncation, two operations a value),
+// the basis split on the host (rounded); one TF32 product would leave ~1e-3
+// relative error. wgmma m64n64k8, A from registers, B from shared memory: a
+// block is one warpgroup owning 64 frames x 64 columns; a chunk of 32
+// samples is the frames' tile (pitch 36 words, so a fragment load hits 32
+// banks) and the basis' hi and lo slabs, which dsp/stft_cuda.py:dense_basis
+// packs as the shared-memory image of the K-major core-matrix layout (one
+// contiguous copy a chunk), double-buffered by cp.async (50 KB; four blocks
+// an SM). Where the grid leaves SMs idle, a cluster of S = 2, 4 or 8 blocks
+// (dsp/stft_cuda.py:dense_split, from the blocks an SM that
+// dcs_stft_blocks_per_sm reports) shares one output tile, each rank reducing
+// its run of sample chunks; after a cluster barrier rank r adds the r-th
+// slice of frames over ranks 0, 1, ..., S - 1 in that order through
+// distributed shared memory: deterministic. It does 2 * 2 * B * T * F * n_fft
+// operations three times over, where an FFT does ~2.5 n_fft log2 n_fft a
+// frame.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
-constexpr int FT = 64;            // frames per block
-constexpr int FB = 64;            // bins per block
-constexpr int KC = 32;            // basis rows per shared-memory chunk
-constexpr int TX = 16;            // threads along frames
-constexpr int TY = 16;            // threads along bins
-constexpr int RF = FT / TX;       // frames per thread
-constexpr int RB = FB / TY;       // bins per thread
-
 __host__ __device__ __forceinline__ int skew(int s) { return s + (s >> 5); }
 
-__global__ void __launch_bounds__(TX * TY)
-stft_kernel(const float* __restrict__ x, const float* __restrict__ cosb,
-            const float* __restrict__ sinb, float* __restrict__ re,
-            float* __restrict__ im, int n, int n_fft, int hop, int F, int T,
-            int pad, int span) {
-  extern __shared__ float xs[];   // skewed sample span of this frame tile
-  __shared__ float cs[KC][FB];
-  __shared__ float ss[KC][FB];
 
-  const int b = blockIdx.z;
-  const int t0 = blockIdx.x * FT;
-  const int f0 = blockIdx.y * FB;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TX + tx;
-  const float* xb = x + (long long)b * n;
+// asynchronous copies from device to shared memory (both entries)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // samples [t0*hop, t0*hop + span) of the padded signal; reflect without
-  // edge repeat (torch 'reflect'); positions no valid frame reads are zero
-  const int s0 = t0 * hop - pad;
-  for (int s = tid; s < span; s += TX * TY) {
-    int i = s0 + s;
-    if (pad > 0) {
-      if (i < 0) i = -i;
-      if (i >= n) i = 2 * (n - 1) - i;
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+
+// ---- the dense entry point: 3xTF32 wgmma ------------------------------------
+
+constexpr int DM = 64;         // frames per block: one warpgroup's m64
+constexpr int DB = 32;         // bins per block: 64 basis columns, cos then sin
+constexpr int DN = 2 * DB;
+constexpr int DK = 32;         // samples (basis rows) per reduction chunk
+constexpr int DNT = 128;       // one warpgroup
+constexpr int DAP = DK + 4;    // A row pitch: a fragment load hits 32 banks
+constexpr int DPP = DN + 1;    // partial tile pitch (the cluster split)
+constexpr int DBF = DK * DN;   // words of a chunk's hi (or lo) B slab
+// the un-swizzled K-major core-matrix layout of a slab: [k/4][n][k%4], so
+// the two core matrices of a k8 step are DN * 16 bytes apart and 8-row
+// groups of n 128 bytes apart
+constexpr uint32_t DLBO = DN * 16, DSBO = 128;
+constexpr size_t DENSE_SMEM = sizeof(float) * 2 * (2 * DBF + DM * DAP);
+
+// orders generic-proxy shared-memory writes before wgmma's async-proxy reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// The split of an A value, by truncation: hi keeps the top 19 bits, as the
+// tensor cores read a float32 operand, and lo = v - hi is exact; the tensor
+// cores drop lo's low 13 bits. Two operations a value; v = hi + lo' up to
+// ~2^-20 |v|. (The basis comes split already, each part rounded to TF32.)
+__device__ __forceinline__ void split_trunc(float v, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(v) & 0xFFFFE000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// shared-memory matrix descriptor, no swizzle, K-major: 8-row x 16-byte core
+// matrices; lbo = bytes between the two core matrices of a k8 step, sbo =
+// bytes between 8-row groups
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// d (64 x 64, float32, 32 registers a thread) += a (64 x 8 TF32, registers)
+// * b (8 x 64 TF32, shared memory, through desc)
+__device__ __forceinline__ void wgmma_64(float (&d)[32], const uint32_t* a, uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// grid (frame tiles, Fp / 32, B * split); basis (Fp / 32, Kp / 32, 2, 8, 64,
+// 4) f32: for column block jb and chunk c, the hi then the lo slab, each the
+// shared-memory image of the K-major core-matrix layout.
+// blockIdx.z = b * split + rank; rank reduces chunks [rank per, (rank+1) per)
+__global__ void __launch_bounds__(DNT)
+stft_dense_kernel(const float* __restrict__ x, const float* __restrict__ basis,
+                  float* __restrict__ re, float* __restrict__ im, int n, int hop,
+                  int F, int T, int pad, int chunks, int split) {
+  extern __shared__ __align__(128) float dense_smem[];
+  float* Bs = dense_smem;                                      // 2 x (hi, lo)
+  auto As = reinterpret_cast<float (*)[DM][DAP]>(dense_smem + 4 * DBF);  // 2 stages
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mrow = 16 * warp + (lane >> 2), tg = lane & 3;
+  const int t0 = blockIdx.x * DM, jb = blockIdx.y;
+  const int rank = blockIdx.z % split, b = blockIdx.z / split;
+  const int per = (chunks + split - 1) / split;
+  const int c0 = rank * per, c1 = min(chunks, c0 + per);
+  const float* xb = x + static_cast<long long>(b) * n;
+  const float* bslab = basis + static_cast<long long>(jb) * chunks * 2 * DBF;
+
+  // A: frame t, samples c*DK .. c*DK + 31 (a warp a frame, consecutive
+  // samples); zeros past the signal and for frames past T. B: the chunk's
+  // hi and lo slabs, contiguous, in 16-byte copies (rows past n_fft are zero
+  // in the packing).
+  auto load = [&](int c, int st) {
+    for (int e = tid; e < DM * DK; e += DNT) {
+      const int t = e / DK, kk = e % DK;
+      int i = (t0 + t) * hop - pad + c * DK + kk;
+      if (pad > 0) {
+        if (i < 0) i = -i;
+        if (i >= n) i = 2 * (n - 1) - i;
+      }
+      const bool ok = t0 + t < T && i >= 0 && i < n;
+      cp_async4(smem_u32(&As[st][t][kk]), ok ? xb + i : xb, ok ? 4 : 0);
     }
-    xs[skew(s)] = (i >= 0 && i < n) ? xb[i] : 0.f;
-  }
+    const float* src = bslab + static_cast<long long>(c) * 2 * DBF;
+    for (int e = tid; e < 2 * DBF / 4; e += DNT)
+      cp_async16(smem_u32(Bs + st * 2 * DBF + 4 * e), src + 4 * e);
+  };
 
-  float acc_c[RF][RB], acc_s[RF][RB];
+  // accumulator i of a thread: row mrow + 8 * ((i / 2) % 2), column
+  // 8 * (i / 4) + 2 * tg + i % 2
+  float acc[32];
 #pragma unroll
-  for (int i = 0; i < RF; ++i)
-#pragma unroll
-    for (int j = 0; j < RB; ++j) acc_c[i][j] = acc_s[i][j] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 
-  for (int k0 = 0; k0 < n_fft; k0 += KC) {
-    __syncthreads();  // sample span staged / previous basis chunk consumed
-    for (int e = tid; e < KC * FB; e += TX * TY) {
-      const int kk = e / FB, ff = e % FB;
-      const int k = k0 + kk, f = f0 + ff;
-      const bool ok = k < n_fft && f < F;
-      cs[kk][ff] = ok ? cosb[(long long)k * F + f] : 0.f;
-      ss[kk][ff] = ok ? sinb[(long long)k * F + f] : 0.f;
-    }
+  // chunk c + 1 lands while chunk c is multiplied; one barrier a chunk both
+  // publishes chunk c and frees the stage of chunk c - 1 for chunk c + 1
+  if (c0 < c1) load(c0, 0);
+  cp_async_commit();
+  for (int c = c0; c < c1; ++c) {
+    const int st = (c - c0) & 1;
+    cp_async_wait<0>();  // chunk c has landed
+    fence_proxy_async();
     __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < KC; ++kk) {
-      float xv[RF], cv[RB], sv[RB];
+    if (c + 1 < c1) load(c + 1, st ^ 1);
+    cp_async_commit();
+    uint32_t hi[16], lo[16];
 #pragma unroll
-      for (int i = 0; i < RF; ++i) xv[i] = xs[skew((tx + i * TX) * hop + k0 + kk)];
-#pragma unroll
-      for (int j = 0; j < RB; ++j) {
-        cv[j] = cs[kk][ty + j * TY];
-        sv[j] = ss[kk][ty + j * TY];
-      }
-#pragma unroll
-      for (int i = 0; i < RF; ++i)
-#pragma unroll
-        for (int j = 0; j < RB; ++j) {
-          acc_c[i][j] = fmaf(xv[i], cv[j], acc_c[i][j]);
-          acc_s[i][j] = fmaf(xv[i], sv[j], acc_s[i][j]);
-        }
+    for (int s = 0; s < DK / 8; ++s) {
+      const int k = 8 * s + tg;
+      split_trunc(As[st][mrow][k], hi[4 * s], lo[4 * s]);
+      split_trunc(As[st][mrow + 8][k], hi[4 * s + 1], lo[4 * s + 1]);
+      split_trunc(As[st][mrow][k + 4], hi[4 * s + 2], lo[4 * s + 2]);
+      split_trunc(As[st][mrow + 8][k + 4], hi[4 * s + 3], lo[4 * s + 3]);
     }
+    const uint32_t bh = smem_u32(Bs + st * 2 * DBF);
+    wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < DK / 8; ++s) {
+      const uint64_t dhi = make_desc(bh + s * 2 * DLBO, DLBO, DSBO);
+      const uint64_t dlo = make_desc(bh + DBF * 4 + s * 2 * DLBO, DLBO, DSBO);
+      wgmma_64(acc, lo + 4 * s, dhi);
+      wgmma_64(acc, hi + 4 * s, dlo);
+      wgmma_64(acc, hi + 4 * s, dhi);
+    }
+    wgmma_commit();
+    wgmma_wait_all();  // the registers and the stage are free again
   }
 
+  if (split == 1) {
 #pragma unroll
-  for (int j = 0; j < RB; ++j) {
-    const int f = f0 + ty + j * TY;
-    if (f >= F) continue;
-#pragma unroll
-    for (int i = 0; i < RF; ++i) {
-      const int t = t0 + tx + i * TX;
-      if (t < T) {
-        const long long o = ((long long)b * F + f) * T + t;
-        re[o] = acc_c[i][j];
-        im[o] = acc_s[i][j];
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int t = t0 + mrow + 8 * ((i >> 1) & 1);
+      const int col = 8 * (i >> 2) + 2 * tg + (i & 1);
+      const int f = jb * DB + (col & (DB - 1));
+      if (t < T && f < F)
+        (col < DB ? re : im)[(static_cast<long long>(b) * F + f) * T + t] = acc[i];
     }
+    return;
   }
+
+  // the split: every rank writes its partial tile (DM frames x DN columns)
+  // into its own shared memory, then rank r adds frames
+  // [r DM / S, (r + 1) DM / S) over ranks 0, 1, ..., S - 1 in that order
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  float* part = dense_smem;
+  __syncthreads();  // every thread is done with the stages
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    part[(mrow + 8 * ((i >> 1) & 1)) * DPP + 8 * (i >> 2) + 2 * tg + (i & 1)] = acc[i];
+  cluster.sync();  // every rank's partial tile is written
+  const int nr = DM / split, r0 = rank * nr;
+  for (int e = tid; e < nr * DN; e += DNT) {
+    const int col = e / nr, r = r0 + e % nr;
+    float* src = part + r * DPP + col;
+    float v = *cluster.map_shared_rank(src, 0);
+    for (int k = 1; k < split; ++k) v += *cluster.map_shared_rank(src, k);
+    const int t = t0 + r, f = jb * DB + (col & (DB - 1));
+    if (t < T && f < F)
+      (col < DB ? re : im)[(static_cast<long long>(b) * F + f) * T + t] = v;
+  }
+  cluster.sync();  // no rank leaves while another reads its shared memory
+}
+
+// lets a kernel take `smem` bytes of dynamic shared memory and asks for the
+// largest shared-memory carveout, so that as many blocks co-reside as
+// registers and shared memory allow (the default carveout may hold fewer)
+template <typename K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+}
+
+int launch_dense(cudaStream_t s, const float* x, const float* basis, float* re,
+                 float* im, int B, int n, int n_fft, int hop, int F, int T, int pad,
+                 int split) {
+  if (split < 1 || split > 8 || (split & (split - 1)) ||
+      static_cast<long long>(B) * split > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int fp = (F + DB - 1) / DB * DB, chunks = (n_fft + DK - 1) / DK;
+  const dim3 grid((T + DM - 1) / DM, fp / DB, B * split);
+  cudaError_t e = set_smem(stft_dense_kernel, DENSE_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (split == 1) {
+    stft_dense_kernel<<<grid, DNT, DENSE_SMEM, s>>>(x, basis, re, im, n, hop, F, T, pad,
+                                                    chunks, split);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // the `split` blocks of one output tile form a cluster along z
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(DNT);
+  cfg.dynamicSmemBytes = DENSE_SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, stft_dense_kernel, x, basis, re, im, n, hop, F, T, pad,
+                         chunks, split);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 
@@ -308,6 +537,7 @@ stft_fft_kernel(const float* __restrict__ x, const float2* __restrict__ win2,
   }
 }
 
+// instantiated for <16, 16> only (n_fft 512)
 template <int R1, int R2>
 int launch_fft(cudaStream_t s, const float* x, const float* win2,
                const float* tw, const float* sp, float* re, float* im, int B,
@@ -330,60 +560,410 @@ int launch_fft(cudaStream_t s, const float* x, const float* win2,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+
+// ---- the mixed-radix FFT: every other 7-smooth half ------------------------
+
+constexpr int MX_NT = 256;  // threads per block of stft_fft_mixed_kernel
+
+// cos and sin of 2 pi m / R, m < R, for the codelet sizes that are no power
+// of two, rounded once from float64, entry root_offset(R) + m: a switch, as
+// cos_pi8, that folds to an immediate where the index is a compile-time
+// constant after unrolling. (A table in constant memory here gave the
+// module a user constant bank, which made every launch of its kernels, row
+// 1's unchanged code among them, ~0.2 us longer on the H100: PERF.md
+// section 6.) dsp/stft_cuda.py:root_cases_source() prints the cases
+// (tests/test_torch_stft.py holds them to that output).
+__device__ __forceinline__ float2 root_entry(int i) {
+  switch (i) {
+    /* 3 */ case 0: return {1.f, 0.f}; case 1: return {-0.5f, 0.8660254f}; case 2: return {-0.5f, -0.8660254f};
+    /* 5 */ case 3: return {1.f, 0.f}; case 4: return {0.309017f, 0.95105654f}; case 5: return {-0.809017f, 0.58778524f}; case 6: return {-0.809017f, -0.58778524f}; case 7: return {0.309017f, -0.95105654f};
+    /* 6 */ case 8: return {1.f, 0.f}; case 9: return {0.5f, 0.8660254f}; case 10: return {-0.5f, 0.8660254f}; case 11: return {-1.f, 0.f}; case 12: return {-0.5f, -0.8660254f}; case 13: return {0.5f, -0.8660254f};
+    /* 7 */ case 14: return {1.f, 0.f}; case 15: return {0.6234898f, 0.7818315f}; case 16: return {-0.22252093f, 0.9749279f}; case 17: return {-0.90096885f, 0.43388373f}; case 18: return {-0.90096885f, -0.43388373f}; case 19: return {-0.22252093f, -0.9749279f}; case 20: return {0.6234898f, -0.7818315f};
+    /* 9 */ case 21: return {1.f, 0.f}; case 22: return {0.76604444f, 0.64278764f}; case 23: return {0.17364818f, 0.9848077f}; case 24: return {-0.5f, 0.8660254f}; case 25: return {-0.9396926f, 0.34202015f}; case 26: return {-0.9396926f, -0.34202015f}; case 27: return {-0.5f, -0.8660254f}; case 28: return {0.17364818f, -0.9848077f}; case 29: return {0.76604444f, -0.64278764f};
+    /* 10 */ case 30: return {1.f, 0.f}; case 31: return {0.809017f, 0.58778524f}; case 32: return {0.309017f, 0.95105654f}; case 33: return {-0.309017f, 0.95105654f}; case 34: return {-0.809017f, 0.58778524f}; case 35: return {-1.f, 0.f}; case 36: return {-0.809017f, -0.58778524f}; case 37: return {-0.309017f, -0.95105654f}; case 38: return {0.309017f, -0.95105654f}; case 39: return {0.809017f, -0.58778524f};
+    /* 12 */ case 40: return {1.f, 0.f}; case 41: return {0.8660254f, 0.5f}; case 42: return {0.5f, 0.8660254f}; case 43: return {0.f, 1.f}; case 44: return {-0.5f, 0.8660254f}; case 45: return {-0.8660254f, 0.5f}; case 46: return {-1.f, 0.f}; case 47: return {-0.8660254f, -0.5f}; case 48: return {-0.5f, -0.8660254f}; case 49: return {0.f, -1.f}; case 50: return {0.5f, -0.8660254f}; case 51: return {0.8660254f, -0.5f};
+    /* 14 */ case 52: return {1.f, 0.f}; case 53: return {0.90096885f, 0.43388373f}; case 54: return {0.6234898f, 0.7818315f}; case 55: return {0.22252093f, 0.9749279f}; case 56: return {-0.22252093f, 0.9749279f}; case 57: return {-0.6234898f, 0.7818315f}; case 58: return {-0.90096885f, 0.43388373f}; case 59: return {-1.f, 0.f}; case 60: return {-0.90096885f, -0.43388373f}; case 61: return {-0.6234898f, -0.7818315f}; case 62: return {-0.22252093f, -0.9749279f}; case 63: return {0.22252093f, -0.9749279f}; case 64: return {0.6234898f, -0.7818315f}; case 65: return {0.90096885f, -0.43388373f};
+    /* 15 */ case 66: return {1.f, 0.f}; case 67: return {0.9135454f, 0.40673664f}; case 68: return {0.6691306f, 0.7431448f}; case 69: return {0.309017f, 0.95105654f}; case 70: return {-0.104528464f, 0.9945219f}; case 71: return {-0.5f, 0.8660254f}; case 72: return {-0.809017f, 0.58778524f}; case 73: return {-0.9781476f, 0.20791169f}; case 74: return {-0.9781476f, -0.20791169f}; case 75: return {-0.809017f, -0.58778524f}; case 76: return {-0.5f, -0.8660254f}; case 77: return {-0.104528464f, -0.9945219f}; case 78: return {0.309017f, -0.95105654f}; case 79: return {0.6691306f, -0.7431448f}; case 80: return {0.9135454f, -0.40673664f};
+  }
+  return {0.f, 0.f};
+}
+
+__host__ __device__ constexpr int root_offset(int r) {
+  return r == 3 ? 0 : r == 5 ? 3 : r == 6 ? 8 : r == 7 ? 14 : r == 9 ? 21
+       : r == 10 ? 30 : r == 12 ? 40 : r == 14 ? 52 : 66;
+}
+
+// exp(+2 pi i m / R) as (cos, sin); m is a compile-time constant after
+// unrolling, so the value is an immediate
+template <int R>
+__device__ __forceinline__ float2 root(int m) {
+  return root_entry(root_offset(R) + m % R);
+}
+
+template <int R>
+__device__ __forceinline__ void dft_any(float (&re)[R], float (&im)[R]);
+
+// In-register DFT of a prime P (3, 5, 7): X[0] = sum x; for k <= (P-1)/2,
+// with s_j = x_j + x_{P-j} and d_j = x_j - x_{P-j},
+// X[k] = a - i b and X[P-k] = a + i b, a = x_0 + sum s_j cos(2 pi jk/P),
+// b = sum d_j sin(2 pi jk/P).
+template <int P>
+__device__ __forceinline__ void dft_prime(float (&re)[P], float (&im)[P]) {
+  constexpr int H = (P - 1) / 2;
+  float sr[H], si[H], dr[H], di[H];
+  float s0r = re[0], s0i = im[0];
+#pragma unroll
+  for (int j = 0; j < H; ++j) {
+    sr[j] = re[j + 1] + re[P - 1 - j];
+    si[j] = im[j + 1] + im[P - 1 - j];
+    dr[j] = re[j + 1] - re[P - 1 - j];
+    di[j] = im[j + 1] - im[P - 1 - j];
+    s0r += sr[j];
+    s0i += si[j];
+  }
+  const float x0r = re[0], x0i = im[0];
+#pragma unroll
+  for (int k = 1; k <= H; ++k) {
+    float ar = x0r, ai = x0i, br = 0.f, bi = 0.f;
+#pragma unroll
+    for (int j = 1; j <= H; ++j) {
+      const float2 w = root<P>(j * k);
+      ar = fmaf(sr[j - 1], w.x, ar);
+      ai = fmaf(si[j - 1], w.x, ai);
+      br = fmaf(dr[j - 1], w.y, br);
+      bi = fmaf(di[j - 1], w.y, bi);
+    }
+    re[k] = ar + bi;
+    im[k] = ai - br;
+    re[P - k] = ar - bi;
+    im[P - k] = ai + br;
+  }
+  re[0] = s0r;
+  im[0] = s0i;
+}
+
+// the first factor of a composite codelet size that is no power of two
+__host__ __device__ constexpr int ct_first(int r) {
+  return r == 12 ? 4 : (r % 2 == 0 ? 2 : 3);
+}
+
+// In-register DFT of R = A * B by one Cooley-Tukey step, the same
+// decimation in frequency as the kernel's stages: for each q < B the
+// radix-A DFT over r of x[q + B r], twiddled by exp(-2 pi i q k1 / R), then
+// for each k1 the radix-B DFT over q, giving X[k1 + A k2].
+template <int R>
+__device__ __forceinline__ void dft_ct(float (&re)[R], float (&im)[R]) {
+  constexpr int A = ct_first(R), Bq = R / A;
+  float tr[A][Bq], ti[A][Bq];
+#pragma unroll
+  for (int q = 0; q < Bq; ++q) {
+    float ur[A], ui[A];
+#pragma unroll
+    for (int r = 0; r < A; ++r) {
+      ur[r] = re[q + Bq * r];
+      ui[r] = im[q + Bq * r];
+    }
+    dft_any<A>(ur, ui);
+#pragma unroll
+    for (int k = 0; k < A; ++k) {
+      if ((q * k) % R == 0) {
+        tr[k][q] = ur[k];
+        ti[k][q] = ui[k];
+      } else {
+        const float2 w = root<R>(q * k);
+        tr[k][q] = ur[k] * w.x + ui[k] * w.y;
+        ti[k][q] = ui[k] * w.x - ur[k] * w.y;
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < A; ++k) {
+    dft_any<Bq>(tr[k], ti[k]);
+#pragma unroll
+    for (int j = 0; j < Bq; ++j) {
+      re[k + A * j] = tr[k][j];
+      im[k + A * j] = ti[k][j];
+    }
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void dft_any(float (&re)[R], float (&im)[R]) {
+  if constexpr ((R & (R - 1)) == 0)
+    dft<R>(re, im);
+  else if constexpr (R == 3 || R == 5 || R == 7)
+    dft_prime<R>(re, im);
+  else
+    dft_ct<R>(re, im);
+}
+
+#define DCS_STFT_RADICES(X) \
+  X(3) X(4) X(5) X(6) X(7) X(8) X(9) X(10) X(12) X(14) X(15) X(16)
+
+__host__ __device__ constexpr bool is_codelet(int r) {
+  return r == 3 || r == 4 || r == 5 || r == 6 || r == 7 || r == 8 ||
+         r == 9 || r == 10 || r == 12 || r == 14 || r == 15 || r == 16;
+}
+
+struct MixedPlan {
+  int n2;         // complex points, the product of the radices
+  int stages;     // 1..4
+  int radix[4];   // Rs
+  int later[4];   // Qs: the product of the radices after stage s
+  int tw_off[4];  // stage s's (Qs, Rs) twiddle block in tw
+  int n_tw;       // twiddles in tw, all stages
+};
+
+// stage 1, radix R: from the staged span to rows k1 + R q
+template <int R>
+__device__ __forceinline__ void mixed_first(const float* fxs, float2* zs,
+                                            const float2* win2, const float2* tw, int Q,
+                                            bool twiddle, int slot, int units,
+                                            int fr, int ft, int hop) {
+  for (int q = slot; q < Q; q += units) {
+    float zr[R], zi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int nn = q + Q * r;
+      // both words skewed on their own (an odd hop puts a pair across a step)
+      const int s = fr * hop + 2 * nn;
+      const float2 w = win2[nn];
+      zr[r] = fxs[skew(s)] * w.x;
+      zi[r] = fxs[skew(s + 1)] * w.y;
+    }
+    dft_any<R>(zr, zi);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float vr = zr[k], vi = zi[k];
+      if (twiddle && k > 0) {
+        const float2 t = tw[q * R + k];
+        const float a = vr * t.x - vi * t.y;
+        vi = vr * t.y + vi * t.x;
+        vr = a;
+      }
+      zs[(k + R * q) * ft + fr] = make_float2(vr, vi);
+    }
+  }
+}
+
+// a later stage, radix R, in place: item (k1, q, h) reads and writes rows
+// k1 + R1 (q + Q r + R Q h), r < R
+template <int R>
+__device__ __forceinline__ void mixed_later(float2* zs, const float2* tw,
+                                            int R1, int Q, bool twiddle, int items,
+                                            int slot, int units, int fr, int ft) {
+  for (int g = slot; g < items; g += units) {
+    const int k1 = g % R1, t = g / R1, q = t % Q, h = t / Q;
+    const int base = k1 + R1 * (q + R * Q * h), stride = R1 * Q;
+    float yr[R], yi[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float2 v = zs[(base + stride * r) * ft + fr];
+      yr[r] = v.x;
+      yi[r] = v.y;
+    }
+    dft_any<R>(yr, yi);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      float vr = yr[k], vi = yi[k];
+      if (twiddle && k > 0) {
+        const float2 t = tw[q * R + k];
+        const float a = vr * t.x - vi * t.y;
+        vi = vr * t.y + vi * t.x;
+        vr = a;
+      }
+      zs[(base + stride * k) * ft + fr] = make_float2(vr, vi);
+    }
+  }
+}
+
+// win2, sp as for stft_fft_kernel; tw the stages' twiddle blocks; rows (N2)
+// the tile row of each FFT output. A lane group of ft lanes owns one row.
+// The span and the tables are copied to shared memory by cp.async, all in
+// flight at once: one wait on device memory a block, not one a loop
+// iteration, a stage and a bin.
+__global__ void __launch_bounds__(MX_NT, 2)
+stft_fft_mixed_kernel(const float* __restrict__ x, const float2* __restrict__ win2,
+                      const float2* __restrict__ tw, const float2* __restrict__ sp,
+                      const int* __restrict__ rows, float* __restrict__ re,
+                      float* __restrict__ im, int n, int hop, int first_bin, int F,
+                      int T, int pad, int span, int ft, MixedPlan p) {
+  extern __shared__ float2 fft_smem[];
+  const int N2 = p.n2;
+  float2* zs = fft_smem;                                  // (N2, ft)
+  float2* win2s = zs + N2 * ft;                           // (N2)
+  float2* tws = win2s + N2;                               // (n_tw)
+  float2* sps = tws + p.n_tw;                             // (N2 + 1)
+  int* rowss = reinterpret_cast<int*>(sps + N2 + 1);      // (N2)
+  float* fxs = reinterpret_cast<float*>(rowss + N2);      // skewed span
+
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * ft;
+  const int tid = threadIdx.x;
+  const int fr = tid & (ft - 1), slot = tid / ft, units = MX_NT / ft;
+  const float* xb = x + static_cast<long long>(b) * n;
+
+  const int s0 = t0 * hop - pad;
+  for (int s = tid; s < span; s += MX_NT) {
+    int i = s0 + s;
+    if (pad > 0) {
+      if (i < 0) i = -i;
+      if (i >= n) i = 2 * (n - 1) - i;
+    }
+    const bool ok = i >= 0 && i < n;  // zeros past the signal
+    cp_async4(smem_u32(&fxs[skew(s)]), ok ? xb + i : xb, ok ? 4 : 0);
+  }
+  for (int i = tid; i <= N2; i += MX_NT) {
+    cp_async8(smem_u32(&sps[i]), &sp[i]);
+    if (i < N2) {
+      cp_async8(smem_u32(&win2s[i]), &win2[i]);
+      cp_async4(smem_u32(&rowss[i]), &rows[i], 4);
+    }
+  }
+  for (int i = tid; i < p.n_tw; i += MX_NT) cp_async8(smem_u32(&tws[i]), &tw[i]);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int R1 = p.radix[0];
+  switch (R1) {
+#define DCS_FIRST(R)                                                          \
+  case R:                                                                     \
+    mixed_first<R>(fxs, zs, win2s, tws, p.later[0], p.stages > 1, slot, units, \
+                   fr, ft, hop);                                              \
+    break;
+    DCS_STFT_RADICES(DCS_FIRST)
+#undef DCS_FIRST
+  }
+  __syncthreads();
+  for (int st = 1; st < p.stages; ++st) {
+    const float2* tws_s = tws + p.tw_off[st];
+    const bool twiddle = st + 1 < p.stages;
+    switch (p.radix[st]) {
+#define DCS_LATER(R)                                                             \
+  case R:                                                                        \
+    mixed_later<R>(zs, tws_s, R1, p.later[st], twiddle, N2 / R, slot, units, fr, ft); \
+    break;
+      DCS_STFT_RADICES(DCS_LATER)
+#undef DCS_LATER
+    }
+    __syncthreads();
+  }
+
+  // split step and store: a lane group writes ft consecutive frames of a bin
+  const int t = t0 + fr;
+  for (int f = slot; f < F; f += units) {
+    const int k = first_bin + f;
+    const float2 a = zs[rowss[k == N2 ? 0 : k] * ft + fr];
+    const float2 c = zs[rowss[k == 0 ? 0 : N2 - k] * ft + fr];
+    const float2 w = sps[k];
+    const float er = a.x + c.x, ei = a.y - c.y;   // E (halves in the window)
+    const float orr = a.y + c.y, oi = c.x - a.x;  // O
+    if (t < T) {
+      const long long o = (static_cast<long long>(b) * F + f) * T + t;
+      re[o] = er + orr * w.x - oi * w.y;
+      im[o] = ei + orr * w.y + oi * w.x;
+    }
+  }
+}
+
+int launch_mixed(cudaStream_t s, const float* x, const float* win2, const float* tw,
+                 const float* sp, const int* rows, float* re, float* im, int B,
+                 int n, int n_fft, int hop, int first_bin, int F, int T, int pad,
+                 const int* radix, int stages, int ft) {
+  if (rows == nullptr || (ft != 8 && ft != 16 && ft != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  MixedPlan p = {};
+  p.n2 = n_fft / 2;
+  p.stages = stages;
+  for (int st = stages - 1, later = 1; st >= 0; --st) {
+    p.radix[st] = radix[st];
+    p.later[st] = later;
+    later *= radix[st];
+  }
+  for (int st = 1; st < stages; ++st)
+    p.tw_off[st] = p.tw_off[st - 1] + p.radix[st - 1] * p.later[st - 1];
+  p.n_tw = stages > 1 ? p.tw_off[stages - 1] : 0;
+  const int span = hop * (ft - 1) + n_fft;
+  const size_t smem = sizeof(float2) * (p.n2 * ft + 2 * p.n2 + 1 + p.n_tw) +
+                      sizeof(int) * p.n2 + sizeof(float) * (skew(span - 1) + 1);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = set_smem(stft_fft_mixed_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((T + ft - 1) / ft, B);
+  stft_fft_mixed_kernel<<<grid, MX_NT, smem, s>>>(
+      x, reinterpret_cast<const float2*>(win2), reinterpret_cast<const float2*>(tw),
+      reinterpret_cast<const float2*>(sp), rows, re, im, n, hop, first_bin, F, T, pad,
+      span, ft, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" const char* dcs_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// The dense entry point. x (B, n) f32; cosb, sinb (n_fft, F) f32; re, im
-// (B, F, T) f32. Launches on `stream`, allocates nothing, returns
-// cudaGetLastError().
-extern "C" int dcs_stft_forward(const float* x, const float* cosb,
-                                const float* sinb, float* re, float* im, int B,
-                                int n, int n_fft, int hop, int F, int T,
-                                int pad, void* stream) {
-  if (B <= 0 || T <= 0 || F <= 0 || hop <= 0 || n_fft <= 0 || B > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  // the kk loop reads up to the next KC multiple of n_fft past each frame
-  const int span = hop * (FT - 1) + (n_fft + KC - 1) / KC * KC;
-  const size_t smem = static_cast<size_t>(skew(span - 1) + 1) * sizeof(float);
-  if (smem + sizeof(float) * 2 * KC * FB > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        stft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  dim3 grid((T + FT - 1) / FT, (F + FB - 1) / FB, B);
-  dim3 block(TX, TY);
-  stft_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, cosb, sinb, re, im, n, n_fft, hop, F, T, pad, span);
-  return static_cast<int>(cudaGetLastError());
+// Blocks of the mixed FFT kernel (dense = 0) or of the dense kernel
+// (dense = 1) an SM holds at once with `smem` bytes of dynamic shared
+// memory each, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+// after the attributes a launch sets): the dense entry's cluster split is
+// planned from it. A query: launches nothing.
+extern "C" int dcs_stft_blocks_per_sm(int dense, int smem, int* blocks) {
+  cudaError_t e = dense ? set_smem(stft_dense_kernel, smem)
+                        : set_smem(stft_fft_mixed_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(
+      dense ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, stft_dense_kernel, DNT,
+                                                            smem)
+            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, stft_fft_mixed_kernel,
+                                                            MX_NT, smem));
 }
 
-// The FFT entry point. x (B, n) f32; win2 (n_fft/2, 2), tw (R2, R1, 2), sp
-// (n_fft/2 + 1, 2) f32 tables as described above stft_fft_kernel; re, im
-// (B, F, T) f32 hold the bins first_bin .. first_bin + F - 1. n_fft must be
-// 64, 128, 256 or 512. Launches on `stream`, allocates nothing, returns
+// The dense entry point. x (B, n) f32; basis (Kp, 2 Fp) f32 as
+// dsp/stft_cuda.py:dense_basis packs it (Kp = n_fft, Fp = F, each rounded up
+// to 32), 16-byte aligned; re, im (B, F, T) f32; split the cluster size
+// (1, 2, 4 or 8). Launches on `stream`, allocates nothing, returns
 // cudaGetLastError().
+extern "C" int dcs_stft_forward(const float* x, const float* basis, float* re,
+                                float* im, int B, int n, int n_fft, int hop, int F,
+                                int T, int pad, int split, void* stream) {
+  if (B <= 0 || T <= 0 || F <= 0 || hop <= 0 || n_fft <= 0 || n <= 0 ||
+      (reinterpret_cast<uintptr_t>(basis) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dense(static_cast<cudaStream_t>(stream), x, basis, re, im, B, n,
+                      n_fft, hop, F, T, pad, split);
+}
+
+// The FFT entry point. x (B, n) f32; win2 (n_fft/2, 2), tw (the stages'
+// blocks, 2), sp (n_fft/2 + 1, 2) f32 and rows (n_fft/2) int32 tables as
+// described above stft_fft_kernel and stft_fft_mixed_kernel; re, im (B, F, T)
+// f32 hold the bins first_bin .. first_bin + F - 1. r1..r4 the stage radices
+// (0 past the last), their product n_fft/2; ft the frames a block owns (8,
+// 16 or 32). n_fft 512 as (16, 16) at ft = 32 runs the compiled kernel,
+// which reads no rows (null). Launches on `stream`, allocates nothing,
+// returns cudaGetLastError().
 extern "C" int dcs_stft_fft(const float* x, const float* win2, const float* tw,
-                            const float* sp, float* re, float* im, int B, int n,
-                            int n_fft, int hop, int first_bin, int F, int T,
-                            int pad, void* stream) {
+                            const float* sp, const int* rows, float* re, float* im,
+                            int B, int n, int n_fft, int hop, int first_bin, int F,
+                            int T, int pad, int r1, int r2, int r3, int r4, int ft,
+                            void* stream) {
   if (B <= 0 || T <= 0 || F <= 0 || hop <= 0 || B > 65535 || first_bin < 0 ||
       first_bin + F > n_fft / 2 + 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (n_fft) {
-    case 64:
-      return launch_fft<8, 4>(s, x, win2, tw, sp, re, im, B, n, hop, first_bin, F, T, pad);
-    case 128:
-      return launch_fft<8, 8>(s, x, win2, tw, sp, re, im, B, n, hop, first_bin, F, T, pad);
-    case 256:
-      return launch_fft<16, 8>(s, x, win2, tw, sp, re, im, B, n, hop, first_bin, F, T, pad);
-    case 512:
-      return launch_fft<16, 16>(s, x, win2, tw, sp, re, im, B, n, hop, first_bin, F, T, pad);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const int radix[4] = {r1, r2, r3, r4};
+  int stages = 0, prod = 1;
+  while (stages < 4 && radix[stages] > 0) {
+    if (!is_codelet(radix[stages])) return static_cast<int>(cudaErrorInvalidValue);
+    prod *= radix[stages++];
   }
+  for (int st = stages; st < 4; ++st)
+    if (radix[st] != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (stages == 0 || 2 * prod != n_fft) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_fft == 512 && stages == 2 && r1 == 16 && r2 == 16 && ft == 32)
+    return launch_fft<16, 16>(s, x, win2, tw, sp, re, im, B, n, hop, first_bin, F, T, pad);
+  return launch_mixed(s, x, win2, tw, sp, rows, re, im, B, n, n_fft, hop, first_bin, F,
+                      T, pad, radix, stages, ft);
 }

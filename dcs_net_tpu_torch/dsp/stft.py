@@ -8,8 +8,9 @@
 
 The analysis is the windowed, scaled real DFT of every frame, computed by
 kernel 1 (``dsp/stft_cuda.py``): on the card an FFT inside the kernel, fed the
-window and twiddle tables (folded in float64, then cast), or the dense DFT
-kernel for an ``n_fft`` the FFT is not instantiated for; on the CPU the plain
+window and twiddle tables (folded in float64, then cast), for every even
+``n_fft`` up to 2048 whose half is 7-smooth, or the dense DFT on the tensor
+cores for the rest; on the CPU the plain
 version, one product against (n_fft, F) cos/sin bases with the window and
 scale folded in. The synthesis is a matmul against folded inverse bases plus
 an overlap-add, as in the JAX package.
@@ -31,8 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from dcs_net_tpu_torch.core.config import STFTConfig
-from dcs_net_tpu_torch.dsp.stft_cuda import (STFTPlan, choose_entry, fft_tables,
-                                             stft_analysis)
+from dcs_net_tpu_torch.dsp.stft_cuda import (FFT_COMPILED, STFTPlan, choose_entry,
+                                             dense_basis, fft_tables, stft_analysis)
 from dcs_net_tpu_torch.utils.carray import CArray
 from dcs_net_tpu_torch.utils.device import device_cache
 
@@ -103,21 +104,30 @@ def _work_dtype(x: torch.Tensor):
 def _analysis_plan(cfg: STFTConfig, device: torch.device,
                    dtype=np.float32) -> STFTPlan:
     """Kernel 1's constants for ``cfg`` on ``device``, copied once. The card
-    gets only what its entry point reads: the FFT tables, or the dense bases
-    for a size the FFT kernel does not take."""
+    gets only what its entry point reads: the FFT's tables (no row table
+    for the compiled size), or the dense entry's packed basis; the CPU
+    gets the plain version's bases, and the FFT tables where the FFT entry
+    takes the size (the tests model the kernel from them)."""
     scale = cfg.n_fft ** -0.5 if cfg.normalized else 1.0
     tables = fft_tables(window_np(cfg).astype(np.float64) * scale)
     on_cpu = torch.device(device).type == "cpu"
-    dense = on_cpu or choose_entry(cfg.n_fft, cfg.hop) == "dense"
-    cos_b, sin_b = (_on_device(_dft_basis_eff, cfg, device, dtype) if dense
-                    else (None, None))
-    if tables is not None and (on_cpu or not dense):
-        tables = tuple(torch.from_numpy(a).to(device) for a in tables)
+    fft = choose_entry(cfg.n_fft, cfg.hop) == "fft"
+    cos_b = sin_b = dense = None
+    if on_cpu:
+        cos_b, sin_b = _on_device(_dft_basis_eff, cfg, device, dtype)
+    elif not fft:
+        dense = torch.from_numpy(dense_basis(*_dft_basis_eff(cfg, np.float64))
+                                 ).to(device)
+    if tables is not None and (on_cpu or fft):
+        if not on_cpu and cfg.n_fft == FFT_COMPILED:
+            tables = tables[:3] + (None,)
+        tables = tuple(None if a is None else torch.from_numpy(a).to(device)
+                       for a in tables)
     else:
         tables = None
     return STFTPlan(cfg.n_fft, cfg.n_bins, cfg.hop,
                     cfg.n_fft // 2 if cfg.center else 0,
-                    1 if cfg.drop_dc else 0, cos_b, sin_b, tables)
+                    1 if cfg.drop_dc else 0, cos_b, sin_b, tables, dense)
 
 
 @device_cache(16)

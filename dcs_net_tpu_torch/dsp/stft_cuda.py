@@ -2,29 +2,41 @@
 
 Replaces the Pallas kernel ``dcs_net_tpu/dsp/stft_pallas.py:_forward``. On the
 H100 the function is bound by bytes (~17.4 MB for a batch of four 4 s
-utterances, nearly all of it the output). The source has two entry points:
+utterances, nearly all of it the output). The source has two entry points,
+and :func:`choose_entry` picks one from the shape alone:
 
-* the FFT kernel (``KERNEL``), for ``n_fft`` in :data:`FFT_RADICES`: each
-  frame's windowed real DFT as a complex FFT of ``n_fft/2`` points in two
-  in-register radix stages plus the real-input split step, one lane per
-  frame, written straight to (B, F, T). It takes the window, the stage
-  twiddles and the split twiddles as small float32 tables
-  (:func:`fft_tables`, computed in float64);
-* the dense DFT kernel (``KERNEL_DENSE``), for every other size: generic
-  (n_fft, F) bases streamed through shared memory.
-
-:func:`choose_entry` picks between them from the shape alone. See the source
-for the design notes.
+* the FFT entry (``KERNEL``), for every even ``n_fft`` from 16 to 2048 whose
+  half has no prime factor above 7 (the radices cuFFT has natively), at
+  ``0 < hop <= n_fft``: each frame's windowed real DFT as a complex FFT of
+  ``n_fft/2`` points in in-register stages of radix <= 16
+  (:func:`fft_radices`: at most three stages, four for 625 and 875 points)
+  plus the real-input split step, written straight to (B, F, T). It takes
+  the window, one twiddle table per stage boundary, the split twiddles and
+  the row of each FFT output in the shared tile as small tables
+  (:func:`fft_tables`, computed in float64). n_fft 512, the model's size,
+  runs its compiled two-stage instantiation (:data:`FFT_COMPILED`), every
+  other size one kernel whose stage radices are runtime switches over the
+  codelets;
+* the dense entry (``KERNEL_DENSE``), for the rest (odd ``n_fft``, a half
+  with a prime factor of 11 or more, ``n_fft`` above 2048, ``hop`` above
+  ``n_fft``): the frames times the folded (n_fft, 2F) cos/sin basis as an
+  implicit GEMM on the tensor cores (``wgmma``) at float32 accuracy
+  (3xTF32), the basis packed and split into TF32 parts by
+  :func:`dense_basis`, the reduction split over a cluster
+  where the grid is under a wave (:func:`dense_split`, from the blocks an
+  SM the card reports, :func:`blocks_per_sm`).
 
 :func:`stft_analysis` is the one entry: it takes a tensor on the CPU through
 :func:`stft_dft_plain` (reflect pad, framing, two matmuls) and a CUDA tensor
-through the kernel that :func:`choose_entry` names, and never falls back from
-one to the other.
+through the entry :func:`choose_entry` names, and never falls back from one
+to the other or to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -37,51 +49,236 @@ _i = ctypes.c_int
 _p = ctypes.c_void_p
 KERNEL = CudaKernel(
     "stft", "stft.cu", "dcs_stft_fft",
-    [_p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
+    [_p, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+     _p])
 KERNEL_DENSE = CudaKernel(
     "stft_dense", "stft.cu", "dcs_stft_forward",
-    [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _p])
+    [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
 
-# n_fft -> (R1, R2): the FFT kernel's instantiations. The real frame becomes
-# n_fft/2 = R1 * R2 complex points; stage 1 is radix R1, stage 2 radix R2.
-FFT_RADICES = {64: (8, 4), 128: (8, 8), 256: (16, 8), 512: (16, 16)}
+# the in-register DFT sizes of csrc/stft.cu (dft_any<R>)
+CODELETS = (3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 15, 16)
+FFT_MAX_STAGES = 4
+FFT_N_FFT_RANGE = (16, 2048)
+# the n_fft of the compiled two-stage instantiation stft_fft_kernel<16, 16>
+# (the enhance and train paths'); its plan is (16, 16)
+FFT_COMPILED = 512
+# the mixed kernel's frames per block (one FFT row a lane group)
+FFT_TILE_FRAMES = (32, 16, 8)
+SMEM_LIMIT = 227 * 1024
+H100_SMS = 132
+# the dense entry's tiles (csrc/stft.cu: DM frames x 2 DB basis columns, DK
+# samples a reduction chunk), its largest cluster, its shared memory (two
+# stages of a chunk's hi and lo basis slabs and frames), and the blocks an
+# H100's SM holds at once, for plans made without a card (the card's own
+# count is :func:`blocks_per_sm`)
+DENSE_FRAMES, DENSE_BINS, DENSE_CHUNK, DENSE_MAX_SPLIT = 64, 32, 32, 8
+DENSE_SMEM = 4 * 2 * (2 * DENSE_CHUNK * 2 * DENSE_BINS + DENSE_FRAMES * (DENSE_CHUNK + 4))
+DENSE_RESIDENT = 4
+
+
+@functools.lru_cache(maxsize=None)
+def fft_radices(n_fft: int) -> Optional[Tuple[int, ...]]:
+    """The FFT entry's stage plan for ``n_fft``: radices from
+    :data:`CODELETS` whose product is ``n_fft / 2``, first stage first, or
+    None where the FFT entry does not take the size. The fewest stages win,
+    then the smallest largest radix, then the smaller tuple in descending
+    order (200 = 8 x 5 x 5, 1024 = 16 x 8 x 8, 256 = 16 x 16)."""
+    lo, hi = FFT_N_FFT_RANGE
+    if n_fft % 2 or not lo <= n_fft <= hi:
+        return None
+    plans = []
+
+    def factor(rest, prefix):
+        if rest == 1:
+            plans.append(tuple(prefix))
+        elif len(prefix) < FFT_MAX_STAGES:
+            for r in CODELETS:
+                if r <= (prefix[-1] if prefix else 16) and rest % r == 0:
+                    factor(rest // r, prefix + [r])
+
+    factor(n_fft // 2, [])
+    return min(plans, key=lambda p: (len(p), p)) if plans else None
 
 
 def choose_entry(n_fft: int, hop: int) -> str:
     """``"fft"`` or ``"dense"``: which entry point a CUDA tensor takes, from
     the shape alone."""
-    return "fft" if n_fft in FFT_RADICES and 0 < hop <= n_fft else "dense"
+    return "fft" if fft_radices(n_fft) is not None and 0 < hop <= n_fft else "dense"
+
+
+def _skewed_words(span: int) -> int:
+    return span + (span - 1) // 32
+
+
+def fft_twiddles(radices: Tuple[int, ...]) -> int:
+    """Twiddles in the FFT entry's ``tw`` table: a (Qs, Rs) block for every
+    stage but the last."""
+    return sum(r * math.prod(radices[s + 1:]) for s, r in enumerate(radices[:-1]))
+
+
+def fft_smem_bytes(n_fft: int, hop: int, ft: int) -> int:
+    """Shared memory of one block of the mixed kernel owning ``ft`` frames:
+    the (n_fft/2, ft) complex tile, its tables and the skewed sample span
+    (as ``csrc/stft.cu:launch_mixed``)."""
+    n2 = n_fft // 2
+    return (8 * (n2 * ft + 2 * n2 + 1 + fft_twiddles(fft_radices(n_fft))) + 4 * n2
+            + 4 * _skewed_words(hop * (ft - 1) + n_fft))
+
+
+def fft_tile_frames(n_fft: int, hop: int, batch: int, n_frames: int) -> int:
+    """Frames a block of the FFT entry owns. The compiled size keeps its
+    32. The mixed kernel takes the most of 32, 16 and 8 whose block fits
+    shared memory and whose grid still gives every SM two blocks, else 8 (the
+    smallest block: a grid under a wave is latency-bound, and halving the
+    frames halves a block's work)."""
+    if n_fft == FFT_COMPILED:
+        return 32
+    for ft in FFT_TILE_FRAMES:
+        if (fft_smem_bytes(n_fft, hop, ft) <= SMEM_LIMIT
+                and batch * -(-n_frames // ft) >= 2 * H100_SMS):
+            return ft
+    return FFT_TILE_FRAMES[-1]
+
+
+def fft_rows(radices: Tuple[int, ...]) -> np.ndarray:
+    """Row of the shared tile that holds FFT output k, for k < n_fft/2. The
+    stages after the first run in place, so output k = k1 + R1 k2 + R1 R2 k3
+    + ... lies at row k1 + R1 (Q2 k2 + ... + QS kS), Qs being the product of
+    the radices after stage s (the identity for one or two stages)."""
+    k = np.arange(math.prod(radices))
+    row = k % radices[0]
+    for s in range(1, len(radices)):
+        digit = (k // math.prod(radices[:s])) % radices[s]
+        row = row + radices[0] * math.prod(radices[s + 1:]) * digit
+    return row.astype(np.int32)
 
 
 def fft_tables(window: np.ndarray) -> Optional[Tuple[np.ndarray, ...]]:
-    """The FFT kernel's float32 tables for an analysis window of ``n_fft``
-    points (scale folded in), computed in float64, or None when the kernel is
-    not instantiated for that size. All are (cos, -sin) pairs:
+    """The FFT entry's tables for an analysis window of ``n_fft`` points
+    (scale folded in), computed in float64 and rounded once, or None where
+    the FFT entry does not take the size. Twiddles are (cos, -sin) pairs:
 
     * ``win2`` (n_fft/2, 2): (w[2n], w[2n+1]) / 2, the packing of the real
       frame into complex points with the split step's halves folded in;
-    * ``tw`` (R2, R1, 2): exp(-2 pi i q k1 / (n_fft/2)), between the stages;
-    * ``sp`` (n_fft/2 + 1, 2): exp(-2 pi i k / n_fft), the split step's."""
+    * ``tw`` (sum of Qs Rs over the stages but the last, 2): for each stage
+      s before the last, the (Qs, Rs) block exp(-2 pi i q ks / (Rs Qs));
+    * ``sp`` (n_fft/2 + 1, 2): exp(-2 pi i k / n_fft), the split step's;
+    * ``rows`` (n_fft/2,) int32: :func:`fft_rows`, which the compiled
+      size does not read (its rows are the identity)."""
     n_fft = window.shape[0]
-    if n_fft not in FFT_RADICES:
+    radices = fft_radices(n_fft)
+    if radices is None:
         return None
-    r1, r2 = FFT_RADICES[n_fft]
     n2 = n_fft // 2
     win2 = 0.5 * np.asarray(window, np.float64).reshape(n2, 2)
-    ang = -2.0 * np.pi * np.outer(np.arange(r2), np.arange(r1)) / n2
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    blocks = []
+    for s in range(len(radices) - 1):
+        r, q = radices[s], math.prod(radices[s + 1:])
+        ang = -2.0 * np.pi * np.outer(np.arange(q), np.arange(r)) / (r * q)
+        blocks.append(np.stack([np.cos(ang), np.sin(ang)], axis=-1).reshape(-1, 2))
+    tw = np.concatenate(blocks) if blocks else np.zeros((0, 2))
     ang = -2.0 * np.pi * np.arange(n2 + 1) / n_fft
     sp = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
-    return tuple(np.ascontiguousarray(a, np.float32) for a in (win2, tw, sp))
+    return (*(np.ascontiguousarray(a, np.float32) for a in (win2, tw, sp)),
+            fft_rows(radices))
+
+
+def root_values(r: int) -> np.ndarray:
+    """(r, 2) float32: cos and sin of 2 pi m / r for m < r, rounded once from
+    float64, the float64 residue of an exact zero (~1e-16) snapped to 0."""
+    ang = 2.0 * np.pi * np.arange(r) / r
+    v = np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+    return np.where(np.abs(v) < 1e-12, 0.0, v).astype(np.float32)
+
+
+def root_cases_source() -> str:
+    """The cases of ``root_entry`` in ``csrc/stft.cu`` as C source: entry
+    ``i`` of :func:`root_values` of every codelet size that is no power of
+    two, one line a size, in :data:`CODELETS` order, each float32 printed
+    in the fewest digits that read back to it."""
+    def lit(v):
+        return np.format_float_positional(v, unique=True) + "f"
+
+    lines, i = [], 0
+    for r in (c for c in CODELETS if c & (c - 1)):
+        cases = []
+        for c, sn in root_values(r):
+            cases.append(f"case {i}: return {{{lit(c)}, {lit(sn)}}};")
+            i += 1
+        lines.append(f"    /* {r} */ " + " ".join(cases))
+    return "\n".join(lines)
+
+
+def tf32_round(a: np.ndarray) -> np.ndarray:
+    """float32 values rounded to TF32 (10 mantissa bits), nearest with ties
+    away from zero, on the bits, as ``cvt.rna.tf32.f32`` does."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def dense_basis(cos_b: np.ndarray, sin_b: np.ndarray) -> np.ndarray:
+    """The dense entry's basis, packed for it. The folded (n_fft, F) cos and
+    sin bases become one (Kp, 2 Fp) float32 matrix B, Kp = n_fft and Fp = F
+    rounded up to 32 with zeros, each 64-column block the cos then the sin
+    of 32 bins (the columns one block of the kernel owns), split for 3xTF32
+    into hi = TF32(B) and lo = TF32(B - hi). Returned as (Fp/32, Kp/32, 2,
+    8, 64, 4): for column block j and chunk c of 32 rows, the hi then the lo
+    slab, element (k, n) of a slab at [k // 4, n, k % 4], the shared-memory
+    image of the K-major core-matrix layout ``wgmma`` reads, so one chunk's
+    basis is one contiguous copy."""
+    k, f = cos_b.shape
+    kp, fp = -(-k // DENSE_CHUNK) * DENSE_CHUNK, -(-f // DENSE_BINS) * DENSE_BINS
+    out = np.zeros((kp, fp // DENSE_BINS, 2, DENSE_BINS), np.float64)
+    for j, b in enumerate((cos_b, sin_b)):
+        out[:k, :, j, :] = np.pad(np.asarray(b, np.float64), ((0, 0), (0, fp - f))
+                                  ).reshape(k, fp // DENSE_BINS, DENSE_BINS)
+    v = out.reshape(kp, 2 * fp).astype(np.float32)
+    hi = tf32_round(v)
+    parts = np.stack([hi, tf32_round(v - hi)])        # (2, Kp, 2 Fp)
+    # (part, chunk, k // 4 in it, k % 4, column block, n) -> the slabs
+    parts = parts.reshape(2, kp // DENSE_CHUNK, DENSE_CHUNK // 4, 4, fp // DENSE_BINS,
+                          2 * DENSE_BINS)
+    return np.ascontiguousarray(parts.transpose(4, 1, 0, 2, 5, 3))
+
+
+def dense_split(n_fft: int, n_bins: int, batch: int, n_frames: int,
+                resident: int = DENSE_RESIDENT) -> int:
+    """Blocks of a cluster that share one output tile of the dense entry,
+    each reducing its share of the n_fft samples (1, 2, 4 or 8): doubled
+    while the doubled grid still runs at once (``resident`` blocks an SM: on
+    the card :func:`blocks_per_sm`) and every rank keeps at least two
+    chunks of 32 samples."""
+    tiles = (-(-n_frames // DENSE_FRAMES) * -(-n_bins // DENSE_BINS) * batch)
+    chunks = -(-n_fft // DENSE_CHUNK)
+    split = 1
+    while (split < DENSE_MAX_SPLIT and 2 * tiles * split <= resident * H100_SMS
+           and chunks >= 4 * split):
+        split *= 2
+    return split
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(entry: str, smem: int) -> int:
+    """Blocks of the mixed FFT kernel (``"fft"``) or of the dense kernel
+    (``"dense"``) one SM of the card holds at once with ``smem`` bytes of
+    dynamic shared memory each (a query of the CUDA occupancy calculator;
+    builds the library, launches nothing; asked once a process)."""
+    fn = KERNEL.library_function("dcs_stft_blocks_per_sm", [_i, _i, _p])
+    out = ctypes.c_int(0)
+    rc = fn(int(entry == "dense"), smem, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError(f"dcs_stft_blocks_per_sm failed: error {rc}")
+    return out.value
 
 
 class STFTPlan(NamedTuple):
     """What one STFT configuration hands kernel 1 on one device: the framing,
-    the first bin kept, and the constants that device's route reads. The
-    folded (n_fft, F) bases serve the plain version and the dense kernel, the
-    tables the FFT kernel: a plan on the card holds only what its entry point
-    reads (the other is None), a plan on the CPU holds the bases, and the
-    tables too where the FFT kernel is instantiated for the size."""
+    the first bin kept, and the constants that device's route reads. A plan
+    on the card holds only what its entry reads: the FFT's tables (``rows``
+    None for the compiled size; the radices follow from n_fft), or the
+    dense entry's packed basis. A plan on the CPU holds the folded (n_fft,
+    F) bases of the plain version, and the FFT tables too where the FFT
+    entry takes the size."""
 
     n_fft: int
     n_bins: int
@@ -90,7 +287,8 @@ class STFTPlan(NamedTuple):
     first_bin: int
     cos_b: Optional[torch.Tensor]
     sin_b: Optional[torch.Tensor]
-    fft: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    fft: Optional[Tuple[torch.Tensor, ...]]
+    dense: Optional[torch.Tensor] = None
 
 
 def _check(x: torch.Tensor, n_fft: int, hop: int, pad: int) -> int:
@@ -127,40 +325,54 @@ def _outputs(x: torch.Tensor, n_bins: int, n_frames: int):
 
 def _launch_dense(x: torch.Tensor, plan: STFTPlan, n_frames: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dense DFT kernel on a CUDA tensor, from the plan's bases."""
+    """The dense entry on a CUDA tensor, from the plan's packed basis."""
     dev = x.device
-    if plan.cos_b is None or plan.sin_b is None:
-        raise ValueError(f"the plan holds no dense bases for n_fft {plan.n_fft}")
-    shape = (plan.n_fft, plan.n_bins)
-    for name, t in (("cos_b", plan.cos_b), ("sin_b", plan.sin_b)):
-        check_cuda_operand(name, t, dev, 2)
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if plan.dense is None:
+        raise ValueError(f"the plan holds no dense basis for n_fft {plan.n_fft}")
+    shape = (-(-plan.n_bins // DENSE_BINS), -(-plan.n_fft // DENSE_CHUNK), 2,
+             DENSE_CHUNK // 4, 2 * DENSE_BINS, 4)
+    check_cuda_operand("dense", plan.dense, dev, 6)
+    if tuple(plan.dense.shape) != shape or plan.dense.data_ptr() % 16:
+        raise ValueError(f"the dense basis must be {shape} and 16-byte aligned, "
+                         f"got {tuple(plan.dense.shape)}")
     re, im = _outputs(x, plan.n_bins, n_frames)
-    KERNEL_DENSE(dev, ptr(x), ptr(plan.cos_b), ptr(plan.sin_b), ptr(re), ptr(im),
-                 x.shape[0], x.shape[1], plan.n_fft, plan.hop, plan.n_bins,
-                 n_frames, plan.pad)
+    split = dense_split(plan.n_fft, plan.n_bins, x.shape[0], n_frames,
+                        blocks_per_sm("dense", DENSE_SMEM) if x.is_cuda
+                        else DENSE_RESIDENT)
+    KERNEL_DENSE(dev, ptr(x), ptr(plan.dense), ptr(re), ptr(im), x.shape[0],
+                 x.shape[1], plan.n_fft, plan.hop, plan.n_bins, n_frames, plan.pad,
+                 split)
     return re, im
 
 
 def _launch_fft(x: torch.Tensor, plan: STFTPlan, n_frames: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The FFT kernel on a CUDA tensor, from the plan's tables."""
+    """The FFT entry on a CUDA tensor, from the plan's radices and tables."""
     dev = x.device
     n_fft = plan.n_fft
+    radices = fft_radices(n_fft)
     if plan.fft is None:
         raise ValueError(f"the plan holds no FFT tables for n_fft {n_fft}")
-    r1, r2 = FFT_RADICES[n_fft]
-    shapes = ((n_fft // 2, 2), (r2, r1, 2), (n_fft // 2 + 1, 2))
-    for name, t, shape in zip(("win2", "tw", "sp"), plan.fft, shapes):
-        check_cuda_operand(name, t, dev, len(shape))
+    n2, compiled = n_fft // 2, n_fft == FFT_COMPILED
+    win2, tw, sp, rows = plan.fft
+    for name, t, shape in (("win2", win2, (n2, 2)), ("tw", tw, (fft_twiddles(radices), 2)),
+                           ("sp", sp, (n2 + 1, 2))):
+        check_cuda_operand(name, t, dev, 2)
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
+    if compiled != (rows is None):
+        raise ValueError(f"rows must be {'None' if compiled else 'given'} for "
+                         f"n_fft {n_fft}")
+    if rows is not None and (rows.device != dev or rows.dtype != torch.int32
+                             or tuple(rows.shape) != (n2,) or not rows.is_contiguous()):
+        raise ValueError(f"rows must be a contiguous int32 ({n2},) tensor on {dev}")
     re, im = _outputs(x, plan.n_bins, n_frames)
-    win2, tw, sp = plan.fft
-    KERNEL(dev, ptr(x), ptr(win2), ptr(tw), ptr(sp), ptr(re), ptr(im),
+    ft = fft_tile_frames(n_fft, plan.hop, x.shape[0], n_frames)
+    r = radices + (0,) * (FFT_MAX_STAGES - len(radices))
+    KERNEL(dev, ptr(x), ptr(win2), ptr(tw), ptr(sp),
+           None if rows is None else ptr(rows), ptr(re), ptr(im),
            x.shape[0], x.shape[1], n_fft, plan.hop, plan.first_bin, plan.n_bins,
-           n_frames, plan.pad)
+           n_frames, plan.pad, *r, ft)
     return re, im
 
 

@@ -20,9 +20,9 @@ import argparse
 import re
 
 # the port's kernel symbols, as the profiler names them
-PORT_KERNELS = ("stft_fft_kernel", "stft_kernel", "conv_same_kernel", "conv7_kernel",
-                "sa_pool_kernel", "sa_gate_kernel", "sa_gate_real_kernel",
-                "tapconv_kernel", "pack_kernel")
+PORT_KERNELS = ("stft_fft_kernel", "stft_fft_mixed_kernel", "stft_dense_kernel",
+                "conv_same_kernel", "conv7_kernel", "sa_pool_kernel", "sa_gate_kernel",
+                "sa_gate_real_kernel", "tapconv_kernel", "pack_kernel")
 
 
 def main(argv=None) -> None:

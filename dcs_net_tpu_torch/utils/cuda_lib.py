@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence
 
@@ -35,6 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # every CudaKernel ever constructed, by name
 KERNELS: Dict[str, "CudaKernel"] = {}
+# source file name -> seconds its nvcc took in the last build_all that built it
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def find_nvcc() -> str:
@@ -120,25 +123,30 @@ class CudaKernel:
 
 def build_all(kernels: Optional[Iterable[CudaKernel]] = None) -> float:
     """Compile the libraries not yet built, one nvcc process per source, all
-    started together. Returns the wall seconds spent; raises with nvcc's
-    output if any build fails."""
+    started together; each source's own seconds go to :data:`BUILD_SECONDS`.
+    Returns the wall seconds spent; raises with nvcc's output if any build
+    fails."""
     kernels = list(KERNELS.values() if kernels is None else kernels)
     todo = {k.library_path: k for k in kernels if not k.library_path.exists()}
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    procs = []
-    for out, k in todo.items():
+
+    def compile_one(out, k):
         tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-        procs.append((k, out, tmp, subprocess.Popen(
-            k._compile_command(tmp), stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
+        t = time.perf_counter()
+        p = subprocess.run(k._compile_command(tmp), stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        BUILD_SECONDS[k.source.name] = time.perf_counter() - t
+        return k, out, tmp, p
+
+    with ThreadPoolExecutor(len(todo)) as pool:
+        done = list(pool.map(lambda item: compile_one(*item), todo.items()))
     failures = []
-    for k, out, tmp, p in procs:
-        log, _ = p.communicate()
+    for k, out, tmp, p in done:
         if p.returncode != 0:
-            failures.append(f"{k.source.name}:\n{log}")
+            failures.append(f"{k.source.name}:\n{p.stdout}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
