@@ -139,7 +139,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
                (``tools/profile_loader.py``): batches/s of the numpy path, the
                faithful fill and the windowed one at 2 workers and at the
                CPU count over 16 batches, and each part's ms per item; (d) ``cli.train`` at K
-               = 8 with the default prefetch, 2 epochs of 32 steps, once on
+               = 8 with the default prefetch, 1 epoch of 32 steps, once on
                the native front end (it must print ``loader=native``) and once
                with ``DCSNET_TORCH_AUDIOIO_SO`` naming a missing file (the
                numpy path): the steady audio-s/s of each epoch beside phase
@@ -182,13 +182,41 @@ Phases (each prints one or more lines; any failure exits non-zero):
                bodies off the path: C no multiple of 4, x one float off its
                alignment, H = 1, W below a tile, odd H and W, every R, and
                the generic body at those shapes. Its kernel rows are named
-               ``<kernel>_drs``.
+               ``<kernel>_drs``;
+  bf16    -- DCS at ``--dtype bfloat16`` (``compute_dtype = dft_dtype =
+               "bfloat16"``: bf16 operands, float32 sums; the weights phase
+               3's, float32): (a) ``enhance_full`` on 4 requests of 4 s:
+               launch counts (kernel 1's dense bf16 class once, kernel 2's
+               bf16 pool and gate 13 each, kernel 3's bf16 class and its
+               packing 7 each, and no launch of a float32 class), a 1 s
+               request card vs CPU (within half of the CPU's own bf16 to
+               float32 distance on it, and 0.1), the call graphed against
+               eager bit for bit (as phase 3: a replay's launches, ms both
+               ways, busy time and idle share); (b) the 30 s stream (groups
+               of 8) and (c) a carried 10 s stream (the streaming preset),
+               each graphed against eager, the carried 2 s card vs CPU; (d)
+               one test utterance's eval forward at batch 1 (launches,
+               graphed against eager, card vs CPU); (e) every bf16 class
+               against its plain version at every shape each path launched
+               it with (error relative to max |plain| <= 2^-7 where the
+               output is bf16, 1e-4 for kernel 1's float32 output), rows
+               ``stft_dense_bf16``, ``sa_pool_bf16``, ``sa_gate_bf16``,
+               ``tapconv_valid_bf16`` (suffixes ``_stream``, ``_carry``,
+               ``_eval``), each with one bf16 PyTorch call's time
+               (``torch.matmul`` of the bf16 frames by the basis,
+               ``F.conv2d`` in bf16) and a bound at 989 TFLOP/s; (f) ms a
+               call of the float32 model beside the bf16 one, graphed and
+               eager, enhance and stream; (g) ``cli.enhance --dtype
+               bfloat16`` (full, ``--stream``, ``--carry``) and ``cli.test
+               --dtype bfloat16`` on a float32 checkpoint.
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --stft-only`` runs phases 1 and 2 and then kernel 1
 alone: its off-path checks, row 1 at the enhance shape and rows 1b and 1c,
 with the same last lines (the kernels JSON holding those rows).
+``python3 chip_smoke.py --bf16-only`` runs phases 1, 2 and "bf16", with the
+same last lines (the kernels JSON holding the bf16 rows).
 """
 
 from __future__ import annotations
@@ -208,6 +236,9 @@ SEED = 0
 SR = 16000
 BATCH, SECONDS = 4, 4
 REL_TOL = 1e-4                    # kernel vs plain, relative to max |plain|
+# a bf16 output against its plain version: both sum the same exact products
+# in float32 and round once, so they differ by one bf16 unit at most
+BF16_REL_TOL = 2.0 ** -7
 SLICE_RTOL, SLICE_ATOL = 1e-3, 3e-4
 TRAIN_BATCH, TRAIN_CROP, CARD_CPU_BATCH = 32, 8160, 4
 TRAIN_STEPS, TRAIN_N_SYNTHETIC = 8, 480       # 480 pairs: 384 train, 96 val
@@ -215,16 +246,17 @@ GRAPH_K = 8                  # train steps a CUDA graph replay, the CLI's card d
 GRAPH_TRAIN_N = 640          # the K = 8 trainer run's pairs: 512 train, 16 steps an epoch
 # phase "loader": a tree of pairs of one length, 3 s at 48 kHz (VoiceBank's
 # training utterances last several seconds, of many lengths), 1024 train (an
-# epoch of 32 steps at batch 32: four dispatches of K = 8) and 256 val; two
-# epochs a trainer run
-LOADER_SECONDS, LOADER_N_SYNTHETIC, LOADER_EPOCHS = 3.0, 1280, 2
+# epoch of 32 steps at batch 32: four dispatches of K = 8) and 256 val; one
+# epoch a trainer run (two until phase "bf16" took the time; its steady
+# rate is read after the capture, over the epoch's last two replays)
+LOADER_SECONDS, LOADER_N_SYNTHETIC, LOADER_EPOCHS = 3.0, 1280, 1
 LOADER_RATE_BATCHES = 16     # batches a loader-alone rate is timed over
 NATIVE_TOL = 1e-5            # native batches against the numpy path's
 # the device kernels of the port's entry points, as the profiler names them
 PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "stft_fft_mixed_kernel", "stft_dense_kernel",
                        "conv_same_kernel", "conv7_kernel",
                        "sa_pool_kernel", "sa_gate_kernel", "sa_gate_real_kernel",
-                       "tapconv_kernel", "pack_kernel")
+                       "tapconv_kernel", "pack_kernel", "pack_bf16_kernel")
 # one train step's launches of each kernel, forward and input gradient (DCS and DRS)
 TRAIN_STEP_LAUNCHES = {"stft": 1, "conv_same_small_cout": 13, "conv_same_small_cout_dgrad": 13,
                        "tapconv_valid": 7, "tapconv_pack": 7, "tapconv_valid_dgrad": 7,
@@ -236,6 +268,15 @@ DCS_EVAL_FORWARD = {"sa_pool": 13, "sa_gate": 13, "conv_same_small_cout": 13,
                     "tapconv_valid": 7, "tapconv_pack": 7}
 DRS_EVAL_FORWARD = {"sa_pool_real": 13, "sa_gate_real": 13, "tapconv_valid": 7,
                     "tapconv_pack": 7}
+# and of one DCS forward at bf16: the bf16 classes only
+DCS_EVAL_FORWARD_BF16 = {"sa_pool_bf16": 13, "sa_gate_bf16": 13, "tapconv_valid_bf16": 7,
+                         "tapconv_pack_bf16": 7}
+# the bf16 paths' calls profiled: the graphed one only, and not the streams'.
+# The bf16 LSTM recurrence runs ~10 kernels a step: ~12.8k kernels a 4 x 4 s
+# call, more in a 30 s stream (graphed or eager), windows of the size in
+# which torch.profiler loses records (no two of six windows of the graphed
+# bf16 30 s stream agreed on its kernel count on the H100)
+BF16_PROFILED = ("graphed",)
 EVAL_N_TEST = 8                               # test pairs beside them
 TUNE_BATCH, TUNE_N_SYNTHETIC = 4, 40          # 40 pairs: 32 train, 8 val
 # card vs CPU on the same weights and utterance, metrics of the two audios.
@@ -254,6 +295,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
 TF32X3_FLOPS_PER_S = TF32_FLOPS_PER_S / 3
+# the dense bf16 tensor-core peak, against which every bf16 class's least
+# operations are held
+BF16_FLOPS_PER_S = 989e12
 
 # kernel name -> (source, the TPU kernel it replaces, design, the rate its
 # least operations are held against)
@@ -306,6 +350,20 @@ KERNEL_INFO.update({
     "conv_same_small_cout_dgrad_drs": KERNEL_INFO["conv_same_small_cout_dgrad"][:2]
     + ("simt-f32-register-tiled-real-input-gradient", F32_FLOPS_PER_S),
 })
+# the bf16 classes of the serving path (phase "bf16"), and the error each is
+# held to against its plain version (kernel 1's output is float32)
+KERNEL_INFO.update({
+    "stft_dense_bf16": (KERNEL_INFO["stft_dense"][0], KERNEL_INFO["stft_dense"][1],
+                        "bf16-wgmma-dense-dft", BF16_FLOPS_PER_S),
+    "sa_pool_bf16": (KERNEL_INFO["sa_pool"][0], KERNEL_INFO["sa_pool"][1],
+                     "channel-mean-max-bf16", BF16_FLOPS_PER_S),
+    "sa_gate_bf16": (KERNEL_INFO["sa_gate"][0], KERNEL_INFO["sa_gate"][1],
+                     "conv-sigmoid-product-epilogue-bf16", BF16_FLOPS_PER_S),
+    "tapconv_valid_bf16": (KERNEL_INFO["tapconv_valid"][0], KERNEL_INFO["tapconv_valid"][1],
+                           "bf16-wgmma-in-place-flat-split", BF16_FLOPS_PER_S),
+})
+KERNEL_TOL = {"sa_pool_bf16": BF16_REL_TOL, "sa_gate_bf16": BF16_REL_TOL,
+              "tapconv_valid_bf16": BF16_REL_TOL}
 # kernel 1 off the paths, rows of their own in the kernels line, each
 # (B, n, n_fft, hop), centred with the DC bin dropped as the model's: row 1b,
 # the FFT entry at sizes that took the dense DFT before (the first is that
@@ -475,7 +533,9 @@ def discover_shapes(run):
     slots = [(stft_cuda, "KERNEL"), (cuda_conv, "KERNEL"), (cuda_conv, "POOL"),
              (cuda_conv, "GATE"), (cuda_tapconv, "KERNEL"), (cuda_conv, "DGRAD"),
              (cuda_tapconv, "DGRAD"), (cuda_conv, "POOL_REAL"),
-             (cuda_conv, "GATE_REAL")]
+             (cuda_conv, "GATE_REAL"), (stft_cuda, "KERNEL_DENSE_BF16"),
+             (cuda_conv, "POOL_BF16"), (cuda_conv, "GATE_BF16"),
+             (cuda_tapconv, "KERNEL_BF16")]
     logs = [ShapeLog(getattr(mod, attr)) for mod, attr in slots]
     try:
         for (mod, attr), log in zip(slots, logs):
@@ -486,6 +546,7 @@ def discover_shapes(run):
             setattr(mod, attr, log.kernel)
     shapes = {log.kernel.name: log.calls for log in logs}
     shapes["stft"] = [stft_launch_case(a) for a in shapes["stft"]]
+    shapes["stft_dense_bf16"] = [dense_launch_case(a) for a in shapes["stft_dense_bf16"]]
     return shapes
 
 
@@ -495,6 +556,14 @@ def stft_launch_case(args):
     F, T, pad, r1, r2, r3, r4, ft)."""
     B, n, n_fft, hop, first_bin, _, _, pad = args[:8]
     return (B, n, n_fft, hop, pad > 0, first_bin == 1)
+
+
+def dense_launch_case(args):
+    """(B, n, n_fft, hop, center, drop_dc) of one recorded launch of kernel
+    1's dense entries, whose integer arguments are (B, n, n_fft, hop, F, T,
+    pad, split); the DC bin is dropped where F is n_fft / 2."""
+    B, n, n_fft, hop, F, _, pad = args[:7]
+    return (B, n, n_fft, hop, pad > 0, F == n_fft // 2)
 
 
 def kernel_cases(name, args, dev, cfg):
@@ -517,7 +586,7 @@ def kernel_cases(name, args, dev, cfg):
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=g, device=dev) * scale
 
-    if name.startswith("stft"):
+    if name.startswith("stft") and name != "stft_dense_bf16":
         # one case of kernel 1: its own STFT configuration
         B, n, n_fft, hop, center, drop_dc = args
         scfg = dataclasses.replace(cfg.stft, n_fft=n_fft, hop=hop, win_length=n_fft,
@@ -558,6 +627,78 @@ def kernel_cases(name, args, dev, cfg):
                                    pad_mode="reflect", normalized=True,
                                    return_complex=True),
                 nbytes, flops, dft_flops, {})
+    b16 = torch.bfloat16
+    if name == "stft_dense_bf16":
+        # kernel 1's bf16 class: the frames and the folded basis rounded to
+        # bf16, float32 sums; the library call, the bf16 frames times the
+        # bf16 basis in one torch.matmul (the frames made beforehand)
+        B, n, n_fft, hop, center, drop_dc = args
+        scfg = dataclasses.replace(cfg.stft, n_fft=n_fft, hop=hop, win_length=n_fft,
+                                   center=center, drop_dc=drop_dc, dft_dtype="bfloat16")
+        plan = dsp._analysis_plan(scfg, dev)
+        cos_b, sin_b = dsp._bf16_bases(dsp._dft_basis_eff, scfg, dev)
+        x = randn(B, n, scale=0.3)
+        T, n_bins = scfg.num_frames(n), scfg.n_bins
+        xp = F.pad(x[:, None], (plan.pad, plan.pad), mode="reflect")[:, 0] if plan.pad else x
+        frames = xp.unfold(-1, n_fft, hop).to(b16).contiguous()
+        basis = torch.cat([cos_b, sin_b], dim=1).to(b16)
+        per_sm = stft_cuda.blocks_per_sm("dense_bf16", stft_cuda.DENSE_SMEM_BF16)
+        print(f"kernel {name} args={args}: split "
+              f"{stft_cuda.dense_split(n_fft, n_bins, B, T, per_sm)}, "
+              f"{stft_cuda.DENSE_SMEM_BF16} B, {per_sm} blocks an SM", flush=True)
+
+        def kern():
+            before = [k.launches for k in (stft_cuda.KERNEL, stft_cuda.KERNEL_DENSE,
+                                           stft_cuda.KERNEL_DENSE_BF16)]
+            out = stft_cuda.stft_analysis(x, plan)
+            got = [k.launches - b for k, b in zip(
+                (stft_cuda.KERNEL, stft_cuda.KERNEL_DENSE, stft_cuda.KERNEL_DENSE_BF16),
+                before)]
+            if got != [0, 0, 1]:
+                fail(f"{name} at {args}: one call launched the FFT, dense and dense "
+                     f"bf16 entries {got} times, expected the bf16 class once")
+            return out
+
+        # least traffic: the signal read, the output written; least work:
+        # the rounded basis's products, which are the function
+        return (kern,
+                lambda: stft_cuda.stft_dft_plain(x.to(b16).float(), cos_b, sin_b, hop,
+                                                 plan.pad),
+                lambda: torch.matmul(frames, basis),
+                4 * (B * n + 2 * B * n_bins * T), 2 * 2 * B * T * n_bins * n_fft, None, {})
+    if name in ("sa_pool_bf16", "sa_gate_bf16"):
+        B, H, W, C = args[:4]
+        re, im = randn(B, H, W, C).to(b16), randn(B, H, W, C).to(b16)
+        w = randn(7, 7, 4, 2, scale=0.3).to(b16)
+        pooled = cuda_conv.sa_pool_bf16_plain(re, im)
+        P = B * H * W
+        if name == "sa_pool_bf16":
+            return (lambda: cuda_conv.sa_pool(re, im),
+                    lambda: cuda_conv.sa_pool_bf16_plain(re, im), None,
+                    2 * (2 * P * C + 4 * P), 4 * P * C, None, {})
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+
+        def library():
+            # the gate in bf16 PyTorch: one bf16 F.conv2d, sigmoid, product
+            a = torch.sigmoid(F.conv2d(pooled.permute(0, 3, 1, 2), w_oihw, padding=3))
+            a_re, a_im = a[:, 0, :, :, None], a[:, 1, :, :, None]
+            return re * a_re - im * a_im, re * a_im + im * a_re
+
+        return (lambda: cuda_conv.sa_gate(pooled, w, re, im),
+                lambda: cuda_conv.sa_gate_bf16_plain(pooled, w, re, im), library,
+                2 * (4 * P + w.numel() + 4 * P * C), 2 * P * 7 * 7 * 4 * 2 + 8 * P * C,
+                None, {})
+    if name == "tapconv_valid_bf16":
+        B, H, W, cin, ho, wo, n, dh, dw, top, left = args[:11]
+        pad = tapconv_pad(args)
+        x = randn(B, H, W, cin).to(b16)
+        w = randn(dh * dw, cin, n, scale=1.0 / math.sqrt(dh * dw * cin)).to(b16)
+        return (lambda: cuda_tapconv.tapconv_valid(x, w, dh, dw, pad),
+                lambda: cuda_tapconv.tapconv_valid_bf16_plain(cuda_tapconv._pad(x, pad), w,
+                                                              dh, dw),
+                tapconv_library(x, w, dh, dw, pad),
+                2 * (x.numel() + w.numel() + B * ho * wo * n),
+                2 * B * ho * wo * dh * dw * cin * n, None, {})
     if name == "conv_same_small_cout":
         B, H, W, cin, K, cout = args[:6]
         x = randn(B, H, W, cin)
@@ -791,11 +932,14 @@ def check_kernels(shapes, launches, dev, cfg, card, where, suffix=""):
                 got, want = kern(), plain()
                 torch.cuda.synchronize()
                 if isinstance(got, tuple):
-                    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-                    ref = max(float(b.abs().max()) for b in want)
+                    err = max(float((a.float() - b.float()).abs().max())
+                              for a, b in zip(got, want))
+                    ref = max(float(b.float().abs().max()) for b in want)
                 else:
-                    err, ref = float((got - want).abs().max()), float(want.abs().max())
+                    err = float((got.float() - want.float()).abs().max())
+                    ref = float(want.float().abs().max())
                 rel = err / max(ref, 1e-30)
+                tol = KERNEL_TOL.get(name, REL_TOL)
                 bound = max(nbytes / HBM_BYTES_PER_S, flops / ops_rate) * 1e3
                 iters = max(3, min(50, int(1.0 / max(bound, 1e-3))))
                 t = {"ms": graph_ms(kern, iters), "plain_ms": graph_ms(plain, iters),
@@ -812,9 +956,9 @@ def check_kernels(shapes, launches, dev, cfg, card, where, suffix=""):
                 print(f"kernel {name} args={args} max_abs_err={err:.3e} "
                       f"rel_err={rel:.3e} {times} bound_ms={bound:.4f}{design} "
                       f"[{card}]", flush=True)
-                if not math.isfinite(rel) or rel > REL_TOL:
+                if not math.isfinite(rel) or rel > tol:
                     fail(f"{name} at {args}: error {rel:.3e} relative to max "
-                         f"|plain| exceeds {REL_TOL}")
+                         f"|plain| exceeds {tol:.3e}")
                 if "earlier_ms" in t and t["ms"] > t["earlier_ms"]:
                     if not name.endswith("_dgrad"):
                         fail(f"{name} at {args}: {t['ms']:.4f} ms, slower than the "
@@ -1278,7 +1422,8 @@ def median_ms(fn, reps):
     return walls[reps // 2]
 
 
-def check_graphed(what, run, replay_launches, card, cpu_case=None, reps=5):
+def check_graphed(what, run, replay_launches, card, cpu_case=None, reps=5,
+                  compare=compare_card_cpu, profile=("graphed", "eager")):
     """One path through ``models/graphed.py`` against its eager version on
     the card. ``run(graphs)`` returns a tensor on the card (eager where
     ``graphs`` is None); ``replay_launches`` are the launches a replay of its
@@ -1286,12 +1431,13 @@ def check_graphed(what, run, replay_launches, card, cpu_case=None, reps=5):
     algorithms on both sides: three graphed calls (the warm-up, the capture,
     replays) equal to eager bit for bit; under cuDNN's defaults the largest
     graphed-eager difference, printed. ``cpu_case`` = (run_short, want):
-    ``run_short(graphs)`` after its capture against the CPU's ``want`` in the
-    slice's band. Prints ms a call graphed and eager (median of ``reps``), a
+    ``run_short(graphs)`` after its capture against the CPU's ``want`` by
+    ``compare`` (the slice's band). Prints ms a call graphed and eager (median of ``reps``), a
     replay's launches, capture seconds and the pool; then, each from a
     profiler window that lost no kernel records (``profiled_whole``), a
-    graphed and an eager call's busy time and idle share, the port's kernels
-    in each held to the eager call's launch counts."""
+    graphed and an eager call's busy time and idle share (those of
+    ``profile``), the port's kernels in each held to the eager call's launch
+    counts."""
     import torch
 
     from dcs_net_tpu_torch.models.graphed import GraphCache
@@ -1327,9 +1473,9 @@ def check_graphed(what, run, replay_launches, card, cpu_case=None, reps=5):
             short = GraphCache()
             for _ in range(3):
                 got = run_short(short)
-            compare_card_cpu(f"{what}, graphed", got.cpu(), want)
+            compare(f"{what}, graphed", got.cpu(), want)
         windows = {how: profiled_whole(lambda: run(g)) for how, g in
-                   (("graphed", graphs), ("eager", None))}
+                   (("graphed", graphs), ("eager", None)) if how in profile}
     finally:
         torch.backends.cudnn.deterministic = False
     print(f"graphed: {what}: graphed == eager bit for bit {same} (max |diff| "
@@ -2837,6 +2983,256 @@ def check_real(dev, card):
     return rows
 
 
+def bf16_config(cfg):
+    """``cfg`` at ``--dtype bfloat16``: both operand types bf16."""
+    import dataclasses
+
+    return cfg.replace(model=dataclasses.replace(cfg.model, compute_dtype="bfloat16"),
+                       stft=dataclasses.replace(cfg.stft, dft_dtype="bfloat16"))
+
+
+def bf16_band(want32):
+    """``compare(what, on_card, on_cpu)`` for a bf16 result: card against CPU
+    within half of the CPU's own bf16 to float32 distance on that input
+    (``want32``, the float32 model's output there) and within 0.1 absolute,
+    the JAX package's bound on its bf16 path."""
+    def compare(what, on_card, on_cpu):
+        d = float((on_card - on_cpu).abs().max())
+        ref = float((on_cpu - want32).abs().max())
+        print(f"{what} card vs CPU at bf16: max |diff| {d:.3e}; the CPU's bf16 against "
+              f"its float32 {ref:.3e} (limit half of it, and 0.1)", flush=True)
+        if not (d <= 0.5 * ref and d <= 0.1):
+            fail(f"card and CPU disagree on {what} at bf16")
+    return compare
+
+
+def expect_launches(what, launches, want):
+    """Every kernel launched exactly as ``want`` says, and nothing else."""
+    got = {k: n for k, n in launches.items() if n}
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want} (a float32 class in a bf16 "
+             "path, or a count off)")
+
+
+def check_bf16(dev, card):
+    """Phase "bf16" (see the module's docstring). Returns its kernel rows."""
+    import dataclasses
+
+    import torch
+
+    from dcs_net_tpu_torch.cli import enhance as cli_enhance
+    from dcs_net_tpu_torch.cli import test as cli_test
+    from dcs_net_tpu_torch.core.config import config_for_variant
+    from dcs_net_tpu_torch.data.audio_io import read_wav, write_wav
+    from dcs_net_tpu_torch.models.enhance import enhance_full, enhance_streaming
+    from dcs_net_tpu_torch.models.graphed import GraphCache
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
+    from dcs_net_tpu_torch.train.loop import Trainer
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    t0 = time.perf_counter()
+    cfg = config_for_variant("dcs")
+    c16 = bf16_config(cfg)
+    model32 = DCSNet(cfg.model, cfg.quirks, device=dev, seed=SEED).eval()
+    perturb_bn(model32, SEED + 1)
+    weights = model32.state_dict()
+
+    def pair(config, device):
+        """The float32 and the bf16 model of ``config`` on ``device`` with
+        ``weights`` loaded (the same float32 tensors serve both)."""
+        out = []
+        for c in (config, bf16_config(config)):
+            m = DCSNet(c.model, c.quirks, device=device, seed=SEED).eval()
+            m.load_state_dict({k: v.to(device) for k, v in weights.items()})
+            out.append(m)
+        return out
+
+    model = pair(cfg, dev)[1]
+    cpu32, cpu16 = pair(cfg, "cpu")
+    x = torch.from_numpy(speech_like(BATCH, SECONDS * SR, SEED + 2)).to(dev)
+    rows = []
+
+    # (a) enhance_full, 4 x 4 s
+    shapes = discover_shapes(lambda: enhance_full(model, x, c16))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    out = enhance_full(model, x, c16)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"bf16: enhance_full launches {launches}", flush=True)
+    expect_launches("bf16: one enhance call", launches,
+                    {"stft_dense_bf16": 1, **DCS_EVAL_FORWARD_BF16})
+    if tuple(out.shape) != (BATCH, SECONDS * SR) or not bool(torch.isfinite(out).all()):
+        fail(f"bf16 enhance_full returned {tuple(out.shape)} or non-finite samples")
+    short = torch.from_numpy(speech_like(1, SR, SEED + 3))
+    on_cpu, on_cpu32 = enhance_full(cpu16, short, c16), enhance_full(cpu32, short, cfg)
+    bf16_band(on_cpu32)("bf16: 1 s request", enhance_full(model, short.to(dev), c16).cpu(),
+                        on_cpu)
+    check_graphed(f"bf16: DCS enhance_full at bf16, {BATCH} requests x {SECONDS} s",
+                  lambda g: enhance_full(model, x, c16, graphs=g),
+                  {"stft_dense_bf16": 1, **DCS_EVAL_FORWARD_BF16}, card,
+                  (lambda g: enhance_full(model, short.to(dev), c16, graphs=g), on_cpu),
+                  compare=bf16_band(on_cpu32), profile=BF16_PROFILED)
+    rows += check_kernels({k: shapes[k] for k in (
+        "stft_dense_bf16", "sa_pool_bf16", "sa_gate_bf16", "tapconv_valid_bf16")},
+        launches, dev, c16, card, "bf16 enhance call")
+
+    # (b) the 30 s stream in groups of 8
+    seconds, chunk, overlap, group = 30, 256, 64, 8
+    x30 = torch.from_numpy(speech_like(1, seconds * SR, SEED + 5)).to(dev)
+    frames = 1 + seconds * SR // cfg.stft.hop
+    n_groups = -(-max(1, math.ceil(max(frames - overlap, 1) / (chunk - overlap))) // group)
+    stream_shapes = discover_shapes(lambda: enhance_streaming(model, x30, c16))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    out = enhance_streaming(model, x30, c16)
+    torch.cuda.synchronize()
+    stream_launches = launch_counts()
+    expect_launches(f"bf16: the {seconds} s stream", stream_launches,
+                    {"stft_dense_bf16": 1, **{k: n * n_groups for k, n in
+                                              DCS_EVAL_FORWARD_BF16.items()}})
+    if tuple(out.shape) != (1, seconds * SR) or not bool(torch.isfinite(out).all()):
+        fail("the bf16 stream returned non-finite samples")
+    short3 = torch.from_numpy(speech_like(1, 3 * SR, SEED + 6))
+    cpu_short3 = enhance_streaming(cpu16, short3, c16)
+    check_graphed(f"bf16: DCS enhance_streaming at bf16, {seconds} s, {n_groups} groups "
+                  f"of {group}", lambda g: enhance_streaming(model, x30, c16, graphs=g),
+                  DCS_EVAL_FORWARD_BF16, card,
+                  (lambda g: enhance_streaming(model, short3.to(dev), c16, graphs=g),
+                   cpu_short3), compare=bf16_band(enhance_streaming(cpu32, short3, cfg)),
+                  profile=())
+    rows += check_kernels({k: stream_shapes[k][:n] for k, n in (
+        ("sa_pool_bf16", 13), ("sa_gate_bf16", 13), ("tapconv_valid_bf16", 7))},
+        stream_launches, dev, c16, card, "bf16 streaming chunk group", "_stream")
+
+    # (c) the carried 10 s stream of the streaming preset
+    scfg = config_for_variant("dcs", streaming=True)
+    s16 = bf16_config(scfg)
+    smodel32 = DCSNet(scfg.model, scfg.quirks, device=dev, seed=SEED).eval()
+    perturb_bn(smodel32, SEED + 1)
+    smodel = DCSNet(s16.model, s16.quirks, device=dev, seed=SEED).eval()
+    smodel.load_state_dict(smodel32.state_dict())
+    scpu16 = DCSNet(s16.model, s16.quirks, device="cpu", seed=SEED).eval()
+    scpu16.load_state_dict({k: v.cpu() for k, v in smodel32.state_dict().items()})
+    scpu32 = DCSNet(scfg.model, scfg.quirks, device="cpu", seed=SEED).eval()
+    scpu32.load_state_dict(scpu16.state_dict())
+    x10 = torch.from_numpy(speech_like(1, 10 * SR, SEED + 7)).to(dev)
+    kw = dict(chunk_frames=chunk, overlap=0, carry_lstm_state=True)
+    carry_shapes = discover_shapes(lambda: enhance_streaming(smodel, x10, s16, **kw))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    carried = enhance_streaming(smodel, x10, s16, **kw)
+    torch.cuda.synchronize()
+    carry_launches = launch_counts()
+    n_chunks = math.ceil((1 + 10 * SR // cfg.stft.hop) / chunk)
+    expect_launches("bf16: the carried 10 s stream", carry_launches,
+                    {"stft_dense_bf16": 1, **{k: n * n_chunks for k, n in
+                                              DCS_EVAL_FORWARD_BF16.items()}})
+    if not bool(torch.isfinite(carried).all()):
+        fail("the carried bf16 stream is not finite")
+    short2 = torch.from_numpy(speech_like(1, 2 * SR, SEED + 8))
+    kw2 = dict(chunk_frames=64, overlap=0, carry_lstm_state=True)
+    check_graphed("bf16: carry, streaming preset at bf16, 10 s in chunks of 256",
+                  lambda g: enhance_streaming(smodel, x10, s16, **kw, graphs=g),
+                  DCS_EVAL_FORWARD_BF16, card,
+                  (lambda g: enhance_streaming(smodel, short2.to(dev), s16, **kw2, graphs=g),
+                   enhance_streaming(scpu16, short2, s16, **kw2)),
+                  compare=bf16_band(enhance_streaming(scpu32, short2, scfg, **kw2)),
+                  profile=())
+    rows += check_kernels({k: carry_shapes[k][:n] for k, n in (
+        ("sa_pool_bf16", 13), ("sa_gate_bf16", 13), ("tapconv_valid_bf16", 7))},
+        carry_launches, dev, s16, card, "carried bf16 chunk", "_carry")
+    del smodel, smodel32, scpu16, scpu32
+
+    # (d) one test utterance's eval forward at batch 1
+    rng = np.random.default_rng(SEED + 9)
+    waves = [torch.from_numpy(speech_like(1, TRAIN_CROP, SEED + 10)),
+             torch.from_numpy((0.2 * rng.standard_normal((1, TRAIN_CROP))).astype(np.float32))]
+    waves[0] = waves[0] + waves[1]
+
+    def flat(out, losses=True):
+        return torch.cat(([torch.stack(list(out[0].values())).reshape(-1)] if losses else [])
+                         + [v.reshape(-1) for v in out[1].values()])
+
+    eval_shapes = discover_shapes(lambda: steps.eval_waves(model, *(w.to(dev) for w in waves),
+                                                           c16))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    steps.eval_waves(model, *(w.to(dev) for w in waves), c16)
+    torch.cuda.synchronize()
+    eval_launches = launch_counts()
+    expect_launches("bf16: one test utterance's eval forward", eval_launches,
+                    {"stft_dense_bf16": 1, **DCS_EVAL_FORWARD_BF16})
+    check_graphed("bf16: one test utterance's eval forward at bf16, batch 1",
+                  lambda g: flat(steps.eval_waves(model, *(w.to(dev) for w in waves), c16, g)),
+                  {"stft_dense_bf16": 1, **DCS_EVAL_FORWARD_BF16}, card,
+                  (lambda g: flat(steps.eval_waves(model, *(w.to(dev) for w in waves), c16, g),
+                                  losses=False),
+                   flat(steps.eval_waves(cpu16, *waves, c16), losses=False)),
+                  compare=bf16_band(flat(steps.eval_waves(cpu32, *waves, cfg), losses=False)),
+                  profile=BF16_PROFILED)
+    rows += check_kernels({k: eval_shapes[k] for k in (
+        "stft_dense_bf16", "sa_pool_bf16", "sa_gate_bf16", "tapconv_valid_bf16")},
+        eval_launches, dev, c16, card, "test utterance", "_eval")
+    del cpu16, cpu32
+
+    # (f) the float32 model's ms beside the bf16 one's, in this process
+    model32 = pair(cfg, dev)[0]
+    torch.backends.cudnn.deterministic = True
+    try:
+        for what, runs in (
+                (f"enhance_full, {BATCH} x {SECONDS} s",
+                 [(m, c, lambda g, m=m, c=c: enhance_full(m, x, c, graphs=g))
+                  for m, c in ((model32, cfg), (model, c16))]),
+                (f"stream, {seconds} s",
+                 [(m, c, lambda g, m=m, c=c: enhance_streaming(m, x30, c, graphs=g))
+                  for m, c in ((model32, cfg), (model, c16))])):
+            ms = []
+            for _, c, run in runs:
+                graphs = GraphCache()
+                for _ in range(3):
+                    run(graphs)
+                ms.append((median_ms(lambda: run(graphs), 5), median_ms(lambda: run(None), 3)))
+            (g32, e32), (g16, e16) = ms
+            print(f"bf16: {what}: bf16 {g16:.2f} ms graphed, {e16:.2f} eager; float32 "
+                  f"{g32:.2f} graphed, {e32:.2f} eager (medians, this process) [{card}]",
+                  flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del model32
+
+    # (g) the serving CLIs at --dtype bfloat16, on a float32 checkpoint
+    with tempfile.TemporaryDirectory(prefix="dcs_bf16_") as tmp:
+        src, dst = os.path.join(tmp, "noisy.wav"), os.path.join(tmp, "clean.wav")
+        write_wav(src, speech_like(1, 2 * SR, SEED + 11)[0], SR)
+        for flags in ([], ["--stream", "--chunk-frames", "128"],
+                      ["--carry", "--chunk-frames", "128"]):
+            cli_enhance.main(["dcs", "--in", src, "--out", dst, "--dtype", "bfloat16", *flags])
+            audio, sr = read_wav(dst)
+            if sr != SR or audio.shape != (2 * SR,) or not np.all(np.isfinite(audio)):
+                fail(f"bf16 CLI output with {flags}: sr {sr}, shape {audio.shape}")
+            print(f"bf16: cli.enhance --dtype bfloat16 {' '.join(flags) or '(full)'}: "
+                  f"{audio.shape[0]} samples at {sr} Hz, finite", flush=True)
+        ckpt = os.path.join(tmp, "ckpt")
+        trainer = Trainer(cfg, device=dev, log_dir=os.path.join(tmp, "t32"),
+                          pesq_fn=lambda *a: 0.0)
+        trainer.init_state()
+        trainer.model.load_state_dict(weights)
+        trainer.save(CheckpointManager(ckpt), 0)
+        metrics = cli_test.main(["dcs", "--synthetic", "--synthetic-n", "8", "--log-dir",
+                                 tmp, "--ckpt-dir", ckpt, "--dtype", "bfloat16",
+                                 "--no-tensorboard"])
+        keys = ("test_stoi", "test_loss")
+        if not all(np.isfinite(metrics.get(k, float("nan"))) for k in keys):
+            fail(f"cli.test --dtype bfloat16: {metrics}")
+        print(f"bf16: cli.test --dtype bfloat16 on a float32 checkpoint: "
+              f"{ {k: round(v, 4) for k, v in metrics.items()} }", flush=True)
+    print(f"bf16: phase {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2845,6 +3241,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--stft-only", action="store_true",
                     help="after the build, check and time kernel 1 alone")
+    ap.add_argument("--bf16-only", action="store_true",
+                    help="after the build, run phase \"bf16\" alone")
     args = ap.parse_args(argv)
 
     # phase 1: device
@@ -2860,6 +3258,7 @@ def main(argv=None) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = torch.device("cuda", 0)
     smi = nvidia_smi_line()
     card = f"{smi}; torch {torch.__version__}, CUDA {torch.version.cuda}"
@@ -2884,6 +3283,10 @@ def main(argv=None) -> int:
                                for row, cases in STFT_ROWS.items() for case in cases},
                               {}, dev, cfg, card, "call")
         print(f"kernel 1 alone: {time.perf_counter() - t1:.1f} s", flush=True)
+        return finish(rows, smi)
+    if args.bf16_only:
+        rows = check_bf16(dev, card)
+        print(f"total: {time.perf_counter() - t0:.1f} s after the device check", flush=True)
         return finish(rows, smi)
 
     # phase 3: the slice at full width
@@ -3035,6 +3438,9 @@ def main(argv=None) -> int:
     for row in real_rows:
         row["launches_graph_replay"] = drs_graph_launches.get(row["name"][:-len("_drs")], 0)
     rows += real_rows
+
+    # phase "bf16": the serving paths at --dtype bfloat16
+    rows += check_bf16(dev, card)
     print(f"total: {time.perf_counter() - t0:.1f} s after the device check", flush=True)
     return finish(rows, smi)
 

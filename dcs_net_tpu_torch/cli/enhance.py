@@ -13,6 +13,10 @@ threads the LSTM state across the chunks (streaming config preset, no
 overlap; a checkpoint must have been trained with it). On the card the
 fixed-shape parts run through a ``models/graphed.py`` ``GraphCache``: a
 stream's groups (or carried chunks) from the third on replay one CUDA graph.
+``--dtype bfloat16`` serves the (float32) weights with bf16 operands and
+float32 sums, as the JAX package's ``--dtype`` runs them (the complex
+variants; it overrides the operand type of ``--config-json`` and of a
+checkpoint's config).
 """
 
 from __future__ import annotations
@@ -47,6 +51,9 @@ def main(argv=None) -> None:
                    help="load a serialized Config (overrides variant flags)")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
+                   help="matmul/conv operand dtype (bfloat16: bf16 operands, "
+                        "float32 accumulation)")
     args = p.parse_args(argv)
     if args.carry:
         args.stream = True
@@ -67,6 +74,7 @@ def main(argv=None) -> None:
 
     import torch
 
+    from dcs_net_tpu_torch.cli.common import with_dtype
     from dcs_net_tpu_torch.core.config import Config, config_for_variant
     from dcs_net_tpu_torch.data.audio_io import read_wav, resample, write_wav
     from dcs_net_tpu_torch.models.enhance import enhance_full, enhance_streaming
@@ -88,6 +96,8 @@ def main(argv=None) -> None:
             with open(cfg_path) as f:
                 cfg = Config.from_json(f.read())
             print(f"using config saved with checkpoint ({cfg.variant})")
+    if args.dtype:
+        cfg = with_dtype(cfg, args.dtype)
     if args.carry and cfg.model.lstm_bidir:
         p.error("--carry needs a model trained with the streaming preset "
                 "(lstm_bidir=False, lstm_time_major=True): a bidirectional "
@@ -97,9 +107,11 @@ def main(argv=None) -> None:
                 "only.")
     device = resolve_device(args.device)
     # the float32 model runs in full float32, as the JAX reference does:
-    # cuDNN would otherwise run the encoder convs and the LSTM in TF32
+    # cuDNN would otherwise run the encoder convs and the LSTM in TF32; at
+    # bf16 cuBLAS sums bf16 products in float32 (its default may reduce lower)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     wave, sr = read_wav(args.infile)
     if sr != cfg.data.sr:
         wave = resample(wave, sr, cfg.data.sr)

@@ -10,7 +10,9 @@ set at batch size 1, STOI, PESQ and SI-SDR per utterance into
 and CSIG/CBAK/COVL), and the means printed. ``--device`` defaults to cuda
 (``cpu`` runs the kernels' plain versions); without a card the default
 raises. ``--no-tensorboard`` is accepted for the JAX CLI's sake: the port
-writes JSON lines and WAVs only.
+writes JSON lines and WAVs only. ``--dtype bfloat16`` evaluates the float32
+checkpoint with bf16 operands and float32 sums, as the JAX CLI does (the
+complex variants).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ def main(argv=None) -> dict:
     p.add_argument("--composite", action="store_true",
                    help="also report SegSNR/LLR/WSS and CSIG/CBAK/COVL")
     args = p.parse_args(argv)
-    check_ported(p, args)
+    check_ported(p, args, training=False)
 
     from dcs_net_tpu_torch.train.checkpoint import CheckpointManager, checkpoint_steps
     from dcs_net_tpu_torch.train.loop import Trainer

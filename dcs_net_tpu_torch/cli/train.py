@@ -11,7 +11,8 @@ dispatch, on the card as one CUDA graph replay (default 8 there, 1 with
 overrides ``--config-json``'s value, as in the JAX CLI. ``--no-tensorboard``
 reaches the ``Trainer`` as ``use_tensorboard=False``; the port writes no
 TensorBoard yet, only its JSON lines and WAVs. Not yet ported, and rejected:
-``--dtype bfloat16`` (ROADMAP Queue 1 item 5).
+``--dtype bfloat16`` (training at bf16 is ROADMAP Queue 1 item 5b; the port
+serves at it: ``cli/enhance.py``, ``cli/test.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +46,7 @@ def main(argv=None) -> dict:
                    help="train steps per device dispatch, on the card one CUDA "
                         "graph replay; default 8 on the card, 1 on the CPU")
     args = p.parse_args(argv)
-    check_ported(p, args)
+    check_ported(p, args, training=True)
     k = args.steps_per_dispatch
     if k is None:
         k = 1 if args.device == "cpu" else 8

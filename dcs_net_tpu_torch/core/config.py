@@ -43,7 +43,9 @@ class STFTConfig:
     center: bool = True
     pad_mode: str = "reflect"
     drop_dc: bool = True
-    # operand dtype of the DFT/iDFT basis products; the port runs float32
+    # operand dtype of the DFT/iDFT basis products (float32 accumulation
+    # either way): "float32" or "bfloat16" (serving only: cli/enhance.py and
+    # cli/test.py take --dtype; training at bf16 is ROADMAP Queue 1 item 5b)
     dft_dtype: str = "float32"
 
     @property
@@ -128,6 +130,9 @@ class ModelConfig:
     sa_kernel: int = 7
     atan2_eps: float = 1e-6
     init: str = "xavier_uniform"
+    # conv/matmul operand dtype, "float32" or "bfloat16" (bf16 operands,
+    # float32 sums, bf16 activations: the complex variants, serving only);
+    # the parameters are float32 whatever it is
     compute_dtype: str = "float32"
     param_dtype: str = "float32"
 

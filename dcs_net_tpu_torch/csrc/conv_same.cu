@@ -111,9 +111,12 @@
 // Every other (K, Cin, Cout) takes the generic body below: one thread per
 // output pixel on an 8 x 32 tile, input chunk and weights in shared memory.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -254,6 +257,25 @@ struct TapWords {
   using T = typename Px<WORD>::T;
 };
 
+// word i of C values from global memory as Px<C>::T: float32 as it is; the
+// bf16 class's pooled pixel (4 bf16, 8 bytes) and weight word widened to a
+// float4, exactly
+template <typename G, int C>
+struct Load {
+  static __device__ __forceinline__ typename Px<C>::T at(const G* p, long long i) {
+    return reinterpret_cast<const typename Px<C>::T*>(p)[i];
+  }
+};
+template <>
+struct Load<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ float4 at(const __nv_bfloat16* p, long long i) {
+    const uint2 u = reinterpret_cast<const uint2*>(p)[i];
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+};
+
 struct Tile {
   int tx, ty;        // threads along W and H that take part in the conv
   int tw;            // R * tx, the tile's columns
@@ -297,10 +319,12 @@ Tile make_tile(int R, int TX, int TY, int cin, int cout) {
 // Stages the tile of x (B, H, W, CIN) at (b, h0, w0) and the weights, runs the
 // 7 x 7 x CIN -> COUT taps for this thread's run of R pixels. Every thread of
 // the block must call it (it holds the block barrier); acc is meaningful for
-// threads with tid < t.tx * t.ty. Returns the attention-map region.
-template <int R, int CIN, int COUT>
+// threads with tid < t.tx * t.ty. Returns the attention-map region. G is the
+// type of x and w in device memory: float, or bf16 for the complex gate's
+// bf16 class, widened to float32 (exactly) as it is staged.
+template <int R, int CIN, int COUT, typename G = float>
 __device__ __forceinline__ float* conv7_tile(
-    const float* __restrict__ x, const float* __restrict__ w, const Tile t,
+    const G* __restrict__ x, const G* __restrict__ w, const Tile t,
     float4* smem, int b, int h0, int w0, int H, int W,
     float (&acc)[R][COUT]) {
   using P = Px<CIN>;
@@ -318,8 +342,8 @@ __device__ __forceinline__ float* conv7_tile(
   // every load of the block is in flight before the first store waits for
   // one: a thread's weight word, then its pixels four at a time
   WT wv = Px<TW::WORD>::make(zero);
-  if (tid < NWORDS) wv = reinterpret_cast<const WT*>(w)[tid];
-  const T* xv = reinterpret_cast<const T*>(x) + (long long)b * H * W;
+  if (tid < NWORDS) wv = Load<G, TW::WORD>::at(w, tid);
+  const G* xv = x + (long long)b * H * W * CIN;
   const int total = rows * cols;
   for (int e0 = tid; e0 < total; e0 += 4 * NT) {
     T v[4];
@@ -332,7 +356,7 @@ __device__ __forceinline__ float* conv7_tile(
       v[u] = P::make(zero);
       dst[u] = row * t.pitch + slot<R>(col);
       if (e < total && hh >= 0 && hh < H && ww >= 0 && ww < W)
-        v[u] = xv[(long long)hh * W + ww];
+        v[u] = Load<G, CIN>::at(xv, (long long)hh * W + ww);
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u)
@@ -423,20 +447,45 @@ __device__ __forceinline__ float sigmoidf(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
+// eight bf16 (16 bytes) widened to float32, and eight float32 rounded to bf16
+__device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
 // out = x * sigmoid(conv(pooled)); vec: C % 4 == 0 and every x pointer is
 // 16-byte aligned; shift: log2(C / 4) where that is a power of two, else -1.
-template <int R>
+// G = bf16: the bf16 class (pooled, w, x and out bf16): the conv, the sigmoid
+// and the product in float32 on the widened values, each output rounded
+// once; vec then asks C % 8 == 0 (16 bytes, 8 channels a word) and shift is
+// log2(C / 8).
+template <int R, typename G = float>
 __global__ void __launch_bounds__(NT)
-sa_gate_kernel(const float* __restrict__ pooled, const float* __restrict__ w,
-               const float* __restrict__ re, const float* __restrict__ im,
-               float* __restrict__ out_re, float* __restrict__ out_im,
+sa_gate_kernel(const G* __restrict__ pooled, const G* __restrict__ w,
+               const G* __restrict__ re, const G* __restrict__ im,
+               G* __restrict__ out_re, G* __restrict__ out_im,
                const Tile t, int H, int W, int C, int vec, int shift) {
   extern __shared__ float4 smem[];
   const int b = blockIdx.z, h0 = blockIdx.y * t.ty, w0 = blockIdx.x * t.tw;
   const int tid = threadIdx.x;
   float acc[R][2];
   float2* att = reinterpret_cast<float2*>(
-      conv7_tile<R, 4, 2>(pooled, w, t, smem, b, h0, w0, H, W, acc));
+      conv7_tile<R, 4, 2, G>(pooled, w, t, smem, b, h0, w0, H, W, acc));
   if (tid < t.tx * t.ty) {
     const int ty = tid / t.tx, tx = tid - ty * t.tx;
 #pragma unroll
@@ -451,7 +500,38 @@ sa_gate_kernel(const float* __restrict__ pooled, const float* __restrict__ w,
   for (int row = warp; row < rows_v; row += NT / 32) {
     const long long pix0 = ((long long)b * H + h0 + row) * W + w0;
     const float2* arow = att + row * t.tw;
-    if (vec) {
+    if constexpr (!std::is_same<G, float>::value) {
+      if (vec) {
+        const int nv = C >> 3, n = cols_v * nv;
+        const uint4* r8 = reinterpret_cast<const uint4*>(re) + pix0 * nv;
+        const uint4* i8 = reinterpret_cast<const uint4*>(im) + pix0 * nv;
+        uint4* o_r = reinterpret_cast<uint4*>(out_re) + pix0 * nv;
+        uint4* o_i = reinterpret_cast<uint4*>(out_im) + pix0 * nv;
+#pragma unroll 2
+        for (int i = lane; i < n; i += 32) {
+          const float2 a = arow[shift >= 0 ? i >> shift : i / nv];
+          float xr[8], xi[8], yr[8], yi[8];
+          unpack8(r8[i], xr);
+          unpack8(i8[i], xi);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            yr[k] = xr[k] * a.x - xi[k] * a.y;
+            yi[k] = xr[k] * a.y + xi[k] * a.x;
+          }
+          o_r[i] = pack8(yr);
+          o_i[i] = pack8(yi);
+        }
+      } else {
+        const int n = cols_v * C;
+        for (int i = lane; i < n; i += 32) {
+          const float2 a = arow[i / C];
+          const float xr = __bfloat162float(re[pix0 * C + i]);
+          const float xi = __bfloat162float(im[pix0 * C + i]);
+          out_re[pix0 * C + i] = __float2bfloat16_rn(xr * a.x - xi * a.y);
+          out_im[pix0 * C + i] = __float2bfloat16_rn(xr * a.y + xi * a.x);
+        }
+      }
+    } else if (vec) {
       const int nv = C >> 2, n = cols_v * nv;
       const float4* r4 = reinterpret_cast<const float4*>(re) + pix0 * nv;
       const float4* i4 = reinterpret_cast<const float4*>(im) + pix0 * nv;
@@ -484,24 +564,51 @@ sa_gate_kernel(const float* __restrict__ pooled, const float* __restrict__ w,
 
 // pooled[p] = (mean_c, max_c) of each of the NP planes of pixel p: (mean re,
 // max re, mean im, max im) for the complex gate (NP = 2, a float4), (mean,
-// max) for the real (NP = 1, a float2). G = 2^lg lanes share a pixel, each
+// max) for the real (NP = 1, a float2). NG = 2^lg lanes share a pixel, each
 // striding over the channels (as float4 when vec) and loading every plane in
-// one step; a shuffle tree inside the G lanes combines them.
-template <int NP>
+// one step; a shuffle tree inside the NG lanes combines them.
+// G = bf16: the bf16 class (the complex gate's, NP = 2): bf16 planes (vec:
+// 8 channels a 16-byte load), the sums in float32, the mean rounded once to
+// bf16 and the max exact; pooled (B, H, W, 4) bf16.
+template <int NP, typename G = float>
 __global__ void __launch_bounds__(256)
-sa_pool_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
-               float* __restrict__ pooled, long long P, int C, int lg,
+sa_pool_kernel(const G* __restrict__ p0, const G* __restrict__ p1,
+               G* __restrict__ pooled, long long P, int C, int lg,
                int vec) {
-  const float* plane[2] = {p0, p1};
+  const G* plane[2] = {p0, p1};
   const long long gt = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long pix = gt >> lg;
-  const int G = 1 << lg, lane = (int)(gt & (G - 1));
+  const int NG = 1 << lg, lane = (int)(gt & (NG - 1));
   float s[NP], m[NP];
 #pragma unroll
   for (int q = 0; q < NP; ++q) s[q] = 0.f, m[q] = -INFINITY;
-  if (pix < P) {
+  if constexpr (!std::is_same<G, float>::value) {
+    if (pix < P) {
+      if (vec) {
+        for (int i = lane; i < (C >> 3); i += NG) {
+#pragma unroll
+          for (int q = 0; q < NP; ++q) {
+            float a[8];
+            unpack8(__ldg(reinterpret_cast<const uint4*>(plane[q] + pix * C) + i), a);
+            s[q] += ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
+            m[q] = fmaxf(m[q], fmaxf(fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3])),
+                                     fmaxf(fmaxf(a[4], a[5]), fmaxf(a[6], a[7]))));
+          }
+        }
+      } else {
+        for (int i = lane; i < C; i += NG) {
+#pragma unroll
+          for (int q = 0; q < NP; ++q) {
+            const float a = __bfloat162float(plane[q][pix * C + i]);
+            s[q] += a;
+            m[q] = fmaxf(m[q], a);
+          }
+        }
+      }
+    }
+  } else if (pix < P) {
     if (vec) {
-      for (int i = lane; i < (C >> 2); i += G) {
+      for (int i = lane; i < (C >> 2); i += NG) {
 #pragma unroll
         for (int q = 0; q < NP; ++q) {
           const float4 a = __ldg(reinterpret_cast<const float4*>(plane[q] + pix * C) + i);
@@ -510,7 +617,7 @@ sa_pool_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
         }
       }
     } else {
-      for (int i = lane; i < C; i += G) {
+      for (int i = lane; i < C; i += NG) {
 #pragma unroll
         for (int q = 0; q < NP; ++q) {
           const float a = __ldg(plane[q] + pix * C + i);
@@ -520,7 +627,7 @@ sa_pool_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
       }
     }
   }
-  for (int o = G >> 1; o > 0; o >>= 1) {
+  for (int o = NG >> 1; o > 0; o >>= 1) {
 #pragma unroll
     for (int q = 0; q < NP; ++q) {
       s[q] += __shfl_xor_sync(0xffffffffu, s[q], o);
@@ -528,7 +635,14 @@ sa_pool_kernel(const float* __restrict__ p0, const float* __restrict__ p1,
     }
   }
   if (pix < P && lane == 0) {
-    if constexpr (NP == 2)
+    if constexpr (!std::is_same<G, float>::value) {
+      // NP = 2: (mean re, max re, mean im, max im) as four bf16, 8 bytes
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(s[0] / (float)C, m[0]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(s[NP - 1] / (float)C, m[NP - 1]);
+      reinterpret_cast<uint2*>(pooled)[pix] =
+          make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                     *reinterpret_cast<const uint32_t*>(&hi));
+    } else if constexpr (NP == 2)
       reinterpret_cast<float4*>(pooled)[pix] =
           make_float4(s[0] / (float)C, m[0], s[1] / (float)C, m[1]);
     else
@@ -629,24 +743,52 @@ dim3 tile_grid(const Tile& t, int B, int H, int W) {
   return dim3((W + t.tw - 1) / t.tw, (H + t.ty - 1) / t.ty, B);
 }
 
-// sa_pool_kernel<NP> over the B H W pixels of p0 (and p1), pooled aligned to
-// its word: G lanes a pixel, the least power of two >= the pixel's loads, at
-// most a warp.
-template <int NP>
-int launch_pool(const float* p0, const float* p1, float* pooled, int B, int H,
-                int W, int C, void* stream) {
-  if (!image_ok(B, H, W) || C < 1 || !aligned(pooled, 8 * NP))
+// sa_pool_kernel<NP, G> over the B H W pixels of p0 (and p1), pooled aligned
+// to its word: NG lanes a pixel, the least power of two >= the pixel's loads,
+// at most a warp.
+template <int NP, typename G = float>
+int launch_pool(const G* p0, const G* p1, G* pooled, int B, int H, int W, int C,
+                void* stream) {
+  constexpr int V = 16 / sizeof(G);   // channels a 16-byte load
+  if (!image_ok(B, H, W) || C < 1 || !aligned(pooled, 2 * NP * sizeof(G)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = C % 4 == 0 && aligned(p0, 16) && (NP == 1 || aligned(p1, 16));
-  const int steps = vec ? C / 4 : C;
+  const int vec = C % V == 0 && aligned(p0, 16) && (NP == 1 || aligned(p1, 16));
+  const int steps = vec ? C / V : C;
   int lg = 0;
   while ((1 << lg) < 32 && (1 << lg) < steps) ++lg;
   const long long P = (long long)B * H * W;
   const long long blocks = ((P << lg) + 255) / 256;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  sa_pool_kernel<NP><<<(unsigned)blocks, 256, 0,
-                       static_cast<cudaStream_t>(stream)>>>(p0, p1, pooled, P,
-                                                            C, lg, vec);
+  sa_pool_kernel<NP, G><<<(unsigned)blocks, 256, 0,
+                          static_cast<cudaStream_t>(stream)>>>(p0, p1, pooled, P,
+                                                               C, lg, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the complex gate over float32 or (G = bf16) bf16 tensors: pooled and w
+// aligned to their words (16 or 8 bytes); x's product 16 bytes a load where
+// C and the pointers allow (4 floats, 8 bf16)
+template <typename G>
+int launch_gate(const G* pooled, const G* w, const G* re, const G* im, G* out_re,
+                G* out_im, int B, int H, int W, int C, int R, int TX, int TY,
+                void* stream) {
+  constexpr int word = 4 * sizeof(G), V = 16 / sizeof(G);
+  if (!image_ok(B, H, W) || C < 1 || !tile_ok(R, TX, TY, 4, 2) ||
+      !aligned(pooled, word) || !aligned(w, word))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Tile t = make_tile(R, TX, TY, 4, 2);
+  const dim3 grid = tile_grid(t, B, H, W);
+  const int smem = t.smem4() * 16;
+  const int vec = C % V == 0 && aligned(re, 16) && aligned(im, 16) &&
+                  aligned(out_re, 16) && aligned(out_im, 16);
+  const int shift = vec ? log2_exact(C / V) : -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R == 2)
+    sa_gate_kernel<2, G><<<grid, NT, smem, s>>>(pooled, w, re, im, out_re, out_im,
+                                                t, H, W, C, vec, shift);
+  else
+    sa_gate_kernel<4, G><<<grid, NT, smem, s>>>(pooled, w, re, im, out_re, out_im,
+                                                t, H, W, C, vec, shift);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -699,7 +841,7 @@ extern "C" int dcs_conv_same_small_cout(const float* x, const float* w,
 // max im] over C; pooled 16-byte aligned.
 extern "C" int dcs_sa_pool(const float* re, const float* im, float* pooled,
                            int B, int H, int W, int C, void* stream) {
-  return launch_pool<2>(re, im, pooled, B, H, W, C, stream);
+  return launch_pool<2, float>(re, im, pooled, B, H, W, C, stream);
 }
 
 // pooled (B, H, W, 4), w (7, 7, 4, 2), re, im (B, H, W, C) -> out_re, out_im
@@ -710,30 +852,40 @@ extern "C" int dcs_sa_gate(const float* pooled, const float* w,
                            const float* re, const float* im, float* out_re,
                            float* out_im, int B, int H, int W, int C, int R,
                            int TX, int TY, void* stream) {
-  if (!image_ok(B, H, W) || C < 1 || !tile_ok(R, TX, TY, 4, 2) ||
-      !aligned(pooled, 16) || !aligned(w, 16))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Tile t = make_tile(R, TX, TY, 4, 2);
-  const dim3 grid = tile_grid(t, B, H, W);
-  const int smem = t.smem4() * 16;
-  const int vec = C % 4 == 0 && aligned(re, 16) && aligned(im, 16) &&
-                  aligned(out_re, 16) && aligned(out_im, 16);
-  const int shift = vec ? log2_exact(C >> 2) : -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R == 2)
-    sa_gate_kernel<2><<<grid, NT, smem, s>>>(pooled, w, re, im, out_re, out_im,
-                                             t, H, W, C, vec, shift);
-  else
-    sa_gate_kernel<4><<<grid, NT, smem, s>>>(pooled, w, re, im, out_re, out_im,
-                                             t, H, W, C, vec, shift);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gate(pooled, w, re, im, out_re, out_im, B, H, W, C, R, TX, TY,
+                     stream);
+}
+
+// The bf16 class of the pooling pass: re, im (B, H, W, C) bf16 -> pooled
+// (B, H, W, 4) bf16, the means rounded once from float32 sums, the maxima
+// exact; pooled 8-byte aligned.
+extern "C" int dcs_sa_pool_bf16(const void* re, const void* im, void* pooled,
+                                int B, int H, int W, int C, void* stream) {
+  return launch_pool<2>(static_cast<const __nv_bfloat16*>(re),
+                        static_cast<const __nv_bfloat16*>(im),
+                        static_cast<__nv_bfloat16*>(pooled), B, H, W, C, stream);
+}
+
+// The bf16 class of the gate: pooled (B, H, W, 4), w (7, 7, 4, 2), re, im,
+// out_re, out_im (B, H, W, C), all bf16; the conv, sigmoid and product in
+// float32, each output rounded once. Tile as dcs_sa_gate's; pooled and w
+// 8-byte aligned.
+extern "C" int dcs_sa_gate_bf16(const void* pooled, const void* w, const void* re,
+                                const void* im, void* out_re, void* out_im, int B,
+                                int H, int W, int C, int R, int TX, int TY,
+                                void* stream) {
+  using bf = __nv_bfloat16;
+  return launch_gate(static_cast<const bf*>(pooled), static_cast<const bf*>(w),
+                     static_cast<const bf*>(re), static_cast<const bf*>(im),
+                     static_cast<bf*>(out_re), static_cast<bf*>(out_im), B, H, W, C,
+                     R, TX, TY, stream);
 }
 
 // x (B, H, W, C) -> pooled (B, H, W, 2) = [mean, max] over C; pooled 8-byte
 // aligned.
 extern "C" int dcs_sa_pool_real(const float* x, float* pooled, int B, int H,
                                 int W, int C, void* stream) {
-  return launch_pool<1>(x, nullptr, pooled, B, H, W, C, stream);
+  return launch_pool<1, float>(x, nullptr, pooled, B, H, W, C, stream);
 }
 
 // pooled (B, H, W, 2), w (7, 7, 2, 1), x (B, H, W, C) -> out = x *

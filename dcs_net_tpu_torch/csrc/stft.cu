@@ -94,8 +94,25 @@
 // distributed shared memory: deterministic. It does 2 * 2 * B * T * F * n_fft
 // operations three times over, where an FFT does ~2.5 n_fft log2 n_fft a
 // frame.
+//
+// Entry point dcs_stft_forward_bf16: the bf16 class of the dense entry, the
+// function the JAX package computes at dft_dtype = bfloat16
+// (dcs_net_tpu/dsp/stft.py:168-176): the raw frames rounded to bf16 times
+// the folded basis rounded to bf16 (float64 fold -> float32 -> bf16, packed
+// once on the host by dsp/stft_cuda.py:dense_basis_bf16), float32
+// accumulation and output. Every n_fft takes it at bf16: an FFT over the
+// rounded samples would leave the basis unrounded, another function. The
+// same kernel as the dense entry with one wgmma m64n64k16 bf16 a k16 step
+// where 3xTF32 takes three a k8 step: the frames are staged in float32 as
+// above and each thread rounds its fragment pairs to bf16 in registers
+// (round to nearest even, as torch's .to(bfloat16)); a chunk's basis is one
+// bf16 slab of the same K-major core-matrix layout (8 n x 8 k, 16 bytes a
+// row), a quarter of the 3xTF32 slabs' bytes. The products of two bf16
+// values are exact in float32, so it differs from its plain version only by
+// the order of the float32 sum.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -150,7 +167,12 @@ constexpr int DBF = DK * DN;   // words of a chunk's hi (or lo) B slab
 // the two core matrices of a k8 step are DN * 16 bytes apart and 8-row
 // groups of n 128 bytes apart
 constexpr uint32_t DLBO = DN * 16, DSBO = 128;
-constexpr size_t DENSE_SMEM = sizeof(float) * 2 * (2 * DBF + DM * DAP);
+// 4-byte words of a chunk's basis: the hi and lo TF32 slabs, or one bf16 slab
+template <bool BF16>
+constexpr int kSlabWords = BF16 ? DBF / 2 : 2 * DBF;
+// two stages of a chunk's basis and frames
+template <bool BF16>
+constexpr size_t kDenseSmem = sizeof(float) * 2 * (kSlabWords<BF16> + DM * DAP);
 
 // orders generic-proxy shared-memory writes before wgmma's async-proxy reads
 __device__ __forceinline__ void fence_proxy_async() {
@@ -212,17 +234,53 @@ __device__ __forceinline__ void wgmma_64(float (&d)[32], const uint32_t* a, uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// grid (frame tiles, Fp / 32, B * split); basis (Fp / 32, Kp / 32, 2, 8, 64,
-// 4) f32: for column block jb and chunk c, the hi then the lo slab, each the
-// shared-memory image of the K-major core-matrix layout.
+// d (64 x 64, float32) += a (64 x 16 bf16, registers: 4 of 2 values a
+// thread) * b (16 x 64 bf16, shared memory, K-major, through desc)
+__device__ __forceinline__ void wgmma_64_bf16(float (&d)[32], const uint32_t* a,
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// two float32 values rounded to bf16 (nearest even), lo in the low half: the
+// register layout of a bf16 A fragment pair
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// grid (frame tiles, Fp / 32, B * split); basis (Fp / 32, Kp / 32, ...): for
+// column block jb and chunk c the kSlabWords<BF16> words of the chunk, each
+// the shared-memory image of the K-major core-matrix layout: (2, 8, 64, 4)
+// f32, the hi then the lo slab; at BF16 (4, 64, 8) bf16.
 // blockIdx.z = b * split + rank; rank reduces chunks [rank per, (rank+1) per)
+template <bool BF16>
 __global__ void __launch_bounds__(DNT)
 stft_dense_kernel(const float* __restrict__ x, const float* __restrict__ basis,
                   float* __restrict__ re, float* __restrict__ im, int n, int hop,
                   int F, int T, int pad, int chunks, int split) {
+  constexpr int SLAB = kSlabWords<BF16>;
   extern __shared__ __align__(128) float dense_smem[];
-  float* Bs = dense_smem;                                      // 2 x (hi, lo)
-  auto As = reinterpret_cast<float (*)[DM][DAP]>(dense_smem + 4 * DBF);  // 2 stages
+  float* Bs = dense_smem;                                      // 2 stages
+  auto As = reinterpret_cast<float (*)[DM][DAP]>(dense_smem + 2 * SLAB);  // 2 stages
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mrow = 16 * warp + (lane >> 2), tg = lane & 3;
@@ -231,7 +289,7 @@ stft_dense_kernel(const float* __restrict__ x, const float* __restrict__ basis,
   const int per = (chunks + split - 1) / split;
   const int c0 = rank * per, c1 = min(chunks, c0 + per);
   const float* xb = x + static_cast<long long>(b) * n;
-  const float* bslab = basis + static_cast<long long>(jb) * chunks * 2 * DBF;
+  const float* bslab = basis + static_cast<long long>(jb) * chunks * SLAB;
 
   // A: frame t, samples c*DK .. c*DK + 31 (a warp a frame, consecutive
   // samples); zeros past the signal and for frames past T. B: the chunk's
@@ -248,9 +306,9 @@ stft_dense_kernel(const float* __restrict__ x, const float* __restrict__ basis,
       const bool ok = t0 + t < T && i >= 0 && i < n;
       cp_async4(smem_u32(&As[st][t][kk]), ok ? xb + i : xb, ok ? 4 : 0);
     }
-    const float* src = bslab + static_cast<long long>(c) * 2 * DBF;
-    for (int e = tid; e < 2 * DBF / 4; e += DNT)
-      cp_async16(smem_u32(Bs + st * 2 * DBF + 4 * e), src + 4 * e);
+    const float* src = bslab + static_cast<long long>(c) * SLAB;
+    for (int e = tid; e < SLAB / 4; e += DNT)
+      cp_async16(smem_u32(Bs + st * SLAB + 4 * e), src + 4 * e);
   };
 
   // accumulator i of a thread: row mrow + 8 * ((i / 2) % 2), column
@@ -270,24 +328,43 @@ stft_dense_kernel(const float* __restrict__ x, const float* __restrict__ basis,
     __syncthreads();
     if (c + 1 < c1) load(c + 1, st ^ 1);
     cp_async_commit();
-    uint32_t hi[16], lo[16];
+    const uint32_t bh = smem_u32(Bs + st * SLAB);
+    if constexpr (BF16) {
+      // a k16 step's fragment: rows mrow and mrow + 8, sample pairs (k, k + 1)
+      // and (k + 8, k + 9) with k = 16 s + 2 tg; the B slab of the step
+      // starts two core matrices (2 LBO) after the step before
+      uint32_t a[4 * DK / 16];
 #pragma unroll
-    for (int s = 0; s < DK / 8; ++s) {
-      const int k = 8 * s + tg;
-      split_trunc(As[st][mrow][k], hi[4 * s], lo[4 * s]);
-      split_trunc(As[st][mrow + 8][k], hi[4 * s + 1], lo[4 * s + 1]);
-      split_trunc(As[st][mrow][k + 4], hi[4 * s + 2], lo[4 * s + 2]);
-      split_trunc(As[st][mrow + 8][k + 4], hi[4 * s + 3], lo[4 * s + 3]);
-    }
-    const uint32_t bh = smem_u32(Bs + st * 2 * DBF);
-    wgmma_fence();
+      for (int s = 0; s < DK / 16; ++s) {
+        const int k = 16 * s + 2 * tg;
+        a[4 * s] = bf16x2(As[st][mrow][k], As[st][mrow][k + 1]);
+        a[4 * s + 1] = bf16x2(As[st][mrow + 8][k], As[st][mrow + 8][k + 1]);
+        a[4 * s + 2] = bf16x2(As[st][mrow][k + 8], As[st][mrow][k + 9]);
+        a[4 * s + 3] = bf16x2(As[st][mrow + 8][k + 8], As[st][mrow + 8][k + 9]);
+      }
+      wgmma_fence();
 #pragma unroll
-    for (int s = 0; s < DK / 8; ++s) {
-      const uint64_t dhi = make_desc(bh + s * 2 * DLBO, DLBO, DSBO);
-      const uint64_t dlo = make_desc(bh + DBF * 4 + s * 2 * DLBO, DLBO, DSBO);
-      wgmma_64(acc, lo + 4 * s, dhi);
-      wgmma_64(acc, hi + 4 * s, dlo);
-      wgmma_64(acc, hi + 4 * s, dhi);
+      for (int s = 0; s < DK / 16; ++s)
+        wgmma_64_bf16(acc, a + 4 * s, make_desc(bh + s * 2 * DLBO, DLBO, DSBO));
+    } else {
+      uint32_t hi[16], lo[16];
+#pragma unroll
+      for (int s = 0; s < DK / 8; ++s) {
+        const int k = 8 * s + tg;
+        split_trunc(As[st][mrow][k], hi[4 * s], lo[4 * s]);
+        split_trunc(As[st][mrow + 8][k], hi[4 * s + 1], lo[4 * s + 1]);
+        split_trunc(As[st][mrow][k + 4], hi[4 * s + 2], lo[4 * s + 2]);
+        split_trunc(As[st][mrow + 8][k + 4], hi[4 * s + 3], lo[4 * s + 3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int s = 0; s < DK / 8; ++s) {
+        const uint64_t dhi = make_desc(bh + s * 2 * DLBO, DLBO, DSBO);
+        const uint64_t dlo = make_desc(bh + DBF * 4 + s * 2 * DLBO, DLBO, DSBO);
+        wgmma_64(acc, lo + 4 * s, dhi);
+        wgmma_64(acc, hi + 4 * s, dlo);
+        wgmma_64(acc, hi + 4 * s, dhi);
+      }
     }
     wgmma_commit();
     wgmma_wait_all();  // the registers and the stage are free again
@@ -341,7 +418,8 @@ cudaError_t set_smem(K kernel, size_t smem) {
                               cudaSharedmemCarveoutMaxShared);
 }
 
-int launch_dense(cudaStream_t s, const float* x, const float* basis, float* re,
+template <bool BF16>
+int launch_dense(cudaStream_t s, const float* x, const void* basis, float* re,
                  float* im, int B, int n, int n_fft, int hop, int F, int T, int pad,
                  int split) {
   if (split < 1 || split > 8 || (split & (split - 1)) ||
@@ -349,10 +427,12 @@ int launch_dense(cudaStream_t s, const float* x, const float* basis, float* re,
     return static_cast<int>(cudaErrorInvalidValue);
   const int fp = (F + DB - 1) / DB * DB, chunks = (n_fft + DK - 1) / DK;
   const dim3 grid((T + DM - 1) / DM, fp / DB, B * split);
-  cudaError_t e = set_smem(stft_dense_kernel, DENSE_SMEM);
+  constexpr size_t smem = kDenseSmem<BF16>;
+  const float* b = static_cast<const float*>(basis);
+  cudaError_t e = set_smem(stft_dense_kernel<BF16>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (split == 1) {
-    stft_dense_kernel<<<grid, DNT, DENSE_SMEM, s>>>(x, basis, re, im, n, hop, F, T, pad,
+    stft_dense_kernel<BF16><<<grid, DNT, smem, s>>>(x, b, re, im, n, hop, F, T, pad,
                                                     chunks, split);
     return static_cast<int>(cudaGetLastError());
   }
@@ -360,7 +440,7 @@ int launch_dense(cudaStream_t s, const float* x, const float* basis, float* re,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(DNT);
-  cfg.dynamicSmemBytes = DENSE_SMEM;
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -369,7 +449,7 @@ int launch_dense(cudaStream_t s, const float* x, const float* basis, float* re,
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, stft_dense_kernel, x, basis, re, im, n, hop, F, T, pad,
+  e = cudaLaunchKernelEx(&cfg, stft_dense_kernel<BF16>, x, b, re, im, n, hop, F, T, pad,
                          chunks, split);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
@@ -905,20 +985,33 @@ extern "C" const char* dcs_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Blocks of the mixed FFT kernel (dense = 0) or of the dense kernel
-// (dense = 1) an SM holds at once with `smem` bytes of dynamic shared
-// memory each, into *blocks (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-// after the attributes a launch sets): the dense entry's cluster split is
-// planned from it. A query: launches nothing.
+// Blocks of the mixed FFT kernel (dense = 0), of the dense kernel (dense =
+// 1) or of its bf16 class (dense = 2) an SM holds at once with `smem` bytes
+// of dynamic shared memory each, into *blocks
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the attributes a
+// launch sets): the dense entries' cluster split is planned from it. A
+// query: launches nothing.
 extern "C" int dcs_stft_blocks_per_sm(int dense, int smem, int* blocks) {
-  cudaError_t e = dense ? set_smem(stft_dense_kernel, smem)
-                        : set_smem(stft_fft_mixed_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(
-      dense ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, stft_dense_kernel, DNT,
-                                                            smem)
-            : cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, stft_fft_mixed_kernel,
-                                                            MX_NT, smem));
+  cudaError_t e;
+  switch (dense) {
+    case 0:
+      e = set_smem(stft_fft_mixed_kernel, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, stft_fft_mixed_kernel, MX_NT, smem));
+    case 1:
+      e = set_smem(stft_dense_kernel<false>, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, stft_dense_kernel<false>, DNT, smem));
+    case 2:
+      e = set_smem(stft_dense_kernel<true>, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks, stft_dense_kernel<true>, DNT, smem));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // The dense entry point. x (B, n) f32; basis (Kp, 2 Fp) f32 as
@@ -932,8 +1025,22 @@ extern "C" int dcs_stft_forward(const float* x, const float* basis, float* re,
   if (B <= 0 || T <= 0 || F <= 0 || hop <= 0 || n_fft <= 0 || n <= 0 ||
       (reinterpret_cast<uintptr_t>(basis) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_dense(static_cast<cudaStream_t>(stream), x, basis, re, im, B, n,
-                      n_fft, hop, F, T, pad, split);
+  return launch_dense<false>(static_cast<cudaStream_t>(stream), x, basis, re, im, B, n,
+                             n_fft, hop, F, T, pad, split);
+}
+
+// The dense entry's bf16 class: x (B, n) f32, rounded to bf16 in the
+// kernel; basis (Kp, 2 Fp) bf16 as dsp/stft_cuda.py:dense_basis_bf16 packs
+// it, 16-byte aligned; re, im (B, F, T) f32; split as above. Launches on
+// `stream`, allocates nothing, returns cudaGetLastError().
+extern "C" int dcs_stft_forward_bf16(const float* x, const void* basis, float* re,
+                                     float* im, int B, int n, int n_fft, int hop,
+                                     int F, int T, int pad, int split, void* stream) {
+  if (B <= 0 || T <= 0 || F <= 0 || hop <= 0 || n_fft <= 0 || n <= 0 ||
+      (reinterpret_cast<uintptr_t>(basis) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dense<true>(static_cast<cudaStream_t>(stream), x, basis, re, im, B, n,
+                            n_fft, hop, F, T, pad, split);
 }
 
 // The FFT entry point. x (B, n) f32; win2 (n_fft/2, 2), tw (the stages'

@@ -104,11 +104,31 @@
 // 32-wide N tiles (m64n32k8).
 // The tiling (flat or one row, 64 or 128 pixels) is chosen by the wrapper
 // (ops/cuda_tapconv.py:dgrad_plan) from the shape alone; it has no split.
+//
+// The forward's bf16 class (dcs_tapconv_valid_bf16, with dcs_tapconv_pack_bf16)
+// computes what pallas_tapconv.tapconv_valid computes at bf16 operands
+// (dcs_net_tpu/ops/pallas_tapconv.py:83-108): x and w bf16, float32 sums, y
+// bf16 (its output type is x's). The same kernel, templated: one wgmma
+// m64nNk16 bf16 a 16-channel step where 3xTF32 takes three m64nNk8 a
+// 8-channel step, so a register set (one 16-channel half of a tap's chunk)
+// holds 4 registers of bf16 pairs read straight from the halo tile, with
+// nothing to split. A bf16 core matrix is 8 rows x 16 bytes, 8 channels: the
+// packing writes [KB/8][BN][8] bf16 slabs (a quarter of the hi and lo
+// slabs' bytes), whose k16 step spans two core matrices (2 LBO), as a TF32
+// k8 step does. The halo tile holds 40 bf16 a pixel (80 bytes: a fragment
+// load's 8 pixels x 4 words on 32 banks), staged 16 bytes (8 channels) a
+// copy where Cin % 8 == 0 (every decoder stage of the model: Cin 32 to 512)
+// and one element at a time otherwise; channels past Cin are zero filled.
+// The products of bf16 values are exact in float32; the chain is still cut
+// at every chunk, and a split adds its partial tiles in float32 and rounds
+// once, at the store, after the whole sum.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -354,6 +374,108 @@ struct Wgmma<128> {
 };
 
 
+// d (64 x N, float32) = a (64 x 16 bf16, registers: 4 of 2 values a thread)
+// * b (16 x N bf16, shared memory, K-major, through desc) + (scale_d ? d : 0):
+// the forward's bf16 class
+template <int N>
+struct WgmmaBf16;
+
+template <>
+struct WgmmaBf16<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %9, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaBf16<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint32_t a0, uint32_t a1,
+                                             uint32_t a2, uint32_t a3, uint64_t desc,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(scale_d));
+  }
+};
+
+// a float32 sum as the output's type, rounded to nearest (even, for bf16)
+template <typename E>
+__device__ __forceinline__ E from_float(float v) {
+  if constexpr (sizeof(E) == 2)
+    return __float2bfloat16_rn(v);
+  else
+    return v;
+}
+
+
 // w (taps, Cin, N) -> wp tiles [n tile][chunk][tap][hi | lo][KB/4][BN][4] of
 // the KB-channel chunks of the reduction, zero beyond K and N; one thread per
 // (n, 4-channel group). The forward packs w as it is (K = Cin reduced, N
@@ -393,6 +515,37 @@ __global__ void pack_kernel(const float* __restrict__ w, float* __restrict__ wp,
       make_uint4(lo[0], lo[1], lo[2], lo[3]);
 }
 
+// The forward's bf16 class: w (taps, Cin, N) bf16 -> wp tiles [n tile][chunk]
+// [tap][KB/8][BN][8] bf16, one slab a tap (nothing to split), zero beyond K
+// and N; one thread per (n, 8-channel group), one 16-byte store.
+template <int KB, int BN>
+__global__ void pack_bf16_kernel(const __nv_bfloat16* __restrict__ w,
+                                 __nv_bfloat16* __restrict__ wp, int taps, int K,
+                                 int N, int nchunks, long long total) {
+  const long long idx =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int n = static_cast<int>(idx % BN);
+  long long rest = idx / BN;
+  const int j = static_cast<int>(rest % (KB / 8));
+  rest /= KB / 8;
+  const int tap = static_cast<int>(rest % taps);
+  rest /= taps;
+  const int chunk = static_cast<int>(rest % nchunks);
+  const long long ntile = rest / nchunks;
+  const long long gn = ntile * BN + n;
+  __align__(16) __nv_bfloat16 v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int c = chunk * KB + 8 * j + i;
+    v[i] = c < K && gn < N ? w[(static_cast<long long>(tap) * K + c) * N + gn]
+                           : __ushort_as_bfloat16(0);
+  }
+  __nv_bfloat16* dst = wp + ((ntile * nchunks + chunk) * taps + tap) * (KB * BN) +
+                       (j * BN + n) * 8;
+  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+}
+
 // How a block's M tile maps to output pixels, and what it stages.
 struct Geo {
   int Hg, Wg, Cg;  // the tensor read, (B, Hg, Wg, Cg): x, or the gradient g
@@ -412,23 +565,47 @@ struct Geo {
 template <int BN>
 constexpr int kPartPitch = BN + 8;
 
+// The element type of the tensor read, of the packed weights and of the
+// output: float, or bf16 in the forward's bf16 class
+template <bool BF16>
+using Elem = typename std::conditional<BF16, __nv_bfloat16, float>::type;
+
+// one 32-bit register of an A fragment from the staged tile: a float32 value
+// (split into TF32 parts later), or a pair of consecutive bf16 channels
+template <bool BF16>
+__device__ __forceinline__ uint32_t a_word(const Elem<BF16>* p) {
+  if constexpr (BF16)
+    return *reinterpret_cast<const uint32_t*>(p);
+  else
+    return __float_as_uint(*p);
+}
+
 // WGS warpgroups of 64 pixels each; KB reduction channels per chunk (32, or
 // 8 for the input gradient's small-K class); BN channels; TPS taps per B
-// stage; VEC floats per cp.async of the tensor read (4 when Cg % 4 == 0,
-// else 1); RING_A: two A stages, else one, refilled between chunks. The
-// grid is (M tiles, N tiles, S): with S > 1 a cluster of the S blocks of
-// one output tile splits its channel chunks.
-template <int WGS, int KB, int BN, int TPS, int VEC, bool RING_A>
+// stage; VEC elements per copy of the tensor read (16 bytes: 4 floats when
+// Cg % 4 == 0, 8 bf16 when Cg % 8 == 0; else 1); RING_A: two A stages, else
+// one, refilled between chunks; BF16: the forward's bf16 class (x, the
+// weights and y bf16, one bf16 wgmma a k16 step in place of three TF32 ones
+// a k8 step, float32 sums rounded once at the store). The grid is (M tiles,
+// N tiles, S): with S > 1 a cluster of the S blocks of one output tile
+// splits its channel chunks.
+template <int WGS, int KB, int BN, int TPS, int VEC, bool RING_A, bool BF16>
 __global__ void __launch_bounds__(128 * WGS)
-tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
-               float* __restrict__ y, const Geo g) {
+tapconv_kernel(const Elem<BF16>* __restrict__ x, const Elem<BF16>* __restrict__ wp,
+               Elem<BF16>* __restrict__ y, const Geo g) {
+  using E = Elem<BF16>;
   constexpr int NT = 128 * WGS, BM = 64 * WGS;
-  // words per staged pixel: 36 or 12, so that the 8 pixels x 4 channels of
-  // a fragment load fall on 32 different banks
-  constexpr int APITCH = KB + 4;
-  constexpr int TAPF = 2 * KB * BN;  // words of one tap's hi and lo slabs
-  constexpr int KS = KB / 16 > 0 ? KB / 16 : 1;  // k8 steps a register set holds
+  // elements per staged pixel: 36 or 12 floats, 40 bf16, so that the 8
+  // pixels x 4 words of a fragment load fall on 32 different banks
+  constexpr int APITCH = BF16 ? KB + 8 : KB + 4;
+  // elements of one tap's B: the hi and lo TF32 slabs, or one bf16 slab
+  constexpr int TAPF = BF16 ? KB * BN : 2 * KB * BN;
+  // the k steps a register set holds (16 channels: two k8 or one k16 step)
+  // and the channels of a step
+  constexpr int KSTEP = BF16 ? 16 : 8;
+  constexpr int KS = BF16 ? 1 : (KB / 16 > 0 ? KB / 16 : 1);
   constexpr uint32_t LBO = BN * 16, SBO = 128;
+  static_assert(!BF16 || KB == 32, "the bf16 class reduces 32-channel chunks");
   extern __shared__ __align__(128) float smem[];
 
   // the tile: `count` output pixels from pix0 on, read through a halo tile
@@ -470,16 +647,18 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   const int nsb = min(3, g.nchunks * ((taps + tps - 1) / tps));
   const int nsa = RING_A ? min(2, g.nchunks) : 1;
   const int bstage = tps * TAPF, astage = g.arows * g.apw * APITCH;
-  float* Bs = smem;
-  float* As = smem + nsb * bstage;
+  E* Bs = reinterpret_cast<E*>(smem);
+  E* As = Bs + nsb * bstage;
   // one mbarrier per B stage, behind the tiles and behind the partial tile
-  // of a split, which reuses the rings' words after the main loop
-  const int ring = nsb * bstage + nsa * astage, part = BM * kPartPitch<BN>;
-  const uint32_t bars = smem_u32(smem + (S > 1 && part > ring ? part : ring));
+  // of a split (float32), which reuses the rings' bytes after the main loop
+  const int ring = (nsb * bstage + nsa * astage) * static_cast<int>(sizeof(E));
+  const int part = BM * kPartPitch<BN> * static_cast<int>(sizeof(float));
+  const uint32_t bars =
+      smem_u32(reinterpret_cast<char*>(smem) + (S > 1 && part > ring ? part : ring));
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int n0 = blockIdx.y * BN;
-  const float* xb = x + static_cast<long long>(b) * g.Hg * g.Wg * g.Cg;
+  const E* xb = x + static_cast<long long>(b) * g.Hg * g.Wg * g.Cg;
 
   // copy e of a halo tile: channel group e % VPP of pixel e / VPP (rows of
   // PW pixels); a thread's copies are NT apart, walked without divisions
@@ -488,16 +667,23 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   const int a_v = tid % VPP;
   const int a_r0 = (tid / VPP) / PW, a_p0 = (tid / VPP) % PW;
   auto load_a = [&](int chunk) {
-    float* dst = As + (chunk % nsa) * astage + a_v * VEC;
+    E* dst = As + (chunk % nsa) * astage + a_v * VEC;
     const int c = chunk * KB + a_v * VEC;
     const int total = nr * PW;
     int r = a_r0, p = a_p0;
     for (int rp = tid / VPP; rp < total; rp += NT / VPP) {
       const int rr = r0 + r, cc = c0 + p;
       const bool ok = rr >= 0 && rr < g.Hg && cc >= 0 && cc < g.Wg && c < g.Cg;
-      const float* src =
+      const E* src =
           ok ? xb + (static_cast<long long>(rr) * g.Wg + cc) * g.Cg + c : x;
-      cp_async<VEC * 4>(smem_u32(dst + rp * APITCH), src, ok ? VEC * 4 : 0);
+      if constexpr (BF16 && VEC == 1) {
+        // a bf16 channel count that is no multiple of 8: one element at a
+        // time, by plain loads (cp.async copies 4, 8 or 16 bytes)
+        dst[rp * APITCH] = ok ? *src : __ushort_as_bfloat16(0);
+      } else {
+        constexpr int BYTES = VEC * static_cast<int>(sizeof(E));
+        cp_async<BYTES>(smem_u32(dst + rp * APITCH), src, ok ? BYTES : 0);
+      }
       p += NT / VPP;
       while (p >= PW) {
         p -= PW;
@@ -510,8 +696,8 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   auto load_b = [&](int it) {
     const int k = it / ngroups, grp = it - k * ngroups, chunk = c_lo + k;
     const int tap0 = tap_lo + grp * tps;
-    const uint32_t bytes = min(tps, tap_lo + live - tap0) * TAPF * 4;
-    const float* src =
+    const uint32_t bytes = min(tps, tap_lo + live - tap0) * TAPF * sizeof(E);
+    const E* src =
         wp + ((static_cast<long long>(blockIdx.y) * g.nchunks + chunk) * taps +
               tap0) * TAPF;
     const uint32_t bar = bars + 8 * (it % nsb);
@@ -544,7 +730,8 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
 
   // this thread's fragment rows are pixels mrow and mrow + 8 of the tile;
   // where each sits in the halo tile (a pixel past the tile's end reads
-  // pixel 0 and is not stored)
+  // pixel 0 and is not stored); its column is lane % 4, in bf16 the pair of
+  // channels 2 (lane % 4), 2 (lane % 4) + 1
   const int mrow = (tid >> 5) * 16 + (lane >> 2);
   auto staged = [&](int m) {
     if (m >= count) return 0;
@@ -552,12 +739,14 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     const int q = q0 + m, hh = q / g.W;
     return (hh - h_a) * PW + (q - hh * g.W);
   };
-  const int base0 = staged(mrow) * APITCH + (lane & 3);
-  const int base1 = staged(mrow + 8) * APITCH + (lane & 3);
-  // Two register sets of split A values: while the tensor cores run the
-  // wgmma group of one set, the thread loads and splits the other, here and
-  // across steps; at most two groups are in flight. At KB = 32 a set is one
-  // 16-channel half of a tap's chunk, at KB = 8 one whole tap.
+  const int col = (lane & 3) * (BF16 ? 2 : 1);
+  const int base0 = staged(mrow) * APITCH + col;
+  const int base1 = staged(mrow + 8) * APITCH + col;
+  // Two register sets of A values (split into TF32 parts, or bf16 pairs as
+  // they are): while the tensor cores run the wgmma group of one set, the
+  // thread loads the other, here and across steps; at most two groups are
+  // in flight. At KB = 32 a set is one 16-channel half of a tap's chunk, at
+  // KB = 8 one whole tap.
   uint32_t hi[2][4 * KS] = {}, lo[2][4 * KS] = {};
   // toff: the halo-tile pixel offset of the current tap, dh * PW + dw
   int chunk = c_lo, grp = 0, dw = 0, toff = dh_lo * PW;
@@ -580,7 +769,7 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       cp_async_commit();
     }
 
-    const float* Ab = As + (chunk % nsa) * astage;
+    const E* Ab = As + (chunk % nsa) * astage;
     const uint32_t Bb = smem_u32(Bs + (it % nsb) * bstage);
     const int ntap = min(tps, live - grp * tps);
     for (int tt = 0; tt < ntap; tt += (KB == 8 ? 2 : 1)) {
@@ -589,9 +778,9 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
         const int t = KB == 8 ? tt + set : tt;   // the set's tap in the stage
         if (t >= ntap) break;
         const int half = KB == 8 ? 0 : set;      // its 16-channel half
-        const float* a0 = Ab + base0 + toff * APITCH;
-        const float* a1 = Ab + base1 + toff * APITCH;
-        const uint64_t bd = make_desc(Bb + t * TAPF * 4, LBO, SBO);
+        const E* a0 = Ab + base0 + toff * APITCH;
+        const E* a1 = Ab + base1 + toff * APITCH;
+        const uint64_t bd = make_desc(Bb + t * TAPF * sizeof(E), LBO, SBO);
         // the chunk's first wgmma starts a new sum: it drops what acc held
         const bool fresh = grp == 0 && t == 0;
         if (KB == 8 || set == 1) {  // the next tap (dh, dw) of the window
@@ -602,34 +791,47 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
             ++toff;
           }
         }
-        float raw[4 * KS];
+        // a step's fragment: rows mrow and mrow + 8, channels k (+ 1 in
+        // bf16) and k + KSTEP / 2
+        uint32_t raw[4 * KS];
 #pragma unroll
         for (int s = 0; s < KS; ++s) {
-          const int k = 8 * (KS * half + s);
-          raw[4 * s] = a0[k];
-          raw[4 * s + 1] = a1[k];
-          raw[4 * s + 2] = a0[k + 4];
-          raw[4 * s + 3] = a1[k + 4];
+          const int k = KSTEP * (KS * half + s);
+          raw[4 * s] = a_word<BF16>(a0 + k);
+          raw[4 * s + 1] = a_word<BF16>(a1 + k);
+          raw[4 * s + 2] = a_word<BF16>(a0 + k + KSTEP / 2);
+          raw[4 * s + 3] = a_word<BF16>(a1 + k + KSTEP / 2);
         }
         wgmma_wait<1>();  // the group that last read this register set
 #pragma unroll
         for (int i = 0; i < 4 * KS; ++i) {
           keep(hi[set][i]);
-          keep(lo[set][i]);
-          split_trunc(raw[i], hi[set][i], lo[set][i]);
+          if constexpr (BF16) {
+            hi[set][i] = raw[i];
+          } else {
+            keep(lo[set][i]);
+            split_trunc(__uint_as_float(raw[i]), hi[set][i], lo[set][i]);
+          }
         }
         wgmma_fence();
 #pragma unroll
         for (int s = 0; s < KS; ++s) {
-          // the descriptor's low bits are the address in 16-byte units
+          // the descriptor's low bits are the address in 16-byte units; a
+          // step's B starts two core matrices (2 LBO) after the step before
           const uint64_t dhi = bd + (((KS * half + s) * 2 * LBO) >> 4);
-          const uint64_t dlo = dhi + ((KB * BN * 4) >> 4);
-          Wgmma<BN>::mma(acc, lo[set][4 * s], lo[set][4 * s + 1], lo[set][4 * s + 2],
-                         lo[set][4 * s + 3], dhi, half + s > 0 || !fresh);
-          Wgmma<BN>::mma(acc, hi[set][4 * s], hi[set][4 * s + 1], hi[set][4 * s + 2],
-                         hi[set][4 * s + 3], dlo, 1);
-          Wgmma<BN>::mma(acc, hi[set][4 * s], hi[set][4 * s + 1], hi[set][4 * s + 2],
-                         hi[set][4 * s + 3], dhi, 1);
+          const int scale = half + s > 0 || !fresh;
+          if constexpr (BF16) {
+            WgmmaBf16<BN>::mma(acc, hi[set][4 * s], hi[set][4 * s + 1],
+                               hi[set][4 * s + 2], hi[set][4 * s + 3], dhi, scale);
+          } else {
+            const uint64_t dlo = dhi + ((KB * BN * 4) >> 4);
+            Wgmma<BN>::mma(acc, lo[set][4 * s], lo[set][4 * s + 1], lo[set][4 * s + 2],
+                           lo[set][4 * s + 3], dhi, scale);
+            Wgmma<BN>::mma(acc, hi[set][4 * s], hi[set][4 * s + 1], hi[set][4 * s + 2],
+                           hi[set][4 * s + 3], dlo, 1);
+            Wgmma<BN>::mma(acc, hi[set][4 * s], hi[set][4 * s + 1], hi[set][4 * s + 2],
+                           hi[set][4 * s + 3], dhi, 1);
+          }
         }
         wgmma_commit();
       }
@@ -657,25 +859,29 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     for (int half = 0; half < 2; ++half) {
       const int m = mrow + 8 * half;
       if (m >= count) continue;
-      float* yr = y + (pix0 + m) * N;
+      E* yr = y + (pix0 + m) * N;
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
         const int n = n0 + 8 * j + 2 * (lane & 3);
         const float v0 = sum[4 * j + 2 * half], v1 = sum[4 * j + 2 * half + 1];
         if (pairs && n + 1 < N) {
-          *reinterpret_cast<float2*>(yr + n) = make_float2(v0, v1);
+          if constexpr (BF16)
+            *reinterpret_cast<__nv_bfloat162*>(yr + n) = __floats2bfloat162_rn(v0, v1);
+          else
+            *reinterpret_cast<float2*>(yr + n) = make_float2(v0, v1);
         } else {
-          if (n < N) yr[n] = v0;
-          if (n + 1 < N) yr[n + 1] = v1;
+          if (n < N) yr[n] = from_float<E>(v0);
+          if (n + 1 < N) yr[n + 1] = from_float<E>(v1);
         }
       }
     }
     return;
   }
 
-  // The split: every rank writes its partial tile (BM rows, pitch PP) into
-  // its own shared memory, then rank r adds rows [r BM / S, (r + 1) BM / S)
-  // over the ranks 0, 1, ..., S - 1 in that order and stores them.
+  // The split: every rank writes its partial tile (BM rows, pitch PP, float32)
+  // into its own shared memory, then rank r adds rows [r BM / S, (r + 1) BM / S)
+  // over the ranks 0, 1, ..., S - 1 in that order and stores them, rounded
+  // once to the output's type after the whole sum.
   constexpr int PP = kPartPitch<BN>, Q = BN / 4;  // Q: float4s a row
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
@@ -702,57 +908,67 @@ tapconv_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       v.z += p.z;
       v.w += p.w;
     }
-    float* yr = y + (pix0 + m) * N;
+    E* yr = y + (pix0 + m) * N;
     const int n = n0 + c;
     if (quads && n + 3 < N) {
-      *reinterpret_cast<float4*>(yr + n) = v;
+      if constexpr (BF16) {
+        const __nv_bfloat162 lo2 = __floats2bfloat162_rn(v.x, v.y);
+        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(v.z, v.w);
+        *reinterpret_cast<uint2*>(yr + n) =
+            make_uint2(*reinterpret_cast<const uint32_t*>(&lo2),
+                       *reinterpret_cast<const uint32_t*>(&hi2));
+      } else {
+        *reinterpret_cast<float4*>(yr + n) = v;
+      }
     } else {
-      if (n < N) yr[n] = v.x;
-      if (n + 1 < N) yr[n + 1] = v.y;
-      if (n + 2 < N) yr[n + 2] = v.z;
-      if (n + 3 < N) yr[n + 3] = v.w;
+      if (n < N) yr[n] = from_float<E>(v.x);
+      if (n + 1 < N) yr[n + 1] = from_float<E>(v.y);
+      if (n + 2 < N) yr[n + 2] = from_float<E>(v.z);
+      if (n + 3 < N) yr[n + 3] = from_float<E>(v.w);
     }
   }
   cluster.sync();  // no rank leaves while another reads its shared memory
 }
 
 // taps per B stage: a stage of about 32 KB whatever the tile's width, every
-// tap of a 3 x 3 window at N <= 8 and in the small-K class
+// tap of a 3 x 3 window at N <= 8 and in the small-K class (the bf16 class
+// keeps the float32 stages' taps, a quarter of their bytes)
 template <int KB, int BN>
 constexpr int kTapsPerStage = BN == 8 || KB == 8 ? 9 : 128 / BN;
 
 constexpr size_t kSmemLimit = 227 * 1024;
 
 // shared memory of a block with `nsa` A stages of arows x apw pixels: the B
-// ring, the A stages (or, where larger, the partial tile of `part_rows`
-// rows of a split) and the mbarriers
-template <int KB, int BN>
+// ring, the A stages (or, where larger, the float32 partial tile of
+// `part_rows` rows of a split) and the mbarriers
+template <int KB, int BN, bool BF16>
 size_t smem_bytes(int nsa, int Cg, int taps, int arows, int apw, int part_rows) {
+  constexpr size_t E = BF16 ? 2 : 4;
+  constexpr int TAPF = BF16 ? KB * BN : 2 * KB * BN;
+  constexpr int APITCH = BF16 ? KB + 8 : KB + 4;
   const int tps = taps < kTapsPerStage<KB, BN> ? taps : kTapsPerStage<KB, BN>;
   const int nchunks = (Cg + KB - 1) / KB;
   const int nit = nchunks * ((taps + tps - 1) / tps);
-  const size_t words =
-      static_cast<size_t>(nit < 3 ? nit : 3) * tps * 2 * KB * BN +
-      static_cast<size_t>(nchunks < nsa ? nchunks : nsa) * arows * apw *
-          (KB + 4);
-  const size_t part = static_cast<size_t>(part_rows) * kPartPitch<BN>;
-  return (words > part ? words : part) * sizeof(float) + 3 * 8;
+  const size_t ring =
+      (static_cast<size_t>(nit < 3 ? nit : 3) * tps * TAPF +
+       static_cast<size_t>(nchunks < nsa ? nchunks : nsa) * arows * apw * APITCH) * E;
+  const size_t part = static_cast<size_t>(part_rows) * kPartPitch<BN> * sizeof(float);
+  return (ring > part ? ring : part) + 3 * 8;
 }
 
-template <int WGS, int KB, int BN, int VEC, bool RING_A>
-int launch(cudaStream_t s, const float* x, const float* wp, float* y, int B,
-           const Geo& geo, int split) {
+template <int WGS, int KB, int BN, int VEC, bool RING_A, bool BF16>
+int launch(cudaStream_t s, const Elem<BF16>* x, const Elem<BF16>* wp, Elem<BF16>* y,
+           int B, const Geo& geo, int split) {
   const size_t smem =
-      smem_bytes<KB, BN>(RING_A ? 2 : 1, geo.Cg, geo.Dh * geo.Dw, geo.arows,
-                         geo.apw, split > 1 ? 64 * WGS : 0);
+      smem_bytes<KB, BN, BF16>(RING_A ? 2 : 1, geo.Cg, geo.Dh * geo.Dw, geo.arows,
+                               geo.apw, split > 1 ? 64 * WGS : 0);
   if (smem > kSmemLimit) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tapconv_kernel<WGS, KB, BN, kTapsPerStage<KB, BN>, VEC, RING_A>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  auto kernel = tapconv_kernel<WGS, KB, BN, kTapsPerStage<KB, BN>, VEC, RING_A, BF16>;
+  // at every launch, under 48 KB too: the cluster query (clusters_at) sets
+  // this attribute to the size it asks about, which may be less
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
   const long long mtiles = static_cast<long long>(B) * geo.tiles *
                            (geo.flat ? 1 : geo.H);
   if (mtiles > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
@@ -774,7 +990,7 @@ int launch(cudaStream_t s, const float* x, const float* wp, float* y, int B,
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, x, wp, y, geo);
+  e = cudaLaunchKernelEx(&cfg, kernel, x, wp, y, geo);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -799,23 +1015,25 @@ void set_tiles(Geo& geo, int wgs) {
 
 // the instantiation for a tiling: one A stage in place of two when two do
 // not fit shared memory (the copy of a chunk's tile then waits for the chunk
-// before it); refused when one does not fit either
-template <int KB, int BN>
-int launch_tiled(cudaStream_t s, const float* x, const float* wp, float* y,
-                 int B, Geo geo, int wgs, int split) {
+// before it); refused when one does not fit either. A pixel's channels are
+// copied 16 bytes at a time where their count allows (4 floats, 8 bf16).
+template <int KB, int BN, bool BF16>
+int launch_tiled(cudaStream_t s, const Elem<BF16>* x, const Elem<BF16>* wp,
+                 Elem<BF16>* y, int B, Geo geo, int wgs, int split) {
   set_tiles(geo, wgs);
   const int taps = geo.Dh * geo.Dw;
-  const bool ring = smem_bytes<KB, BN>(2, geo.Cg, taps, geo.arows, geo.apw,
-                                       split > 1 ? 64 * wgs : 0) <= kSmemLimit;
-  const bool vec = geo.Cg % 4 == 0;
+  const bool ring = smem_bytes<KB, BN, BF16>(2, geo.Cg, taps, geo.arows, geo.apw,
+                                             split > 1 ? 64 * wgs : 0) <= kSmemLimit;
+  constexpr int V = BF16 ? 8 : 4;
+  const bool vec = geo.Cg % V == 0;
 #define DCS_LAUNCH(WGS, VEC, RING) \
-  launch<WGS, KB, BN, VEC, RING>(s, x, wp, y, B, geo, split)
+  launch<WGS, KB, BN, VEC, RING, BF16>(s, x, wp, y, B, geo, split)
   if (wgs == 2) {
     if (!ring) return static_cast<int>(cudaErrorInvalidValue);
-    return vec ? DCS_LAUNCH(2, 4, true) : DCS_LAUNCH(2, 1, true);
+    return vec ? DCS_LAUNCH(2, V, true) : DCS_LAUNCH(2, 1, true);
   }
-  if (!ring) return vec ? DCS_LAUNCH(1, 4, false) : DCS_LAUNCH(1, 1, false);
-  return vec ? DCS_LAUNCH(1, 4, true) : DCS_LAUNCH(1, 1, true);
+  if (!ring) return vec ? DCS_LAUNCH(1, V, false) : DCS_LAUNCH(1, 1, false);
+  return vec ? DCS_LAUNCH(1, V, true) : DCS_LAUNCH(1, 1, true);
 #undef DCS_LAUNCH
 }
 
@@ -833,6 +1051,69 @@ int pack(const float* w, float* wp, int taps, int K, int N, bool flip,
     pack_kernel<KB, BN, false><<<blocks, 256, 0, s>>>(w, wp, taps, K, N, nchunks,
                                                       total);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN>
+int pack_bf16(const __nv_bfloat16* w, __nv_bfloat16* wp, int taps, int K, int N,
+              cudaStream_t s) {
+  const int nchunks = (K + BK - 1) / BK;
+  const long long total = static_cast<long long>((N + BN - 1) / BN) * nchunks *
+                          taps * (BK / 8) * BN;
+  const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
+  pack_bf16_kernel<BK, BN><<<blocks, 256, 0, s>>>(w, wp, taps, K, N, nchunks, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool forward_args_ok(int B, int H, int W, int Cin, int HO, int WO, int N, int Dh,
+                     int Dw, int pad_top, int pad_left, int flat, int wgs, int split) {
+  return B >= 1 && H >= 1 && W >= 1 && Cin >= 1 && HO >= 1 && WO >= 1 && N >= 1 &&
+         Dh >= 1 && Dw >= 1 && pad_top >= 0 && pad_left >= 0 &&
+         (flat == 0 || flat == 1) && (wgs == 1 || wgs == 2) && split >= 1 &&
+         split <= 8 && static_cast<long long>(HO) * WO <= 2147483647LL;
+}
+
+template <bool BF16>
+int forward(const Elem<BF16>* x, const Elem<BF16>* wp, Elem<BF16>* y, int B, int H,
+            int W, int Cin, int HO, int WO, int N, int Dh, int Dw, int pad_top,
+            int pad_left, int flat, int wgs, int bn, int split, void* stream) {
+  if (!forward_args_ok(B, H, W, Cin, HO, WO, N, Dh, Dw, pad_top, pad_left, flat, wgs,
+                       split))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Geo geo{H, W, Cin, HO, WO, N, -pad_top, -pad_left, Dh, Dw,
+          flat, 0, 0, 0, (Cin + BK - 1) / BK};
+  switch (bn) {
+    case 8:
+      return launch_tiled<BK, 8, BF16>(s, x, wp, y, B, geo, wgs, split);
+    case 64:
+      return launch_tiled<BK, 64, BF16>(s, x, wp, y, B, geo, wgs, split);
+    case 128:
+      return launch_tiled<BK, 128, BF16>(s, x, wp, y, B, geo, wgs, split);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool BF16>
+int clusters_at(int wgs, int smem, int split, int* clusters) {
+  constexpr int TPS = kTapsPerStage<BK, 128>, V = BF16 ? 8 : 4;
+  auto kernel = wgs == 2 ? tapconv_kernel<2, BK, 128, TPS, V, true, BF16>
+                         : tapconv_kernel<1, BK, 128, TPS, V, true, BF16>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, split);
+  cfg.blockDim = dim3(128 * wgs);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
 }
 
 }  // namespace
@@ -861,6 +1142,29 @@ extern "C" int dcs_tapconv_pack(const float* w, float* wp, int taps, int Cin,
   }
 }
 
+// The bf16 class's packing: w (taps, Cin, N) bf16 -> wp, the K-major bf16
+// tiles of width bn (8, 64 or 128) described above pack_bf16_kernel:
+// ceil(N/bn) * ceil(Cin/32) * taps * 32 * bn bf16, 16-byte aligned.
+// Launches on `stream`, returns cudaGetLastError().
+extern "C" int dcs_tapconv_pack_bf16(const void* w, void* wp, int taps, int Cin,
+                                     int N, int bn, void* stream) {
+  if (taps < 1 || Cin < 1 || N < 1 || (reinterpret_cast<uintptr_t>(wp) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  auto* out = static_cast<__nv_bfloat16*>(wp);
+  switch (bn) {
+    case 8:
+      return pack_bf16<8>(wb, out, taps, Cin, N, s);
+    case 64:
+      return pack_bf16<64>(wb, out, taps, Cin, N, s);
+    case 128:
+      return pack_bf16<128>(wb, out, taps, Cin, N, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // y = the tap correlation of x zero-padded by pad_top rows and pad_left
 // columns before it (and by what HO and WO imply after it):
 //   y[b, h, w, n] = sum_{dh, dw, c} x[b, h + dh - pad_top, w + dw - pad_left, c]
@@ -880,53 +1184,38 @@ extern "C" int dcs_tapconv_valid(const float* x, const float* wp, float* y,
                                  int N, int Dh, int Dw, int pad_top,
                                  int pad_left, int flat, int wgs, int bn,
                                  int split, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || Cin < 1 || HO < 1 || WO < 1 || N < 1 ||
-      Dh < 1 || Dw < 1 || pad_top < 0 || pad_left < 0 || (flat != 0 && flat != 1) ||
-      (wgs != 1 && wgs != 2) || split < 1 || split > 8 ||
-      static_cast<long long>(HO) * WO > 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Geo geo{H, W, Cin, HO, WO, N, -pad_top, -pad_left, Dh, Dw,
-          flat, 0, 0, 0, (Cin + BK - 1) / BK};
-  switch (bn) {
-    case 8:
-      return launch_tiled<BK, 8>(s, x, wp, y, B, geo, wgs, split);
-    case 64:
-      return launch_tiled<BK, 64>(s, x, wp, y, B, geo, wgs, split);
-    case 128:
-      return launch_tiled<BK, 128>(s, x, wp, y, B, geo, wgs, split);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return forward<false>(x, wp, y, B, H, W, Cin, HO, WO, N, Dh, Dw, pad_top, pad_left,
+                        flat, wgs, bn, split, stream);
+}
+
+// The forward's bf16 class: the same function and arguments as
+// dcs_tapconv_valid with x (B, H, W, Cin), wp (dcs_tapconv_pack_bf16's) and
+// y (B, HO, WO, N) bf16, float32 sums (a split's partial tiles added in
+// float32) rounded once to bf16 at the store.
+extern "C" int dcs_tapconv_valid_bf16(const void* x, const void* wp, void* y, int B,
+                                      int H, int W, int Cin, int HO, int WO, int N,
+                                      int Dh, int Dw, int pad_top, int pad_left,
+                                      int flat, int wgs, int bn, int split,
+                                      void* stream) {
+  return forward<true>(static_cast<const __nv_bfloat16*>(x),
+                       static_cast<const __nv_bfloat16*>(wp),
+                       static_cast<__nv_bfloat16*>(y), B, H, W, Cin, HO, WO, N, Dh, Dw,
+                       pad_top, pad_left, flat, wgs, bn, split, stream);
 }
 
 // How many clusters of `split` blocks of the kernel at `wgs` warpgroups and
 // `smem` bytes of dynamic shared memory the card runs at once
 // (cudaOccupancyMaxActiveClusters), into *clusters: the wrapper counts a
-// split's waves by it. A cluster's blocks must share one GPC, so this is
-// fewer than SMs / split: on the H100 at one block an SM, 66 clusters of 2,
-// 30 of 4 and 15 of 8.
-extern "C" int dcs_tapconv_clusters(int wgs, int smem, int split, int* clusters) {
+// split's waves by it; bf16 = 1 asks for the bf16 class's kernel. A
+// cluster's blocks must share one GPC, so this is fewer than SMs / split: on
+// the H100 at one block an SM, 66 clusters of 2, 30 of 4 and 15 of 8.
+extern "C" int dcs_tapconv_clusters(int wgs, int smem, int split, int bf16,
+                                    int* clusters) {
   if ((wgs != 1 && wgs != 2) || split < 1 || split > 8 || smem < 0 ||
       static_cast<size_t>(smem) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = wgs == 2 ? tapconv_kernel<2, BK, 128, kTapsPerStage<BK, 128>, 4, true>
-                         : tapconv_kernel<1, BK, 128, kTapsPerStage<BK, 128>, 4, true>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(1, 1, split);
-  cfg.blockDim = dim3(128 * wgs);
-  cfg.dynamicSmemBytes = smem;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = split;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
+  return bf16 ? clusters_at<true>(wgs, smem, split, clusters)
+              : clusters_at<false>(wgs, smem, split, clusters);
 }
 
 // The input gradient's weights, packed straight from the forward's w (taps,
@@ -977,15 +1266,15 @@ extern "C" int dcs_tapconv_dgrad(const float* g, const float* wp, float* dx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Geo geo{HO, WO, N, H, W, Cin, pad_top - (Dh - 1), pad_left - (Dw - 1), Dh, Dw,
           flat, 0, 0, 0, (N + kb - 1) / kb};
-  if (kb == 8 && bn == 32) return launch_tiled<8, 32>(s, g, wp, dx, B, geo, wgs, 1);
+  if (kb == 8 && bn == 32) return launch_tiled<8, 32, false>(s, g, wp, dx, B, geo, wgs, 1);
   if (kb != BK) return static_cast<int>(cudaErrorInvalidValue);
   switch (bn) {
     case 32:
-      return launch_tiled<BK, 32>(s, g, wp, dx, B, geo, wgs, 1);
+      return launch_tiled<BK, 32, false>(s, g, wp, dx, B, geo, wgs, 1);
     case 64:
-      return launch_tiled<BK, 64>(s, g, wp, dx, B, geo, wgs, 1);
+      return launch_tiled<BK, 64, false>(s, g, wp, dx, B, geo, wgs, 1);
     case 128:
-      return launch_tiled<BK, 128>(s, g, wp, dx, B, geo, wgs, 1);
+      return launch_tiled<BK, 128, false>(s, g, wp, dx, B, geo, wgs, 1);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,11 +15,21 @@ version, one product against (n_fft, F) cos/sin bases with the window and
 scale folded in. The synthesis is a matmul against folded inverse bases plus
 an overlap-add, as in the JAX package.
 
+At ``dft_dtype="bfloat16"`` (the JAX package's ``--dtype bfloat16``) the
+analysis is the frames rounded to bf16 times the folded basis rounded to bf16
+(float64 fold -> float32 -> bf16), float32 accumulation and output: kernel
+1's dense bf16 class on the card for every size, the plain version on the
+rounded values on the CPU. The synthesis multiplies the spectrogram and the
+inverse bases, both rounded to bf16, in float32 (the products of bf16 values
+are exact in float32), and overlap-adds in float32, as the JAX ``istft``.
+
 Gradients. On a CUDA tensor :func:`stft` is :class:`STFT`, whose backward is
 the JAX ``_adjoint`` (``dcs_net_tpu/dsp/stft_pallas.py:152-188``) in PyTorch:
 the transposed analysis bases, an overlap-add and the transpose of the
 reflect padding (:func:`stft_adjoint`), the same matmul and overlap-add as
-the iSTFT. On a CPU tensor the plain version runs under plain autograd.
+the iSTFT. On a CPU tensor the plain version runs under plain autograd. At
+bf16 the STFT takes no gradient: training at bf16 is ROADMAP Queue 1 item
+5b.
 """
 
 from __future__ import annotations
@@ -32,8 +42,9 @@ import torch
 import torch.nn.functional as F
 
 from dcs_net_tpu_torch.core.config import STFTConfig
-from dcs_net_tpu_torch.dsp.stft_cuda import (FFT_COMPILED, STFTPlan, choose_entry,
-                                             dense_basis, fft_tables, stft_analysis)
+from dcs_net_tpu_torch.dsp.stft_cuda import (FFT_COMPILED, STFTPlan, bf16_round,
+                                             choose_entry, dense_basis, dense_basis_bf16,
+                                             fft_tables, stft_analysis)
 from dcs_net_tpu_torch.utils.carray import CArray
 from dcs_net_tpu_torch.utils.device import device_cache
 
@@ -101,16 +112,33 @@ def _work_dtype(x: torch.Tensor):
 
 
 @device_cache(32)
+def _bf16_bases(fn, cfg: STFTConfig, device: torch.device):
+    """The float32 constants ``fn(cfg)`` rounded to bf16, as float32 tensors
+    on ``device``: the operands of the plain bf16 products."""
+    return tuple(bf16_round(a).float().to(device) for a in fn(cfg, np.float32))
+
+
+@device_cache(32)
 def _analysis_plan(cfg: STFTConfig, device: torch.device,
                    dtype=np.float32) -> STFTPlan:
     """Kernel 1's constants for ``cfg`` on ``device``, copied once. The card
     gets only what its entry point reads: the FFT's tables (no row table
-    for the compiled size), or the dense entry's packed basis; the CPU
-    gets the plain version's bases, and the FFT tables where the FFT entry
-    takes the size (the tests model the kernel from them)."""
+    for the compiled size), or the dense entry's packed basis (at bf16 its
+    bf16 class's); the CPU gets the plain version's bases (at bf16 rounded),
+    and the FFT tables where the FFT entry takes the size (the tests model
+    the kernel from them)."""
+    on_cpu = torch.device(device).type == "cpu"
+    if cfg.dft_dtype == "bfloat16":
+        cos_b = sin_b = dense = None
+        if on_cpu:
+            cos_b, sin_b = _bf16_bases(_dft_basis_eff, cfg, device)
+        else:
+            dense = dense_basis_bf16(*_dft_basis_eff(cfg, np.float32)).to(device)
+        return STFTPlan(cfg.n_fft, cfg.n_bins, cfg.hop,
+                        cfg.n_fft // 2 if cfg.center else 0,
+                        1 if cfg.drop_dc else 0, cos_b, sin_b, None, dense, bf16=True)
     scale = cfg.n_fft ** -0.5 if cfg.normalized else 1.0
     tables = fft_tables(window_np(cfg).astype(np.float64) * scale)
-    on_cpu = torch.device(device).type == "cpu"
     fft = choose_entry(cfg.n_fft, cfg.hop) == "fft"
     cos_b = sin_b = dense = None
     if on_cpu:
@@ -144,11 +172,13 @@ def _inv_window_envelope(cfg: STFTConfig, n_frames: int, device: torch.device,
     return torch.from_numpy(inv).to(device)
 
 
-def _check_float32(cfg: STFTConfig) -> None:
-    if cfg.dft_dtype != "float32":
-        raise NotImplementedError(
-            f"dft_dtype={cfg.dft_dtype!r}: the port runs the DFT in float32 "
-            "(reduced precision is ROADMAP Queue 1 item 5)")
+def _check_dft_dtype(cfg: STFTConfig) -> bool:
+    """Whether ``cfg`` runs its DFT products at bf16; raises on a type other
+    than float32 and bfloat16."""
+    if cfg.dft_dtype not in ("float32", "bfloat16"):
+        raise NotImplementedError(f"dft_dtype={cfg.dft_dtype!r}: the port takes "
+                                  "float32 and bfloat16")
+    return cfg.dft_dtype == "bfloat16"
 
 
 def stft_adjoint(g_re: torch.Tensor, g_im: torch.Tensor, cfg: STFTConfig,
@@ -192,15 +222,21 @@ def stft(x: torch.Tensor, cfg: STFTConfig) -> CArray:
 
     Matches torch.stft(..., normalized=cfg.normalized)[..., 1:257, :] for the
     default config. A CUDA tensor runs kernel 1, through :class:`STFT` where
-    autograd follows it; a CPU tensor its plain version (plain autograd)."""
-    _check_float32(cfg)
+    autograd follows it; a CPU tensor its plain version (plain autograd). At
+    ``dft_dtype="bfloat16"`` a float32 signal, and no gradient."""
+    bf16 = _check_dft_dtype(cfg)
     if cfg.center and cfg.pad_mode != "reflect":
         raise NotImplementedError(f"pad_mode {cfg.pad_mode!r}")
     batch_shape = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).to(torch.promote_types(x.dtype, torch.float32)
                                        ).contiguous()
     dtype = _work_dtype(x2)
-    if x.device.type != "cpu" and torch.is_grad_enabled() and x2.requires_grad:
+    tracked = torch.is_grad_enabled() and x2.requires_grad
+    if bf16 and (tracked or x2.dtype != torch.float32):
+        raise NotImplementedError(
+            "the STFT at dft_dtype='bfloat16' takes a float32 signal without "
+            "autograd: training at bf16 is ROADMAP Queue 1 item 5b")
+    if x.device.type != "cpu" and tracked:
         re, im = STFT.apply(x2, cfg)
     else:
         re, im = stft_analysis(x2, _analysis_plan(cfg, x.device, dtype))
@@ -229,17 +265,24 @@ def istft(spec: CArray, cfg: STFTConfig, *, length: Optional[int] = None
           ) -> torch.Tensor:
     """iSTFT of a FULL-bin spectrogram (..., n_fft//2+1, T) -> (..., n).
 
-    Matches torch.istft(center=True, normalized=cfg.normalized)."""
-    _check_float32(cfg)
+    Matches torch.istft(center=True, normalized=cfg.normalized). At
+    ``dft_dtype="bfloat16"`` the spectrogram and the bases are rounded to
+    bf16 and multiplied in float32 (``torch.matmul``, as the JAX package
+    leaves the product to XLA), the sum and the overlap-add in float32."""
+    bf16 = _check_dft_dtype(cfg)
     n_bins_full = cfg.n_fft // 2 + 1
     if spec.shape[-2] != n_bins_full:
         raise ValueError(
             f"istft expects {n_bins_full} bins, got {spec.shape[-2]}; "
             "use pad_bins()/polar_to_wave() for DC-dropped spectrograms")
     dtype = _work_dtype(spec.re)
-    cos_b, sin_b = _on_device(_idft_basis_eff, cfg, spec.device, dtype)
     re = spec.re.transpose(-1, -2)
     im = spec.im.transpose(-1, -2)
+    if bf16:
+        cos_b, sin_b = _bf16_bases(_idft_basis_eff, cfg, spec.device)
+        re, im = (p.to(torch.bfloat16).float() for p in (re, im))
+    else:
+        cos_b, sin_b = _on_device(_idft_basis_eff, cfg, spec.device, dtype)
     frames = torch.matmul(re, cos_b) + torch.matmul(im, sin_b)  # (..., T, n_fft)
     n_frames = frames.shape[-2]
     total = cfg.n_fft + cfg.hop * (n_frames - 1)

@@ -24,12 +24,19 @@ and :func:`choose_entry` picks one from the shape alone:
   (3xTF32), the basis packed and split into TF32 parts by
   :func:`dense_basis`, the reduction split over a cluster
   where the grid is under a wave (:func:`dense_split`, from the blocks an
-  SM the card reports, :func:`blocks_per_sm`).
+  SM the card reports, :func:`blocks_per_sm`);
+* the dense entry's bf16 class (``KERNEL_DENSE_BF16``), for every size at
+  ``dft_dtype="bfloat16"``: the JAX package's function at that type, the
+  frames and the folded basis rounded to bf16 (the basis once, on the host:
+  :func:`dense_basis_bf16`) into float32 sums and a float32 output, one bf16
+  ``wgmma`` where 3xTF32 takes three.
 
 :func:`stft_analysis` is the one entry: it takes a tensor on the CPU through
 :func:`stft_dft_plain` (reflect pad, framing, two matmuls) and a CUDA tensor
 through the entry :func:`choose_entry` names, and never falls back from one
-to the other or to the plain version.
+to the other or to the plain version. A plan made at bf16 (``STFTPlan.bf16``)
+takes the bf16 class on the card and :func:`stft_dft_plain` on the rounded
+samples and basis on the CPU.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dcs_net_tpu_torch.utils.cuda_lib import CudaKernel, check_cuda_operand, ptr
+from dcs_net_tpu_torch.utils.cuda_lib import KERNELS, CudaKernel, check_cuda_operand, ptr
 
 _i = ctypes.c_int
 _p = ctypes.c_void_p
@@ -54,6 +61,8 @@ KERNEL = CudaKernel(
 KERNEL_DENSE = CudaKernel(
     "stft_dense", "stft.cu", "dcs_stft_forward",
     [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
+KERNEL_DENSE_BF16 = CudaKernel(
+    "stft_dense_bf16", "stft.cu", "dcs_stft_forward_bf16", KERNEL_DENSE.argtypes)
 
 # the in-register DFT sizes of csrc/stft.cu (dft_any<R>)
 CODELETS = (3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 15, 16)
@@ -73,6 +82,8 @@ H100_SMS = 132
 # count is :func:`blocks_per_sm`)
 DENSE_FRAMES, DENSE_BINS, DENSE_CHUNK, DENSE_MAX_SPLIT = 64, 32, 32, 8
 DENSE_SMEM = 4 * 2 * (2 * DENSE_CHUNK * 2 * DENSE_BINS + DENSE_FRAMES * (DENSE_CHUNK + 4))
+# the bf16 class: one bf16 slab a chunk in place of the hi and lo ones
+DENSE_SMEM_BF16 = 4 * 2 * (DENSE_CHUNK * DENSE_BINS + DENSE_FRAMES * (DENSE_CHUNK + 4))
 DENSE_RESIDENT = 4
 
 
@@ -100,9 +111,12 @@ def fft_radices(n_fft: int) -> Optional[Tuple[int, ...]]:
     return min(plans, key=lambda p: (len(p), p)) if plans else None
 
 
-def choose_entry(n_fft: int, hop: int) -> str:
-    """``"fft"`` or ``"dense"``: which entry point a CUDA tensor takes, from
-    the shape alone."""
+def choose_entry(n_fft: int, hop: int, dft_dtype: str = "float32") -> str:
+    """``"fft"``, ``"dense"`` or ``"dense_bf16"``: which entry point a CUDA
+    tensor takes, from the shape and the operand type alone. At bfloat16
+    every size takes the dense entry's bf16 class."""
+    if dft_dtype == "bfloat16":
+        return "dense_bf16"
     return "fft" if fft_radices(n_fft) is not None and 0 < hop <= n_fft else "dense"
 
 
@@ -241,6 +255,32 @@ def dense_basis(cos_b: np.ndarray, sin_b: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(parts.transpose(4, 1, 0, 2, 5, 3))
 
 
+def bf16_round(a: np.ndarray) -> torch.Tensor:
+    """float32 ``a`` rounded to bf16 (nearest even, as ``.to(torch.bfloat16)``
+    and ``jnp.asarray(a, jnp.bfloat16)`` round), as a bf16 tensor."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
+
+
+def dense_basis_bf16(cos_b: np.ndarray, sin_b: np.ndarray) -> torch.Tensor:
+    """The dense entry's bf16 basis: the folded float32 (n_fft, F) cos and sin
+    bases rounded once to bf16 (the JAX package's float64 fold -> float32
+    -> bf16), as one (Kp, 2 Fp) matrix laid out as :func:`dense_basis` lays
+    it, without the split. Returned as (Fp/32, Kp/32, 4, 64, 8) bf16: for
+    column block j and chunk c of 32 rows, element (k, n) at [k // 8, n,
+    k % 8], the K-major core-matrix image (8 n x 8 k bf16, 16 bytes a row)
+    that the bf16 ``wgmma`` reads, one contiguous copy a chunk."""
+    k, f = cos_b.shape
+    kp, fp = -(-k // DENSE_CHUNK) * DENSE_CHUNK, -(-f // DENSE_BINS) * DENSE_BINS
+    out = np.zeros((kp, fp // DENSE_BINS, 2, DENSE_BINS), np.float32)
+    for j, b in enumerate((cos_b, sin_b)):
+        out[:k, :, j, :] = np.pad(np.asarray(b, np.float32), ((0, 0), (0, fp - f))
+                                  ).reshape(k, fp // DENSE_BINS, DENSE_BINS)
+    v = bf16_round(out.reshape(kp, 2 * fp))
+    # (chunk, k // 8 in it, k % 8, column block, n) -> the slabs
+    v = v.reshape(kp // DENSE_CHUNK, DENSE_CHUNK // 8, 8, fp // DENSE_BINS, 2 * DENSE_BINS)
+    return v.permute(3, 0, 1, 4, 2).contiguous()
+
+
 def dense_split(n_fft: int, n_bins: int, batch: int, n_frames: int,
                 resident: int = DENSE_RESIDENT) -> int:
     """Blocks of a cluster that share one output tile of the dense entry,
@@ -259,13 +299,15 @@ def dense_split(n_fft: int, n_bins: int, batch: int, n_frames: int,
 
 @functools.lru_cache(maxsize=None)
 def blocks_per_sm(entry: str, smem: int) -> int:
-    """Blocks of the mixed FFT kernel (``"fft"``) or of the dense kernel
-    (``"dense"``) one SM of the card holds at once with ``smem`` bytes of
-    dynamic shared memory each (a query of the CUDA occupancy calculator;
-    builds the library, launches nothing; asked once a process)."""
-    fn = KERNEL.library_function("dcs_stft_blocks_per_sm", [_i, _i, _p])
+    """Blocks of the mixed FFT kernel (``"fft"``), of the dense kernel
+    (``"dense"``) or of its bf16 class (``"dense_bf16"``) one SM of the card
+    holds at once with ``smem`` bytes of dynamic shared memory each (a query
+    of the CUDA occupancy calculator; builds the library, launches nothing;
+    asked once a process)."""
+    # through the registry: KERNEL itself may be wrapped (shape logs, tests)
+    fn = KERNELS["stft"].library_function("dcs_stft_blocks_per_sm", [_i, _i, _p])
     out = ctypes.c_int(0)
-    rc = fn(int(entry == "dense"), smem, ctypes.byref(out))
+    rc = fn(("fft", "dense", "dense_bf16").index(entry), smem, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"dcs_stft_blocks_per_sm failed: error {rc}")
     return out.value
@@ -278,7 +320,9 @@ class STFTPlan(NamedTuple):
     None for the compiled size; the radices follow from n_fft), or the
     dense entry's packed basis. A plan on the CPU holds the folded (n_fft,
     F) bases of the plain version, and the FFT tables too where the FFT
-    entry takes the size."""
+    entry takes the size. A plan at bf16 (``bf16``) holds on the card the bf16
+    basis of :func:`dense_basis_bf16` in ``dense``, on the CPU the bases
+    rounded to bf16 (as float32 values) in ``cos_b`` and ``sin_b``."""
 
     n_fft: int
     n_bins: int
@@ -289,6 +333,7 @@ class STFTPlan(NamedTuple):
     sin_b: Optional[torch.Tensor]
     fft: Optional[Tuple[torch.Tensor, ...]]
     dense: Optional[torch.Tensor] = None
+    bf16: bool = False
 
 
 def _check(x: torch.Tensor, n_fft: int, hop: int, pad: int) -> int:
@@ -325,23 +370,27 @@ def _outputs(x: torch.Tensor, n_bins: int, n_frames: int):
 
 def _launch_dense(x: torch.Tensor, plan: STFTPlan, n_frames: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dense entry on a CUDA tensor, from the plan's packed basis."""
+    """The dense entry, or at a bf16 plan its bf16 class, on a CUDA tensor,
+    from the plan's packed basis."""
     dev = x.device
     if plan.dense is None:
         raise ValueError(f"the plan holds no dense basis for n_fft {plan.n_fft}")
-    shape = (-(-plan.n_bins // DENSE_BINS), -(-plan.n_fft // DENSE_CHUNK), 2,
-             DENSE_CHUNK // 4, 2 * DENSE_BINS, 4)
-    check_cuda_operand("dense", plan.dense, dev, 6)
+    nb, nc = -(-plan.n_bins // DENSE_BINS), -(-plan.n_fft // DENSE_CHUNK)
+    if plan.bf16:
+        entry, kernel, smem = "dense_bf16", KERNEL_DENSE_BF16, DENSE_SMEM_BF16
+        dtype, shape = torch.bfloat16, (nb, nc, DENSE_CHUNK // 8, 2 * DENSE_BINS, 8)
+    else:
+        entry, kernel, smem = "dense", KERNEL_DENSE, DENSE_SMEM
+        dtype, shape = torch.float32, (nb, nc, 2, DENSE_CHUNK // 4, 2 * DENSE_BINS, 4)
+    check_cuda_operand("dense", plan.dense, dev, len(shape), dtype)
     if tuple(plan.dense.shape) != shape or plan.dense.data_ptr() % 16:
         raise ValueError(f"the dense basis must be {shape} and 16-byte aligned, "
                          f"got {tuple(plan.dense.shape)}")
     re, im = _outputs(x, plan.n_bins, n_frames)
     split = dense_split(plan.n_fft, plan.n_bins, x.shape[0], n_frames,
-                        blocks_per_sm("dense", DENSE_SMEM) if x.is_cuda
-                        else DENSE_RESIDENT)
-    KERNEL_DENSE(dev, ptr(x), ptr(plan.dense), ptr(re), ptr(im), x.shape[0],
-                 x.shape[1], plan.n_fft, plan.hop, plan.n_bins, n_frames, plan.pad,
-                 split)
+                        blocks_per_sm(entry, smem) if x.is_cuda else DENSE_RESIDENT)
+    kernel(dev, ptr(x), ptr(plan.dense), ptr(re), ptr(im), x.shape[0],
+           x.shape[1], plan.n_fft, plan.hop, plan.n_bins, n_frames, plan.pad, split)
     return re, im
 
 
@@ -380,12 +429,15 @@ def stft_analysis(x: torch.Tensor, plan: STFTPlan
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, n) float32 -> (re, im), each (B, F, T): the windowed real DFT of
     the frames of the signal reflect-padded by ``pad`` at stride ``hop``, bins
-    ``first_bin .. first_bin + F - 1``. CPU tensors take the plain version;
-    CUDA tensors the entry point :func:`choose_entry` names."""
+    ``first_bin .. first_bin + F - 1``. CPU tensors take the plain version
+    (at a bf16 plan on the samples rounded to bf16, against the plan's
+    rounded bases); CUDA tensors the entry point :func:`choose_entry` names."""
     if x.device.type == "cpu":
+        if plan.bf16:
+            x = x.to(torch.bfloat16).to(x.dtype)
         return stft_dft_plain(x, plan.cos_b, plan.sin_b, plan.hop, plan.pad)
     n_frames = _check(x, plan.n_fft, plan.hop, plan.pad)
     check_cuda_operand("x", x, x.device, 2)
-    if choose_entry(plan.n_fft, plan.hop) == "dense":
+    if plan.bf16 or choose_entry(plan.n_fft, plan.hop) == "dense":
         return _launch_dense(x, plan, n_frames)
     return _launch_fft(x, plan, n_frames)

@@ -15,6 +15,13 @@ Kernels on this path: kernel 2 runs the 13 CBAM spatial-attention convs
 (``ops/attention.py``; in eval, complex and real, as the fused gate: pool,
 then conv + sigmoid + product) and kernel 3 the 7 decoder convs (see
 ``ops/conv_engine.py``).
+
+``compute_dtype="bfloat16"`` (the JAX package's mixed precision) runs the
+complex variants' convs, linear layer and LSTM products on bf16 operands with
+float32 sums and bf16 activations (BN in float32), the parameters float32,
+the output bound in float32; kernels 2 and 3 then take their bf16 classes.
+It serves only: training at bf16, and the real variants at bf16, are ROADMAP
+Queue 1 item 5b and raise.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from dcs_net_tpu_torch.core.config import ModelConfig, Quirks
 from dcs_net_tpu_torch.ops import attention as att
 from dcs_net_tpu_torch.ops import complex_layers as cl
 from dcs_net_tpu_torch.ops import masks
+from dcs_net_tpu_torch.ops import precision as P
 from dcs_net_tpu_torch.ops import real_layers as rl
 from dcs_net_tpu_torch.ops.lstm import LSTM, ComplexLSTM
 from dcs_net_tpu_torch.utils.carray import CArray
@@ -47,10 +55,15 @@ class DCSNet(nn.Module):
                  device: DeviceLike = None, seed: int = 0):
         super().__init__()
         m = cfg
-        if m.compute_dtype != "float32" or m.param_dtype != "float32":
+        if m.param_dtype != "float32":
             raise NotImplementedError(
-                "the port runs float32 only; reduced-precision compute is "
-                "ROADMAP Queue 1 item 5")
+                f"param_dtype={m.param_dtype!r}: the port keeps its parameters "
+                "in float32")
+        dt = P.operand_dtype(m.compute_dtype)
+        if dt is not None and not m.complex_valued:
+            raise NotImplementedError(
+                "compute_dtype='bfloat16' runs the complex variants (DC, DCS); "
+                "the real ones (DR, DRS) at bf16 are ROADMAP Queue 1 item 5b")
         if m.fc_features != m.latent_channels:
             raise ValueError(
                 f"fc_features ({m.fc_features}) must equal the latent channel "
@@ -69,21 +82,23 @@ class DCSNet(nn.Module):
                 return (att.ComplexChannelAttention(
                             channels, m.ca_reduction,
                             maxpool_is_avg=quirks.complex_maxpool_is_avg,
-                            weight_init=m.init, generator=g),
+                            weight_init=m.init, generator=g, dtype=dt),
                         att.ComplexSpatialAttention(
-                            m.sa_kernel, weight_init=m.init, generator=g))
+                            m.sa_kernel, weight_init=m.init, generator=g, dtype=dt))
             return (att.RealChannelAttention(
                         channels, m.ca_reduction, max_only=quirks.real_ca_max_only,
                         weight_init=m.init, generator=g),
                     att.RealSpatialAttention(m.sa_kernel, weight_init=m.init,
                                              generator=g))
 
+        # the complex layers' operand type (the real ones run float32 only)
+        typed = {"dtype": dt} if cx else {}
         self.initial_bn = BN(1)
         for i in range(m.n_layers):
             cin, cout = m.enc_channels(i)
             self.add_module(f"enc{i}_conv", Conv(
                 cin, cout, m.kernel_e[i], stride=m.stride_e[i],
-                padding=m.kernel_e[i] // 2, weight_init=m.init, generator=g))
+                padding=m.kernel_e[i] // 2, weight_init=m.init, generator=g, **typed))
             self.add_module(f"enc{i}_bn", BN(cout))
         self.dropout_conv = Drop(m.dropout_conv)
         self.dropout_fc = Drop(m.dropout_fc)
@@ -91,9 +106,9 @@ class DCSNet(nn.Module):
         d = 2 if m.lstm_bidir else 1
         Lstm, Lin = (ComplexLSTM, cl.ComplexLinear) if cx else (LSTM, rl.Linear)
         self.lstm = Lstm(m.latent_channels, m.lstm_hidden, m.lstm_layers,
-                         m.lstm_bidir, generator=g)
+                         m.lstm_bidir, generator=g, **typed)
         self.fc = Lin(m.lstm_hidden * d, m.fc_features, weight_init=m.init,
-                      generator=g)
+                      generator=g, **typed)
 
         ConvT = cl.ComplexConvTranspose2d if cx else rl.ConvTranspose2d
         for i in range(m.n_layers):
@@ -106,7 +121,7 @@ class DCSNet(nn.Module):
                 self.add_module(f"skip{i}_sa", sa)
             self.add_module(f"dec{i}_convt", ConvT(
                 cin, cout, m.kernel_d[i], padding=m.kernel_d[i] // 2,
-                weight_init=m.init, upsample=m.upsample[i], generator=g))
+                weight_init=m.init, upsample=m.upsample[i], generator=g, **typed))
             if not last:
                 self.add_module(f"dec{i}_bn", BN(cout))
                 if m.attention:

@@ -16,6 +16,11 @@ kernel 2's fused gate (pool, then conv + sigmoid + product), which is
 forward-only. Where autograd follows the input or the weights (training) the
 gate takes the un-fused form, the JAX structure: pooling, the conv (kernel 2
 under autograd), the sigmoid and the product as separate ops.
+
+At bf16 (``dtype``, the JAX modules' operand type) the complex channel
+attention's 1x1 convs take bf16 operands, and the spatial attention's gate
+runs kernel 2's bf16 pool and gate classes on its packed kernel rounded to
+bf16 once; its un-fused form (training) has no bf16 class.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from torch import nn
 
 from dcs_net_tpu_torch.ops import complex_layers as cl
 from dcs_net_tpu_torch.ops import cuda_conv
+from dcs_net_tpu_torch.ops import precision as P
 from dcs_net_tpu_torch.ops import real_layers as rl
 from dcs_net_tpu_torch.utils.carray import CArray
 
@@ -96,14 +102,17 @@ class ComplexChannelAttention(nn.Module):
     def __init__(self, channels: int, reduction: int,
                  maxpool_is_avg: bool = True,
                  weight_init: str = "xavier_uniform",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         hidden = max(channels // reduction, 1)
         self.maxpool_is_avg = maxpool_is_avg
         self.fc1 = cl.ComplexConv2d(channels, hidden, 1, use_bias=False,
-                                    weight_init=weight_init, generator=generator)
+                                    weight_init=weight_init, generator=generator,
+                                    dtype=dtype)
         self.fc2 = cl.ComplexConv2d(hidden, channels, 1, use_bias=False,
-                                    weight_init=weight_init, generator=generator)
+                                    weight_init=weight_init, generator=generator,
+                                    dtype=dtype)
 
     def _fc(self, v: CArray) -> CArray:
         return self.fc2(cl.complex_relu(self.fc1(v)))
@@ -120,12 +129,14 @@ class ComplexChannelAttention(nn.Module):
 class ComplexSpatialAttention(nn.Module):
     def __init__(self, kernel_size: int = 7,
                  weight_init: str = "xavier_uniform",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.conv = cl.ComplexConv2d(2, 1, kernel_size,
                                      padding=kernel_size // 2, use_bias=False,
                                      weight_init=weight_init,
-                                     generator=generator)
+                                     generator=generator, dtype=dtype)
         self._packed = None     # (key, packed kernel) of the last gate call
 
     def forward(self, x: CArray) -> CArray:
@@ -139,14 +150,16 @@ class ComplexSpatialAttention(nn.Module):
 
     def packed_kernel(self) -> torch.Tensor:
         """The conv's block kernel (K, K, 4, 2) over the pooled map
-        [mean re, max re, mean im, max im], for the forward-only fused gate:
-        built once, detached, and kept until a weight changes: an in-place
-        update (an optimizer step, ``load_state_dict``) moves the tensor's
-        version, a move to another device its address."""
+        [mean re, max re, mean im, max im], for the forward-only fused gate
+        (at bf16 rounded to bf16): built once, detached, and kept until a
+        weight changes: an in-place update (an optimizer step,
+        ``load_state_dict``) moves the tensor's version, a move to another
+        device its address."""
         wr, wi = self.conv.weight_r, self.conv.weight_i
         key = (wr.device, wr.data_ptr(), wr._version, wi.data_ptr(), wi._version)
         if self._packed is None or self._packed[0] != key:
-            self._packed = (key, self.conv.block_kernel().detach().contiguous())
+            packed = P.cast(self.conv.block_kernel().detach(), self.dtype)
+            self._packed = (key, packed.contiguous())
         return self._packed[1]
 
     def gate(self, x: CArray) -> CArray:
@@ -161,5 +174,6 @@ class ComplexSpatialAttention(nn.Module):
         w = self.packed_kernel()
         if tuple(w.shape) != (7, 7, 4, 2):
             return cl.complex_mul_bcast(x, self(x))
+        dt = self.dtype
         return CArray(*cuda_conv.spatial_gate(
-            x.re.contiguous(), x.im.contiguous(), w.contiguous()))
+            P.cast(x.re, dt).contiguous(), P.cast(x.im, dt).contiguous(), w.contiguous()))

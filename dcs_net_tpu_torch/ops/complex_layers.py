@@ -8,6 +8,11 @@ Biases keep the torch pairing (b_r, b_i) -> (b_r - b_i, b_r + b_i).
 
 Weights are stored in torch layouts (conv (Cout, Cin, kh, kw), convT
 (Cin, Cout, kh, kw), linear (out, in)); ``convert.py`` maps the JAX tree.
+
+``dtype`` (None, or bf16: ``ops/precision.py``) is the JAX layers' operand
+type: at bf16 the conv, convT and linear layers round their inputs and their
+float32 weights to bf16, sum in float32 and give bf16 outputs (the bias added
+in bf16); the BN computes in float32 and returns its input's type.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from torch import nn
 
 from dcs_net_tpu_torch.ops import conv_engine as ce
 from dcs_net_tpu_torch.ops import initializers as init
+from dcs_net_tpu_torch.ops import precision as P
 from dcs_net_tpu_torch.ops.real_layers import _pair, dropout_mask
 from dcs_net_tpu_torch.utils.carray import CArray
 
@@ -53,8 +59,10 @@ class ComplexConv2d(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size,
                  stride: Pair = (1, 1), padding: int = 0, use_bias: bool = True,
                  weight_init: str = "xavier_uniform",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         kh, kw = _pair(kernel_size)
         self.stride = _pair(stride)
         self.padding = padding
@@ -72,10 +80,11 @@ class ComplexConv2d(nn.Module):
         return _block_kernel(wr, wi)
 
     def forward(self, x: CArray) -> CArray:
-        packed = torch.cat([x.re, x.im], dim=-1)
-        y = ce.conv2d(packed, self.block_kernel(), self.stride, self.padding)
+        packed = P.cast(torch.cat([x.re, x.im], dim=-1), self.dtype)
+        y = ce.conv2d(packed, P.cast(self.block_kernel(), self.dtype), self.stride,
+                      self.padding)
         if self.bias_r is not None:
-            y = y + _combined_bias(self.bias_r, self.bias_i)
+            y = y + P.cast(_combined_bias(self.bias_r, self.bias_i), self.dtype)
         return CArray.unpack_channels(y, dim=-1)
 
 
@@ -88,8 +97,10 @@ class ComplexConvTranspose2d(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size,
                  stride: Pair = (1, 1), padding: int = 0, use_bias: bool = True,
                  weight_init: str = "xavier_uniform", upsample: Pair = (1, 1),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         kh, kw = _pair(kernel_size)
         if _pair(stride) != (1, 1) or kh != kw or padding != kh // 2:
             raise NotImplementedError(
@@ -112,19 +123,20 @@ class ComplexConvTranspose2d(nn.Module):
             raise ValueError(f"inputs carry {sum(cins)} channels, the layer "
                              f"expects {self.weight_r.shape[0]}")
         # stride-1 convT == conv with the spatially flipped kernel
-        fr = torch.flip(self.weight_r.permute(2, 3, 0, 1), dims=(0, 1))
-        fi = torch.flip(self.weight_i.permute(2, 3, 0, 1), dims=(0, 1))
+        dt = self.dtype
+        fr = P.cast(torch.flip(self.weight_r.permute(2, 3, 0, 1), dims=(0, 1)), dt)
+        fi = P.cast(torch.flip(self.weight_i.permute(2, 3, 0, 1), dims=(0, 1)), dt)
         fr_parts = torch.split(fr, cins, dim=2)
         fi_parts = torch.split(fi, cins, dim=2)
-        ins = [xc.re for xc in xs] + [xc.im for xc in xs]
+        ins = [P.cast(xc.re, dt) for xc in xs] + [P.cast(xc.im, dt) for xc in xs]
         w_cols = ([torch.cat([r, i], dim=-1) for r, i in zip(fr_parts, fi_parts)]
                   + [torch.cat([-i, r], dim=-1)
                      for r, i in zip(fr_parts, fi_parts)])
         y = ce.upsampled_conv2d_multi(ins, w_cols, self.upsample)
         y_re, y_im = y[..., :self.features], y[..., self.features:]
         if self.bias_r is not None:
-            y_re = y_re + (self.bias_r - self.bias_i)
-            y_im = y_im + (self.bias_r + self.bias_i)
+            y_re = y_re + P.cast(self.bias_r - self.bias_i, dt)
+            y_im = y_im + P.cast(self.bias_r + self.bias_i, dt)
         return CArray(y_re, y_im)
 
 
@@ -133,8 +145,10 @@ class ComplexLinear(nn.Module):
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  weight_init: str = "xavier_uniform",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         w_init = init.weight_init(weight_init, in_features, features)
         self.weight_r = nn.Parameter(w_init((features, in_features), generator))
         self.weight_i = nn.Parameter(w_init((features, in_features), generator))
@@ -145,9 +159,12 @@ class ComplexLinear(nn.Module):
         wr, wi = self.weight_r.t(), self.weight_i.t()
         block = torch.cat([torch.cat([wr, wi], dim=-1),
                            torch.cat([-wi, wr], dim=-1)], dim=-2)
-        y = packed @ block
+        if self.dtype is None:
+            y = packed @ block
+        else:
+            y = P.matmul(P.cast(packed, self.dtype), P.cast(block, self.dtype))
         if self.bias_r is not None:
-            y = y + _combined_bias(self.bias_r, self.bias_i)
+            y = y + P.cast(_combined_bias(self.bias_r, self.bias_i), self.dtype)
         return CArray.unpack_channels(y, dim=-1)
 
 
@@ -260,9 +277,11 @@ def complex_sigmoid(x: CArray) -> CArray:
 
 
 def complex_adaptive_avg_pool_1(x: CArray) -> CArray:
-    """(B, H, W, C) -> (B, 1, 1, C) complex mean."""
-    return CArray(x.re.mean(dim=(-3, -2), keepdim=True),
-                  x.im.mean(dim=(-3, -2), keepdim=True))
+    """(B, H, W, C) -> (B, 1, 1, C) complex mean, summed in float32 (at
+    least) and returned in x's type."""
+    acc = torch.promote_types(x.re.dtype, torch.float32)
+    return CArray(*(p.mean(dim=(-3, -2), keepdim=True, dtype=acc).to(p.dtype)
+                    for p in x))
 
 
 def complex_adaptive_max_pool_1(x: CArray, *, faithful_avg: bool) -> CArray:

@@ -14,6 +14,13 @@ TPU-only reformulations (tap-fold, space-to-depth, row-dot, phase folds):
   the kernel folds into ``kbig`` (Dh*Dw, Cin, s_h*s_w*Cout), one VALID tap
   correlation runs as kernel 3 (``ops/cuda_tapconv.py``), and the phases
   interleave back.
+
+At bf16 operands (the JAX package's ``compute_dtype="bfloat16"``) both take
+bf16 inputs and weights and give bf16 outputs from float32 sums: kernel 3's
+bf16 class; ``F.conv2d`` in bf16 on the card (cuDNN sums bf16 products in
+float32), and on the CPU in float32 on the bf16 values, rounded once, since
+a CPU bf16 convolution leaves its accumulation unspecified. Kernel 2's conv
+entry has no bf16 class: a bf16 tensor there raises.
 """
 
 from __future__ import annotations
@@ -41,13 +48,18 @@ def use_tuned(kernel_size: int, stride: Tuple[int, int], padding: int,
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: Tuple[int, int],
            padding: int) -> torch.Tensor:
     """Cross-correlation without bias: x (B, H, W, Cin), w (K, K, Cin, Cout)
-    -> (B, HO, WO, Cout), torch Conv2d semantics."""
+    -> (B, HO, WO, Cout), torch Conv2d semantics, in x's type (bf16: bf16
+    operands, float32 sums)."""
     K, _, _, cout = w.shape
     if use_tuned(K, stride, padding, cout):
         return cuda_conv.conv2d_same_small_cout(
             x.contiguous(), w.contiguous(), cuda_conv.zero_bias(cout, x.device))
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
-                 stride=tuple(stride), padding=padding)
+    xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    if x.dtype == torch.bfloat16 and x.device.type == "cpu":
+        y = F.conv2d(xn.float(), wn.float(), stride=tuple(stride),
+                     padding=padding).to(torch.bfloat16)
+    else:
+        y = F.conv2d(xn, wn, stride=tuple(stride), padding=padding)
     return y.permute(0, 2, 3, 1)
 
 
@@ -83,7 +95,9 @@ def upsampled_conv2d_multi(xs: Sequence[torch.Tensor],
     """conv2d_same(nearest_upsample(concat(xs, -1), scale), concat(ws, 2)).
 
     xs: inputs (B, H, W, Cin_j); ws: (K, K, Cin_j, Cout), K odd, padding K//2.
-    Returns (B, s_h*H, s_w*W, Cout)."""
+    Returns (B, s_h*H, s_w*W, Cout). The fold sums the weights in float32
+    (at least), then rounds ``kbig`` to their type once, as the JAX
+    package's per-phase fold does."""
     K = ws[0].shape[0]
     p = K // 2
     s_h, s_w = scale
@@ -94,8 +108,9 @@ def upsampled_conv2d_multi(xs: Sequence[torch.Tensor],
     w = torch.cat(list(ws), dim=2) if len(ws) > 1 else ws[0]
     # kbig[(dh, dw), ci, (r_h, r_w, co)]
     #   = sum_{t, v} Fold_h[r_h, dh, t] * Fold_w[r_w, dw, v] * w[t, v, ci, co]
-    kbig = torch.einsum("adt,bev,tvio->deiabo", fh.to(w.dtype), fw.to(w.dtype), w).reshape(
-        Dh * Dw, w.shape[2], s_h * s_w * cout).contiguous()
+    acc = torch.promote_types(w.dtype, torch.float32)
+    kbig = torch.einsum("adt,bev,tvio->deiabo", fh.to(acc), fw.to(acc), w.to(acc)).to(
+        w.dtype).reshape(Dh * Dw, w.shape[2], s_h * s_w * cout).contiguous()
     x = torch.cat(list(xs), dim=-1) if len(xs) > 1 else xs[0]
     # the window's zero padding goes to the tap conv, whose input gradient
     # then writes x's own pixels only

@@ -32,6 +32,16 @@ launches, bound by the bytes of x. The tiles of the tiled body are chosen here
 choice; see the source
 for the design notes.
 
+The complex pool and gate have bf16 classes (``POOL_BF16``, ``GATE_BF16``),
+which :func:`sa_pool` and :func:`sa_gate` take for bf16 tensors: the JAX
+package's spatial attention at ``dtype=bfloat16``, with the pooled map, the
+packed kernel and x in bf16, float32 sums, the mean rounded once and the max
+exact, and the conv, sigmoid and product of the gate in float32 on the
+widened values, each output rounded once (:func:`sa_pool_bf16_plain`,
+:func:`sa_gate_bf16_plain`). The conv entry, its input gradient and the real
+gate have no bf16 class (ROADMAP Queue 1 item 5b): a bf16 tensor there
+raises, on the CPU too.
+
 Each wrapper takes CPU tensors through the plain version and CUDA tensors
 through the kernel, never falling back between the two. ``KERNEL.launches``
 counts the launches of kernel 2's conv body in the forward direction: its
@@ -64,7 +74,8 @@ import torch
 import torch.nn.functional as F
 
 from dcs_net_tpu_torch.ops import cuda_tapconv
-from dcs_net_tpu_torch.utils.cuda_lib import CudaKernel, check_cuda_operand, ptr
+from dcs_net_tpu_torch.utils.cuda_lib import (CudaKernel, check_cuda_operand, ptr,
+                                              refuse_bf16)
 from dcs_net_tpu_torch.utils.device import device_cache
 
 MAX_K = 7
@@ -96,6 +107,12 @@ GATE_REAL = CudaKernel("sa_gate_real", "conv_same.cu", "dcs_sa_gate_real",
 # on its own so that a train step shows its forward and backward launches
 DGRAD = CudaKernel("conv_same_small_cout_dgrad", "conv_same.cu",
                    "dcs_conv_same_small_cout", KERNEL.argtypes)
+# the complex pool's and gate's bf16 classes, counted on their own: a bf16
+# enhance call launches them and nothing of the float32 classes
+POOL_BF16 = CudaKernel("sa_pool_bf16", "conv_same.cu", "dcs_sa_pool_bf16",
+                       POOL.argtypes)
+GATE_BF16 = CudaKernel("sa_gate_bf16", "conv_same.cu", "dcs_sa_gate_bf16",
+                       GATE.argtypes)
 
 
 def applicable(kernel_size: int, cout: int) -> bool:
@@ -244,6 +261,7 @@ def conv2d_same_small_cout_plain(x: torch.Tensor, w: torch.Tensor,
                                  bias: torch.Tensor) -> torch.Tensor:
     """Plain version: zero pad, then the K*K shifted-slice sum of
     (pixels x Cin) @ (Cin x Cout) matmuls, plus bias."""
+    refuse_bf16("conv2d_same_small_cout", x, w, bias)
     _check_shapes(x, w, bias)
     K = w.shape[0]
     p = K // 2
@@ -362,6 +380,22 @@ def conv2d_same_small_cout(x: torch.Tensor, w: torch.Tensor,
     return Conv2dSameSmallCout.apply(x, w, bias)
 
 
+def sa_pool_bf16_plain(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    """The bf16 class's plain version: :func:`sa_pool_plain` in float32 on
+    the bf16 values, rounded once to bf16 (the means; the maxima are
+    exact)."""
+    return sa_pool_plain(re.float(), im.float()).to(torch.bfloat16)
+
+
+def sa_gate_bf16_plain(pooled: torch.Tensor, w: torch.Tensor, re: torch.Tensor,
+                       im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 class's plain version: :func:`sa_gate_plain` in float32 on
+    the bf16 operands (w rounded to bf16), each output rounded once."""
+    b16 = torch.bfloat16
+    out = sa_gate_plain(pooled.float(), w.to(b16).float(), re.float(), im.float())
+    return out[0].to(b16), out[1].to(b16)
+
+
 def sa_pool_plain(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) re, im -> (B, H, W, 4) = [mean re, max re, mean im,
     max im] over the channels: the order in which the spatial attention's
@@ -399,18 +433,20 @@ def _forward_only(entry: str, *tensors: torch.Tensor) -> None:
 
 
 def sa_pool(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
-    """Channel mean and max of re and im, packed (B, H, W, 4)."""
+    """Channel mean and max of re and im, packed (B, H, W, 4); bf16 re and
+    im take the bf16 class (a bf16 map)."""
+    bf16 = re.dtype == torch.bfloat16
     if re.device.type == "cpu":
-        return sa_pool_plain(re, im)
+        return sa_pool_bf16_plain(re, im) if bf16 else sa_pool_plain(re, im)
     _forward_only("sa_pool", re, im)
-    dev = re.device
-    check_cuda_operand("re", re, dev, 4)
-    check_cuda_operand("im", im, dev, 4)
+    dev, dtype = re.device, re.dtype if bf16 else torch.float32
+    check_cuda_operand("re", re, dev, 4, dtype)
+    check_cuda_operand("im", im, dev, 4, dtype)
     if re.shape != im.shape:
         raise ValueError(f"re {tuple(re.shape)} and im {tuple(im.shape)} differ")
     B, H, W, C = re.shape
-    pooled = torch.empty((B, H, W, 4), device=dev, dtype=torch.float32)
-    POOL(dev, ptr(re), ptr(im), ptr(pooled), B, H, W, C)
+    pooled = torch.empty((B, H, W, 4), device=dev, dtype=dtype)
+    (POOL_BF16 if bf16 else POOL)(dev, ptr(re), ptr(im), ptr(pooled), B, H, W, C)
     return pooled
 
 
@@ -419,24 +455,25 @@ def sa_gate(pooled: torch.Tensor, w: torch.Tensor, re: torch.Tensor,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x * sigmoid(conv_same(pooled, w)) for x = re + i im (B, H, W, C),
     pooled (B, H, W, 4), w (7, 7, 4, 2). ``tile`` defaults to
-    :func:`gate_tile`'s."""
+    :func:`gate_tile`'s. bf16 re and im take the bf16 class, whose pooled
+    map and w are bf16 too (the module rounds its packed kernel once)."""
+    bf16 = re.dtype == torch.bfloat16
     if re.device.type == "cpu":
-        return sa_gate_plain(pooled, w, re, im)
+        return (sa_gate_bf16_plain if bf16 else sa_gate_plain)(pooled, w, re, im)
     _forward_only("sa_gate", pooled, w, re, im)
     _check_gate_shapes(pooled, w, re, im)
-    dev = re.device
-    check_cuda_operand("pooled", pooled, dev, 4)
-    check_cuda_operand("w", w, dev, 4)
-    check_cuda_operand("re", re, dev, 4)
-    check_cuda_operand("im", im, dev, 4)
-    if pooled.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("pooled and w must be 16-byte aligned")
+    dev, dtype = re.device, re.dtype if bf16 else torch.float32
+    for name, t in (("pooled", pooled), ("w", w), ("re", re), ("im", im)):
+        check_cuda_operand(name, t, dev, 4, dtype)
+    word = 8 if bf16 else 16
+    if pooled.data_ptr() % word or w.data_ptr() % word:
+        raise ValueError(f"pooled and w must be {word}-byte aligned")
     B, H, W, C = re.shape
     tile = gate_tile(B, H, W, 4, 2) if tile is None else tile
     _check_tile(tile, 4, 2)
     out_re, out_im = torch.empty_like(re), torch.empty_like(im)
-    GATE(dev, ptr(pooled), ptr(w), ptr(re), ptr(im), ptr(out_re), ptr(out_im),
-         B, H, W, C, *tile)
+    (GATE_BF16 if bf16 else GATE)(dev, ptr(pooled), ptr(w), ptr(re), ptr(im),
+                                  ptr(out_re), ptr(out_im), B, H, W, C, *tile)
     return out_re, out_im
 
 
@@ -463,6 +500,7 @@ def _check_real_gate_shapes(pooled: torch.Tensor, w: torch.Tensor,
 def sa_pool_real_plain(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, H, W, 2) = [mean, max] over the channels: the
     order in which the real attention's conv reads them."""
+    refuse_bf16("sa_pool_real", x)
     return torch.cat([x.mean(dim=-1, keepdim=True), x.amax(dim=-1, keepdim=True)],
                      dim=-1)
 
@@ -471,6 +509,7 @@ def sa_gate_real_plain(pooled: torch.Tensor, w: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(conv_same(pooled, w)), the one-channel map broadcast over
     C."""
+    refuse_bf16("sa_gate_real", pooled, w, x)
     _check_real_gate_shapes(pooled, w, x)
     return x * torch.sigmoid(conv2d_same_small_cout_plain(
         pooled, w, torch.zeros(1, device=w.device, dtype=w.dtype)))

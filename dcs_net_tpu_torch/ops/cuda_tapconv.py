@@ -22,6 +22,14 @@ and a split of the channel chunks among a cluster of blocks that adds its
 partial tiles in a fixed order, by a cost model measured on the H100. The
 public argument layout is unchanged. See the source for the design notes.
 
+The forward has a bf16 class (``KERNEL_BF16`` with ``PACK_BF16``), the JAX
+package's ``tapconv_valid`` at bf16 operands: x and w bf16, float32 sums, y
+bf16, one bf16 ``wgmma`` a 16-channel step on weights packed by
+:func:`pack_weights_bf16`'s layout, the same tiling and plan. Its plain
+version :func:`tapconv_valid_bf16_plain` sums the same exact products in
+float32 and rounds once. The input gradient has no bf16 class (training at
+bf16 is ROADMAP Queue 1 item 5b): a bf16 call that autograd follows raises.
+
 :func:`tapconv_valid` takes CPU tensors through the plain version and CUDA
 tensors through the kernel, never falling back between the two.
 
@@ -68,6 +76,11 @@ DGRAD = CudaKernel(
 DGRAD_PACK = CudaKernel(
     "tapconv_pack_dgrad", "tapconv.cu", "dcs_tapconv_pack_dgrad",
     [_p, _p, _i, _i, _i, _i, _i, _p])
+# the forward's bf16 class and its packing
+KERNEL_BF16 = CudaKernel(
+    "tapconv_valid_bf16", "tapconv.cu", "dcs_tapconv_valid_bf16", KERNEL.argtypes)
+PACK_BF16 = CudaKernel(
+    "tapconv_pack_bf16", "tapconv.cu", "dcs_tapconv_pack_bf16", PACK.argtypes)
 
 BK = 32     # input channels per reduction chunk of the kernel
 
@@ -103,6 +116,25 @@ def pack_weights(w: torch.Tensor, bn: int, bk: int = BK) -> torch.Tensor:
     wpad = F.pad(w, (0, nt * bn - n, 0, nc * bk - cin))
     tiles = wpad.reshape(taps, nc, bk // 4, 4, nt, bn).permute(4, 1, 0, 2, 5, 3)
     return torch.stack(split_tf32(tiles.contiguous()), dim=3)
+
+
+def pack_weights_bf16(w: torch.Tensor, bn: int, bk: int = BK) -> torch.Tensor:
+    """w (taps, Cin, N) bf16 -> (n tiles, chunks, taps, bk/8, bn, 8): per N
+    tile, chunk and tap one bf16 slab in the K-major core-matrix order the
+    bf16 class copies into shared memory (8 consecutive input channels, 16
+    bytes, innermost, then the output channel), zero beyond Cin and N: the
+    layout ``dcs_tapconv_pack_bf16`` writes."""
+    taps, cin, n = w.shape
+    nt, nc = -(-n // bn), -(-cin // bk)
+    wpad = F.pad(w, (0, nt * bn - n, 0, nc * bk - cin))
+    return wpad.reshape(taps, nc, bk // 8, 8, nt, bn).permute(4, 1, 0, 2, 5, 3).contiguous()
+
+
+def unpack_weights_bf16(wp: torch.Tensor, cin: int, n: int) -> torch.Tensor:
+    """The inverse of :func:`pack_weights_bf16`."""
+    nt, nc, taps, bk8, bn, _ = wp.shape
+    w = wp.permute(2, 1, 3, 5, 0, 4).reshape(taps, nc * 8 * bk8, nt * bn)
+    return w[:, :cin, :n].contiguous()
 
 
 def unpack_weights(wp: torch.Tensor, cin: int, n: int) -> torch.Tensor:
@@ -166,24 +198,41 @@ def tapconv_valid_plain(x: torch.Tensor, w: torch.Tensor, dh_n: int,
     return y
 
 
+def tapconv_valid_bf16_plain(x: torch.Tensor, w: torch.Tensor, dh_n: int,
+                             dw_n: int) -> torch.Tensor:
+    """Plain version of the bf16 class: the operands rounded to bf16, the
+    tap sum of :func:`tapconv_valid_plain` in float32 on those values (their
+    products are exact in float32), the output rounded to bf16 once."""
+    b16 = torch.bfloat16
+    return tapconv_valid_plain(x.to(b16).float(), w.to(b16).float(), dh_n, dw_n).to(b16)
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
             pad: Optional[Pad] = None,
             plan: Optional[Tuple[int, int, int, int]] = None) -> torch.Tensor:
     """The packing and tap-conv launches on CUDA tensors: x (B, H, W, Cin)
     read in place as zero-padded by ``pad``, at ``plan`` = (bn, flat, wgs,
-    split), by default :func:`forward_plan`'s."""
+    split), by default :func:`forward_plan`'s. bf16 x and w take the bf16
+    class (its packing and kernel), float32 the 3xTF32 one."""
     B, ho, wo, n = _out_shape(x, w, dh_n, dw_n, pad)
     dev = x.device
-    check_cuda_operand("x", x, dev, 4)
-    check_cuda_operand("w", w, dev, 3)
+    bf16 = x.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    check_cuda_operand("x", x, dev, 4, dtype)
+    check_cuda_operand("w", w, dev, 3, dtype)
     _, H, W, cin = x.shape
     top, _, left, _ = _pads(pad)
-    bn, flat, wgs, split = plan or forward_plan(B, H, W, cin, n, dh_n, dw_n, pad, dev)
-    packed = torch.empty((-(-n // bn), -(-cin // BK), dh_n * dw_n, 2, BK // 4,
-                          bn, 4), device=dev, dtype=torch.float32)
-    y = torch.empty((B, ho, wo, n), device=dev, dtype=torch.float32)
-    PACK(dev, ptr(w), ptr(packed), dh_n * dw_n, cin, n, bn)
-    KERNEL(dev, ptr(x), ptr(packed), ptr(y), B, H, W, cin, ho, wo, n, dh_n, dw_n,
+    bn, flat, wgs, split = plan or forward_plan(B, H, W, cin, n, dh_n, dw_n, pad, dev,
+                                                bf16=bf16)
+    nt, nc, taps = -(-n // bn), -(-cin // BK), dh_n * dw_n
+    if bf16:
+        pack, kernel, shape = PACK_BF16, KERNEL_BF16, (nt, nc, taps, BK // 8, bn, 8)
+    else:
+        pack, kernel, shape = PACK, KERNEL, (nt, nc, taps, 2, BK // 4, bn, 4)
+    packed = torch.empty(shape, device=dev, dtype=dtype)
+    y = torch.empty((B, ho, wo, n), device=dev, dtype=dtype)
+    pack(dev, ptr(w), ptr(packed), taps, cin, n, bn)
+    kernel(dev, ptr(x), ptr(packed), ptr(y), B, H, W, cin, ho, wo, n, dh_n, dw_n,
            top, left, flat, wgs, bn, split)
     return y
 
@@ -234,17 +283,18 @@ def _taps_per_stage(kb: int, bn: int) -> int:
 
 
 def smem_bytes(kb: int, bn: int, nsa: int, cg: int, taps: int, arows: int,
-               apw: int, part_rows: int = 0) -> int:
+               apw: int, part_rows: int = 0, bf16: bool = False) -> int:
     """Shared memory of one block (``smem_bytes`` in the source): the B
-    ring and ``nsa`` halo-tile stages of arows x apw pixels, or, where
-    larger, the partial tile of ``part_rows`` rows of a split; the
-    mbarriers."""
+    ring and ``nsa`` halo-tile stages of arows x apw pixels (float32: hi and
+    lo slabs, 36 words a pixel; ``bf16``: one bf16 slab, 40 bf16 a pixel),
+    or, where larger, the float32 partial tile of ``part_rows`` rows of a
+    split; the mbarriers."""
     tps = min(taps, _taps_per_stage(kb, bn))
     nchunks = -(-cg // kb)
     nit = nchunks * -(-taps // tps)
-    words = (min(nit, 3) * tps * 2 * kb * bn
-             + min(nchunks, nsa) * arows * apw * (kb + 4))
-    return 4 * max(words, part_rows * (bn + 8)) + 3 * 8
+    tapf, apitch, size = (kb * bn, kb + 8, 2) if bf16 else (2 * kb * bn, kb + 4, 4)
+    ring = size * (min(nit, 3) * tps * tapf + min(nchunks, nsa) * arows * apw * apitch)
+    return max(ring, 4 * part_rows * (bn + 8)) + 3 * 8
 
 
 def tiling(flat: int, wgs: int, H: int, W: int, dh_n: int, dw_n: int
@@ -265,7 +315,7 @@ def _m_tiles(B: int, H: int, W: int, dh_n: int, dw_n: int, flat: int, wgs: int) 
 
 
 def _tile_plan(B: int, H: int, W: int, cg: int, n: int, kb: int, bn: int,
-               dh_n: int, dw_n: int, sms: int) -> Tuple[int, int]:
+               dh_n: int, dw_n: int, sms: int, bf16: bool = False) -> Tuple[int, int]:
     """(flat, wgs) for an output (B, H, W, n) reduced over ``cg`` channels,
     from the shape alone. Images narrower than 128 columns take flat tiles
     (several rows a tile, so a 32-column image fills the 64 wgmma rows);
@@ -277,7 +327,7 @@ def _tile_plan(B: int, H: int, W: int, cg: int, n: int, kb: int, bn: int,
 
     def fits(flat, wgs, nsa):
         _, arows, apw = tiling(flat, wgs, H, W, dh_n, dw_n)
-        return smem_bytes(kb, bn, nsa, cg, taps, arows, apw) <= SMEM_LIMIT
+        return smem_bytes(kb, bn, nsa, cg, taps, arows, apw, bf16=bf16) <= SMEM_LIMIT
 
     flat = int(W < 128 and fits(1, 1, 1))
     px = H * W if flat else W
@@ -304,7 +354,8 @@ def dgrad_plan(B: int, H: int, W: int, n: int, cin: int, dh_n: int, dw_n: int,
 # at batch 1 and 8: about STEP_MS[wgs] for each tap and channel chunk a
 # block runs (the A side's loads and splits and the wgmma instructions, not
 # the weights' bytes), times the waves of clusters the grid takes. Fitted
-# to the sweep's lines by tools/fit_tapconv_plan.py.
+# to the sweep's lines by tools/fit_tapconv_plan.py, on the float32 class;
+# the bf16 class takes the same model (not fitted to it).
 STEP_MS = {1: 0.00094, 2: 0.00126}
 # cudaOccupancyMaxActiveClusters on the H100 at one block an SM, by cluster
 # size: the figures where no card is at hand (meta tensors)
@@ -312,19 +363,20 @@ H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
 
 
 @device_cache(64)
-def _clusters_at_once(device: torch.device, wgs: int, smem: int, split: int) -> int:
+def _clusters_at_once(device: torch.device, wgs: int, smem: int, split: int,
+                      bf16: bool = False) -> int:
     """Clusters of ``split`` blocks at ``wgs`` warpgroups and ``smem`` bytes
-    of shared memory that the card runs at once (``dcs_tapconv_clusters``).
-    A device cache: a graph's warm-up asks the library, its capture reads
-    the answer from the graph's entry."""
+    of shared memory that the card runs at once (``dcs_tapconv_clusters``;
+    ``bf16``: of the bf16 class's kernel). A device cache: a graph's warm-up
+    asks the library, its capture reads the answer from the graph's entry."""
     if device.type != "cuda":
         return H100_CLUSTERS[split]
     # through the registry: KERNEL itself may be wrapped (shape logs, tests)
     fn = KERNELS["tapconv_valid"].library_function(
-        "dcs_tapconv_clusters", [_i, _i, _i, ctypes.POINTER(_i)])
+        "dcs_tapconv_clusters", [_i, _i, _i, _i, ctypes.POINTER(_i)])
     out = _i(0)
     with torch.cuda.device(device):
-        rc = fn(wgs, smem, split, ctypes.byref(out))
+        rc = fn(wgs, smem, split, int(bf16), ctypes.byref(out))
     if rc != 0 or out.value < 1:
         raise RuntimeError(f"dcs_tapconv_clusters({wgs}, {smem}, {split}) failed: "
                            f"error {rc}, {out.value} clusters")
@@ -332,14 +384,14 @@ def _clusters_at_once(device: torch.device, wgs: int, smem: int, split: int) -> 
 
 
 def launch_smem(bn: int, wgs: int, cin: int, taps: int, arows: int, apw: int,
-                split: int) -> int:
+                split: int, bf16: bool = False) -> int:
     """Shared memory of one forward block as the source sizes it: two halo
     stages where they fit (always at two warpgroups), else one; the partial
     tile of a split."""
     part = 64 * wgs if split > 1 else 0
-    two = smem_bytes(BK, bn, 2, cin, taps, arows, apw, part)
+    two = smem_bytes(BK, bn, 2, cin, taps, arows, apw, part, bf16)
     return two if two <= SMEM_LIMIT or wgs == 2 else smem_bytes(
-        BK, bn, 1, cin, taps, arows, apw, part)
+        BK, bn, 1, cin, taps, arows, apw, part, bf16)
 
 
 def _live_taps(flat: int, wgs: int, H: int, HO: int, WO: int, top: int,
@@ -355,8 +407,8 @@ def _live_taps(flat: int, wgs: int, H: int, HO: int, WO: int, top: int,
 
 
 def forward_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
-                 pad: Pad = (0, 0, 0, 0), device: torch.device = torch.device("meta")
-                 ) -> Tuple[int, int, int, int]:
+                 pad: Pad = (0, 0, 0, 0), device: torch.device = torch.device("meta"),
+                 bf16: bool = False) -> Tuple[int, int, int, int]:
     """(bn, flat, wgs, split) of the forward of x (B, H, W, Cin) zero-padded
     by ``pad`` to N = ``n`` channels on ``device``, from the shape alone: the
     N tile of :func:`tile_n` and the tiling of :func:`_tile_plan`. Where that
@@ -365,11 +417,12 @@ def forward_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
     and the split (1, 2, 4 or 8 blocks of one output tile, each with at least
     one 32-channel chunk) of the least modelled time: the taps and chunks a
     block runs at ``STEP_MS``, times the waves of clusters the card runs
-    (:func:`_clusters_at_once`); of equal times, the fewer taps streamed."""
+    (:func:`_clusters_at_once`); of equal times, the fewer taps streamed.
+    ``bf16``: the bf16 class's, sized by its shared memory."""
     top, bottom, left, right = _pads(pad)
     HO, WO = H + top + bottom - dh_n + 1, W + left + right - dw_n + 1
     bn, nt = tile_n(n), -(-n // tile_n(n))
-    flat, wgs = _tile_plan(B, HO, WO, cin, n, BK, bn, dh_n, dw_n, _sm_count(device))
+    flat, wgs = _tile_plan(B, HO, WO, cin, n, BK, bn, dh_n, dw_n, _sm_count(device), bf16)
     if 2 * _m_tiles(B, HO, WO, dh_n, dw_n, flat, wgs) * nt > _sm_count(device):
         return bn, flat, wgs, 1
     nchunks = -(-cin // BK)
@@ -380,10 +433,11 @@ def forward_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
         _, arows, apw = tiling(flat, wgs, HO, WO, dh_n, dw_n)
         taps = _live_taps(flat, wgs, H, HO, WO, top, dh_n, dw_n)
         for split in (1, 2, 4, 8):
-            smem = launch_smem(bn, wgs, cin, dh_n * dw_n, arows, apw, split)
+            smem = launch_smem(bn, wgs, cin, dh_n * dw_n, arows, apw, split, bf16)
             if split > nchunks or smem > SMEM_LIMIT:
                 break
-            waves = -(-B * len(taps) * nt // _clusters_at_once(device, wgs, smem, split))
+            waves = -(-B * len(taps) * nt // _clusters_at_once(device, wgs, smem, split,
+                                                               bf16))
             key = (waves * -(-nchunks // split) * max(taps) * STEP_MS[wgs], B * sum(taps))
             if best is None or key < best:
                 best, plan = key, (bn, flat, wgs, split)
@@ -464,6 +518,16 @@ class TapconvValid(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
+def _refuse_bf16_grad(x: torch.Tensor, w: torch.Tensor) -> None:
+    """The bf16 class is forward-only: where autograd follows a bf16 operand
+    (training at bf16), raise on every device."""
+    if (x.dtype == torch.bfloat16 or w.dtype == torch.bfloat16) and (
+            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
+        raise NotImplementedError(
+            "tapconv_valid at bf16 has no input-gradient class: training at "
+            "bf16 is ROADMAP Queue 1 item 5b")
+
+
 def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
                   pad: Optional[Pad] = None) -> torch.Tensor:
     """x (B, H, W, Cin) zero-padded by ``pad`` = (top, bottom, left, right)
@@ -475,8 +539,12 @@ def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
     fits shared memory, Dh * (63 + Dw) <= 931 (12 x 12 and smaller), is
     taken; beyond that the launch is refused and the call raises. Where
     autograd follows neither operand the kernel runs without the
-    Function."""
+    Function. bf16 x and w take the bf16 class (its plain version on the
+    CPU), forward only."""
+    _refuse_bf16_grad(x, w)
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            return tapconv_valid_bf16_plain(_pad(x, pad), w, dh_n, dw_n)
         return tapconv_valid_plain(_pad(x, pad), w, dh_n, dw_n)
     _out_shape(x, w, dh_n, dw_n, pad)
     if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):

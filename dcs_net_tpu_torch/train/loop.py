@@ -70,7 +70,8 @@ class Trainer:
     """``Trainer(cfg, device=...)`` (CUDA unless ``device="cpu"``). Turns
     TF32 off for cuDNN and matmuls: the model trains in full float32, as the
     JAX reference does (cuDNN would otherwise run the encoder convs and the
-    LSTM in TF32).
+    LSTM in TF32); and cuBLAS's reduced-precision bf16 reduction off, for an
+    evaluation at ``compute_dtype="bfloat16"`` (training at bf16 raises).
 
     SWA starts at epoch ``int(swa_start_frac * max_epochs)``. A checkpoint
     holds the model, Adam, the plateau and the epoch but not the SWA average,
@@ -94,6 +95,7 @@ class Trainer:
         self._dropout = torch.Generator(device=self.device)
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         self.writer = Writer(log_dir or cfg.run.log_dir)
         if pesq_fn is None:
             try:
@@ -155,6 +157,10 @@ class Trainer:
         if self.model is None:
             raise RuntimeError("call init_state() first")
         cfg = self.cfg
+        if cfg.model.compute_dtype != "float32":
+            raise NotImplementedError(
+                "training at compute_dtype='bfloat16' is ROADMAP Queue 1 item 5b: "
+                "the port evaluates at bf16 and trains in float32")
         k = max(cfg.run.steps_per_dispatch, 1)
         if k > 1 and self._scanned is None:
             self._scanned = S.make_scanned_train_step(self.model, self.opt, cfg, k)

@@ -155,6 +155,16 @@ def build_all(kernels: Optional[Iterable[CudaKernel]] = None) -> float:
     return time.perf_counter() - t0
 
 
+def refuse_bf16(entry: str, *tensors: torch.Tensor) -> None:
+    """Raise where a bf16 tensor reaches ``entry``, which has no bf16 class, on
+    any device: the CPU's plain version does not take it either, so that the
+    CPU and the card refuse alike (training at bf16, the real family's gate
+    and the conv entry at bf16 are ROADMAP Queue 1 item 5b)."""
+    if any(t.dtype == torch.bfloat16 for t in tensors):
+        raise TypeError(f"{entry} has no bfloat16 class (ROADMAP Queue 1 item 5b): "
+                        "it takes float32")
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0
@@ -165,13 +175,15 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def check_cuda_operand(name: str, t: torch.Tensor, device: torch.device,
-                       ndim: int) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of rank ``ndim`` on
-    ``device``."""
+                       ndim: int, dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous tensor of ``dtype`` (float32 unless
+    an entry's bf16 class says otherwise) and rank ``ndim`` on ``device``. A
+    bf16 tensor at an entry without a bf16 class raises here."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {str(dtype).replace('torch.', '')}, "
+                        f"got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got shape "
                          f"{tuple(t.shape)}")
