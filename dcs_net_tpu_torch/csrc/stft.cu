@@ -99,17 +99,25 @@
 // function the JAX package computes at dft_dtype = bfloat16
 // (dcs_net_tpu/dsp/stft.py:168-176): the raw frames rounded to bf16 times
 // the folded basis rounded to bf16 (float64 fold -> float32 -> bf16, packed
-// once on the host by dsp/stft_cuda.py:dense_basis_bf16), float32
-// accumulation and output. Every n_fft takes it at bf16: an FFT over the
-// rounded samples would leave the basis unrounded, another function. The
-// same kernel as the dense entry with one wgmma m64n64k16 bf16 a k16 step
-// where 3xTF32 takes three a k8 step: the frames are staged in float32 as
-// above and each thread rounds its fragment pairs to bf16 in registers
-// (round to nearest even, as torch's .to(bfloat16)); a chunk's basis is one
-// bf16 slab of the same K-major core-matrix layout (8 n x 8 k, 16 bytes a
-// row), a quarter of the 3xTF32 slabs' bytes. The products of two bf16
-// values are exact in float32, so it differs from its plain version only by
-// the order of the float32 sum.
+// once on the host), float32 accumulation and output. Every n_fft takes it
+// at bf16: an FFT over the rounded samples would leave the basis unrounded,
+// another function. Its work is the rounded basis's products, 2 * 2 * B * T
+// * F * n_fft (4.2 GFLOP at the enhance shape, 4.2 us at 989 TFLOP/s),
+// beside its ~17.4 MB (5.2 us): bytes and operations bound it about equally.
+// Its body where hop is a multiple of 16 and a column block's basis fits
+// shared memory (the model's 512 / 32) is the span body below
+// (stft_span_kernel): each block stages its frames' sample span once, keeps
+// its column block's basis resident and reads both through wgmma
+// descriptors, all of its products issued back to back. The other sizes
+// take the chunked body (dcs_stft_forward_bf16_chunked): the dense entry's
+// kernel above with one wgmma m64n64k16 bf16 a k16 step where 3xTF32 takes
+// three a k8 step, the frames staged in float32 a 32-sample chunk at a time
+// and rounded to bf16 pairs in registers (round to nearest even, as torch's
+// .to(bfloat16)), a chunk's basis one bf16 slab of the same K-major
+// core-matrix layout (8 n x 8 k, 16 bytes a row). dsp/stft_cuda.py:
+// choose_entry picks the body from the shape alone. The products of two
+// bf16 values are exact in float32, so both differ from their plain version
+// only by the order of the float32 sum.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -455,6 +463,430 @@ int launch_dense(cudaStream_t s, const float* x, const void* basis, float* re,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- the dense entry's bf16 class: the span body ----------------------------
+//
+// The frames of a block overlap n_fft / hop-fold, so its sample span is
+// staged once: rounded to bf16 in shared memory as rows of hop samples,
+// (hop / 8, rows, 8) bf16, sample r * hop + j at [j / 8][r][j % 8]. Frame t
+// is then rows t .. t + taps - 1 of that image, and the STFT a taps-tap
+// VALID correlation over hop channels: a tap's 8-channel group of 8
+// consecutive frames is 8 consecutive 16-byte rows, a K-major core matrix,
+// at any row shift, so wgmma reads the frames (its B operand, N = frames)
+// through a descriptor whose start moves by 16 bytes a tap. Its A operand (M
+// = the 64 basis columns of 32 bins) is the column block's bf16 basis,
+// resident for the whole block: one bulk copy a tap, each reporting to its
+// own mbarrier, issued before the span is staged. A sub-tile of NS frames is
+// taps * hop / 16 wgmma m64nNFk16 issued back to back with one wait at the
+// end; a block walks several tiles in a pipeline of three warpgroups (the
+// span staged, the products, the output stored). The accumulator rows are basis columns and its column pairs
+// consecutive frames, so each (b, f) row of the (B, F, T) output is written
+// in 32-byte runs, whole sectors.
+
+// mbarrier in shared memory: a phase completes when its `count` arrivals
+// have come and the bytes announced by expect_tx have been written
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// waits for the phase of parity `parity` to complete; a wait that outlasts
+// any copy (about a second) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+#pragma unroll 1
+  for (int spin = 0; spin < (1 << 25); ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+  __trap();
+}
+
+// one thread copies `bytes` (a multiple of 16) of contiguous global memory to
+// shared memory through the TMA unit; completion is counted on `bar`
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// d (64 x N, float32, N / 2 registers a thread) = a (64 x 16 bf16) * b (16 x
+// N bf16) + (scale_d ? d : 0), both from shared memory, K-major, through
+// their descriptors
+template <int N>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, "
+        "%16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, "
+        "%32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, "
+        "%64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+
+
+
+// words a row of a span block's output tile takes in shared memory
+__host__ __device__ __forceinline__ int span_out_pitch(int nf) { return nf + 8; }
+
+// shared memory of a span block: the column block's basis (taps * hop rows
+// of 64 bf16), two span images of nf + taps - 1 rows, two float32 output
+// tiles (64 rows), two float32 raw spans and the mbarriers (one a tap, ten
+// for the rings)
+__host__ __device__ __forceinline__ size_t span_smem_bytes(int nf, int hop, int taps) {
+  return static_cast<size_t>(taps) * hop * 128 +
+         2 * static_cast<size_t>(nf + taps - 1) * hop * 2 +
+         2 * static_cast<size_t>(64) * span_out_pitch(nf) * 4 +
+         2 * static_cast<size_t>(nf + taps - 1) * hop * 4 + 8 * static_cast<size_t>(taps + 10);
+}
+
+// sample groups a thread of a span block loads before it stores any (the
+// tiles at the signal's ends, read sample by sample)
+constexpr int SPAN_BATCH = 6;
+// the mma warpgroup, two store warpgroups and the staging warpgroup
+constexpr int SPAN_NT = 4 * DNT;
+
+// grid (G, Fp / 32, B): block x of the grid owns the frame tiles x, x + G, x
+// + 2 G, ... of NF frames of batch row b and column block jb. basis (Fp /
+// 32, taps * hop / 8, 64, 8) bf16 as dsp/stft_cuda.py:span_basis_bf16 packs
+// it: row k of column c of column block jb at [jb][k / 8][c][k % 8], zero
+// past n_fft and past the bins. hop % 16 == 0 (a k16 step within one tap).
+// The warpgroups are the stages of a pipeline over the block's tiles: the
+// staging warpgroup has the TMA unit bring a tile's float32 samples (a
+// contiguous run, two tiles ahead) and rounds them into one of two span
+// images (the tiles at the signal's ends it reads sample by sample, with
+// the reflect padding); the mma warpgroup runs a tile's products from an
+// image and writes the float32 result into one of two output tiles; two
+// store warpgroups write an output tile's (b, f) rows of frames to device
+// memory. Full and empty mbarriers hand each buffer on, so a tile's
+// products, the next tile's span and the last tile's output overlap, and
+// the basis is loaded once a block.
+// TAPS and STEPS (hop / 16), where not 0, are the shape's, fixed at compile
+// time: the products are then one unrolled run of TAPS * STEPS wgmma (ptxas
+// issues a run whose trip count is known only at run time far more slowly:
+// it fences the wgmma of every trip).
+template <int NF, int TAPS, int STEPS>
+__global__ void __launch_bounds__(SPAN_NT)
+stft_span_kernel(const float* __restrict__ x, const __nv_bfloat16* __restrict__ basis,
+                 float* __restrict__ re, float* __restrict__ im, int n, int hop, int F,
+                 int T, int pad, int taps) {
+  extern __shared__ __align__(128) unsigned char span_smem[];
+  constexpr int YP = NF + 8;                             // span_out_pitch
+  const int kp = taps * hop, rows = NF + taps - 1, image = rows * hop * 2;
+  unsigned char* Bs = span_smem;                         // (kp / 8, 64, 8) bf16
+  unsigned char* Xs = span_smem + kp * 128;              // two span images
+  float* Ys = reinterpret_cast<float*>(Xs + 2 * image);  // two output tiles
+  float* Rs = Ys + 2 * 64 * YP;                          // two raw spans
+  const uint32_t bars = smem_u32(Rs + 2 * rows * hop);   // a tap's basis, then:
+  const uint32_t img_full = bars + 8 * taps, img_empty = img_full + 16;
+  const uint32_t out_full = img_empty + 16, out_empty = out_full + 16;
+  const uint32_t raw_full = out_empty + 16;
+  const int tid = threadIdx.x, wg = tid >> 7, wtid = tid & (DNT - 1);
+  const int lane = tid & 31, warp = wtid >> 5;
+  const int jb = blockIdx.y, b = blockIdx.z, tiles = (T + NF - 1) / NF;
+  const int nk = (tiles - static_cast<int>(blockIdx.x) + gridDim.x - 1) / gridDim.x;
+
+  if (tid == 0) {
+    for (int i = 0; i < taps; ++i) mbar_init(bars + 8 * i, 1);
+    for (int i = 0; i < 6; ++i) mbar_init(img_full + 8 * i, DNT);
+    for (int i = 0; i < 2; ++i) mbar_init(out_empty + 8 * i, 2 * DNT);
+    for (int i = 0; i < 2; ++i) mbar_init(raw_full + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 3) {
+    // staging: the span of each tile as rows of hop samples, (hop / 8, rows,
+    // 8) bf16, sample r * hop + j at [j / 8][r][j % 8]: 8 samples a group,
+    // rows fastest (consecutive threads write consecutive 16-byte rows). A
+    // tile inside the signal is one contiguous run of x, which the TMA unit
+    // brings into raw span k % 2 two tiles ahead; a tile at an end is read
+    // from device memory a sample at a time with the reflect padding, zeros
+    // past the signal, SPAN_BATCH groups a thread in flight together.
+    const float* xb = x + static_cast<long long>(b) * n;
+    const int total = rows * (hop >> 3), span = rows * hop;
+    auto inside = [&](int k) {
+      const int i0 = (blockIdx.x + k * gridDim.x) * NF * hop - pad;
+      return i0 >= 0 && i0 + span <= n && (reinterpret_cast<uintptr_t>(xb + i0) & 15) == 0;
+    };
+    auto fetch = [&](int k) {  // one thread: tile k's samples into raw span k % 2
+      if (k < nk && inside(k)) {
+        const int i0 = (blockIdx.x + k * gridDim.x) * NF * hop - pad;
+        mbar_expect_tx(raw_full + 8 * (k & 1), span * 4);
+        bulk_copy(smem_u32(Rs + (k & 1) * span), xb + i0, span * 4, raw_full + 8 * (k & 1));
+      }
+    };
+    if (wtid == 0) {  // the basis, a tap a copy, and the first two tiles' samples
+      const unsigned char* src = reinterpret_cast<const unsigned char*>(basis) +
+                                 static_cast<long long>(jb) * kp * 128;
+      for (int i = 0; i < taps; ++i) {
+        mbar_expect_tx(bars + 8 * i, hop * 128);
+        bulk_copy(smem_u32(Bs + i * hop * 128), src + i * hop * 128, hop * 128, bars + 8 * i);
+      }
+      fetch(0);
+      fetch(1);
+    }
+    int fetched = 0;  // bit i: the parity of raw span i's next copy
+    for (int k = 0; k < nk; ++k) {
+      const int buf = k & 1, t0 = (blockIdx.x + k * gridDim.x) * NF;
+      if (k >= 2) mbar_wait(img_empty + 8 * buf, ((k >> 1) - 1) & 1);
+      __nv_bfloat16* dst = reinterpret_cast<__nv_bfloat16*>(Xs + buf * image);
+      if (inside(k)) {
+        mbar_wait(raw_full + 8 * buf, (fetched >> buf) & 1);
+        fetched ^= 1 << buf;
+        const float* raw = Rs + buf * span;
+        const int groups = hop >> 3;
+        for (int e = wtid; e < total; e += DNT) {  // groups fastest: no bank conflicts
+          const int r = e / groups, g = e - r * groups;
+          const float4 lo = *reinterpret_cast<const float4*>(raw + r * hop + 8 * g);
+          const float4 hi = *reinterpret_cast<const float4*>(raw + r * hop + 8 * g + 4);
+          *reinterpret_cast<uint4*>(dst + (static_cast<long long>(g) * rows + r) * 8) =
+              make_uint4(bf16x2(lo.x, lo.y), bf16x2(lo.z, lo.w), bf16x2(hi.x, hi.y),
+                         bf16x2(hi.z, hi.w));
+        }
+        named_sync(1, DNT);  // every thread is done with raw span k % 2
+        if (wtid == 0) fetch(k + 2);
+      } else {
+        for (int e0 = wtid; e0 < total; e0 += DNT * SPAN_BATCH) {
+          float v[SPAN_BATCH][8];
+#pragma unroll
+          for (int q = 0; q < SPAN_BATCH; ++q) {
+            const int e = e0 + q * DNT;
+            if (e >= total) break;
+            const int g = e / rows, r = e - g * rows;
+            const int i0 = (t0 + r) * hop - pad + 8 * g;
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              int i = i0 + c;
+              if (pad > 0) {
+                if (i < 0) i = -i;
+                if (i >= n) i = 2 * (n - 1) - i;
+              }
+              v[q][c] = i >= 0 && i < n ? __ldg(xb + i) : 0.f;
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < SPAN_BATCH; ++q) {
+            const int e = e0 + q * DNT;
+            if (e >= total) break;
+            const int g = e / rows, r = e - g * rows;
+            *reinterpret_cast<uint4*>(dst + (static_cast<long long>(g) * rows + r) * 8) =
+                make_uint4(bf16x2(v[q][0], v[q][1]), bf16x2(v[q][2], v[q][3]),
+                           bf16x2(v[q][4], v[q][5]), bf16x2(v[q][6], v[q][7]));
+          }
+        }
+        named_sync(1, DNT);
+        if (wtid == 0) fetch(k + 2);
+      }
+      fence_proxy_async();  // these generic writes, for the mma warpgroup's wgmma
+      mbar_arrive(img_full + 8 * buf);
+    }
+  } else if (wg == 0) {
+    // the products. Accumulator i of a thread: basis column 16 warp + lane /
+    // 4 + 8 ((i / 2) % 2) of the block (32 cos then 32 sin), frame 8 (i / 4)
+    // + 2 (lane % 4) + i % 2 of the tile. Only wgmma writes it (the first
+    // with its scale-d input off): a plain write between wgmma would
+    // serialize them.
+    float acc[NF / 2];
+    const uint64_t da0 = make_desc(smem_u32(Bs), DLBO, DSBO);
+    const uint32_t lbo_x = rows * 16;   // between the 8-sample groups of a row
+    const int steps = hop >> 4, row0 = 16 * warp + (lane >> 2);
+    for (int tap = 0; tap < taps; ++tap) mbar_wait(bars + 8 * tap, 0);
+    for (int k = 0; k < nk; ++k) {
+      const int buf = k & 1;
+      mbar_wait(img_full + 8 * buf, (k >> 1) & 1);
+      // descriptors advance in their 16-byte address field: k16 step kk of
+      // the basis starts 2 DLBO bytes after step kk - 1, a tap's frames one
+      // 16-byte row of the image after the tap before
+      const uint64_t db0 = make_desc(smem_u32(Xs + buf * image), lbo_x, 128);
+      wgmma_fence();
+      if constexpr (TAPS > 0) {
+#pragma unroll
+        for (int kk = 0; kk < TAPS * STEPS; ++kk)
+          WgmmaSS<NF>::mma(acc, da0 + static_cast<uint64_t>(kk * (2 * DLBO / 16)),
+                           db0 + static_cast<uint64_t>(2 * (kk % STEPS) * rows + kk / STEPS),
+                           kk > 0);
+      } else {
+        for (int tap = 0; tap < taps; ++tap) {
+          for (int s = 0; s < steps; ++s) {
+            const int kk = tap * steps + s;
+            WgmmaSS<NF>::mma(acc, da0 + static_cast<uint64_t>(kk * (2 * DLBO / 16)),
+                             db0 + static_cast<uint64_t>(2 * s * rows + tap), kk > 0);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      mbar_arrive(img_empty + 8 * buf);
+      if (k >= 2) mbar_wait(out_empty + 8 * buf, ((k >> 1) - 1) & 1);
+      float* y = Ys + buf * 64 * YP;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < NF / 8; ++j)
+          *reinterpret_cast<float2*>(y + (row0 + 8 * h) * YP + 8 * j + 2 * (lane & 3)) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      mbar_arrive(out_full + 8 * buf);
+    }
+  } else {
+    // the stores (warpgroups 1 and 2): a warp writes a (b, f) row's frames of
+    // the tile in runs of 32 consecutive words (T is odd at the model's
+    // sizes, so a row's frames have no 8-byte alignment to count on)
+    const int swarp = (tid - DNT) >> 5;
+    for (int k = 0; k < nk; ++k) {
+      const int buf = k & 1, t0 = (blockIdx.x + k * gridDim.x) * NF;
+      const int nt = min(NF, T - t0);
+      mbar_wait(out_full + 8 * buf, (k >> 1) & 1);
+      const float* y = Ys + buf * 64 * YP;
+      for (int row = swarp; row < 2 * DB; row += 2 * DNT / 32) {
+        const int f = jb * DB + (row & (DB - 1));
+        if (f >= F) continue;
+        float* out = (row < DB ? re : im) + (static_cast<long long>(b) * F + f) * T + t0;
+        for (int t = lane; t < nt; t += 32) out[t] = y[row * YP + t];
+      }
+      mbar_arrive(out_empty + 8 * buf);
+    }
+  }
+}
+
+constexpr size_t kSpanSmemLimit = 227 * 1024;
+
+template <int NF, int TAPS, int STEPS>
+int launch_span_at(cudaStream_t s, const float* x, const void* basis, float* re, float* im,
+                   int B, int n, int hop, int F, int T, int pad, int taps, int groups) {
+  const size_t smem = span_smem_bytes(NF, hop, taps);
+  const int tiles = (T + NF - 1) / NF;
+  if (smem > kSpanSmemLimit || groups < 1 || groups > tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = stft_span_kernel<NF, TAPS, STEPS>;
+  cudaError_t e = set_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(groups, (F + DB - 1) / DB, B);
+  kernel<<<grid, SPAN_NT, smem, s>>>(x, static_cast<const __nv_bfloat16*>(basis), re, im, n,
+                                     hop, F, T, pad, taps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the model's size (n_fft 512, hop 32: 16 taps of 2 k16 steps) unrolled at
+// compile time, every other size through the run-time loop
+template <int NF>
+int launch_span(cudaStream_t s, const float* x, const void* basis, float* re, float* im,
+                int B, int n, int hop, int F, int T, int pad, int taps, int groups) {
+  if (taps == 16 && hop == 32)
+    return launch_span_at<NF, 16, 2>(s, x, basis, re, im, B, n, hop, F, T, pad, taps, groups);
+  return launch_span_at<NF, 0, 0>(s, x, basis, re, im, B, n, hop, F, T, pad, taps, groups);
+}
 
 // ---- the FFT entry point ----------------------------------------------------
 
@@ -986,7 +1418,7 @@ extern "C" const char* dcs_cuda_error_string(int code) {
 }
 
 // Blocks of the mixed FFT kernel (dense = 0), of the dense kernel (dense =
-// 1) or of its bf16 class (dense = 2) an SM holds at once with `smem` bytes
+// 1) or of its bf16 class's chunked body (dense = 2) an SM holds at once with `smem` bytes
 // of dynamic shared memory each, into *blocks
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor, after the attributes a
 // launch sets): the dense entries' cluster split is planned from it. A
@@ -1029,13 +1461,44 @@ extern "C" int dcs_stft_forward(const float* x, const float* basis, float* re,
                              n_fft, hop, F, T, pad, split);
 }
 
-// The dense entry's bf16 class: x (B, n) f32, rounded to bf16 in the
-// kernel; basis (Kp, 2 Fp) bf16 as dsp/stft_cuda.py:dense_basis_bf16 packs
-// it, 16-byte aligned; re, im (B, F, T) f32; split as above. Launches on
-// `stream`, allocates nothing, returns cudaGetLastError().
+// The dense entry's bf16 class, its span body: x (B, n) f32, rounded to
+// bf16 in the kernel; basis (Fp / 32, taps * hop / 8, 64, 8) bf16 as
+// dsp/stft_cuda.py:span_basis_bf16 packs it (taps = ceil(n_fft / hop)),
+// 16-byte aligned; re, im (B, F, T) f32; hop a multiple of 16; frames the
+// frames of a tile (128, 64 or 32), groups the blocks a (batch row, column
+// block) has, each walking every groups-th tile (1 to the tiles). Launches
+// on `stream`, allocates nothing, returns cudaGetLastError(); a block over
+// the shared memory a block may take is cudaErrorInvalidValue.
 extern "C" int dcs_stft_forward_bf16(const float* x, const void* basis, float* re,
                                      float* im, int B, int n, int n_fft, int hop,
-                                     int F, int T, int pad, int split, void* stream) {
+                                     int F, int T, int pad, int frames, int groups,
+                                     void* stream) {
+  if (B <= 0 || B > 65535 || T <= 0 || F <= 0 || hop <= 0 || (hop & 15) || n_fft <= 0 ||
+      n <= 0 || (reinterpret_cast<uintptr_t>(basis) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int taps = (n_fft + hop - 1) / hop;
+  switch (frames) {
+    case 128:
+      return launch_span<128>(s, x, basis, re, im, B, n, hop, F, T, pad, taps, groups);
+    case 64:
+      return launch_span<64>(s, x, basis, re, im, B, n, hop, F, T, pad, taps, groups);
+    case 32:
+      return launch_span<32>(s, x, basis, re, im, B, n, hop, F, T, pad, taps, groups);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The dense entry's bf16 class, its chunked body (the sizes the span body
+// does not take): x (B, n) f32, rounded to bf16 in the kernel; basis (Kp, 2
+// Fp) bf16 as dsp/stft_cuda.py:dense_basis_bf16 packs it, 16-byte aligned;
+// re, im (B, F, T) f32; split as above. Launches on `stream`, allocates
+// nothing, returns cudaGetLastError().
+extern "C" int dcs_stft_forward_bf16_chunked(const float* x, const void* basis, float* re,
+                                             float* im, int B, int n, int n_fft, int hop,
+                                             int F, int T, int pad, int split,
+                                             void* stream) {
   if (B <= 0 || T <= 0 || F <= 0 || hop <= 0 || n_fft <= 0 || n <= 0 ||
       (reinterpret_cast<uintptr_t>(basis) & 15))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -105,25 +105,33 @@
 // The tiling (flat or one row, 64 or 128 pixels) is chosen by the wrapper
 // (ops/cuda_tapconv.py:dgrad_plan) from the shape alone; it has no split.
 //
-// The forward's bf16 class (dcs_tapconv_valid_bf16, with dcs_tapconv_pack_bf16)
-// computes what pallas_tapconv.tapconv_valid computes at bf16 operands
-// (dcs_net_tpu/ops/pallas_tapconv.py:83-108): x and w bf16, float32 sums, y
-// bf16 (its output type is x's). The same kernel, templated: one wgmma
-// m64nNk16 bf16 a 16-channel step where 3xTF32 takes three m64nNk8 a
-// 8-channel step, so a register set (one 16-channel half of a tap's chunk)
-// holds 4 registers of bf16 pairs read straight from the halo tile, with
-// nothing to split. A bf16 core matrix is 8 rows x 16 bytes, 8 channels: the
-// packing writes [KB/8][BN][8] bf16 slabs (a quarter of the hi and lo
-// slabs' bytes), whose k16 step spans two core matrices (2 LBO), as a TF32
-// k8 step does. The halo tile holds 40 bf16 a pixel (80 bytes: a fragment
-// load's 8 pixels x 4 words on 32 banks), staged 16 bytes (8 channels) a
-// copy where Cin % 8 == 0 (every decoder stage of the model: Cin 32 to 512)
-// and one element at a time otherwise; channels past Cin are zero filled.
-// The products of bf16 values are exact in float32; the chain is still cut
-// at every chunk, and a split adds its partial tiles in float32 and rounds
-// once, at the store, after the whole sum.
+// The forward's bf16 class computes what pallas_tapconv.tapconv_valid
+// computes at bf16 operands (dcs_net_tpu/ops/pallas_tapconv.py:83-108): x
+// and w bf16, float32 sums, y bf16 (its output type is x's), the weights
+// packed by dcs_tapconv_pack_bf16 in K-major bf16 slabs ([KB/8][BN][8], 8
+// channels a 16-byte core-matrix row). Its work is operations (78 GFLOP an
+// enhance call, 0.079 ms at 989 TFLOP/s). Two bodies, the wrapper choosing
+// from the shape alone (ops/cuda_tapconv.py:bf16_body):
+// * the staged body (dcs_tapconv_valid_bf16, tapconv_staged_kernel below),
+//   every 3 x 3 stage of the model with N > 8: both wgmma operands from
+//   shared memory through descriptors, a 16-channel chunk's halo tile and
+//   its 9 taps' weights a stage of a TMA-fed ring, one accumulator chain
+//   over the whole reduction (see its notes);
+// * the tap body (dcs_tapconv_valid_bf16_tap), every other shape (dec6's N
+//   = 8, Cin no multiple of 8, other windows): the float32 kernel above,
+//   templated, one wgmma m64nNk16 bf16 a 16-channel step where 3xTF32 takes
+//   three m64nNk8 a 8-channel step, a register set (one 16-channel half of
+//   a tap's 32-channel chunk) 4 registers of bf16 pairs read from the halo
+//   tile (40 bf16 a pixel: a fragment load's 8 pixels x 4 words on 32
+//   banks), staged 16 bytes a copy where Cin % 8 == 0 and one element at a
+//   time otherwise, channels past Cin zero filled; its chain is cut at
+//   every chunk.
+// The products of bf16 values are exact in float32, so both differ from
+// their plain version only by the order of the float32 sum; a split adds
+// its float32 partial tiles in rank order and rounds once, at the store.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -1053,14 +1061,14 @@ int pack(const float* w, float* wp, int taps, int K, int N, bool flip,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN>
+template <int KB, int BN>
 int pack_bf16(const __nv_bfloat16* w, __nv_bfloat16* wp, int taps, int K, int N,
               cudaStream_t s) {
-  const int nchunks = (K + BK - 1) / BK;
+  const int nchunks = (K + KB - 1) / KB;
   const long long total = static_cast<long long>((N + BN - 1) / BN) * nchunks *
-                          taps * (BK / 8) * BN;
+                          taps * (KB / 8) * BN;
   const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-  pack_bf16_kernel<BK, BN><<<blocks, 256, 0, s>>>(w, wp, taps, K, N, nchunks, total);
+  pack_bf16_kernel<KB, BN><<<blocks, 256, 0, s>>>(w, wp, taps, K, N, nchunks, total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1070,6 +1078,538 @@ bool forward_args_ok(int B, int H, int W, int Cin, int HO, int WO, int N, int Dh
          Dh >= 1 && Dw >= 1 && pad_top >= 0 && pad_left >= 0 &&
          (flat == 0 || flat == 1) && (wgs == 1 || wgs == 2) && split >= 1 &&
          split <= 8 && static_cast<long long>(HO) * WO <= 2147483647LL;
+}
+
+// ---- the forward's bf16 class: the staged body ------------------------------
+//
+// Both operands of every wgmma come from shared memory through descriptors,
+// so no thread loads fragments. A stage is one 16-channel chunk (one k16
+// step a tap): its halo tile as the no-swizzle K-major core-matrix image
+// (2, npix, 8) bf16 (channel c of halo pixel p at [c / 8][p][c % 8], 16
+// bytes a pixel an 8-channel group), and the chunk's packed weights for
+// every tap (the pack_bf16_kernel layout at 16-channel chunks, whose taps of
+// a chunk are contiguous); the body takes the 3 x 3 window of every stage of
+// the model. M rows are consecutive halo pixels: tap
+// (dh, dw) is the descriptor's start moved by (dh * pw + dw) * 16 bytes,
+// and 8 consecutive halo pixels are a core matrix at any shift. A row
+// tile's M rows are its output columns; a flat tile's are consecutive
+// positions of the image's H x pw halo grid (pw = W + Dw - 1), whose Dw - 1
+// extra columns a row are computed and not stored. One producer thread
+// fills a ring of stages through the TMA unit, each stage two tensor copies
+// of the halo tile's 8-channel planes (x read in place, its zero padding
+// and everything past Cin filled with zeros by the copy) and one bulk copy
+// of the weights, on a full mbarrier; the consumer warpgroups (64 M rows
+// each) wait on it, issue a chunk's products back to back, and free the
+// stage before (empty mbarrier) once the group that read it has retired: no
+// __syncthreads in the main loop. (A stage's halo tile went through 16-byte
+// cp.async from a producer warpgroup first, hundreds of copies a stage:
+// issuing them took the producer longer than the consumers took for the
+// stage's products.)
+// bf16 products are exact in float32, so one accumulator chain runs over
+// the whole reduction (its float32 adds are the only rounding before the
+// store). The output is staged in shared memory as bf16 and written in
+// 16-byte stores; the split (clusters, S ranks over the chunks) adds its
+// float32 partial tiles in rank order as the tap body does.
+
+constexpr int SKB = 16;            // channels a stage: one k16 step a tap
+constexpr int kMaxStages = 6;
+
+// The staged body's tiling of one launch, as the host plans it
+struct SGeo {
+  int Hg, Wg, Cg;  // x (B, Hg, Wg, Cg)
+  int H, W, N;     // y (B, H, W, N)
+  int oh, ow;      // output (h, w) at tap (dh, dw) reads x (h + oh + dh, w + ow + dw)
+  int Dh, Dw;
+  int flat;        // 1: a tile is BM consecutive positions of an image's H x pw
+                   // halo grid; 0: BM output columns of one row
+  int tiles;       // M tiles per image (flat) or per output row
+  int pw;          // halo pixels a row
+  int arows;       // halo rows a stage's copy brings
+  int npix;        // halo pixels an 8-channel plane of a stage holds: every
+                   // tap of every M row (rows past arows are not written)
+  int nchunks;     // 16-channel chunks of Cg
+  int nst;         // stages of the ring
+};
+
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one thread copies a box of the tensor `map` describes, at coordinates
+// (c0, .., c4) (outside the tensor: zeros), to shared memory through the
+// TMA unit; completion is counted on `bar`
+__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3, int c4, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
+      "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d (64 x N, float32) = a (64 x 16 bf16) * b (16 x N bf16) + (scale_d ? d :
+// 0), both from shared memory, K-major, through their descriptors
+template <int N>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<8> {
+  static __device__ __forceinline__ void mma(float (&d)[4], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3"
+        "}, "
+        "%4, %5, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, "
+        "%32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaSS<128> {
+  static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db,
+                                             int scale_d) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        " %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, "
+        " %24, %25, %26, %27, %28, %29, %30, %31, "
+        " %32, %33, %34, %35, %36, %37, %38, %39, "
+        " %40, %41, %42, %43, %44, %45, %46, %47, "
+        " %48, %49, %50, %51, %52, %53, %54, %55, "
+        " %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, "
+        "%64, %65, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+
+// bytes of the staged body's stage, and of its block: nst stages, or where
+// larger the output's staging (bf16, or a split's float32 partial tile),
+// then 2 nst mbarriers
+__host__ __device__ __forceinline__ int staged_stage_bytes(int bn, int taps, int npix) {
+  return taps * SKB * bn * 2 + npix * SKB * 2;
+}
+
+__host__ __device__ __forceinline__ int staged_out_bytes(int bn, int wgs, int split) {
+  return 64 * wgs * (bn + 8) * (split > 1 ? 4 : 2);
+}
+
+__host__ __device__ __forceinline__ int staged_bars_offset(int bn, int wgs, int taps,
+                                                           int npix, int split, int nst) {
+  const int ring = nst * staged_stage_bytes(bn, taps, npix);
+  const int out = staged_out_bytes(bn, wgs, split);
+  return ((ring > out ? ring : out) + 7) / 8 * 8;
+}
+
+// WGS consumer warpgroups of 64 M rows and one producer warp; BN output
+// channels; a DH x DW window, fixed at compile time so that a stage's DH *
+// DW wgmma are one unrolled run (ptxas issues a run whose trip count is
+// known only at run time far more slowly: it fences the wgmma of every
+// trip). Every tap runs: a tap row outside x reads the zeros the tensor
+// copy fills in. x is read through `xmap`, a 5-d tensor map over x (B, Hg,
+// Wg, Cg) as (8 channels, Cg / 8 channel groups, Wg, Hg, B) whose box is
+// one 8-channel group of a halo tile: (8, 1, pw, arows, 1). Grid (M tiles, N
+// tiles, S).
+template <int WGS, int BN, int DH, int DW>
+__global__ void __launch_bounds__(128 * WGS + 32, 1)
+tapconv_staged_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __nv_bfloat16* __restrict__ wp, __nv_bfloat16* __restrict__ y,
+                      const SGeo g) {
+  constexpr int BM = 64 * WGS, NT = 128 * WGS + 32;
+  constexpr int TAPB = SKB * BN * 2;  // bytes of one tap's weights in a stage
+  extern __shared__ __align__(128) unsigned char staged_smem[];
+  unsigned char* smem = staged_smem;
+  constexpr int taps = DH * DW;
+  const int bstage = taps * TAPB, stage = staged_stage_bytes(BN, taps, g.npix);
+  const int S = gridDim.z, rank = blockIdx.z;
+  const uint32_t bars =
+      smem_u32(smem + staged_bars_offset(BN, WGS, taps, g.npix, S, g.nst));
+  const uint32_t full = bars, empty = bars + 8 * g.nst;
+
+  // the tile: M row m is halo position s0 + m of a halo tile of pw pixels a
+  // row whose (0, 0) is x's (r0, c0)
+  int b, h_a, s0, c0, q0 = 0, count = BM;
+  long long row = 0;
+  if (g.flat) {
+    b = blockIdx.x / g.tiles;
+    const int P0 = (blockIdx.x - b * g.tiles) * BM;
+    h_a = P0 / g.pw;
+    s0 = P0 - h_a * g.pw;
+    c0 = g.ow;
+  } else {
+    row = blockIdx.x / g.tiles;  // b * H + h
+    q0 = (static_cast<int>(blockIdx.x - row * g.tiles)) * BM;
+    b = static_cast<int>(row / g.H);
+    h_a = static_cast<int>(row - static_cast<long long>(b) * g.H);
+    s0 = 0;
+    c0 = q0 + g.ow;
+    count = min(BM, g.W - q0);
+  }
+  const int r0 = h_a + g.oh;
+  const int c_lo = rank * g.nchunks / S, c_hi = (rank + 1) * g.nchunks / S;
+  const int nit = c_hi - c_lo;
+
+  const int tid = threadIdx.x, wg = tid >> 7;
+  if (tid == 0) {
+    for (int i = 0; i < g.nst; ++i) {
+      mbar_init_count(full + 8 * i, 1);
+      mbar_init_count(empty + 8 * i, 128 * WGS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // Only wgmma writes acc (the first with its scale-d input off): a plain
+  // write between wgmma would serialize them.
+  float acc[BN / 2];
+
+  if (wg == WGS) {
+    // the producer: one thread issues a stage's copies, the taps' weights
+    // (one contiguous run) and the halo tile's 8-channel planes
+    if (tid == 128 * WGS) {
+      constexpr uint32_t bbytes = taps * TAPB;
+      const uint32_t abytes = 16 * g.pw * g.arows;
+      for (int it = 0; it < nit; ++it) {
+        const int s = it % g.nst, chunk = c_lo + it;
+        if (it >= g.nst) mbar_wait(empty + 8 * s, ((it / g.nst) - 1) & 1);
+        unsigned char* st = smem + s * stage;
+        mbar_expect_tx(full + 8 * s, bbytes + (SKB / 8) * abytes);
+        const __nv_bfloat16* src =
+            wp + (static_cast<long long>(blockIdx.y) * g.nchunks + chunk) * taps * (TAPB / 2);
+        bulk_copy(smem_u32(st), src, bbytes, full + 8 * s);
+#pragma unroll
+        for (int gi = 0; gi < SKB / 8; ++gi)
+          tma_load_5d(smem_u32(st + bstage + gi * g.npix * 16), &xmap, 0,
+                      chunk * (SKB / 8) + gi, c0, r0, b, full + 8 * s);
+      }
+    }
+  } else {
+    // a consumer warpgroup: M rows 64 wg .. 64 wg + 63 of the tile
+    static_assert(SKB == 16, "a stage is one k16 step a tap");
+    const uint32_t lbo_a = g.npix * 16, lbo_b = BN * 16;
+    const int arow = s0 + 64 * wg;
+    for (int it = 0; it < nit; ++it) {
+      const int s = it % g.nst;
+      mbar_wait(full + 8 * s, (it / g.nst) & 1);
+      // descriptors advance in their 16-byte address field: tap (dh, dw) of
+      // the halo tile starts dh * pw + dw pixels in, tap t's weights t TAPB
+      // bytes into the stage
+      const uint32_t bb = smem_u32(smem + s * stage);
+      const uint64_t da0 = make_desc(bb + bstage + arow * 16, lbo_a, 128);
+      const uint64_t db0 = make_desc(bb, lbo_b, 128);
+      wgmma_fence();
+#pragma unroll
+      for (int t = 0; t < taps; ++t)
+        WgmmaSS<BN>::mma(acc, da0 + static_cast<uint64_t>((t / DW) * g.pw + t % DW),
+                         db0 + static_cast<uint64_t>(t * (TAPB / 16)), it > 0 || t > 0);
+      wgmma_commit();
+      wgmma_wait<1>();  // the group of the stage before has retired
+      if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % g.nst));
+    }
+    wgmma_wait<0>();
+  }
+
+  // where M row m of the tile lands: its output pixel, or -1 (past the
+  // tile, or a halo column of a flat tile)
+  auto pixel = [&](int m) -> long long {
+    if (g.flat) {
+      const int P = (blockIdx.x - b * g.tiles) * BM + m, hh = P / g.pw, ww = P - hh * g.pw;
+      if (hh >= g.H || ww >= g.W) return -1;
+      return (static_cast<long long>(b) * g.H + hh) * g.W + ww;
+    }
+    return m < count ? row * g.W + q0 + m : -1;
+  };
+
+  const int lane = tid & 31, mrow = 64 * wg + 16 * ((tid >> 5) & 3) + (lane >> 2);
+  const int n0 = blockIdx.y * BN, N = g.N;
+  __syncthreads();  // the ring is free
+  if (S == 1) {
+    if (wg == WGS) return;
+    // accumulator i of a thread: row mrow + 8 ((i / 2) % 2), column 8 (i / 4)
+    // + 2 (lane % 4) + i % 2
+    constexpr int YP = BN + 8;
+    __nv_bfloat16* Ys = reinterpret_cast<__nv_bfloat16*>(smem);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(Ys + (mrow + 8 * h) * YP + 8 * j + 2 * (lane & 3)) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    named_sync(1 + wg, 128);
+    const bool vec = (N & 7) == 0;
+    for (int e = tid & 127; e < 64 * (BN / 8); e += 128) {
+      const int r = e / (BN / 8), c8 = e - r * (BN / 8), m = 64 * wg + r;
+      const long long pix = pixel(m);
+      const int n = n0 + 8 * c8;
+      if (pix < 0 || n >= N) continue;
+      const __nv_bfloat16* src = Ys + m * YP + 8 * c8;
+      __nv_bfloat16* dst = y + pix * N + n;
+      if (vec && n + 8 <= N) {
+        *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+      } else {
+        for (int k = 0; k < 8 && n + k < N; ++k) dst[k] = src[k];
+      }
+    }
+    return;
+  }
+
+  // the split: every rank writes its float32 partial tile into its own
+  // shared memory, then rank r adds rows [r BM / S, (r + 1) BM / S) over the
+  // ranks 0, 1, ..., S - 1 in that order, rounds once and stores them
+  constexpr int PP = kPartPitch<BN>, Q = BN / 4;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  float* part = reinterpret_cast<float*>(smem);
+  if (wg < WGS) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+        *reinterpret_cast<float2*>(part + (mrow + 8 * h) * PP + 8 * j + 2 * (lane & 3)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+  cluster.sync();  // every rank's partial tile is written
+  const int m_lo = rank * BM / S, m_hi = (rank + 1) * BM / S;
+  const bool quads = (N & 3) == 0;
+  for (int e = tid; e < (m_hi - m_lo) * Q; e += NT) {
+    const int r = e / Q, c = 4 * (e - r * Q), m = m_lo + r;
+    const long long pix = pixel(m);
+    const int n = n0 + c;
+    if (pix < 0 || n >= N) continue;
+    float4* src = reinterpret_cast<float4*>(part + m * PP + c);
+    float4 v = *cluster.map_shared_rank(src, 0);
+    for (int k = 1; k < S; ++k) {
+      const float4 p = *cluster.map_shared_rank(src, k);
+      v.x += p.x;
+      v.y += p.y;
+      v.z += p.z;
+      v.w += p.w;
+    }
+    __nv_bfloat16* yr = y + pix * N;
+    if (quads && n + 3 < N) {
+      const __nv_bfloat162 lo2 = __floats2bfloat162_rn(v.x, v.y);
+      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(v.z, v.w);
+      *reinterpret_cast<uint2*>(yr + n) = make_uint2(
+          *reinterpret_cast<const uint32_t*>(&lo2), *reinterpret_cast<const uint32_t*>(&hi2));
+    } else {
+      if (n < N) yr[n] = __float2bfloat16_rn(v.x);
+      if (n + 1 < N) yr[n + 1] = __float2bfloat16_rn(v.y);
+      if (n + 2 < N) yr[n + 2] = __float2bfloat16_rn(v.z);
+      if (n + 3 < N) yr[n + 3] = __float2bfloat16_rn(v.w);
+    }
+  }
+  cluster.sync();  // no rank leaves while another reads its shared memory
+}
+
+// The staged body's tiling at `wgs` warpgroups (ops/cuda_tapconv.py:
+// staged_tiling): tiles per image or row, pw, the halo rows a stage's
+// tensor copy brings (arows), and the pixels an 8-channel plane holds,
+// rounded up to 8: the larger of the copy's arows * pw and what the M rows
+// read. A flat tile starts at any column s0 < pw of its first row and its M
+// rows read up to halo position s0 + BM - 1 + (Dh - 1) pw + Dw - 1 (rows
+// past the copy's are not written: they feed only halo columns that are
+// not stored).
+void staged_tiles(SGeo& geo, int wgs) {
+  const int BM = 64 * wgs;
+  int reach;  // halo pixels the M rows read, at most
+  if (geo.flat) {
+    geo.pw = geo.W + geo.Dw - 1;
+    geo.tiles = ((geo.H - 1) * geo.pw + geo.W + BM - 1) / BM;
+    const int span = (BM + geo.pw - 2) / geo.pw + 1;
+    geo.arows = (span < geo.H ? span : geo.H) + geo.Dh - 1;
+    reach = geo.Dh * geo.pw + BM + geo.Dw - 2;
+  } else {
+    geo.pw = BM + geo.Dw - 1;
+    geo.tiles = (geo.W + BM - 1) / BM;
+    geo.arows = geo.Dh;
+    reach = geo.Dh * geo.pw;
+  }
+  const int copied = geo.arows * geo.pw;
+  geo.npix = ((copied > reach ? copied : reach) + 7) / 8 * 8;
+}
+
+// stages of the ring (at most kMaxStages, at most a rank's chunks), or 0
+// where fewer than two fit shared memory for a rank with more than one chunk
+int staged_stages(int bn, int wgs, int taps, int npix, int nchunks, int split) {
+  const int per = (nchunks + split - 1) / split;
+  for (int nst = kMaxStages < per ? kMaxStages : per; nst >= 1; --nst) {
+    const size_t smem = staged_bars_offset(bn, wgs, taps, npix, split, nst) + 16 * nst;
+    if (smem <= kSmemLimit) return nst >= 2 || per == 1 ? nst : 0;
+  }
+  return 0;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links no libcuda)
+using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+template <int WGS, int BN>
+int launch_staged(cudaStream_t s, const __nv_bfloat16* x, const __nv_bfloat16* wp,
+                  __nv_bfloat16* y, int B, SGeo geo, int split) {
+  staged_tiles(geo, WGS);
+  const int taps = geo.Dh * geo.Dw;
+  geo.nst = staged_stages(BN, WGS, taps, geo.npix, geo.nchunks, split);
+  if (geo.nst == 0 || geo.Dh != 3 || geo.Dw != 3 || geo.pw > 256 || geo.arows > 256 ||
+      geo.Cg % 8 || (reinterpret_cast<uintptr_t>(x) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  // x (B, Hg, Wg, Cg) as (8 channels, Cg / 8 groups, Wg, Hg, B), strides in
+  // bytes; a box is one 8-channel group of a halo tile
+  CUtensorMap xmap;
+  const cuuint64_t dims[5] = {8, static_cast<cuuint64_t>(geo.Cg / 8),
+                              static_cast<cuuint64_t>(geo.Wg),
+                              static_cast<cuuint64_t>(geo.Hg), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[4] = {16, static_cast<cuuint64_t>(geo.Cg) * 2,
+                                 static_cast<cuuint64_t>(geo.Wg) * geo.Cg * 2,
+                                 static_cast<cuuint64_t>(geo.Hg) * geo.Wg * geo.Cg * 2};
+  const cuuint32_t box[5] = {8, 1, static_cast<cuuint32_t>(geo.pw),
+                             static_cast<cuuint32_t>(geo.arows), 1};
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<__nv_bfloat16*>(x),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem =
+      staged_bars_offset(BN, WGS, taps, geo.npix, split, geo.nst) + 16 * geo.nst;
+  auto kernel = tapconv_staged_kernel<WGS, BN, 3, 3>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long mtiles =
+      static_cast<long long>(B) * geo.tiles * (geo.flat ? 1 : geo.H);
+  if (mtiles > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(mtiles), (geo.N + BN - 1) / BN, split);
+  constexpr int NT = 128 * WGS + 32;
+  if (split == 1) {
+    kernel<<<grid, NT, smem, s>>>(xmap, wp, y, geo);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wp, y, geo);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int forward_staged(const __nv_bfloat16* x, const __nv_bfloat16* wp, __nv_bfloat16* y,
+                   int B, int H, int W, int Cin, int HO, int WO, int N, int Dh, int Dw,
+                   int pad_top, int pad_left, int flat, int wgs, int bn, int split,
+                   void* stream) {
+  if (!forward_args_ok(B, H, W, Cin, HO, WO, N, Dh, Dw, pad_top, pad_left, flat, wgs,
+                       split) ||
+      (reinterpret_cast<uintptr_t>(wp) & 15))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SGeo geo{H, W, Cin, HO, WO, N, -pad_top, -pad_left, Dh, Dw,
+           flat, 0, 0, 0, 0, (Cin + SKB - 1) / SKB, 0};
+#define DCS_STAGED(BN) \
+  (wgs == 2 ? launch_staged<2, BN>(s, x, wp, y, B, geo, split) \
+            : launch_staged<1, BN>(s, x, wp, y, B, geo, split))
+  switch (bn) {
+    case 8:
+      return DCS_STAGED(8);
+    case 64:
+      return DCS_STAGED(64);
+    case 128:
+      return DCS_STAGED(128);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef DCS_STAGED
 }
 
 template <bool BF16>
@@ -1116,6 +1656,26 @@ int clusters_at(int wgs, int smem, int split, int* clusters) {
   return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
 }
 
+int staged_clusters_at(int wgs, int smem, int split, int* clusters) {
+  auto kernel = wgs == 2 ? tapconv_staged_kernel<2, 128, 3, 3>
+                         : tapconv_staged_kernel<1, 128, 3, 3>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1, 1, split);
+  cfg.blockDim = dim3(128 * wgs + 32);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg));
+}
+
 }  // namespace
 
 extern "C" const char* dcs_cuda_error_string(int code) {
@@ -1143,23 +1703,37 @@ extern "C" int dcs_tapconv_pack(const float* w, float* wp, int taps, int Cin,
 }
 
 // The bf16 class's packing: w (taps, Cin, N) bf16 -> wp, the K-major bf16
-// tiles of width bn (8, 64 or 128) described above pack_bf16_kernel:
-// ceil(N/bn) * ceil(Cin/32) * taps * 32 * bn bf16, 16-byte aligned.
+// tiles of width bn (8, 64 or 128) in kb-channel chunks (16 for the staged
+// body, 32 for the tap body) described above pack_bf16_kernel:
+// ceil(N/bn) * ceil(Cin/kb) * taps * kb * bn bf16, 16-byte aligned.
 // Launches on `stream`, returns cudaGetLastError().
 extern "C" int dcs_tapconv_pack_bf16(const void* w, void* wp, int taps, int Cin,
-                                     int N, int bn, void* stream) {
-  if (taps < 1 || Cin < 1 || N < 1 || (reinterpret_cast<uintptr_t>(wp) & 15))
+                                     int N, int bn, int kb, void* stream) {
+  if (taps < 1 || Cin < 1 || N < 1 || (reinterpret_cast<uintptr_t>(wp) & 15) ||
+      (kb != SKB && kb != BK))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* wb = static_cast<const __nv_bfloat16*>(w);
   auto* out = static_cast<__nv_bfloat16*>(wp);
+  if (kb == SKB) {
+    switch (bn) {
+      case 8:
+        return pack_bf16<SKB, 8>(wb, out, taps, Cin, N, s);
+      case 64:
+        return pack_bf16<SKB, 64>(wb, out, taps, Cin, N, s);
+      case 128:
+        return pack_bf16<SKB, 128>(wb, out, taps, Cin, N, s);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (bn) {
     case 8:
-      return pack_bf16<8>(wb, out, taps, Cin, N, s);
+      return pack_bf16<BK, 8>(wb, out, taps, Cin, N, s);
     case 64:
-      return pack_bf16<64>(wb, out, taps, Cin, N, s);
+      return pack_bf16<BK, 64>(wb, out, taps, Cin, N, s);
     case 128:
-      return pack_bf16<128>(wb, out, taps, Cin, N, s);
+      return pack_bf16<BK, 128>(wb, out, taps, Cin, N, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1188,15 +1762,33 @@ extern "C" int dcs_tapconv_valid(const float* x, const float* wp, float* y,
                         flat, wgs, bn, split, stream);
 }
 
-// The forward's bf16 class: the same function and arguments as
-// dcs_tapconv_valid with x (B, H, W, Cin), wp (dcs_tapconv_pack_bf16's) and
-// y (B, HO, WO, N) bf16, float32 sums (a split's partial tiles added in
-// float32) rounded once to bf16 at the store.
+// The forward's bf16 class, its staged body: the same function and
+// arguments as dcs_tapconv_valid with x (B, H, W, Cin), wp
+// (dcs_tapconv_pack_bf16's) and y (B, HO, WO, N) bf16, float32 sums (a
+// split's partial tiles added in float32) rounded once to bf16 at the
+// store; flat tiles in halo coordinates (staged_tiles). A tiling whose ring
+// of two stages (every tap's weights and the halo tile of a 32-channel
+// chunk) does not fit shared memory is cudaErrorInvalidValue: the wrapper
+// routes such shapes to the tap body.
 extern "C" int dcs_tapconv_valid_bf16(const void* x, const void* wp, void* y, int B,
                                       int H, int W, int Cin, int HO, int WO, int N,
                                       int Dh, int Dw, int pad_top, int pad_left,
                                       int flat, int wgs, int bn, int split,
                                       void* stream) {
+  return forward_staged(static_cast<const __nv_bfloat16*>(x),
+                        static_cast<const __nv_bfloat16*>(wp),
+                        static_cast<__nv_bfloat16*>(y), B, H, W, Cin, HO, WO, N, Dh, Dw,
+                        pad_top, pad_left, flat, wgs, bn, split, stream);
+}
+
+// The forward's bf16 class, its tap body (the shapes the staged body does
+// not take): the float32 kernel's template at bf16, one wgmma m64nNk16 a
+// 16-channel half of a tap's chunk, A fragments read by each thread.
+extern "C" int dcs_tapconv_valid_bf16_tap(const void* x, const void* wp, void* y, int B,
+                                          int H, int W, int Cin, int HO, int WO, int N,
+                                          int Dh, int Dw, int pad_top, int pad_left,
+                                          int flat, int wgs, int bn, int split,
+                                          void* stream) {
   return forward<true>(static_cast<const __nv_bfloat16*>(x),
                        static_cast<const __nv_bfloat16*>(wp),
                        static_cast<__nv_bfloat16*>(y), B, H, W, Cin, HO, WO, N, Dh, Dw,
@@ -1206,7 +1798,8 @@ extern "C" int dcs_tapconv_valid_bf16(const void* x, const void* wp, void* y, in
 // How many clusters of `split` blocks of the kernel at `wgs` warpgroups and
 // `smem` bytes of dynamic shared memory the card runs at once
 // (cudaOccupancyMaxActiveClusters), into *clusters: the wrapper counts a
-// split's waves by it; bf16 = 1 asks for the bf16 class's kernel. A
+// split's waves by it; bf16 = 1 asks for the bf16 class's tap body, 2 for
+// its staged body (wgs consumer warpgroups and the producer). A
 // cluster's blocks must share one GPC, so this is fewer than SMs / split: on
 // the H100 at one block an SM, 66 clusters of 2, 30 of 4 and 15 of 8.
 extern "C" int dcs_tapconv_clusters(int wgs, int smem, int split, int bf16,
@@ -1214,6 +1807,7 @@ extern "C" int dcs_tapconv_clusters(int wgs, int smem, int split, int bf16,
   if ((wgs != 1 && wgs != 2) || split < 1 || split > 8 || smem < 0 ||
       static_cast<size_t>(smem) > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (bf16 == 2) return staged_clusters_at(wgs, smem, split, clusters);
   return bf16 ? clusters_at<true>(wgs, smem, split, clusters)
               : clusters_at<false>(wgs, smem, split, clusters);
 }

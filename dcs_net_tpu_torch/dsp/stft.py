@@ -18,7 +18,8 @@ an overlap-add, as in the JAX package.
 At ``dft_dtype="bfloat16"`` (the JAX package's ``--dtype bfloat16``) the
 analysis is the frames rounded to bf16 times the folded basis rounded to bf16
 (float64 fold -> float32 -> bf16), float32 accumulation and output: kernel
-1's dense bf16 class on the card for every size, the plain version on the
+1's dense bf16 class on the card for every size (its span body at the
+model's size), the plain version on the
 rounded values on the CPU. The synthesis multiplies the spectrogram and the
 inverse bases, both rounded to bf16, in float32 (the products of bf16 values
 are exact in float32), and overlap-adds in float32, as the JAX ``istft``.
@@ -44,7 +45,7 @@ import torch.nn.functional as F
 from dcs_net_tpu_torch.core.config import STFTConfig
 from dcs_net_tpu_torch.dsp.stft_cuda import (FFT_COMPILED, STFTPlan, bf16_round,
                                              choose_entry, dense_basis, dense_basis_bf16,
-                                             fft_tables, stft_analysis)
+                                             fft_tables, span_basis_bf16, stft_analysis)
 from dcs_net_tpu_torch.utils.carray import CArray
 from dcs_net_tpu_torch.utils.device import device_cache
 
@@ -123,8 +124,8 @@ def _analysis_plan(cfg: STFTConfig, device: torch.device,
                    dtype=np.float32) -> STFTPlan:
     """Kernel 1's constants for ``cfg`` on ``device``, copied once. The card
     gets only what its entry point reads: the FFT's tables (no row table
-    for the compiled size), or the dense entry's packed basis (at bf16 its
-    bf16 class's); the CPU gets the plain version's bases (at bf16 rounded),
+    for the compiled size), or the dense entry's packed basis (at bf16 that
+    of the body its bf16 class routes the size to); the CPU gets the plain version's bases (at bf16 rounded),
     and the FFT tables where the FFT entry takes the size (the tests model
     the kernel from them)."""
     on_cpu = torch.device(device).type == "cpu"
@@ -132,6 +133,8 @@ def _analysis_plan(cfg: STFTConfig, device: torch.device,
         cos_b = sin_b = dense = None
         if on_cpu:
             cos_b, sin_b = _bf16_bases(_dft_basis_eff, cfg, device)
+        elif choose_entry(cfg.n_fft, cfg.hop, "bfloat16") == "dense_bf16":
+            dense = span_basis_bf16(*_dft_basis_eff(cfg, np.float32), cfg.hop).to(device)
         else:
             dense = dense_basis_bf16(*_dft_basis_eff(cfg, np.float32)).to(device)
         return STFTPlan(cfg.n_fft, cfg.n_bins, cfg.hop,

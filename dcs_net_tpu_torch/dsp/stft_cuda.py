@@ -25,11 +25,20 @@ and :func:`choose_entry` picks one from the shape alone:
   :func:`dense_basis`, the reduction split over a cluster
   where the grid is under a wave (:func:`dense_split`, from the blocks an
   SM the card reports, :func:`blocks_per_sm`);
-* the dense entry's bf16 class (``KERNEL_DENSE_BF16``), for every size at
-  ``dft_dtype="bfloat16"``: the JAX package's function at that type, the
-  frames and the folded basis rounded to bf16 (the basis once, on the host:
-  :func:`dense_basis_bf16`) into float32 sums and a float32 output, one bf16
-  ``wgmma`` where 3xTF32 takes three.
+* the dense entry's bf16 class, for every size at ``dft_dtype="bfloat16"``:
+  the JAX package's function at that type, the frames and the folded basis
+  rounded to bf16 (the basis once, on the host) into float32 sums and a
+  float32 output. Two bodies, by shape (:func:`choose_entry`): the span body
+  (``KERNEL_DENSE_BF16``) where ``hop`` is a multiple of 16 and a column
+  block's basis fits shared memory (the model's 512 / 32): a block stages
+  its frames' sample span once as rows of ``hop`` bf16 samples, so the
+  frames are ``ceil(n_fft / hop)`` shifted views of it that ``wgmma`` reads
+  through descriptors, against the column block's basis
+  (:func:`span_basis_bf16`) resident in shared memory, each block walking
+  several tiles of frames (:func:`span_plan`); and the chunked body
+  (``KERNEL_DENSE_BF16_CHUNKED``) for the rest: the dense entry's kernel
+  with one bf16 ``wgmma`` where 3xTF32 takes three, on
+  :func:`dense_basis_bf16`.
 
 :func:`stft_analysis` is the one entry: it takes a tensor on the CPU through
 :func:`stft_dft_plain` (reflect pad, framing, two matmuls) and a CUDA tensor
@@ -62,7 +71,11 @@ KERNEL_DENSE = CudaKernel(
     "stft_dense", "stft.cu", "dcs_stft_forward",
     [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _p])
 KERNEL_DENSE_BF16 = CudaKernel(
-    "stft_dense_bf16", "stft.cu", "dcs_stft_forward_bf16", KERNEL_DENSE.argtypes)
+    "stft_dense_bf16", "stft.cu", "dcs_stft_forward_bf16",
+    [_p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i, _i, _i, _p])
+KERNEL_DENSE_BF16_CHUNKED = CudaKernel(
+    "stft_dense_bf16_chunked", "stft.cu", "dcs_stft_forward_bf16_chunked",
+    KERNEL_DENSE.argtypes)
 
 # the in-register DFT sizes of csrc/stft.cu (dft_any<R>)
 CODELETS = (3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 15, 16)
@@ -82,9 +95,16 @@ H100_SMS = 132
 # count is :func:`blocks_per_sm`)
 DENSE_FRAMES, DENSE_BINS, DENSE_CHUNK, DENSE_MAX_SPLIT = 64, 32, 32, 8
 DENSE_SMEM = 4 * 2 * (2 * DENSE_CHUNK * 2 * DENSE_BINS + DENSE_FRAMES * (DENSE_CHUNK + 4))
-# the bf16 class: one bf16 slab a chunk in place of the hi and lo ones
+# the bf16 class's chunked body: one bf16 slab a chunk in place of the hi
+# and lo ones
 DENSE_SMEM_BF16 = 4 * 2 * (DENSE_CHUNK * DENSE_BINS + DENSE_FRAMES * (DENSE_CHUNK + 4))
 DENSE_RESIDENT = 4
+# the bf16 class's span body: the frames of a tile (its instantiations,
+# largest first), the k16 step its hop must be a multiple of, and the share
+# of the SMs its tiles should give a block
+SPAN_FRAMES = (128, 64, 32)
+SPAN_HOP_STEP = 16
+SPAN_FILL = 0.7
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,13 +131,51 @@ def fft_radices(n_fft: int) -> Optional[Tuple[int, ...]]:
     return min(plans, key=lambda p: (len(p), p)) if plans else None
 
 
+def span_taps(n_fft: int, hop: int) -> int:
+    """Rows of ``hop`` samples a frame spans in the span body: the taps of its
+    correlation, ``ceil(n_fft / hop)`` (basis rows past n_fft are zero)."""
+    return -(-n_fft // hop)
+
+
+def span_smem_bytes(n_fft: int, hop: int, frames: int) -> int:
+    """Shared memory of one span-body block with tiles of ``frames`` frames
+    (``span_smem_bytes`` in the source): the column block's basis (taps *
+    hop rows of 64 bf16), two span images (frames + taps - 1 rows of hop
+    bf16), two float32 output tiles (64 rows of frames + 8 words), two
+    float32 raw spans and the mbarriers (one a tap, ten for the rings)."""
+    taps = span_taps(n_fft, hop)
+    return (taps * hop * 128 + 2 * (frames + taps - 1) * hop * 2
+            + 2 * 64 * (frames + 8) * 4 + 2 * (frames + taps - 1) * hop * 4
+            + 8 * (taps + 10))
+
+
 def choose_entry(n_fft: int, hop: int, dft_dtype: str = "float32") -> str:
-    """``"fft"``, ``"dense"`` or ``"dense_bf16"``: which entry point a CUDA
-    tensor takes, from the shape and the operand type alone. At bfloat16
-    every size takes the dense entry's bf16 class."""
+    """``"fft"``, ``"dense"``, ``"dense_bf16"`` or ``"dense_bf16_chunked"``:
+    which entry point (at bf16, which body of the dense entry's bf16 class) a
+    CUDA tensor takes, from the shape and the operand type alone. At bfloat16
+    the span body takes every hop that is a multiple of 16 whose smallest
+    block fits shared memory, the chunked body every other size."""
     if dft_dtype == "bfloat16":
-        return "dense_bf16"
+        fits = span_smem_bytes(n_fft, hop, SPAN_FRAMES[-1]) <= SMEM_LIMIT
+        return "dense_bf16" if hop % SPAN_HOP_STEP == 0 and fits else "dense_bf16_chunked"
     return "fft" if fft_radices(n_fft) is not None and 0 < hop <= n_fft else "dense"
+
+
+def span_plan(n_fft: int, hop: int, n_bins: int, batch: int, n_frames: int,
+              sms: int = H100_SMS) -> Tuple[int, int]:
+    """(frames, groups) of the span body: one block an SM, ``groups`` blocks
+    a (batch row, column block) each walking every groups-th tile (its
+    basis loaded once), with tiles of the most of :data:`SPAN_FRAMES` frames
+    whose block fits shared memory and whose tiles give at least
+    :data:`SPAN_FILL` of the SMs a block, else the fewest that fit. The
+    smoke's sweep of (frames, groups) at the serving shapes (phase "bf16",
+    lines ``kernel stft_dense_bf16 sweep:``) found these fastest on the
+    H100: a block's set-up (the basis) is paid once, and a tile's products,
+    the next one's span and the last one's stores overlap."""
+    fit = [f for f in SPAN_FRAMES if span_smem_bytes(n_fft, hop, f) <= SMEM_LIMIT]
+    rows = batch * -(-n_bins // DENSE_BINS)
+    frames = next((f for f in fit if rows * -(-n_frames // f) >= SPAN_FILL * sms), fit[-1])
+    return frames, max(1, min(-(-n_frames // frames), sms // rows))
 
 
 def _skewed_words(span: int) -> int:
@@ -261,16 +319,19 @@ def bf16_round(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16)
 
 
-def dense_basis_bf16(cos_b: np.ndarray, sin_b: np.ndarray) -> torch.Tensor:
+def dense_basis_bf16(cos_b: np.ndarray, sin_b: np.ndarray,
+                     rows: Optional[int] = None) -> torch.Tensor:
     """The dense entry's bf16 basis: the folded float32 (n_fft, F) cos and sin
     bases rounded once to bf16 (the JAX package's float64 fold -> float32
     -> bf16), as one (Kp, 2 Fp) matrix laid out as :func:`dense_basis` lays
     it, without the split. Returned as (Fp/32, Kp/32, 4, 64, 8) bf16: for
     column block j and chunk c of 32 rows, element (k, n) at [k // 8, n,
     k % 8], the K-major core-matrix image (8 n x 8 k bf16, 16 bytes a row)
-    that the bf16 ``wgmma`` reads, one contiguous copy a chunk."""
+    that the bf16 ``wgmma`` reads, one contiguous copy a chunk (the chunked
+    body's basis). ``rows``, a multiple of 32 not under n_fft, sets Kp."""
     k, f = cos_b.shape
-    kp, fp = -(-k // DENSE_CHUNK) * DENSE_CHUNK, -(-f // DENSE_BINS) * DENSE_BINS
+    kp = rows or -(-k // DENSE_CHUNK) * DENSE_CHUNK
+    fp = -(-f // DENSE_BINS) * DENSE_BINS
     out = np.zeros((kp, fp // DENSE_BINS, 2, DENSE_BINS), np.float32)
     for j, b in enumerate((cos_b, sin_b)):
         out[:k, :, j, :] = np.pad(np.asarray(b, np.float32), ((0, 0), (0, fp - f))
@@ -279,6 +340,18 @@ def dense_basis_bf16(cos_b: np.ndarray, sin_b: np.ndarray) -> torch.Tensor:
     # (chunk, k // 8 in it, k % 8, column block, n) -> the slabs
     v = v.reshape(kp // DENSE_CHUNK, DENSE_CHUNK // 8, 8, fp // DENSE_BINS, 2 * DENSE_BINS)
     return v.permute(3, 0, 1, 4, 2).contiguous()
+
+
+def span_basis_bf16(cos_b: np.ndarray, sin_b: np.ndarray, hop: int) -> torch.Tensor:
+    """The span body's bf16 basis: :func:`dense_basis_bf16`'s values and
+    K-major core-matrix order over ``taps * hop`` rows (:func:`span_taps`;
+    rows past n_fft zero), as (Fp/32, taps * hop / 8, 64, 8) bf16: row k of
+    column c of column block j at [j, k // 8, c, k % 8]. A column block is
+    one contiguous run, a tap's ``hop`` rows one bulk copy of it."""
+    kp = span_taps(cos_b.shape[0], hop) * hop
+    packed = dense_basis_bf16(cos_b, sin_b, -(-kp // DENSE_CHUNK) * DENSE_CHUNK)
+    nb = packed.shape[0]
+    return packed.reshape(nb, -1, 2 * DENSE_BINS, 8)[:, :kp // 8].contiguous()
 
 
 def dense_split(n_fft: int, n_bins: int, batch: int, n_frames: int,
@@ -300,14 +373,15 @@ def dense_split(n_fft: int, n_bins: int, batch: int, n_frames: int,
 @functools.lru_cache(maxsize=None)
 def blocks_per_sm(entry: str, smem: int) -> int:
     """Blocks of the mixed FFT kernel (``"fft"``), of the dense kernel
-    (``"dense"``) or of its bf16 class (``"dense_bf16"``) one SM of the card
+    (``"dense"``) or of its bf16 class's chunked body
+    (``"dense_bf16_chunked"``) one SM of the card
     holds at once with ``smem`` bytes of dynamic shared memory each (a query
     of the CUDA occupancy calculator; builds the library, launches nothing;
     asked once a process)."""
     # through the registry: KERNEL itself may be wrapped (shape logs, tests)
     fn = KERNELS["stft"].library_function("dcs_stft_blocks_per_sm", [_i, _i, _p])
     out = ctypes.c_int(0)
-    rc = fn(("fft", "dense", "dense_bf16").index(entry), smem, ctypes.byref(out))
+    rc = fn(("fft", "dense", "dense_bf16_chunked").index(entry), smem, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError(f"dcs_stft_blocks_per_sm failed: error {rc}")
     return out.value
@@ -320,9 +394,10 @@ class STFTPlan(NamedTuple):
     None for the compiled size; the radices follow from n_fft), or the
     dense entry's packed basis. A plan on the CPU holds the folded (n_fft,
     F) bases of the plain version, and the FFT tables too where the FFT
-    entry takes the size. A plan at bf16 (``bf16``) holds on the card the bf16
-    basis of :func:`dense_basis_bf16` in ``dense``, on the CPU the bases
-    rounded to bf16 (as float32 values) in ``cos_b`` and ``sin_b``."""
+    entry takes the size. A plan at bf16 (``bf16``) holds on the card in
+    ``dense`` the bf16 basis of the body :func:`choose_entry` routes the size
+    to (:func:`span_basis_bf16` or :func:`dense_basis_bf16`), on the CPU the
+    bases rounded to bf16 (as float32 values) in ``cos_b`` and ``sin_b``."""
 
     n_fft: int
     n_bins: int
@@ -368,16 +443,21 @@ def _outputs(x: torch.Tensor, n_bins: int, n_frames: int):
     return re, torch.empty_like(re)
 
 
-def _launch_dense(x: torch.Tensor, plan: STFTPlan, n_frames: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch_dense(x: torch.Tensor, plan: STFTPlan, n_frames: int,
+                  body: Optional[str] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dense entry, or at a bf16 plan its bf16 class, on a CUDA tensor,
-    from the plan's packed basis."""
+    from the plan's packed basis: the body ``body`` names (``"dense_bf16"``
+    or ``"dense_bf16_chunked"``, on the basis that body reads), by default
+    :func:`choose_entry`'s."""
     dev = x.device
     if plan.dense is None:
         raise ValueError(f"the plan holds no dense basis for n_fft {plan.n_fft}")
     nb, nc = -(-plan.n_bins // DENSE_BINS), -(-plan.n_fft // DENSE_CHUNK)
+    if plan.bf16 and (body or choose_entry(plan.n_fft, plan.hop, "bfloat16")) == "dense_bf16":
+        return _launch_span(x, plan, n_frames)
     if plan.bf16:
-        entry, kernel, smem = "dense_bf16", KERNEL_DENSE_BF16, DENSE_SMEM_BF16
+        entry, kernel, smem = ("dense_bf16_chunked", KERNEL_DENSE_BF16_CHUNKED,
+                               DENSE_SMEM_BF16)
         dtype, shape = torch.bfloat16, (nb, nc, DENSE_CHUNK // 8, 2 * DENSE_BINS, 8)
     else:
         entry, kernel, smem = "dense", KERNEL_DENSE, DENSE_SMEM
@@ -392,6 +472,35 @@ def _launch_dense(x: torch.Tensor, plan: STFTPlan, n_frames: int
     kernel(dev, ptr(x), ptr(plan.dense), ptr(re), ptr(im), x.shape[0],
            x.shape[1], plan.n_fft, plan.hop, plan.n_bins, n_frames, plan.pad, split)
     return re, im
+
+
+def _launch_span(x: torch.Tensor, plan: STFTPlan, n_frames: int,
+                 tiles: Optional[Tuple[int, int]] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 class's span body on a CUDA tensor, from the plan's
+    :func:`span_basis_bf16` basis, at ``tiles`` = (frames, groups), by
+    default :func:`span_plan`'s."""
+    dev = x.device
+    nb = -(-plan.n_bins // DENSE_BINS)
+    shape = (nb, span_taps(plan.n_fft, plan.hop) * plan.hop // 8, 2 * DENSE_BINS, 8)
+    check_cuda_operand("dense", plan.dense, dev, len(shape), torch.bfloat16)
+    if tuple(plan.dense.shape) != shape or plan.dense.data_ptr() % 16:
+        raise ValueError(f"the span basis must be {shape} and 16-byte aligned, "
+                         f"got {tuple(plan.dense.shape)}")
+    re, im = _outputs(x, plan.n_bins, n_frames)
+    frames, groups = tiles or span_plan(plan.n_fft, plan.hop, plan.n_bins, x.shape[0],
+                                        n_frames, _sm_count(dev))
+    KERNEL_DENSE_BF16(dev, ptr(x), ptr(plan.dense), ptr(re), ptr(im), x.shape[0],
+                      x.shape[1], plan.n_fft, plan.hop, plan.n_bins, n_frames, plan.pad,
+                      frames, groups)
+    return re, im
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    if device.type != "cuda":
+        return H100_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch_fft(x: torch.Tensor, plan: STFTPlan, n_frames: int

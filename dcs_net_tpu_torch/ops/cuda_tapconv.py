@@ -22,12 +22,22 @@ and a split of the channel chunks among a cluster of blocks that adds its
 partial tiles in a fixed order, by a cost model measured on the H100. The
 public argument layout is unchanged. See the source for the design notes.
 
-The forward has a bf16 class (``KERNEL_BF16`` with ``PACK_BF16``), the JAX
-package's ``tapconv_valid`` at bf16 operands: x and w bf16, float32 sums, y
-bf16, one bf16 ``wgmma`` a 16-channel step on weights packed by
-:func:`pack_weights_bf16`'s layout, the same tiling and plan. Its plain
-version :func:`tapconv_valid_bf16_plain` sums the same exact products in
-float32 and rounds once. The input gradient has no bf16 class (training at
+The forward has a bf16 class, the JAX package's ``tapconv_valid`` at bf16
+operands: x and w bf16, float32 sums, y bf16, on weights packed by
+``PACK_BF16`` (:func:`pack_weights_bf16`'s layout). Two bodies, chosen from
+the shape alone (:func:`bf16_body`): the staged body (``KERNEL_BF16``), where
+a ring of two stages fits shared memory (every 3 x 3 stage of the model):
+both ``wgmma`` operands from shared memory through descriptors, the halo
+tile of a 32-channel chunk staged as the K-major core-matrix image so that a
+tap is a descriptor offset, flat tiles in halo coordinates
+(:func:`staged_tiling`), every live tap's weights of the chunk in one stage,
+a producer warpgroup filling the ring and consumer warpgroups that never
+meet at a block barrier in the main loop, planned by :func:`forward_plan`
+with its own cost model (``STEP_MS_BF16``); and the tap body
+(``KERNEL_BF16_TAP``) for larger windows: the float32 kernel's template with
+one bf16 ``wgmma`` a 16-channel step. Its plain version
+:func:`tapconv_valid_bf16_plain` sums the same exact products in float32 and
+rounds once. The input gradient has no bf16 class (training at
 bf16 is ROADMAP Queue 1 item 5b): a bf16 call that autograd follows raises.
 
 :func:`tapconv_valid` takes CPU tensors through the plain version and CUDA
@@ -76,13 +86,22 @@ DGRAD = CudaKernel(
 DGRAD_PACK = CudaKernel(
     "tapconv_pack_dgrad", "tapconv.cu", "dcs_tapconv_pack_dgrad",
     [_p, _p, _i, _i, _i, _i, _i, _p])
-# the forward's bf16 class and its packing
+# the forward's bf16 class (its staged body, and its tap body for the shapes
+# the staged body does not take) and its packing
 KERNEL_BF16 = CudaKernel(
     "tapconv_valid_bf16", "tapconv.cu", "dcs_tapconv_valid_bf16", KERNEL.argtypes)
+KERNEL_BF16_TAP = CudaKernel(
+    "tapconv_valid_bf16_tap", "tapconv.cu", "dcs_tapconv_valid_bf16_tap",
+    KERNEL.argtypes)
 PACK_BF16 = CudaKernel(
-    "tapconv_pack_bf16", "tapconv.cu", "dcs_tapconv_pack_bf16", PACK.argtypes)
+    "tapconv_pack_bf16", "tapconv.cu", "dcs_tapconv_pack_bf16",
+    [_p, _p, _i, _i, _i, _i, _i, _p])
 
-BK = 32     # input channels per reduction chunk of the kernel
+BK = 32     # input channels per reduction chunk of the kernel (and of the
+            # bf16 class's tap body)
+# the bf16 class's staged body: channels a stage (one k16 step a tap), and
+# the deepest ring it takes
+STAGED_KB, STAGED_MAX_STAGES = 16, 6
 
 
 def tile_n(n: int) -> int:
@@ -120,10 +139,12 @@ def pack_weights(w: torch.Tensor, bn: int, bk: int = BK) -> torch.Tensor:
 
 def pack_weights_bf16(w: torch.Tensor, bn: int, bk: int = BK) -> torch.Tensor:
     """w (taps, Cin, N) bf16 -> (n tiles, chunks, taps, bk/8, bn, 8): per N
-    tile, chunk and tap one bf16 slab in the K-major core-matrix order the
-    bf16 class copies into shared memory (8 consecutive input channels, 16
-    bytes, innermost, then the output channel), zero beyond Cin and N: the
-    layout ``dcs_tapconv_pack_bf16`` writes."""
+    tile, ``bk``-channel chunk and tap one bf16 slab in the K-major
+    core-matrix order the bf16 class copies into shared memory (8
+    consecutive input channels, 16 bytes, innermost, then the output
+    channel), zero beyond Cin and N: the layout ``dcs_tapconv_pack_bf16``
+    writes (``bk`` 16 for the staged body, whose stage is a chunk's every
+    tap, one contiguous run; 32 for the tap body)."""
     taps, cin, n = w.shape
     nt, nc = -(-n // bn), -(-cin // bk)
     wpad = F.pad(w, (0, nt * bn - n, 0, nc * bk - cin))
@@ -209,11 +230,13 @@ def tapconv_valid_bf16_plain(x: torch.Tensor, w: torch.Tensor, dh_n: int,
 
 def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
             pad: Optional[Pad] = None,
-            plan: Optional[Tuple[int, int, int, int]] = None) -> torch.Tensor:
+            plan: Optional[Tuple[int, int, int, int]] = None,
+            body: Optional[str] = None) -> torch.Tensor:
     """The packing and tap-conv launches on CUDA tensors: x (B, H, W, Cin)
     read in place as zero-padded by ``pad``, at ``plan`` = (bn, flat, wgs,
     split), by default :func:`forward_plan`'s. bf16 x and w take the bf16
-    class (its packing and kernel), float32 the 3xTF32 one."""
+    class (its packing and the body ``body`` names, by default
+    :func:`bf16_body`'s), float32 the 3xTF32 one."""
     B, ho, wo, n = _out_shape(x, w, dh_n, dw_n, pad)
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
@@ -222,16 +245,23 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
     check_cuda_operand("w", w, dev, 3, dtype)
     _, H, W, cin = x.shape
     top, _, left, _ = _pads(pad)
-    bn, flat, wgs, split = plan or forward_plan(B, H, W, cin, n, dh_n, dw_n, pad, dev,
-                                                bf16=bf16)
-    nt, nc, taps = -(-n // bn), -(-cin // BK), dh_n * dw_n
     if bf16:
-        pack, kernel, shape = PACK_BF16, KERNEL_BF16, (nt, nc, taps, BK // 8, bn, 8)
+        body = body or bf16_body(B, H, W, cin, n, dh_n, dw_n, pad)
+    bn, flat, wgs, split = plan or forward_plan(B, H, W, cin, n, dh_n, dw_n, pad, dev,
+                                                bf16=bf16, body=body)
+    taps = dh_n * dw_n
+    if bf16:
+        kernel = KERNEL_BF16 if body == "staged" else KERNEL_BF16_TAP
+        kb = STAGED_KB if body == "staged" else BK
+        shape = (-(-n // bn), -(-cin // kb), taps, kb // 8, bn, 8)
     else:
-        pack, kernel, shape = PACK, KERNEL, (nt, nc, taps, 2, BK // 4, bn, 4)
+        kernel, shape = KERNEL, (-(-n // bn), -(-cin // BK), taps, 2, BK // 4, bn, 4)
     packed = torch.empty(shape, device=dev, dtype=dtype)
     y = torch.empty((B, ho, wo, n), device=dev, dtype=dtype)
-    pack(dev, ptr(w), ptr(packed), taps, cin, n, bn)
+    if bf16:
+        PACK_BF16(dev, ptr(w), ptr(packed), taps, cin, n, bn, kb)
+    else:
+        PACK(dev, ptr(w), ptr(packed), taps, cin, n, bn)
     kernel(dev, ptr(x), ptr(packed), ptr(y), B, H, W, cin, ho, wo, n, dh_n, dw_n,
            top, left, flat, wgs, bn, split)
     return y
@@ -355,8 +385,13 @@ def dgrad_plan(B: int, H: int, W: int, n: int, cin: int, dh_n: int, dw_n: int,
 # block runs (the A side's loads and splits and the wgmma instructions, not
 # the weights' bytes), times the waves of clusters the grid takes. Fitted
 # to the sweep's lines by tools/fit_tapconv_plan.py, on the float32 class;
-# the bf16 class takes the same model (not fitted to it).
+# the bf16 class's tap body takes the same model.
 STEP_MS = {1: 0.00094, 2: 0.00126}
+# The same model for the bf16 class's staged body (every tap of a 16-channel
+# chunk a step), fitted by tools/fit_tapconv_plan.py --bf16 to the smoke's
+# bf16 sweep lines on the H100 (80GB HBM3, 700 W): 96 timings, median error
+# 0.15.
+STEP_MS_BF16 = {1: 0.00007, 2: 0.00010}
 # cudaOccupancyMaxActiveClusters on the H100 at one block an SM, by cluster
 # size: the figures where no card is at hand (meta tensors)
 H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
@@ -364,11 +399,12 @@ H100_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15}
 
 @device_cache(64)
 def _clusters_at_once(device: torch.device, wgs: int, smem: int, split: int,
-                      bf16: bool = False) -> int:
+                      bf16: int = 0) -> int:
     """Clusters of ``split`` blocks at ``wgs`` warpgroups and ``smem`` bytes
     of shared memory that the card runs at once (``dcs_tapconv_clusters``;
-    ``bf16``: of the bf16 class's kernel). A device cache: a graph's warm-up
-    asks the library, its capture reads the answer from the graph's entry."""
+    ``bf16``: 1 of the bf16 class's tap body, 2 of its staged body). A device
+    cache: a graph's warm-up asks the library, its capture reads the answer
+    from the graph's entry."""
     if device.type != "cuda":
         return H100_CLUSTERS[split]
     # through the registry: KERNEL itself may be wrapped (shape logs, tests)
@@ -406,9 +442,129 @@ def _live_taps(flat: int, wgs: int, H: int, HO: int, WO: int, top: int,
                        - max(0, top - qb // WO) + 1) for qa, qb in spans]
 
 
+def staged_tiling(flat: int, wgs: int, H: int, W: int, dh_n: int, dw_n: int
+                  ) -> Tuple[int, int, int, int]:
+    """(M tiles per image or output row, halo pixels a row, halo rows a
+    stage's tensor copy brings, halo pixels an 8-channel plane of a stage
+    holds) of the staged body for an output H x W (``staged_tiles`` in the
+    source). A flat tile is BM = 64 * wgs
+    consecutive positions of the image's H x pw halo grid (pw = W + Dw - 1),
+    starting at any column: the copy brings min(its rows, H) + Dh - 1 rows,
+    and its M rows read up to position pw - 1 + BM - 1 + (Dh - 1) pw + Dw -
+    1; a row tile is BM output columns of one row (pw = BM + Dw - 1, Dh
+    rows). The plane holds the larger, rounded up to 8."""
+    bm = 64 * wgs
+    if flat:
+        pw = W + dw_n - 1
+        tiles = -(-((H - 1) * pw + W) // bm)
+        arows = min((bm + pw - 2) // pw + 1, H) + dh_n - 1
+        reach = dh_n * pw + bm + dw_n - 2
+    else:
+        pw = bm + dw_n - 1
+        tiles, arows, reach = -(-W // bm), dh_n, dh_n * pw
+    return tiles, pw, arows, -(-max(arows * pw, reach) // 8) * 8
+
+
+def _staged_bars_offset(bn: int, wgs: int, taps: int, npix: int, split: int,
+                        nst: int) -> int:
+    ring = nst * (taps * STAGED_KB * bn * 2 + npix * STAGED_KB * 2)
+    out = 64 * wgs * (bn + 8) * (4 if split > 1 else 2)
+    return -(-max(ring, out) // 8) * 8
+
+
+def staged_stages(bn: int, wgs: int, taps: int, npix: int, cin: int, split: int) -> int:
+    """Stages of the staged body's ring (``staged_stages`` in the source): at
+    most 4 and a rank's chunks, or 0 where fewer than two fit shared memory
+    for a rank with more than one chunk (the body does not take it)."""
+    per = -(-(-(-cin // STAGED_KB)) // split)
+    for nst in range(min(STAGED_MAX_STAGES, per), 0, -1):
+        if _staged_bars_offset(bn, wgs, taps, npix, split, nst) + 16 * nst <= SMEM_LIMIT:
+            return nst if nst >= 2 or per == 1 else 0
+    return 0
+
+
+def staged_smem(bn: int, wgs: int, taps: int, npix: int, cin: int, split: int) -> int:
+    """Shared memory of one staged-body block: its ring (or the output's
+    staging, where larger) and 2 mbarriers a stage."""
+    nst = staged_stages(bn, wgs, taps, npix, cin, split)
+    return _staged_bars_offset(bn, wgs, taps, npix, split, nst) + 16 * nst
+
+
+def _staged_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
+                 pad: Pad, device: torch.device) -> Optional[Tuple[int, int, int, int]]:
+    """(bn, flat, wgs, split) of the bf16 class's staged body, or None where
+    no tiling of it fits shared memory. Flat tiles below 128 output
+    columns, 128 M rows (two consumer warpgroups sharing each stage) unless
+    64 fill the tiles better by a tenth or 128 would leave half of the SMs
+    idle; where the grid is under half a wave, the (flat, wgs, split) of the
+    least modelled time, as :func:`forward_plan`, at ``STEP_MS_BF16`` (every
+    tap runs in the staged body)."""
+    top, bottom, left, right = _pads(pad)
+    HO, WO = H + top + bottom - dh_n + 1, W + left + right - dw_n + 1
+    bn, nt, taps = tile_n(n), -(-n // tile_n(n)), dh_n * dw_n
+    sms = _sm_count(device)
+
+    def stages(flat, wgs, split=1):
+        return staged_stages(bn, wgs, taps, staged_tiling(flat, wgs, HO, WO, dh_n, dw_n)[3],
+                             cin, split)
+
+    flat = int(WO < 128 and stages(1, 1) > 0)
+    if stages(flat, 1) == 0:
+        return None
+    px = (HO - 1) * (WO + dw_n - 1) + WO if flat else WO
+
+    def fill(wgs):
+        bm = 64 * wgs
+        return px / (bm * -(-px // bm))
+
+    def m_tiles(flat, wgs):
+        return B * staged_tiling(flat, wgs, HO, WO, dh_n, dw_n)[0] * (1 if flat else HO)
+
+    wgs = 2 if (stages(flat, 2) > 0 and fill(2) >= 0.9 * fill(1)
+                and 2 * m_tiles(flat, 2) * nt > sms) else 1
+    if 2 * m_tiles(flat, wgs) * nt > sms:
+        return bn, flat, wgs, 1
+    nchunks = -(-cin // STAGED_KB)
+    best, plan = None, (bn, flat, wgs, 1)
+    for flat, wgs in ((0, 1), (0, 2), (1, 1), (1, 2)):
+        if flat and WO >= 128:
+            continue
+        npix = staged_tiling(flat, wgs, HO, WO, dh_n, dw_n)[3]
+        for split in (1, 2, 4, 8):
+            if split > nchunks or stages(flat, wgs, split) == 0:
+                break
+            smem = staged_smem(bn, wgs, taps, npix, cin, split)
+            waves = -(-m_tiles(flat, wgs) * nt // _clusters_at_once(device, wgs, smem, split, 2))
+            key = (waves * -(-nchunks // split) * taps * STEP_MS_BF16[wgs],
+                   m_tiles(flat, wgs) * wgs)
+            if best is None or key < best:
+                best, plan = key, (bn, flat, wgs, split)
+    return plan
+
+
+def bf16_body(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
+              pad: Optional[Pad] = None) -> str:
+    """The body of the bf16 class a shape takes, from the shape alone:
+    ``"staged"`` for a 3 x 3 window (the one it is compiled for, every stage
+    of the model's) where N > 8, Cin is a multiple of 8 (its tensor copies
+    read x in 16-byte groups) and some tiling of the staged body fits shared
+    memory (a ring of two stages of the 9 taps' weights and the halo tile of
+    a 16-channel chunk: every stage of the model but the last), else
+    ``"tap"``. At N <= 8 (dec6: 8 channels out of 32) a stage is a few
+    m64n8k16 products and the block's set-up dominates: the tap body's
+    m64n8 class, all taps in one stage and several blocks an SM, is the
+    faster there (``chip_smoke.py`` phase "bf16" times both bodies at dec6,
+    its rows ``tapconv_valid_bf16_tap*``, ``staged_ms``)."""
+    if n <= 8 or cin % 8 or (dh_n, dw_n) != (3, 3):
+        return "tap"
+    plan = _staged_plan(B, H, W, cin, n, dh_n, dw_n, _pads(pad), torch.device("meta"))
+    return "tap" if plan is None else "staged"
+
+
 def forward_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
                  pad: Pad = (0, 0, 0, 0), device: torch.device = torch.device("meta"),
-                 bf16: bool = False) -> Tuple[int, int, int, int]:
+                 bf16: bool = False, body: Optional[str] = None
+                 ) -> Tuple[int, int, int, int]:
     """(bn, flat, wgs, split) of the forward of x (B, H, W, Cin) zero-padded
     by ``pad`` to N = ``n`` channels on ``device``, from the shape alone: the
     N tile of :func:`tile_n` and the tiling of :func:`_tile_plan`. Where that
@@ -418,7 +574,15 @@ def forward_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
     one 32-channel chunk) of the least modelled time: the taps and chunks a
     block runs at ``STEP_MS``, times the waves of clusters the card runs
     (:func:`_clusters_at_once`); of equal times, the fewer taps streamed.
-    ``bf16``: the bf16 class's, sized by its shared memory."""
+    ``bf16``: the bf16 class's, of the body ``body`` names (by default
+    :func:`bf16_body`'s): the staged body's by :func:`_staged_plan`, the tap
+    body's as the float32 class's, sized by its shared memory."""
+    if bf16 and (body or bf16_body(B, H, W, cin, n, dh_n, dw_n, pad)) == "staged":
+        plan = _staged_plan(B, H, W, cin, n, dh_n, dw_n, _pads(pad), device)
+        if plan is None:
+            raise ValueError(f"the staged body takes no tiling of x ({B}, {H}, {W}, "
+                             f"{cin}) to N {n} at {dh_n}x{dw_n}")
+        return plan
     top, bottom, left, right = _pads(pad)
     HO, WO = H + top + bottom - dh_n + 1, W + left + right - dw_n + 1
     bn, nt = tile_n(n), -(-n // tile_n(n))

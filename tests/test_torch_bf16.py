@@ -156,18 +156,23 @@ class _Recorder:
 
 def test_stft_at_bf16_takes_the_dense_bf16_class_at_every_size(monkeypatch):
     """On a tensor off the CPU (meta) the bf16 plan launches the dense bf16
-    class once, whatever the size, and neither float32 entry."""
-    recs = {k: _Recorder(k) for k in ("KERNEL", "KERNEL_DENSE", "KERNEL_DENSE_BF16")}
+    class once, whatever the size, and neither float32 entry: its span body
+    where hop is a multiple of 16 (the model's 512 / 32, and 352 / 32), its
+    chunked body otherwise (400 / 100), each on the basis its body reads."""
+    recs = {k: _Recorder(k) for k in ("KERNEL", "KERNEL_DENSE", "KERNEL_DENSE_BF16",
+                                      "KERNEL_DENSE_BF16_CHUNKED")}
     for k, r in recs.items():
         monkeypatch.setattr(stft_cuda, k, r)
-    for n_fft, hop in ((512, 32), (400, 100), (352, 32)):
-        assert stft_cuda.choose_entry(n_fft, hop, "bfloat16") == "dense_bf16"
+    for n_fft, hop, body in ((512, 32, "dense_bf16"), (400, 100, "dense_bf16_chunked"),
+                             (352, 32, "dense_bf16")):
+        assert stft_cuda.choose_entry(n_fft, hop, "bfloat16") == body
         cfg = STFTConfig(dft_dtype="bfloat16", n_fft=n_fft, win_length=n_fft, hop=hop)
         plan = tdsp._analysis_plan(cfg, torch.device("meta"))
         assert plan.bf16 and plan.dense.dtype == B16 and plan.cos_b is None
+        assert plan.dense.dim() == (4 if body == "dense_bf16" else 5)
         re, im = stft_cuda.stft_analysis(torch.empty(2, 4000, device="meta"), plan)
         assert re.dtype == torch.float32
-    assert [recs[k].launches for k in recs] == [0, 0, 3]
+    assert [recs[k].launches for k in recs] == [0, 0, 2, 1]
 
 
 # -- kernel 3 -----------------------------------------------------------------

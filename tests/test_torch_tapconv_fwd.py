@@ -207,12 +207,22 @@ SWEEP_FASTEST = [((1, 2, 32, 512, 512), (0, 1, 8)), ((1, 4, 32, 512, 512), (1, 1
                  ((8, 4, 32, 512, 512), (1, 1, 2)), ((8, 8, 32, 512, 256), (1, 1, 2))]
 
 
-@pytest.mark.parametrize("shape,fastest", SWEEP_FASTEST)
+# the bf16 class's staged body: the fastest tilings of its sweep (chip_smoke.py
+# phase "bf16", H100) where the plan's cost model runs (batch 1; at batch 8
+# the grid is over half a wave and the plan keeps its default tiling)
+BF16_SWEEP_FASTEST = [(("bf16", 1, 2, 32, 512, 512), (0, 1, 8)),
+                      (("bf16", 1, 4, 32, 512, 512), (1, 1, 8)),
+                      (("bf16", 1, 8, 32, 512, 256), (1, 1, 8))]
+
+
+@pytest.mark.parametrize("shape,fastest", SWEEP_FASTEST + BF16_SWEEP_FASTEST)
 def test_forward_plan_picks_the_sweeps_fastest_tiling(shape, fastest):
     """Where the grid is under half a wave, the plan's cost model picks the
-    tiling the sweep on the card measured fastest."""
-    B, H, W, cin, n = shape
-    assert ct.forward_plan(B, H, W, cin, n, 3, 3, PAD)[1:] == fastest
+    tiling the sweep on the card measured fastest (of the float32 class, and
+    of the bf16 class's staged body for shapes marked "bf16")."""
+    bf16 = shape[0] == "bf16"
+    B, H, W, cin, n = shape[1:] if bf16 else shape
+    assert ct.forward_plan(B, H, W, cin, n, 3, 3, PAD, bf16=bf16)[1:] == fastest
 
 
 @pytest.mark.parametrize("H,W,cin,n", STAGES)
