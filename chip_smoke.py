@@ -187,7 +187,8 @@ Phases (each prints one or more lines; any failure exits non-zero):
                "bfloat16"``: bf16 operands, float32 sums; the weights phase
                3's, float32): (a) ``enhance_full`` on 4 requests of 4 s:
                launch counts (kernel 1's dense bf16 class once, on its span
-               body; kernel 2's bf16 pool and gate 13 each; kernel 3's bf16
+               body; kernel 2's fused bf16 gate 13 times and PR 15's pool
+               and gate pair never; kernel 3's bf16
                class 7 times, dec0-dec5 on its staged body and dec6 on its
                tap body, and its packing 7 times; no launch of a float32
                class), a 1 s
@@ -202,15 +203,22 @@ Phases (each prints one or more lines; any failure exits non-zero):
                against its plain version at every shape each path launched
                it with (error relative to max |plain| <= 2^-7 where the
                output is bf16, 1e-4 for kernel 1's float32 output), rows
-               ``stft_dense_bf16``, ``sa_pool_bf16``, ``sa_gate_bf16``,
+               ``stft_dense_bf16``, ``sa_fused_bf16``,
                ``tapconv_valid_bf16``, ``tapconv_valid_bf16_tap`` (suffixes
                ``_stream``, ``_carry``, ``_eval``), each with one bf16
                PyTorch call's time (``torch.matmul`` of the bf16 frames by
-               the basis, ``F.conv2d`` in bf16), a bound at 989 TFLOP/s and
+               the basis, ``F.conv2d`` in bf16, the gate as one bf16 eager
+               sequence), a bound at 989 TFLOP/s and
                the other body of its class at the same shape (``earlier_ms``:
-               the chunked or tap body each redesigned body replaced, which
-               a slower shape fails; ``staged_ms`` beside the tap body at
-               dec6); the bodies off the path (kernel 1's span body at odd
+               the chunked or tap body or the pool and gate pair each
+               redesigned body replaced, reported where slower at a shape;
+               ``staged_ms`` beside the tap body at dec6); PR 15's pair's
+               own rows ``sa_pool_bf16``, ``sa_gate_bf16`` at the enhance
+               call's sites (off the path: 0 launches); the fused gate's
+               tiles at those sites (``kernel sa_fused_bf16 sweep:``); the
+               bodies off the path (kernel 2's fused gate at odd shapes and
+               forced tiles, the pair where the fused entry refuses a shape;
+               kernel 1's span body at odd
                n_fft, hop not dividing n_fft or above it, T below a tile, its
                chunked body where hop is no multiple of 16; kernel 3's staged
                body at ragged pixel runs and channel counts, both bodies
@@ -223,7 +231,11 @@ Phases (each prints one or more lines; any failure exits non-zero):
                call of the float32 model beside the bf16 one, graphed and
                eager, enhance and stream; (g) ``cli.enhance --dtype
                bfloat16`` (full, ``--stream``, ``--carry``) and ``cli.test
-               --dtype bfloat16`` on a float32 checkpoint.
+               --dtype bfloat16`` on a float32 checkpoint; (h) DC
+               (``config_for_variant("dc")``, its own seeded weights) at
+               bf16: one enhance call's launches (DCS's), graphed against
+               eager bit for bit, a 1 s request card vs CPU in the bf16
+               band.
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 
@@ -271,6 +283,7 @@ NATIVE_TOL = 1e-5            # native batches against the numpy path's
 PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "stft_fft_mixed_kernel", "stft_dense_kernel",
                        "stft_span_kernel", "conv_same_kernel", "conv7_kernel",
                        "sa_pool_kernel", "sa_gate_kernel", "sa_gate_real_kernel",
+                       "sa_fused_bf16_kernel",
                        "tapconv_kernel", "tapconv_staged_kernel", "pack_kernel",
                        "pack_bf16_kernel")
 # one train step's launches of each kernel, forward and input gradient (DCS and DRS)
@@ -284,12 +297,13 @@ DCS_EVAL_FORWARD = {"sa_pool": 13, "sa_gate": 13, "conv_same_small_cout": 13,
                     "tapconv_valid": 7, "tapconv_pack": 7}
 DRS_EVAL_FORWARD = {"sa_pool_real": 13, "sa_gate_real": 13, "tapconv_valid": 7,
                     "tapconv_pack": 7}
-# and of one DCS forward at bf16: the bf16 classes only (kernel 3's staged
-# body at dec0-dec5, its tap body at dec6's N = 8)
-DCS_EVAL_FORWARD_BF16 = {"sa_pool_bf16": 13, "sa_gate_bf16": 13, "tapconv_valid_bf16": 6,
+# and of one DCS (or DC) forward at bf16: the bf16 classes only (kernel 2's
+# fused gate at every site, kernel 3's staged body at dec0-dec5, its tap
+# body at dec6's N = 8)
+DCS_EVAL_FORWARD_BF16 = {"sa_fused_bf16": 13, "tapconv_valid_bf16": 6,
                          "tapconv_valid_bf16_tap": 1, "tapconv_pack_bf16": 7}
 # the bf16 classes a bf16 forward launches, rows of the kernels line
-BF16_ROWS = ("stft_dense_bf16", "sa_pool_bf16", "sa_gate_bf16", "tapconv_valid_bf16",
+BF16_ROWS = ("stft_dense_bf16", "sa_fused_bf16", "tapconv_valid_bf16",
              "tapconv_valid_bf16_tap")
 # the bf16 paths' calls profiled: the graphed one only, and not the streams'.
 # The bf16 LSTM recurrence runs ~10 kernels a step: ~12.8k kernels a 4 x 4 s
@@ -382,6 +396,9 @@ KERNEL_INFO.update({
                      "channel-mean-max-bf16", BF16_FLOPS_PER_S),
     "sa_gate_bf16": (KERNEL_INFO["sa_gate"][0], KERNEL_INFO["sa_gate"][1],
                      "conv-sigmoid-product-epilogue-bf16", BF16_FLOPS_PER_S),
+    "sa_fused_bf16": (KERNEL_INFO["sa_gate"][0], KERNEL_INFO["sa_gate"][1],
+                      "bf16-tma-box-pool-mma-conv-sigmoid-product-one-launch",
+                      BF16_FLOPS_PER_S),
     "tapconv_valid_bf16": (KERNEL_INFO["tapconv_valid"][0], KERNEL_INFO["tapconv_valid"][1],
                            "bf16-wgmma-staged-tma-ring-halo-descriptors", BF16_FLOPS_PER_S),
     "tapconv_valid_bf16_tap": (KERNEL_INFO["tapconv_valid"][0],
@@ -389,6 +406,7 @@ KERNEL_INFO.update({
                                "bf16-wgmma-in-place-flat-split", BF16_FLOPS_PER_S),
 })
 KERNEL_TOL = {"sa_pool_bf16": BF16_REL_TOL, "sa_gate_bf16": BF16_REL_TOL,
+              "sa_fused_bf16": BF16_REL_TOL,
               "tapconv_valid_bf16": BF16_REL_TOL, "tapconv_valid_bf16_tap": BF16_REL_TOL}
 # kernel 1 off the paths, rows of their own in the kernels line, each
 # (B, n, n_fft, hop), centred with the DC bin dropped as the model's: row 1b,
@@ -488,6 +506,19 @@ DENSE_BF16_EXTRA = [(1, 3000, 352, 32, True, True), (2, 5000, 320, 160, True, Fa
                     (1, 8160, 512, 32, False, True), (2, 3000, 96, 112, False, True),
                     (2, 2600, 81, 16, True, True), (1, 4000, 400, 100, True, True),
                     (1, 9000, 1024, 256, True, True), (1, 3000, 401, 100, False, True)]
+# kernel 2's bf16 gate off the path ((B, H, W, C), tile): the fused entry
+# at its plan (None) at one pixel, H and W under a tile, C no power of two,
+# C = 256, W no multiple of the tile, batch 32, and at forced tiles (a tile
+# row, tiles taller than the image, 64 columns); the pair where the fused
+# entry refuses (None again): C % 8 != 0, C above 256, a spanning tile past
+# shared memory, x off its alignment ("unaligned")
+GATE_BF16_EXTRA = [((1, 1, 1, 8), None), ((2, 5, 3, 16), None), ((3, 17, 129, 24), None),
+                   ((1, 3, 70, 256), None), ((2, 33, 300, 8), None), ((32, 4, 8, 16), None),
+                   ((1, 7, 9, 40), None), ((2, 9, 260, 128), None),
+                   ((2, 20, 40, 8), (1, 8)), ((1, 20, 90, 32), (32, 64)),
+                   ((2, 4, 33, 128), (4, 24)), ((1, 64, 200, 16), (16, 64)),
+                   ((2, 5, 7, 12), None), ((1, 3, 9, 264), None), ((1, 16, 20, 256), None),
+                   ((2, 5, 7, 8), "unaligned")]
 TAPCONV_BF16_EXTRA = [((2, 5, 7, 24), 12, (3, 3), (1, 1, 1, 1)),
                       ((1, 5, 9, 40), 70, (3, 3), (0, 2, 1, 1)),
                       ((1, 2, 130, 16), 12, (3, 3), (1, 1, 1, 1)),
@@ -584,8 +615,8 @@ def discover_shapes(run):
              (cuda_tapconv, "DGRAD"), (cuda_conv, "POOL_REAL"),
              (cuda_conv, "GATE_REAL"), (stft_cuda, "KERNEL_DENSE_BF16"),
              (stft_cuda, "KERNEL_DENSE_BF16_CHUNKED"), (cuda_conv, "POOL_BF16"),
-             (cuda_conv, "GATE_BF16"), (cuda_tapconv, "KERNEL_BF16"),
-             (cuda_tapconv, "KERNEL_BF16_TAP")]
+             (cuda_conv, "GATE_BF16"), (cuda_conv, "FUSED_BF16"),
+             (cuda_tapconv, "KERNEL_BF16"), (cuda_tapconv, "KERNEL_BF16_TAP")]
     logs = [ShapeLog(getattr(mod, attr)) for mod, attr in slots]
     try:
         for (mod, attr), log in zip(slots, logs):
@@ -730,6 +761,40 @@ def kernel_cases(name, args, dev, cfg):
                  # 2F, T) layout: the matmul and one transposing copy
                  "library_transposed_ms": lambda: torch.matmul(frames, basis).transpose(
                      -1, -2).contiguous()})
+    if name == "sa_fused_bf16":
+        # kernel 2's fused bf16 gate at a site the path gave it. Least
+        # traffic: x read once, out written once, the weights; least work:
+        # the conv, the pooling's sum and max and the product. The library
+        # figure: the gate as one bf16 eager PyTorch sequence (mean, max,
+        # cat, bf16 F.conv2d, sigmoid, product); earlier_ms: PR 15's pair,
+        # dcs_sa_pool_bf16 + dcs_sa_gate_bf16, at the same shape
+        B, H, W, C, th, tw = args[:6]
+        if (th, tw) != cuda_conv.fused_tile(B, H, W, C):
+            fail(f"{name} at {args}: launched at a tile other than fused_tile's")
+        re, im = randn(B, H, W, C).to(b16), randn(B, H, W, C).to(b16)
+        w = randn(7, 7, 4, 2, scale=0.3).to(b16)
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        geo = cuda_conv.fused_geometry(B, H, W, C)
+        print(f"kernel {name} args={args}: tile {(th, tw)}, box {(geo.br, geo.bc)}, "
+              f"grid {geo.grid}, {geo.smem} B of shared memory", flush=True)
+        P = B * H * W
+
+        def eager_sequence():
+            cat = torch.cat([re.mean(dim=-1, keepdim=True), re.amax(dim=-1, keepdim=True),
+                             im.mean(dim=-1, keepdim=True), im.amax(dim=-1, keepdim=True)],
+                            dim=-1)
+            a = torch.sigmoid(F.conv2d(cat.permute(0, 3, 1, 2), w_oihw, padding=3))
+            a_re, a_im = a[:, 0, :, :, None], a[:, 1, :, :, None]
+            return re * a_re - im * a_im, re * a_im + im * a_re
+
+        return (lambda: cuda_conv.sa_fused_bf16(re, im, w),
+                lambda: cuda_conv.sa_gate_bf16_plain(cuda_conv.sa_pool_bf16_plain(re, im),
+                                                     w, re, im),
+                eager_sequence,
+                2 * (4 * P * C + w.numel()), 2 * P * 7 * 7 * 4 * 2 + 4 * P * C + 8 * P * C,
+                None,
+                {"earlier_ms": lambda: cuda_conv.sa_gate(cuda_conv.sa_pool(re, im), w, re,
+                                                         im)})
     if name in ("sa_pool_bf16", "sa_gate_bf16"):
         B, H, W, C = args[:4]
         re, im = randn(B, H, W, C).to(b16), randn(B, H, W, C).to(b16)
@@ -3135,6 +3200,7 @@ def check_bf16_off_path(dev, cfg) -> None:
 
     from dcs_net_tpu_torch.dsp import stft as dsp
     from dcs_net_tpu_torch.dsp import stft_cuda
+    from dcs_net_tpu_torch.ops import cuda_conv as cc
     from dcs_net_tpu_torch.ops import cuda_tapconv as ct
     from dcs_net_tpu_torch.utils.cuda_lib import ptr
 
@@ -3159,6 +3225,27 @@ def check_bf16_off_path(dev, cfg) -> None:
         if kern.launches - before != 1 or not math.isfinite(rel) or rel > REL_TOL:
             fail(f"stft ({body}) at n_fft {n_fft}, hop {hop}: error {rel:.3e}, "
                  f"{kern.launches - before} launches")
+    for shape, tile in GATE_BF16_EXTRA:
+        re, im = (torch.randn(shape, generator=g, device=dev).to(b16) for _ in range(2))
+        w = (torch.randn((7, 7, 4, 2), generator=g, device=dev) * 0.3).to(b16)
+        if tile == "unaligned":
+            # x one bf16 off its 16-byte alignment: the pair serves it
+            re = torch.randn(re.numel() + 1, generator=g, device=dev).to(b16)[1:].view(shape)
+        want = cc.sa_gate_bf16_plain(cc.sa_pool_bf16_plain(re, im), w, re, im)
+        fused = cc.fused_takes(re, im)
+        before = (cc.FUSED_BF16.launches, cc.POOL_BF16.launches, cc.GATE_BF16.launches)
+        got = (cc.sa_fused_bf16(re, im, w, tile=tile) if isinstance(tile, tuple)
+               else cc.spatial_gate(re, im, w))
+        torch.cuda.synchronize()
+        n = tuple(k.launches - b for k, b in zip((cc.FUSED_BF16, cc.POOL_BF16, cc.GATE_BF16),
+                                                 before))
+        rel = max(rel_err(a.float(), b.float()) for a, b in zip(got, want))
+        route = "fused" if isinstance(tile, tuple) or fused else "pair"
+        print(f"kernel sa_fused_bf16 off the path: x {shape} tile {tile}: {route}, "
+              f"launches (fused, pool, gate) {n}, rel_err={rel:.3e}", flush=True)
+        if (n != ((1, 0, 0) if route == "fused" else (0, 1, 1)) or not math.isfinite(rel)
+                or rel > BF16_REL_TOL):
+            fail(f"the bf16 gate at {shape}, tile {tile}: error {rel:.3e}, launches {n}")
     for shape, n, (dh, dw), pad in TAPCONV_BF16_EXTRA:
         x = torch.randn(shape, generator=g, device=dev).to(b16)
         w = (torch.randn((dh * dw, shape[-1], n), generator=g, device=dev) * 0.1).to(b16)
@@ -3188,6 +3275,53 @@ def check_bf16_off_path(dev, cfg) -> None:
             if not torch.equal(packed.view(torch.int16), want_packed.view(torch.int16)):
                 fail(f"tapconv_pack_bf16 at {shape} -> {n}, kb {kb}: layout differs from "
                      f"pack_weights_bf16")
+
+
+def fused_sweep_tiles(B, H, W, C):
+    """The plan's tile for the fused gate at (B, H, W, C) and its
+    neighbours: twice and half as wide, twice and half as tall, spanning the
+    height at 8 columns; those the entry takes."""
+    from dcs_net_tpu_torch.ops import cuda_conv
+
+    th, tw = cuda_conv.fused_tile(B, H, W, C)
+    tiles = [(th, tw), (th, 2 * tw), (th, tw // 2), (min(H, 2 * th), tw),
+             (max(1, th // 2), tw), (max(1, th // 2), 2 * tw), (min(H, 32), 8)]
+    out = []
+    for t in tiles:
+        if t not in out and t[1] >= 8 and cuda_conv.fused_fits(B, H, W, C, t):
+            out.append(t)
+    return out
+
+
+def check_fused_sweep(dev, card, sites) -> None:
+    """Kernel 2's fused bf16 gate at each site shape of the enhance call
+    under the tiles of :func:`fused_sweep_tiles`, each against the plain
+    version, so that ``fused_tile``'s pick reads against the sweep's best."""
+    import torch
+
+    from dcs_net_tpu_torch.ops import cuda_conv
+    from dcs_net_tpu_torch.utils.timing import graph_ms
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 21)
+    b16 = torch.bfloat16
+    for shape in sorted(set(sites)):
+        re, im = (torch.randn(shape, generator=g, device=dev).to(b16) for _ in range(2))
+        w = (torch.randn((7, 7, 4, 2), generator=g, device=dev) * 0.3).to(b16)
+        want = cuda_conv.sa_gate_bf16_plain(cuda_conv.sa_pool_bf16_plain(re, im), w, re, im)
+        times = {}
+        for tile in fused_sweep_tiles(*shape):
+            run = lambda t=tile: cuda_conv.sa_fused_bf16(re, im, w, tile=t)  # noqa: E731
+            got = run()
+            rel = max(rel_err(a.float(), b.float()) for a, b in zip(got, want))
+            if not math.isfinite(rel) or rel > BF16_REL_TOL:
+                fail(f"sa_fused_bf16 at {shape} under tile {tile}: error {rel:.3e}")
+            times[tile] = graph_ms(run, 20)
+        plan = cuda_conv.fused_tile(*shape)
+        best = min(times, key=times.get)
+        print(f"kernel sa_fused_bf16 sweep: x {shape}; (th, tw) ms: "
+              + ", ".join(f"{k}={v:.4f}" for k, v in times.items())
+              + f"; the plan {plan} {times[plan]:.4f} ms, the sweep's best {best} "
+              f"{times[best]:.4f} [{card}]", flush=True)
 
 
 def check_span_sweep(dev, cfg, card) -> None:
@@ -3250,6 +3384,7 @@ def check_bf16(dev, card):
     from dcs_net_tpu_torch.models.enhance import enhance_full, enhance_streaming
     from dcs_net_tpu_torch.models.graphed import GraphCache
     from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.ops import cuda_conv
     from dcs_net_tpu_torch.train import steps
     from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
     from dcs_net_tpu_torch.train.loop import Trainer
@@ -3300,6 +3435,13 @@ def check_bf16(dev, card):
                   compare=bf16_band(on_cpu32), profile=BF16_PROFILED)
     rows += check_kernels({k: shapes[k] for k in BF16_ROWS}, launches, dev, c16, card,
                           "bf16 enhance call")
+    # PR 15's pair at the same sites, off the path
+    sites = [a[:4] for a in shapes["sa_fused_bf16"]]
+    rows += check_kernels({"sa_pool_bf16": sites,
+                           "sa_gate_bf16": [a + cuda_conv.gate_tile(*a[:3], 4, 2)
+                                            for a in sites]},
+                          launches, dev, c16, card, "bf16 enhance call")
+    check_fused_sweep(dev, card, sites)
     check_bf16_off_path(dev, cfg)
     check_span_sweep(dev, cfg, card)
     check_forward_sweep(dev, card, bf16=True)
@@ -3329,8 +3471,7 @@ def check_bf16(dev, card):
                    cpu_short3), compare=bf16_band(enhance_streaming(cpu32, short3, cfg)),
                   profile=())
     rows += check_kernels({k: stream_shapes[k][:n] for k, n in (
-        ("sa_pool_bf16", 13), ("sa_gate_bf16", 13), ("tapconv_valid_bf16", 6),
-        ("tapconv_valid_bf16_tap", 1))},
+        ("sa_fused_bf16", 13), ("tapconv_valid_bf16", 6), ("tapconv_valid_bf16_tap", 1))},
         stream_launches, dev, c16, card, "bf16 streaming chunk group", "_stream")
 
     # (c) the carried 10 s stream of the streaming preset
@@ -3368,8 +3509,7 @@ def check_bf16(dev, card):
                   compare=bf16_band(enhance_streaming(scpu32, short2, scfg, **kw2)),
                   profile=())
     rows += check_kernels({k: carry_shapes[k][:n] for k, n in (
-        ("sa_pool_bf16", 13), ("sa_gate_bf16", 13), ("tapconv_valid_bf16", 6),
-        ("tapconv_valid_bf16_tap", 1))},
+        ("sa_fused_bf16", 13), ("tapconv_valid_bf16", 6), ("tapconv_valid_bf16_tap", 1))},
         carry_launches, dev, s16, card, "carried bf16 chunk", "_carry")
     del smodel, smodel32, scpu16, scpu32
 
@@ -3403,6 +3543,34 @@ def check_bf16(dev, card):
     rows += check_kernels({k: eval_shapes[k] for k in BF16_ROWS}, eval_launches, dev, c16,
                           card, "test utterance", "_eval")
     del cpu16, cpu32
+
+    # (h) DC (DCS's complex attention, no subtractive mask) at bf16 through
+    # the fused gate: its own seeded weights, BN off its init
+    dcfg = config_for_variant("dc")
+    d16 = bf16_config(dcfg)
+    dc32 = DCSNet(dcfg.model, dcfg.quirks, device=dev, seed=SEED + 12).eval()
+    perturb_bn(dc32, SEED + 13)
+    dc16 = DCSNet(d16.model, d16.quirks, device=dev, seed=SEED).eval()
+    dc16.load_state_dict(dc32.state_dict())
+    dcpu16, dcpu32 = (DCSNet(c.model, c.quirks, device="cpu", seed=SEED).eval()
+                      for c in (d16, dcfg))
+    for m in (dcpu16, dcpu32):
+        m.load_state_dict({k: v.cpu() for k, v in dc32.state_dict().items()})
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    out = enhance_full(dc16, x, d16)
+    torch.cuda.synchronize()
+    expect_launches("bf16: one DC enhance call", launch_counts(),
+                    {"stft_dense_bf16": 1, **DCS_EVAL_FORWARD_BF16})
+    if tuple(out.shape) != (BATCH, SECONDS * SR) or not bool(torch.isfinite(out).all()):
+        fail(f"bf16 DC enhance_full returned {tuple(out.shape)} or non-finite samples")
+    dc_cpu = enhance_full(dcpu16, short, d16)
+    check_graphed(f"bf16: DC enhance_full at bf16, {BATCH} requests x {SECONDS} s",
+                  lambda g: enhance_full(dc16, x, d16, graphs=g),
+                  {"stft_dense_bf16": 1, **DCS_EVAL_FORWARD_BF16}, card,
+                  (lambda g: enhance_full(dc16, short.to(dev), d16, graphs=g), dc_cpu),
+                  compare=bf16_band(enhance_full(dcpu32, short, dcfg)), profile=())
+    del dc32, dc16, dcpu16, dcpu32
 
     # (f) the float32 model's ms beside the bf16 one's, in this process
     model32 = pair(cfg, dev)[0]

@@ -19,7 +19,8 @@
 // whose pooling and product move far more bytes than the conv computes on, so
 // the file has three entry points: the conv alone (dcs_conv_same_small_cout),
 // the pooling pass (dcs_sa_pool) and the conv with a sigmoid-and-product
-// epilogue (dcs_sa_gate); and the real family's pair of the last two (below).
+// epilogue (dcs_sa_gate); the real family's pair of the last two (below);
+// and at bf16 the whole gate in one kernel (dcs_sa_fused_bf16).
 //
 // What bounds them on the H100. The conv alone: operations, narrowly. Per
 // output pixel it reads Cin floats and writes Cout floats (24 bytes for the
@@ -35,6 +36,27 @@
 // Why not the tensor cores: N = Cout = 2 padded to wgmma's n8 wastes 4x, and
 // float32 accuracy costs three TF32 passes, 495 / 12 = 41 TFLOP/s effective,
 // below the 67 TFLOP/s of the float32 pipes.
+//
+// The bf16 class of the gate (serving at --dtype bfloat16) overturns both
+// arguments, and runs as one kernel (dcs_sa_fused_bf16, below; PR 15's pool
+// and gate pair, dcs_sa_pool_bf16 + dcs_sa_gate_bf16, serves only the shapes
+// it refuses). Pooling inside the gate: at bf16 x is half the bytes and the
+// largest site's x (16.4 MB at 4 x 128 x 1004 x 8, both planes) fits the
+// card's 50 MB L2, so the halo that neighbouring tiles read again is served
+// by L2 while those tiles are in flight; at the C = 128 sites the images are
+// 2-8 rows high, and a tile that spans the height has no halo rows at all.
+// So a block's two tensor copies bring each plane's tile with its halo into
+// shared memory once, it pools from there, convolves, and multiplies the
+// same tile: x crosses device memory once, the pooled and attention maps
+// never, and a site is one launch and one round trip to device memory
+// where the pair was two launches, each waiting on its own. The tensor
+// cores: at bf16 there is no 3xTF32 split (the operands are bf16 already,
+// their products exact in float32), so the 7 x 7 x 4 -> 2 conv is an
+// mma.sync m16n8k16 product with N = 2 padded to 8: 989 TFLOP/s wasting 4x
+// is still ~250 against the float32 pipes' 67, and the 392 FMAs a pixel
+// that set the C = 8 sites' time (widened to float32 from a float4 a pixel
+// in shared memory) become 14 mma a 16-pixel group reading 4 bf16 (8 bytes)
+// a pooled pixel. See sa_fused_bf16_kernel's notes.
 //
 // Design of the register-tiled body, written for (K, Cin, Cout) = (7, 4, 2)
 // and shared by the conv and the gate. A block of 128 threads owns a tile of
@@ -117,6 +139,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -792,6 +816,369 @@ int launch_gate(const G* pooled, const G* w, const G* re, const G* im, G* out_re
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// the fused bf16 gate: pool, the conv on tensor cores, sigmoid and product,
+// one launch a site
+// ---------------------------------------------------------------------------
+
+constexpr int FT = 256;                    // threads of a fused-gate block
+constexpr int FUSED_SMEM_LIMIT = 232448;   // 227 KB, a block's most on the H100
+constexpr int FUSED_BT = 8 * 2 * 2 * 32;   // the conv's B fragments: words a block
+
+// One launch's geometry (ops/cuda_conv.py:fused_geometry states the same
+// rule). A block owns a tile of th x tw pixels of one image at (h0, w0) =
+// (blockIdx.y th, blockIdx.x tw). Its two tensor copies bring a box of br x
+// bc pixels, all C channels, of each plane: br = min(th + 6, H), bc =
+// min(tw + 6, W), the corner clamped into the image, so that the box lies in
+// the image and holds every image pixel of the tile and of its 3-pixel halo.
+// Where a box row is at most 256 channels (bc C <= 256: the C = 8 and 16
+// sites' tiles) the copy sees a plane as (W C, H, B) and moves rows of bc C
+// channels, up to 512 bytes (flat); else as (C, W, H, B), rows of C. Either
+// way the box lands in shared memory as [br][bc][C]. The pooled map has th
+// + 6 rows of pp = tw + 8 pixels: map pixel (i, j) is image pixel (h0 - 3 +
+// i, w0 - 3 + j), 0 outside the image (the conv's zero padding, which is
+// also what pooling a zero-filled pixel gives) and in its last two columns
+// (read only by the 8th tap, whose weight is 0). vshift is log2(C / 8)
+// where that is a power of two, else -1.
+struct FGeo {
+  int H, W, C;
+  int th, tw;
+  int br, bc;
+  int pp;
+  int vshift;
+  int flat;
+};
+
+// one plane's box in shared memory, rounded up to the 128 bytes a tensor
+// copy's destination is aligned to
+__host__ __device__ inline int fused_box_bytes(const FGeo& g) {
+  return (g.br * g.bc * g.C * 2 + 127) / 128 * 128;
+}
+
+__host__ __device__ inline int fused_pooled_bytes(const FGeo& g) {
+  return (g.th + 6) * g.pp * 8;
+}
+
+// both boxes, the pooled map (4 bf16 a pixel), the attention map (a float2
+// a tile pixel), the conv's B fragments and the mbarrier
+__host__ __device__ inline int fused_smem_bytes(const FGeo& g) {
+  return 2 * fused_box_bytes(g) + fused_pooled_bytes(g) + g.th * g.tw * 8 + FUSED_BT * 4 +
+         8;
+}
+
+// d (16 x 8, float32) += a (16 x 16 bf16, row-major fragments) b (16 x 8
+// bf16, column-major fragments)
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0, uint32_t a1,
+                                          uint32_t a2, uint32_t a3, uint32_t b0,
+                                          uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The conv of the pooled map on tensor cores: mma m16n8k16, bf16 operands,
+// float32 sums. N = 8 is not 2 outputs padded with 6 zero columns: it is 2
+// outputs x 2 horizontal x 2 vertical shifts, n = 4 dy + 2 s + c. M row m
+// of a product is tile column b + 2 m (16 rows: 32 columns), and column n
+// of its output is tile pixel (r + dy, b + 2 m + s), channel c, for the
+// pair of tile rows (r, r + 1). The A operand is one pooled row i, K = 16 a
+// step = 4 pooled pixels (b + 2 m + 4 u + t, t < 4; steps u = 0, 1 reach
+// the 7 taps of both shifts) x 4 channels; its B is the packed kernel at
+// tap row kh = i - r - dy, tap kw = 4 u + t - s (0 outside the kernel), so
+// one (pooled row, step) product serves both tile rows of a pair and both
+// shifts: 16 products a pair of tile rows x 32 columns, 0.25 a pixel (2
+// outputs in 8 columns, one tile row a product, would take 0.875). The k
+// order within a step is the fragments': thread (gid, tig) holds k = 2 tig
+// + {0, 1} and 2 tig + 8 + {0, 1} of M rows gid and gid + 8, so k = 2 t +
+// c and 8 + 2 t + c (t < 4, c < 2) are pixel t's channels c and 2 + c: a
+// thread's two words for a row are one pooled pixel's 4 channels, one
+// 8-byte load (any pixel is 8-byte aligned). Its B words are bt (built
+// once a block, sa_fused_bf16_kernel), 8 row offsets d = i - r x 2 steps x
+// 2 words.
+//
+// One warp a task: 32 tile columns (columns past the tile are computed on
+// the tile's last column and dropped) of RB tile rows (RB / 2 pairs). The
+// task walks the RB + 6 pooled rows under them once, loading each row's A
+// fragments (4 8-byte loads) and applying them to every pair it reaches
+// (d = i - r < 8): a pooled pixel leaves shared memory (RB + 6) / RB times a
+// task. The 16 M rows x 4 threads of a load read 18 consecutive 8-byte
+// pixels: no bank conflict. Consecutive products go to different pairs'
+// sums.
+template <int RB>
+__device__ __forceinline__ void fused_conv(const FGeo& g, const uint2* __restrict__ pooled,
+                                           const uint32_t (&bf)[8][2][2],
+                                           float2* __restrict__ att, int warp, int lane) {
+  constexpr int NP = RB / 2;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nct = (g.tw + 31) >> 5, tasks = nct * ((g.th + RB - 1) / RB);
+  for (int task = warp; task < tasks; task += FT / 32) {
+    const int q = task / nct, c0 = (task - q * nct) * 32 + 2 * gid, r0 = q * RB;
+    const int ca = min(c0, g.tw - 1), cb = min(c0 + 16, g.tw - 1);
+    float acc[NP][4];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < RB + 6; ++i) {
+      // rows past the map feed only tile rows past the tile
+      const uint2* p = pooled + min(r0 + i, g.th + 5) * g.pp + tig;
+      const uint2 a0 = p[ca], a1 = p[cb], a2 = p[ca + 4], a3 = p[cb + 4];
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        if (i - 2 * j >= 0 && i - 2 * j < 8)
+          mma_16816(acc[j], a0.x, a1.x, a0.y, a1.y, bf[i - 2 * j][0][0], bf[i - 2 * j][0][1]);
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        if (i - 2 * j >= 0 && i - 2 * j < 8)
+          mma_16816(acc[j], a2.x, a3.x, a2.y, a3.y, bf[i - 2 * j][1][0], bf[i - 2 * j][1][1]);
+    }
+    // thread (gid, tig) holds n = 2 tig + {0, 1}: (dy, s) = (tig / 2, tig % 2)
+    // of tile columns c0 (M row gid) and c0 + 16 (gid + 8), both channels
+    const int c = c0 + (tig & 1);
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      const int r = r0 + 2 * j + (tig >> 1);
+      if (r < g.th && c < g.tw)
+        att[r * g.tw + c] = make_float2(sigmoidf(acc[j][0]), sigmoidf(acc[j][1]));
+      if (r < g.th && c + 16 < g.tw)
+        att[r * g.tw + c + 16] = make_float2(sigmoidf(acc[j][2]), sigmoidf(acc[j][3]));
+    }
+  }
+}
+
+// out = x * sigmoid(conv(pool(x))) for x = re + i im (B, H, W, C) bf16, w
+// (7, 7, 4, 2) bf16: the pair sa_pool_kernel<2, bf16> + sa_gate_kernel<R,
+// bf16> in one launch, x read from device memory once. The block: the
+// copies; the conv's B words into shared memory while they fly; the pooled
+// map from the boxes; the conv (fused_conv) and the sigmoid into the
+// attention map; the product from the boxes, stored 16 bytes a thread. RB:
+// tile rows a conv task.
+template <int RB>
+__global__ void __launch_bounds__(FT, 2)
+sa_fused_bf16_kernel(const __grid_constant__ CUtensorMap re_map,
+                     const __grid_constant__ CUtensorMap im_map,
+                     const __nv_bfloat16* __restrict__ w,
+                     __nv_bfloat16* __restrict__ out_re,
+                     __nv_bfloat16* __restrict__ out_im, const FGeo g) {
+  extern __shared__ __align__(128) unsigned char fused_smem[];
+  const int b = blockIdx.z, h0 = blockIdx.y * g.th, w0 = blockIdx.x * g.tw;
+  const int sh = min(max(h0 - 3, 0), g.H - g.br), sw = min(max(w0 - 3, 0), g.W - g.bc);
+  const int box = fused_box_bytes(g);
+  const uint4* xs[2] = {reinterpret_cast<const uint4*>(fused_smem),
+                        reinterpret_cast<const uint4*>(fused_smem + box)};
+  uint2* pooled = reinterpret_cast<uint2*>(fused_smem + 2 * box);
+  float2* att = reinterpret_cast<float2*>(fused_smem + 2 * box + fused_pooled_bytes(g));
+  uint32_t* bt = reinterpret_cast<uint32_t*>(att + g.th * g.tw);
+  const uint32_t bar = smem_u32(bt + FUSED_BT);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  if (tid == 0) {
+    mbar_init_count(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bar, 4u * g.br * g.bc * g.C);
+    for (int q = 0; q < 2; ++q) {
+      const CUtensorMap* map = q ? &im_map : &re_map;
+      if (g.flat)
+        tma_load_3d(smem_u32(xs[q]), map, sw * g.C, sh, b, bar);
+      else
+        tma_load_4d(smem_u32(xs[q]), map, 0, sw, sh, b, bar);
+    }
+  }
+  // The conv's B words (fused_conv), their halves loaded while the copies
+  // fly and stored to the table after the pool, so that neither waits for
+  // the other: word e is lane l = e % 32's word r = (e / 32) % 2 of step u =
+  // (e / 64) % 2 at row offset d = e / 128; lane (gid, tig) holds n = gid =
+  // 4 dy + 2 s + c and, in word r, k = 2 tig + 8 r + {0, 1}: w[kh][kw][2 r +
+  // {0, 1}][c] at kh = d - dy, kw = 4 u + tig - s, 0 outside the kernel.
+  constexpr int PER = FUSED_BT / FT;
+  const unsigned short* wh = reinterpret_cast<const unsigned short*>(w);
+  unsigned short wlo[PER], whi[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int e = tid + q * FT;
+    const int l = e & 31, r = (e >> 5) & 1, u = (e >> 6) & 1, d = e >> 7;
+    const int n = l >> 2, kh = d - (n >> 2), kw = 4 * u + (l & 3) - ((n >> 1) & 1);
+    const bool on = kh >= 0 && kh < 7 && kw >= 0 && kw < 7;
+    const int k = on ? ((kh * 7 + kw) * 4 + 2 * r) * 2 + (n & 1) : 0;
+    wlo[q] = on ? wh[k] : 0;
+    whi[q] = on ? wh[k + 2] : 0;
+  }
+
+  // the pooled map: 0 outside the image and in the pad columns; the image's
+  // pixels [ilo, ihi) x [jlo, jhi) pooled from the boxes
+  const int npool = (g.th + 6) * g.pp;
+  const int ilo = max(3 - h0, 0), ihi = min(g.H - h0 + 3, g.th + 6);
+  const int jlo = max(3 - w0, 0), jhi = min(g.W - w0 + 3, g.tw + 6);
+  for (int e = tid; e < npool; e += FT) {
+    const int i = e / g.pp, j = e - i * g.pp;
+    if (i < ilo || i >= ihi || j < jlo || j >= jhi) pooled[e] = make_uint2(0u, 0u);
+  }
+  mbar_wait(bar, 0);
+
+  // NG lanes a pixel, the least power of two that leaves a lane at most 4
+  // of its 16-byte words a plane, all loaded before the first sum; lane part
+  // takes words part + NG k. A pixel's first word is staggered by NG times
+  // its index in the quarter-warp so that the 8 lanes of a 16-byte load fall
+  // on different banks; a shuffle tree over the NG lanes combines them. The
+  // sums in float32 (sa_pool_kernel's order within a word), the mean
+  // rounded once to bf16, the maxima exact, as bf16 pairs. (The sums as
+  // mma products with a ones column ran slower at every site on the H100.)
+  const int nv = g.C >> 3;
+  int lg = 0;
+  while ((4 << lg) < nv) ++lg;
+  const int NG = 1 << lg, part = tid & (NG - 1), per = (nv + NG - 1) >> lg;
+  const int nc = jhi - jlo, n = (ihi - ilo) * nc;
+  const int rot = nv % NG ? 0 : (NG * ((tid >> lg) & 7)) % nv;
+  for (int e0 = 0; e0 < n; e0 += FT >> lg) {
+    const int e = e0 + (tid >> lg);
+    const int i = e / nc, j = e - i * nc;
+    float s[2] = {0.f, 0.f}, m[2] = {-INFINITY, -INFINITY};
+    if (e < n) {
+      const int px = ((h0 - 3 + ilo + i - sh) * g.bc + w0 - 3 + jlo + j - sw) * nv;
+      __nv_bfloat162 m2[2] = {__float2bfloat162_rn(-INFINITY), __float2bfloat162_rn(-INFINITY)};
+      uint4 v[2][4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        int word = part + NG * k + rot;
+        word -= word >= nv ? nv : 0;
+        if (k < per && part + NG * k < nv) {
+          v[0][k] = xs[0][px + word];
+          v[1][k] = xs[1][px + word];
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (k < per && part + NG * k < nv) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            float a[8];
+            unpack8(v[q][k], a);
+            s[q] += ((a[0] + a[1]) + (a[2] + a[3])) + ((a[4] + a[5]) + (a[6] + a[7]));
+            const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[q][k]);
+            m2[q] = __hmax2(m2[q], __hmax2(__hmax2(h[0], h[1]), __hmax2(h[2], h[3])));
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) m[q] = fmaxf(__low2float(m2[q]), __high2float(m2[q]));
+    }
+    for (int o = NG >> 1; o > 0; o >>= 1) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        s[q] += __shfl_xor_sync(0xffffffffu, s[q], o);
+        m[q] = fmaxf(m[q], __shfl_xor_sync(0xffffffffu, m[q], o));
+      }
+    }
+    if (e < n && part == 0) {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(s[0] / (float)g.C, m[0]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(s[1] / (float)g.C, m[1]);
+      pooled[(ilo + i) * g.pp + jlo + j] = make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                                                      *reinterpret_cast<const uint32_t*>(&hi));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < PER; ++q)
+    bt[tid + q * FT] = wlo[q] | (static_cast<uint32_t>(whi[q]) << 16);
+  __syncthreads();
+
+  // the lane's 32 B words from the table, consecutive lanes on consecutive
+  // words
+  uint32_t bf[8][2][2];
+#pragma unroll
+  for (int d = 0; d < 8; ++d)
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) bf[d][u][r] = bt[((d * 2 + u) * 2 + r) * 32 + lane];
+  fused_conv<RB>(g, pooled, bf, att, warp, lane);
+  __syncthreads();
+
+  // the product from the boxes: a tile row's pixels are contiguous in x, a
+  // run of cols_v * nv 16-byte words; sa_gate_kernel's arithmetic
+  const int rows_v = min(g.th, g.H - h0), cols_v = min(g.tw, g.W - w0);
+  const int run = cols_v * nv;
+  const long long row0 = (long long)b * g.H + h0;
+#pragma unroll 2
+  for (int e = tid; e < rows_v * run; e += FT) {
+    const int r = e / run, i = e - r * run;
+    const float2 a = att[r * g.tw + (g.vshift >= 0 ? i >> g.vshift : i / nv)];
+    const int k = ((h0 + r - sh) * g.bc + w0 - sw) * nv + i;
+    float xr[8], xi[8], yr[8], yi[8];
+    unpack8(xs[0][k], xr);
+    unpack8(xs[1][k], xi);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      yr[c] = xr[c] * a.x - xi[c] * a.y;
+      yi[c] = xr[c] * a.y + xi[c] * a.x;
+    }
+    const long long o = ((row0 + r) * g.W + w0) * nv + i;
+    reinterpret_cast<uint4*>(out_re)[o] = pack8(yr);
+    reinterpret_cast<uint4*>(out_im)[o] = pack8(yi);
+  }
+}
+
+// the fused bf16 gate over re, im (B, H, W, C) at a tile of th x tw: C a
+// multiple of 8 up to 256 (a tensor copy's box is at most 256 elements a
+// side), x and out 16-byte aligned, a block's shared
+// memory within 227 KB. The tensor maps are encoded at every launch from
+// the operands' addresses; the dynamic shared-memory attribute is set at
+// every launch.
+int launch_fused(const __nv_bfloat16* re, const __nv_bfloat16* im, const __nv_bfloat16* w,
+                 __nv_bfloat16* out_re, __nv_bfloat16* out_im, int B, int H, int W,
+                 int C, int th, int tw, cudaStream_t s) {
+  if (!image_ok(B, H, W) || C < 8 || C > 256 || C % 8 || th < 1 || tw < 1 ||
+      !aligned(re, 16) || !aligned(im, 16) || !aligned(out_re, 16) ||
+      !aligned(out_im, 16) || !aligned(w, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int br = th + 6 < H ? th + 6 : H, bc = tw + 6 < W ? tw + 6 : W;
+  const FGeo g{H, W, C, th, tw, br, bc, tw + 8, log2_exact(C / 8), bc * C <= 256};
+  const int smem = fused_smem_bytes(g);
+  if (br > 256 || bc > 256 || smem > FUSED_SMEM_LIMIT || (H + th - 1) / th > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  // a plane (B, H, W, C) as (W C, H, B) with a box of bc C channels x br
+  // rows (flat), or as (C, W, H, B) with a box of C x bc x br; strides in
+  // bytes
+  const cuuint64_t C64 = C, W64 = W, H64 = H, B64 = B;
+  const cuuint64_t dims_flat[3] = {W64 * C64, H64, B64};
+  const cuuint64_t strides_flat[2] = {W64 * C64 * 2, H64 * W64 * C64 * 2};
+  const cuuint32_t box_flat[3] = {static_cast<cuuint32_t>(bc * C), static_cast<cuuint32_t>(br),
+                                  1};
+  const cuuint64_t dims[4] = {C64, W64, H64, B64};
+  const cuuint64_t strides[3] = {C64 * 2, W64 * C64 * 2, H64 * W64 * C64 * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(C), static_cast<cuuint32_t>(bc),
+                             static_cast<cuuint32_t>(br), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const __nv_bfloat16* planes[2] = {re, im};
+  CUtensorMap maps[2];
+  for (int q = 0; q < 2; ++q)
+    if (encode(&maps[q], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, g.flat ? 3 : 4,
+               const_cast<__nv_bfloat16*>(planes[q]), g.flat ? dims_flat : dims,
+               g.flat ? strides_flat : strides, g.flat ? box_flat : box, unit,
+               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  // RB: tile rows a conv task, 8 or fewer (down to a pair) so that the 8
+  // warps have a task each where the tile allows
+  int rb = 8;
+  while (rb > 2 && (tw + 31) / 32 * ((th + rb - 1) / rb) < FT / 32) rb /= 2;
+  auto kernel = rb == 8   ? sa_fused_bf16_kernel<8>
+                : rb == 4 ? sa_fused_bf16_kernel<4>
+                          : sa_fused_bf16_kernel<2>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, B);
+  kernel<<<grid, FT, smem, s>>>(maps[0], maps[1], w, out_re, out_im, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" const char* dcs_cuda_error_string(int code) {
@@ -879,6 +1266,21 @@ extern "C" int dcs_sa_gate_bf16(const void* pooled, const void* w, const void* r
                      static_cast<const bf*>(re), static_cast<const bf*>(im),
                      static_cast<bf*>(out_re), static_cast<bf*>(out_im), B, H, W, C,
                      R, TX, TY, stream);
+}
+
+// The fused bf16 gate: re, im (B, H, W, C) bf16, w (7, 7, 4, 2) bf16 ->
+// out_re, out_im = what dcs_sa_gate_bf16 computes on dcs_sa_pool_bf16's map,
+// in one launch, x read once. Tile TH x TW (ops/cuda_conv.py:fused_tile); C
+// a multiple of 8 up to 256, TW a multiple of 8; re, im, out_re, out_im
+// 16-byte aligned.
+extern "C" int dcs_sa_fused_bf16(const void* re, const void* im, const void* w,
+                                 void* out_re, void* out_im, int B, int H, int W, int C,
+                                 int TH, int TW, void* stream) {
+  using bf = __nv_bfloat16;
+  return launch_fused(static_cast<const bf*>(re), static_cast<const bf*>(im),
+                      static_cast<const bf*>(w), static_cast<bf*>(out_re),
+                      static_cast<bf*>(out_im), B, H, W, C, TH, TW,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // x (B, H, W, C) -> pooled (B, H, W, 2) = [mean, max] over C; pooled 8-byte

@@ -138,14 +138,12 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "tma.cuh"
+
 namespace {
 
 constexpr int BK = 32;           // input channels per reduction chunk (8 in
                                  // the input gradient's small-K class)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 template <int BYTES>
 __device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
@@ -173,32 +171,6 @@ __device__ __forceinline__ void cp_async_wait() {
 // come and the bytes it announced (expect_tx) have been written
 __device__ __forceinline__ void mbar_init(uint32_t bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// waits for the phase of parity `parity` to complete; a wait that outlasts
-// any copy (about a second) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-#pragma unroll 1
-  for (int spin = 0; spin < (1 << 25); ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-  }
-  __trap();
 }
 
 // one thread copies `bytes` (a multiple of 16) of contiguous global memory to
@@ -1131,26 +1103,8 @@ struct SGeo {
   int nst;         // stages of the ring
 };
 
-__device__ __forceinline__ void mbar_init_count(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// one thread copies a box of the tensor `map` describes, at coordinates
-// (c0, .., c4) (outside the tensor: zeros), to shared memory through the
-// TMA unit; completion is counted on `bar`
-__device__ __forceinline__ void tma_load_5d(uint32_t dst, const CUtensorMap* map, int c0,
-                                            int c1, int c2, int c3, int c4, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4),
-      "r"(bar)
-      : "memory");
 }
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
@@ -1506,23 +1460,6 @@ int staged_stages(int bn, int wgs, int taps, int npix, int nchunks, int split) {
     if (smem <= kSmemLimit) return nst >= 2 || per == 1 ? nst : 0;
   }
   return 0;
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (the library
-// links no libcuda)
-using EncodeTiled = decltype(&cuTensorMapEncodeTiled);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-            cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
 }
 
 template <int WGS, int BN>

@@ -19,8 +19,11 @@ under autograd), the sigmoid and the product as separate ops.
 
 At bf16 (``dtype``, the JAX modules' operand type) the complex channel
 attention's 1x1 convs take bf16 operands, and the spatial attention's gate
-runs kernel 2's bf16 pool and gate classes on its packed kernel rounded to
-bf16 once; its un-fused form (training) has no bf16 class.
+runs kernel 2's fused bf16 gate (``cuda_conv.sa_fused_bf16``: pool, conv
+on tensor cores, sigmoid and product in one launch, x read once) on its
+packed kernel rounded to bf16 once, or the bf16 pool and gate pair at a
+shape the fused entry refuses; its un-fused form (training) has no bf16
+class.
 """
 
 from __future__ import annotations
@@ -164,9 +167,9 @@ class ComplexSpatialAttention(nn.Module):
 
     def gate(self, x: CArray) -> CArray:
         """x * self(x), the attention applied to its own input: kernel 2's
-        pool and gate launches on a CUDA tensor, their plain versions on a
-        CPU tensor. Under autograd, or at another kernel size, the un-fused
-        form, whose conv alone is kernel 2."""
+        pool and gate launches on a CUDA tensor (at bf16 its fused entry),
+        their plain versions on a CPU tensor. Under autograd, or at another
+        kernel size, the un-fused form, whose conv alone is kernel 2."""
         wr, wi = self.conv.weight_r, self.conv.weight_i
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (x.re, x.im, wr, wi)):

@@ -38,9 +38,16 @@ package's spatial attention at ``dtype=bfloat16``, with the pooled map, the
 packed kernel and x in bf16, float32 sums, the mean rounded once and the max
 exact, and the conv, sigmoid and product of the gate in float32 on the
 widened values, each output rounded once (:func:`sa_pool_bf16_plain`,
-:func:`sa_gate_bf16_plain`). The conv entry, its input gradient and the real
-gate have no bf16 class (ROADMAP Queue 1 item 5b): a bf16 tensor there
-raises, on the CPU too.
+:func:`sa_gate_bf16_plain`). At bf16 :func:`spatial_gate` takes the fused
+entry instead (``FUSED_BF16``, :func:`sa_fused_bf16`): the same function in
+one launch, x read once through shared memory by two tensor copies a block,
+pooled there, the 7 x 7 conv on bf16 tensor cores (``mma.sync`` m16n8k16),
+the sigmoid and the product from the same tile. It takes every site of the
+DC / DCS serving paths (C a multiple of 8 up to 256, a tile that fits; its
+tiles :func:`fused_tile`, its launch :func:`fused_geometry`); the pair
+serves only the shapes it refuses (:func:`fused_takes`). The conv entry,
+its input gradient and the real gate have no bf16 class (ROADMAP Queue 1
+item 5b): a bf16 tensor there raises, on the CPU too.
 
 Each wrapper takes CPU tensors through the plain version and CUDA tensors
 through the kernel, never falling back between the two. ``KERNEL.launches``
@@ -68,7 +75,8 @@ un-fused form instead.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -113,6 +121,13 @@ POOL_BF16 = CudaKernel("sa_pool_bf16", "conv_same.cu", "dcs_sa_pool_bf16",
                        POOL.argtypes)
 GATE_BF16 = CudaKernel("sa_gate_bf16", "conv_same.cu", "dcs_sa_gate_bf16",
                        GATE.argtypes)
+# the fused bf16 gate (pool, conv, sigmoid, product in one launch), which
+# serving at bf16 launches at every site it takes (:func:`fused_takes`)
+FUSED_BF16 = CudaKernel("sa_fused_bf16", "conv_same.cu", "dcs_sa_fused_bf16",
+                        [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p])
+FUSED_SMEM_LIMIT = 232448        # 227 KB, a block's most on the H100
+FUSED_TILE_BYTES = 32 * 1024     # a tile's x, both planes, at most
+FUSED_MIN_BLOCKS = 132           # the H100's SMs: a tile shrinks to give each a block
 
 
 def applicable(kernel_size: int, cout: int) -> bool:
@@ -477,9 +492,174 @@ def sa_gate(pooled: torch.Tensor, w: torch.Tensor, re: torch.Tensor,
     return out_re, out_im
 
 
+# --- the fused bf16 gate ------------------------------------------------------
+
+class FusedGeometry(NamedTuple):
+    """One launch of the fused bf16 gate (``FGeo`` in the source): a block a
+    tile of ``th`` x ``tw`` pixels of one image; its tensor copies bring a
+    box of ``br`` x ``bc`` pixels (all C channels) of each plane, placed in
+    the image by :func:`fused_box_origin`, as rows of ``bc`` C channels where
+    that is at most 256 (``flat``) and of C channels otherwise; the pooled
+    map has ``th`` + 6 rows of ``pp`` pixels; ``smem`` bytes of shared memory
+    a block; ``grid`` (W tiles, H tiles, B)."""
+    th: int
+    tw: int
+    br: int
+    bc: int
+    pp: int
+    flat: bool
+    smem: int
+    grid: Tuple[int, int, int]
+
+
+# the fused conv's k order within a k16 step, (pixel, channel) of each k:
+# the fragments give a thread k = 2 t + {0, 1} and 2 t + 8 + {0, 1}, which
+# are pooled pixel t's channels (0, 1) and (2, 3): one pixel, one 8-byte load
+FUSED_K_ORDER = tuple(((k % 8) // 2, k % 2 + 2 * (k // 8)) for k in range(16))
+
+
+def _fused_shape(H: int, W: int, C: int, tile_px: int) -> Tile:
+    """(th, tw) of a tile of about ``tile_px`` pixels. At C <= 16 the tile is
+    256 / C - 6 columns wide (26 at C = 8, 10 at C = 16), so that a box row
+    is at most 256 channels and one tensor copy of rows up to 512 bytes
+    brings it (a copy of rows of 16 or 32 bytes, one a pixel, ran at a third
+    of the card's rate); at C >= 64 it is 8 columns wide (the sweep's best at
+    every such site of the model, where a site is one block's chain); rows
+    the rest, a power of two. At C = 24-56 rows the largest power of two up
+    to the square root, columns the rest, a power of two from 8. Rows are
+    the image's height where that is at most twice as many (the C = 128
+    sites, 2-8 rows high, get no halo rows); columns at most the image's
+    width (rounded up to a power of two)."""
+    if C <= 16 or C >= 64:
+        tw = min(256 // C - 6, W) if C <= 16 else 8
+        th = _pow2_floor(max(1, tile_px // tw))
+        return (H if _pow2_ceil(H) <= 2 * th else th), tw
+    th = _pow2_floor(math.isqrt(tile_px))
+    if _pow2_ceil(H) <= 2 * th:
+        th = H
+    return th, min(max(8, _pow2_floor(tile_px // th)), max(8, _pow2_ceil(W)))
+
+
+def fused_tile(B: int, H: int, W: int, C: int) -> Tile:
+    """The fused gate's tile (th, tw) for re, im (B, H, W, C): about
+    ``FUSED_TILE_BYTES`` of x (4 C bytes a pixel), 64 to 1024 pixels, halved
+    down to 64 while the grid would leave an SM without a block."""
+    tile_px = _pow2_floor(min(max(FUSED_TILE_BYTES // (4 * C), 64), 1024))
+    while True:
+        th, tw = _fused_shape(H, W, C, tile_px)
+        if tile_px <= 64 or B * -(-H // th) * -(-W // tw) >= FUSED_MIN_BLOCKS:
+            return th, tw
+        tile_px //= 2
+
+
+def fused_geometry(B: int, H: int, W: int, C: int,
+                   tile: Optional[Tile] = None) -> FusedGeometry:
+    """The launch that :func:`sa_fused_bf16` makes at ``tile`` (default
+    :func:`fused_tile`'s), as the source computes it: the box min(th + 6, H)
+    x min(tw + 6, W), the pooled map's pitch tw + 8 (two zero columns past
+    the halo, which only the products' zero taps read); in shared memory
+    both boxes (each rounded up to 128 bytes), the map, the attention map,
+    the conv's B words (4 KB) and the mbarrier."""
+    th, tw = fused_tile(B, H, W, C) if tile is None else tile
+    br, bc, pp = min(th + 6, H), min(tw + 6, W), tw + 8
+    box = -(-(br * bc * C * 2) // 128) * 128
+    smem = 2 * box + (th + 6) * pp * 8 + th * tw * 8 + 4096 + 8
+    return FusedGeometry(th, tw, br, bc, pp, bc * C <= 256, smem,
+                         (-(-W // tw), -(-H // th), B))
+
+
+def fused_box_origin(geo: FusedGeometry, H: int, W: int, h0: int, w0: int
+                     ) -> Tuple[int, int]:
+    """The image pixel at the box's corner for the tile at (h0, w0): the
+    halo's corner (h0 - 3, w0 - 3), clamped so that the box lies in the
+    image. The box then holds every image pixel of the tile and its halo,
+    and the tensor copy never reads outside x."""
+    return (min(max(h0 - 3, 0), H - geo.br), min(max(w0 - 3, 0), W - geo.bc))
+
+
+def fused_fits(B: int, H: int, W: int, C: int, tile: Optional[Tile] = None) -> bool:
+    """Whether the fused entry takes (B, H, W, C) at ``tile``: C a multiple
+    of 8 up to 256, the box at most 256 pixels a side, a block's shared
+    memory within 227 KB."""
+    if (C % 8 or not 8 <= C <= 256 or min(B, H, W) < 1 or B > 65535
+            or (tile is not None and min(tile) < 1)):
+        return False
+    geo = fused_geometry(B, H, W, C, tile)
+    return (geo.br <= 256 and geo.bc <= 256 and geo.smem <= FUSED_SMEM_LIMIT
+            and geo.grid[1] <= 65535)
+
+
+def fused_takes(re: torch.Tensor, im: torch.Tensor) -> bool:
+    """The routing of a bf16 gate: the fused entry where it takes the shape
+    (:func:`fused_fits`) and x lies on 16-byte boundaries (a tensor map's
+    base); PR 15's pool and gate pair otherwise."""
+    return (re.dtype == torch.bfloat16 and re.dim() == 4 and re.shape == im.shape
+            and fused_fits(*re.shape) and re.data_ptr() % 16 == 0
+            and im.data_ptr() % 16 == 0)
+
+
+def fused_b_table(w: torch.Tensor) -> torch.Tensor:
+    """The fused conv's B operands (8, 2, 16, 8) from the packed kernel w (7,
+    7, 4, 2), as the kernel builds them: [d][u][k][n] for a pooled row d rows
+    below a pair of tile rows, step u, k = (pooled pixel t, channel ch) =
+    ``FUSED_K_ORDER[k]`` of the pixels 4 u + t past a product's column, and
+    n = 4 dy + 2 s + c, output c of the tile pixel dy rows down and s
+    columns right: w[d - dy][4 u + t - s][ch][c], 0 outside the kernel."""
+    b = torch.zeros((8, 2, 16, 8), dtype=w.dtype, device=w.device)
+    for d in range(8):
+        for u in range(2):
+            for k, (t, ch) in enumerate(FUSED_K_ORDER):
+                for n in range(8):
+                    dy, sx, c = n // 4, (n // 2) % 2, n % 2
+                    kh, kw = d - dy, 4 * u + t - sx
+                    if 0 <= kh < 7 and 0 <= kw < 7:
+                        b[d, u, k, n] = w[kh, kw, ch, c]
+    return b
+
+
+def _check_fused_shapes(re: torch.Tensor, im: torch.Tensor, w: torch.Tensor) -> None:
+    if re.dim() != 4 or re.shape != im.shape:
+        raise ValueError(f"expected re, im (B,H,W,C) of one shape; got "
+                         f"{tuple(re.shape)}, {tuple(im.shape)}")
+    if tuple(w.shape) != (7, 7, 4, 2):
+        raise ValueError(f"the gate's packed kernel is (7, 7, 4, 2), got "
+                         f"{tuple(w.shape)}")
+
+
+def sa_fused_bf16(re: torch.Tensor, im: torch.Tensor, w: torch.Tensor,
+                  tile: Optional[Tile] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x * sigmoid(conv_same(pool(x), w)) for x = re + i im (B, H, W, C)
+    bf16 and w (7, 7, 4, 2) bf16 in one launch: what
+    ``sa_gate_bf16_plain(sa_pool_bf16_plain(re, im), w, re, im)`` computes,
+    which is the CPU's path. ``tile`` defaults to :func:`fused_tile`'s."""
+    _check_fused_shapes(re, im, w)
+    if re.device.type == "cpu":
+        return sa_gate_bf16_plain(sa_pool_bf16_plain(re, im), w, re, im)
+    _forward_only("sa_fused_bf16", re, im, w)
+    dev = re.device
+    for name, t in (("re", re), ("im", im), ("w", w)):
+        check_cuda_operand(name, t, dev, 4, torch.bfloat16)
+    B, H, W, C = re.shape
+    tile = fused_tile(B, H, W, C) if tile is None else tuple(tile)
+    if not fused_fits(B, H, W, C, tile):
+        raise ValueError(f"the fused bf16 gate does not take {tuple(re.shape)} at tile "
+                         f"{tile}: need C % 8 == 0, 8 <= C <= 256 and "
+                         f"{FUSED_SMEM_LIMIT} bytes of shared memory at most")
+    if re.data_ptr() % 16 or im.data_ptr() % 16:
+        raise ValueError("re and im must be 16-byte aligned")
+    out_re, out_im = torch.empty_like(re), torch.empty_like(im)
+    FUSED_BF16(dev, ptr(re), ptr(im), ptr(w), ptr(out_re), ptr(out_im), B, H, W, C,
+               *tile)
+    return out_re, out_im
+
+
 def spatial_gate(re: torch.Tensor, im: torch.Tensor, w: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The spatial-attention gate: pool, then conv + sigmoid + product."""
+    """The spatial-attention gate. At bf16 the fused entry, one launch,
+    where it takes the shape (:func:`fused_takes`); otherwise pool, then
+    conv + sigmoid + product."""
+    if fused_takes(re, im):
+        return sa_fused_bf16(re, im, w)
     return sa_gate(sa_pool(re, im), w, re, im)
 
 

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file exposes a plain C entry point and compiles on its own
 with ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``build/dcs_net_tpu_torch/`` at the repository root (a directory git ignores),
-named by a hash of its source and flags so a changed source rebuilds. The
+named by a hash of its source, the shared headers (``csrc/*.cuh``) and the
+flags, so a changed source or header rebuilds. The
 library is loaded with ``ctypes``; pointers and the stream go in as
 ``c_void_p``. Nothing builds at import time: the first launch builds its own
 library, and :func:`build_all` builds every kernel at once (one ``nvcc`` per
@@ -79,6 +80,8 @@ class CudaKernel:
     @property
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 

@@ -67,12 +67,16 @@ def profiled(fn: Callable[[], object]) -> Tuple[float, float, int, List]:
 
 def profiled_whole(fn: Callable[[], object], tries: int = 6
                    ) -> Tuple[Optional[Tuple[float, float, int, List]], int]:
-    """:func:`profiled` windows of ``fn``, a call that launches the same
-    kernels every time, until two agree on the largest kernel count seen:
-    a window, warm-up step and all, still loses records now and then, and
-    never gains any, so that count is the call's.
-    Returns the first window with it and the windows taken, or None and
-    ``tries`` where no two agreed."""
+    """:func:`profiled` windows of ``fn`` until two agree on the largest
+    kernel count seen: a window, warm-up step and all, still loses records
+    now and then, and never gains any, so for a call that launches the same
+    kernels every time that count is the call's. A call whose own count
+    varies (the eager carried stream launched 27584-28425 kernels over 16
+    windows on the H100, one count in about two windows) may show a larger
+    count once and never again: after ``tries`` windows the largest count
+    that two windows agree on is taken. Returns the first window with the
+    count and the windows taken, or None and ``tries`` where no two
+    agreed."""
     seen = []
     for _ in range(tries):
         seen.append(profiled(fn))
@@ -80,4 +84,8 @@ def profiled_whole(fn: Callable[[], object], tries: int = 6
         whole = [w for w in seen if w[2] == top]
         if len(whole) >= 2:
             return whole[0], len(seen)
-    return None, len(seen)
+    counts = [w[2] for w in seen]
+    agreed = [n for n in set(counts) if counts.count(n) >= 2]
+    if not agreed:
+        return None, len(seen)
+    return next(w for w in seen if w[2] == max(agreed)), len(seen)
