@@ -100,7 +100,10 @@ Phases (each prints one or more lines; any failure exits non-zero):
                dcs_net_tpu_torch.cli.train --steps-per-dispatch 3`` for 8
                batch-32 steps (an eager dispatch, a CUDA graph captured and
                replayed, 2 single steps), a checkpoint, then ``--resume``
-               for 8 more (captured anew after the restore), each run with SWA
+               for 8 more (captured anew after the restore) on the numpy
+               front end, the native library's path set to a missing file
+               (it must print ``loader=python (native front end
+               unavailable``), each run with SWA
                active (its last epoch averaged, the BN statistics refreshed
                over 8 batches), then ``python -m
                dcs_net_tpu_torch.cli.enhance --ckpt-dir`` on the checkpoint,
@@ -130,21 +133,23 @@ Phases (each prints one or more lines; any failure exits non-zero):
                the card's default K = 8, two epochs of 16 steps: 3 replays,
                its steady audio-s/s;
      loader  -- the native audio front end (``data/native_loader.py``,
-               ``csrc/audioio.cc``) on 1280 synthetic pairs of 3 s at 48 kHz:
+               ``csrc/audioio.cc``) on 960 synthetic pairs of 3 s at 48 kHz:
                (a) the library built with g++ from the checkout (its output
                printed if it fails) and the host's CPU count; (b) two native
                batches of 32 x 8160 against the numpy path's (ids and starts
                equal, samples within 1e-5) and the windowed fill against the
                faithful one (bit for bit); (c) the loader alone
                (``tools/profile_loader.py``): batches/s of the numpy path, the
-               faithful fill and the windowed one at 2 workers and at the
-               CPU count over 16 batches, and each part's ms per item; (d) ``cli.train`` at K
-               = 8 with the default prefetch, 1 epoch of 32 steps, once on
-               the native front end (it must print ``loader=native``) and once
-               with ``DCSNET_TORCH_AUDIOIO_SO`` naming a missing file (the
-               numpy path): the steady audio-s/s of each epoch beside phase
-               "graph" (a)'s step rate, and the dispatch cycle reckoned from
-               (c);
+               faithful fill and the windowed one at 2 workers (the
+               trainer's) over 16 batches, and each part's ms per item; (d)
+               ``cli.train`` at K = 8 with the default prefetch, 1 epoch of
+               24 steps on the native front end (it must print
+               ``loader=native``): the steady audio-s/s beside phase "graph"
+               (a)'s step rate, and the dispatch cycle of each front end
+               reckoned from (c) (the rates at the CPU count, the numpy
+               front end's trainer run, now phase 7 (d)'s resumed run, and
+               a quarter of the pairs were cut to keep the smoke in its
+               limit);
      eval    -- the evaluation path on what phase 7 left (its checkpoint,
                8 synthetic test pairs, its trainer's events): (a) ``python
                -m dcs_net_tpu_torch.cli.test --composite``: one CSV row per
@@ -235,15 +240,49 @@ Phases (each prints one or more lines; any failure exits non-zero):
                (``config_for_variant("dc")``, its own seeded weights) at
                bf16: one enhance call's launches (DCS's), graphed against
                eager bit for bit, a 1 s request card vs CPU in the bf16
-               band.
+               band;
+  bf16train -- DCS training at ``--dtype bfloat16`` on phase 7's batch (32
+               x 8160) and weights, run after phase "graph": (a) one eager
+               step's launches (kernel 2's conv entry at bf16 13 times and
+               its input gradient's bf16 class 13 times, kernel 3's bf16
+               forward 7 times and its input gradient's bf16 class 7 times,
+               each with its packing, kernel 1's bf16 class once, nothing of
+               a float32 class); (b) the step at batch 4, dropout off, card
+               vs CPU at bf16, the card under cuDNN's deterministic
+               algorithms: loss and gradient norm within half of the CPU's
+               own bf16-to-float32 distance, every leaf within
+               ``SUM_ORDER_LIMIT`` of the largest distance of 7 sum-order
+               witnesses (CPU bf16 steps on the batch permuted), the
+               witnesses' own spread and the float32 control printed
+               beside it; (c) the K = 8 graph against eager at
+               bf16 under cuDNN's deterministic algorithms (16 steps' losses
+               rtol 1e-4, the state in band); (d) ms a step, the eager
+               median of 20 and the graphed median of 5 replays, a replay's
+               busy time and kernels, beside float32's from phases "train"
+               and "graph"; (e) the three new classes against their plain
+               versions at every shape of the step (<= 2^-7), rows
+               ``conv_same_small_cout_bf16``,
+               ``conv_same_small_cout_dgrad_bf16``,
+               ``tapconv_valid_dgrad_bf16`` (bf16 ``F.conv2d`` and
+               ``conv2d_input`` as the library calls, bounds at 989
+               TFLOP/s); (f) DC at bf16 and at float32, card vs CPU; (g)
+               ``cli.train dcs --dtype bfloat16 --synthetic`` for an epoch
+               of 16 steps at K = 8, its checkpoint served by ``cli.enhance``
+               at float32 and at bf16 against the CPU.
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 
 ``python3 chip_smoke.py --stft-only`` runs phases 1 and 2 and then kernel 1
 alone: its off-path checks, row 1 at the enhance shape and rows 1b and 1c,
 with the same last lines (the kernels JSON holding those rows).
-``python3 chip_smoke.py --bf16-only`` runs phases 1, 2 and "bf16", with the
-same last lines (the kernels JSON holding the bf16 rows).
+``python3 chip_smoke.py --bf16-only`` runs phases 1, 2, "bf16" and
+"bf16train" (on phase 7's batch made anew, float32's step measured in the
+phase), with the same last lines (the kernels JSON holding the bf16 rows).
+``python3 chip_smoke.py --sum-order-seeds N`` runs phases 1 and 2 and then
+reads phase "bf16train" (b)'s ratios for DCS and DC over N weight seeds,
+each on its own 4 waves of phase 7's batch: the card's, a witness's against
+the others and the float32 control's (what ``SUM_ORDER_LIMIT`` is set
+from), with an empty kernels JSON.
 """
 
 from __future__ import annotations
@@ -272,18 +311,18 @@ TRAIN_STEPS, TRAIN_N_SYNTHETIC = 8, 480       # 480 pairs: 384 train, 96 val
 GRAPH_K = 8                  # train steps a CUDA graph replay, the CLI's card default
 GRAPH_TRAIN_N = 640          # the K = 8 trainer run's pairs: 512 train, 16 steps an epoch
 # phase "loader": a tree of pairs of one length, 3 s at 48 kHz (VoiceBank's
-# training utterances last several seconds, of many lengths), 1024 train (an
-# epoch of 32 steps at batch 32: four dispatches of K = 8) and 256 val; one
+# training utterances last several seconds, of many lengths), 768 train (an
+# epoch of 24 steps at batch 32: three dispatches of K = 8) and 192 val; one
 # epoch a trainer run (two until phase "bf16" took the time; its steady
-# rate is read after the capture, over the epoch's last two replays)
-LOADER_SECONDS, LOADER_N_SYNTHETIC, LOADER_EPOCHS = 3.0, 1280, 1
+# rate is read after the capture, over the epoch's last replay)
+LOADER_SECONDS, LOADER_N_SYNTHETIC, LOADER_EPOCHS = 3.0, 960, 1
 LOADER_RATE_BATCHES = 16     # batches a loader-alone rate is timed over
 NATIVE_TOL = 1e-5            # native batches against the numpy path's
 # the device kernels of the port's entry points, as the profiler names them
 PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "stft_fft_mixed_kernel", "stft_dense_kernel",
                        "stft_span_kernel", "conv_same_kernel", "conv7_kernel",
                        "sa_pool_kernel", "sa_gate_kernel", "sa_gate_real_kernel",
-                       "sa_fused_bf16_kernel",
+                       "sa_fused_bf16_kernel", "conv7_bf16_kernel",
                        "tapconv_kernel", "tapconv_staged_kernel", "pack_kernel",
                        "pack_bf16_kernel")
 # one train step's launches of each kernel, forward and input gradient (DCS and DRS)
@@ -405,9 +444,50 @@ KERNEL_INFO.update({
                                KERNEL_INFO["tapconv_valid"][1],
                                "bf16-wgmma-in-place-flat-split", BF16_FLOPS_PER_S),
 })
+# the bf16 classes of the training path (phase "bf16train"): kernel 2's conv
+# entry (the un-fused gate's conv) and its input gradient, both the
+# register-tiled body with bf16 loads and float32 FMAs; kernel 3's input
+# gradient, the forward's bf16 bodies on g with the flipped, transposed
+# weights packed from w
+KERNEL_INFO.update({
+    "conv_same_small_cout_bf16": KERNEL_INFO["conv_same_small_cout"][:2]
+    + ("simt-f32-register-tiled-bf16-loads", BF16_FLOPS_PER_S),
+    "conv_same_small_cout_dgrad_bf16": KERNEL_INFO["conv_same_small_cout_dgrad"][:2]
+    + ("simt-f32-register-tiled-bf16-loads-input-gradient", BF16_FLOPS_PER_S),
+    "tapconv_valid_dgrad_bf16": KERNEL_INFO["tapconv_valid_dgrad"][:2]
+    + ("bf16-wgmma-staged-body-on-g-flipped-packing", BF16_FLOPS_PER_S),
+    "tapconv_valid_dgrad_bf16_tap": KERNEL_INFO["tapconv_valid_dgrad"][:2]
+    + ("bf16-wgmma-tap-body-on-g-flipped-packing", BF16_FLOPS_PER_S),
+})
 KERNEL_TOL = {"sa_pool_bf16": BF16_REL_TOL, "sa_gate_bf16": BF16_REL_TOL,
               "sa_fused_bf16": BF16_REL_TOL,
-              "tapconv_valid_bf16": BF16_REL_TOL, "tapconv_valid_bf16_tap": BF16_REL_TOL}
+              "tapconv_valid_bf16": BF16_REL_TOL, "tapconv_valid_bf16_tap": BF16_REL_TOL,
+              "conv_same_small_cout_bf16": BF16_REL_TOL,
+              "conv_same_small_cout_dgrad_bf16": BF16_REL_TOL,
+              "tapconv_valid_dgrad_bf16": BF16_REL_TOL,
+              "tapconv_valid_dgrad_bf16_tap": BF16_REL_TOL}
+# one bf16 train step's launches (DCS and DC): kernel 1's bf16 class; kernel
+# 2's conv entry at bf16 at the 13 un-fused gates, both directions; kernel
+# 3's bf16 forward (the staged body at dec0-dec5, the tap body at dec6) and
+# its input gradient's bf16 class (the staged body at every stage: the
+# input gradient's N is the forward's Cin, 32 or more), each with its
+# packing; nothing of a float32 class
+BF16_TRAIN_STEP_LAUNCHES = {"stft_dense_bf16": 1, "conv_same_small_cout_bf16": 13,
+                            "conv_same_small_cout_dgrad_bf16": 13,
+                            "tapconv_valid_bf16": 6, "tapconv_valid_bf16_tap": 1,
+                            "tapconv_pack_bf16": 7, "tapconv_valid_dgrad_bf16": 7,
+                            "tapconv_pack_dgrad_bf16": 7}
+# CPU bf16 steps on the batch permuted, the measure of how far a bf16 step's
+# gradient leaves move with the order of their sums (phase "bf16train" (b)),
+# and the most a leaf's card-vs-CPU distance may be of their largest: 1.4x
+# the largest reading of ``--sum-order-seeds 6`` on the H100 (a witness
+# against the other 6 at most 2.83, the card 2.88, DCS and DC), where the
+# float32 control read above it in 9 of 12 (PERF.md section 6)
+SUM_ORDER_WITNESSES = 7
+SUM_ORDER_LIMIT = 4.0
+# the rows phase "bf16train" adds to the kernels line
+BF16_TRAIN_ROWS = ("conv_same_small_cout_bf16", "conv_same_small_cout_dgrad_bf16",
+                   "tapconv_valid_dgrad_bf16", "tapconv_valid_dgrad_bf16_tap")
 # kernel 1 off the paths, rows of their own in the kernels line, each
 # (B, n, n_fft, hop), centred with the DC bin dropped as the model's: row 1b,
 # the FFT entry at sizes that took the dense DFT before (the first is that
@@ -616,7 +696,9 @@ def discover_shapes(run):
              (cuda_conv, "GATE_REAL"), (stft_cuda, "KERNEL_DENSE_BF16"),
              (stft_cuda, "KERNEL_DENSE_BF16_CHUNKED"), (cuda_conv, "POOL_BF16"),
              (cuda_conv, "GATE_BF16"), (cuda_conv, "FUSED_BF16"),
-             (cuda_tapconv, "KERNEL_BF16"), (cuda_tapconv, "KERNEL_BF16_TAP")]
+             (cuda_tapconv, "KERNEL_BF16"), (cuda_tapconv, "KERNEL_BF16_TAP"),
+             (cuda_conv, "KERNEL_BF16"), (cuda_conv, "DGRAD_BF16"),
+             (cuda_tapconv, "DGRAD_BF16"), (cuda_tapconv, "DGRAD_BF16_TAP")]
     logs = [ShapeLog(getattr(mod, attr)) for mod, attr in slots]
     try:
         for (mod, attr), log in zip(slots, logs):
@@ -1001,6 +1083,68 @@ def kernel_cases(name, args, dev, cfg):
                 {"earlier_ms": lambda: cuda_tapconv._launch(
                     cuda_tapconv.dgrad_input(gy, dh, dw), cuda_tapconv.dgrad_weights(w),
                     dh, dw)})
+    if name == "conv_same_small_cout_bf16":
+        # kernel 2's conv entry at bf16 (the un-fused gate's conv in a bf16
+        # train step): x and w bf16, the float32 bias, y bf16. The library
+        # call: one bf16 F.conv2d (cuDNN, float32 sums)
+        B, H, W, cin, K, cout = args[:6]
+        x = randn(B, H, W, cin).to(b16)
+        w = randn(K, K, cin, cout, scale=0.1).to(b16)
+        bias = randn(cout)
+        x_nchw = x.permute(0, 3, 1, 2).contiguous()
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        return (lambda: cuda_conv.conv2d_same_small_cout(x, w, bias),
+                lambda: cuda_conv.conv2d_same_small_cout_bf16_plain(x, w, bias),
+                lambda: F.conv2d(x_nchw, w_oihw, bias.to(b16), padding=K // 2),
+                2 * (x.numel() + w.numel() + B * H * W * cout) + 4 * cout,
+                2 * B * H * W * K * K * cin * cout, None, {})
+    if name == "conv_same_small_cout_dgrad_bf16":
+        # its input gradient at bf16, class (7, 2, 4): launched with x = the
+        # bf16 upstream gradient and the dgrad kernel; the library call one
+        # bf16 torch.nn.grad.conv2d_input
+        B, H, W, cout, K, cin = args[:6]
+        gy = randn(B, H, W, cout).to(b16)
+        w = randn(K, K, cin, cout, scale=0.1).to(b16)
+        wt = cuda_conv.dgrad_kernel(w)
+        zero = torch.zeros(cin, device=dev)
+        g_nchw = gy.permute(0, 3, 1, 2).contiguous()
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+        return (lambda: cuda_conv._same_conv(gy, wt, zero, dgrad=True),
+                lambda: cuda_conv.conv2d_same_small_cout_dgrad_bf16_plain(gy, w),
+                lambda: torch.nn.grad.conv2d_input((B, cin, H, W), w_oihw, g_nchw,
+                                                   padding=K // 2),
+                2 * (gy.numel() + w.numel() + B * H * W * cin),
+                2 * B * H * W * K * K * cin * cout, None, {})
+    if name in ("tapconv_valid_dgrad_bf16", "tapconv_valid_dgrad_bf16_tap"):
+        # kernel 3's input gradient at bf16: the forward's bf16 body on g
+        # (B, HO, WO, N) read in place, padded by Dh - 1 - top rows before
+        # it (the recorded launch's padding), with the flipped, transposed
+        # weights, -> dx (B, H, W, Cin). The least work is the forward's.
+        # The library call: one bf16 torch.nn.grad.conv2d_input; pack_ms the
+        # flipped packing alone, which every call runs before the body
+        B, ho, wo, n, H, W, cin, dh, dw = args[:9]
+        gtop, gbottom, gleft, gright = tapconv_pad(args)
+        pad = (dh - 1 - gtop, dh - 1 - gbottom, dw - 1 - gleft, dw - 1 - gright)
+        body = "staged" if name == "tapconv_valid_dgrad_bf16" else "tap"
+        if cuda_tapconv.bf16_body(B, ho, wo, n, cin, dh, dw, (gtop, gbottom, gleft, gright)
+                                  ) != body:
+            fail(f"{name} at {args}: the shape routes to the other body")
+        gy = randn(B, ho, wo, n).to(b16)
+        w = randn(dh * dw, cin, n, scale=1.0 / math.sqrt(dh * dw * cin)).to(b16)
+        kb = cuda_tapconv.STAGED_KB if body == "staged" else cuda_tapconv.BK
+        bn = args[-2]
+        packed = torch.empty((-(-cin // bn), -(-n // kb), dh * dw, kb // 8, bn, 8),
+                             device=dev, dtype=b16)
+        print(f"kernel {name} args={args}: the {body} body on g padded by "
+              f"{(gtop, gbottom, gleft, gright)}, plan (bn, flat, wgs, S) {args[-4:]}",
+              flush=True)
+        return (lambda: cuda_tapconv._launch_dgrad(gy, w, dh, dw, pad, (H, W)),
+                lambda: cuda_tapconv.tapconv_dgrad_bf16_plain(gy, w, dh, dw, pad, (H, W)),
+                tapconv_input_grad_library(gy, w, dh, dw, pad, (H, W)),
+                2 * (gy.numel() + w.numel() + B * H * W * cin),
+                2 * B * ho * wo * dh * dw * cin * n, None,
+                {"pack_ms": lambda: cuda_tapconv.DGRAD_PACK_BF16(
+                    dev, ptr(w), ptr(packed), dh * dw, cin, n, bn, kb)})
     raise KeyError(name)
 
 
@@ -1648,7 +1792,11 @@ def check_graphed(what, run, replay_launches, card, cpu_case=None, reps=5,
             for _ in range(3):
                 got = run_short(short)
             compare(f"{what}, graphed", got.cpu(), want)
-        windows = {how: profiled_whole(lambda: run(g)) for how, g in
+        # up to 12 windows: the eager carried stream's own kernel count
+        # varies (27584-28425 over 16 windows on the H100), and once in a few
+        # calls no two of 6 windows agreed; a call whose count holds stops
+        # at the second window with it
+        windows = {how: profiled_whole(lambda: run(g), tries=12) for how, g in
                    (("graphed", graphs), ("eager", None)) if how in profile}
     finally:
         torch.backends.cudnn.deterministic = False
@@ -2272,10 +2420,9 @@ def serve_checkpoint(ckpt_dir, card) -> None:
     compare_card_cpu("train: the served checkpoint, 1 s", torch.from_numpy(served), want)
 
 
-def check_train(dev, card, tmp):
-    """Phase "train", with its data, logs and checkpoints under ``tmp``.
-    Returns the kernel rows of one train step's launches (forward and input
-    gradient) and its launch counts."""
+def train_batch(dev, tmp):
+    """Phase "train"'s data under ``tmp`` and its batch: (the DCS config with
+    that data, noisy, clean) on ``dev``."""
     import dataclasses
 
     import torch
@@ -2284,11 +2431,6 @@ def check_train(dev, card, tmp):
     from dcs_net_tpu_torch.data.partition import make_partition
     from dcs_net_tpu_torch.core.config import config_for_variant
     from dcs_net_tpu_torch.data import synthetic
-    from dcs_net_tpu_torch.models.unet import DCSNet
-    from dcs_net_tpu_torch.train import steps
-    from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
-    from dcs_net_tpu_torch.train.optim import make_optimizer
-    from dcs_net_tpu_torch.utils import cuda_lib
 
     root = os.path.join(tmp, "synthetic_data")     # where the CLI's --synthetic looks
     t0 = time.perf_counter()
@@ -2312,6 +2454,23 @@ def check_train(dev, card, tmp):
     clean = torch.from_numpy(host["clean"]).to(dev)
     print(f"train: {TRAIN_N_SYNTHETIC} synthetic pairs written and one batch "
           f"{tuple(noisy.shape)} loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+    return cfg, noisy, clean
+
+
+def check_train(dev, card, tmp):
+    """Phase "train", with its data, logs and checkpoints under ``tmp``.
+    Returns the kernel rows of one train step's launches (forward and input
+    gradient) and its launch counts."""
+    import torch
+
+    from dcs_net_tpu_torch.data import native_loader
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
+    from dcs_net_tpu_torch.train.optim import make_optimizer
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    cfg, noisy, clean = train_batch(dev, tmp)
 
     # (a) one step's launches, on a model with faithful quirks, dropout on
     torch.manual_seed(SEED)
@@ -2356,7 +2515,14 @@ def check_train(dev, card, tmp):
     if (first.get("steps") != TRAIN_STEPS or first.get("nonfinite_loss_steps") != 0
             or ckpt.latest_step() != TRAIN_STEPS):
         fail(f"the trainer's first run: {first}, checkpoints {ckpt.steps()}")
-    stdout, second = run_trainer(tmp, 2, True, card, ["--steps-per-dispatch", "3"])
+    # the resumed run on the numpy front end: the native library's path set
+    # to a missing file
+    stdout, second = run_trainer(tmp, 2, True, card, ["--steps-per-dispatch", "3"], env={
+        native_loader.ENV_SO: os.path.join(tmp, "no_such_dir", "libaudioio.so")})
+    line = next((ln for ln in stdout.splitlines() if ln.startswith("loader=")), "")
+    print(f"train: the resumed run's front end: {line}", flush=True)
+    if not line.startswith("loader=python (native front end unavailable"):
+        fail(f"train (d): the trainer with the library missing printed {line!r}")
     if (f"resumed from step {TRAIN_STEPS} (epoch 1)" not in stdout
             or second.get("epoch") != 1 or second.get("nonfinite_loss_steps") != 0
             or ckpt.latest_step() != 2 * TRAIN_STEPS):
@@ -2427,7 +2593,9 @@ def time_graph(what, scanned, launches, x, y, eager_ms, card):
     audio-s/s per GPU, beside ``eager_ms``; one replay under the profiler,
     in a window that lost no kernel records (``profiled_whole``): device
     kernels (the port's among them, held to ``launches``, the capture's
-    counts), busy time and idle share. Returns the per-step median."""
+    counts), busy time and idle share; up to 12 windows, as
+    ``check_graphed`` takes. Returns (the per-step median, a replay's busy
+    ms, its device kernels)."""
     import torch
 
     from dcs_net_tpu_torch.utils import cuda_lib
@@ -2444,7 +2612,7 @@ def time_graph(what, scanned, launches, x, y, eager_ms, card):
         walls.append((time.perf_counter() - t1) * 1e3 / k)
     walls.sort()
     med = walls[2]
-    window, taken = profiled_whole(lambda: scanned(x, y))
+    window, taken = profiled_whole(lambda: scanned(x, y), tries=12)
     if window is None:
         fail(f"{what}: no two of {taken} profiler windows of a replay agreed on its "
              "kernel count")
@@ -2463,7 +2631,7 @@ def time_graph(what, scanned, launches, x, y, eager_ms, card):
     if ours != counted:
         fail(f"{what}: the profiler saw {ours} launches of the port's kernels in one "
              f"replay, the capture counted {counted}")
-    return med
+    return med, busy, n_launch
 
 
 def capture_graph(what, model, opt, cfg, x, y, between=None):
@@ -2558,7 +2726,8 @@ def check_graph(dev, card, tmp, noisy, clean, eager_ms):
     model.set_dropout_generator(torch.Generator(device=dev).manual_seed(SEED + 41))
     scanned, _, launches = capture_graph("DCS", model, make_optimizer(
         model.parameters(), cfg.optim), cfg, x, y)
-    step_ms = time_graph("DCS", scanned, launches, x[:k], y[:k], eager_ms, card)
+    step_ms, busy_ms, n_kernels = time_graph("DCS", scanned, launches, x[:k], y[:k],
+                                             eager_ms, card)
     del model, scanned
     torch.cuda.empty_cache()
 
@@ -2693,7 +2862,7 @@ def check_graph(dev, card, tmp, noisy, clean, eager_ms):
             or metrics.get("nonfinite_loss_steps") != 0):
         fail(f"graph (f): the trainer at {k} steps a dispatch: {metrics}")
     print(f"graph: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches, rlaunches, step_ms
+    return launches, rlaunches, (step_ms, busy_ms, n_kernels)
 
 
 def check_loader(card, tmp, graph_step_ms):
@@ -2755,41 +2924,36 @@ def check_loader(card, tmp, graph_step_ms):
     if not worst <= NATIVE_TOL:
         fail("loader (b): the native batches are not the numpy path's")
 
-    # (c) the loader alone
-    prof = profile_loader.profile(root, TRAIN_BATCH, TRAIN_CROP, sorted({2, cpus}), 32,
+    # (c) the loader alone, at the trainer's 2 workers
+    workers = 2
+    prof = profile_loader.profile(root, TRAIN_BATCH, TRAIN_CROP, [workers], 32,
                                   LOADER_RATE_BATCHES)
     print(f"loader: (c) [{host}]", flush=True)
 
-    # (d) the trainer at K = 8, default prefetch, on each front end
+    # (d) the trainer at K = 8, default prefetch, on the native front end (phase
+    # 7 (d) runs it on the numpy one)
     audio_s = TRAIN_BATCH * TRAIN_CROP / SR
     graph_rate = audio_s / graph_step_ms * 1e3
     steps = len(ds) // TRAIN_BATCH
-    runs = {"native": {}, "numpy": {
-        native_loader.ENV_SO: os.path.join(tmp, "no_such_dir", "libaudioio.so")}}
-    for label, env in runs.items():
-        stdout, metrics = run_trainer(os.path.join(tmp, f"loader_{label}"), LOADER_EPOCHS,
-                                      False, card, (), steps=steps, data_root=root, env=env)
-        line = next((ln for ln in stdout.splitlines() if ln.startswith("loader=")), "")
-        steady = [float(v) for v in re.findall(r"\bsteady_audio_seconds_per_s=(\S+)", stdout)]
-        print(f"loader: (d) the trainer at K = {GRAPH_K} on the {label} front end "
-              f"({line}): {LOADER_EPOCHS} epochs of {steps} steps, steady "
-              f"{', '.join(f'{v:.1f}' for v in steady)} audio-s/s per GPU by epoch, "
-              f"{metrics.get('audio_seconds_per_s')} over its last epoch, "
-              f"{metrics.get('graph_replays')} replays since the capture; the graphed step "
-              f"alone (graph (a)) {graph_rate:.1f} audio-s/s [{host}]", flush=True)
-        if label == "native" and line != "loader=native":
-            fail(f"loader (d): the trainer did not take the native front end: {line!r}")
-        if label == "numpy" and not line.startswith("loader=python (native front end "
-                                                    "unavailable"):
-            fail(f"loader (d): the trainer with the library missing printed {line!r}")
-        if (metrics.get("steps") != steps or metrics.get("nonfinite_loss_steps") != 0
-                or len(steady) != LOADER_EPOCHS):
-            fail(f"loader (d): the trainer on the {label} front end: {metrics}")
+    stdout, metrics = run_trainer(os.path.join(tmp, "loader_native"), LOADER_EPOCHS,
+                                  False, card, (), steps=steps, data_root=root)
+    line = next((ln for ln in stdout.splitlines() if ln.startswith("loader=")), "")
+    steady = [float(v) for v in re.findall(r"\bsteady_audio_seconds_per_s=(\S+)", stdout)]
+    print(f"loader: (d) the trainer at K = {GRAPH_K} on the native front end "
+          f"({line}): {LOADER_EPOCHS} epochs of {steps} steps, steady "
+          f"{', '.join(f'{v:.1f}' for v in steady)} audio-s/s per GPU by epoch, "
+          f"{metrics.get('audio_seconds_per_s')} over its last epoch, "
+          f"{metrics.get('graph_replays')} replays since the capture; the graphed step "
+          f"alone (graph (a)) {graph_rate:.1f} audio-s/s [{host}]", flush=True)
+    if line != "loader=native":
+        fail(f"loader (d): the trainer did not take the native front end: {line!r}")
+    if (metrics.get("steps") != steps or metrics.get("nonfinite_loss_steps") != 0
+            or len(steady) != LOADER_EPOCHS):
+        fail(f"loader (d): the trainer on the native front end: {metrics}")
+    for label, fe in (("native", "native-windowed"), ("numpy", "numpy")):
         # the steady cycle of a dispatch reckoned from the loader alone: the
         # producer runs at most prefetch + 1 = 3 batches ahead of a replay R
         # that takes K = 8, so about max(R, 3L) + 5L with L its time a batch
-        workers = 2
-        fe = "native-windowed" if label == "native" else "numpy"
         L = 1.0 / prof["rate"][fe][workers]
         R = GRAPH_K * graph_step_ms / 1e3
         cycle = max(R, 3 * L) + 5 * L
@@ -3627,6 +3791,360 @@ def check_bf16(dev, card):
     return rows
 
 
+def bf16_steps(cfg, noisy, clean, dev, seed):
+    """One train step at bf16 (``cfg`` at --dtype bfloat16) on the waves
+    ``noisy``, ``clean`` (a batch of ``CARD_CPU_BATCH``), dropout off, from
+    the same weights: on the card under cuDNN's deterministic algorithms
+    ("card"), on the CPU ("cpu"), the CPU's float32 step ("cpu32"), and
+    ``SUM_ORDER_WITNESSES`` CPU bf16 steps on the batch in other orders
+    ("witness<i>"): the same function (the loss is the batch's mean, BN's
+    statistics sum over the batch) with its sums in other orders. Returns
+    {run: (metrics, gradients in float64, post-Adam parameters, seconds)}."""
+    import dataclasses
+
+    import torch
+
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.train.optim import make_optimizer
+
+    ncfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_conv=0.0,
+                                                 dropout_fc=0.0))
+    c16 = bf16_config(ncfg)
+    weights = {k: v.cpu().clone() for k, v in DCSNet(
+        ncfg.model, ncfg.quirks, device="cpu", seed=seed).state_dict().items()}
+    order = tuple(range(len(noisy)))
+    others = [p for p in itertools.permutations(order) if p != order]
+    picks = np.random.default_rng(seed).choice(len(others), SUM_ORDER_WITNESSES,
+                                               replace=False)
+    cpu = torch.device("cpu")
+    runs = [("card", c16, dev, order), ("cpu", c16, cpu, order), ("cpu32", ncfg, cpu, order)]
+    runs += [(f"witness{i}", c16, cpu, others[j]) for i, j in enumerate(picks)]
+    results = {}
+    for key, c, d, perm in runs:
+        m = DCSNet(c.model, c.quirks, device=d, seed=seed)
+        m.load_state_dict({k: v.to(d) for k, v in weights.items()})
+        o = make_optimizer(m.parameters(), c.optim)
+        perm = list(perm)
+        torch.backends.cudnn.deterministic = True
+        try:
+            t1 = time.perf_counter()
+            r = steps.train_step(m, o, steps.batch_from_waves(
+                noisy[perm].to(d), clean[perm].to(d), c), c)
+            metrics = {k: float(v) for k, v in r.items()}
+        finally:
+            torch.backends.cudnn.deterministic = False
+        results[key] = (metrics,
+                        {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()},
+                        {n: p.detach().cpu().clone() for n, p in m.named_parameters()},
+                        time.perf_counter() - t1)
+    return results
+
+
+def sum_order_ratios(results, key, witnesses):
+    """[(ratio, leaf)], largest first, over the gradient leaves above the
+    residue floor (1e-5 of the float32 step's largest): the L2 distance of
+    ``results[key]``'s leaf from the CPU's bf16 leaf over the largest of
+    ``witnesses``' distances, floored at the oracle band's 2.5e-3 of the
+    leaf."""
+    cpu_g, cpu32_g = results["cpu"][1], results["cpu32"][1]
+    floor = 1e-5 * max(float(g.abs().max()) for g in cpu32_g.values())
+    out = []
+    for name, want in cpu_g.items():
+        if float(cpu32_g[name].abs().max()) < floor:
+            continue
+        noise = max([float((results[w][1][name] - want).norm()) for w in witnesses]
+                    + [2.5e-3 * float(want.norm())])
+        out.append((float((results[key][1][name] - want).norm()) / noise, name))
+    return sorted(out, reverse=True)
+
+
+def sum_order_readings(results):
+    """``sum_order_ratios`` of the card against every witness, the largest
+    of each witness against the others (ratio, leaf), and of the control,
+    the CPU's float32 step (what a card that computed at float32 would
+    read), against every witness."""
+    ws = [k for k in results if k.startswith("witness")]
+    spread = max(sum_order_ratios(results, w, [v for v in ws if v != w])[0] for w in ws)
+    return (sum_order_ratios(results, "card", ws), spread,
+            sum_order_ratios(results, "cpu32", ws))
+
+
+def describe_ratios(ratios):
+    """The largest three of ``sum_order_ratios`` and their median."""
+    return (", ".join(f"{n} {r:.2f}" for r, n in ratios[:3])
+            + f"; median {ratios[len(ratios) // 2][0]:.2f} over {len(ratios)} leaves")
+
+
+def card_vs_cpu_step_bf16(what, cfg, noisy, clean, dev, seed) -> None:
+    """``bf16_steps`` on the first ``CARD_CPU_BATCH`` waves, held: the loss
+    and the gradient norm card vs CPU within half of the CPU's own bf16 ->
+    float32 distance on that step; every gradient leaf above the residue
+    floor within ``SUM_ORDER_LIMIT`` of its sum-order witnesses
+    (``sum_order_ratios``): at bf16 a leaf of the step moves with the order
+    of its sums by more than the oracle band widened by its own bf16
+    distance (on the CPU, at 28 of 214 DCS leaves: PERF.md section 6); the
+    post-Adam parameters within 2 lr + 3e-5 (the most that Adam's first
+    step moves a parameter, lr a step, apart in either direction, weight
+    decay included)."""
+    import torch
+
+    results = bf16_steps(cfg, noisy[:CARD_CPU_BATCH], clean[:CARD_CPU_BATCH], dev, seed)
+    (card, card_g, card_p, _), (cpu, _, cpu_p, cpu_s), (cpu32, _, _, _) = (
+        results["card"], results["cpu"], results["cpu32"])
+    for k in ("loss", "grad_norm"):
+        d, ref = abs(card[k] - cpu[k]), abs(cpu[k] - cpu32[k])
+        print(f"{what}: batch {CARD_CPU_BATCH}, dropout off, bf16 card vs CPU: {k} "
+              f"{card[k]:.6f} vs {cpu[k]:.6f} (|diff| {d:.3e}); the CPU's bf16 against "
+              f"its float32 {cpu32[k]:.6f} ({ref:.3e}; limit half of it) (CPU bf16 step "
+              f"{cpu_s:.1f} s)", flush=True)
+        if not d <= 0.5 * ref:
+            fail(f"{what} bf16 step card vs CPU: {k} {card[k]} vs {cpu[k]}, beyond half "
+                 f"of the CPU's bf16-to-float32 distance {ref:.3e}")
+    for name, got in card_g.items():
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{what}: bf16 gradient {name} is not finite on the card")
+    ratios, spread, control = sum_order_readings(results)
+    print(f"{what}: bf16 gradient leaves, card vs CPU in L2 against the largest of "
+          f"{SUM_ORDER_WITNESSES} sum-order witnesses (limit {SUM_ORDER_LIMIT}): largest "
+          f"{describe_ratios(ratios)}; a witness against the other "
+          f"{SUM_ORDER_WITNESSES - 1} at most {spread[0]:.2f} ({spread[1]}); the float32 "
+          f"control {describe_ratios(control)}", flush=True)
+    outside = [f"{n} ({r:.2f})" for r, n in ratios if r > SUM_ORDER_LIMIT]
+    if outside:
+        fail(f"{what}: bf16 gradients beyond {SUM_ORDER_LIMIT} sum-order distances: "
+             + ", ".join(outside))
+    lr = cfg.optim.lr
+    moved = max(float((card_p[n] - cpu_p[n]).abs().max()) for n in cpu_p)
+    if moved > 2 * lr + 3e-5:
+        fail(f"{what}: post-Adam parameters at bf16 differ by {moved:.3e}, beyond 2 lr")
+    print(f"{what}: post-Adam parameters within 2 lr (max |diff| {moved:.3e})", flush=True)
+
+
+def check_sum_order(dev, card, noisy, clean, n_seeds):
+    """The readings ``SUM_ORDER_LIMIT`` is set from: ``sum_order_readings``
+    of DCS's and DC's step over ``n_seeds`` weight seeds, each on its own
+    ``CARD_CPU_BATCH`` waves of phase 7's batch. Fails on nothing."""
+    from dcs_net_tpu_torch.core.config import config_for_variant
+
+    for variant in ("dcs", "dc"):
+        top = [0.0, 0.0, 0.0]
+        for s in range(n_seeds):
+            part = slice(s * CARD_CPU_BATCH, (s + 1) * CARD_CPU_BATCH)
+            ratios, spread, control = sum_order_readings(bf16_steps(
+                config_for_variant(variant), noisy[part], clean[part], dev, SEED + 100 + s))
+            top = [max(top[0], ratios[0][0]), max(top[1], spread[0]),
+                   max(top[2], control[0][0])]
+            print(f"sum order: {variant} seed {s}: the card against {SUM_ORDER_WITNESSES} "
+                  f"witnesses {describe_ratios(ratios)}; a witness against the other "
+                  f"{SUM_ORDER_WITNESSES - 1} at most {spread[0]:.2f} ({spread[1]}); the "
+                  f"float32 control {describe_ratios(control)} [{card}]", flush=True)
+        print(f"sum order: {variant} over {n_seeds} seeds: the card at most {top[0]:.2f}, a "
+              f"witness against the others {top[1]:.2f}, the float32 control {top[2]:.2f}",
+              flush=True)
+
+
+def check_bf16_train(dev, card, tmp, noisy, clean, f32):
+    """Phase "bf16train": DCS (and DC) training at --dtype bfloat16 on the
+    card, on phase 7's batch ``noisy``, ``clean`` (B 32 x 8160) and weights:
+    (a) one eager step's launches; (b) card vs CPU at batch 4; (c) the K = 8
+    graph against eager; (d) ms a step beside float32's ``f32`` = (eager ms,
+    graphed ms, a replay's busy ms, its kernels) from phases "train" and
+    "graph" in this process, or None: then measured here; (e) each new class
+    against its plain version at every shape of the step; (f) a DC step at
+    bf16 and at float32, card vs CPU; (g) ``cli.train --dtype bfloat16`` for
+    an epoch at K = 8 and its checkpoint served at both types. Returns its
+    kernel rows."""
+    import dataclasses
+
+    import torch
+
+    from dcs_net_tpu_torch.core.config import Config, config_for_variant
+    from dcs_net_tpu_torch.data.audio_io import read_wav, write_wav
+    from dcs_net_tpu_torch.models.enhance import enhance_full
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.train.checkpoint import load_model
+    from dcs_net_tpu_torch.train.optim import make_optimizer
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    t_phase = time.perf_counter()
+    cfg = config_for_variant("dcs")
+    c16 = bf16_config(cfg)
+    k = GRAPH_K
+
+    # (a) one eager bf16 step at batch 32, dropout on, phase 7's weights
+    torch.manual_seed(SEED)
+    model = DCSNet(c16.model, c16.quirks, device=dev, seed=SEED + 11)
+    opt = make_optimizer(model.parameters(), c16.optim)
+
+    def step():
+        return steps.train_step(model, opt, steps.batch_from_waves(noisy, clean, c16), c16)
+
+    shapes = discover_shapes(step)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    out = step()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"bf16train: (a) train_step launches {launches}, loss {float(out['loss']):.4f}",
+          flush=True)
+    expect_launches("bf16train (a): one bf16 train step", launches, BF16_TRAIN_STEP_LAUNCHES)
+    if not math.isfinite(float(out["loss"])) or float(out["skipped"]) != 0.0:
+        fail("bf16train (a): the bf16 step's loss is not finite")
+    if not all(p.dtype == torch.float32 and torch.isfinite(p.grad).all()
+               for p in model.parameters()):
+        fail("bf16train (a): a parameter or its gradient is not finite float32")
+
+    # (d) ms a step: the eager median of 20, the graphed median of 5 replays
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(20):
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    eager16 = sorted(walls)[10]
+    del model, opt
+    x, y = graph_waves(noisy, clean, 2 * k)
+    torch.cuda.empty_cache()
+    model = DCSNet(c16.model, c16.quirks, device=dev, seed=SEED + 11)
+    model.set_dropout_generator(torch.Generator(device=dev).manual_seed(SEED + 41))
+    opt = make_optimizer(model.parameters(), c16.optim)
+    scanned = steps.make_scanned_train_step(model, opt, c16, k)
+    scanned(x[:k], y[:k])
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    scanned(x[k:], y[k:])
+    torch.cuda.synchronize()
+    glaunches = launch_counts()
+    print(f"bf16train: (d) captured {k} bf16 train steps in {scanned.capture_s:.2f} s, "
+          f"private pool {scanned.pool_bytes / 2**30:.2f} GiB, one replay's launches "
+          f"{ {n: c for n, c in glaunches.items() if c} }", flush=True)
+    expect_launches("bf16train (d): one replay", glaunches,
+                    {n: k * c for n, c in BF16_TRAIN_STEP_LAUNCHES.items()})
+    glaunches = {kn.name: kn.launches for kn in cuda_lib.KERNELS.values()}
+    graph16, busy16, kernels16 = time_graph("DCS at bf16", scanned, glaunches, x[:k], y[:k],
+                                            eager16, card)
+    del model, opt, scanned
+    torch.cuda.empty_cache()
+    if f32 is None:
+        # float32's numbers in this process, as phases "train" and "graph" take them
+        model = DCSNet(cfg.model, cfg.quirks, device=dev, seed=SEED + 11)
+        model.set_dropout_generator(torch.Generator(device=dev).manual_seed(SEED + 41))
+        opt = make_optimizer(model.parameters(), cfg.optim)
+        for _ in range(3):
+            steps.train_step(model, opt, steps.batch_from_waves(noisy, clean, cfg), cfg)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(20):
+            t1 = time.perf_counter()
+            steps.train_step(model, opt, steps.batch_from_waves(noisy, clean, cfg), cfg)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t1) * 1e3)
+        scanned = steps.make_scanned_train_step(model, opt, cfg, k)
+        scanned(x[:k], y[:k])
+        cuda_lib.reset_launch_counts()
+        scanned(x[k:], y[k:])
+        torch.cuda.synchronize()
+        flaunches = {kn.name: kn.launches for kn in cuda_lib.KERNELS.values()}
+        f32 = (sorted(walls)[10],) + time_graph("DCS", scanned, flaunches, x[:k], y[:k],
+                                                sorted(walls)[10], card)
+        del model, opt, scanned
+        torch.cuda.empty_cache()
+    eager32, graph32, busy32, kernels32 = f32
+    print(f"bf16train: (d) DCS step at batch {TRAIN_BATCH} x {TRAIN_CROP}: bf16 eager "
+          f"{eager16:.2f} ms (median of 20), graphed {graph16:.2f} ms (median of 5 "
+          f"replays of {k}), a replay busy {busy16:.2f} ms, {kernels16} device kernels; "
+          f"float32 eager {eager32:.2f}, graphed {graph32:.2f}, busy {busy32:.2f} ms, "
+          f"{kernels32} kernels (this process) [{card}]", flush=True)
+
+    # (c) the K = 8 graph against eager at bf16, cuDNN's deterministic
+    # algorithms on both sides: 16 steps' losses rtol 1e-4, the state in band
+    torch.backends.cudnn.deterministic = True
+    try:
+        pair = []
+        for _ in range(2):
+            m = DCSNet(c16.model, c16.quirks, device=dev, seed=SEED + 42)
+            m.set_dropout_generator(torch.Generator(device=dev).manual_seed(SEED + 43))
+            pair += [m, make_optimizer(m.parameters(), c16.optim)]
+        a, oa, b, ob = pair
+        sa = steps.make_scanned_train_step(a, oa, c16, k)
+        got = sa(x[:k], y[:k])["loss"].tolist() + sa(x[k:], y[k:])["loss"].tolist()
+        want = [float(steps.train_step(b, ob, steps.batch_from_waves(
+            x[i].to(dev), y[i].to(dev), c16), c16)["loss"]) for i in range(2 * k)]
+        err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+        print(f"bf16train: (c) dropout on, {2 * k} bf16 steps (an eager dispatch and a "
+              f"replay) against {2 * k} eager steps: max relative loss difference "
+              f"{err:.3e} (limit 1e-4)", flush=True)
+        if not err <= 1e-4:
+            fail(f"bf16train (c): the graphed bf16 losses {got} are not eager's {want}")
+        state_band("bf16train: (c) after 16 bf16 steps", a, b)
+        del a, oa, b, ob, sa, pair
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (e) each new class against its plain version at the step's shapes
+    rows = check_kernels({name: shapes[name] for name in BF16_TRAIN_ROWS if shapes[name]},
+                         launches, dev, c16, card, "bf16 train step")
+    for row in rows:
+        row["launches_graph_replay"] = glaunches.get(row["name"], 0)
+
+    # (b) and (f): card vs CPU, batch 4, dropout off: DCS at bf16; DC at bf16
+    # and at float32
+    card_vs_cpu_step_bf16("bf16train (b) DCS", cfg, noisy, clean, dev, SEED + 13)
+    dcfg = config_for_variant("dc")
+    card_vs_cpu_step_bf16("bf16train (f) DC", dcfg, noisy, clean, dev, SEED + 14)
+    card_vs_cpu_step("bf16train (f) DC float32", dcfg, noisy, clean, dev, SEED + 14)
+
+    # (g) the trainer at --dtype bfloat16: one epoch of 16 steps at K = 8 (an
+    # eager dispatch, then the capture's replay), its checkpoint served
+    root = os.path.join(tmp, "bf16train")
+    _, metrics = run_trainer(root, 1, False, card, ("--dtype", "bfloat16"), GRAPH_TRAIN_N,
+                             2 * k)
+    if (metrics.get("steps") != 2 * k or metrics.get("nonfinite_loss_steps") != 0
+            or not math.isfinite(metrics.get("loss", float("nan")))):
+        fail(f"bf16train (g): the bf16 trainer: {metrics}")
+    ckpt = os.path.join(root, "dcs", "checkpoints")
+    with open(os.path.join(ckpt, "config.json")) as f:
+        saved = Config.from_json(f.read())
+    if saved.model.compute_dtype != "bfloat16":
+        fail("bf16train (g): the checkpoint's config is not the bf16 one")
+    src = os.path.join(root, "noisy.wav")
+    write_wav(src, speech_like(1, SR, SEED + 17)[0], SR)
+    x1, _ = read_wav(src)
+    served = {}
+    for dtype in ("bfloat16", "float32"):
+        c = bf16_config(saved) if dtype == "bfloat16" else saved.replace(
+            model=dataclasses.replace(saved.model, compute_dtype="float32"),
+            stft=dataclasses.replace(saved.stft, dft_dtype="float32"))
+        dst = os.path.join(root, f"served_{dtype}.wav")
+        stdout, wall = run_cli("enhance", ["dcs", "--in", src, "--out", dst, "--ckpt-dir",
+                                           ckpt, "--dtype", dtype], timeout=300)
+        audio, sr = read_wav(dst)
+        cpu_model = DCSNet(c.model, c.quirks, device="cpu")
+        step_n = load_model(ckpt, cpu_model)
+        if not all(t.dtype == torch.float32 for t in cpu_model.state_dict().values()
+                   if t.is_floating_point()):
+            fail("bf16train (g): the bf16-trained checkpoint holds non-float32 tensors")
+        want = enhance_full(cpu_model, torch.from_numpy(x1)[None], c)[0]
+        print(f"bf16train: (g) cli.enhance --ckpt-dir (step {step_n}) --dtype {dtype}: exit "
+              f"0 in {wall:.1f} s", flush=True)
+        if sr != SR or audio.shape != tuple(want.shape):
+            fail(f"bf16train (g): cli.enhance --dtype {dtype} wrote {audio.shape} at {sr}")
+        served[dtype] = (torch.from_numpy(audio), want)
+    want32 = served["float32"][1]
+    compare_card_cpu("bf16train: (g) the bf16-trained checkpoint served at float32, 1 s",
+                     *served["float32"])
+    bf16_band(want32)("bf16train: (g) the bf16-trained checkpoint served at bf16, 1 s",
+                      *served["bfloat16"])
+    print(f"bf16train: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3637,6 +4155,9 @@ def main(argv=None) -> int:
                     help="after the build, check and time kernel 1 alone")
     ap.add_argument("--bf16-only", action="store_true",
                     help="after the build, run phase \"bf16\" alone")
+    ap.add_argument("--sum-order-seeds", type=int, default=0, metavar="N",
+                    help="after the build, read phase \"bf16train\" (b)'s sum-order "
+                         "ratios over N seeds (at most 8)")
     args = ap.parse_args(argv)
 
     # phase 1: device
@@ -3678,8 +4199,16 @@ def main(argv=None) -> int:
                               {}, dev, cfg, card, "call")
         print(f"kernel 1 alone: {time.perf_counter() - t1:.1f} s", flush=True)
         return finish(rows, smi)
+    if args.sum_order_seeds:
+        with tempfile.TemporaryDirectory(prefix="dcs_sum_order_") as tmp:
+            _, noisy, clean = train_batch(dev, tmp)
+            check_sum_order(dev, card, noisy, clean, args.sum_order_seeds)
+        return finish([], smi)
     if args.bf16_only:
         rows = check_bf16(dev, card)
+        with tempfile.TemporaryDirectory(prefix="dcs_bf16train_") as tmp:
+            _, noisy, clean = train_batch(dev, tmp)
+            rows += check_bf16_train(dev, card, tmp, noisy, clean, None)
         print(f"total: {time.perf_counter() - t0:.1f} s after the device check", flush=True)
         return finish(rows, smi)
 
@@ -3805,10 +4334,13 @@ def main(argv=None) -> int:
     # phase "eval": the evaluation path on what phase 7 left
     with tempfile.TemporaryDirectory(prefix="dcs_train_") as tmp:
         train_rows, train_launches, (noisy, clean, eager_ms) = check_train(dev, card, tmp)
-        graph_launches, drs_graph_launches, graph_step_ms = check_graph(
+        graph_launches, drs_graph_launches, graph_f32 = check_graph(
             dev, card, tmp, noisy, clean, eager_ms)
+        # phase "bf16train" on phase 7's batch, beside phase "graph"'s float32
+        bf16_train_rows = check_bf16_train(dev, card, tmp, noisy, clean,
+                                           (eager_ms,) + graph_f32)
         del noisy, clean
-        check_loader(card, tmp, graph_step_ms)
+        check_loader(card, tmp, graph_f32[0])
         eval_rows = check_eval(dev, card, tmp)
     del model, cpu_model
     for row in rows:
@@ -3835,6 +4367,7 @@ def main(argv=None) -> int:
 
     # phase "bf16": the serving paths at --dtype bfloat16
     rows += check_bf16(dev, card)
+    rows += bf16_train_rows
     print(f"total: {time.perf_counter() - t0:.1f} s after the device check", flush=True)
     return finish(rows, smi)
 

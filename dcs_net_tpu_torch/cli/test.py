@@ -32,7 +32,6 @@ def main(argv=None) -> dict:
     p.add_argument("--composite", action="store_true",
                    help="also report SegSNR/LLR/WSS and CSIG/CBAK/COVL")
     args = p.parse_args(argv)
-    check_ported(p, args, training=False)
 
     from dcs_net_tpu_torch.train.checkpoint import CheckpointManager, checkpoint_steps
     from dcs_net_tpu_torch.train.loop import Trainer
@@ -40,6 +39,7 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     cfg = build_config(args)
+    check_ported(p, cfg)
     if not checkpoint_steps(cfg.run.ckpt_dir):
         raise SystemExit(f"no checkpoint found under {cfg.run.ckpt_dir}")
     out_dir = cfg.run.log_dir + "-test"

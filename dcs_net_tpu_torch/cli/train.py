@@ -10,9 +10,10 @@ dispatch, on the card as one CUDA graph replay (default 8 there, 1 with
 ``--device cpu``, as the JAX CLI's default is 8 on an accelerator); it
 overrides ``--config-json``'s value, as in the JAX CLI. ``--no-tensorboard``
 reaches the ``Trainer`` as ``use_tensorboard=False``; the port writes no
-TensorBoard yet, only its JSON lines and WAVs. Not yet ported, and rejected:
-``--dtype bfloat16`` (training at bf16 is ROADMAP Queue 1 item 5b; the port
-serves at it: ``cli/enhance.py``, ``cli/test.py``).
+TensorBoard yet, only its JSON lines and WAVs. ``--dtype bfloat16`` trains
+DC and DCS with bf16 operands and float32 sums, the parameters, BN and Adam
+in float32, as the JAX CLI does; DR and DRS at bf16 are not yet ported and
+exit through the parser's error (ROADMAP Queue 1 item 4b).
 """
 
 from __future__ import annotations
@@ -46,7 +47,6 @@ def main(argv=None) -> dict:
                    help="train steps per device dispatch, on the card one CUDA "
                         "graph replay; default 8 on the card, 1 on the CPU")
     args = p.parse_args(argv)
-    check_ported(p, args, training=True)
     k = args.steps_per_dispatch
     if k is None:
         k = 1 if args.device == "cpu" else 8
@@ -57,6 +57,7 @@ def main(argv=None) -> dict:
     from dcs_net_tpu_torch.train.loop import Trainer
 
     cfg = build_config(args)
+    check_ported(p, cfg)
     cfg = cfg.replace(run=dataclasses.replace(cfg.run, steps_per_dispatch=k))
     print(f"variant={cfg.variant} complex={cfg.model.complex_valued} "
           f"subtractive={cfg.model.subtractive} faithful_quirks="

@@ -92,13 +92,13 @@ def main(argv=None) -> Dict:
     p.add_argument("--trials", type=int, default=100)
     p.add_argument("--trial-epochs", type=int, default=5)
     args = p.parse_args(argv)
-    check_ported(p, args, training=True)
 
     from dcs_net_tpu_torch.data.dataset import choose_front_end
     from dcs_net_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)
     base_cfg = build_config(args)
+    check_ported(p, base_cfg)
     print(f"loader={choose_front_end(base_cfg.data)[1]}", flush=True)
 
     try:

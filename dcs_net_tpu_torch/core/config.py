@@ -44,8 +44,8 @@ class STFTConfig:
     pad_mode: str = "reflect"
     drop_dc: bool = True
     # operand dtype of the DFT/iDFT basis products (float32 accumulation
-    # either way): "float32" or "bfloat16" (serving only: cli/enhance.py and
-    # cli/test.py take --dtype; training at bf16 is ROADMAP Queue 1 item 5b)
+    # either way): "float32" or "bfloat16" (every CLI takes --dtype; the
+    # real variants at bf16 are ROADMAP Queue 1 item 4b)
     dft_dtype: str = "float32"
 
     @property
@@ -131,7 +131,7 @@ class ModelConfig:
     atan2_eps: float = 1e-6
     init: str = "xavier_uniform"
     # conv/matmul operand dtype, "float32" or "bfloat16" (bf16 operands,
-    # float32 sums, bf16 activations: the complex variants, serving only);
+    # float32 sums, bf16 activations: the complex variants);
     # the parameters are float32 whatever it is
     compute_dtype: str = "float32"
     param_dtype: str = "float32"

@@ -130,6 +130,13 @@
 // sigmoid-and-product epilogue (dcs_sa_gate_real, one more read and one
 // write of x), whose product spreads a tile's pixels over all 128 threads.
 //
+// Training at bf16 (the JAX _conv_fwd_pallas and _bwd at bf16 operands)
+// runs the register-tiled body at the complex classes with bf16 loads
+// (conv7_bf16_kernel, dcs_conv_same_small_cout_bf16): x and w widened to
+// float32 exactly as they are staged, float32 sums, the float32 bias added
+// and y rounded once to bf16; the input gradient, class (7, 2, 4), is the
+// same entry on the bf16 gradient with the flipped, transposed kernel.
+//
 // Every other (K, Cin, Cout) takes the generic body below: one thread per
 // output pixel on an 8 x 32 tile, input chunk and weights in shared memory.
 
@@ -299,6 +306,12 @@ struct Load<__nv_bfloat16, 4> {
     return make_float4(a.x, a.y, b.x, b.y);
   }
 };
+template <>
+struct Load<__nv_bfloat16, 2> {
+  static __device__ __forceinline__ float2 at(const __nv_bfloat16* p, long long i) {
+    return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[i]);
+  }
+};
 
 struct Tile {
   int tx, ty;        // threads along W and H that take part in the conv
@@ -464,6 +477,47 @@ conv7_kernel(const float* __restrict__ x, const float* __restrict__ w,
     const int row = e / t.tw, col = e - row * t.tw;
     const int hh = h0 + row, ww = w0 + col;
     if (hh < H && ww < W) yv[(long long)hh * W + ww] = att[e];
+  }
+}
+
+// The conv entry's bf16 class, the Pallas function at bf16 operands: x (B,
+// H, W, CIN) and w bf16, widened to float32 exactly as they are staged (so
+// every product is exact), the taps summed in float32, the float32 bias
+// added and each output rounded once to bf16. The same register-tiled body
+// and tile as conv7_kernel, classes (7, 4, 2) and its input gradient's
+// (7, 2, 4); only the loads and the store differ.
+template <int R, int CIN, int COUT>
+__global__ void __launch_bounds__(NT)
+conv7_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                  const __nv_bfloat16* __restrict__ w,
+                  const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                  const Tile t, int H, int W) {
+  static_assert(COUT % 2 == 0, "bf16 pixels are stored as bf16 pairs");
+  extern __shared__ float4 smem[];
+  const int b = blockIdx.z, h0 = blockIdx.y * t.ty, w0 = blockIdx.x * t.tw;
+  const int tid = threadIdx.x;
+  float acc[R][COUT];
+  float* att = conv7_tile<R, CIN, COUT, __nv_bfloat16>(x, w, t, smem, b, h0, w0,
+                                                        H, W, acc);
+  if (tid < t.tx * t.ty) {
+    const int ty = tid / t.tx, tx = tid - ty * t.tx;
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int co = 0; co < COUT; ++co)
+        att[(ty * t.tw + tx * R + r) * COUT + co] = acc[r][co] + bias[co];
+  }
+  __syncthreads();
+  __nv_bfloat162* yv = reinterpret_cast<__nv_bfloat162*>(y) + (long long)b * H * W * (COUT / 2);
+  for (int e = tid; e < t.ty * t.tw; e += NT) {
+    const int row = e / t.tw, col = e - row * t.tw;
+    const int hh = h0 + row, ww = w0 + col;
+    if (hh < H && ww < W) {
+      __nv_bfloat162* dst = yv + ((long long)hh * W + ww) * (COUT / 2);
+#pragma unroll
+      for (int j = 0; j < COUT / 2; ++j)
+        dst[j] = __floats2bfloat162_rn(att[e * COUT + 2 * j], att[e * COUT + 2 * j + 1]);
+    }
   }
 }
 
@@ -750,6 +804,17 @@ void launch_conv7(int R, dim3 grid, int smem, cudaStream_t s, const float* x,
     conv7_kernel<4, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
   else if constexpr (CIN * COUT == 2)
     conv7_kernel<8, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+}
+
+template <int CIN, int COUT>
+void launch_conv7_bf16(int R, dim3 grid, int smem, cudaStream_t s,
+                       const __nv_bfloat16* x, const __nv_bfloat16* w,
+                       const float* bias, __nv_bfloat16* y, const Tile& t, int H,
+                       int W) {
+  if (R == 2)
+    conv7_bf16_kernel<2, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+  else
+    conv7_bf16_kernel<4, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
 }
 
 // log2(n) where n is a power of two, else -1
@@ -1221,6 +1286,37 @@ extern "C" int dcs_conv_same_small_cout(const float* x, const float* w,
     launch_conv7<2, 1>(R, grid, smem, s, x, w, bias, y, t, H, W);
   else
     launch_conv7<1, 2>(R, grid, smem, s, x, w, bias, y, t, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The conv entry's bf16 class: x (B, H, W, Cin), w (7, 7, Cin, Cout) and y
+// (B, H, W, Cout) bf16, bias (Cout,) f32; float32 sums, the bias added, y
+// rounded once. The register-tiled body at the complex classes (7, 4, 2)
+// and (7, 2, 4) only, R in {2, 4}, the tile as dcs_conv_same_small_cout's;
+// x aligned to a pixel's 2 Cin bytes, y to 2 Cout and w to 8 bytes (a tap's
+// weights read as words of 4 bf16). Any other class is
+// cudaErrorInvalidValue. Launches on `stream`, allocates nothing, returns
+// cudaGetLastError().
+extern "C" int dcs_conv_same_small_cout_bf16(const void* x, const void* w,
+                                             const float* bias, void* y, int B, int H,
+                                             int W, int Cin, int K, int Cout, int R,
+                                             int TX, int TY, void* stream) {
+  const bool cls = K == 7 && ((Cin == 4 && Cout == 2) || (Cin == 2 && Cout == 4));
+  if (!cls || !image_ok(B, H, W) || (R != 2 && R != 4) ||
+      !tile_ok(R, TX, TY, Cin, Cout) || !aligned(x, 2 * Cin) ||
+      !aligned(y, 2 * Cout) || !aligned(w, 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using bf = __nv_bfloat16;
+  const Tile t = make_tile(R, TX, TY, Cin, Cout);
+  const dim3 grid = tile_grid(t, B, H, W);
+  const int smem = t.smem4() * 16;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Cin == 4)
+    launch_conv7_bf16<4, 2>(R, grid, smem, s, static_cast<const bf*>(x),
+                            static_cast<const bf*>(w), bias, static_cast<bf*>(y), t, H, W);
+  else
+    launch_conv7_bf16<2, 4>(R, grid, smem, s, static_cast<const bf*>(x),
+                            static_cast<const bf*>(w), bias, static_cast<bf*>(y), t, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -129,6 +129,15 @@
 // The products of bf16 values are exact in float32, so both differ from
 // their plain version only by the order of the float32 sum; a split adds
 // its float32 partial tiles in rank order and rounds once, at the store.
+//
+// The input gradient's bf16 class (training at bf16; the JAX _updot_bwd at
+// bf16: g bf16, g K^T summed in float32, the overlap-add over taps in
+// float32, dx rounded once to bf16) is the same VALID correlation on g with
+// the flipped, transposed weights, so it runs the forward's bf16 bodies: g
+// read in place, zero-padded by Dh - 1 - pad_top rows before it (and so on
+// each side), its weights packed straight from w by
+// dcs_tapconv_pack_dgrad_bf16 (pack_bf16_kernel's FLIP), the body chosen by
+// the same rule as the forward's.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -497,8 +506,10 @@ __global__ void pack_kernel(const float* __restrict__ w, float* __restrict__ wp,
 
 // The forward's bf16 class: w (taps, Cin, N) bf16 -> wp tiles [n tile][chunk]
 // [tap][KB/8][BN][8] bf16, one slab a tap (nothing to split), zero beyond K
-// and N; one thread per (n, 8-channel group), one 16-byte store.
-template <int KB, int BN>
+// and N; one thread per (n, 8-channel group), one 16-byte store. FLIP packs
+// the input gradient's weights from the forward's w (taps, N, K) as
+// pack_kernel's FLIP does: taps reversed, the channel axes swapped.
+template <int KB, int BN, bool FLIP = false>
 __global__ void pack_bf16_kernel(const __nv_bfloat16* __restrict__ w,
                                  __nv_bfloat16* __restrict__ wp, int taps, int K,
                                  int N, int nchunks, long long total) {
@@ -518,8 +529,9 @@ __global__ void pack_bf16_kernel(const __nv_bfloat16* __restrict__ w,
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int c = chunk * KB + 8 * j + i;
-    v[i] = c < K && gn < N ? w[(static_cast<long long>(tap) * K + c) * N + gn]
-                           : __ushort_as_bfloat16(0);
+    v[i] = !(c < K && gn < N) ? __ushort_as_bfloat16(0)
+           : FLIP ? w[(static_cast<long long>(taps - 1 - tap) * N + gn) * K + c]
+                  : w[(static_cast<long long>(tap) * K + c) * N + gn];
   }
   __nv_bfloat16* dst = wp + ((ntile * nchunks + chunk) * taps + tap) * (KB * BN) +
                        (j * BN + n) * 8;
@@ -1033,14 +1045,15 @@ int pack(const float* w, float* wp, int taps, int K, int N, bool flip,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int KB, int BN>
+template <int KB, int BN, bool FLIP = false>
 int pack_bf16(const __nv_bfloat16* w, __nv_bfloat16* wp, int taps, int K, int N,
               cudaStream_t s) {
   const int nchunks = (K + KB - 1) / KB;
   const long long total = static_cast<long long>((N + BN - 1) / BN) * nchunks *
                           taps * (KB / 8) * BN;
   const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-  pack_bf16_kernel<KB, BN><<<blocks, 256, 0, s>>>(w, wp, taps, K, N, nchunks, total);
+  pack_bf16_kernel<KB, BN, FLIP><<<blocks, 256, 0, s>>>(w, wp, taps, K, N, nchunks,
+                                                         total);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1671,6 +1684,47 @@ extern "C" int dcs_tapconv_pack_bf16(const void* w, void* wp, int taps, int Cin,
       return pack_bf16<BK, 64>(wb, out, taps, Cin, N, s);
     case 128:
       return pack_bf16<BK, 128>(wb, out, taps, Cin, N, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The input gradient's bf16 class, its packing: the tiles
+// dcs_tapconv_pack_bf16 would write at the same bn and kb for w (taps, Cin,
+// N) bf16 with its taps reversed and its channel axes swapped (reduction
+// over N, Cin out): ceil(Cin/bn) * ceil(N/kb) * taps * kb * bn bf16. The
+// forward's bf16 bodies then run the input gradient as the VALID tap
+// correlation of g, zero-padded by Dh - 1 - pad_top rows before it (and so
+// for the other sides), with these weights: the overlap-add of g K^T summed
+// in float32 and rounded once. Launches on `stream`, returns
+// cudaGetLastError().
+extern "C" int dcs_tapconv_pack_dgrad_bf16(const void* w, void* wp, int taps, int Cin,
+                                           int N, int bn, int kb, void* stream) {
+  if (taps < 1 || Cin < 1 || N < 1 || (reinterpret_cast<uintptr_t>(wp) & 15) ||
+      (kb != SKB && kb != BK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* wb = static_cast<const __nv_bfloat16*>(w);
+  auto* out = static_cast<__nv_bfloat16*>(wp);
+  if (kb == SKB) {
+    switch (bn) {
+      case 8:
+        return pack_bf16<SKB, 8, true>(wb, out, taps, N, Cin, s);
+      case 64:
+        return pack_bf16<SKB, 64, true>(wb, out, taps, N, Cin, s);
+      case 128:
+        return pack_bf16<SKB, 128, true>(wb, out, taps, N, Cin, s);
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  switch (bn) {
+    case 8:
+      return pack_bf16<BK, 8, true>(wb, out, taps, N, Cin, s);
+    case 64:
+      return pack_bf16<BK, 64, true>(wb, out, taps, N, Cin, s);
+    case 128:
+      return pack_bf16<BK, 128, true>(wb, out, taps, N, Cin, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -29,8 +29,8 @@ the JAX ``_adjoint`` (``dcs_net_tpu/dsp/stft_pallas.py:152-188``) in PyTorch:
 the transposed analysis bases, an overlap-add and the transpose of the
 reflect padding (:func:`stft_adjoint`), the same matmul and overlap-add as
 the iSTFT. On a CPU tensor the plain version runs under plain autograd. At
-bf16 the STFT takes no gradient: training at bf16 is ROADMAP Queue 1 item
-5b.
+bf16 the STFT takes no gradient, as in the JAX package's train step, whose
+waves take none: the analysis at bf16 has no backward.
 """
 
 from __future__ import annotations
@@ -238,7 +238,8 @@ def stft(x: torch.Tensor, cfg: STFTConfig) -> CArray:
     if bf16 and (tracked or x2.dtype != torch.float32):
         raise NotImplementedError(
             "the STFT at dft_dtype='bfloat16' takes a float32 signal without "
-            "autograd: training at bf16 is ROADMAP Queue 1 item 5b")
+            "autograd: its bf16 class has no backward (the train step's waves "
+            "take no gradient)")
     if x.device.type != "cpu" and tracked:
         re, im = STFT.apply(x2, cfg)
     else:

@@ -19,9 +19,11 @@ then conv + sigmoid + product) and kernel 3 the 7 decoder convs (see
 ``compute_dtype="bfloat16"`` (the JAX package's mixed precision) runs the
 complex variants' convs, linear layer and LSTM products on bf16 operands with
 float32 sums and bf16 activations (BN in float32), the parameters float32,
-the output bound in float32; kernels 2 and 3 then take their bf16 classes.
-It serves only: training at bf16, and the real variants at bf16, are ROADMAP
-Queue 1 item 5b and raise.
+the output bound in float32; kernels 2 and 3 then take their bf16 classes,
+in both directions under autograd (training at bf16: dropout and the
+train-mode BN in float32 on the widened values, the gradients that reach
+the parameters float32, each cast's own backward). The real variants at
+bf16 are ROADMAP Queue 1 item 4b and raise.
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ class DCSNet(nn.Module):
         if dt is not None and not m.complex_valued:
             raise NotImplementedError(
                 "compute_dtype='bfloat16' runs the complex variants (DC, DCS); "
-                "the real ones (DR, DRS) at bf16 are ROADMAP Queue 1 item 5b")
+                "the real ones (DR, DRS) at bf16 are ROADMAP Queue 1 item 4b")
         if m.fc_features != m.latent_channels:
             raise ValueError(
                 f"fc_features ({m.fc_features}) must equal the latent channel "

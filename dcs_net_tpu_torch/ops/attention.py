@@ -22,8 +22,10 @@ attention's 1x1 convs take bf16 operands, and the spatial attention's gate
 runs kernel 2's fused bf16 gate (``cuda_conv.sa_fused_bf16``: pool, conv
 on tensor cores, sigmoid and product in one launch, x read once) on its
 packed kernel rounded to bf16 once, or the bf16 pool and gate pair at a
-shape the fused entry refuses; its un-fused form (training) has no bf16
-class.
+shape the fused entry refuses. Its un-fused form (training at bf16) pools
+(the mean rounded once, the max exact), runs the conv entry's bf16 class,
+the sigmoid and the product, each rounded to bf16 at the JAX module's
+rounding points, under autograd.
 """
 
 from __future__ import annotations

@@ -243,7 +243,9 @@ class ComplexDropout(nn.Module):
     """Dropout with independent masks for re and im; the identity in eval.
     The masks come from ``generator`` (the global generator where it is
     None): ``DCSNet.set_dropout_generator`` sets it, so that a trainer can
-    key each epoch's masks."""
+    key each epoch's masks. The masks and the product are float32 at least
+    (a bf16 activation widened, scaled by 1 / keep and rounded once), so
+    that a bf16 run draws the float32 run's masks."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -253,8 +255,10 @@ class ComplexDropout(nn.Module):
     def forward(self, x: CArray) -> CArray:
         if not self.training or self.rate == 0.0:
             return x
-        mask = dropout_mask((2,) + tuple(x.shape), x.re, self.rate, self.generator)
-        return CArray(x.re * mask[0], x.im * mask[1])
+        acc = torch.promote_types(x.re.dtype, torch.float32)
+        mask = dropout_mask((2,) + tuple(x.shape), x.re.new_empty((), dtype=acc),
+                            self.rate, self.generator)
+        return CArray((x.re * mask[0]).to(x.re.dtype), (x.im * mask[1]).to(x.im.dtype))
 
 
 def complex_mul_bcast(x: CArray, a: CArray) -> CArray:

@@ -45,16 +45,25 @@ pooled there, the 7 x 7 conv on bf16 tensor cores (``mma.sync`` m16n8k16),
 the sigmoid and the product from the same tile. It takes every site of the
 DC / DCS serving paths (C a multiple of 8 up to 256, a tile that fits; its
 tiles :func:`fused_tile`, its launch :func:`fused_geometry`); the pair
-serves only the shapes it refuses (:func:`fused_takes`). The conv entry,
-its input gradient and the real gate have no bf16 class (ROADMAP Queue 1
-item 5b): a bf16 tensor there raises, on the CPU too.
+serves only the shapes it refuses (:func:`fused_takes`).
+
+Training at bf16 runs the un-fused gate, whose conv is the conv entry's
+bf16 class (``KERNEL_BF16``): the register-tiled body at the complex
+classes (7, 4, 2) and (7, 2, 4) with x and w bf16, float32 sums, the
+float32 bias added and the output rounded once to bf16
+(:func:`conv2d_same_small_cout_bf16_plain`); its input gradient is the same
+class on the bf16 gradient (``DGRAD_BF16``,
+:func:`conv2d_same_small_cout_dgrad_bf16_plain`). The real gate has no bf16
+class (ROADMAP Queue 1 item 4b): a bf16 tensor there raises, on the CPU
+too.
 
 Each wrapper takes CPU tensors through the plain version and CUDA tensors
 through the kernel, never falling back between the two. ``KERNEL.launches``
 counts the launches of kernel 2's conv body in the forward direction: its
 own entry and the complex gate entry, which runs that body with another
 epilogue; ``DGRAD.launches`` counts the conv entry's launches for input
-gradients. The real gate's two entries count on their own (``POOL_REAL``,
+gradients; ``KERNEL_BF16.launches`` and ``DGRAD_BF16.launches`` the same
+two at bf16. The real gate's two entries count on their own (``POOL_REAL``,
 ``GATE_REAL``), so that a DR / DRS enhance call shows them apart from the
 conv entry.
 
@@ -66,7 +75,10 @@ launched on kernel 2 (for the spatial attention, Cin 2 -> Cout 4: the
 register-tiled body where g is aligned to its pixel, as the forward's); the
 weight gradient is one contraction over every pixel (:func:`weight_grad`)
 and the bias gradient a sum, in PyTorch, as the JAX package leaves them to
-XLA. On a CPU tensor the plain version runs under plain autograd. The pool
+XLA. At bf16 the rounding follows ``_bwd``: the upstream gradient cast to
+x's type, dx in bf16 from float32 sums, dw in w's type, db in float32. On
+a CPU tensor the plain version runs under plain autograd (at bf16 its
+float32 sums on the bf16 values give those types). The pool
 and gate entries, complex and real, are forward-only: on a CUDA tensor that
 autograd follows they raise, and the attention modules' ``gate`` takes the
 un-fused form instead.
@@ -125,6 +137,14 @@ GATE_BF16 = CudaKernel("sa_gate_bf16", "conv_same.cu", "dcs_sa_gate_bf16",
 # serving at bf16 launches at every site it takes (:func:`fused_takes`)
 FUSED_BF16 = CudaKernel("sa_fused_bf16", "conv_same.cu", "dcs_sa_fused_bf16",
                         [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _p])
+# the conv entry's bf16 class (training at bf16: the un-fused gate's conv)
+# and its input gradient's launches, counted apart from the float32 classes
+KERNEL_BF16 = CudaKernel("conv_same_small_cout_bf16", "conv_same.cu",
+                         "dcs_conv_same_small_cout_bf16", KERNEL.argtypes)
+DGRAD_BF16 = CudaKernel("conv_same_small_cout_dgrad_bf16", "conv_same.cu",
+                        "dcs_conv_same_small_cout_bf16", KERNEL.argtypes)
+# the complex tiled classes, the only ones the bf16 class has
+BF16_CLASSES = ((7, 4, 2), (7, 2, 4))
 FUSED_SMEM_LIMIT = 232448        # 227 KB, a block's most on the H100
 FUSED_TILE_BYTES = 32 * 1024     # a tile's x, both planes, at most
 FUSED_MIN_BLOCKS = 132           # the H100's SMs: a tile shrinks to give each a block
@@ -276,7 +296,6 @@ def conv2d_same_small_cout_plain(x: torch.Tensor, w: torch.Tensor,
                                  bias: torch.Tensor) -> torch.Tensor:
     """Plain version: zero pad, then the K*K shifted-slice sum of
     (pixels x Cin) @ (Cin x Cout) matmuls, plus bias."""
-    refuse_bf16("conv2d_same_small_cout", x, w, bias)
     _check_shapes(x, w, bias)
     K = w.shape[0]
     p = K // 2
@@ -289,25 +308,57 @@ def conv2d_same_small_cout_plain(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
+def conv2d_same_small_cout_bf16_plain(x: torch.Tensor, w: torch.Tensor,
+                                      bias: torch.Tensor) -> torch.Tensor:
+    """The bf16 class's plain version: :func:`conv2d_same_small_cout_plain`
+    in float32 on x and w rounded to bf16 (their products are exact in
+    float32) and the float32 bias, the output rounded once to bf16."""
+    b16 = torch.bfloat16
+    return conv2d_same_small_cout_plain(x.to(b16).float(), w.to(b16).float(),
+                                        bias.float()).to(b16)
+
+
+def conv2d_same_small_cout_dgrad_bf16_plain(g: torch.Tensor, w: torch.Tensor
+                                            ) -> torch.Tensor:
+    """The input gradient's bf16 class, plain: the JAX ``_bwd``'s dx at bf16
+    (g cast to bf16, the "same" conv with the flipped, transposed kernel
+    summed in float32, dx rounded once to bf16) for w (K, K, Cin, Cout) and
+    g (B, H, W, Cout) -> (B, H, W, Cin)."""
+    return conv2d_same_small_cout_bf16_plain(
+        g, dgrad_kernel(w), torch.zeros(w.shape[2], dtype=torch.float32, device=g.device))
+
+
 def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                 tile: Tile, dgrad: bool = False) -> torch.Tensor:
     """Launch the conv entry on CUDA tensors with the body named by ``tile``:
     ``GENERIC_TILE``, or (R, TX, TY) for the register-tiled body. ``dgrad``
-    counts the launch as an input gradient's (``DGRAD``)."""
+    counts the launch as an input gradient's (``DGRAD``). bf16 x and w (the
+    bias float32) take the bf16 class (``KERNEL_BF16``, ``DGRAD_BF16``),
+    which has the register-tiled body at ``BF16_CLASSES`` only, and give a
+    bf16 output."""
     _check_shapes(x, w, bias)
     dev = x.device
-    check_cuda_operand("x", x, dev, 4)
-    check_cuda_operand("w", w, dev, 4)
+    bf16 = x.dtype == torch.bfloat16
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    check_cuda_operand("x", x, dev, 4, dtype)
+    check_cuda_operand("w", w, dev, 4, dtype)
     check_cuda_operand("bias", bias, dev, 1)
     B, H, W, cin = x.shape
     K, _, _, cout = w.shape
+    if bf16 and ((K, cin, cout) not in BF16_CLASSES or tile == GENERIC_TILE):
+        raise ValueError(f"the conv entry's bf16 class takes the tiled body at "
+                         f"(K, Cin, Cout) in {BF16_CLASSES}, not {(K, cin, cout)} "
+                         f"at tile {tile}")
     if tile != GENERIC_TILE:
         if (K, cin, cout) not in TILED_CLASSES:
             raise ValueError(f"(K, Cin, Cout) = {(K, cin, cout)} has no tiled body")
         _check_tile(tile, cin, cout)
-    y = torch.empty((B, H, W, cout), device=dev, dtype=torch.float32)
-    (DGRAD if dgrad else KERNEL)(dev, ptr(x), ptr(w), ptr(bias), ptr(y),
-                                 B, H, W, cin, K, cout, *tile)
+    y = torch.empty((B, H, W, cout), device=dev, dtype=dtype)
+    if bf16:
+        kernel = DGRAD_BF16 if dgrad else KERNEL_BF16
+    else:
+        kernel = DGRAD if dgrad else KERNEL
+    kernel(dev, ptr(x), ptr(w), ptr(bias), ptr(y), B, H, W, cin, K, cout, *tile)
     return y
 
 
@@ -317,15 +368,26 @@ def zero_bias(cout: int, device: torch.device) -> torch.Tensor:
     return torch.zeros(cout, device=device, dtype=torch.float32)
 
 
+def _plain(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The plain version of x's class: bf16, or float32 (float64 in the
+    CPU's witness runs)."""
+    if x.dtype == torch.bfloat16:
+        return conv2d_same_small_cout_bf16_plain(x, w, bias)
+    return conv2d_same_small_cout_plain(x, w, bias)
+
+
 def _same_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                dgrad: bool = False) -> torch.Tensor:
     """The conv without autograd: the plain version on the CPU; on CUDA the
-    conv entry, with the body the shape class and the alignment allow."""
+    conv entry, with the body the shape class and the alignment allow (at
+    bf16 the tiled body, whose entry refuses an operand off its word)."""
     if x.device.type == "cpu":
-        return conv2d_same_small_cout_plain(x, w, bias)
+        return _plain(x, w, bias)
     _check_shapes(x, w, bias)
     B, H, W, cin = x.shape
     K, cout = w.shape[0], w.shape[-1]
+    if x.dtype == torch.bfloat16:
+        return launch_conv(x, w, bias, choose_tile(B, H, W, cin, cout), dgrad)
     # the tiled body reads a pixel's channels as one word of 4 Cin bytes and
     # a tap's weights as words of 16 or 8 (its output is freshly allocated)
     tiled = ((K, cin, cout) in TILED_CLASSES and x.data_ptr() % (4 * cin) == 0
@@ -368,27 +430,28 @@ class Conv2dSameSmallCout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        g = g.contiguous()
+        g = g.to(x.dtype).contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
             dx = _same_conv(g, dgrad_kernel(w), zero_bias(w.shape[2], g.device),
                             dgrad=True)
         if ctx.needs_input_grad[1]:
-            dw = weight_grad(x, g, w.shape[0])
+            dw = weight_grad(x, g, w.shape[0]).to(w.dtype)
         if ctx.needs_input_grad[2]:
-            db = g.sum(dim=(0, 1, 2))
+            db = g.sum(dim=(0, 1, 2), dtype=torch.float32)
         return dx, dw, db
 
 
 def conv2d_same_small_cout(x: torch.Tensor, w: torch.Tensor,
                            bias: torch.Tensor) -> torch.Tensor:
     """Stride-1 'same' cross-correlation (torch Conv2d, padding=K//2).
-    x (B, H, W, Cin), w (K, K, Cin, Cout), bias (Cout,) -> (B, H, W, Cout).
-    A CPU tensor takes the plain version (plain autograd); a CUDA tensor
+    x (B, H, W, Cin), w (K, K, Cin, Cout), bias (Cout,) -> (B, H, W, Cout),
+    in x's type (bf16 x and w: the bf16 class, the bias float32). A CPU
+    tensor takes the plain version (plain autograd); a CUDA tensor
     :class:`Conv2dSameSmallCout` where autograd follows an operand, else the
     kernel alone."""
     if x.device.type == "cpu":
-        return conv2d_same_small_cout_plain(x, w, bias)
+        return _plain(x, w, bias)
     _check_shapes(x, w, bias)
     if not _tracked(x, w, bias):
         return _same_conv(x, w, bias)

@@ -37,8 +37,16 @@ with its own cost model (``STEP_MS_BF16``); and the tap body
 (``KERNEL_BF16_TAP``) for larger windows: the float32 kernel's template with
 one bf16 ``wgmma`` a 16-channel step. Its plain version
 :func:`tapconv_valid_bf16_plain` sums the same exact products in float32 and
-rounds once. The input gradient has no bf16 class (training at
-bf16 is ROADMAP Queue 1 item 5b): a bf16 call that autograd follows raises.
+rounds once. The input gradient's bf16 class (training at bf16; the JAX
+``_updot_bwd`` at bf16: g cast to bf16, g Kᵀ and its overlap-add over taps
+summed in float32, dx rounded once) is the same VALID correlation of g with
+the flipped, transposed weights, so it runs the forward's bf16 bodies on g
+read in place, zero-padded by Dh - 1 - top rows before it (and so on each
+side), their weights packed straight from w by ``DGRAD_PACK_BF16``; the
+body by :func:`bf16_body`'s rule at g's shape (``DGRAD_BF16``, the tap body
+``DGRAD_BF16_TAP`` counted with it); its plain version
+:func:`tapconv_dgrad_bf16_plain`. The weight gradient at bf16 sums in
+float32 and is cast to w's type.
 
 :func:`tapconv_valid` takes CPU tensors through the plain version and CUDA
 tensors through the kernel, never falling back between the two.
@@ -68,6 +76,7 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from dcs_net_tpu_torch.ops import precision
 from dcs_net_tpu_torch.utils.cuda_lib import KERNELS, CudaKernel, check_cuda_operand, ptr
 from dcs_net_tpu_torch.utils.device import device_cache
 
@@ -96,6 +105,17 @@ KERNEL_BF16_TAP = CudaKernel(
 PACK_BF16 = CudaKernel(
     "tapconv_pack_bf16", "tapconv.cu", "dcs_tapconv_pack_bf16",
     [_p, _p, _i, _i, _i, _i, _i, _p])
+# the input gradient's bf16 class: the forward's bf16 bodies on g, counted
+# on their own (a tap-body launch counts with the staged body's), and the
+# packing of the flipped, transposed weights
+DGRAD_BF16 = CudaKernel(
+    "tapconv_valid_dgrad_bf16", "tapconv.cu", "dcs_tapconv_valid_bf16", KERNEL.argtypes)
+DGRAD_BF16_TAP = CudaKernel(
+    "tapconv_valid_dgrad_bf16_tap", "tapconv.cu", "dcs_tapconv_valid_bf16_tap",
+    KERNEL.argtypes, counted_with=DGRAD_BF16)
+DGRAD_PACK_BF16 = CudaKernel(
+    "tapconv_pack_dgrad_bf16", "tapconv.cu", "dcs_tapconv_pack_dgrad_bf16",
+    PACK_BF16.argtypes)
 
 BK = 32     # input channels per reduction chunk of the kernel (and of the
             # bf16 class's tap body)
@@ -291,6 +311,16 @@ def tapconv_dgrad_plain(g: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
     top, _, left, _ = pad
     dxp = tapconv_valid_plain(dgrad_input(g, dh_n, dw_n), dgrad_weights(w), dh_n, dw_n)
     return dxp[:, top:top + hw[0], left:left + hw[1]]
+
+
+def tapconv_dgrad_bf16_plain(g: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
+                             pad: Pad, hw: Tuple[int, int]) -> torch.Tensor:
+    """The input gradient's bf16 class, plain: :func:`tapconv_dgrad_plain` in
+    float32 on g and w rounded to bf16 (exact products), dx rounded once to
+    bf16."""
+    b16 = torch.bfloat16
+    return tapconv_dgrad_plain(g.to(b16).float(), w.to(b16).float(), dh_n, dw_n,
+                               pad, hw).to(b16).contiguous()
 
 
 def dgrad_tiles(n: int, cin: int) -> Tuple[int, int]:
@@ -615,13 +645,53 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def dgrad_pad_bf16(pad: Pad, dh_n: int, dw_n: int) -> Pad:
+    """The zero padding of g under which the input gradient of the tap conv
+    of x padded by ``pad`` is a forward VALID correlation giving x's pixels
+    alone: Dh - 1 - top rows before, Dh - 1 - bottom after, and so for the
+    columns; every pad at most the window less one."""
+    top, bottom, left, right = pad
+    if max(top, bottom) > dh_n - 1 or max(left, right) > dw_n - 1:
+        raise ValueError(f"pad {pad} exceeds the {dh_n}x{dw_n} window less one: the "
+                         "input gradient's bf16 class takes no such padding")
+    return dh_n - 1 - top, dh_n - 1 - bottom, dw_n - 1 - left, dw_n - 1 - right
+
+
+def _launch_dgrad_bf16(g: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
+                       pad: Pad, hw: Tuple[int, int]) -> torch.Tensor:
+    """The input gradient's bf16 class on CUDA tensors, g (B, HO, WO, N) and
+    w (Dh*Dw, Cin, N) bf16 -> dx (B, H, W, Cin) bf16: the flipped weights'
+    packing, then the forward's bf16 body on g read in place under
+    :func:`dgrad_pad_bf16`'s padding, at :func:`bf16_body`'s body and
+    :func:`forward_plan`'s plan for that correlation."""
+    B, ho, wo, n = g.shape
+    taps, cin, _ = w.shape
+    H, W = hw
+    gpad = dgrad_pad_bf16(pad, dh_n, dw_n)
+    dev = g.device
+    body = bf16_body(B, ho, wo, n, cin, dh_n, dw_n, gpad)
+    bn, flat, wgs, split = forward_plan(B, ho, wo, n, cin, dh_n, dw_n, gpad, dev,
+                                        bf16=True, body=body)
+    kb = STAGED_KB if body == "staged" else BK
+    packed = torch.empty((-(-cin // bn), -(-n // kb), taps, kb // 8, bn, 8),
+                         device=dev, dtype=torch.bfloat16)
+    dx = torch.empty((B, H, W, cin), device=dev, dtype=torch.bfloat16)
+    DGRAD_PACK_BF16(dev, ptr(w), ptr(packed), taps, cin, n, bn, kb)
+    kernel = DGRAD_BF16 if body == "staged" else DGRAD_BF16_TAP
+    kernel(dev, ptr(g), ptr(packed), ptr(dx), B, ho, wo, n, H, W, cin, dh_n, dw_n,
+           gpad[0], gpad[2], flat, wgs, bn, split)
+    return dx
+
+
 def _launch_dgrad(g: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
                   pad: Pad, hw: Tuple[int, int]) -> torch.Tensor:
     """The input gradient's packing and kernel launches on CUDA tensors:
-    g (B, HO, WO, N), w (Dh*Dw, Cin, N) -> dx (B, H, W, Cin)."""
+    g (B, HO, WO, N), w (Dh*Dw, Cin, N) -> dx (B, H, W, Cin); bf16 g and w
+    take the bf16 class."""
     dev = g.device
-    check_cuda_operand("g", g, dev, 4)
-    check_cuda_operand("w", w, dev, 3)
+    dtype = torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32
+    check_cuda_operand("g", g, dev, 4, dtype)
+    check_cuda_operand("w", w, dev, 3, dtype)
     B, ho, wo, n = g.shape
     taps, cin, n_w = w.shape
     H, W = hw
@@ -630,6 +700,8 @@ def _launch_dgrad(g: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
             or wo != W + left + right - dw_n + 1 or min(pad) < 0):
         raise ValueError(f"g {tuple(g.shape)} and w {tuple(w.shape)} are not the "
                          f"{dh_n}x{dw_n} tap conv of a {H}x{W} input padded by {pad}")
+    if dtype == torch.bfloat16:
+        return _launch_dgrad_bf16(g, w, dh_n, dw_n, pad, hw)
     kb, bn, flat, wgs = dgrad_plan(B, H, W, n, cin, dh_n, dw_n, _sm_count(dev))
     packed = torch.empty((-(-cin // bn), -(-n // kb), taps, 2, kb // 4, bn, 4),
                          device=dev, dtype=torch.float32)
@@ -645,18 +717,24 @@ def weight_grad(x: torch.Tensor, g: torch.Tensor, dh_n: int,
     """dkbig = Qᵀ g, contracted over every output pixel, with Q the
     (pixels, Dh*Dw*Cin) patch matrix of the JAX package's ``_updot_bwd``:
     the windows of x as one strided view, copied once with the channels
-    innermost, then one product -> (Dh*Dw, Cin, N)."""
+    innermost, then one product -> (Dh*Dw, Cin, N). bf16 x and g: float32
+    sums, the result bf16 (``ops/precision.py:matmul``)."""
     cin, n = x.shape[-1], g.shape[-1]
     win = x.unfold(1, dh_n, 1).unfold(2, dw_n, 1)       # (B, HO, WO, Cin, Dh, Dw)
     q = win.permute(0, 1, 2, 4, 5, 3).reshape(-1, dh_n * dw_n * cin)
-    return (q.t() @ g.reshape(-1, n)).reshape(dh_n * dw_n, cin, n)
+    if x.dtype == torch.bfloat16:
+        dk = precision.matmul(q.t(), g.reshape(-1, n))
+    else:
+        dk = q.t() @ g.reshape(-1, n)
+    return dk.reshape(dh_n * dw_n, cin, n)
 
 
 class TapconvValid(torch.autograd.Function):
     """Kernel 3 under autograd: forward the tap conv of x zero-padded by
     ``pad`` (x read in place), backward the JAX ``_updot_bwd`` (input
-    gradient, of x's own pixels, on kernel 3's input-gradient entry; weight
-    gradient in PyTorch, on the padded x)."""
+    gradient, of x's own pixels, on kernel 3's input-gradient entry, at bf16
+    its bf16 class; weight gradient in PyTorch, on the padded x, in w's
+    type)."""
 
     @staticmethod
     def forward(ctx, x, w, dh_n, dw_n, pad=None):
@@ -670,7 +748,7 @@ class TapconvValid(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         dh_n, dw_n = ctx.taps
-        g = g.contiguous()
+        g = g.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             if g.device.type == "cpu":
@@ -678,18 +756,8 @@ class TapconvValid(torch.autograd.Function):
             else:
                 dx = _launch_dgrad(g, w, dh_n, dw_n, ctx.pad, ctx.hw)
         if ctx.needs_input_grad[1]:
-            dw = weight_grad(_pad(x, ctx.pad), g, dh_n, dw_n)
+            dw = weight_grad(_pad(x, ctx.pad), g, dh_n, dw_n).to(w.dtype)
         return dx, dw, None, None, None
-
-
-def _refuse_bf16_grad(x: torch.Tensor, w: torch.Tensor) -> None:
-    """The bf16 class is forward-only: where autograd follows a bf16 operand
-    (training at bf16), raise on every device."""
-    if (x.dtype == torch.bfloat16 or w.dtype == torch.bfloat16) and (
-            torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
-        raise NotImplementedError(
-            "tapconv_valid at bf16 has no input-gradient class: training at "
-            "bf16 is ROADMAP Queue 1 item 5b")
 
 
 def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
@@ -703,9 +771,8 @@ def tapconv_valid(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
     fits shared memory, Dh * (63 + Dw) <= 931 (12 x 12 and smaller), is
     taken; beyond that the launch is refused and the call raises. Where
     autograd follows neither operand the kernel runs without the
-    Function. bf16 x and w take the bf16 class (its plain version on the
-    CPU), forward only."""
-    _refuse_bf16_grad(x, w)
+    Function. bf16 x and w take the bf16 class in both directions (its plain
+    version on the CPU, under plain autograd)."""
     if x.device.type == "cpu":
         if x.dtype == torch.bfloat16:
             return tapconv_valid_bf16_plain(_pad(x, pad), w, dh_n, dw_n)

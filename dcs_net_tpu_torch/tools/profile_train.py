@@ -1,7 +1,8 @@
 """Where the time of one full-width train step goes on the card.
 
 ``python -m dcs_net_tpu_torch.tools.profile_train [--variant dcs] [--batch 32]
-[--crop 8160] [--reps 20] [--top 20] [--steps-per-dispatch K]``
+[--crop 8160] [--reps 20] [--top 20] [--steps-per-dispatch K]
+[--dtype bfloat16]``
 
 Runs three warm-up steps and ``--reps`` timed steps of ``train_step`` (each
 ended by ``torch.cuda.synchronize()``) of ``config_for_variant(--variant)``
@@ -18,7 +19,9 @@ capture (its time and private pool printed), then ``--reps`` timed replays
 and one replay under the profiler, its figures also per step; the port's
 launches are those the capture counted, one replay's. Weights are random
 (seed 0), the waves seeded noise: the work per step depends only on the
-shapes. TF32 is off, as in the trainer.
+shapes. TF32 is off, as in the trainer. ``--dtype bfloat16`` trains at the
+JAX package's ``--dtype bfloat16`` (DC and DCS): bf16 operands, float32 sums
+(cuBLAS's reduced-precision bf16 reduction off, as in the trainer).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ def main(argv=None) -> None:
     p.add_argument("--reps", type=int, default=20)
     p.add_argument("--top", type=int, default=20)
     p.add_argument("--steps-per-dispatch", type=int, default=1)
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = p.parse_args(argv)
     k = args.steps_per_dispatch
     if k < 1:
@@ -42,6 +46,7 @@ def main(argv=None) -> None:
 
     import torch
 
+    from dcs_net_tpu_torch.cli.common import check_ported, with_dtype
     from dcs_net_tpu_torch.core.config import config_for_variant
     from dcs_net_tpu_torch.models.unet import DCSNet
     from dcs_net_tpu_torch.train import steps
@@ -51,7 +56,9 @@ def main(argv=None) -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = config_for_variant(args.variant)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    cfg = with_dtype(config_for_variant(args.variant), args.dtype)
+    check_ported(p, cfg)
     torch.manual_seed(0)
     model = DCSNet(cfg.model, cfg.quirks, device="cuda", seed=0)
     opt = make_optimizer(model.parameters(), cfg.optim)
@@ -102,7 +109,7 @@ def main(argv=None) -> None:
         cuda_lib.reset_launch_counts()
     wall_ms, busy_ms, launches, kernels = profiled(step)
     ours = {kn.name: kn.launches for kn in cuda_lib.KERNELS.values() if kn.launches}
-    print(f"{torch.cuda.get_device_name(0)}: {args.variant} "
+    print(f"{torch.cuda.get_device_name(0)}: {args.variant} at {args.dtype} "
           f"{'train_step' if k == 1 else f'replay of {k} train steps'} batch "
           f"{args.batch} x {args.crop} samples: wall {wall_ms:.2f} ms under the "
           f"profiler, {launches} kernel launches, device busy "

@@ -70,8 +70,11 @@ class Trainer:
     """``Trainer(cfg, device=...)`` (CUDA unless ``device="cpu"``). Turns
     TF32 off for cuDNN and matmuls: the model trains in full float32, as the
     JAX reference does (cuDNN would otherwise run the encoder convs and the
-    LSTM in TF32); and cuBLAS's reduced-precision bf16 reduction off, for an
-    evaluation at ``compute_dtype="bfloat16"`` (training at bf16 raises).
+    LSTM in TF32); and cuBLAS's reduced-precision bf16 reduction off, so that
+    at ``compute_dtype="bfloat16"`` (DC, DCS) every bf16 product, forward and
+    backward, sums in float32. At bf16 the parameters, BN, Adam, SWA and the
+    checkpoints stay float32: a bf16-trained checkpoint serves at either
+    type.
 
     SWA starts at epoch ``int(swa_start_frac * max_epochs)``. A checkpoint
     holds the model, Adam, the plateau and the epoch but not the SWA average,
@@ -157,10 +160,6 @@ class Trainer:
         if self.model is None:
             raise RuntimeError("call init_state() first")
         cfg = self.cfg
-        if cfg.model.compute_dtype != "float32":
-            raise NotImplementedError(
-                "training at compute_dtype='bfloat16' is ROADMAP Queue 1 item 5b: "
-                "the port evaluates at bf16 and trains in float32")
         k = max(cfg.run.steps_per_dispatch, 1)
         if k > 1 and self._scanned is None:
             self._scanned = S.make_scanned_train_step(self.model, self.opt, cfg, k)

@@ -18,9 +18,11 @@ Bands, stated in PERF.md section 2 before the first chip run:
   (half was the band predicted; the JAX decoder rounds at more points, see
   the mask's test), both within 0.1 absolute (the JAX package's own bound,
   ``tests/test_model.py:124-125``).
-Then the CPU models of the bf16 packings, the routing to the bf16 classes,
-the refusals that remain (training, DR/DRS, and a bf16 tensor at an entry
-with no bf16 class), and the two serving CLIs at ``--dtype bfloat16``.
+Then the CPU models of the bf16 packings, the routing to the bf16 classes
+(training's too: the conv entry, its input gradient and the tap conv's
+input gradient take their bf16 classes in both directions), the refusals
+that remain (DR/DRS at bf16, and a bf16 tensor at an entry with no bf16
+class), and the two serving CLIs at ``--dtype bfloat16``.
 """
 
 import argparse
@@ -422,25 +424,46 @@ def test_carried_stream_bf16_is_the_full_pass_when_chunk_local():
 
 @pytest.mark.parametrize("cli", [cli_train, cli_tune], ids=["train", "tune"])
 def test_training_clis_refuse_bf16(cli, capsys):
+    """The training CLIs take ``--dtype bfloat16`` for DC and DCS; the real
+    variants at bf16 exit through the parser's error, naming the ROADMAP
+    item."""
     with pytest.raises(SystemExit):
-        cli.main(["dcs", "--dtype", "bfloat16", "--device", "cpu"])
+        cli.main(["drs", "--dtype", "bfloat16", "--device", "cpu"])
     err = capsys.readouterr().err
-    assert "not yet ported for training" in err and "Queue 1 item 5b" in err
+    assert "not yet ported for the real variants" in err and "Queue 1 item 4b" in err
+
+
+@pytest.mark.parametrize("cli,variant", [(cli_enhance, "dr"), (cli_test, "drs")],
+                         ids=["enhance", "test"])
+def test_serving_clis_refuse_the_real_variants_at_bf16(cli, variant, tmp_path, capsys):
+    """``cli.enhance dr --dtype bfloat16`` and ``cli.test drs --dtype
+    bfloat16`` exit through the parser's error, as the other refusals do,
+    not through the model's traceback."""
+    src = str(tmp_path / "in.wav")
+    write_wav(src, np.zeros(1600, np.float32), 16000)
+    args = {cli_enhance: ["--in", src, "--out", str(tmp_path / "out.wav")],
+            cli_test: ["--log-dir", str(tmp_path)]}[cli]
+    with pytest.raises(SystemExit):
+        cli.main([variant, *args, "--dtype", "bfloat16", "--device", "cpu"])
+    err = capsys.readouterr().err
+    assert "not yet ported for the real variants" in err and "Queue 1 item 4b" in err
 
 
 @pytest.mark.parametrize("variant", ["dr", "drs"])
 def test_real_variants_refuse_bf16(variant):
     cfg = _cfg16(config_for_variant(variant))
-    with pytest.raises(NotImplementedError, match="5b"):
+    with pytest.raises(NotImplementedError, match="4b"):
         DCSNet(cfg.model, cfg.quirks, device="cpu")
 
 
 def test_trainer_refuses_to_train_at_bf16(tmp_path):
-    cfg = _cfg16(_narrow(config_for_variant("dcs")))
+    """The trainer trains DC and DCS at bf16; a DRS config at bf16 raises at
+    its model, before any step."""
+    cfg = _cfg16(config_for_variant("drs"))
     trainer = Trainer(cfg, device="cpu", log_dir=str(tmp_path), pesq_fn=lambda *a: 0.0)
-    trainer.init_state()
-    with pytest.raises(NotImplementedError, match="5b"):
-        trainer.train_epoch([], 0)
+    with pytest.raises(NotImplementedError, match="4b"):
+        trainer.init_state()
+    assert trainer.model is None
 
 
 def _bf16(*shape, device="cpu", grad=False):
@@ -448,22 +471,19 @@ def _bf16(*shape, device="cpu", grad=False):
 
 
 @pytest.mark.parametrize("name,call", [
-    ("conv entry", lambda d: cuda_conv.conv2d_same_small_cout(
-        _bf16(1, 8, 8, 4, device=d), _bf16(7, 7, 4, 2, device=d), _bf16(2, device=d))),
     ("real pool", lambda d: cuda_conv.sa_pool_real(_bf16(1, 8, 8, 4, device=d))),
     ("real gate", lambda d: cuda_conv.sa_gate_real(
         _bf16(1, 8, 8, 2, device=d), _bf16(7, 7, 2, 1, device=d), _bf16(1, 8, 8, 4, device=d))),
-    ("tap conv under autograd", lambda d: cuda_tapconv.tapconv_valid(
-        _bf16(1, 4, 4, 8, device=d, grad=True), _bf16(9, 8, 8, device=d), 3, 3, (1, 1, 1, 1))),
     ("STFT under autograd", lambda d: tdsp.stft(
         torch.zeros(1, 4000, device=d, requires_grad=True), STFTConfig(dft_dtype="bfloat16"))),
 ])
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_bf16_at_an_entry_without_a_bf16_class_raises(name, call, device, monkeypatch):
-    """Training at bf16 and the real family's gate are ROADMAP Queue 1 item
-    5b: a bf16 tensor there raises, on the CPU (no plain version takes it)
-    and off it (meta: the card's route, the kernels stubbed), and nothing
-    is launched or cast to float32 quietly."""
+    """The real family's gate at bf16 is ROADMAP Queue 1 item 4b, and the
+    bf16 STFT has no backward (the train step's waves take none): a bf16
+    tensor there raises, on the CPU (no plain version takes it) and off it
+    (meta: the card's route, the kernels stubbed), and nothing is launched
+    or cast to float32 quietly."""
     recs = [_Recorder(k) for k in ("KERNEL", "DGRAD", "POOL_REAL", "GATE_REAL")]
     for r in recs:
         monkeypatch.setattr(cuda_conv, r.name, r)
@@ -475,16 +495,106 @@ def test_bf16_at_an_entry_without_a_bf16_class_raises(name, call, device, monkey
     assert all(r.launches == 0 for r in recs + trecs)
 
 
-def test_tapconv_input_gradient_launch_refuses_bf16(monkeypatch):
-    """The input gradient's entry (the card's route: meta here) takes float32
-    only, and launches nothing for bf16."""
-    recs = [_Recorder(k) for k in ("DGRAD", "DGRAD_PACK")]
-    for r in recs:
-        monkeypatch.setattr(cuda_tapconv, r.name, r)
-    with pytest.raises(TypeError, match="float32"):
-        cuda_tapconv._launch_dgrad(_bf16(1, 4, 4, 8, device="meta"),
-                                   _bf16(9, 8, 8, device="meta"), 3, 3, (1, 1, 1, 1), (4, 4))
-    assert all(r.launches == 0 for r in recs)
+def _record(monkeypatch):
+    """Recorders in place of every conv-entry and tap-conv kernel, float32
+    and bf16 classes: name -> recorder."""
+    recs = {}
+    for mod, names in ((cuda_conv, ("KERNEL", "DGRAD", "KERNEL_BF16", "DGRAD_BF16")),
+                       (cuda_tapconv, ("KERNEL", "PACK", "DGRAD", "DGRAD_PACK",
+                                       "KERNEL_BF16", "KERNEL_BF16_TAP", "PACK_BF16",
+                                       "DGRAD_BF16", "DGRAD_BF16_TAP", "DGRAD_PACK_BF16"))):
+        for k in names:
+            recs[f"{mod.__name__.rsplit('.', 1)[1]}.{k}"] = r = _Recorder(k)
+            monkeypatch.setattr(mod, k, r)
+    return recs
+
+
+def _entry_case(entry, device):
+    """(inputs that autograd follows, the entry's output, the bf16 kernels
+    its forward and backward launch off the CPU) of one of training's three
+    bf16 classes: the conv entry at the gate's class (7, 4, 2), whose input
+    gradient is class (7, 2, 4); and kernel 3 at dec1's (x padded by one
+    pixel), whose input gradient is the tap conv's bf16 input-gradient
+    class."""
+    rng = np.random.default_rng(21)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            device=device, dtype=B16).requires_grad_()
+
+    if entry == "conv entry":
+        x, w = t(2, 8, 12, 4), t(7, 7, 4, 2)
+        y = cuda_conv.conv2d_same_small_cout(x, w, cuda_conv.zero_bias(2, x.device))
+        return (x, w), y, {"cuda_conv.KERNEL_BF16": 1, "cuda_conv.DGRAD_BF16": 1}
+    x, w = t(2, 4, 251, 32), t(9, 32, 64)
+    y = cuda_tapconv.tapconv_valid(x, w, 3, 3, (1, 1, 1, 1))
+    return (x, w), y, {"cuda_tapconv.KERNEL_BF16": 1, "cuda_tapconv.PACK_BF16": 1,
+                       "cuda_tapconv.DGRAD_BF16": 1, "cuda_tapconv.DGRAD_PACK_BF16": 1}
+
+
+@pytest.mark.parametrize("entry", ["conv entry", "tap conv"])
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_bf16_entry_takes_its_bf16_class_in_both_directions(entry, device, monkeypatch):
+    """Training's entries at bf16 under autograd: the conv entry (its bf16
+    class forward, the input gradient's class (7, 2, 4) backward) and the
+    tap conv (its bf16 forward, the bf16 input-gradient class backward) give
+    bf16 outputs and bf16 gradients of x and w. On the CPU they run their
+    plain versions and launch nothing; off it (meta: the card's route, the
+    kernels stubbed) each bf16 class once, and nothing of a float32 class."""
+    recs = _record(monkeypatch)
+    inputs, y, want = _entry_case(entry, device)
+    assert y.dtype == B16 and y.requires_grad
+    grads = torch.autograd.grad(y, inputs, torch.ones_like(y))
+    assert all(g.dtype == B16 and g.shape == i.shape for g, i in zip(grads, inputs))
+    got = {k: r.launches for k, r in recs.items() if r.launches}
+    assert got == ({} if device == "cpu" else want)
+
+
+def test_tapconv_input_gradient_bf16_launch_takes_its_class(monkeypatch):
+    """The input gradient's entry (the card's route: meta here) takes bf16 g
+    and w through its bf16 class, never a float32 cast: the flipped packing
+    and the forward's staged body on g, padded by the window less the
+    forward's padding, with bf16 packed weights (16-channel chunks of the
+    forward's N, N tiles of its Cin) and a bf16 dx of x's pixels; float32
+    takes the float32 entry."""
+    recs = _record(monkeypatch)
+    seen = {}
+
+    def pack(dev, w, wp, taps, cin, n, bn, kb):
+        seen["pack"] = (taps, cin, n, bn, kb)
+        recs["cuda_tapconv.DGRAD_PACK_BF16"].launches += 1
+
+    monkeypatch.setattr(cuda_tapconv, "DGRAD_PACK_BF16", pack)
+    g, w = _bf16(2, 4, 251, 64, device="meta"), _bf16(9, 32, 64, device="meta")
+    dx = cuda_tapconv._launch_dgrad(g, w, 3, 3, (1, 1, 1, 1), (4, 251))
+    assert dx.dtype == B16 and dx.shape == (2, 4, 251, 32)
+    assert seen["pack"] == (9, 32, 64, 64, cuda_tapconv.STAGED_KB)
+    assert cuda_tapconv.dgrad_pad_bf16((1, 1, 1, 1), 3, 3) == (1, 1, 1, 1)
+    assert cuda_tapconv.dgrad_pad_bf16((0, 2, 1, 1), 3, 3) == (2, 0, 1, 1)
+    with pytest.raises(ValueError, match="window"):
+        cuda_tapconv.dgrad_pad_bf16((3, 0, 0, 0), 3, 3)
+    got = {k: r.launches for k, r in recs.items() if r.launches}
+    assert got == {"cuda_tapconv.DGRAD_BF16": 1, "cuda_tapconv.DGRAD_PACK_BF16": 1}
+    f32 = cuda_tapconv._launch_dgrad(g.float(), w.float(), 3, 3, (1, 1, 1, 1), (4, 251))
+    assert f32.dtype == torch.float32
+    assert recs["cuda_tapconv.DGRAD"].launches == recs["cuda_tapconv.DGRAD_PACK"].launches == 1
+
+
+def test_conv_entry_bf16_launch_refuses_a_class_without_a_tiled_body(monkeypatch):
+    """The conv entry's bf16 class has the register-tiled body at the complex
+    classes only: any other class at bf16 (the real (7, 2, 1), or 3 x 3)
+    raises off the CPU and launches nothing; the CPU's plain version takes
+    every class, its float32 sums rounded once."""
+    recs = _record(monkeypatch)
+    for shape in ((7, 7, 2, 1), (3, 3, 4, 2)):
+        x = _bf16(1, 8, 8, shape[2], device="meta")
+        with pytest.raises(ValueError, match="bf16 class"):
+            cuda_conv.conv2d_same_small_cout(x, _bf16(*shape, device="meta"),
+                                             torch.zeros(shape[3], device="meta"))
+        y = cuda_conv.conv2d_same_small_cout(_bf16(1, 8, 8, shape[2]), _bf16(*shape),
+                                             torch.zeros(shape[3]))
+        assert y.dtype == B16
+    assert all(r.launches == 0 for r in recs.values())
 
 
 # -- the serving CLIs ---------------------------------------------------------
