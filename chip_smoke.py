@@ -40,7 +40,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
                256-frame chunks overlapping by 64 in groups of 8: shape,
                finiteness, launch counts (1 STFT; 13 gates and 7 tap convs a
                group), time per call, and a 3 s request card vs CPU; (b) the
-               streaming preset with the LSTM carry, no overlap, 10 s: with
+               streaming preset with the LSTM carry, no overlap, 5 s: with
                chunk-local ops (1x1 convs, no attention) chunked == full pass
                on the card within 1e-4; with the product's ops finite, its
                correlation with the full pass printed, and 2 s card vs CPU;
@@ -163,7 +163,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
                utterance, card vs CPU, within ``EVAL_METRIC_TOL``; (d) the
                trainer's two epochs logged finite ``val_stoi`` and
                ``val_pesq_est``, its sanity passes none; (e) ``python -m
-               dcs_net_tpu_torch.cli.tune``, two 1-epoch trials at batch 4 on
+               dcs_net_tpu_torch.cli.tune``, one 1-epoch trial at batch 4 on
                40 pairs of its own, a finite best value; (f) the time per
                test utterance of the forward and of the host metrics;
   8. real    -- the real family at full width (DRS, seeded weights, BN moved
@@ -240,7 +240,22 @@ Phases (each prints one or more lines; any failure exits non-zero):
                (``config_for_variant("dc")``, its own seeded weights) at
                bf16: one enhance call's launches (DCS's), graphed against
                eager bit for bit, a 1 s request card vs CPU in the bf16
-               band;
+               band; (i)-(m) DRS at bf16 (its own seeded weights): (i) one
+               enhance call's launches (the real pool's and gate's bf16
+               classes 13 times each, kernel 3's staged body 6 times and
+               its tap body at dec6's N = 4 once, 7 packings, kernel 1
+               once, nothing of a float32 class), a 1 s request card vs CPU
+               in the bf16 band, the call graphed against eager bit for
+               bit, rows ``sa_pool_real_bf16_drs``,
+               ``sa_gate_real_bf16_drs`` (beside the bf16 eager sequence)
+               and ``tapconv_valid_bf16[_tap]_drs``, the real bf16 classes
+               off the path (odd shapes, x off its line, every R); (j) a
+               streamed 3 s and a carried 2 s request card vs CPU; (k) DR:
+               a call's launches and a 1 s request card vs CPU; (l) ms a
+               DRS call at bf16 beside float32's; (m) ``cli.enhance drs``
+               and ``dr --dtype bfloat16`` (full, ``--stream``,
+               ``--carry``) and ``cli.test drs --dtype bfloat16`` on two
+               utterances;
   bf16train -- DCS training at ``--dtype bfloat16`` on phase 7's batch (32
                x 8160) and weights, run after phase "graph": (a) one eager
                step's launches (kernel 2's conv entry at bf16 13 times and
@@ -257,7 +272,7 @@ Phases (each prints one or more lines; any failure exits non-zero):
                beside it; (c) the K = 8 graph against eager at
                bf16 under cuDNN's deterministic algorithms (16 steps' losses
                rtol 1e-4, the state in band); (d) ms a step, the eager
-               median of 20 and the graphed median of 5 replays, a replay's
+               median of 5 and the graphed median of 5 replays, a replay's
                busy time and kernels, beside float32's from phases "train"
                and "graph"; (e) the three new classes against their plain
                versions at every shape of the step (<= 2^-7), rows
@@ -268,7 +283,24 @@ Phases (each prints one or more lines; any failure exits non-zero):
                TFLOP/s); (f) DC at bf16 and at float32, card vs CPU; (g)
                ``cli.train dcs --dtype bfloat16 --synthetic`` for an epoch
                of 16 steps at K = 8, its checkpoint served by ``cli.enhance``
-               at float32 and at bf16 against the CPU.
+               at float32 and at bf16 against the CPU; (h) DRS at bf16 on
+               the same batch: one step's launches (the conv entry's bf16
+               class at (7, 2, 1) and its input gradient's at (7, 1, 2) 13
+               times each, kernel 3's bf16 forward and input gradient 7
+               times each, dec6's on the tap body), ms a step eager and
+               graphed beside DRS float32's (phase "graph" (e)), the K = 8
+               graph against eager at bf16, rows ``*_bf16_drs``, the step
+               at batch 4 card vs CPU: loss, gradient norm and leaves as
+               (b), a leaf outside the sum-order rule held by its float64
+               witness (DRS's bf16 leaves move with their input's last bit
+               by tens of batch-order distances): its layer's input and
+               output gradient against the float64 step, and the leaf
+               against the float64 leaf of the card's own terms; (i) the
+               trainer at --dtype bfloat16 on DRS's streaming preset for an
+               epoch of 8 steps at K = 4, its checkpoint served by ``cli.enhance drs
+               --carry`` against the CPU, ``cli.tune drs --dtype bfloat16``
+               for a trial.
+A line ``phase <name>: S s`` follows every phase.
 The last lines are the kernels JSON, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
 
@@ -309,6 +341,7 @@ SLICE_RTOL, SLICE_ATOL = 1e-3, 3e-4
 TRAIN_BATCH, TRAIN_CROP, CARD_CPU_BATCH = 32, 8160, 4
 TRAIN_STEPS, TRAIN_N_SYNTHETIC = 8, 480       # 480 pairs: 384 train, 96 val
 GRAPH_K = 8                  # train steps a CUDA graph replay, the CLI's card default
+CARRY_SECONDS = 5            # phase "stream" (b)'s carried stream
 GRAPH_TRAIN_N = 640          # the K = 8 trainer run's pairs: 512 train, 16 steps an epoch
 # phase "loader": a tree of pairs of one length, 3 s at 48 kHz (VoiceBank's
 # training utterances last several seconds, of many lengths), 768 train (an
@@ -316,7 +349,7 @@ GRAPH_TRAIN_N = 640          # the K = 8 trainer run's pairs: 512 train, 16 step
 # epoch a trainer run (two until phase "bf16" took the time; its steady
 # rate is read after the capture, over the epoch's last replay)
 LOADER_SECONDS, LOADER_N_SYNTHETIC, LOADER_EPOCHS = 3.0, 960, 1
-LOADER_RATE_BATCHES = 16     # batches a loader-alone rate is timed over
+LOADER_RATE_BATCHES = 8      # batches a loader-alone rate is timed over
 NATIVE_TOL = 1e-5            # native batches against the numpy path's
 # the device kernels of the port's entry points, as the profiler names them
 PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "stft_fft_mixed_kernel", "stft_dense_kernel",
@@ -443,6 +476,12 @@ KERNEL_INFO.update({
     "tapconv_valid_bf16_tap": (KERNEL_INFO["tapconv_valid"][0],
                                KERNEL_INFO["tapconv_valid"][1],
                                "bf16-wgmma-in-place-flat-split", BF16_FLOPS_PER_S),
+    # the real attention's pool and gate at bf16 (DR / DRS): bf16 loads,
+    # float32 sums, rounded where the JAX module rounds
+    "sa_pool_real_bf16": (KERNEL_INFO["sa_pool_real"][0], KERNEL_INFO["sa_pool_real"][1],
+                          "channel-mean-max-bf16", BF16_FLOPS_PER_S),
+    "sa_gate_real_bf16": (KERNEL_INFO["sa_gate_real"][0], KERNEL_INFO["sa_gate_real"][1],
+                          "conv-sigmoid-broadcast-product-epilogue-bf16", BF16_FLOPS_PER_S),
 })
 # the bf16 classes of the training path (phase "bf16train"): kernel 2's conv
 # entry (the un-fused gate's conv) and its input gradient, both the
@@ -460,7 +499,8 @@ KERNEL_INFO.update({
     + ("bf16-wgmma-tap-body-on-g-flipped-packing", BF16_FLOPS_PER_S),
 })
 KERNEL_TOL = {"sa_pool_bf16": BF16_REL_TOL, "sa_gate_bf16": BF16_REL_TOL,
-              "sa_fused_bf16": BF16_REL_TOL,
+              "sa_fused_bf16": BF16_REL_TOL, "sa_pool_real_bf16": BF16_REL_TOL,
+              "sa_gate_real_bf16": BF16_REL_TOL,
               "tapconv_valid_bf16": BF16_REL_TOL, "tapconv_valid_bf16_tap": BF16_REL_TOL,
               "conv_same_small_cout_bf16": BF16_REL_TOL,
               "conv_same_small_cout_dgrad_bf16": BF16_REL_TOL,
@@ -485,9 +525,37 @@ BF16_TRAIN_STEP_LAUNCHES = {"stft_dense_bf16": 1, "conv_same_small_cout_bf16": 1
 # float32 control read above it in 9 of 12 (PERF.md section 6)
 SUM_ORDER_WITNESSES = 7
 SUM_ORDER_LIMIT = 4.0
+# DRS's bf16 gradient leaves leave that rule: on the CPU they move with the
+# waves' last float32 bit by tens of batch-order distances, as far as the
+# float32 step lies from them (``python -m
+# dcs_net_tpu_torch.tools.leaf_spread``; PERF.md section 6), because bf16's
+# rounding spreads through every layer and a batch order there reorders
+# only the sums over the batch. A leaf outside the rule
+# is held by its float64 witness (``float64_leaf_witness``), as phase "real"
+# holds DRS's input BN: the inputs and output gradients of the modules that
+# own such leaves within this many times the CPU bf16 step's own distance
+# from the float64 step's together, each within twice that (the tests' bands
+# for a bf16 step's whole gradient and each leaf,
+# ``tests/test_torch_bf16_train.py``), and each leaf within its rounding
+# bound of the float64 leaf of the card's own terms
+FLOAT64_WITNESS = 2.0
 # the rows phase "bf16train" adds to the kernels line
 BF16_TRAIN_ROWS = ("conv_same_small_cout_bf16", "conv_same_small_cout_dgrad_bf16",
                    "tapconv_valid_dgrad_bf16", "tapconv_valid_dgrad_bf16_tap")
+# one DRS (or DR) forward at bf16: the bf16 classes only (kernel 2's real
+# pool and gate at every site, kernel 3's staged body at dec0-dec5, its tap
+# body at dec6's N = 4); the rows it adds, named <kernel>_drs
+DRS_EVAL_FORWARD_BF16 = {"sa_pool_real_bf16": 13, "sa_gate_real_bf16": 13,
+                         "tapconv_valid_bf16": 6, "tapconv_valid_bf16_tap": 1,
+                         "tapconv_pack_bf16": 7}
+DRS_BF16_ROWS = ("sa_pool_real_bf16", "sa_gate_real_bf16", "tapconv_valid_bf16",
+                 "tapconv_valid_bf16_tap")
+# one DRS (or DR) bf16 train step's launches: DCS's classes (the conv entry's
+# bf16 class at (7, 2, 1) and its input gradient's at (7, 1, 2)), but kernel
+# 3's input gradient at dec6, whose reduction is N = 4 channels, on the tap
+# body (counted with the staged one too)
+BF16_DRS_TRAIN_STEP_LAUNCHES = {**BF16_TRAIN_STEP_LAUNCHES,
+                                "tapconv_valid_dgrad_bf16_tap": 1}
 # kernel 1 off the paths, rows of their own in the kernels line, each
 # (B, n, n_fft, hop), centred with the DC bin dropped as the model's: row 1b,
 # the FFT entry at sizes that took the dense DFT before (the first is that
@@ -618,8 +686,8 @@ def rel_err(got, want) -> float:
     """max |got - want| / max |want| over one tensor or a tuple of them."""
     if not isinstance(got, (tuple, list)):
         got, want = (got,), (want,)
-    return (max(float((a - b).abs().max()) for a, b in zip(got, want))
-            / max(max(float(b.abs().max()) for b in want), 1e-30))
+    return (max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+            / max(max(float(b.float().abs().max()) for b in want), 1e-30))
 
 
 def nvidia_smi_line() -> str:
@@ -698,7 +766,8 @@ def discover_shapes(run):
              (cuda_conv, "GATE_BF16"), (cuda_conv, "FUSED_BF16"),
              (cuda_tapconv, "KERNEL_BF16"), (cuda_tapconv, "KERNEL_BF16_TAP"),
              (cuda_conv, "KERNEL_BF16"), (cuda_conv, "DGRAD_BF16"),
-             (cuda_tapconv, "DGRAD_BF16"), (cuda_tapconv, "DGRAD_BF16_TAP")]
+             (cuda_tapconv, "DGRAD_BF16"), (cuda_tapconv, "DGRAD_BF16_TAP"),
+             (cuda_conv, "POOL_REAL_BF16"), (cuda_conv, "GATE_REAL_BF16")]
     logs = [ShapeLog(getattr(mod, attr)) for mod, attr in slots]
     try:
         for (mod, attr), log in zip(slots, logs):
@@ -877,6 +946,43 @@ def kernel_cases(name, args, dev, cfg):
                 None,
                 {"earlier_ms": lambda: cuda_conv.sa_gate(cuda_conv.sa_pool(re, im), w, re,
                                                          im)})
+    if name in ("sa_pool_real_bf16", "sa_gate_real_bf16"):
+        # kernel 2's real pool and gate at bf16 at a site the path gave them.
+        # The gate's library figure: its function in bf16 PyTorch (one bf16
+        # F.conv2d of the pooled map, sigmoid, product), as row 2rb's; beside
+        # it the whole real attention as one bf16 eager sequence (mean, max,
+        # cat, F.conv2d, sigmoid, product), which pool + gate replace
+        B, H, W, C = args[:4]
+        x = randn(B, H, W, C).to(b16)
+        w = randn(7, 7, 2, 1, scale=0.3).to(b16)
+        pooled = cuda_conv.sa_pool_real_bf16_plain(x)
+        P = B * H * W
+        if name == "sa_pool_real_bf16":
+            return (lambda: cuda_conv.sa_pool_real(x),
+                    lambda: cuda_conv.sa_pool_real_bf16_plain(x), None,
+                    2 * (P * C + 2 * P), 2 * P * C, None, {})
+        if tuple(args[4:7]) != cuda_conv.gate_tile(B, H, W, 2, 1):
+            fail(f"{name} at {args}: launched at a tile other than gate_tile's")
+        w_oihw = w.permute(3, 2, 0, 1).contiguous()
+
+        def library():
+            return x * torch.sigmoid(F.conv2d(pooled.permute(0, 3, 1, 2), w_oihw,
+                                              padding=3)).permute(0, 2, 3, 1)
+
+        def eager_sequence():
+            cat = torch.cat([x.mean(dim=-1, keepdim=True),
+                             x.amax(dim=-1, keepdim=True)], dim=-1)
+            a = torch.sigmoid(F.conv2d(cat.permute(0, 3, 1, 2), w_oihw, padding=3))
+            return x * a.permute(0, 2, 3, 1)
+
+        # pooled map and weights read, x read once and written once; the
+        # conv, a sigmoid a pixel, a product a value
+        return (lambda: cuda_conv.sa_gate_real(pooled, w, x),
+                lambda: cuda_conv.sa_gate_real_bf16_plain(pooled, w, x),
+                library,
+                2 * (2 * P + w.numel() + 2 * P * C),
+                2 * P * 7 * 7 * 2 + 4 * P + P * C, None,
+                {"eager_pool_and_gate_ms": eager_sequence})
     if name in ("sa_pool_bf16", "sa_gate_bf16"):
         B, H, W, C = args[:4]
         re, im = randn(B, H, W, C).to(b16), randn(B, H, W, C).to(b16)
@@ -1641,64 +1747,92 @@ def check_dgrad_off_path(dev, card) -> None:
                      f"{v:.3e} exceeds {REL_TOL}")
 
 
-def check_real_off_path(dev) -> None:
-    """Kernel 2 at the real classes where the DRS paths do not take it: the
-    real pool and gate at C = 1 and C no multiple of 4, H = 1, W below a
-    tile, odd H and W, on x one float off its 16-byte line, the gate at
-    every R; the conv entry at (7, 2, 1) and (7, 1, 2) routed (the tiled
-    body), forced onto every R, on an input one float off (the generic body
-    at (7, 2, 1)), and on the generic body itself, at those shapes."""
+def check_real_off_path(dev, bf16=False) -> None:
+    """Kernel 2 at the real classes (``bf16``: their bf16 classes) where the
+    DR / DRS paths do not take it, against their plain versions (``REL_TOL``;
+    at bf16 ``BF16_REL_TOL``, 2^-7 of max |plain|): the real pool and gate
+    at ``REAL_GATE_EXTRA``'s shapes (C = 1 and C no multiple of 4 or 8,
+    H = 1, W below a tile, odd H and W, batch 32), on x one element off its
+    16-byte line, the gate at every R of ``REAL_TILES``; the conv entry at
+    (7, 2, 1) and (7, 1, 2) routed and forced onto every R. At float32 also
+    on an input one float off (the generic body at (7, 2, 1)) and on the
+    generic body itself; at bf16 a pooled map one element off its 4-byte
+    pixel, which the bf16 class refuses. Every call launches its own class
+    and nothing else."""
     import torch
 
     from dcs_net_tpu_torch.ops import cuda_conv as cc
 
-    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    dt, tol = (torch.bfloat16, BF16_REL_TOL) if bf16 else (torch.float32, REL_TOL)
+    pool_plain = cc.sa_pool_real_bf16_plain if bf16 else cc.sa_pool_real_plain
+    gate_plain = cc.sa_gate_real_bf16_plain if bf16 else cc.sa_gate_real_plain
+    conv_plain = (cc.conv2d_same_small_cout_bf16_plain if bf16
+                  else cc.conv2d_same_small_cout_plain)
+    sfx = "_bf16" if bf16 else ""
+    label = "real bf16 classes" if bf16 else "real classes"
+    g = torch.Generator(device=dev).manual_seed(SEED + (15 if bf16 else 11))
 
     def randn(*shape, scale=1.0):
-        return torch.randn(shape, generator=g, device=dev) * scale
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
 
     w = randn(7, 7, 2, 1, scale=0.3)
-    w12, b1, b2 = cc.dgrad_kernel(randn(7, 7, 2, 1, scale=0.3)), randn(1), randn(2)
-    counters = (cc.KERNEL, cc.POOL_REAL, cc.GATE_REAL)
+    w12 = cc.dgrad_kernel(randn(7, 7, 2, 1, scale=0.3))
+    b1 = torch.randn(1, generator=g, device=dev)
+    b2 = torch.randn(2, generator=g, device=dev)
+    n_conv = 2 * (len(REAL_TILES) + (1 if bf16 else 3))
+    want_launches = {f"sa_pool_real{sfx}": 3, f"sa_gate_real{sfx}": 3 + len(REAL_TILES),
+                     f"conv_same_small_cout{sfx}": n_conv}
     for B, H, W, C in REAL_GATE_EXTRA:
         x = randn(B, H, W, C)
-        pooled = cc.sa_pool_real_plain(x)
-        want_gate = cc.sa_gate_real_plain(pooled, w, x)
-        before = tuple(k.launches for k in counters)
+        pooled = pool_plain(x)
+        want_gate = gate_plain(pooled, w, x)
+        torch.cuda.synchronize()
+        before = launch_counts()
         errs = {"pool": rel_err(cc.sa_pool_real(x), pooled),
                 "gate": rel_err(cc.sa_gate_real(pooled, w, x), want_gate),
                 "pool+gate": rel_err(cc.spatial_gate_real(x, w),
                                      cc.spatial_gate_real_plain(x, w))}
         off = randn(x.numel() + 1)[1:].view(x.shape).copy_(x)
-        errs["pool+gate, x one float off"] = rel_err(cc.spatial_gate_real(off, w),
-                                                     cc.spatial_gate_real_plain(x, w))
+        errs["pool+gate, x one element off"] = rel_err(cc.spatial_gate_real(off, w),
+                                                       cc.spatial_gate_real_plain(x, w))
         for tile in REAL_TILES:
             errs[f"gate {tile}"] = rel_err(cc.sa_gate_real(pooled, w, x, tile), want_gate)
         for cls, xin, wk, bk in (((7, 2, 1), pooled, w, b1),
                                  ((7, 1, 2), pooled[..., :1].contiguous(), w12, b2)):
-            want = cc.conv2d_same_small_cout_plain(xin, wk, bk)
-            offx = randn(xin.numel() + 1)[1:].view(xin.shape).copy_(xin)
+            want = conv_plain(xin, wk, bk)
             errs[f"conv {cls} routed"] = rel_err(cc.conv2d_same_small_cout(xin, wk, bk), want)
-            errs[f"conv {cls} x one float off"] = rel_err(
-                cc.conv2d_same_small_cout(offx, wk, bk), want)
-            errs[f"conv {cls} generic"] = rel_err(
-                cc.launch_conv(xin, wk, bk, cc.GENERIC_TILE), want)
             for tile in REAL_TILES:
                 errs[f"conv {cls} {tile}"] = rel_err(cc.launch_conv(xin, wk, bk, tile), want)
+            if not bf16:
+                offx = randn(xin.numel() + 1)[1:].view(xin.shape).copy_(xin)
+                errs[f"conv {cls} x one float off"] = rel_err(
+                    cc.conv2d_same_small_cout(offx, wk, bk), want)
+                errs[f"conv {cls} generic"] = rel_err(
+                    cc.launch_conv(xin, wk, bk, cc.GENERIC_TILE), want)
+        if bf16:
+            offp = randn(pooled.numel() + 1)[1:].view(pooled.shape).copy_(pooled)
+            try:
+                cc.conv2d_same_small_cout(offp, w, b1)
+                fail(f"the conv entry's bf16 class took a pooled map off its 4-byte pixel "
+                     f"at {(B, H, W)}")
+            except ValueError:
+                pass
         torch.cuda.synchronize()
-        after = tuple(k.launches for k in counters)
-        n_conv, n_gate = 2 * (3 + len(REAL_TILES)), 3 + len(REAL_TILES)
-        if tuple(a - b for a, b in zip(after, before)) != (n_conv, 3, n_gate):
-            fail(f"kernel 2's real classes at {(B, H, W, C)}: launches {before} -> {after}")
+        after = launch_counts()
+        got = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+        if got != want_launches:
+            fail(f"kernel 2's {label} at {(B, H, W, C)}: launches {got}, expected "
+                 f"{want_launches}")
         worst = max(errs, key=errs.get)
-        print(f"kernel 2 real classes off the path: x ({B}, {H}, {W}, {C}), gate tile "
+        print(f"kernel 2 {label} off the path: x ({B}, {H}, {W}, {C}), gate tile "
               f"{cc.gate_tile(B, H, W, 2, 1)}, conv tiles {cc.choose_tile(B, H, W, 2, 1)} / "
               f"{cc.choose_tile(B, H, W, 1, 2)}: {len(errs)} checks, worst {worst} "
               f"rel_err={errs[worst]:.3e}; pool {errs['pool']:.3e}, gate "
               f"{errs['gate']:.3e}, pool+gate {errs['pool+gate']:.3e}", flush=True)
         for k, v in errs.items():
-            if not math.isfinite(v) or v > REL_TOL:
-                fail(f"kernel 2 ({k}) at {(B, H, W, C)}: error {v:.3e} exceeds {REL_TOL}")
+            if not math.isfinite(v) or v > tol:
+                fail(f"kernel 2 {label} ({k}) at {(B, H, W, C)}: error {v:.3e} exceeds "
+                     f"{tol}")
 
 
 def compare_card_cpu(what: str, on_card, on_cpu) -> None:
@@ -1792,10 +1926,11 @@ def check_graphed(what, run, replay_launches, card, cpu_case=None, reps=5,
             for _ in range(3):
                 got = run_short(short)
             compare(f"{what}, graphed", got.cpu(), want)
-        # up to 12 windows: the eager carried stream's own kernel count
-        # varies (27584-28425 over 16 windows on the H100), and once in a few
-        # calls no two of 6 windows agreed; a call whose count holds stops
-        # at the second window with it
+        # up to 12 windows: a window of the eager carried stream (28k
+        # launches) loses the records of some of its first launches, by how
+        # many varies (``tools/profile_windows.py --carried``), and once in a
+        # few calls no two of 6 windows agreed; a call whose count holds
+        # stops at the second window with it
         windows = {how: profiled_whole(lambda: run(g), tries=12) for how, g in
                    (("graphed", graphs), ("eager", None)) if how in profile}
     finally:
@@ -1934,17 +2069,18 @@ def check_streaming(model, cpu_model, cfg, dev, card):
     local = scfg.replace(model=dataclasses.replace(
         scfg.model, kernel_e=(1,) * 7, kernel_d=(1,) * 7, sa_kernel=1,
         attention=False))
-    x10 = torch.from_numpy(speech_like(1, 10 * SR, SEED + 7)).to(dev)
+    secs = CARRY_SECONDS
+    xc = torch.from_numpy(speech_like(1, secs * SR, SEED + 7)).to(dev)
     exact = DCSNet(local.model, local.quirks, device=dev, seed=SEED + 1).eval()
     perturb_bn(exact, SEED + 2)
-    full = enhance_full(exact, x10, local)
-    carried = enhance_streaming(exact, x10, local, chunk_frames=chunk, overlap=0,
+    full = enhance_full(exact, xc, local)
+    carried = enhance_streaming(exact, xc, local, chunk_frames=chunk, overlap=0,
                                 carry_lstm_state=True)
-    restart = enhance_streaming(exact, x10, local, chunk_frames=chunk, overlap=0,
+    restart = enhance_streaming(exact, xc, local, chunk_frames=chunk, overlap=0,
                                 chunk_batch=1)
     d_carry = float((carried - full).abs().max())
     d_restart = float((restart - full).abs().max())
-    print(f"stream: carry, 10 s in {math.ceil((1 + 10 * SR // 32) / chunk)} chunks, "
+    print(f"stream: carry, {secs} s in {math.ceil((1 + secs * SR // 32) / chunk)} chunks, "
           f"chunk-local ops (1x1 convs, no attention): max |chunked - full| "
           f"{d_carry:.3e} (limit 1e-4; without the carry {d_restart:.3e}), "
           f"max |full| {float(full.abs().max()):.3f}", flush=True)
@@ -1955,15 +2091,15 @@ def check_streaming(model, cpu_model, cfg, dev, card):
     smodel = DCSNet(scfg.model, scfg.quirks, device=dev, seed=SEED).eval()
     perturb_bn(smodel, SEED + 1)
     cuda_lib.reset_launch_counts()
-    full = enhance_full(smodel, x10, scfg)
-    carried = enhance_streaming(smodel, x10, scfg, chunk_frames=chunk, overlap=0,
+    full = enhance_full(smodel, xc, scfg)
+    carried = enhance_streaming(smodel, xc, scfg, chunk_frames=chunk, overlap=0,
                                 carry_lstm_state=True)
     torch.cuda.synchronize()
-    if tuple(carried.shape) != (1, 10 * SR) or not bool(torch.isfinite(carried).all()):
+    if tuple(carried.shape) != (1, secs * SR) or not bool(torch.isfinite(carried).all()):
         fail("the carried stream of the streaming preset is not finite")
     corr = float(torch.corrcoef(torch.stack([full[0], carried[0]]))[0, 1])
     print(f"stream: carry, streaming preset (attention on, 3x3 to 7x7 convs), "
-          f"10 s: finite, correlation with the full pass {corr:.4f}, max "
+          f"{secs} s: finite, correlation with the full pass {corr:.4f}, max "
           f"|chunked - full| {float((carried - full).abs().max()):.3e}", flush=True)
     scpu = DCSNet(scfg.model, scfg.quirks, device="cpu", seed=SEED)
     scpu.load_state_dict({k: v.cpu() for k, v in smodel.state_dict().items()})
@@ -1973,8 +2109,8 @@ def check_streaming(model, cpu_model, cfg, dev, card):
     compare_card_cpu("stream: carry, 2 s request (16 chunks of 64)",
                      enhance_streaming(smodel, short.to(dev), scfg, **kw).cpu(), cpu_short)
     # every chunk one replay of one graph, its LSTM state in and out
-    check_graphed("stream: carry, streaming preset, 10 s in chunks of 256",
-                  lambda g, m=smodel, x=x10, c=scfg: enhance_streaming(
+    check_graphed(f"stream: carry, streaming preset, {secs} s in chunks of 256",
+                  lambda g, m=smodel, x=xc, c=scfg: enhance_streaming(
                       m, x, c, chunk_frames=chunk, overlap=0, carry_lstm_state=True,
                       graphs=g),
                   DCS_EVAL_FORWARD, card,
@@ -2287,8 +2423,8 @@ def run_cli(module, args, timeout=600, env=None):
 
 
 def run_trainer(tmp, epochs, resume, card, flags=(), n_pairs=TRAIN_N_SYNTHETIC,
-                steps=TRAIN_STEPS, data_root=None, env=None):
-    """``python -m dcs_net_tpu_torch.cli.train`` in a subprocess, on
+                steps=TRAIN_STEPS, data_root=None, env=None, variant="dcs"):
+    """``python -m dcs_net_tpu_torch.cli.train <variant>`` in a subprocess, on
     ``n_pairs`` synthetic pairs of its own or the tree at ``data_root``:
     returns its stdout and final metrics. A run whose steps per dispatch K >
     1 must capture its CUDA graph and replay it (``graph_replays`` in its
@@ -2297,7 +2433,7 @@ def run_trainer(tmp, epochs, resume, card, flags=(), n_pairs=TRAIN_N_SYNTHETIC,
 
     data = (["--data-root", data_root] if data_root
             else ["--synthetic", "--synthetic-n", str(n_pairs)])
-    args = ["dcs", *data, "--batch-size", str(TRAIN_BATCH), "--limit-train-batches",
+    args = [variant, *data, "--batch-size", str(TRAIN_BATCH), "--limit-train-batches",
             str(steps), "--epochs", str(epochs), "--log-dir", tmp, *flags] + (
         ["--resume"] if resume else [])
     stdout, wall = run_cli("train", args, env=env)
@@ -2689,8 +2825,9 @@ def state_band(what, got_model, want_model) -> None:
 def check_graph(dev, card, tmp, noisy, clean, eager_ms):
     """Phase "graph": ``--steps-per-dispatch`` K > 1 on the card, one CUDA
     graph of K train steps replayed a dispatch, on phase "train"'s batch.
-    Returns one replay's launch counts, DCS's and DRS's, and (a)'s median
-    DCS step in ms."""
+    Returns one replay's launch counts, DCS's and DRS's, (a)'s median DCS
+    step in ms, a replay's busy ms and kernels, and DRS's (e) (eager ms, then
+    the same three)."""
     import dataclasses
 
     import torch
@@ -2735,8 +2872,8 @@ def check_graph(dev, card, tmp, noisy, clean, eager_ms):
     # algorithms on both sides: its default backward ones sum with atomics,
     # so two eager runs from one state part after a few steps, as this shows
     a, oa, b, ob = model_pair(cfg, SEED + 42, SEED + 43)
-    la, lb = eager(a, oa, cfg, range(2 * k)), eager(b, ob, cfg, range(2 * k))
-    print(f"graph: two eager runs of {2 * k} steps from one state, cuDNN's default "
+    la, lb = eager(a, oa, cfg, range(k + 1)), eager(b, ob, cfg, range(k + 1))
+    print(f"graph: two eager runs of {k + 1} steps from one state, cuDNN's default "
           f"algorithms: relative loss difference {abs(la[k] - lb[k]) / abs(lb[k]):.3e} "
           f"at step {k + 1}, {max(abs(x - w) / abs(w) for x, w in zip(la, lb)):.3e} at "
           f"most", flush=True)
@@ -2846,7 +2983,8 @@ def check_graph(dev, card, tmp, noisy, clean, eager_ms):
         t1 = time.perf_counter()
         eager(f, of, rcfg, [i])
         walls.append((time.perf_counter() - t1) * 1e3)
-    time_graph("DRS", se, rlaunches, x[:k], y[:k], sorted(walls[1:])[2], card)
+    drs_f32 = (sorted(walls[1:])[2],) + time_graph("DRS", se, rlaunches, x[:k], y[:k],
+                                                   sorted(walls[1:])[2], card)
     del e, oe, f, of, se
     torch.cuda.empty_cache()
 
@@ -2862,7 +3000,7 @@ def check_graph(dev, card, tmp, noisy, clean, eager_ms):
             or metrics.get("nonfinite_loss_steps") != 0):
         fail(f"graph (f): the trainer at {k} steps a dispatch: {metrics}")
     print(f"graph: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches, rlaunches, (step_ms, busy_ms, n_kernels)
+    return launches, rlaunches, (step_ms, busy_ms, n_kernels), drs_f32
 
 
 def check_loader(card, tmp, graph_step_ms):
@@ -3134,9 +3272,9 @@ def check_eval(dev, card, tmp):
             t in events for t in ("sanity_stoi", "sanity_pesq_est")):
         fail(f"the sanity passes logged {sorted(t for t in events if t.startswith('sanity'))}")
 
-    # (e) cli.tune, two trials of one epoch
+    # (e) cli.tune, one trial of one epoch
     args = ["dcs", "--synthetic", "--synthetic-n", str(TUNE_N_SYNTHETIC), "--batch-size",
-            str(TUNE_BATCH), "--trials", "2", "--trial-epochs", "1", "--log-dir",
+            str(TUNE_BATCH), "--trials", "1", "--trial-epochs", "1", "--log-dir",
             os.path.join(tmp, "tune")]
     out, wall = run_cli("tune", args)
     print(f"eval: cli.tune {' '.join(args)}: exit 0 in {wall:.1f} s [{card}]", flush=True)
@@ -3787,19 +3925,175 @@ def check_bf16(dev, card):
             fail(f"cli.test --dtype bfloat16: {metrics}")
         print(f"bf16: cli.test --dtype bfloat16 on a float32 checkpoint: "
               f"{ {k: round(v, 4) for k, v in metrics.items()} }", flush=True)
+    rows += check_bf16_real(dev, card)
     print(f"bf16: phase {time.perf_counter() - t0:.1f} s", flush=True)
     return rows
 
 
-def bf16_steps(cfg, noisy, clean, dev, seed):
+def check_bf16_real(dev, card):
+    """Phase "bf16" (i)-(m): the real family at --dtype bfloat16, DRS at full
+    width (its own seeded weights, BN off its init, float32; the bf16 model
+    a model of its own, since a graph cache keys a module by its identity).
+    Returns its kernel rows, named ``<kernel>_drs``."""
+    import torch
+
+    from dcs_net_tpu_torch.cli import enhance as cli_enhance
+    from dcs_net_tpu_torch.cli import test as cli_test
+    from dcs_net_tpu_torch.core.config import config_for_variant
+    from dcs_net_tpu_torch.data.audio_io import read_wav, write_wav
+    from dcs_net_tpu_torch.models.enhance import enhance_full, enhance_streaming
+    from dcs_net_tpu_torch.models.graphed import GraphCache
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train.checkpoint import CheckpointManager
+    from dcs_net_tpu_torch.train.loop import Trainer
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    t0 = time.perf_counter()
+
+    def models(cfg, seed, devices):
+        """The float32 model of ``cfg`` on the CPU with seeded weights, BN off
+        its init, and the bf16 model of the same weights on each device."""
+        m32 = DCSNet(cfg.model, cfg.quirks, device="cpu", seed=seed).eval()
+        perturb_bn(m32, seed + 1)
+        c16 = bf16_config(cfg)
+        out = []
+        for d in devices:
+            m = DCSNet(c16.model, c16.quirks, device=d).eval()
+            m.load_state_dict({k: v.to(d) for k, v in m32.state_dict().items()})
+            out.append(m)
+        return (m32, c16, *out)
+
+    # (i) DRS enhance_full, 4 x 4 s
+    cfg = config_for_variant("drs")
+    cpu32, c16, model, cpu16 = models(cfg, SEED + 30, (dev, "cpu"))
+    x = torch.from_numpy(speech_like(BATCH, SECONDS * SR, SEED + 32)).to(dev)
+    shapes = discover_shapes(lambda: enhance_full(model, x, c16))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    out = enhance_full(model, x, c16)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"bf16: DRS enhance_full launches {launches}", flush=True)
+    expect_launches("bf16: one DRS enhance call", launches,
+                    {"stft_dense_bf16": 1, **DRS_EVAL_FORWARD_BF16})
+    if tuple(out.shape) != (BATCH, SECONDS * SR) or not bool(torch.isfinite(out).all()):
+        fail(f"bf16 DRS enhance_full returned {tuple(out.shape)} or non-finite samples")
+    short = torch.from_numpy(speech_like(1, SR, SEED + 33))
+    on_cpu, on_cpu32 = enhance_full(cpu16, short, c16), enhance_full(cpu32, short, cfg)
+    bf16_band(on_cpu32)("bf16: DRS 1 s request",
+                        enhance_full(model, short.to(dev), c16).cpu(), on_cpu)
+    check_graphed(f"bf16: DRS enhance_full at bf16, {BATCH} requests x {SECONDS} s",
+                  lambda g: enhance_full(model, x, c16, graphs=g),
+                  {"stft_dense_bf16": 1, **DRS_EVAL_FORWARD_BF16}, card,
+                  (lambda g: enhance_full(model, short.to(dev), c16, graphs=g), on_cpu),
+                  compare=bf16_band(on_cpu32), profile=BF16_PROFILED)
+    rows = check_kernels({k: shapes[k] for k in DRS_BF16_ROWS}, launches, dev, c16, card,
+                         "DRS bf16 enhance call", "_drs")
+    pool, gate = rows[0], rows[1]
+    print(f"bf16: the real gate at bf16 over the 13 sites of a DRS enhance call: pool + "
+          f"gate {pool['ms'] + gate['ms']:.4f} ms (bound "
+          f"{pool['bound_ms'] + gate['bound_ms']:.4f}) against the bf16 eager sequence's "
+          f"{gate['eager_pool_and_gate_ms']:.4f} [{card}]", flush=True)
+    check_real_off_path(dev, bf16=True)
+
+    # (j) DRS streamed (3 s, groups of chunks) and carried (2 s, the
+    # streaming preset) against the CPU
+    three = torch.from_numpy(speech_like(1, 3 * SR, SEED + 34))
+    bf16_band(enhance_streaming(cpu32, three, cfg))(
+        "bf16: DRS streamed 3 s request", enhance_streaming(model, three.to(dev), c16).cpu(),
+        enhance_streaming(cpu16, three, c16))
+    scfg = config_for_variant("drs", streaming=True)
+    s32, s16, smodel, scpu16 = models(scfg, SEED + 35, (dev, "cpu"))
+    two = torch.from_numpy(speech_like(1, 2 * SR, SEED + 37))
+    kw = dict(chunk_frames=64, overlap=0, carry_lstm_state=True)
+    bf16_band(enhance_streaming(s32, two, scfg, **kw))(
+        "bf16: DRS carried 2 s request (the streaming preset, chunks of 64)",
+        enhance_streaming(smodel, two.to(dev), s16, **kw).cpu(),
+        enhance_streaming(scpu16, two, s16, **kw))
+    del s32, smodel, scpu16
+
+    # (k) DR: one call's launches, a 1 s request card vs CPU
+    dcfg = config_for_variant("dr")
+    d32, d16, dr, dcpu16 = models(dcfg, SEED + 38, (dev, "cpu"))
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    got = enhance_full(dr, short.to(dev), d16)
+    torch.cuda.synchronize()
+    expect_launches("bf16: one DR enhance call", launch_counts(),
+                    {"stft_dense_bf16": 1, **DRS_EVAL_FORWARD_BF16})
+    bf16_band(enhance_full(d32, short, dcfg))("bf16: DR 1 s request", got.cpu(),
+                                              enhance_full(dcpu16, short, d16))
+    del d32, dr, dcpu16
+
+    # (l) DRS's float32 model's ms a call beside the bf16 one's, in this process
+    model32 = DCSNet(cfg.model, cfg.quirks, device=dev).eval()
+    model32.load_state_dict({k: v.to(dev) for k, v in cpu32.state_dict().items()})
+    torch.backends.cudnn.deterministic = True
+    try:
+        ms = []
+        for m, c in ((model32, cfg), (model, c16)):
+            graphs = GraphCache()
+            for _ in range(3):
+                enhance_full(m, x, c, graphs=graphs)
+            ms.append((median_ms(lambda: enhance_full(m, x, c, graphs=graphs), 5),
+                       median_ms(lambda: enhance_full(m, x, c), 3)))
+        (g32, e32), (g16, e16) = ms
+        print(f"bf16: DRS enhance_full, {BATCH} x {SECONDS} s: bf16 {g16:.2f} ms graphed, "
+              f"{e16:.2f} eager; float32 {g32:.2f} graphed, {e32:.2f} eager (medians, this "
+              f"process) [{card}]", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del model32, model, cpu16
+
+    # (m) the serving CLIs at --dtype bfloat16 for DRS and DR: cli.enhance
+    # (full, --stream and --carry) on seeded weights, cli.test on a float32
+    # checkpoint, two test utterances
+    with tempfile.TemporaryDirectory(prefix="dcs_bf16_drs_") as tmp:
+        src, dst = os.path.join(tmp, "noisy.wav"), os.path.join(tmp, "clean.wav")
+        write_wav(src, speech_like(1, 2 * SR, SEED + 39)[0], SR)
+        for variant, flags in itertools.product(
+                ("drs", "dr"), ([], ["--stream", "--chunk-frames", "128"],
+                                ["--carry", "--chunk-frames", "128"])):
+            cli_enhance.main([variant, "--in", src, "--out", dst, "--dtype", "bfloat16",
+                              *flags])
+            audio, sr = read_wav(dst)
+            if sr != SR or audio.shape != (2 * SR,) or not np.all(np.isfinite(audio)):
+                fail(f"bf16 {variant.upper()} CLI output with {flags}: sr {sr}, shape "
+                     f"{audio.shape}")
+            print(f"bf16: cli.enhance {variant} --dtype bfloat16 "
+                  f"{' '.join(flags) or '(full)'}: {audio.shape[0]} samples at {sr} Hz, "
+                  "finite", flush=True)
+        ckpt = os.path.join(tmp, "ckpt")
+        trainer = Trainer(cfg, device=dev, log_dir=os.path.join(tmp, "t32"),
+                          pesq_fn=lambda *a: 0.0)
+        trainer.init_state()
+        trainer.model.load_state_dict({k: v.to(dev) for k, v in cpu32.state_dict().items()})
+        trainer.save(CheckpointManager(ckpt), 0)
+        metrics = cli_test.main(["drs", "--synthetic", "--synthetic-n", "8", "--log-dir",
+                                 tmp, "--ckpt-dir", ckpt, "--dtype", "bfloat16",
+                                 "--no-tensorboard"])
+        keys = ("test_stoi", "test_loss")
+        if not all(np.isfinite(metrics.get(k, float("nan"))) for k in keys):
+            fail(f"cli.test drs --dtype bfloat16: {metrics}")
+        print(f"bf16: cli.test drs --dtype bfloat16 on a float32 checkpoint: "
+              f"{ {k: round(v, 4) for k, v in metrics.items()} }", flush=True)
+    print(f"bf16: the real family's part {time.perf_counter() - t0:.1f} s", flush=True)
+    return rows
+
+
+def bf16_steps(cfg, noisy, clean, dev, seed, captures=None):
     """One train step at bf16 (``cfg`` at --dtype bfloat16) on the waves
     ``noisy``, ``clean`` (a batch of ``CARD_CPU_BATCH``), dropout off, from
     the same weights: on the card under cuDNN's deterministic algorithms
     ("card"), on the CPU ("cpu"), the CPU's float32 step ("cpu32"), and
     ``SUM_ORDER_WITNESSES`` CPU bf16 steps on the batch in other orders
     ("witness<i>"): the same function (the loss is the batch's mean, BN's
-    statistics sum over the batch) with its sums in other orders. Returns
-    {run: (metrics, gradients in float64, post-Adam parameters, seconds)}."""
+    statistics sum over the batch) with its sums in other orders. With a
+    dict ``captures``, it gets ``capture_io`` of the card's and the CPU's
+    bf16 steps ("card", "cpu") and of the same step in float64 on the CPU
+    ("float64"; the float32 model in float64), and the weights ("weights").
+    Returns {run: (metrics, gradients in float64, post-Adam parameters,
+    seconds)}."""
     import dataclasses
 
     import torch
@@ -3818,14 +4112,17 @@ def bf16_steps(cfg, noisy, clean, dev, seed):
     picks = np.random.default_rng(seed).choice(len(others), SUM_ORDER_WITNESSES,
                                                replace=False)
     cpu = torch.device("cpu")
-    runs = [("card", c16, dev, order), ("cpu", c16, cpu, order), ("cpu32", ncfg, cpu, order)]
-    runs += [(f"witness{i}", c16, cpu, others[j]) for i, j in enumerate(picks)]
+    runs = [("card", c16, dev, order, None), ("cpu", c16, cpu, order, None),
+            ("cpu32", ncfg, cpu, order, None)]
+    runs += [(f"witness{i}", c16, cpu, others[j], None) for i, j in enumerate(picks)]
     results = {}
-    for key, c, d, perm in runs:
+    for key, c, d, perm, _ in runs:
         m = DCSNet(c.model, c.quirks, device=d, seed=seed)
         m.load_state_dict({k: v.to(d) for k, v in weights.items()})
         o = make_optimizer(m.parameters(), c.optim)
         perm = list(perm)
+        if captures is not None and key in ("card", "cpu"):
+            captures[key] = capture_io(m)
         torch.backends.cudnn.deterministic = True
         try:
             t1 = time.perf_counter()
@@ -3838,7 +4135,196 @@ def bf16_steps(cfg, noisy, clean, dev, seed):
                         {n: p.grad.detach().cpu().double() for n, p in m.named_parameters()},
                         {n: p.detach().cpu().clone() for n, p in m.named_parameters()},
                         time.perf_counter() - t1)
+    if captures is not None:
+        m = DCSNet(ncfg.model, ncfg.quirks, device="cpu", seed=seed).double()
+        m.load_state_dict(weights)
+        captures["float64"] = capture_io(m)
+        captures["weights"] = weights
+        t1 = time.perf_counter()
+        steps.loss_and_grads(m, steps.batch_from_waves(noisy.cpu().double(),
+                                                       clean.cpu().double(), ncfg), ncfg)
+        print(f"bf16 steps: the float64 CPU step took {time.perf_counter() - t1:.1f} s",
+              flush=True)
     return results
+
+
+def capture_io(model):
+    """Forward hooks on every module of ``model`` that holds a trainable
+    parameter of its own. The dict returned gets, per module (by its dotted
+    name), its calls, its positional inputs (``in``, detached) and the
+    gradient that arrives at its output (``dy``; of a tuple output, at its
+    first tensor)."""
+    import torch
+
+    got = {}
+
+    def detach(v):
+        if isinstance(v, (tuple, list)):
+            return type(v)(detach(t) for t in v)
+        return v.detach() if torch.is_tensor(v) else v
+
+    def hook_for(name):
+        def hook(mod, inputs, out):
+            rec = got.setdefault(name, {"calls": 0})
+            rec["calls"] += 1
+            rec["in"] = detach(inputs)
+            main = out[0] if isinstance(out, tuple) else out
+            main.register_hook(lambda g: rec.__setitem__("dy", g.detach()))
+        return hook
+
+    for name, mod in model.named_modules():
+        if any(p.requires_grad for p in mod.parameters(recurse=False)):
+            mod.register_forward_hook(hook_for(name))
+    return got
+
+
+def float64_leaf_witness(what, names, captures, c16, c32, card_grads, control, clip):
+    """The float64 witness of the bf16 gradient leaves ``names`` of a real
+    net's step (``bf16_steps``'s ``captures``), as ``bn_witness`` holds a
+    leaf that no run resolves to its band, in two parts for each module
+    that owns one of them. (1) The card's input to the module and the
+    gradient that arrives at its output have the CPU bf16 step's types; as
+    the tests hold a bf16 step's gradient (the whole within twice, each leaf
+    within four times its own distance), their L2 distances from the float64
+    step's, each relative to its norm, lie together within
+    ``FLOAT64_WITNESS`` times the CPU bf16 step's, each within twice that
+    (the CPU's floored at 2^-23). (2) The
+    leaf against the float64 leaf of the card's own input and output
+    gradient there (the module run in float64 on them): a conv, transposed
+    conv or linear leaf, sums of at most n exact bf16 products (n the
+    output's pixels) rounded to bf16 r times (the transposed conv's twice:
+    each folded tap's sum, then the weight's sum of them), element by
+    element within (r 2^-8 + (n - 1) 2^-24) (1 + 2^-8)^r of the sum of its
+    terms' magnitudes: r bf16 roundings of partial sums and the float32
+    rounding of a sum in any order; a BN leaf within
+    ceil(log2 n) units of 2^-24 of the magnitudes its float32 sums add
+    (``bn_witness``); an LSTM leaf, whose terms are the recurrence's own,
+    within ``FLOAT64_WITNESS`` times the CPU bf16 LSTM's L2 distance from
+    it on the same input and output gradient. ``clip`` is the card's clip
+    factor; ``control`` the CPU's float32 step's leaves, a step with other
+    rounding throughout: read by (2), it must leave the witness somewhere
+    (that (2) tells the card's leaf from another run's)."""
+    import torch
+
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.ops import real_layers as rl
+
+    nets = {}
+    for key, c in (("bf16", c16), ("float64", c32)):
+        nets[key] = DCSNet(c.model, c.quirks, device="cpu")
+        if key == "float64":
+            nets[key] = nets[key].double()
+        nets[key].load_state_dict(captures["weights"])
+
+    def tensors(v):
+        if isinstance(v, (tuple, list)):
+            return [t for x in v for t in tensors(x)]
+        return [v] if torch.is_tensor(v) else []
+
+    def cast(v, fn):
+        if isinstance(v, (tuple, list)):
+            return type(v)(cast(t, fn) for t in v)
+        return fn(v.cpu()) if torch.is_tensor(v) else v
+
+    def local(net, owner, inputs, dy, fn):
+        """The owner's gradients in float64 (times ``clip``) from ``inputs``
+        and ``dy``, each first mapped by ``fn``, on ``nets[net]``."""
+        mod = nets[net].get_submodule(owner)
+        for q in mod.parameters(recurse=False):
+            q.grad = None
+        out = mod(*cast(inputs, fn))
+        main = out[0] if isinstance(out, tuple) else out
+        torch.autograd.backward(main, fn(dy.cpu()).to(main.dtype))
+        return {n: q.grad.double() * clip for n, q in mod.named_parameters(recurse=False)
+                if q.grad is not None}
+
+    def dist(a, b):
+        return float((a.double() - b.double()).norm())
+
+    owners = sorted({n.rsplit(".", 1)[0] for n in names})
+    worst_in, worst, controls, bad, whole = (0.0, ""), {}, [], [], [0.0, 0.0]
+    for owner in owners:
+        card, cpu, f64 = (captures[k][owner] for k in ("card", "cpu", "float64"))
+        if not card["calls"] == cpu["calls"] == f64["calls"] == 1:
+            fail(f"{what}: {owner} ran {card['calls']} / {cpu['calls']} / {f64['calls']} "
+                 "times in one step")
+        # (1) the card's input and output gradient against the float64 step
+        parts = (list(zip(tensors(card["in"]), tensors(cpu["in"]), tensors(f64["in"])))
+                 + [(card["dy"], cpu["dy"], f64["dy"])])
+        for i, (tc, t16, t64) in enumerate(parts):
+            label = f"{owner} {'output gradient' if i == len(parts) - 1 else f'input {i}'}"
+            if tc.dtype != t16.dtype or tc.shape != t16.shape:
+                fail(f"{what}: {label} on the card is {tc.dtype} {tuple(tc.shape)}, the CPU "
+                     f"bf16 step's {t16.dtype} {tuple(t16.shape)}")
+            t64 = t64.cpu()
+            norm = max(float(t64.norm()), 1e-300)
+            d16 = max(dist(t16.cpu(), t64), 2.0 ** -23 * norm) / norm
+            r = dist(tc.cpu(), t64) / norm / d16
+            whole[0], whole[1] = whole[0] + (r * d16) ** 2, whole[1] + d16 ** 2
+            worst_in = max(worst_in, (r, label))
+            if not r <= 2 * FLOAT64_WITNESS:
+                bad.append(f"{label} {r:.2f} times the CPU's distance from float64")
+        # (2) the leaves against the float64 leaf of the card's own terms
+        mod = nets["bf16"].get_submodule(owner)
+        want = local("float64", owner, card["in"], card["dy"], torch.Tensor.double)
+        if isinstance(mod, rl.BatchNorm2d):
+            kind = "BN"
+            x = tensors(card["in"])[0].cpu().double()
+            dy = card["dy"].cpu().double() * clip
+            dims = tuple(range(x.dim() - 1))
+            var, mean = torch.var_mean(x, dim=dims, correction=0)
+            rs = 1.0 / torch.sqrt(var + mod.eps)
+            units = math.ceil(math.log2(x.numel() // x.shape[-1])) * 2.0 ** -24
+            tol = {"bias": units * dy.abs().sum(dims),
+                   "scale": units * rs * ((dy * x).abs().sum(dims)
+                                          + mean.abs() * dy.abs().sum(dims))}
+        elif isinstance(mod, (rl.Conv2d, rl.ConvTranspose2d, rl.Linear)):
+            kind = "sum"
+            mags = local("float64", owner, card["in"], card["dy"],
+                         lambda t: t.double().abs())
+            n = card["dy"].numel() // card["dy"].shape[-1]
+            # bf16 roundings on the way: the transposed conv rounds each
+            # folded tap's sum, then the weight's sum of them
+            r = 2 if isinstance(mod, rl.ConvTranspose2d) else 1
+            tol = {k: (r * 2.0 ** -8 + (n - 1) * 2.0 ** -24) * (1 + 2.0 ** -8) ** r * m
+                   for k, m in mags.items()}
+        else:
+            kind = "LSTM"
+            g16 = local("bf16", owner, card["in"], card["dy"], lambda t: t)
+            tol = {k: FLOAT64_WITNESS * max(dist(g16[k], w), 2.0 ** -23 * float(w.norm()))
+                   for k, w in want.items()}
+        for pname, w in want.items():
+            name = f"{owner}.{pname}"
+            if name not in names:
+                continue
+            if kind == "LSTM":
+                r, rc = dist(card_grads[name], w) / tol[pname], dist(control[name], w) / tol[pname]
+            else:
+                t = tol[pname].reshape(w.shape) + 1e-300
+                r = float(((card_grads[name] - w).abs() / t).max())
+                rc = float(((control[name] - w).abs() / t).max())
+            worst[kind] = max(worst.get(kind, (0.0, "")), (r, name))
+            controls.append(rc)
+            if not r <= 1.0:
+                bad.append(f"{name} {r:.2f} of its limit from the float64 leaf")
+    whole = math.sqrt(whole[0] / whole[1])
+    if not whole <= FLOAT64_WITNESS:
+        bad.append(f"the modules' inputs and output gradients together {whole:.2f} times "
+                   "the CPU's distance from float64")
+    print(f"{what}: {len(names)} leaves of {len(owners)} modules held by their float64 "
+          f"witness: the modules' inputs and output gradients together {whole:.2f} times "
+          f"the CPU bf16 step's relative distance from the float64 step (limit "
+          f"{FLOAT64_WITNESS}), each at most {worst_in[0]:.2f} ({worst_in[1]}; limit "
+          f"{2 * FLOAT64_WITNESS}); each leaf against the float64 leaf of the card's own "
+          "terms, the largest share of its limit: "
+          + ", ".join(f"{k} {v[0]:.3f} ({v[1]})" for k, v in sorted(worst.items()))
+          + f"; the float32 control leaves it at {sum(r > 1.0 for r in controls)} of "
+          f"{len(controls)} leaves (median {sorted(controls)[len(controls) // 2]:.2f} of the "
+          "limit)", flush=True)
+    if bad:
+        fail(f"{what}: outside the float64 witness: " + "; ".join(bad))
+    if not any(r > 1.0 for r in controls):
+        fail(f"{what}: the float32 control stands inside the float64 witness at every leaf")
 
 
 def sum_order_ratios(results, key, witnesses):
@@ -3876,7 +4362,7 @@ def describe_ratios(ratios):
             + f"; median {ratios[len(ratios) // 2][0]:.2f} over {len(ratios)} leaves")
 
 
-def card_vs_cpu_step_bf16(what, cfg, noisy, clean, dev, seed) -> None:
+def card_vs_cpu_step_bf16(what, cfg, noisy, clean, dev, seed, witness=False) -> None:
     """``bf16_steps`` on the first ``CARD_CPU_BATCH`` waves, held: the loss
     and the gradient norm card vs CPU within half of the CPU's own bf16 ->
     float32 distance on that step; every gradient leaf above the residue
@@ -3886,11 +4372,17 @@ def card_vs_cpu_step_bf16(what, cfg, noisy, clean, dev, seed) -> None:
     distance (on the CPU, at 28 of 214 DCS leaves: PERF.md section 6); the
     post-Adam parameters within 2 lr + 3e-5 (the most that Adam's first
     step moves a parameter, lr a step, apart in either direction, weight
-    decay included)."""
+    decay included). With ``witness`` (the real family) a leaf outside the
+    sum-order rule is held by its float64 witness
+    (``float64_leaf_witness``) instead."""
+    import dataclasses
+
     import torch
 
-    results = bf16_steps(cfg, noisy[:CARD_CPU_BATCH], clean[:CARD_CPU_BATCH], dev, seed)
-    (card, card_g, card_p, _), (cpu, _, cpu_p, cpu_s), (cpu32, _, _, _) = (
+    captures = {} if witness else None
+    results = bf16_steps(cfg, noisy[:CARD_CPU_BATCH], clean[:CARD_CPU_BATCH], dev, seed,
+                         captures)
+    (card, card_g, card_p, _), (cpu, _, cpu_p, cpu_s), (cpu32, cpu32_g, _, _) = (
         results["card"], results["cpu"], results["cpu32"])
     for k in ("loss", "grad_norm"):
         d, ref = abs(card[k] - cpu[k]), abs(cpu[k] - cpu32[k])
@@ -3909,11 +4401,18 @@ def card_vs_cpu_step_bf16(what, cfg, noisy, clean, dev, seed) -> None:
           f"{SUM_ORDER_WITNESSES} sum-order witnesses (limit {SUM_ORDER_LIMIT}): largest "
           f"{describe_ratios(ratios)}; a witness against the other "
           f"{SUM_ORDER_WITNESSES - 1} at most {spread[0]:.2f} ({spread[1]}); the float32 "
-          f"control {describe_ratios(control)}", flush=True)
-    outside = [f"{n} ({r:.2f})" for r, n in ratios if r > SUM_ORDER_LIMIT]
-    if outside:
+          f"control {describe_ratios(control)}; {sum(r > SUM_ORDER_LIMIT for r, _ in ratios)} "
+          "leaves outside the rule", flush=True)
+    outside = [n for r, n in ratios if r > SUM_ORDER_LIMIT]
+    if outside and witness:
+        ncfg = cfg.replace(model=dataclasses.replace(cfg.model, dropout_conv=0.0,
+                                                     dropout_fc=0.0))
+        clip = min(1.0, cfg.optim.clip_norm / (card["grad_norm"] + 1e-6))
+        float64_leaf_witness(what, outside, captures, bf16_config(ncfg), ncfg, card_g,
+                             cpu32_g, clip)
+    elif outside:
         fail(f"{what}: bf16 gradients beyond {SUM_ORDER_LIMIT} sum-order distances: "
-             + ", ".join(outside))
+             + ", ".join(f"{n} ({r:.2f})" for r, n in ratios if r > SUM_ORDER_LIMIT))
     lr = cfg.optim.lr
     moved = max(float((card_p[n] - cpu_p[n]).abs().max()) for n in cpu_p)
     if moved > 2 * lr + 3e-5:
@@ -3944,158 +4443,37 @@ def check_sum_order(dev, card, noisy, clean, n_seeds):
               flush=True)
 
 
-def check_bf16_train(dev, card, tmp, noisy, clean, f32):
-    """Phase "bf16train": DCS (and DC) training at --dtype bfloat16 on the
-    card, on phase 7's batch ``noisy``, ``clean`` (B 32 x 8160) and weights:
-    (a) one eager step's launches; (b) card vs CPU at batch 4; (c) the K = 8
-    graph against eager; (d) ms a step beside float32's ``f32`` = (eager ms,
-    graphed ms, a replay's busy ms, its kernels) from phases "train" and
-    "graph" in this process, or None: then measured here; (e) each new class
-    against its plain version at every shape of the step; (f) a DC step at
-    bf16 and at float32, card vs CPU; (g) ``cli.train --dtype bfloat16`` for
-    an epoch at K = 8 and its checkpoint served at both types. Returns its
-    kernel rows."""
+def check_bf16_train(dev, card, tmp, noisy, clean, f32, drs_f32=None):
+    """Phase "bf16train": training at --dtype bfloat16 on the card, on phase
+    7's batch ``noisy``, ``clean`` (B 32 x 8160): DCS's step (``train_at_bf16``:
+    (a) launches, (d) ms beside float32's ``f32`` from phases "train" and
+    "graph" or measured here where None, (c) the K = 8 graph against eager,
+    (e) the classes against their plain versions, (b) card vs CPU at batch
+    4); (f) a DC step at bf16 and at float32, card vs CPU; (g) ``cli.train
+    --dtype bfloat16`` for an epoch at K = 8 and its checkpoint served at
+    both types; (h) DRS's step (``train_at_bf16`` beside ``drs_f32``, phase
+    "graph" (e)'s, its rows ``<kernel>_drs``, a leaf outside the sum-order
+    rule held by its float64 witness); (i) DRS through ``cli.train``,
+    ``cli.enhance --carry`` and ``cli.tune`` at bf16. Returns its kernel
+    rows."""
     import dataclasses
 
     import torch
 
+    from dcs_net_tpu_torch.cli import enhance as cli_enhance
+    from dcs_net_tpu_torch.cli import tune as cli_tune
     from dcs_net_tpu_torch.core.config import Config, config_for_variant
     from dcs_net_tpu_torch.data.audio_io import read_wav, write_wav
-    from dcs_net_tpu_torch.models.enhance import enhance_full
+    from dcs_net_tpu_torch.models.enhance import enhance_full, enhance_streaming
     from dcs_net_tpu_torch.models.unet import DCSNet
-    from dcs_net_tpu_torch.train import steps
     from dcs_net_tpu_torch.train.checkpoint import load_model
-    from dcs_net_tpu_torch.train.optim import make_optimizer
-    from dcs_net_tpu_torch.utils import cuda_lib
 
     t_phase = time.perf_counter()
-    cfg = config_for_variant("dcs")
-    c16 = bf16_config(cfg)
     k = GRAPH_K
+    rows = train_at_bf16(dev, card, noisy, clean, "dcs", f32, BF16_TRAIN_STEP_LAUNCHES,
+                         SEED + 11, SEED + 13)
 
-    # (a) one eager bf16 step at batch 32, dropout on, phase 7's weights
-    torch.manual_seed(SEED)
-    model = DCSNet(c16.model, c16.quirks, device=dev, seed=SEED + 11)
-    opt = make_optimizer(model.parameters(), c16.optim)
-
-    def step():
-        return steps.train_step(model, opt, steps.batch_from_waves(noisy, clean, c16), c16)
-
-    shapes = discover_shapes(step)
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    out = step()
-    torch.cuda.synchronize()
-    launches = launch_counts()
-    print(f"bf16train: (a) train_step launches {launches}, loss {float(out['loss']):.4f}",
-          flush=True)
-    expect_launches("bf16train (a): one bf16 train step", launches, BF16_TRAIN_STEP_LAUNCHES)
-    if not math.isfinite(float(out["loss"])) or float(out["skipped"]) != 0.0:
-        fail("bf16train (a): the bf16 step's loss is not finite")
-    if not all(p.dtype == torch.float32 and torch.isfinite(p.grad).all()
-               for p in model.parameters()):
-        fail("bf16train (a): a parameter or its gradient is not finite float32")
-
-    # (d) ms a step: the eager median of 20, the graphed median of 5 replays
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(20):
-        t1 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t1) * 1e3)
-    eager16 = sorted(walls)[10]
-    del model, opt
-    x, y = graph_waves(noisy, clean, 2 * k)
-    torch.cuda.empty_cache()
-    model = DCSNet(c16.model, c16.quirks, device=dev, seed=SEED + 11)
-    model.set_dropout_generator(torch.Generator(device=dev).manual_seed(SEED + 41))
-    opt = make_optimizer(model.parameters(), c16.optim)
-    scanned = steps.make_scanned_train_step(model, opt, c16, k)
-    scanned(x[:k], y[:k])
-    torch.cuda.synchronize()
-    cuda_lib.reset_launch_counts()
-    scanned(x[k:], y[k:])
-    torch.cuda.synchronize()
-    glaunches = launch_counts()
-    print(f"bf16train: (d) captured {k} bf16 train steps in {scanned.capture_s:.2f} s, "
-          f"private pool {scanned.pool_bytes / 2**30:.2f} GiB, one replay's launches "
-          f"{ {n: c for n, c in glaunches.items() if c} }", flush=True)
-    expect_launches("bf16train (d): one replay", glaunches,
-                    {n: k * c for n, c in BF16_TRAIN_STEP_LAUNCHES.items()})
-    glaunches = {kn.name: kn.launches for kn in cuda_lib.KERNELS.values()}
-    graph16, busy16, kernels16 = time_graph("DCS at bf16", scanned, glaunches, x[:k], y[:k],
-                                            eager16, card)
-    del model, opt, scanned
-    torch.cuda.empty_cache()
-    if f32 is None:
-        # float32's numbers in this process, as phases "train" and "graph" take them
-        model = DCSNet(cfg.model, cfg.quirks, device=dev, seed=SEED + 11)
-        model.set_dropout_generator(torch.Generator(device=dev).manual_seed(SEED + 41))
-        opt = make_optimizer(model.parameters(), cfg.optim)
-        for _ in range(3):
-            steps.train_step(model, opt, steps.batch_from_waves(noisy, clean, cfg), cfg)
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(20):
-            t1 = time.perf_counter()
-            steps.train_step(model, opt, steps.batch_from_waves(noisy, clean, cfg), cfg)
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t1) * 1e3)
-        scanned = steps.make_scanned_train_step(model, opt, cfg, k)
-        scanned(x[:k], y[:k])
-        cuda_lib.reset_launch_counts()
-        scanned(x[k:], y[k:])
-        torch.cuda.synchronize()
-        flaunches = {kn.name: kn.launches for kn in cuda_lib.KERNELS.values()}
-        f32 = (sorted(walls)[10],) + time_graph("DCS", scanned, flaunches, x[:k], y[:k],
-                                                sorted(walls)[10], card)
-        del model, opt, scanned
-        torch.cuda.empty_cache()
-    eager32, graph32, busy32, kernels32 = f32
-    print(f"bf16train: (d) DCS step at batch {TRAIN_BATCH} x {TRAIN_CROP}: bf16 eager "
-          f"{eager16:.2f} ms (median of 20), graphed {graph16:.2f} ms (median of 5 "
-          f"replays of {k}), a replay busy {busy16:.2f} ms, {kernels16} device kernels; "
-          f"float32 eager {eager32:.2f}, graphed {graph32:.2f}, busy {busy32:.2f} ms, "
-          f"{kernels32} kernels (this process) [{card}]", flush=True)
-
-    # (c) the K = 8 graph against eager at bf16, cuDNN's deterministic
-    # algorithms on both sides: 16 steps' losses rtol 1e-4, the state in band
-    torch.backends.cudnn.deterministic = True
-    try:
-        pair = []
-        for _ in range(2):
-            m = DCSNet(c16.model, c16.quirks, device=dev, seed=SEED + 42)
-            m.set_dropout_generator(torch.Generator(device=dev).manual_seed(SEED + 43))
-            pair += [m, make_optimizer(m.parameters(), c16.optim)]
-        a, oa, b, ob = pair
-        sa = steps.make_scanned_train_step(a, oa, c16, k)
-        got = sa(x[:k], y[:k])["loss"].tolist() + sa(x[k:], y[k:])["loss"].tolist()
-        want = [float(steps.train_step(b, ob, steps.batch_from_waves(
-            x[i].to(dev), y[i].to(dev), c16), c16)["loss"]) for i in range(2 * k)]
-        err = max(abs(g - w) / abs(w) for g, w in zip(got, want))
-        print(f"bf16train: (c) dropout on, {2 * k} bf16 steps (an eager dispatch and a "
-              f"replay) against {2 * k} eager steps: max relative loss difference "
-              f"{err:.3e} (limit 1e-4)", flush=True)
-        if not err <= 1e-4:
-            fail(f"bf16train (c): the graphed bf16 losses {got} are not eager's {want}")
-        state_band("bf16train: (c) after 16 bf16 steps", a, b)
-        del a, oa, b, ob, sa, pair
-        torch.cuda.empty_cache()
-    finally:
-        torch.backends.cudnn.deterministic = False
-
-    # (e) each new class against its plain version at the step's shapes
-    rows = check_kernels({name: shapes[name] for name in BF16_TRAIN_ROWS if shapes[name]},
-                         launches, dev, c16, card, "bf16 train step")
-    for row in rows:
-        row["launches_graph_replay"] = glaunches.get(row["name"], 0)
-
-    # (b) and (f): card vs CPU, batch 4, dropout off: DCS at bf16; DC at bf16
-    # and at float32
-    card_vs_cpu_step_bf16("bf16train (b) DCS", cfg, noisy, clean, dev, SEED + 13)
+    # (f) DC at bf16 and at float32, card vs CPU, batch 4, dropout off
     dcfg = config_for_variant("dc")
     card_vs_cpu_step_bf16("bf16train (f) DC", dcfg, noisy, clean, dev, SEED + 14)
     card_vs_cpu_step("bf16train (f) DC float32", dcfg, noisy, clean, dev, SEED + 14)
@@ -4122,8 +4500,10 @@ def check_bf16_train(dev, card, tmp, noisy, clean, f32):
             model=dataclasses.replace(saved.model, compute_dtype="float32"),
             stft=dataclasses.replace(saved.stft, dft_dtype="float32"))
         dst = os.path.join(root, f"served_{dtype}.wav")
-        stdout, wall = run_cli("enhance", ["dcs", "--in", src, "--out", dst, "--ckpt-dir",
-                                           ckpt, "--dtype", dtype], timeout=300)
+        t1 = time.perf_counter()
+        cli_enhance.main(["dcs", "--in", src, "--out", dst, "--ckpt-dir", ckpt, "--dtype",
+                          dtype])
+        wall = time.perf_counter() - t1
         audio, sr = read_wav(dst)
         cpu_model = DCSNet(c.model, c.quirks, device="cpu")
         step_n = load_model(ckpt, cpu_model)
@@ -4131,8 +4511,8 @@ def check_bf16_train(dev, card, tmp, noisy, clean, f32):
                    if t.is_floating_point()):
             fail("bf16train (g): the bf16-trained checkpoint holds non-float32 tensors")
         want = enhance_full(cpu_model, torch.from_numpy(x1)[None], c)[0]
-        print(f"bf16train: (g) cli.enhance --ckpt-dir (step {step_n}) --dtype {dtype}: exit "
-              f"0 in {wall:.1f} s", flush=True)
+        print(f"bf16train: (g) cli.enhance --ckpt-dir (step {step_n}) --dtype {dtype}: "
+              f"returned in {wall:.1f} s (in this process)", flush=True)
         if sr != SR or audio.shape != tuple(want.shape):
             fail(f"bf16train (g): cli.enhance --dtype {dtype} wrote {audio.shape} at {sr}")
         served[dtype] = (torch.from_numpy(audio), want)
@@ -4141,7 +4521,194 @@ def check_bf16_train(dev, card, tmp, noisy, clean, f32):
                      *served["float32"])
     bf16_band(want32)("bf16train: (g) the bf16-trained checkpoint served at bf16, 1 s",
                       *served["bfloat16"])
+    # (h) DRS at bf16
+    rows += train_at_bf16(dev, card, noisy, clean, "drs", drs_f32,
+                          BF16_DRS_TRAIN_STEP_LAUNCHES, SEED + 50, SEED + 16, "_drs",
+                          witness=True)
+
+    # (i) DRS through the CLIs at --dtype bfloat16: the trainer on the
+    # streaming preset for an epoch of 8 steps at K = 4 (an eager dispatch,
+    # then the capture's replay), its checkpoint served by cli.enhance --carry
+    # against the CPU's carried stream; cli.tune for one trial of one epoch
+    # (both in this process)
+    droot = os.path.join(tmp, "bf16train_drs")
+    _, metrics = run_trainer(droot, 1, False, card, ("--dtype", "bfloat16", "--streaming",
+                                                     "--steps-per-dispatch", "4"),
+                             GRAPH_TRAIN_N // 2, k, variant="drs")
+    if (metrics.get("steps") != k or metrics.get("nonfinite_loss_steps") != 0
+            or not math.isfinite(metrics.get("loss", float("nan")))):
+        fail(f"bf16train (i): the bf16 DRS trainer: {metrics}")
+    ckpt = os.path.join(droot, "drs", "checkpoints")
+    with open(os.path.join(ckpt, "config.json")) as f:
+        saved = Config.from_json(f.read())
+    if saved.model.compute_dtype != "bfloat16" or saved.model.lstm_bidir:
+        fail("bf16train (i): the checkpoint's config is not DRS's bf16 streaming one")
+    dst = os.path.join(droot, "served_carry.wav")
+    t1 = time.perf_counter()
+    cli_enhance.main(["drs", "--in", src, "--out", dst, "--ckpt-dir", ckpt, "--carry",
+                      "--dtype", "bfloat16"])
+    wall = time.perf_counter() - t1
+    audio, sr = read_wav(dst)
+    carried = {}
+    for c in (saved, saved.replace(
+            model=dataclasses.replace(saved.model, compute_dtype="float32"),
+            stft=dataclasses.replace(saved.stft, dft_dtype="float32"))):
+        cpu_model = DCSNet(c.model, c.quirks, device="cpu")
+        step_n = load_model(ckpt, cpu_model)
+        carried[c.model.compute_dtype] = enhance_streaming(
+            cpu_model, torch.from_numpy(x1)[None], c, chunk_frames=256, overlap=0,
+            carry_lstm_state=True)[0]
+    print(f"bf16train: (i) cli.enhance drs --carry --ckpt-dir (step {step_n}) --dtype "
+          f"bfloat16: returned in {wall:.1f} s (in this process)", flush=True)
+    if sr != SR or audio.shape != tuple(carried["bfloat16"].shape):
+        fail(f"bf16train (i): cli.enhance drs --carry wrote {audio.shape} at {sr}")
+    bf16_band(carried["float32"])("bf16train: (i) the bf16-trained DRS checkpoint served "
+                                  "carried at bf16, 1 s", torch.from_numpy(audio),
+                                  carried["bfloat16"])
+    args = ["drs", "--synthetic", "--synthetic-n", str(TUNE_N_SYNTHETIC), "--batch-size",
+            str(TUNE_BATCH), "--trials", "1", "--trial-epochs", "1", "--dtype", "bfloat16",
+            "--log-dir", os.path.join(tmp, "tune_drs_bf16")]
+    t1 = time.perf_counter()
+    best = cli_tune.main(args)
+    print(f"bf16train: (i) cli.tune {' '.join(args[:-2])}: returned {best} in "
+          f"{time.perf_counter() - t1:.1f} s (in this process) [{card}]", flush=True)
+    if not math.isfinite(best.get("value", float("nan"))):
+        fail(f"bf16train (i): cli.tune drs --dtype bfloat16 gave no finite best: {best}")
     print(f"bf16train: phase took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return rows
+
+
+def train_at_bf16(dev, card, noisy, clean, variant, f32, want, seed, cpu_seed, suffix="",
+                  witness=False):
+    """One variant's train step at --dtype bfloat16 on phase 7's batch
+    ``noisy``, ``clean`` (32 x 8160), labelled by ``variant``: (a) one eager
+    step's launches, exactly ``want`` (dropout on, weights seeded ``seed``);
+    (d) ms a step, the eager median of 5 and the graphed median of 5
+    replays of K = 8, a replay's busy time and kernels, beside float32's
+    ``f32`` = (eager ms, graphed ms, busy ms, kernels) from earlier phases,
+    or None: then measured here; (c) the K = 8 graph against eager at bf16
+    under cuDNN's deterministic algorithms (16 steps' losses rtol 1e-4, the
+    state in band); (e) the training classes against their plain versions
+    at the step's shapes (rows ``<kernel><suffix>``); (b) the step at batch
+    4 card vs CPU (``card_vs_cpu_step_bf16``, seeded ``cpu_seed``, with the
+    float64 ``witness`` for the real family). Returns its rows."""
+    import torch
+
+    from dcs_net_tpu_torch.core.config import config_for_variant
+    from dcs_net_tpu_torch.models.unet import DCSNet
+    from dcs_net_tpu_torch.train import steps
+    from dcs_net_tpu_torch.train.optim import make_optimizer
+    from dcs_net_tpu_torch.utils import cuda_lib
+
+    t0 = time.perf_counter()
+    what = f"bf16train: {variant.upper()}"
+    cfg = config_for_variant(variant)
+    c16 = bf16_config(cfg)
+    k = GRAPH_K
+
+    def model_and_opt(c, s):
+        m = DCSNet(c.model, c.quirks, device=dev, seed=s)
+        m.set_dropout_generator(torch.Generator(device=dev).manual_seed(s + 1))
+        return m, make_optimizer(m.parameters(), c.optim)
+
+    def eager_ms(m, o, c):
+        def one():
+            return steps.train_step(m, o, steps.batch_from_waves(noisy, clean, c), c)
+        for _ in range(2):
+            one()
+        return median_ms(one, 5)
+
+    def graph(m, o, c, label):
+        """The K = 8 capture of ``m``'s steps: one replay's launches, timed."""
+        scanned = steps.make_scanned_train_step(m, o, c, k)
+        scanned(x[:k], y[:k])
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        scanned(x[k:], y[k:])
+        torch.cuda.synchronize()
+        got = launch_counts()
+        print(f"{what}: (d) captured {k} {label} train steps in {scanned.capture_s:.2f} s, "
+              f"private pool {scanned.pool_bytes / 2**30:.2f} GiB, one replay's launches "
+              f"{got}", flush=True)
+        return scanned, {kn.name: kn.launches for kn in cuda_lib.KERNELS.values()}, got
+
+    # (a) one eager step's launches
+    torch.manual_seed(SEED)
+    model, opt = model_and_opt(c16, seed)
+
+    def step():
+        return steps.train_step(model, opt, steps.batch_from_waves(noisy, clean, c16), c16)
+
+    shapes = discover_shapes(step)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    out = step()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    print(f"{what}: (a) train_step launches {launches}, loss {float(out['loss']):.4f}",
+          flush=True)
+    expect_launches(f"{what} (a): one bf16 train step", launches, want)
+    if not math.isfinite(float(out["loss"])) or float(out["skipped"]) != 0.0:
+        fail(f"{what} (a): the bf16 step's loss is not finite")
+    if not all(p.dtype == torch.float32 and torch.isfinite(p.grad).all()
+               for p in model.parameters()):
+        fail(f"{what} (a): a parameter or its gradient is not finite float32")
+
+    # (d) ms a step, eager and graphed
+    eager16 = eager_ms(model, opt, c16)
+    x, y = graph_waves(noisy, clean, 2 * k)
+    scanned, glaunches, got = graph(model, opt, c16, "bf16")
+    expect_launches(f"{what} (d): one replay", got, {n: k * c for n, c in want.items()})
+    graph16, busy16, kernels16 = time_graph(f"{variant.upper()} at bf16", scanned, glaunches,
+                                            x[:k], y[:k], eager16, card)
+    del model, opt, scanned
+    torch.cuda.empty_cache()
+    if f32 is None:
+        m, o = model_and_opt(cfg, seed)
+        e32 = eager_ms(m, o, cfg)
+        scanned, flaunches, _ = graph(m, o, cfg, "float32")
+        f32 = (e32,) + time_graph(variant.upper(), scanned, flaunches, x[:k], y[:k], e32, card)
+        del m, o, scanned
+        torch.cuda.empty_cache()
+    eager32, graph32, busy32, kernels32 = f32
+    print(f"{what}: (d) step at batch {TRAIN_BATCH} x {TRAIN_CROP}: bf16 eager "
+          f"{eager16:.2f} ms (median of 5), graphed {graph16:.2f} ms (median of 5 "
+          f"replays of {k}), a replay busy {busy16:.2f} ms, {kernels16} device kernels; "
+          f"float32 eager {eager32:.2f}, graphed {graph32:.2f}, busy {busy32:.2f} ms, "
+          f"{kernels32} kernels (this process) [{card}]", flush=True)
+
+    # (c) the K = 8 graph against eager at bf16, cuDNN's deterministic
+    # algorithms on both sides: 16 steps' losses rtol 1e-4, the state in band
+    torch.backends.cudnn.deterministic = True
+    try:
+        a, oa = model_and_opt(c16, seed + 2)
+        b, ob = model_and_opt(c16, seed + 2)
+        sa = steps.make_scanned_train_step(a, oa, c16, k)
+        got = sa(x[:k], y[:k])["loss"].tolist() + sa(x[k:], y[k:])["loss"].tolist()
+        want_losses = [float(steps.train_step(b, ob, steps.batch_from_waves(
+            x[i].to(dev), y[i].to(dev), c16), c16)["loss"]) for i in range(2 * k)]
+        err = max(abs(g - w) / abs(w) for g, w in zip(got, want_losses))
+        print(f"{what}: (c) dropout on, {2 * k} bf16 steps (an eager dispatch and a "
+              f"replay) against {2 * k} eager steps: max relative loss difference "
+              f"{err:.3e} (limit 1e-4)", flush=True)
+        if not err <= 1e-4:
+            fail(f"{what} (c): the graphed bf16 losses {got} are not eager's {want_losses}")
+        state_band(f"{what}: (c) after {2 * k} bf16 steps", a, b)
+        del a, oa, b, ob, sa
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # (e) each training class against its plain version at the step's shapes
+    rows = check_kernels({name: shapes[name] for name in BF16_TRAIN_ROWS if shapes[name]},
+                         launches, dev, c16, card, f"{variant.upper()} bf16 train step", suffix)
+    for row in rows:
+        row["launches_graph_replay"] = glaunches.get(row["name"][:len(row["name"])
+                                                                  - len(suffix)], 0)
+
+    # (b) card vs CPU, batch 4, dropout off
+    card_vs_cpu_step_bf16(f"{what} (b)", cfg, noisy, clean, dev, cpu_seed, witness)
+    print(f"{what}: took {time.perf_counter() - t0:.1f} s", flush=True)
     return rows
 
 
@@ -4182,12 +4749,21 @@ def main(argv=None) -> int:
 
     # phase 2: build
     t0 = time.perf_counter()
+    marks = [t0]
+
+    def phase_done(name):
+        """Print the seconds since the last phase ended, and the total."""
+        marks.append(time.perf_counter())
+        print(f"phase {name}: {marks[-1] - marks[-2]:.1f} s ({marks[-1] - t0:.1f} s after "
+              "the device check)", flush=True)
+
     build_s = cuda_lib.build_all()
     print(f"build: {len(cuda_lib.KERNELS)} kernels ({', '.join(cuda_lib.KERNELS)}) "
           f"built in {build_s:.1f} s (nvcc {cuda_lib.find_nvcc()}; each source's "
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(cuda_lib.BUILD_SECONDS.items()))
           + f"), into {cuda_lib.BUILD_DIR}", flush=True)
 
+    phase_done("build")
     if args.stft_only:
         cfg = config_for_variant("dcs")
         t1 = time.perf_counter()
@@ -4206,9 +4782,11 @@ def main(argv=None) -> int:
         return finish([], smi)
     if args.bf16_only:
         rows = check_bf16(dev, card)
+        phase_done("bf16")
         with tempfile.TemporaryDirectory(prefix="dcs_bf16train_") as tmp:
             _, noisy, clean = train_batch(dev, tmp)
             rows += check_bf16_train(dev, card, tmp, noisy, clean, None)
+        phase_done("bf16train")
         print(f"total: {time.perf_counter() - t0:.1f} s after the device check", flush=True)
         return finish(rows, smi)
 
@@ -4264,9 +4842,11 @@ def main(argv=None) -> int:
                   {"stft": 1, **DCS_EVAL_FORWARD}, card,
                   (lambda g: enhance_full(model, short.to(dev), cfg, graphs=g), on_cpu))
     check_keep_alive(model, cfg, dev, card)
+    phase_done("slice")
 
     # phase 4: streaming
     stream_shapes, stream_launches = check_streaming(model, cpu_model, cfg, dev, card)
+    phase_done("stream")
 
     # phase 5: kernels against their plain versions, at the slice's shapes.
     # Kernel 2's conv entry is held at the shapes the gate entry ran its body
@@ -4308,6 +4888,7 @@ def main(argv=None) -> int:
     check_tapconv_off_path(dev)
     check_forward_sweep(dev, card)
     check_dgrad_off_path(dev, card)
+    phase_done("kernels")
 
     # phase 6: CLI on a 48 kHz wav, full and streamed
     from dcs_net_tpu_torch.cli import enhance as cli
@@ -4327,6 +4908,7 @@ def main(argv=None) -> int:
                 fail(f"CLI output with {flags}: sr {sr}, shape {audio.shape}")
             print(f"cli {' '.join(flags) or '(full)'}: 2 s at 48 kHz -> "
                   f"{audio.shape[0]} samples at {sr} Hz, finite", flush=True)
+    phase_done("cli")
 
     # phase 7: the train step and the trainer
     # phase "graph": the train steps as one CUDA graph replay a dispatch
@@ -4334,14 +4916,19 @@ def main(argv=None) -> int:
     # phase "eval": the evaluation path on what phase 7 left
     with tempfile.TemporaryDirectory(prefix="dcs_train_") as tmp:
         train_rows, train_launches, (noisy, clean, eager_ms) = check_train(dev, card, tmp)
-        graph_launches, drs_graph_launches, graph_f32 = check_graph(
+        phase_done("train")
+        graph_launches, drs_graph_launches, graph_f32, drs_f32 = check_graph(
             dev, card, tmp, noisy, clean, eager_ms)
+        phase_done("graph")
         # phase "bf16train" on phase 7's batch, beside phase "graph"'s float32
         bf16_train_rows = check_bf16_train(dev, card, tmp, noisy, clean,
-                                           (eager_ms,) + graph_f32)
+                                           (eager_ms,) + graph_f32, drs_f32)
+        phase_done("bf16train")
         del noisy, clean
         check_loader(card, tmp, graph_f32[0])
+        phase_done("loader")
         eval_rows = check_eval(dev, card, tmp)
+        phase_done("eval")
     del model, cpu_model
     for row in rows:
         row["launches_train"] = train_launches.get(row["name"], 0)
@@ -4364,9 +4951,11 @@ def main(argv=None) -> int:
     for row in real_rows:
         row["launches_graph_replay"] = drs_graph_launches.get(row["name"][:-len("_drs")], 0)
     rows += real_rows
+    phase_done("real")
 
     # phase "bf16": the serving paths at --dtype bfloat16
     rows += check_bf16(dev, card)
+    phase_done("bf16")
     rows += bf16_train_rows
     print(f"total: {time.perf_counter() - t0:.1f} s after the device check", flush=True)
     return finish(rows, smi)

@@ -31,21 +31,10 @@ def add_common_args(p: argparse.ArgumentParser) -> None:
                    help="streaming preset: unidirectional LSTM + time-major latent")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default=None,
                    help="matmul/conv operand dtype (bfloat16: bf16 operands, "
-                        "float32 accumulation; DC and DCS, the real variants "
-                        "at it are not yet ported)")
+                        "float32 accumulation; every variant)")
     p.add_argument("--config-json", default=None,
                    help="load a serialized Config (overrides other flags)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-
-
-def check_ported(p: argparse.ArgumentParser, cfg: Config) -> None:
-    """Exit through ``p.error`` for what the port does not run yet: the real
-    variants (DR, DRS) at ``--dtype bfloat16``, in every CLI; DC and DCS
-    train, evaluate and serve at it."""
-    if cfg.model.compute_dtype == "bfloat16" and not cfg.model.complex_valued:
-        p.error(f"--dtype bfloat16 is not yet ported for the real variants (DR, DRS; "
-                f"here {cfg.variant}): the port runs DC and DCS at bf16 "
-                "(ROADMAP Queue 1 item 4b)")
 
 
 def with_dtype(cfg: Config, dtype: str) -> Config:

@@ -14,9 +14,9 @@ overlap; a checkpoint must have been trained with it). On the card the
 fixed-shape parts run through a ``models/graphed.py`` ``GraphCache``: a
 stream's groups (or carried chunks) from the third on replay one CUDA graph.
 ``--dtype bfloat16`` serves the (float32) weights with bf16 operands and
-float32 sums, as the JAX package's ``--dtype`` runs them (the complex
-variants; it overrides the operand type of ``--config-json`` and of a
-checkpoint's config).
+float32 sums, as the JAX package's ``--dtype`` runs them (every variant; it
+overrides the operand type of ``--config-json`` and of a checkpoint's
+config).
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def main(argv=None) -> None:
 
     import torch
 
-    from dcs_net_tpu_torch.cli.common import check_ported, with_dtype
+    from dcs_net_tpu_torch.cli.common import with_dtype
     from dcs_net_tpu_torch.core.config import Config, config_for_variant
     from dcs_net_tpu_torch.data.audio_io import read_wav, resample, write_wav
     from dcs_net_tpu_torch.models.enhance import enhance_full, enhance_streaming
@@ -98,7 +98,6 @@ def main(argv=None) -> None:
             print(f"using config saved with checkpoint ({cfg.variant})")
     if args.dtype:
         cfg = with_dtype(cfg, args.dtype)
-    check_ported(p, cfg)
     if args.carry and cfg.model.lstm_bidir:
         p.error("--carry needs a model trained with the streaming preset "
                 "(lstm_bidir=False, lstm_time_major=True): a bidirectional "

@@ -11,8 +11,8 @@ and CSIG/CBAK/COVL), and the means printed. ``--device`` defaults to cuda
 (``cpu`` runs the kernels' plain versions); without a card the default
 raises. ``--no-tensorboard`` is accepted for the JAX CLI's sake: the port
 writes JSON lines and WAVs only. ``--dtype bfloat16`` evaluates the float32
-checkpoint with bf16 operands and float32 sums, as the JAX CLI does (the
-complex variants).
+checkpoint with bf16 operands and float32 sums, as the JAX CLI does (every
+variant).
 """
 
 from __future__ import annotations
@@ -20,8 +20,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from dcs_net_tpu_torch.cli.common import (add_common_args, build_config,
-                                          check_ported, make_test_loader)
+from dcs_net_tpu_torch.cli.common import add_common_args, build_config, make_test_loader
 
 
 def main(argv=None) -> dict:
@@ -39,7 +38,6 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     cfg = build_config(args)
-    check_ported(p, cfg)
     if not checkpoint_steps(cfg.run.ckpt_dir):
         raise SystemExit(f"no checkpoint found under {cfg.run.ckpt_dir}")
     out_dir = cfg.run.log_dir + "-test"

@@ -11,9 +11,8 @@ dispatch, on the card as one CUDA graph replay (default 8 there, 1 with
 overrides ``--config-json``'s value, as in the JAX CLI. ``--no-tensorboard``
 reaches the ``Trainer`` as ``use_tensorboard=False``; the port writes no
 TensorBoard yet, only its JSON lines and WAVs. ``--dtype bfloat16`` trains
-DC and DCS with bf16 operands and float32 sums, the parameters, BN and Adam
-in float32, as the JAX CLI does; DR and DRS at bf16 are not yet ported and
-exit through the parser's error (ROADMAP Queue 1 item 4b).
+any variant with bf16 operands and float32 sums, the parameters, BN and Adam
+in float32, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -22,8 +21,7 @@ import argparse
 import dataclasses
 import itertools
 
-from dcs_net_tpu_torch.cli.common import (add_common_args, build_config,
-                                          check_ported, make_loaders)
+from dcs_net_tpu_torch.cli.common import add_common_args, build_config, make_loaders
 
 
 class _Capped:
@@ -57,7 +55,6 @@ def main(argv=None) -> dict:
     from dcs_net_tpu_torch.train.loop import Trainer
 
     cfg = build_config(args)
-    check_ported(p, cfg)
     cfg = cfg.replace(run=dataclasses.replace(cfg.run, steps_per_dispatch=k))
     print(f"variant={cfg.variant} complex={cfg.model.complex_valued} "
           f"subtractive={cfg.model.subtractive} faithful_quirks="

@@ -22,8 +22,7 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-from dcs_net_tpu_torch.cli.common import (add_common_args, build_config,
-                                          check_ported, make_loaders)
+from dcs_net_tpu_torch.cli.common import add_common_args, build_config, make_loaders
 from dcs_net_tpu_torch.core.config import Config
 
 MIN_PEERS = 4   # earlier trials that must have reached an epoch before it prunes
@@ -98,7 +97,6 @@ def main(argv=None) -> Dict:
 
     device = resolve_device(args.device)
     base_cfg = build_config(args)
-    check_ported(p, base_cfg)
     print(f"loader={choose_front_end(base_cfg.data)[1]}", flush=True)
 
     try:

@@ -44,8 +44,8 @@ class STFTConfig:
     pad_mode: str = "reflect"
     drop_dc: bool = True
     # operand dtype of the DFT/iDFT basis products (float32 accumulation
-    # either way): "float32" or "bfloat16" (every CLI takes --dtype; the
-    # real variants at bf16 are ROADMAP Queue 1 item 4b)
+    # either way): "float32" or "bfloat16" (every CLI takes --dtype, for
+    # every variant)
     dft_dtype: str = "float32"
 
     @property
@@ -131,7 +131,7 @@ class ModelConfig:
     atan2_eps: float = 1e-6
     init: str = "xavier_uniform"
     # conv/matmul operand dtype, "float32" or "bfloat16" (bf16 operands,
-    # float32 sums, bf16 activations: the complex variants);
+    # float32 sums, bf16 activations: every variant);
     # the parameters are float32 whatever it is
     compute_dtype: str = "float32"
     param_dtype: str = "float32"

@@ -20,7 +20,8 @@
 // the file has three entry points: the conv alone (dcs_conv_same_small_cout),
 // the pooling pass (dcs_sa_pool) and the conv with a sigmoid-and-product
 // epilogue (dcs_sa_gate); the real family's pair of the last two (below);
-// and at bf16 the whole gate in one kernel (dcs_sa_fused_bf16).
+// at bf16 the whole gate in one kernel (dcs_sa_fused_bf16), the conv
+// entry's bf16 class and the real pair's bf16 classes.
 //
 // What bounds them on the H100. The conv alone: operations, narrowly. Per
 // output pixel it reads Cin floats and writes Cout floats (24 bytes for the
@@ -131,11 +132,24 @@
 // write of x), whose product spreads a tile's pixels over all 128 threads.
 //
 // Training at bf16 (the JAX _conv_fwd_pallas and _bwd at bf16 operands)
-// runs the register-tiled body at the complex classes with bf16 loads
+// runs the register-tiled body at every tiled class with bf16 loads
 // (conv7_bf16_kernel, dcs_conv_same_small_cout_bf16): x and w widened to
 // float32 exactly as they are staged, float32 sums, the float32 bias added
-// and y rounded once to bf16; the input gradient, class (7, 2, 4), is the
-// same entry on the bf16 gradient with the flipped, transposed kernel.
+// and y rounded once to bf16; the input gradient, class (7, 2, 4) or, for
+// DR / DRS, (7, 1, 2), is the same entry on the bf16 gradient with the
+// flipped, transposed kernel. At the real classes a tap's 2 weights are one
+// 4-byte word (a bf16 pair) and a staged pixel 4 or 2 bytes, widened to the
+// float2 or float the float32 body stages, so the tile, the pitch and R = 8
+// are the float32 body's.
+//
+// Serving DR / DRS at bf16 runs the real pool and gate's bf16 classes
+// (dcs_sa_pool_real_bf16, dcs_sa_gate_real_bf16): the same two kernels over
+// bf16 x (16-byte loads of 8 channels where C and the pointers allow), the
+// pooled map and w bf16. They round where the JAX real spatial attention
+// and widen.mul_bcast round: the mean once from float32 sums (the max is
+// exact), the conv's float32 sums to bf16, the sigmoid of that to bf16, the
+// product once. Like the float32 pair they are bound by the bytes of x, now
+// half as many.
 //
 // Every other (K, Cin, Cout) takes the generic body below: one thread per
 // output pixel on an 8 x 32 tile, input chunk and weights in shared memory.
@@ -312,6 +326,12 @@ struct Load<__nv_bfloat16, 2> {
     return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[i]);
   }
 };
+template <>
+struct Load<__nv_bfloat16, 1> {
+  static __device__ __forceinline__ float at(const __nv_bfloat16* p, long long i) {
+    return __bfloat162float(p[i]);
+  }
+};
 
 struct Tile {
   int tx, ty;        // threads along W and H that take part in the conv
@@ -484,15 +504,14 @@ conv7_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // H, W, CIN) and w bf16, widened to float32 exactly as they are staged (so
 // every product is exact), the taps summed in float32, the float32 bias
 // added and each output rounded once to bf16. The same register-tiled body
-// and tile as conv7_kernel, classes (7, 4, 2) and its input gradient's
-// (7, 2, 4); only the loads and the store differ.
+// and tile as conv7_kernel at every tiled class; only the loads and the
+// store differ.
 template <int R, int CIN, int COUT>
 __global__ void __launch_bounds__(NT)
 conv7_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                   const __nv_bfloat16* __restrict__ w,
                   const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
                   const Tile t, int H, int W) {
-  static_assert(COUT % 2 == 0, "bf16 pixels are stored as bf16 pairs");
   extern __shared__ float4 smem[];
   const int b = blockIdx.z, h0 = blockIdx.y * t.ty, w0 = blockIdx.x * t.tw;
   const int tid = threadIdx.x;
@@ -508,15 +527,30 @@ conv7_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         att[(ty * t.tw + tx * R + r) * COUT + co] = acc[r][co] + bias[co];
   }
   __syncthreads();
-  __nv_bfloat162* yv = reinterpret_cast<__nv_bfloat162*>(y) + (long long)b * H * W * (COUT / 2);
-  for (int e = tid; e < t.ty * t.tw; e += NT) {
-    const int row = e / t.tw, col = e - row * t.tw;
-    const int hh = h0 + row, ww = w0 + col;
-    if (hh < H && ww < W) {
-      __nv_bfloat162* dst = yv + ((long long)hh * W + ww) * (COUT / 2);
+  if constexpr (COUT % 2 == 0) {
+    // a pixel's outputs as bf16 pairs
+    __nv_bfloat162* yv = reinterpret_cast<__nv_bfloat162*>(y) + (long long)b * H * W * (COUT / 2);
+    for (int e = tid; e < t.ty * t.tw; e += NT) {
+      const int row = e / t.tw, col = e - row * t.tw;
+      const int hh = h0 + row, ww = w0 + col;
+      if (hh < H && ww < W) {
+        __nv_bfloat162* dst = yv + ((long long)hh * W + ww) * (COUT / 2);
 #pragma unroll
-      for (int j = 0; j < COUT / 2; ++j)
-        dst[j] = __floats2bfloat162_rn(att[e * COUT + 2 * j], att[e * COUT + 2 * j + 1]);
+        for (int j = 0; j < COUT / 2; ++j)
+          dst[j] = __floats2bfloat162_rn(att[e * COUT + 2 * j], att[e * COUT + 2 * j + 1]);
+      }
+    }
+  } else {
+    // the real class's one output a pixel, 2 bytes
+    __nv_bfloat16* yv = y + (long long)b * H * W * COUT;
+    for (int e = tid; e < t.ty * t.tw; e += NT) {
+      const int row = e / t.tw, col = e - row * t.tw;
+      const int hh = h0 + row, ww = w0 + col;
+      if (hh < H && ww < W) {
+#pragma unroll
+        for (int co = 0; co < COUT; ++co)
+          yv[((long long)hh * W + ww) * COUT + co] = __float2bfloat16_rn(att[e * COUT + co]);
+      }
     }
   }
 }
@@ -645,9 +679,10 @@ sa_gate_kernel(const G* __restrict__ pooled, const G* __restrict__ w,
 // max) for the real (NP = 1, a float2). NG = 2^lg lanes share a pixel, each
 // striding over the channels (as float4 when vec) and loading every plane in
 // one step; a shuffle tree inside the NG lanes combines them.
-// G = bf16: the bf16 class (the complex gate's, NP = 2): bf16 planes (vec:
-// 8 channels a 16-byte load), the sums in float32, the mean rounded once to
-// bf16 and the max exact; pooled (B, H, W, 4) bf16.
+// G = bf16: the bf16 class (the complex gate's, NP = 2, and the real's, NP
+// = 1): bf16 planes (vec: 8 channels a 16-byte load), the sums in float32,
+// the mean rounded once to bf16 and the max exact; pooled (B, H, W, 2 NP)
+// bf16.
 template <int NP, typename G = float>
 __global__ void __launch_bounds__(256)
 sa_pool_kernel(const G* __restrict__ p0, const G* __restrict__ p1,
@@ -713,7 +748,11 @@ sa_pool_kernel(const G* __restrict__ p0, const G* __restrict__ p1,
     }
   }
   if (pix < P && lane == 0) {
-    if constexpr (!std::is_same<G, float>::value) {
+    if constexpr (!std::is_same<G, float>::value && NP == 1) {
+      // (mean, max) as a bf16 pair, 4 bytes
+      reinterpret_cast<__nv_bfloat162*>(pooled)[pix] =
+          __floats2bfloat162_rn(s[0] / (float)C, m[0]);
+    } else if constexpr (!std::is_same<G, float>::value) {
       // NP = 2: (mean re, max re, mean im, max im) as four bf16, 8 bytes
       const __nv_bfloat162 lo = __floats2bfloat162_rn(s[0] / (float)C, m[0]);
       const __nv_bfloat162 hi = __floats2bfloat162_rn(s[NP - 1] / (float)C, m[NP - 1]);
@@ -734,27 +773,37 @@ sa_pool_kernel(const G* __restrict__ p0, const G* __restrict__ p1,
 // C) where that is a power of two, else -1. The tile's rows_v x cols_v pixels
 // are spread over all 128 threads: a warp a row would leave three warps
 // idle on the one-row tiles of the small images, which carry the most
-// channels.
-template <int R>
+// channels. G = bf16: the bf16 class (pooled, w, x and out bf16): the conv's
+// float32 sums rounded to bf16, the sigmoid of that rounded to bf16, the
+// product in float32 rounded once; vec then asks C % 8 == 0 (8 channels a
+// 16-byte word) and shift is log2(C / 8) (or of C).
+template <int R, typename G = float>
 __global__ void __launch_bounds__(NT)
-sa_gate_real_kernel(const float* __restrict__ pooled,
-                    const float* __restrict__ w, const float* __restrict__ x,
-                    float* __restrict__ out, const Tile t, int H, int W, int C,
+sa_gate_real_kernel(const G* __restrict__ pooled,
+                    const G* __restrict__ w, const G* __restrict__ x,
+                    G* __restrict__ out, const Tile t, int H, int W, int C,
                     int vec, int shift) {
+  constexpr bool F32 = std::is_same<G, float>::value;
   extern __shared__ float4 smem[];
   const int b = blockIdx.z, h0 = blockIdx.y * t.ty, w0 = blockIdx.x * t.tw;
   const int tid = threadIdx.x;
   float acc[R][1];
-  float* att = conv7_tile<R, 2, 1>(pooled, w, t, smem, b, h0, w0, H, W, acc);
+  float* att = conv7_tile<R, 2, 1, G>(pooled, w, t, smem, b, h0, w0, H, W, acc);
   if (tid < t.tx * t.ty) {
     const int ty = tid / t.tx, tx = tid - ty * t.tx;
 #pragma unroll
-    for (int r = 0; r < R; ++r) att[ty * t.tw + tx * R + r] = sigmoidf(acc[r][0]);
+    for (int r = 0; r < R; ++r) {
+      if constexpr (F32)
+        att[ty * t.tw + tx * R + r] = sigmoidf(acc[r][0]);
+      else
+        att[ty * t.tw + tx * R + r] = __bfloat162float(__float2bfloat16_rn(
+            sigmoidf(__bfloat162float(__float2bfloat16_rn(acc[r][0])))));
+    }
   }
   __syncthreads();
 
   const int rows_v = min(t.ty, H - h0), cols_v = min(t.tw, W - w0);
-  const int nv = vec ? C >> 2 : C;       // words a pixel
+  const int nv = vec ? C >> (F32 ? 2 : 3) : C;   // words a pixel
   const int n = cols_v * nv;             // words of a tile row, contiguous
   const long long pix0 = ((long long)b * H + h0) * W + w0;
 #pragma unroll 4
@@ -763,11 +812,22 @@ sa_gate_real_kernel(const float* __restrict__ pooled,
     const float a = att[row * t.tw + (shift >= 0 ? i >> shift : i / nv)];
     const long long k = (pix0 + (long long)row * W) * nv + i;
     if (vec) {
-      const float4 v = reinterpret_cast<const float4*>(x)[k];
-      reinterpret_cast<float4*>(out)[k] =
-          make_float4(v.x * a, v.y * a, v.z * a, v.w * a);
+      if constexpr (F32) {
+        const float4 v = reinterpret_cast<const float4*>(x)[k];
+        reinterpret_cast<float4*>(out)[k] =
+            make_float4(v.x * a, v.y * a, v.z * a, v.w * a);
+      } else {
+        float f[8];
+        unpack8(reinterpret_cast<const uint4*>(x)[k], f);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) f[j] *= a;
+        reinterpret_cast<uint4*>(out)[k] = pack8(f);
+      }
     } else {
-      out[k] = x[k] * a;
+      if constexpr (F32)
+        out[k] = x[k] * a;
+      else
+        out[k] = __float2bfloat16_rn(__bfloat162float(x[k]) * a);
     }
   }
 }
@@ -813,8 +873,10 @@ void launch_conv7_bf16(int R, dim3 grid, int smem, cudaStream_t s,
                        int W) {
   if (R == 2)
     conv7_bf16_kernel<2, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
-  else
+  else if (CIN * COUT != 2 || R == 4)
     conv7_bf16_kernel<4, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
+  else if constexpr (CIN * COUT == 2)
+    conv7_bf16_kernel<8, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
 }
 
 // log2(n) where n is a power of two, else -1
@@ -878,6 +940,34 @@ int launch_gate(const G* pooled, const G* w, const G* re, const G* im, G* out_re
   else
     sa_gate_kernel<4, G><<<grid, NT, smem, s>>>(pooled, w, re, im, out_re, out_im,
                                                 t, H, W, C, vec, shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the real gate over float32 or (G = bf16) bf16 tensors: pooled and w
+// aligned to their words (8 or 4 bytes); x's product 16 bytes a load where C
+// and the pointers allow (4 floats, 8 bf16)
+template <typename G>
+int launch_gate_real(const G* pooled, const G* w, const G* x, G* out, int B, int H,
+                     int W, int C, int R, int TX, int TY, void* stream) {
+  constexpr int word = 2 * sizeof(G), V = 16 / sizeof(G);
+  if (!image_ok(B, H, W) || C < 1 || !tile_ok(R, TX, TY, 2, 1) ||
+      !aligned(pooled, word) || !aligned(w, word))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Tile t = make_tile(R, TX, TY, 2, 1);
+  const dim3 grid = tile_grid(t, B, H, W);
+  const int smem = t.smem4() * 16;
+  const int vec = C % V == 0 && aligned(x, 16) && aligned(out, 16);
+  const int shift = log2_exact(vec ? C / V : C);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (R == 2)
+    sa_gate_real_kernel<2, G><<<grid, NT, smem, s>>>(pooled, w, x, out, t, H, W, C, vec,
+                                                     shift);
+  else if (R == 4)
+    sa_gate_real_kernel<4, G><<<grid, NT, smem, s>>>(pooled, w, x, out, t, H, W, C, vec,
+                                                     shift);
+  else
+    sa_gate_real_kernel<8, G><<<grid, NT, smem, s>>>(pooled, w, x, out, t, H, W, C, vec,
+                                                     shift);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1291,32 +1381,37 @@ extern "C" int dcs_conv_same_small_cout(const float* x, const float* w,
 
 // The conv entry's bf16 class: x (B, H, W, Cin), w (7, 7, Cin, Cout) and y
 // (B, H, W, Cout) bf16, bias (Cout,) f32; float32 sums, the bias added, y
-// rounded once. The register-tiled body at the complex classes (7, 4, 2)
-// and (7, 2, 4) only, R in {2, 4}, the tile as dcs_conv_same_small_cout's;
-// x aligned to a pixel's 2 Cin bytes, y to 2 Cout and w to 8 bytes (a tap's
-// weights read as words of 4 bf16). Any other class is
+// rounded once. The register-tiled body at the tiled classes, (7, 4, 2),
+// (7, 2, 4), (7, 2, 1) and (7, 1, 2), the tile as dcs_conv_same_small_cout's
+// (R in {2, 4}, and 8 at the real classes); x aligned to a pixel's 2 Cin
+// bytes, y to 2 Cout and w to a tap's word of weights (4 bf16, 8 bytes, at
+// the complex classes; 2, 4 bytes, at the real). Any other class is
 // cudaErrorInvalidValue. Launches on `stream`, allocates nothing, returns
 // cudaGetLastError().
 extern "C" int dcs_conv_same_small_cout_bf16(const void* x, const void* w,
                                              const float* bias, void* y, int B, int H,
                                              int W, int Cin, int K, int Cout, int R,
                                              int TX, int TY, void* stream) {
-  const bool cls = K == 7 && ((Cin == 4 && Cout == 2) || (Cin == 2 && Cout == 4));
-  if (!cls || !image_ok(B, H, W) || (R != 2 && R != 4) ||
+  if (!tiled_class(K, Cin, Cout) || !image_ok(B, H, W) ||
       !tile_ok(R, TX, TY, Cin, Cout) || !aligned(x, 2 * Cin) ||
-      !aligned(y, 2 * Cout) || !aligned(w, 8))
+      !aligned(y, 2 * Cout) || !aligned(w, tap_word_bytes(Cin, Cout) / 2))
     return static_cast<int>(cudaErrorInvalidValue);
   using bf = __nv_bfloat16;
   const Tile t = make_tile(R, TX, TY, Cin, Cout);
   const dim3 grid = tile_grid(t, B, H, W);
   const int smem = t.smem4() * 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bf* xb = static_cast<const bf*>(x);
+  const bf* wb = static_cast<const bf*>(w);
+  bf* yb = static_cast<bf*>(y);
   if (Cin == 4)
-    launch_conv7_bf16<4, 2>(R, grid, smem, s, static_cast<const bf*>(x),
-                            static_cast<const bf*>(w), bias, static_cast<bf*>(y), t, H, W);
+    launch_conv7_bf16<4, 2>(R, grid, smem, s, xb, wb, bias, yb, t, H, W);
+  else if (Cin == 2 && Cout == 4)
+    launch_conv7_bf16<2, 4>(R, grid, smem, s, xb, wb, bias, yb, t, H, W);
+  else if (Cin == 2)
+    launch_conv7_bf16<2, 1>(R, grid, smem, s, xb, wb, bias, yb, t, H, W);
   else
-    launch_conv7_bf16<2, 4>(R, grid, smem, s, static_cast<const bf*>(x),
-                            static_cast<const bf*>(w), bias, static_cast<bf*>(y), t, H, W);
+    launch_conv7_bf16<1, 2>(R, grid, smem, s, xb, wb, bias, yb, t, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1393,25 +1488,30 @@ extern "C" int dcs_sa_gate_real(const float* pooled, const float* w,
                                 const float* x, float* out, int B, int H,
                                 int W, int C, int R, int TX, int TY,
                                 void* stream) {
-  if (!image_ok(B, H, W) || C < 1 || !tile_ok(R, TX, TY, 2, 1) ||
-      !aligned(pooled, 8) || !aligned(w, 8))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Tile t = make_tile(R, TX, TY, 2, 1);
-  const dim3 grid = tile_grid(t, B, H, W);
-  const int smem = t.smem4() * 16;
-  const int vec = C % 4 == 0 && aligned(x, 16) && aligned(out, 16);
-  const int shift = log2_exact(vec ? C >> 2 : C);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (R == 2)
-    sa_gate_real_kernel<2><<<grid, NT, smem, s>>>(pooled, w, x, out, t, H, W,
-                                                  C, vec, shift);
-  else if (R == 4)
-    sa_gate_real_kernel<4><<<grid, NT, smem, s>>>(pooled, w, x, out, t, H, W,
-                                                  C, vec, shift);
-  else
-    sa_gate_real_kernel<8><<<grid, NT, smem, s>>>(pooled, w, x, out, t, H, W,
-                                                  C, vec, shift);
-  return static_cast<int>(cudaGetLastError());
+  return launch_gate_real(pooled, w, x, out, B, H, W, C, R, TX, TY, stream);
+}
+
+// The bf16 class of the real pooling pass: x (B, H, W, C) bf16 -> pooled
+// (B, H, W, 2) bf16, the mean rounded once from float32 sums, the max exact;
+// pooled 4-byte aligned.
+extern "C" int dcs_sa_pool_real_bf16(const void* x, void* pooled, int B, int H, int W,
+                                     int C, void* stream) {
+  return launch_pool<1, __nv_bfloat16>(static_cast<const __nv_bfloat16*>(x), nullptr,
+                                       static_cast<__nv_bfloat16*>(pooled), B, H, W, C,
+                                       stream);
+}
+
+// The bf16 class of the real gate: pooled (B, H, W, 2), w (7, 7, 2, 1), x and
+// out (B, H, W, C), all bf16; the conv's float32 sums rounded to bf16, the
+// sigmoid rounded to bf16, the product rounded once. Tile as dcs_sa_gate_real's;
+// pooled and w 4-byte aligned.
+extern "C" int dcs_sa_gate_real_bf16(const void* pooled, const void* w, const void* x,
+                                     void* out, int B, int H, int W, int C, int R,
+                                     int TX, int TY, void* stream) {
+  using bf = __nv_bfloat16;
+  return launch_gate_real(static_cast<const bf*>(pooled), static_cast<const bf*>(w),
+                          static_cast<const bf*>(x), static_cast<bf*>(out), B, H, W, C,
+                          R, TX, TY, stream);
 }
 
 // A kernel that does nothing: the device time of a launch, which is the

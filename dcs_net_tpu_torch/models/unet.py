@@ -16,14 +16,15 @@ Kernels on this path: kernel 2 runs the 13 CBAM spatial-attention convs
 then conv + sigmoid + product) and kernel 3 the 7 decoder convs (see
 ``ops/conv_engine.py``).
 
-``compute_dtype="bfloat16"`` (the JAX package's mixed precision) runs the
-complex variants' convs, linear layer and LSTM products on bf16 operands with
+``compute_dtype="bfloat16"`` (the JAX package's mixed precision) runs every
+variant's convs, linear layer and LSTM products on bf16 operands with
 float32 sums and bf16 activations (BN in float32), the parameters float32,
-the output bound in float32; kernels 2 and 3 then take their bf16 classes,
-in both directions under autograd (training at bf16: dropout and the
-train-mode BN in float32 on the widened values, the gradients that reach
-the parameters float32, each cast's own backward). The real variants at
-bf16 are ROADMAP Queue 1 item 4b and raise.
+the output bound (complex) or sigmoid (real) in float32; kernels 2 and 3
+then take their bf16 classes, in both directions under autograd (training
+at bf16: the train-mode BN in float32 on the widened values, the gradients
+that reach the parameters float32, each cast's own backward; the complex
+dropout in float32 on the widened values, the real one the JAX ``x / keep``
+in bf16).
 """
 
 from __future__ import annotations
@@ -62,10 +63,6 @@ class DCSNet(nn.Module):
                 f"param_dtype={m.param_dtype!r}: the port keeps its parameters "
                 "in float32")
         dt = P.operand_dtype(m.compute_dtype)
-        if dt is not None and not m.complex_valued:
-            raise NotImplementedError(
-                "compute_dtype='bfloat16' runs the complex variants (DC, DCS); "
-                "the real ones (DR, DRS) at bf16 are ROADMAP Queue 1 item 4b")
         if m.fc_features != m.latent_channels:
             raise ValueError(
                 f"fc_features ({m.fc_features}) must equal the latent channel "
@@ -89,18 +86,16 @@ class DCSNet(nn.Module):
                             m.sa_kernel, weight_init=m.init, generator=g, dtype=dt))
             return (att.RealChannelAttention(
                         channels, m.ca_reduction, max_only=quirks.real_ca_max_only,
-                        weight_init=m.init, generator=g),
+                        weight_init=m.init, generator=g, dtype=dt),
                     att.RealSpatialAttention(m.sa_kernel, weight_init=m.init,
-                                             generator=g))
+                                             generator=g, dtype=dt))
 
-        # the complex layers' operand type (the real ones run float32 only)
-        typed = {"dtype": dt} if cx else {}
         self.initial_bn = BN(1)
         for i in range(m.n_layers):
             cin, cout = m.enc_channels(i)
             self.add_module(f"enc{i}_conv", Conv(
                 cin, cout, m.kernel_e[i], stride=m.stride_e[i],
-                padding=m.kernel_e[i] // 2, weight_init=m.init, generator=g, **typed))
+                padding=m.kernel_e[i] // 2, weight_init=m.init, generator=g, dtype=dt))
             self.add_module(f"enc{i}_bn", BN(cout))
         self.dropout_conv = Drop(m.dropout_conv)
         self.dropout_fc = Drop(m.dropout_fc)
@@ -108,9 +103,9 @@ class DCSNet(nn.Module):
         d = 2 if m.lstm_bidir else 1
         Lstm, Lin = (ComplexLSTM, cl.ComplexLinear) if cx else (LSTM, rl.Linear)
         self.lstm = Lstm(m.latent_channels, m.lstm_hidden, m.lstm_layers,
-                         m.lstm_bidir, generator=g, **typed)
+                         m.lstm_bidir, generator=g, dtype=dt)
         self.fc = Lin(m.lstm_hidden * d, m.fc_features, weight_init=m.init,
-                      generator=g, **typed)
+                      generator=g, dtype=dt)
 
         ConvT = cl.ComplexConvTranspose2d if cx else rl.ConvTranspose2d
         for i in range(m.n_layers):
@@ -123,7 +118,7 @@ class DCSNet(nn.Module):
                 self.add_module(f"skip{i}_sa", sa)
             self.add_module(f"dec{i}_convt", ConvT(
                 cin, cout, m.kernel_d[i], padding=m.kernel_d[i] // 2,
-                weight_init=m.init, upsample=m.upsample[i], generator=g, **typed))
+                weight_init=m.init, upsample=m.upsample[i], generator=g, dtype=dt))
             if not last:
                 self.add_module(f"dec{i}_bn", BN(cout))
                 if m.attention:

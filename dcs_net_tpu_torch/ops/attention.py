@@ -17,15 +17,20 @@ forward-only. Where autograd follows the input or the weights (training) the
 gate takes the un-fused form, the JAX structure: pooling, the conv (kernel 2
 under autograd), the sigmoid and the product as separate ops.
 
-At bf16 (``dtype``, the JAX modules' operand type) the complex channel
-attention's 1x1 convs take bf16 operands, and the spatial attention's gate
-runs kernel 2's fused bf16 gate (``cuda_conv.sa_fused_bf16``: pool, conv
+At bf16 (``dtype``, the JAX modules' operand type) the channel attentions'
+1x1 convs take bf16 operands, and the complex spatial attention's gate runs
+kernel 2's fused bf16 gate (``cuda_conv.sa_fused_bf16``: pool, conv
 on tensor cores, sigmoid and product in one launch, x read once) on its
 packed kernel rounded to bf16 once, or the bf16 pool and gate pair at a
 shape the fused entry refuses. Its un-fused form (training at bf16) pools
 (the mean rounded once, the max exact), runs the conv entry's bf16 class,
 the sigmoid and the product, each rounded to bf16 at the JAX module's
-rounding points, under autograd.
+rounding points, under autograd. The real spatial attention at bf16 does the
+same with kernel 2's real classes: its gate runs the real pool and gate's
+bf16 classes (``cuda_conv.sa_pool_real``, ``cuda_conv.sa_gate_real``: the
+mean rounded once, the conv's float32 sums rounded, the sigmoid rounded, the
+product rounded once, as the JAX module and ``widen.mul_bcast`` round), its
+un-fused form the conv entry's bf16 class at (7, 2, 1).
 """
 
 from __future__ import annotations
@@ -45,14 +50,15 @@ from dcs_net_tpu_torch.utils.carray import CArray
 class RealChannelAttention(nn.Module):
     def __init__(self, channels: int, reduction: int, max_only: bool = True,
                  weight_init: str = "xavier_uniform",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         hidden = max(channels // reduction, 1)
         self.max_only = max_only
         self.fc1 = rl.Conv2d(channels, hidden, 1, use_bias=False,
-                             weight_init=weight_init, generator=generator)
+                             weight_init=weight_init, generator=generator, dtype=dtype)
         self.fc2 = rl.Conv2d(hidden, channels, 1, use_bias=False,
-                             weight_init=weight_init, generator=generator)
+                             weight_init=weight_init, generator=generator, dtype=dtype)
 
     def _fc(self, v: torch.Tensor) -> torch.Tensor:
         return self.fc2(torch.relu(self.fc1(v)))
@@ -68,39 +74,47 @@ class RealChannelAttention(nn.Module):
 class RealSpatialAttention(nn.Module):
     def __init__(self, kernel_size: int = 7,
                  weight_init: str = "xavier_uniform",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.conv = rl.Conv2d(2, 1, kernel_size, padding=kernel_size // 2,
                               use_bias=False, weight_init=weight_init,
-                              generator=generator)
+                              generator=generator, dtype=dtype)
         self._packed = None     # (key, packed kernel) of the last gate call
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 1) attention of x (B, H, W, C)."""
-        cat = torch.cat([x.mean(dim=-1, keepdim=True),
+        """(B, H, W, 1) attention of x (B, H, W, C); the mean summed in
+        float32 (at least) and rounded to x's type once."""
+        acc = torch.promote_types(x.dtype, torch.float32)
+        cat = torch.cat([x.mean(dim=-1, keepdim=True, dtype=acc).to(x.dtype),
                          x.amax(dim=-1, keepdim=True)], dim=-1)
         return torch.sigmoid(self.conv(cat))
 
     def packed_kernel(self) -> torch.Tensor:
-        """The conv's weight (1, 2, K, K) as the gate's (K, K, 2, 1): built
-        once, detached, and kept until the weight changes (its version or
-        its address, as :meth:`ComplexSpatialAttention.packed_kernel`)."""
+        """The conv's weight (1, 2, K, K) as the gate's (K, K, 2, 1) (at bf16
+        rounded to bf16): built once, detached, and kept until the weight
+        changes (its version or its address, as
+        :meth:`ComplexSpatialAttention.packed_kernel`)."""
         w = self.conv.weight
         key = (w.device, w.data_ptr(), w._version)
         if self._packed is None or self._packed[0] != key:
-            self._packed = (key, w.detach().permute(2, 3, 1, 0).contiguous())
+            packed = P.cast(w.detach().permute(2, 3, 1, 0), self.dtype)
+            self._packed = (key, packed.contiguous())
         return self._packed[1]
 
     def gate(self, x: torch.Tensor) -> torch.Tensor:
         """x * self(x), the attention applied to its own input: kernel 2's
-        real pool and gate launches on a CUDA tensor, their plain versions
-        on a CPU tensor. Under autograd, or at another kernel size, the
-        un-fused form, whose conv alone is kernel 2."""
+        real pool and gate launches on a CUDA tensor (at bf16 their bf16
+        classes), their plain versions on a CPU tensor. Under autograd, or
+        at another kernel size, the un-fused form, whose conv alone is
+        kernel 2."""
         w = self.conv.weight
         if w.shape[-1] != 7 or (torch.is_grad_enabled()
                                 and (x.requires_grad or w.requires_grad)):
             return x * self(x)
-        return cuda_conv.spatial_gate_real(x.contiguous(), self.packed_kernel())
+        return cuda_conv.spatial_gate_real(P.cast(x, self.dtype).contiguous(),
+                                           self.packed_kernel())
 
 
 class ComplexChannelAttention(nn.Module):

@@ -20,7 +20,8 @@ bf16 inputs and weights and give bf16 outputs from float32 sums: kernel 3's
 bf16 class; ``F.conv2d`` in bf16 on the card (cuDNN sums bf16 products in
 float32), and on the CPU in float32 on the bf16 values, rounded once, since
 a CPU bf16 convolution leaves its accumulation unspecified. Kernel 2's conv
-entry takes its bf16 class at the spatial attention's (7, 4, 2). Under
+entry takes its bf16 class at the spatial attention's (7, 4, 2) and the real
+one's (7, 2, 1). Under
 autograd (training at bf16) each input gradient is bf16 and each weight
 gradient in the weight's type, as the JAX package's rules give them.
 """

@@ -48,14 +48,20 @@ tiles :func:`fused_tile`, its launch :func:`fused_geometry`); the pair
 serves only the shapes it refuses (:func:`fused_takes`).
 
 Training at bf16 runs the un-fused gate, whose conv is the conv entry's
-bf16 class (``KERNEL_BF16``): the register-tiled body at the complex
-classes (7, 4, 2) and (7, 2, 4) with x and w bf16, float32 sums, the
-float32 bias added and the output rounded once to bf16
-(:func:`conv2d_same_small_cout_bf16_plain`); its input gradient is the same
-class on the bf16 gradient (``DGRAD_BF16``,
-:func:`conv2d_same_small_cout_dgrad_bf16_plain`). The real gate has no bf16
-class (ROADMAP Queue 1 item 4b): a bf16 tensor there raises, on the CPU
-too.
+bf16 class (``KERNEL_BF16``): the register-tiled body at every tiled class
+(``TILED_CLASSES``: the complex (7, 4, 2), (7, 2, 4) and the real (7, 2,
+1), (7, 1, 2)) with x and w bf16, float32 sums, the float32 bias added and the
+output rounded once to bf16 (:func:`conv2d_same_small_cout_bf16_plain`); its
+input gradient is the same class on the bf16 gradient (``DGRAD_BF16``,
+:func:`conv2d_same_small_cout_dgrad_bf16_plain`).
+
+The real pool and gate have bf16 classes too (``POOL_REAL_BF16``,
+``GATE_REAL_BF16``), which :func:`sa_pool_real` and :func:`sa_gate_real`
+take for a bf16 x: the JAX real spatial attention at ``dtype=bfloat16``
+followed by ``widen.mul_bcast``, rounded where it rounds: the mean once
+from float32 sums (the max exact), the conv's float32 sums to bf16, the
+sigmoid of that to bf16, the product once
+(:func:`sa_pool_real_bf16_plain`, :func:`sa_gate_real_bf16_plain`).
 
 Each wrapper takes CPU tensors through the plain version and CUDA tensors
 through the kernel, never falling back between the two. ``KERNEL.launches``
@@ -64,8 +70,8 @@ own entry and the complex gate entry, which runs that body with another
 epilogue; ``DGRAD.launches`` counts the conv entry's launches for input
 gradients; ``KERNEL_BF16.launches`` and ``DGRAD_BF16.launches`` the same
 two at bf16. The real gate's two entries count on their own (``POOL_REAL``,
-``GATE_REAL``), so that a DR / DRS enhance call shows them apart from the
-conv entry.
+``GATE_REAL``, at bf16 ``POOL_REAL_BF16``, ``GATE_REAL_BF16``), so that a
+DR / DRS enhance call shows them apart from the conv entry.
 
 Gradients. On a CUDA tensor :func:`conv2d_same_small_cout` is
 :class:`Conv2dSameSmallCout`, whose backward mirrors the JAX ``_bwd``
@@ -94,8 +100,7 @@ import torch
 import torch.nn.functional as F
 
 from dcs_net_tpu_torch.ops import cuda_tapconv
-from dcs_net_tpu_torch.utils.cuda_lib import (CudaKernel, check_cuda_operand, ptr,
-                                              refuse_bf16)
+from dcs_net_tpu_torch.utils.cuda_lib import CudaKernel, check_cuda_operand, ptr
 from dcs_net_tpu_torch.utils.device import device_cache
 
 MAX_K = 7
@@ -143,8 +148,12 @@ KERNEL_BF16 = CudaKernel("conv_same_small_cout_bf16", "conv_same.cu",
                          "dcs_conv_same_small_cout_bf16", KERNEL.argtypes)
 DGRAD_BF16 = CudaKernel("conv_same_small_cout_dgrad_bf16", "conv_same.cu",
                         "dcs_conv_same_small_cout_bf16", KERNEL.argtypes)
-# the complex tiled classes, the only ones the bf16 class has
-BF16_CLASSES = ((7, 4, 2), (7, 2, 4))
+# the real pool's and gate's bf16 classes, counted on their own: a bf16 DR /
+# DRS enhance call launches them and nothing of the float32 classes
+POOL_REAL_BF16 = CudaKernel("sa_pool_real_bf16", "conv_same.cu", "dcs_sa_pool_real_bf16",
+                            POOL_REAL.argtypes)
+GATE_REAL_BF16 = CudaKernel("sa_gate_real_bf16", "conv_same.cu", "dcs_sa_gate_real_bf16",
+                            GATE_REAL.argtypes)
 FUSED_SMEM_LIMIT = 232448        # 227 KB, a block's most on the H100
 FUSED_TILE_BYTES = 32 * 1024     # a tile's x, both planes, at most
 FUSED_MIN_BLOCKS = 132           # the H100's SMs: a tile shrinks to give each a block
@@ -190,11 +199,12 @@ def tile_smem_bytes(tile: Tile, cin: int = 4, cout: int = 2) -> int:
                  + -(-(ty * R * tx * cout) // 4))
 
 
-def tap_word_bytes(cin: int, cout: int) -> int:
-    """The word in which the tiled body reads a tap's Cin * Cout weights:
-    two float4 at the complex classes (8 weights), one float2 at the real
+def tap_word_bytes(cin: int, cout: int, elem: int = 4) -> int:
+    """The word in which the tiled body reads a tap's Cin * Cout weights of
+    ``elem`` bytes: four weights (16 bytes in float32, 8 in bf16) at the
+    complex classes (8 weights, two words), two (8 bytes, or 4) at the real
     (2)."""
-    return 16 if (cin * cout) % 4 == 0 else 8
+    return elem * (4 if (cin * cout) % 4 == 0 else 2)
 
 
 def _pow2_floor(n: int) -> int:
@@ -334,8 +344,8 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     ``GENERIC_TILE``, or (R, TX, TY) for the register-tiled body. ``dgrad``
     counts the launch as an input gradient's (``DGRAD``). bf16 x and w (the
     bias float32) take the bf16 class (``KERNEL_BF16``, ``DGRAD_BF16``),
-    which has the register-tiled body at ``BF16_CLASSES`` only, and give a
-    bf16 output."""
+    which has the register-tiled body only (x aligned to its pixel, w to its
+    tap word), and give a bf16 output."""
     _check_shapes(x, w, bias)
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
@@ -345,10 +355,14 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     check_cuda_operand("bias", bias, dev, 1)
     B, H, W, cin = x.shape
     K, _, _, cout = w.shape
-    if bf16 and ((K, cin, cout) not in BF16_CLASSES or tile == GENERIC_TILE):
+    if bf16 and ((K, cin, cout) not in TILED_CLASSES or tile == GENERIC_TILE):
         raise ValueError(f"the conv entry's bf16 class takes the tiled body at "
-                         f"(K, Cin, Cout) in {BF16_CLASSES}, not {(K, cin, cout)} "
+                         f"(K, Cin, Cout) in {TILED_CLASSES}, not {(K, cin, cout)} "
                          f"at tile {tile}")
+    if bf16 and (x.data_ptr() % (2 * cin) or w.data_ptr() % tap_word_bytes(cin, cout, 2)):
+        raise ValueError(f"the conv entry's bf16 class reads x in {2 * cin}-byte pixels "
+                         f"and w in {tap_word_bytes(cin, cout, 2)}-byte tap words: an "
+                         "operand is off its word")
     if tile != GENERIC_TILE:
         if (K, cin, cout) not in TILED_CLASSES:
             raise ValueError(f"(K, Cin, Cout) = {(K, cin, cout)} has no tiled body")
@@ -743,58 +757,85 @@ def _check_real_gate_shapes(pooled: torch.Tensor, w: torch.Tensor,
 def sa_pool_real_plain(x: torch.Tensor) -> torch.Tensor:
     """(B, H, W, C) -> (B, H, W, 2) = [mean, max] over the channels: the
     order in which the real attention's conv reads them."""
-    refuse_bf16("sa_pool_real", x)
     return torch.cat([x.mean(dim=-1, keepdim=True), x.amax(dim=-1, keepdim=True)],
                      dim=-1)
+
+
+def sa_pool_real_bf16_plain(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 class's plain version: :func:`sa_pool_real_plain` in float32
+    on the bf16 values, rounded once to bf16 (the mean; the max is
+    exact)."""
+    return sa_pool_real_plain(x.float()).to(torch.bfloat16)
 
 
 def sa_gate_real_plain(pooled: torch.Tensor, w: torch.Tensor,
                        x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(conv_same(pooled, w)), the one-channel map broadcast over
     C."""
-    refuse_bf16("sa_gate_real", pooled, w, x)
     _check_real_gate_shapes(pooled, w, x)
     return x * torch.sigmoid(conv2d_same_small_cout_plain(
         pooled, w, torch.zeros(1, device=w.device, dtype=w.dtype)))
 
 
+def sa_gate_real_bf16_plain(pooled: torch.Tensor, w: torch.Tensor,
+                            x: torch.Tensor) -> torch.Tensor:
+    """The bf16 class's plain version, rounded where the JAX module rounds:
+    the conv's float32 sums on the bf16 pooled map and w to bf16 (the conv
+    entry's bf16 class), the sigmoid of that to bf16, the product with the
+    bf16 x in float32 to bf16 once."""
+    _check_real_gate_shapes(pooled, w, x)
+    b16 = torch.bfloat16
+    conv = conv2d_same_small_cout_bf16_plain(pooled, w, torch.zeros(1, device=w.device))
+    a = torch.sigmoid(conv.float()).to(b16)
+    return (x.float() * a.float()).to(b16)
+
+
 def spatial_gate_real_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The real spatial-attention gate as the eager sequence of its parts."""
+    """The real spatial-attention gate as the eager sequence of its parts
+    (at bf16 its bf16 classes')."""
+    if x.dtype == torch.bfloat16:
+        return sa_gate_real_bf16_plain(sa_pool_real_bf16_plain(x), w, x)
     return sa_gate_real_plain(sa_pool_real_plain(x), w, x)
 
 
 def sa_pool_real(x: torch.Tensor) -> torch.Tensor:
-    """Channel mean and max of x, packed (B, H, W, 2)."""
+    """Channel mean and max of x, packed (B, H, W, 2); a bf16 x takes the
+    bf16 class (a bf16 map)."""
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
-        return sa_pool_real_plain(x)
+        return sa_pool_real_bf16_plain(x) if bf16 else sa_pool_real_plain(x)
     _forward_only("sa_pool_real", x)
-    dev = x.device
-    check_cuda_operand("x", x, dev, 4)
+    dev, dtype = x.device, x.dtype if bf16 else torch.float32
+    check_cuda_operand("x", x, dev, 4, dtype)
     B, H, W, C = x.shape
-    pooled = torch.empty((B, H, W, 2), device=dev, dtype=torch.float32)
-    POOL_REAL(dev, ptr(x), ptr(pooled), B, H, W, C)
+    pooled = torch.empty((B, H, W, 2), device=dev, dtype=dtype)
+    (POOL_REAL_BF16 if bf16 else POOL_REAL)(dev, ptr(x), ptr(pooled), B, H, W, C)
     return pooled
 
 
 def sa_gate_real(pooled: torch.Tensor, w: torch.Tensor, x: torch.Tensor,
                  tile: Optional[Tile] = None) -> torch.Tensor:
     """x * sigmoid(conv_same(pooled, w)) for x (B, H, W, C), pooled (B, H, W,
-    2), w (7, 7, 2, 1). ``tile`` defaults to :func:`gate_tile`'s."""
+    2), w (7, 7, 2, 1). ``tile`` defaults to :func:`gate_tile`'s. A bf16 x
+    takes the bf16 class, whose pooled map and w are bf16 too (the module
+    rounds its packed kernel once)."""
+    bf16 = x.dtype == torch.bfloat16
     if x.device.type == "cpu":
-        return sa_gate_real_plain(pooled, w, x)
+        return (sa_gate_real_bf16_plain if bf16 else sa_gate_real_plain)(pooled, w, x)
     _forward_only("sa_gate_real", pooled, w, x)
     _check_real_gate_shapes(pooled, w, x)
-    dev = x.device
-    check_cuda_operand("pooled", pooled, dev, 4)
-    check_cuda_operand("w", w, dev, 4)
-    check_cuda_operand("x", x, dev, 4)
-    if pooled.data_ptr() % 8 or w.data_ptr() % 8:
-        raise ValueError("pooled and w must be 8-byte aligned")
+    dev, dtype = x.device, x.dtype if bf16 else torch.float32
+    for name, t in (("pooled", pooled), ("w", w), ("x", x)):
+        check_cuda_operand(name, t, dev, 4, dtype)
+    word = 4 if bf16 else 8
+    if pooled.data_ptr() % word or w.data_ptr() % word:
+        raise ValueError(f"pooled and w must be {word}-byte aligned")
     B, H, W, C = x.shape
     tile = gate_tile(B, H, W, 2, 1) if tile is None else tile
     _check_tile(tile, 2, 1)
     out = torch.empty_like(x)
-    GATE_REAL(dev, ptr(pooled), ptr(w), ptr(x), ptr(out), B, H, W, C, *tile)
+    (GATE_REAL_BF16 if bf16 else GATE_REAL)(dev, ptr(pooled), ptr(w), ptr(x), ptr(out),
+                                            B, H, W, C, *tile)
     return out
 
 

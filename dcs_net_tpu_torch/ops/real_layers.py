@@ -9,6 +9,14 @@ decoder's fused skip-concat + upsample + convT is kernel 3, every other conv
 (the strided encoder convs, the 1x1 channel-attention FCs) is ``F.conv2d``.
 The JAX package's ``ops/widen.py`` is a TPU lane-layout device with no
 numerical effect; its ``mul_bcast`` is the broadcast product ``x * a``.
+
+``dtype`` (None, or bf16: ``ops/precision.py``) is the JAX layers' operand
+type: at bf16 the conv, convT and linear layers round their inputs and their
+float32 weights to bf16, sum in float32 and give bf16 outputs, the bias
+rounded to bf16 and added in bf16 (``y + bias.astype(y.dtype)``); the
+dropout divides a bf16 activation by the keep rate rounded to bf16, as JAX's
+``x / keep`` does, and rounds once. The BN computes in float32 and returns
+its input's type.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from torch import nn
 
 from dcs_net_tpu_torch.ops import conv_engine as ce
 from dcs_net_tpu_torch.ops import initializers as init
+from dcs_net_tpu_torch.ops import precision as P
 
 Pair = Tuple[int, int]
 
@@ -54,8 +63,10 @@ class Conv2d(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size,
                  stride=(1, 1), padding: int = 0, use_bias: bool = True,
                  weight_init: str = "xavier_uniform",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         kh, kw = _pair(kernel_size)
         self.stride = _pair(stride)
         self.padding = padding
@@ -65,8 +76,10 @@ class Conv2d(nn.Module):
         _bias(self, use_bias, fan_in, features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = ce.conv2d(x, self.weight.permute(2, 3, 1, 0), self.stride, self.padding)
-        return y if self.bias is None else y + self.bias
+        dt = self.dtype
+        y = ce.conv2d(P.cast(x, dt), P.cast(self.weight.permute(2, 3, 1, 0), dt),
+                      self.stride, self.padding)
+        return y if self.bias is None else y + P.cast(self.bias, dt)
 
 
 class ConvTranspose2d(nn.Module):
@@ -79,8 +92,10 @@ class ConvTranspose2d(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size,
                  stride=(1, 1), padding: int = 0, use_bias: bool = True,
                  weight_init: str = "xavier_uniform", upsample=(1, 1),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         kh, kw = _pair(kernel_size)
         if _pair(stride) != (1, 1) or kh != kw or padding != kh // 2:
             raise NotImplementedError(
@@ -98,10 +113,11 @@ class ConvTranspose2d(nn.Module):
         if sum(cins) != self.weight.shape[0]:
             raise ValueError(f"inputs carry {sum(cins)} channels, the layer "
                              f"expects {self.weight.shape[0]}")
-        flipped = torch.flip(self.weight.permute(2, 3, 0, 1), dims=(0, 1))
-        y = ce.upsampled_conv2d_multi(xs, torch.split(flipped, cins, dim=2),
-                                      self.upsample)
-        return y if self.bias is None else y + self.bias
+        dt = self.dtype
+        flipped = P.cast(torch.flip(self.weight.permute(2, 3, 0, 1), dims=(0, 1)), dt)
+        y = ce.upsampled_conv2d_multi([P.cast(xi, dt) for xi in xs],
+                                      torch.split(flipped, cins, dim=2), self.upsample)
+        return y if self.bias is None else y + P.cast(self.bias, dt)
 
 
 class Linear(nn.Module):
@@ -109,14 +125,19 @@ class Linear(nn.Module):
 
     def __init__(self, in_features: int, features: int, use_bias: bool = True,
                  weight_init: str = "xavier_uniform",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(init.weight_init(weight_init, in_features, features)(
             (features, in_features), generator))
         _bias(self, use_bias, in_features, features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if self.dtype is None:
+            return F.linear(x, self.weight, self.bias)
+        y = P.matmul(P.cast(x, self.dtype), P.cast(self.weight.t(), self.dtype))
+        return y if self.bias is None else y + P.cast(self.bias, self.dtype)
 
 
 class BatchNorm2d(nn.Module):
@@ -154,7 +175,12 @@ class BatchNorm2d(nn.Module):
 
 class Dropout(nn.Module):
     """torch inverted dropout; the identity in eval. The mask comes from
-    ``generator`` (the global generator where it is None)."""
+    ``generator`` (the global generator where it is None), drawn in float32
+    (at least) whatever x's type, so that a bf16 run draws the float32 run's
+    masks. A float32 x is multiplied by the mask; a bf16 x divided by the
+    keep rate rounded to bf16 where the mask keeps it, rounded once (the JAX
+    ``jnp.where(mask, x / keep, 0)``, whose Python ``keep`` takes x's
+    type)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -164,7 +190,12 @@ class Dropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
             return x
-        return x * dropout_mask(x.shape, x, self.rate, self.generator)
+        acc = torch.promote_types(x.dtype, torch.float32)
+        mask = dropout_mask(x.shape, x.new_empty((), dtype=acc), self.rate, self.generator)
+        if x.dtype == acc:
+            return x * mask
+        keep = float(torch.tensor(1.0 - self.rate, dtype=x.dtype))
+        return torch.where(mask != 0, x.to(acc) / keep, 0.0).to(x.dtype)
 
 
 def adaptive_avg_pool_1(x: torch.Tensor) -> torch.Tensor:

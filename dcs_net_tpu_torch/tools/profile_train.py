@@ -20,7 +20,7 @@ and one replay under the profiler, its figures also per step; the port's
 launches are those the capture counted, one replay's. Weights are random
 (seed 0), the waves seeded noise: the work per step depends only on the
 shapes. TF32 is off, as in the trainer. ``--dtype bfloat16`` trains at the
-JAX package's ``--dtype bfloat16`` (DC and DCS): bf16 operands, float32 sums
+JAX package's ``--dtype bfloat16`` (any variant): bf16 operands, float32 sums
 (cuBLAS's reduced-precision bf16 reduction off, as in the trainer).
 """
 
@@ -46,7 +46,7 @@ def main(argv=None) -> None:
 
     import torch
 
-    from dcs_net_tpu_torch.cli.common import check_ported, with_dtype
+    from dcs_net_tpu_torch.cli.common import with_dtype
     from dcs_net_tpu_torch.core.config import config_for_variant
     from dcs_net_tpu_torch.models.unet import DCSNet
     from dcs_net_tpu_torch.train import steps
@@ -58,7 +58,6 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg = with_dtype(config_for_variant(args.variant), args.dtype)
-    check_ported(p, cfg)
     torch.manual_seed(0)
     model = DCSNet(cfg.model, cfg.quirks, device="cuda", seed=0)
     opt = make_optimizer(model.parameters(), cfg.optim)

@@ -3,7 +3,7 @@ tile the kernel takes, for the spatial-attention sites of the full-width DCS
 model, or with ``--real`` of the full-width DRS model.
 
 ``python -m dcs_net_tpu_torch.tools.time_gate [--frames 2008] [--batch 4]
-[--real] [--dgrad]``
+[--real] [--dgrad] [--dtype bfloat16]``
 
 For each site (B, H, W, C) of a U-Net pass over ``--frames`` spectrogram
 frames at ``--batch`` it prints the device time per launch (CUDA graph
@@ -22,7 +22,10 @@ eager sequence the gate replaces (mean, max, concatenation, ``F.conv2d``,
 sigmoid, product). ``--dgrad`` sweeps the conv entry at the input gradient's
 class instead, (7, 2, 4) or with ``--real`` (7, 1, 2) (g (B, H, W, Cout) ->
 (B, H, W, Cin)), beside the generic body; ``--dgrad --frames 256 --batch
-32`` gives the 13 launches of a train step.
+32`` gives the 13 launches of a train step. ``--dtype bfloat16`` (with
+``--real`` or ``--dgrad``) times the bf16 classes instead on bf16 tensors:
+the conv entry's, the real pool's and gate's, beside the bf16 eager
+sequence; the generic body, which has no bf16 class, is then left out.
 """
 
 from __future__ import annotations
@@ -77,7 +80,12 @@ def main(argv=None) -> None:
                    help="the real attention's sites and classes (DRS)")
     p.add_argument("--dgrad", action="store_true",
                    help="the conv entry at the input gradient's class")
+    p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                   help="bfloat16: the bf16 classes (with --real or --dgrad)")
     args = p.parse_args(argv)
+    if args.dtype == "bfloat16" and not (args.real or args.dgrad):
+        p.error("--dtype bfloat16 takes --real or --dgrad: the complex gate at bf16 is "
+                "the fused entry, which chip_smoke.py's phase \"bf16\" sweeps")
     if args.dgrad:
         return sweep_dgrad(args)
     if args.real:
@@ -150,9 +158,11 @@ def sweep_real(args) -> None:
 
     dev = torch.device("cuda", 0)
     smi = card_line()
-    print(f"card: {smi}")
+    print(f"card: {smi} at {args.dtype}")
+    dt = getattr(torch, args.dtype)
+    f32 = dt == torch.float32
     g = torch.Generator(device=dev).manual_seed(0)
-    w = torch.randn((7, 7, 2, 1), generator=g, device=dev) * 0.3
+    w = (torch.randn((7, 7, 2, 1), generator=g, device=dev) * 0.3).to(dt)
     w_oihw = w.permute(3, 2, 0, 1).contiguous()
     zb = torch.zeros(1, device=dev)
     tot = dict(conv=0.0, conv_best=0.0, conv_generic=0.0, pool=0.0, gate=0.0,
@@ -161,7 +171,7 @@ def sweep_real(args) -> None:
     for site in sites(config_for_variant("drs"), args.batch, args.frames):
         if site not in timed:
             B, H, W, C = site
-            x = torch.randn(site, generator=g, device=dev)
+            x = torch.randn(site, generator=g, device=dev).to(dt)
             pooled = cc.sa_pool_real(x)
 
             def eager():
@@ -178,11 +188,12 @@ def sweep_real(args) -> None:
                                        args.iters)
                     gate[t] = graph_ms(lambda: cc.sa_gate_real(pooled, w, x, t),
                                        args.iters)
-            generic = graph_ms(
-                lambda: cc.launch_conv(pooled, w, zb, cc.GENERIC_TILE), args.iters)
+            generic = graph_ms(lambda: cc.launch_conv(pooled, w, zb, cc.GENERIC_TILE),
+                               args.iters) if f32 else float("nan")
             pool = graph_ms(lambda: cc.sa_pool_real(x), args.iters)
             eager_ms = graph_ms(eager, args.iters)
-            bound = 4 * (3 * x.numel() + 2 * pooled.numel()) / HBM_BYTES_PER_S * 1e3
+            bound = (x.element_size() * (3 * x.numel() + 2 * pooled.numel())
+                     / HBM_BYTES_PER_S * 1e3)
             timed[site] = (conv, gate, generic, pool, eager_ms, bound)
         conv, gate, generic, pool, eager_ms, bound = timed[site]
         chosen, gchosen = cc.choose_tile(*site[:3], 2, 1), cc.gate_tile(*site[:3], 2, 1)
@@ -199,7 +210,7 @@ def sweep_real(args) -> None:
                      ("gate", gate[gchosen]), ("gate_best", gate[gb]),
                      ("eager", eager_ms), ("bound", bound)):
             tot[k] += v
-    print("real: summed over the 13 sites (ms): "
+    print(f"real: summed over the 13 sites at {args.dtype} (ms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()) + f" [{smi}]")
 
 
@@ -217,18 +228,21 @@ def sweep_dgrad(args) -> None:
     smi = card_line()
     # the forward class (Cin, Cout); the input gradient's is (Cout, Cin)
     fin, fout = (2, 1) if args.real else (4, 2)
+    dt = getattr(torch, args.dtype)
     g = torch.Generator(device=dev).manual_seed(0)
-    wt = cc.dgrad_kernel(torch.randn((7, 7, fin, fout), generator=g, device=dev) * 0.1)
+    wt = cc.dgrad_kernel(torch.randn((7, 7, fin, fout), generator=g, device=dev) * 0.1
+                         ).to(dt)
     zb = torch.zeros(fin, device=dev)
     tot = dict(chosen=0.0, best=0.0, generic=0.0)
     variant = "drs" if args.real else "dcs"
     for B, H, W, _ in sites(config_for_variant(variant), args.batch, args.frames):
-        gy = torch.randn((B, H, W, fout), generator=g, device=dev)
+        gy = torch.randn((B, H, W, fout), generator=g, device=dev).to(dt)
         chosen = cc.choose_tile(B, H, W, fout, fin)
         tiles = [] if args.no_sweep else candidate_tiles(H, fout, fin)
         t = {tile: graph_ms(lambda: cc.launch_conv(gy, wt, zb, tile), args.iters)
              for tile in tiles + [chosen]}
-        generic = graph_ms(lambda: cc.launch_conv(gy, wt, zb, cc.GENERIC_TILE), args.iters)
+        generic = (graph_ms(lambda: cc.launch_conv(gy, wt, zb, cc.GENERIC_TILE), args.iters)
+                   if dt == torch.float32 else float("nan"))
         best = min(t, key=t.get)
         print(f"dgrad ({fout}, {fin}) site ({B}, {H}, {W}): chosen {chosen} "
               f"{t[chosen]:.4f} | best {best} {t[best]:.4f} | generic {generic:.4f} ms")
@@ -237,7 +251,7 @@ def sweep_dgrad(args) -> None:
             print("    top 5: " + ", ".join(f"{k} {t[k]:.4f}" for k in top))
         for k, v in (("chosen", t[chosen]), ("best", t[best]), ("generic", generic)):
             tot[k] += v
-    print(f"dgrad ({fout}, {fin}): summed over the 13 sites (ms): "
+    print(f"dgrad ({fout}, {fin}) at {args.dtype}: summed over the 13 sites (ms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()) + f" [{smi}]")
 
 

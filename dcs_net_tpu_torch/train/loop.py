@@ -71,7 +71,7 @@ class Trainer:
     TF32 off for cuDNN and matmuls: the model trains in full float32, as the
     JAX reference does (cuDNN would otherwise run the encoder convs and the
     LSTM in TF32); and cuBLAS's reduced-precision bf16 reduction off, so that
-    at ``compute_dtype="bfloat16"`` (DC, DCS) every bf16 product, forward and
+    at ``compute_dtype="bfloat16"`` (every variant) every bf16 product, forward and
     backward, sums in float32. At bf16 the parameters, BN, Adam, SWA and the
     checkpoints stay float32: a bf16-trained checkpoint serves at either
     type.

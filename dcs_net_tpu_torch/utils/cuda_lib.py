@@ -158,16 +158,6 @@ def build_all(kernels: Optional[Iterable[CudaKernel]] = None) -> float:
     return time.perf_counter() - t0
 
 
-def refuse_bf16(entry: str, *tensors: torch.Tensor) -> None:
-    """Raise where a bf16 tensor reaches ``entry``, which has no bf16 class, on
-    any device: the CPU's plain version does not take it either, so that the
-    CPU and the card refuse alike (the real family's gate at bf16 is ROADMAP
-    Queue 1 item 4b)."""
-    if any(t.dtype == torch.bfloat16 for t in tensors):
-        raise TypeError(f"{entry} has no bfloat16 class (ROADMAP Queue 1 item 4b): "
-                        "it takes float32")
-
-
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
         k.launches = 0

@@ -70,13 +70,14 @@ def profiled_whole(fn: Callable[[], object], tries: int = 6
     """:func:`profiled` windows of ``fn`` until two agree on the largest
     kernel count seen: a window, warm-up step and all, still loses records
     now and then, and never gains any, so for a call that launches the same
-    kernels every time that count is the call's. A call whose own count
-    varies (the eager carried stream launched 27584-28425 kernels over 16
-    windows on the H100, one count in about two windows) may show a larger
-    count once and never again: after ``tries`` windows the largest count
-    that two windows agree on is taken. Returns the first window with the
-    count and the windows taken, or None and ``tries`` where no two
-    agreed."""
+    kernels every time that count is the call's. A window of a call with
+    tens of thousands of eager launches loses records of its first launches,
+    by how many varies (the eager carried stream on the H100: 86 to 205 of
+    its first launches short of its fullest window of 28245,
+    ``tools/profile_windows.py --carried``), so its largest count may show
+    once and never again: after ``tries`` windows the largest count that two
+    windows agree on is taken. Returns the first window with the count and
+    the windows taken, or None and ``tries`` where no two agreed."""
     seen = []
     for _ in range(tries):
         seen.append(profiled(fn))

@@ -20,9 +20,11 @@ Bands, stated in PERF.md section 2 before the first chip run:
   ``tests/test_model.py:124-125``).
 Then the CPU models of the bf16 packings, the routing to the bf16 classes
 (training's too: the conv entry, its input gradient and the tap conv's
-input gradient take their bf16 classes in both directions), the refusals
-that remain (DR/DRS at bf16, and a bf16 tensor at an entry with no bf16
-class), and the two serving CLIs at ``--dtype bfloat16``.
+input gradient take their bf16 classes in both directions, at the complex
+and the real classes), the real family at bf16 through every CLI and the
+trainer (once refused, now run: their parity is ``test_torch_bf16_real.py``'s),
+the refusal that remains (the bf16 STFT under autograd), and the two
+serving CLIs at ``--dtype bfloat16``.
 """
 
 import argparse
@@ -420,79 +422,145 @@ def test_carried_stream_bf16_is_the_full_pass_when_chunk_local():
     assert _rel(carried, full) <= 4 * BF16_OUT
 
 
-# -- refusals -----------------------------------------------------------------
+# -- the real family at bf16 (once refused) -------------------------------------
+
+class _Loader:
+    """Stands in for a data loader where a CLI's trainer is stubbed."""
+    front_end = "stub"
+
+    def close(self):
+        pass
+
 
 @pytest.mark.parametrize("cli", [cli_train, cli_tune], ids=["train", "tune"])
-def test_training_clis_refuse_bf16(cli, capsys):
-    """The training CLIs take ``--dtype bfloat16`` for DC and DCS; the real
-    variants at bf16 exit through the parser's error, naming the ROADMAP
-    item."""
-    with pytest.raises(SystemExit):
-        cli.main(["drs", "--dtype", "bfloat16", "--device", "cpu"])
-    err = capsys.readouterr().err
-    assert "not yet ported for the real variants" in err and "Queue 1 item 4b" in err
+def test_training_clis_refuse_bf16(cli, tmp_path, monkeypatch):
+    """Once a refusal, now run: the training CLIs parse ``drs --dtype
+    bfloat16`` and their trainer builds the full-width DRS at bf16 (its
+    layers', attention's and LSTM's operand type bf16, its parameters
+    float32); the loaders and ``Trainer.fit`` are stubbed, so nothing
+    trains."""
+    built = []
+
+    def fit(self, *a, **k):
+        built.append(self.model)
+        return {}
+
+    monkeypatch.setattr(cli, "make_loaders", lambda cfg: (_Loader(), _Loader()))
+    monkeypatch.setattr(Trainer, "fit", fit)
+    extra = ["--trials", "1", "--trial-epochs", "1"] if cli is cli_tune else []
+    cli.main(["drs", "--dtype", "bfloat16", "--device", "cpu", "--log-dir", str(tmp_path),
+              *extra])
+    (model,) = built
+    assert model.cfg.compute_dtype == "bfloat16" and not model.cfg.complex_valued
+    assert model.skip0_sa.dtype == model.lstm.dtype == model.fc.dtype == B16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
 
 
 @pytest.mark.parametrize("cli,variant", [(cli_enhance, "dr"), (cli_test, "drs")],
                          ids=["enhance", "test"])
 def test_serving_clis_refuse_the_real_variants_at_bf16(cli, variant, tmp_path, capsys):
-    """``cli.enhance dr --dtype bfloat16`` and ``cli.test drs --dtype
-    bfloat16`` exit through the parser's error, as the other refusals do,
-    not through the model's traceback."""
-    src = str(tmp_path / "in.wav")
-    write_wav(src, np.zeros(1600, np.float32), 16000)
-    args = {cli_enhance: ["--in", src, "--out", str(tmp_path / "out.wav")],
-            cli_test: ["--log-dir", str(tmp_path)]}[cli]
-    with pytest.raises(SystemExit):
-        cli.main([variant, *args, "--dtype", "bfloat16", "--device", "cpu"])
-    err = capsys.readouterr().err
-    assert "not yet ported for the real variants" in err and "Queue 1 item 4b" in err
+    """Once a refusal, now run: ``cli.enhance dr --dtype bfloat16`` writes the
+    enhanced wav, ``cli.test drs --dtype bfloat16`` evaluates a float32
+    checkpoint to finite means and its CSV, each on the CPU at a narrow
+    ``--config-json``."""
+    cfg = _narrow(config_for_variant(variant))
+    if cli is cli_enhance:
+        src, dst = str(tmp_path / "in.wav"), str(tmp_path / "out.wav")
+        wave = (0.1 * np.random.default_rng(7).standard_normal(4000)).astype(np.float32)
+        write_wav(src, wave, 16000)
+        path = tmp_path / "cfg.json"
+        path.write_text(cfg.to_json())
+        cli_enhance.main([variant, "--in", src, "--out", dst, "--config-json", str(path),
+                          "--dtype", "bfloat16", "--device", "cpu"])
+        got, sr = read_wav(dst)
+        assert sr == 16000 and got.shape == (4000,) and np.all(np.isfinite(got))
+        assert np.abs(got).max() > 0
+        return
+    root = str(tmp_path / "vb")
+    synthetic.generate(root, n_train=4, n_test=2, seconds=0.6)
+    cfg = cfg.replace(
+        model=dataclasses.replace(cfg.model, dropout_conv=0.0, dropout_fc=0.0),
+        data=dataclasses.replace(cfg.data, root=root, batch_size=2, num_workers=1),
+        run=dataclasses.replace(cfg.run, log_dir=str(tmp_path / "logs"),
+                                ckpt_dir=str(tmp_path / "ck")))
+    trainer = Trainer(cfg, device="cpu", log_dir=str(tmp_path / "l32"), pesq_fn=lambda *a: 0.0)
+    trainer.init_state()
+    trainer.save(CheckpointManager(cfg.run.ckpt_dir), 0)
+    path = tmp_path / "cfg16.json"
+    path.write_text(_cfg16(cfg).to_json())
+    metrics = cli_test.main([variant, "--config-json", str(path), "--device", "cpu",
+                             "--no-tensorboard"])
+    assert "restored step 0" in capsys.readouterr().out
+    assert all(np.isfinite(metrics[k]) for k in ("test_stoi", "test_loss"))
+    assert os.path.exists(os.path.join(cfg.run.log_dir + "-test", "per_utterance.csv"))
 
 
 @pytest.mark.parametrize("variant", ["dr", "drs"])
 def test_real_variants_refuse_bf16(variant):
+    """Once a refusal, now run: DR and DRS build at bf16 at full width with
+    float32 parameters (a float32 checkpoint loads as is), and their
+    forward gives a finite float32 mask of the input's shape."""
     cfg = _cfg16(config_for_variant(variant))
-    with pytest.raises(NotImplementedError, match="4b"):
-        DCSNet(cfg.model, cfg.quirks, device="cpu")
+    model = DCSNet(cfg.model, cfg.quirks, device="cpu").eval()
+    assert all(t.dtype == torch.float32 for t in model.state_dict().values())
+    mag = torch.from_numpy(np.abs(np.random.default_rng(8).standard_normal(
+        (1, 256, 16))).astype(np.float32))
+    with torch.no_grad():
+        mask = model(mag)
+    assert mask.dtype == torch.float32 and mask.shape == (1, 256, 16)
+    assert bool(torch.isfinite(mask).all())
 
 
 def test_trainer_refuses_to_train_at_bf16(tmp_path):
-    """The trainer trains DC and DCS at bf16; a DRS config at bf16 raises at
-    its model, before any step."""
+    """Once a refusal, now run: ``init_state`` builds a DRS model at bf16,
+    its parameters float32, ready to train."""
     cfg = _cfg16(config_for_variant("drs"))
     trainer = Trainer(cfg, device="cpu", log_dir=str(tmp_path), pesq_fn=lambda *a: 0.0)
-    with pytest.raises(NotImplementedError, match="4b"):
-        trainer.init_state()
-    assert trainer.model is None
+    trainer.init_state()
+    assert trainer.model is not None and trainer.model.lstm.dtype == B16
+    assert all(p.dtype == torch.float32 for p in trainer.model.parameters())
 
 
 def _bf16(*shape, device="cpu", grad=False):
     return torch.zeros(shape, device=device, dtype=B16, requires_grad=grad)
 
 
-@pytest.mark.parametrize("name,call", [
-    ("real pool", lambda d: cuda_conv.sa_pool_real(_bf16(1, 8, 8, 4, device=d))),
+@pytest.mark.parametrize("name,call,launched", [
+    ("real pool", lambda d: cuda_conv.sa_pool_real(_bf16(1, 8, 8, 4, device=d)),
+     "POOL_REAL_BF16"),
     ("real gate", lambda d: cuda_conv.sa_gate_real(
-        _bf16(1, 8, 8, 2, device=d), _bf16(7, 7, 2, 1, device=d), _bf16(1, 8, 8, 4, device=d))),
+        _bf16(1, 8, 8, 2, device=d), _bf16(7, 7, 2, 1, device=d), _bf16(1, 8, 8, 4, device=d)),
+     "GATE_REAL_BF16"),
     ("STFT under autograd", lambda d: tdsp.stft(
-        torch.zeros(1, 4000, device=d, requires_grad=True), STFTConfig(dft_dtype="bfloat16"))),
+        torch.zeros(1, 4000, device=d, requires_grad=True), STFTConfig(dft_dtype="bfloat16")),
+     None),
 ])
 @pytest.mark.parametrize("device", ["cpu", "meta"])
-def test_bf16_at_an_entry_without_a_bf16_class_raises(name, call, device, monkeypatch):
-    """The real family's gate at bf16 is ROADMAP Queue 1 item 4b, and the
-    bf16 STFT has no backward (the train step's waves take none): a bf16
-    tensor there raises, on the CPU (no plain version takes it) and off it
-    (meta: the card's route, the kernels stubbed), and nothing is launched
-    or cast to float32 quietly."""
-    recs = [_Recorder(k) for k in ("KERNEL", "DGRAD", "POOL_REAL", "GATE_REAL")]
-    for r in recs:
-        monkeypatch.setattr(cuda_conv, r.name, r)
+def test_bf16_at_an_entry_without_a_bf16_class_raises(name, call, launched, device,
+                                                     monkeypatch):
+    """The bf16 STFT has no backward (the train step's waves take none): a
+    bf16 STFT under autograd raises, on the CPU and off it (meta: the card's
+    route, the kernels stubbed), and nothing is launched or cast to float32
+    quietly. The real pool and gate, once refused here, have bf16 classes:
+    on the CPU their plain versions give a bf16 output and launch nothing;
+    off it each launches its bf16 class once and no float32 class."""
+    names = ("KERNEL", "DGRAD", "POOL_REAL", "GATE_REAL", "POOL_REAL_BF16", "GATE_REAL_BF16")
+    recs = {k: _Recorder(k) for k in names}
+    for k, r in recs.items():
+        monkeypatch.setattr(cuda_conv, k, r)
     trecs = [_Recorder(k) for k in ("KERNEL", "PACK", "DGRAD", "DGRAD_PACK")]
     for r in trecs:
         monkeypatch.setattr(cuda_tapconv, r.name, r)
-    with pytest.raises((TypeError, NotImplementedError)):
-        call(device)
-    assert all(r.launches == 0 for r in recs + trecs)
+    if launched is None:
+        with pytest.raises((TypeError, NotImplementedError)):
+            call(device)
+        assert all(r.launches == 0 for r in list(recs.values()) + trecs)
+        return
+    out = call(device)
+    assert out.dtype == B16
+    want = {} if device == "cpu" else {launched: 1}
+    assert {k: r.launches for k, r in recs.items() if r.launches} == want
+    assert all(r.launches == 0 for r in trecs)
 
 
 def _record(monkeypatch):
@@ -511,20 +579,22 @@ def _record(monkeypatch):
 
 def _entry_case(entry, device):
     """(inputs that autograd follows, the entry's output, the bf16 kernels
-    its forward and backward launch off the CPU) of one of training's three
-    bf16 classes: the conv entry at the gate's class (7, 4, 2), whose input
-    gradient is class (7, 2, 4); and kernel 3 at dec1's (x padded by one
-    pixel), whose input gradient is the tap conv's bf16 input-gradient
-    class."""
+    its forward and backward launch off the CPU) of one of training's bf16
+    classes: the conv entry at the gate's class (7, 4, 2), whose input
+    gradient is class (7, 2, 4); the conv entry at the real gate's class
+    (7, 2, 1), whose input gradient is class (7, 1, 2); and kernel 3 at
+    dec1's (x padded by one pixel), whose input gradient is the tap conv's
+    bf16 input-gradient class."""
     rng = np.random.default_rng(21)
 
     def t(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
             device=device, dtype=B16).requires_grad_()
 
-    if entry == "conv entry":
-        x, w = t(2, 8, 12, 4), t(7, 7, 4, 2)
-        y = cuda_conv.conv2d_same_small_cout(x, w, cuda_conv.zero_bias(2, x.device))
+    if entry in ("conv entry", "real conv entry"):
+        cin, cout = (4, 2) if entry == "conv entry" else (2, 1)
+        x, w = t(2, 8, 12, cin), t(7, 7, cin, cout)
+        y = cuda_conv.conv2d_same_small_cout(x, w, cuda_conv.zero_bias(cout, x.device))
         return (x, w), y, {"cuda_conv.KERNEL_BF16": 1, "cuda_conv.DGRAD_BF16": 1}
     x, w = t(2, 4, 251, 32), t(9, 32, 64)
     y = cuda_tapconv.tapconv_valid(x, w, 3, 3, (1, 1, 1, 1))
@@ -532,11 +602,12 @@ def _entry_case(entry, device):
                        "cuda_tapconv.DGRAD_BF16": 1, "cuda_tapconv.DGRAD_PACK_BF16": 1}
 
 
-@pytest.mark.parametrize("entry", ["conv entry", "tap conv"])
+@pytest.mark.parametrize("entry", ["conv entry", "tap conv", "real conv entry"])
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_bf16_entry_takes_its_bf16_class_in_both_directions(entry, device, monkeypatch):
     """Training's entries at bf16 under autograd: the conv entry (its bf16
-    class forward, the input gradient's class (7, 2, 4) backward) and the
+    class forward, the input gradient's class (7, 2, 4) backward; at the
+    real class (7, 2, 1), (7, 1, 2) backward) and the
     tap conv (its bf16 forward, the bf16 input-gradient class backward) give
     bf16 outputs and bf16 gradients of x and w. On the CPU they run their
     plain versions and launch nothing; off it (meta: the card's route, the
@@ -581,12 +652,12 @@ def test_tapconv_input_gradient_bf16_launch_takes_its_class(monkeypatch):
 
 
 def test_conv_entry_bf16_launch_refuses_a_class_without_a_tiled_body(monkeypatch):
-    """The conv entry's bf16 class has the register-tiled body at the complex
-    classes only: any other class at bf16 (the real (7, 2, 1), or 3 x 3)
-    raises off the CPU and launches nothing; the CPU's plain version takes
-    every class, its float32 sums rounded once."""
+    """The conv entry's bf16 class has the register-tiled body at the tiled
+    classes only (the complex and the real ones): any other class at bf16
+    ((7, 2, 2), or 3 x 3) raises off the CPU and launches nothing; the CPU's
+    plain version takes every class, its float32 sums rounded once."""
     recs = _record(monkeypatch)
-    for shape in ((7, 7, 2, 1), (3, 3, 4, 2)):
+    for shape in ((7, 7, 2, 2), (3, 3, 4, 2)):
         x = _bf16(1, 8, 8, shape[2], device="meta")
         with pytest.raises(ValueError, match="bf16 class"):
             cuda_conv.conv2d_same_small_cout(x, _bf16(*shape, device="meta"),

@@ -439,20 +439,28 @@ def test_trainer_cli_trains_checkpoints_and_resumes(tmp_path, capsys):
     assert os.path.exists(tmp_path / "logs" / "events.jsonl")
 
 
-@pytest.mark.parametrize("variant,flags,message", [
-    ("drs", ["--dtype", "bfloat16"], "not yet ported"),
-    ("dcs", ["--steps-per-dispatch", "2"], None),
+@pytest.mark.parametrize("variant,flags", [
+    ("drs", ["--dtype", "bfloat16"]),
+    ("dcs", ["--steps-per-dispatch", "2"]),
 ], ids=["bf16", "scan"])
-def test_train_cli_rejects_unported_flags(variant, flags, message, capsys, tmp_path):
-    """A flag the port does not run yet exits with its message (``--dtype
-    bfloat16`` for the real variants: DC and DCS train at it,
-    ``test_torch_bf16_train.py``). ``--steps-per-dispatch`` is ported and
-    accepted (message None): at 2 on the CPU the CLI trains an epoch of 3
-    steps, a dispatch of 2 and a single step, then resumes for a second."""
-    if message is not None:
-        with pytest.raises(SystemExit):
-            cli_train.main([variant, "--device", "cpu", *flags])
-        assert message in capsys.readouterr().err
+def test_train_cli_rejects_unported_flags(variant, flags, capsys, tmp_path, monkeypatch):
+    """Flags the port once refused, now taken. ``--dtype bfloat16`` for the
+    real variants: with ``--synthetic`` (the variant's config narrowed) the
+    CLI trains DRS at bf16 for a capped epoch to a finite loss, its
+    checkpoint's config at bf16 (the parity of the step is
+    ``test_torch_bf16_train_drs.py``'s). ``--steps-per-dispatch``: at 2 on
+    the CPU the CLI trains an epoch of 3 steps, a dispatch of 2 and a single
+    step, then resumes for a second."""
+    if "--dtype" in flags:
+        monkeypatch.setattr(cli_common, "config_for_variant",
+                            lambda variant, **kw: _tiny(config_for_variant(variant, **kw)))
+        metrics = cli_train.main([variant, "--synthetic", "--synthetic-n", "8", "--log-dir",
+                                  str(tmp_path), "--device", "cpu", *flags, "--epochs", "1",
+                                  "--limit-train-batches", "1"])
+        assert metrics["steps"] == 1 and metrics["nonfinite_loss_steps"] == 0
+        assert np.isfinite(metrics["loss"])
+        with open(tmp_path / variant / "checkpoints" / "config.json") as f:
+            assert '"compute_dtype": "bfloat16"' in f.read()
         return
     dcfg = synthetic.generate(str(tmp_path / "data"), n_train=8, n_test=2, seconds=0.4)
     base = _tiny(config_for_variant("dcs"))
