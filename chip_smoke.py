@@ -357,7 +357,7 @@ PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "stft_fft_mixed_kernel", "stft_dense_k
                        "sa_pool_kernel", "sa_gate_kernel", "sa_gate_real_kernel",
                        "sa_fused_bf16_kernel", "conv7_bf16_kernel",
                        "tapconv_kernel", "tapconv_staged_kernel", "pack_kernel",
-                       "pack_bf16_kernel")
+                       "pack_bf16_kernel", "dgrad_narrow_kernel")
 # one train step's launches of each kernel, forward and input gradient (DCS and DRS)
 TRAIN_STEP_LAUNCHES = {"stft": 1, "conv_same_small_cout": 13, "conv_same_small_cout_dgrad": 13,
                        "tapconv_valid": 7, "tapconv_pack": 7, "tapconv_valid_dgrad": 7,
@@ -486,17 +486,21 @@ KERNEL_INFO.update({
 # the bf16 classes of the training path (phase "bf16train"): kernel 2's conv
 # entry (the un-fused gate's conv) and its input gradient, both the
 # register-tiled body with bf16 loads and float32 FMAs; kernel 3's input
-# gradient, the forward's bf16 bodies on g with the flipped, transposed
-# weights packed from w
+# gradient: the staged body on g reading the forward's packing of w MN-major,
+# the tap body on g with the flipped, transposed weights packed from w (off
+# the path), and the narrow-reduction body (dec6: taps folded into the
+# reduction, mma.sync, w read as it is)
 KERNEL_INFO.update({
     "conv_same_small_cout_bf16": KERNEL_INFO["conv_same_small_cout"][:2]
     + ("simt-f32-register-tiled-bf16-loads", BF16_FLOPS_PER_S),
     "conv_same_small_cout_dgrad_bf16": KERNEL_INFO["conv_same_small_cout_dgrad"][:2]
     + ("simt-f32-register-tiled-bf16-loads-input-gradient", BF16_FLOPS_PER_S),
     "tapconv_valid_dgrad_bf16": KERNEL_INFO["tapconv_valid_dgrad"][:2]
-    + ("bf16-wgmma-staged-body-on-g-flipped-packing", BF16_FLOPS_PER_S),
+    + ("bf16-wgmma-staged-body-on-g-forward-packing-mn-major", BF16_FLOPS_PER_S),
     "tapconv_valid_dgrad_bf16_tap": KERNEL_INFO["tapconv_valid_dgrad"][:2]
     + ("bf16-wgmma-tap-body-on-g-flipped-packing", BF16_FLOPS_PER_S),
+    "tapconv_valid_dgrad_narrow_bf16": KERNEL_INFO["tapconv_valid_dgrad"][:2]
+    + ("bf16-mma-sync-narrow-reduction-folded-taps-halo-ring", BF16_FLOPS_PER_S),
 })
 KERNEL_TOL = {"sa_pool_bf16": BF16_REL_TOL, "sa_gate_bf16": BF16_REL_TOL,
               "sa_fused_bf16": BF16_REL_TOL, "sa_pool_real_bf16": BF16_REL_TOL,
@@ -505,18 +509,21 @@ KERNEL_TOL = {"sa_pool_bf16": BF16_REL_TOL, "sa_gate_bf16": BF16_REL_TOL,
               "conv_same_small_cout_bf16": BF16_REL_TOL,
               "conv_same_small_cout_dgrad_bf16": BF16_REL_TOL,
               "tapconv_valid_dgrad_bf16": BF16_REL_TOL,
-              "tapconv_valid_dgrad_bf16_tap": BF16_REL_TOL}
-# one bf16 train step's launches (DCS and DC): kernel 1's bf16 class; kernel
-# 2's conv entry at bf16 at the 13 un-fused gates, both directions; kernel
-# 3's bf16 forward (the staged body at dec0-dec5, the tap body at dec6) and
-# its input gradient's bf16 class (the staged body at every stage: the
-# input gradient's N is the forward's Cin, 32 or more), each with its
-# packing; nothing of a float32 class
+              "tapconv_valid_dgrad_bf16_tap": BF16_REL_TOL,
+              "tapconv_valid_dgrad_narrow_bf16": BF16_REL_TOL}
+# one bf16 train step's launches (DCS and DC; DRS and DR the same, their
+# conv entry at the real classes (7, 2, 1) and (7, 1, 2)): kernel 1's bf16
+# class; kernel 2's conv entry at bf16 at the 13 un-fused gates, both
+# directions; kernel 3's bf16 forward (the staged body at dec0-dec5,
+# the tap body at dec6) with its packing, and its input gradient's bf16
+# class: the staged body at dec0-dec5 on the forward's packing (no packing
+# of its own), the narrow body at dec6 (a reduction of the forward's N = 8,
+# or 4 for DR/DRS, to Cin 32); nothing of a float32 class
 BF16_TRAIN_STEP_LAUNCHES = {"stft_dense_bf16": 1, "conv_same_small_cout_bf16": 13,
                             "conv_same_small_cout_dgrad_bf16": 13,
                             "tapconv_valid_bf16": 6, "tapconv_valid_bf16_tap": 1,
-                            "tapconv_pack_bf16": 7, "tapconv_valid_dgrad_bf16": 7,
-                            "tapconv_pack_dgrad_bf16": 7}
+                            "tapconv_pack_bf16": 7, "tapconv_valid_dgrad_bf16": 6,
+                            "tapconv_valid_dgrad_narrow_bf16": 1}
 # CPU bf16 steps on the batch permuted, the measure of how far a bf16 step's
 # gradient leaves move with the order of their sums (phase "bf16train" (b)),
 # and the most a leaf's card-vs-CPU distance may be of their largest: 1.4x
@@ -541,7 +548,8 @@ SUM_ORDER_LIMIT = 4.0
 FLOAT64_WITNESS = 2.0
 # the rows phase "bf16train" adds to the kernels line
 BF16_TRAIN_ROWS = ("conv_same_small_cout_bf16", "conv_same_small_cout_dgrad_bf16",
-                   "tapconv_valid_dgrad_bf16", "tapconv_valid_dgrad_bf16_tap")
+                   "tapconv_valid_dgrad_bf16", "tapconv_valid_dgrad_bf16_tap",
+                   "tapconv_valid_dgrad_narrow_bf16")
 # one DRS (or DR) forward at bf16: the bf16 classes only (kernel 2's real
 # pool and gate at every site, kernel 3's staged body at dec0-dec5, its tap
 # body at dec6's N = 4); the rows it adds, named <kernel>_drs
@@ -550,12 +558,6 @@ DRS_EVAL_FORWARD_BF16 = {"sa_pool_real_bf16": 13, "sa_gate_real_bf16": 13,
                          "tapconv_pack_bf16": 7}
 DRS_BF16_ROWS = ("sa_pool_real_bf16", "sa_gate_real_bf16", "tapconv_valid_bf16",
                  "tapconv_valid_bf16_tap")
-# one DRS (or DR) bf16 train step's launches: DCS's classes (the conv entry's
-# bf16 class at (7, 2, 1) and its input gradient's at (7, 1, 2)), but kernel
-# 3's input gradient at dec6, whose reduction is N = 4 channels, on the tap
-# body (counted with the staged one too)
-BF16_DRS_TRAIN_STEP_LAUNCHES = {**BF16_TRAIN_STEP_LAUNCHES,
-                                "tapconv_valid_dgrad_bf16_tap": 1}
 # kernel 1 off the paths, rows of their own in the kernels line, each
 # (B, n, n_fft, hop), centred with the DC bin dropped as the model's: row 1b,
 # the FFT entry at sizes that took the dense DFT before (the first is that
@@ -676,6 +678,18 @@ TAPCONV_BF16_EXTRA = [((2, 5, 7, 24), 12, (3, 3), (1, 1, 1, 1)),
                       ((2, 9, 33, 48), 8, (3, 3), (1, 1, 1, 1)),
                       ((2, 12, 60, 40), 64, (5, 5), (2, 2, 2, 2))]
 
+# kernel 3's bf16 input gradient off the path ((B, H, W, Cin), N, pad): the
+# narrow body at ragged tiles (H, W no multiple of 4 and 64), N = 1, 3, 4,
+# 5 and 8 (a pixel copied whole at 4 and 8 only), Cin 8, 20 and 32, uneven
+# padding; the staged body on the forward's packing where a box of Cin
+# chunks runs past the tile (Cin 40 and 72), N over two N tiles (136), and
+# on the forward tap body's 32-channel packing (Cin 36); the tap body at N
+# <= 8 above Cin 32
+DGRAD_BF16_EXTRA = [((2, 5, 70, 32), 4, (1, 1, 1, 1)), ((2, 5, 70, 32), 8, (0, 2, 2, 1)),
+                    ((1, 9, 130, 20), 3, (2, 0, 1, 1)), ((3, 4, 16, 8), 5, (1, 1, 0, 2)),
+                    ((2, 7, 33, 32), 1, (1, 1, 1, 1)), ((2, 5, 40, 72), 24, (1, 1, 1, 1)),
+                    ((2, 6, 20, 40), 136, (1, 0, 1, 1)), ((2, 5, 12, 36), 16, (1, 1, 1, 1)),
+                    ((2, 5, 40, 48), 8, (1, 1, 1, 1))]
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -767,6 +781,7 @@ def discover_shapes(run):
              (cuda_tapconv, "KERNEL_BF16"), (cuda_tapconv, "KERNEL_BF16_TAP"),
              (cuda_conv, "KERNEL_BF16"), (cuda_conv, "DGRAD_BF16"),
              (cuda_tapconv, "DGRAD_BF16"), (cuda_tapconv, "DGRAD_BF16_TAP"),
+             (cuda_tapconv, "DGRAD_NARROW_BF16"),
              (cuda_conv, "POOL_REAL_BF16"), (cuda_conv, "GATE_REAL_BF16")]
     logs = [ShapeLog(getattr(mod, attr)) for mod, attr in slots]
     try:
@@ -1222,35 +1237,57 @@ def kernel_cases(name, args, dev, cfg):
                 2 * (gy.numel() + w.numel() + B * H * W * cin),
                 2 * B * H * W * K * K * cin * cout, None, {})
     if name in ("tapconv_valid_dgrad_bf16", "tapconv_valid_dgrad_bf16_tap"):
-        # kernel 3's input gradient at bf16: the forward's bf16 body on g
-        # (B, HO, WO, N) read in place, padded by Dh - 1 - top rows before
-        # it (the recorded launch's padding), with the flipped, transposed
-        # weights, -> dx (B, H, W, Cin). The least work is the forward's.
-        # The library call: one bf16 torch.nn.grad.conv2d_input; pack_ms the
-        # flipped packing alone, which every call runs before the body
+        # kernel 3's input gradient at bf16: the staged body on g (B, HO, WO,
+        # N) read in place, padded by Dh - 1 - top rows before it (the
+        # recorded launch's padding), on the forward's packing of w made
+        # beforehand as the forward makes it (recorded: its N tile and
+        # chunk); the tap body on the flipped, transposed weights, whose
+        # packing every call runs (pack_ms) -> dx (B, H, W, Cin). The least
+        # work is the forward's. The library call: one bf16
+        # torch.nn.grad.conv2d_input
         B, ho, wo, n, H, W, cin, dh, dw = args[:9]
         gtop, gbottom, gleft, gright = tapconv_pad(args)
         pad = (dh - 1 - gtop, dh - 1 - gbottom, dw - 1 - gleft, dw - 1 - gright)
         body = "staged" if name == "tapconv_valid_dgrad_bf16" else "tap"
-        if cuda_tapconv.bf16_body(B, ho, wo, n, cin, dh, dw, (gtop, gbottom, gleft, gright)
-                                  ) != body:
-            fail(f"{name} at {args}: the shape routes to the other body")
+        if cuda_tapconv.dgrad_body_bf16(B, ho, wo, n, cin, dh, dw,
+                                        (gtop, gbottom, gleft, gright)) != body:
+            fail(f"{name} at {args}: the shape routes to another body")
         gy = randn(B, ho, wo, n).to(b16)
         w = randn(dh * dw, cin, n, scale=1.0 / math.sqrt(dh * dw * cin)).to(b16)
-        kb = cuda_tapconv.STAGED_KB if body == "staged" else cuda_tapconv.BK
-        bn = args[-2]
-        packed = torch.empty((-(-cin // bn), -(-n // kb), dh * dw, kb // 8, bn, 8),
-                             device=dev, dtype=b16)
+        extras, packing = {}, None
+        if body == "staged":
+            packing = cuda_tapconv.pack_bf16(w, *args[15:17])
+        else:
+            bn = args[13]
+            packed = torch.empty((-(-cin // bn), -(-n // cuda_tapconv.BK), dh * dw,
+                                  cuda_tapconv.BK // 8, bn, 8), device=dev, dtype=b16)
+            extras["pack_ms"] = lambda: cuda_tapconv.DGRAD_PACK_BF16(
+                dev, ptr(w), ptr(packed), dh * dw, cin, n, bn, cuda_tapconv.BK)
         print(f"kernel {name} args={args}: the {body} body on g padded by "
-              f"{(gtop, gbottom, gleft, gright)}, plan (bn, flat, wgs, S) {args[-4:]}",
+              f"{(gtop, gbottom, gleft, gright)}, plan (bn, flat, wgs, S) {args[11:15]}",
               flush=True)
+        return (lambda: cuda_tapconv._launch_dgrad(gy, w, dh, dw, pad, (H, W), packing),
+                lambda: cuda_tapconv.tapconv_dgrad_bf16_plain(gy, w, dh, dw, pad, (H, W)),
+                tapconv_input_grad_library(gy, w, dh, dw, pad, (H, W)),
+                2 * (gy.numel() + w.numel() + B * H * W * cin),
+                2 * B * ho * wo * dh * dw * cin * n, None, extras)
+    if name == "tapconv_valid_dgrad_narrow_bf16":
+        # kernel 3's input gradient at bf16 where the reduction is narrow
+        # (dec6): g (B, HO, WO, N <= 8) and w (9, Cin <= 32, N) as they are,
+        # the forward's padding recorded -> dx (B, H, W, Cin). Bound: bytes
+        B, ho, wo, n, H, W, cin, dh, dw, top, left = args[:11]
+        pad = (top, ho - H - top + dh - 1, left, wo - W - left + dw - 1)
+        gy = randn(B, ho, wo, n).to(b16)
+        w = randn(dh * dw, cin, n, scale=1.0 / math.sqrt(dh * dw * cin)).to(b16)
+        c, steps = cuda_tapconv.narrow_fold(n)
+        print(f"kernel {name} args={args}: the narrow body, {c} channels a tap slot, "
+              f"{steps} k16 steps, tiles of {cuda_tapconv.NARROW_ROWS} x "
+              f"{cuda_tapconv.NARROW_COLS} pixels, forward padding {pad}", flush=True)
         return (lambda: cuda_tapconv._launch_dgrad(gy, w, dh, dw, pad, (H, W)),
                 lambda: cuda_tapconv.tapconv_dgrad_bf16_plain(gy, w, dh, dw, pad, (H, W)),
                 tapconv_input_grad_library(gy, w, dh, dw, pad, (H, W)),
                 2 * (gy.numel() + w.numel() + B * H * W * cin),
-                2 * B * ho * wo * dh * dw * cin * n, None,
-                {"pack_ms": lambda: cuda_tapconv.DGRAD_PACK_BF16(
-                    dev, ptr(w), ptr(packed), dh * dw, cin, n, bn, kb)})
+                2 * B * ho * wo * dh * dw * cin * n, None, {})
     raise KeyError(name)
 
 
@@ -3579,6 +3616,45 @@ def check_bf16_off_path(dev, cfg) -> None:
                      f"pack_weights_bf16")
 
 
+
+def check_dgrad_bf16_off_path(dev) -> None:
+    """Kernel 3's bf16 input gradient where the paths do not take it
+    (``DGRAD_BF16_EXTRA``), on the forward's packing of w made as the
+    forward makes it, against its plain version: one launch of the body the
+    shape routes to, none of the flipped packing but for the tap body."""
+    import torch
+
+    from dcs_net_tpu_torch.ops import cuda_tapconv as ct
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    b16 = torch.bfloat16
+    kernels = {"narrow": ct.DGRAD_NARROW_BF16, "staged": ct.DGRAD_BF16,
+               "tap": ct.DGRAD_BF16_TAP}
+    for shape, n, pad in DGRAD_BF16_EXTRA:
+        B, H, W, cin = shape
+        ho, wo = H + pad[0] + pad[1] - 2, W + pad[2] + pad[3] - 2
+        w = (torch.randn((9, cin, n), generator=g, device=dev) * 0.1).to(b16)
+        gy = torch.randn((B, ho, wo, n), generator=g, device=dev).to(b16)
+        fbody = ct.bf16_body(B, H, W, cin, n, 3, 3, pad)
+        packing = ct.pack_bf16(w, ct.tile_n(n), ct.STAGED_KB if fbody == "staged" else ct.BK)
+        body = ct.dgrad_body_bf16(B, ho, wo, n, cin, 3, 3, ct.dgrad_pad_bf16(pad, 3, 3))
+        counts = {k: kn.launches for k, kn in kernels.items()}
+        packs = ct.DGRAD_PACK_BF16.launches
+        got = ct._launch_dgrad(gy, w, 3, 3, pad, (H, W), packing)
+        want = ct.tapconv_dgrad_bf16_plain(gy, w, 3, 3, pad, (H, W))
+        torch.cuda.synchronize()
+        rel = rel_err(got.float(), want.float())
+        n_body = kernels[body].launches - counts[body]
+        n_pack = ct.DGRAD_PACK_BF16.launches - packs
+        print(f"kernel tapconv_valid_dgrad_bf16 off the path: dx {shape} from g "
+              f"{tuple(gy.shape)} pad {pad}: the {body} body (forward {fbody}, packing "
+              f"kb {packing[2]}), launches {n_body} + {n_pack} packings, "
+              f"rel_err={rel:.3e}", flush=True)
+        if (n_body != 1 or n_pack != (body == "tap") or not math.isfinite(rel)
+                or rel > BF16_REL_TOL):
+            fail(f"tapconv_valid_dgrad_bf16 ({body}) at {shape}, N {n}, pad {pad}: error "
+                 f"{rel:.3e}, {n_body} launches, {n_pack} packings")
+
 def fused_sweep_tiles(B, H, W, C):
     """The plan's tile for the fused gate at (B, H, W, C) and its
     neighbours: twice and half as wide, twice and half as tall, spanning the
@@ -4472,6 +4548,7 @@ def check_bf16_train(dev, card, tmp, noisy, clean, f32, drs_f32=None):
     k = GRAPH_K
     rows = train_at_bf16(dev, card, noisy, clean, "dcs", f32, BF16_TRAIN_STEP_LAUNCHES,
                          SEED + 11, SEED + 13)
+    check_dgrad_bf16_off_path(dev)
 
     # (f) DC at bf16 and at float32, card vs CPU, batch 4, dropout off
     dcfg = config_for_variant("dc")
@@ -4523,7 +4600,7 @@ def check_bf16_train(dev, card, tmp, noisy, clean, f32, drs_f32=None):
                       *served["bfloat16"])
     # (h) DRS at bf16
     rows += train_at_bf16(dev, card, noisy, clean, "drs", drs_f32,
-                          BF16_DRS_TRAIN_STEP_LAUNCHES, SEED + 50, SEED + 16, "_drs",
+                          BF16_TRAIN_STEP_LAUNCHES, SEED + 50, SEED + 16, "_drs",
                           witness=True)
 
     # (i) DRS through the CLIs at --dtype bfloat16: the trainer on the

@@ -133,11 +133,18 @@
 // The input gradient's bf16 class (training at bf16; the JAX _updot_bwd at
 // bf16: g bf16, g K^T summed in float32, the overlap-add over taps in
 // float32, dx rounded once to bf16) is the same VALID correlation on g with
-// the flipped, transposed weights, so it runs the forward's bf16 bodies: g
-// read in place, zero-padded by Dh - 1 - pad_top rows before it (and so on
-// each side), its weights packed straight from w by
-// dcs_tapconv_pack_dgrad_bf16 (pack_bf16_kernel's FLIP), the body chosen by
-// the same rule as the forward's.
+// the flipped, transposed weights: g read in place, zero-padded by Dh - 1 -
+// pad_top rows before it (and so on each side). Three bodies, the wrapper
+// choosing from the shape alone (ops/cuda_tapconv.py:dgrad_body_bf16):
+// * the narrow-reduction body (dcs_tapconv_dgrad_narrow_bf16, see its notes)
+//   where the reduction is at most 8 channels and the output at most 32
+//   (dec6), bound by bytes;
+// * the staged body (dcs_tapconv_dgrad_bf16) reading the forward's packing
+//   of w as it is, MN-major through wgmma's transpose bit, the taps
+//   reversed by index: no packing launch of its own;
+// * the tap body on weights packed flipped from w by
+//   dcs_tapconv_pack_dgrad_bf16 (pack_bf16_kernel's FLIP), for the shapes
+//   neither takes.
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -1114,6 +1121,15 @@ struct SGeo {
                    // tap of every M row (rows past arows are not written)
   int nchunks;     // 16-channel chunks of Cg
   int nst;         // stages of the ring
+  // the input gradient (TB): the forward's packing of w that it reads, its N
+  // tile (the forward's N, Cg here, in fbn-wide tiles), its chunk (the
+  // forward's Cin, N here, in fkb-channel chunks) and its chunks a tile
+  int fbn, fkb, fchunks;
+  // planes of a stage's halo tile an 8-channel group: 1, or, for the input
+  // gradient's flat tiles in planes (flat = 2), Dw: one a column shift, each
+  // W pixels a row, so that M rows are output pixels (no halo columns
+  // among them)
+  int nplanes;
 };
 
 __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
@@ -1125,12 +1141,14 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 }
 
 // d (64 x N, float32) = a (64 x 16 bf16) * b (16 x N bf16) + (scale_d ? d :
-// 0), both from shared memory, K-major, through their descriptors
-template <int N>
+// 0), both from shared memory through their descriptors, a K-major; b
+// K-major, or MN-major where TB = 1 (the transpose bit: 8 consecutive
+// columns of a k row contiguous, a core matrix 8 k rows of 16 bytes)
+template <int N, int TB = 0>
 struct WgmmaSS;
 
-template <>
-struct WgmmaSS<8> {
+template <int TB>
+struct WgmmaSS<8, TB> {
   static __device__ __forceinline__ void mma(float (&d)[4], uint64_t da, uint64_t db,
                                              int scale_d) {
     asm volatile(
@@ -1141,15 +1159,15 @@ struct WgmmaSS<8> {
         "{"
         "%0, %1, %2, %3"
         "}, "
-        "%4, %5, p, 1, 1, 0, 0;\n"
+        "%4, %5, p, 1, 1, 0, %7;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
 
-template <>
-struct WgmmaSS<64> {
+template <int TB>
+struct WgmmaSS<64, TB> {
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db,
                                              int scale_d) {
     asm volatile(
@@ -1163,7 +1181,7 @@ struct WgmmaSS<64> {
         " %16, %17, %18, %19, %20, %21, %22, %23, "
         " %24, %25, %26, %27, %28, %29, %30, %31"
         "}, "
-        "%32, %33, p, 1, 1, 0, 0;\n"
+        "%32, %33, p, 1, 1, 0, %35;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -1173,12 +1191,12 @@ struct WgmmaSS<64> {
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
 
-template <>
-struct WgmmaSS<128> {
+template <int TB>
+struct WgmmaSS<128, TB> {
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db,
                                              int scale_d) {
     asm volatile(
@@ -1196,7 +1214,7 @@ struct WgmmaSS<128> {
         " %48, %49, %50, %51, %52, %53, %54, %55, "
         " %56, %57, %58, %59, %60, %61, %62, %63"
         "}, "
-        "%64, %65, p, 1, 1, 0, 0;\n"
+        "%64, %65, p, 1, 1, 0, %67;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -1214,7 +1232,7 @@ struct WgmmaSS<128> {
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
   }
 };
 
@@ -1246,9 +1264,19 @@ __host__ __device__ __forceinline__ int staged_bars_offset(int bn, int wgs, int 
 // Wg, Cg) as (8 channels, Cg / 8 channel groups, Wg, Hg, B) whose box is
 // one 8-channel group of a halo tile: (8, 1, pw, arows, 1). Grid (M tiles, N
 // tiles, S).
-template <int WGS, int BN, int DH, int DW>
+// TB: the input gradient, on the forward's packed weights as they are (no
+// flipped packing): `wmap` is a 4-d tensor map over them as (its N tile's
+// fbn x 8 (N, 8 channels of Cin) elements, fkb / 8 channel groups, the
+// chunks of every tile, the taps), whose box (16 x 8: 256-byte rows, fkb /
+// 8, BN / fkb, taps) lands as [tap][BN / 8 groups of 8 Cin][16 N][8 Cin]:
+// for a tap, B (K = 16 of the forward's N, BN of its Cin) MN-major, core
+// matrices 128 bytes apart along K and 256 along Cin, read with the
+// transpose bit, the taps in reverse order by index. (A box of 16-byte
+// rows, (8, 16, ...), took the stage's copies past its products.)
+template <int WGS, int BN, int DH, int DW, bool TB = false>
 __global__ void __launch_bounds__(128 * WGS + 32, 1)
 tapconv_staged_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
                       const __nv_bfloat16* __restrict__ wp, __nv_bfloat16* __restrict__ y,
                       const SGeo g) {
   constexpr int BM = 64 * WGS, NT = 128 * WGS + 32;
@@ -1256,10 +1284,11 @@ tapconv_staged_kernel(const __grid_constant__ CUtensorMap xmap,
   extern __shared__ __align__(128) unsigned char staged_smem[];
   unsigned char* smem = staged_smem;
   constexpr int taps = DH * DW;
-  const int bstage = taps * TAPB, stage = staged_stage_bytes(BN, taps, g.npix);
+  const int apix = TB ? g.npix * g.nplanes : g.npix;  // a stage's halo pixels a group
+  const int bstage = taps * TAPB, stage = staged_stage_bytes(BN, taps, apix);
   const int S = gridDim.z, rank = blockIdx.z;
   const uint32_t bars =
-      smem_u32(smem + staged_bars_offset(BN, WGS, taps, g.npix, S, g.nst));
+      smem_u32(smem + staged_bars_offset(BN, WGS, taps, apix, S, g.nst));
   const uint32_t full = bars, empty = bars + 8 * g.nst;
 
   // the tile: M row m is halo position s0 + m of a halo tile of pw pixels a
@@ -1309,14 +1338,28 @@ tapconv_staged_kernel(const __grid_constant__ CUtensorMap xmap,
         const int s = it % g.nst, chunk = c_lo + it;
         if (it >= g.nst) mbar_wait(empty + 8 * s, ((it / g.nst) - 1) & 1);
         unsigned char* st = smem + s * stage;
-        mbar_expect_tx(full + 8 * s, bbytes + (SKB / 8) * abytes);
-        const __nv_bfloat16* src =
-            wp + (static_cast<long long>(blockIdx.y) * g.nchunks + chunk) * taps * (TAPB / 2);
-        bulk_copy(smem_u32(st), src, bbytes, full + 8 * s);
+        mbar_expect_tx(full + 8 * s, bbytes + (SKB / 8) * abytes * (TB ? g.nplanes : 1));
+        if constexpr (TB) {
+          const int k0 = chunk * SKB;  // the forward's output channel
+          tma_load_4d(smem_u32(st), &wmap, (k0 % g.fbn) * 8, 0,
+                      (k0 / g.fbn) * g.fchunks + blockIdx.y * (BN / g.fkb), 0, full + 8 * s);
+        } else {
+          const __nv_bfloat16* src =
+              wp + (static_cast<long long>(blockIdx.y) * g.nchunks + chunk) * taps * (TAPB / 2);
+          bulk_copy(smem_u32(st), src, bbytes, full + 8 * s);
+        }
 #pragma unroll
-        for (int gi = 0; gi < SKB / 8; ++gi)
-          tma_load_5d(smem_u32(st + bstage + gi * g.npix * 16), &xmap, 0,
-                      chunk * (SKB / 8) + gi, c0, r0, b, full + 8 * s);
+        for (int gi = 0; gi < SKB / 8; ++gi) {
+          if constexpr (TB) {
+            // plane p of group gi holds the halo's columns from c0 + p
+            for (int p = 0; p < g.nplanes; ++p)
+              tma_load_5d(smem_u32(st + bstage + (p * (SKB / 8) + gi) * g.npix * 16), &xmap,
+                          0, chunk * (SKB / 8) + gi, c0 + p, r0, b, full + 8 * s);
+          } else {
+            tma_load_5d(smem_u32(st + bstage + gi * g.npix * 16), &xmap, 0,
+                        chunk * (SKB / 8) + gi, c0, r0, b, full + 8 * s);
+          }
+        }
       }
     }
   } else {
@@ -1324,6 +1367,8 @@ tapconv_staged_kernel(const __grid_constant__ CUtensorMap xmap,
     static_assert(SKB == 16, "a stage is one k16 step a tap");
     const uint32_t lbo_a = g.npix * 16, lbo_b = BN * 16;
     const int arow = s0 + 64 * wg;
+    // a tap's column shift: one pixel, or (planes) the next plane
+    const int dstep = TB && g.nplanes > 1 ? (SKB / 8) * g.npix : 1;
     for (int it = 0; it < nit; ++it) {
       const int s = it % g.nst;
       mbar_wait(full + 8 * s, (it / g.nst) & 1);
@@ -1332,12 +1377,13 @@ tapconv_staged_kernel(const __grid_constant__ CUtensorMap xmap,
       // bytes into the stage
       const uint32_t bb = smem_u32(smem + s * stage);
       const uint64_t da0 = make_desc(bb + bstage + arow * 16, lbo_a, 128);
-      const uint64_t db0 = make_desc(bb, lbo_b, 128);
+      const uint64_t db0 = TB ? make_desc(bb, 128, 256) : make_desc(bb, lbo_b, 128);
       wgmma_fence();
 #pragma unroll
       for (int t = 0; t < taps; ++t)
-        WgmmaSS<BN>::mma(acc, da0 + static_cast<uint64_t>((t / DW) * g.pw + t % DW),
-                         db0 + static_cast<uint64_t>(t * (TAPB / 16)), it > 0 || t > 0);
+        WgmmaSS<BN, TB>::mma(acc, da0 + static_cast<uint64_t>((t / DW) * g.pw + (t % DW) * dstep),
+                             db0 + static_cast<uint64_t>((TB ? taps - 1 - t : t) * (TAPB / 16)),
+                             it > 0 || t > 0);
       wgmma_commit();
       wgmma_wait<1>();  // the group of the stage before has retired
       if (it > 0) mbar_arrive(empty + 8 * ((it - 1) % g.nst));
@@ -1448,7 +1494,17 @@ tapconv_staged_kernel(const __grid_constant__ CUtensorMap xmap,
 void staged_tiles(SGeo& geo, int wgs) {
   const int BM = 64 * wgs;
   int reach;  // halo pixels the M rows read, at most
-  if (geo.flat) {
+  geo.nplanes = 1;
+  if (geo.flat == 2) {
+    // the input gradient's flat tiles in planes: Dw planes of W pixels a
+    // row, a tile BM consecutive output pixels from any column
+    geo.nplanes = geo.Dw;
+    geo.pw = geo.W;
+    geo.tiles = (geo.H * geo.W + BM - 1) / BM;
+    const int span = (BM + geo.pw - 2) / geo.pw + 1;
+    geo.arows = (span < geo.H ? span : geo.H) + geo.Dh - 1;
+    reach = geo.Dh * geo.pw + BM - 1;
+  } else if (geo.flat) {
     geo.pw = geo.W + geo.Dw - 1;
     geo.tiles = ((geo.H - 1) * geo.pw + geo.W + BM - 1) / BM;
     const int span = (BM + geo.pw - 2) / geo.pw + 1;
@@ -1475,12 +1531,14 @@ int staged_stages(int bn, int wgs, int taps, int npix, int nchunks, int split) {
   return 0;
 }
 
-template <int WGS, int BN>
+// TB: the input gradient, wp the forward's packing, read through a tensor map
+// (the kernel's notes)
+template <int WGS, int BN, bool TB = false>
 int launch_staged(cudaStream_t s, const __nv_bfloat16* x, const __nv_bfloat16* wp,
                   __nv_bfloat16* y, int B, SGeo geo, int split) {
   staged_tiles(geo, WGS);
   const int taps = geo.Dh * geo.Dw;
-  geo.nst = staged_stages(BN, WGS, taps, geo.npix, geo.nchunks, split);
+  geo.nst = staged_stages(BN, WGS, taps, geo.npix * geo.nplanes, geo.nchunks, split);
   if (geo.nst == 0 || geo.Dh != 3 || geo.Dw != 3 || geo.pw > 256 || geo.arows > 256 ||
       geo.Cg % 8 || (reinterpret_cast<uintptr_t>(x) & 15))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1503,9 +1561,38 @@ int launch_staged(cudaStream_t s, const __nv_bfloat16* x, const __nv_bfloat16* w
              CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
     return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap wmap = {};
+  if constexpr (TB) {
+    // the forward's tiles [N tile][Cin chunk][tap][fkb / 8][fbn][8] as (8,
+    // fbn, fkb / 8, N tiles x chunks, taps): a tile's chunks continue into
+    // the next tile's, so a box past the last chunk of a tile reads weights
+    // of columns past Cin, never stored
+    const int ntiles = (geo.Cg + geo.fbn - 1) / geo.fbn;
+    if (geo.fbn < SKB || geo.fbn % SKB || (geo.fkb != SKB && geo.fkb != BK) ||
+        BN % geo.fkb || geo.fchunks != (geo.N + geo.fkb - 1) / geo.fkb ||
+        (reinterpret_cast<uintptr_t>(wp) & 15))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const cuuint64_t tap_bytes = static_cast<cuuint64_t>(geo.fkb) * geo.fbn * 2;
+    const cuuint64_t wdims[4] = {static_cast<cuuint64_t>(geo.fbn) * 8,
+                                 static_cast<cuuint64_t>(geo.fkb / 8),
+                                 static_cast<cuuint64_t>(ntiles) * geo.fchunks,
+                                 static_cast<cuuint64_t>(taps)};
+    const cuuint64_t wstrides[3] = {static_cast<cuuint64_t>(geo.fbn) * 16, taps * tap_bytes,
+                                    tap_bytes};
+    const cuuint32_t wbox[4] = {SKB * 8, static_cast<cuuint32_t>(geo.fkb / 8),
+                                static_cast<cuuint32_t>(BN / geo.fkb),
+                                static_cast<cuuint32_t>(taps)};
+    const cuuint32_t wunit[4] = {1, 1, 1, 1};
+    if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<__nv_bfloat16*>(wp),
+               wdims, wstrides, wbox, wunit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem =
-      staged_bars_offset(BN, WGS, taps, geo.npix, split, geo.nst) + 16 * geo.nst;
-  auto kernel = tapconv_staged_kernel<WGS, BN, 3, 3>;
+      staged_bars_offset(BN, WGS, taps, geo.npix * geo.nplanes, split, geo.nst) +
+      16 * geo.nst;
+  auto kernel = tapconv_staged_kernel<WGS, BN, 3, 3, TB>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -1515,7 +1602,7 @@ int launch_staged(cudaStream_t s, const __nv_bfloat16* x, const __nv_bfloat16* w
   const dim3 grid(static_cast<unsigned>(mtiles), (geo.N + BN - 1) / BN, split);
   constexpr int NT = 128 * WGS + 32;
   if (split == 1) {
-    kernel<<<grid, NT, smem, s>>>(xmap, wp, y, geo);
+    kernel<<<grid, NT, smem, s>>>(xmap, wmap, wp, y, geo);
     return static_cast<int>(cudaGetLastError());
   }
   cudaLaunchConfig_t cfg = {};
@@ -1530,7 +1617,7 @@ int launch_staged(cudaStream_t s, const __nv_bfloat16* x, const __nv_bfloat16* w
   attr[0].val.clusterDim.z = split;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wp, y, geo);
+  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, wp, y, geo);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1545,7 +1632,7 @@ int forward_staged(const __nv_bfloat16* x, const __nv_bfloat16* wp, __nv_bfloat1
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   SGeo geo{H, W, Cin, HO, WO, N, -pad_top, -pad_left, Dh, Dw,
-           flat, 0, 0, 0, 0, (Cin + SKB - 1) / SKB, 0};
+           flat, 0, 0, 0, 0, (Cin + SKB - 1) / SKB, 0, 0, 0, 0, 1};
 #define DCS_STAGED(BN) \
   (wgs == 2 ? launch_staged<2, BN>(s, x, wp, y, B, geo, split) \
             : launch_staged<1, BN>(s, x, wp, y, B, geo, split))
@@ -1560,6 +1647,252 @@ int forward_staged(const __nv_bfloat16* x, const __nv_bfloat16* wp, __nv_bfloat1
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef DCS_STAGED
+}
+
+// The input gradient's bf16 class on the staged body (TB): g (B, HO, WO, N)
+// read in place as zero-padded by gpad_top rows and gpad_left columns
+// before it, the forward's packing wpf (bn_f, kb_f) read as it is.
+int dgrad_staged(const __nv_bfloat16* g, const __nv_bfloat16* wpf, __nv_bfloat16* dx,
+                 int B, int HO, int WO, int N, int H, int W, int Cin, int Dh, int Dw,
+                 int gpad_top, int gpad_left, int flat, int wgs, int bn, int split, int bn_f,
+                 int kb_f, void* stream) {
+  if (!forward_args_ok(B, HO, WO, N, H, W, Cin, Dh, Dw, gpad_top, gpad_left, flat ? 1 : 0,
+                       wgs, split) || flat < 0 || flat > 2 || kb_f < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  SGeo geo{HO, WO, N, H, W, Cin, -gpad_top, -gpad_left, Dh, Dw,
+           flat, 0, 0, 0, 0, (N + SKB - 1) / SKB, 0, bn_f, kb_f, (Cin + kb_f - 1) / kb_f, 1};
+  switch (bn) {
+    case 64:
+      return wgs == 2 ? launch_staged<2, 64, true>(s, g, wpf, dx, B, geo, split)
+                      : launch_staged<1, 64, true>(s, g, wpf, dx, B, geo, split);
+    case 128:
+      return wgs == 2 ? launch_staged<2, 128, true>(s, g, wpf, dx, B, geo, split)
+                      : launch_staged<1, 128, true>(s, g, wpf, dx, B, geo, split);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---- the input gradient's bf16 class: the narrow-reduction body -----------
+//
+// Stands in for what the backward of pallas_tapconv.py:91 (tapconv_valid,
+// whose backward JAX leaves to XLA: _updot_bwd, conv_engine.py:879-900)
+// computes at bf16 where the reduction is narrow: a 3 x 3 input gradient
+// whose reduction (the forward's N) is at most 8 channels and whose output
+// (the forward's Cin) at most 32, dec6 of every variant (N = 4 for DR/DRS,
+// 8 for DC/DCS; Cin = 32):
+//   dx[b, h, w, c] = sum_{tap, n} g[b, h + oh + tap / 3, w + ow + tap % 3, n]
+//                                 * w[8 - tap, c, n],
+// g zero outside its extent, bf16 g and w, float32 sums, dx rounded once.
+// What bounds it: bytes. At 32 x 128 x 128 it reads g (4.2 MB at N = 4)
+// and writes dx (33.6 MB): 0.0113 ms at 3.35 TB/s, against 1.2 GFLOP of
+// products, about a microsecond on the tensor cores. So the design keeps
+// every byte moving once and the products out of the way:
+// * g is read once, through a halo tile in shared memory: (4 + 2) rows x
+//   (64 + 2) pixels of C = 4 or 8 channels (N padded to C with zeros), one
+//   cp.async of 8 or 16 bytes a pixel, zero-filled outside g.
+// * The taps are folded into the reduction: k = C tap + n, so a k16 step
+//   carries 2 taps of 8 channels or 4 of 4; K = 72 -> 80 and 36 -> 48 (the
+//   slots past tap 8 read tap 8's pixels against zero weights), in place of
+//   9 steps of 16 or 32 channels.
+// * mma.sync m16n8k16 (bf16, float32 sums), not wgmma: the N tile is
+//   exactly 32 (4 n8 tiles), an A register is one 32-bit word of the halo
+//   tile (two channels of one tap at one pixel; a fragment's 8 pixels x 4
+//   words fall on 32 banks at C = 8), and the B fragments, 9 x C x 32
+//   weights at most 4.6 KB, are read from w as it is (no packing launch)
+//   into registers once a block: wgmma would need its B in shared memory
+//   in core-matrix order and a 64-row M tile of consecutive halo pixels.
+// * The columns of the N tile are permuted (column 2i + e of n8 tile j is
+//   channel 8i + 2j + e), so a thread's accumulators of one pixel are 8
+//   consecutive channels: dx goes out as whole 64-byte pixels, a 16-byte
+//   store a thread, 512 contiguous bytes a warp instruction.
+// * A block (4 warps, one output row each, four m16 tiles along it) walks
+//   its tiles with a two-stage ring: the next tile's halo copy flies while
+//   this tile's products and stores run; 4 blocks an SM.
+constexpr int kNarrowRows = 4;                 // output rows a tile: one a warp
+constexpr int kNarrowCols = 64;                // output columns a tile
+constexpr int kNarrowHaloR = kNarrowRows + 2, kNarrowHaloW = kNarrowCols + 2;
+constexpr int kNarrowBlocksPerSm = 4;
+
+struct NGeo {
+  int HO, WO, N;       // g (B, HO, WO, N)
+  int H, W, Cin;       // dx (B, H, W, Cin)
+  int oh, ow;          // dx (h, w) at tap (dh, dw) reads g (h + oh + dh, w + ow + dw)
+  int rtiles, ctiles;  // tiles of an image: down its rows, along its columns
+  long long ntiles;    // tiles of the batch
+  int vec;             // 1: N == C and g 2 C-byte aligned (one copy a pixel)
+};
+
+// d (16 x 8, float32) += a (16 x 16 bf16, row-major) * b (16 x 8 bf16)
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0, uint32_t a1,
+                                          uint32_t a2, uint32_t a3, uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// BYTES (4, 8 or 16) from global to shared memory, zero-filled past src_bytes
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+               "n"(BYTES), "r"(src_bytes)
+               : "memory");
+}
+
+// C channels a tap in the folded reduction (4 or 8). Grid: a few blocks an
+// SM, each walking tiles blockIdx.x, blockIdx.x + gridDim.x, ...
+template <int C>
+__global__ void __launch_bounds__(32 * kNarrowRows)
+dgrad_narrow_kernel(const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ w,
+                    __nv_bfloat16* __restrict__ dx, const NGeo geo) {
+  constexpr int S = (9 * C + 15) / 16;  // k16 steps of the folded reduction
+  constexpr int HP = kNarrowHaloR * kNarrowHaloW, WP = C / 2;  // words a pixel
+  __shared__ __align__(16) __nv_bfloat16 halo[2][HP * C];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q = lane & 3, gi = lane >> 2;
+
+  // the halo tile of tile t into buffer `buf`
+  auto stage = [&](long long t, int buf) {
+    const int per_img = geo.rtiles * geo.ctiles;
+    const int b = static_cast<int>(t / per_img), rest = static_cast<int>(t % per_img);
+    const int r0 = (rest / geo.ctiles) * kNarrowRows + geo.oh;
+    const int c0 = (rest % geo.ctiles) * kNarrowCols + geo.ow;
+    for (int p = tid; p < HP; p += 32 * kNarrowRows) {
+      const int r = p / kNarrowHaloW, gh = r0 + r, gw = c0 + p - r * kNarrowHaloW;
+      const bool in = gh >= 0 && gh < geo.HO && gw >= 0 && gw < geo.WO;
+      const long long off =
+          in ? ((static_cast<long long>(b) * geo.HO + gh) * geo.WO + gw) * geo.N : 0;
+      __nv_bfloat16* dst = halo[buf] + p * C;
+      if (geo.vec) {
+        cp_async_ca<2 * C>(smem_u32(dst), g + off, in ? 2 * C : 0);
+      } else {
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch)
+          dst[ch] = in && ch < geo.N ? g[off + ch] : __ushort_as_bfloat16(0);
+      }
+    }
+  };
+
+  long long t = blockIdx.x;
+  if (t < geo.ntiles) stage(t, 0);
+  cp_async_commit();
+
+  // B: register half e of k16 step s holds k = 16 s + 2 q + 8 e and k + 1,
+  // tap k / C, channels k % C and k % C + 1, of column gi of each n8 tile j:
+  // output channel 8 (gi / 2) + 2 j + gi % 2. A: the same k of the tile's
+  // pixels gi and gi + 8, words aoff[s][e] past the pixel's tap-(0, 0) word
+  // (a slot past tap 8 reads tap 8)
+  uint32_t bw[S][4][2];
+  int aoff[S][2];
+#pragma unroll
+  for (int st = 0; st < S; ++st)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int k = 16 * st + 2 * q + 8 * e, tap = k / C, ch = k % C;
+      const int tc = tap < 9 ? tap : 8;
+      aoff[st][e] = ((tc / 3) * kNarrowHaloW + tc % 3) * WP + ch / 2;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 8 * (gi >> 1) + 2 * j + (gi & 1);
+        const long long base = (static_cast<long long>(8 - tc) * geo.Cin + c) * geo.N + ch;
+        const bool live = tap < 9 && c < geo.Cin;
+        const __nv_bfloat16 lo =
+            live && ch < geo.N ? w[base] : __ushort_as_bfloat16(0);
+        const __nv_bfloat16 hi =
+            live && ch + 1 < geo.N ? w[base + 1] : __ushort_as_bfloat16(0);
+        bw[st][j][e] = static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+                       (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+      }
+    }
+
+  const bool vec_out = (geo.Cin & 7) == 0;
+  for (int i = 0; t < geo.ntiles; ++i, t += gridDim.x) {
+    if (t + gridDim.x < geo.ntiles) stage(t + gridDim.x, (i + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const uint32_t* hw = reinterpret_cast<const uint32_t*>(halo[i & 1]);
+    const int per_img = geo.rtiles * geo.ctiles;
+    const int b = static_cast<int>(t / per_img), rest = static_cast<int>(t % per_img);
+    const int h = (rest / geo.ctiles) * kNarrowRows + warp;
+    const int w0 = (rest % geo.ctiles) * kNarrowCols;
+    if (h < geo.H) {
+#pragma unroll
+      for (int mt = 0; mt < kNarrowCols / 16; ++mt) {
+        if (w0 + 16 * mt < geo.W) {
+          float acc[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[j][v] = 0.f;
+          const int p0 = (warp * kNarrowHaloW + 16 * mt + gi) * WP, p1 = p0 + 8 * WP;
+#pragma unroll
+          for (int st = 0; st < S; ++st) {
+            const uint32_t a0 = hw[p0 + aoff[st][0]], a1 = hw[p1 + aoff[st][0]];
+            const uint32_t a2 = hw[p0 + aoff[st][1]], a3 = hw[p1 + aoff[st][1]];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_16816(acc[j], a0, a1, a2, a3, bw[st][j][0], bw[st][j][1]);
+          }
+          // pixels gi and gi + 8 of the m16 tile: channels 8 q .. 8 q + 7
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int wc = w0 + 16 * mt + gi + 8 * e;
+            if (wc >= geo.W || 8 * q >= geo.Cin) continue;
+            __align__(16) __nv_bfloat162 v[4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              v[j] = __floats2bfloat162_rn(acc[j][2 * e], acc[j][2 * e + 1]);
+            __nv_bfloat16* dst =
+                dx + ((static_cast<long long>(b) * geo.H + h) * geo.W + wc) * geo.Cin + 8 * q;
+            if (vec_out) {
+              *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
+            } else {
+              const __nv_bfloat16* vs = reinterpret_cast<const __nv_bfloat16*>(v);
+              for (int k = 0; k < 8 && 8 * q + k < geo.Cin; ++k) dst[k] = vs[k];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the buffer is free for the tile after next
+  }
+  cp_async_wait<0>();
+}
+
+int dgrad_narrow(const __nv_bfloat16* g, const __nv_bfloat16* w, __nv_bfloat16* dx, int B,
+                 int HO, int WO, int N, int H, int W, int Cin, int Dh, int Dw, int pad_top,
+                 int pad_left, void* stream) {
+  const int pad_bottom = HO - H - pad_top + 2, pad_right = WO - W - pad_left + 2;
+  if (B < 1 || HO < 1 || WO < 1 || N < 1 || N > 8 || H < 1 || W < 1 || Cin < 1 ||
+      Cin > 32 || Dh != 3 || Dw != 3 || pad_top < 0 || pad_top > 2 || pad_left < 0 ||
+      pad_left > 2 || pad_bottom < 0 || pad_bottom > 2 || pad_right < 0 || pad_right > 2 ||
+      (reinterpret_cast<uintptr_t>(dx) & 15) || (reinterpret_cast<uintptr_t>(w) & 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int C = N <= 4 ? 4 : 8;
+  NGeo geo{HO, WO, N, H, W, Cin, pad_top - (Dh - 1), pad_left - (Dw - 1),
+           (H + kNarrowRows - 1) / kNarrowRows, (W + kNarrowCols - 1) / kNarrowCols, 0,
+           N == C && (reinterpret_cast<uintptr_t>(g) & (2 * C - 1)) == 0};
+  geo.ntiles = static_cast<long long>(B) * geo.rtiles * geo.ctiles;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long grid = geo.ntiles < static_cast<long long>(sms) * kNarrowBlocksPerSm
+                             ? geo.ntiles
+                             : static_cast<long long>(sms) * kNarrowBlocksPerSm;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 4)
+    dgrad_narrow_kernel<4><<<static_cast<unsigned>(grid), 32 * kNarrowRows, 0, s>>>(g, w, dx,
+                                                                                   geo);
+  else
+    dgrad_narrow_kernel<8><<<static_cast<unsigned>(grid), 32 * kNarrowRows, 0, s>>>(g, w, dx,
+                                                                                   geo);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <bool BF16>
@@ -1863,4 +2196,45 @@ extern "C" int dcs_tapconv_dgrad(const float* g, const float* wp, float* dx,
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The input gradient's bf16 class on the staged body, reading the forward's
+// packed weights as they are: g (B, HO, WO, N) bf16 read in place as
+// zero-padded by gpad_top rows and gpad_left columns before it (the
+// window less the forward's padding), wpf the tiles dcs_tapconv_pack_bf16
+// wrote for the forward's w (taps, Cin, N) at N tile bn_f (64 or 128) and
+// chunk kb_f (16 or 32), dx (B, H, W, Cin) bf16:
+//   dx[b, h, w, c] = sum_{dh, dw, n} g[b, h - gpad_top + dh, w - gpad_left + dw, n]
+//                                    * w[(Dh - 1 - dh) * Dw + Dw - 1 - dw, c, n],
+// float32 sums rounded once; the plan (flat, wgs, bn, split) the forward
+// staged body's for that correlation, flat = 2 its flat tiles in planes
+// (staged_tiles). Launches on `stream`, returns
+// cudaGetLastError(); a shape the staged body does not take is
+// cudaErrorInvalidValue.
+extern "C" int dcs_tapconv_dgrad_bf16(const void* g, const void* wpf, void* dx, int B,
+                                      int HO, int WO, int N, int H, int W, int Cin, int Dh,
+                                      int Dw, int gpad_top, int gpad_left, int flat, int wgs,
+                                      int bn, int split, int bn_f, int kb_f, void* stream) {
+  return dgrad_staged(static_cast<const __nv_bfloat16*>(g),
+                      static_cast<const __nv_bfloat16*>(wpf), static_cast<__nv_bfloat16*>(dx),
+                      B, HO, WO, N, H, W, Cin, Dh, Dw, gpad_top, gpad_left, flat, wgs, bn,
+                      split, bn_f, kb_f, stream);
+}
+
+// The input gradient's bf16 class at a narrow reduction (the notes above
+// dgrad_narrow_kernel): g (B, HO, WO, N) bf16, N <= 8, w (9, Cin, N) bf16
+// as the forward holds it, Cin <= 32, dx (B, H, W, Cin) bf16 of the input
+// the forward padded by pad_top rows and pad_left columns before it (each at
+// most 2; HO, WO give the padding after):
+//   dx[b, h, w, c] = sum_{dh, dw, n} g[b, h + pad_top - dh, w + pad_left - dw, n]
+//                                    * w[dh * 3 + dw, c, n],
+// g zero outside its extent, float32 sums rounded once. dx 16-byte aligned.
+// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+extern "C" int dcs_tapconv_dgrad_narrow_bf16(const void* g, const void* w, void* dx, int B,
+                                             int HO, int WO, int N, int H, int W, int Cin,
+                                             int Dh, int Dw, int pad_top, int pad_left,
+                                             void* stream) {
+  return dgrad_narrow(static_cast<const __nv_bfloat16*>(g),
+                      static_cast<const __nv_bfloat16*>(w), static_cast<__nv_bfloat16*>(dx),
+                      B, HO, WO, N, H, W, Cin, Dh, Dw, pad_top, pad_left, stream);
 }

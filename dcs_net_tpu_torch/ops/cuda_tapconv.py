@@ -40,13 +40,20 @@ one bf16 ``wgmma`` a 16-channel step. Its plain version
 rounds once. The input gradient's bf16 class (training at bf16; the JAX
 ``_updot_bwd`` at bf16: g cast to bf16, g Kᵀ and its overlap-add over taps
 summed in float32, dx rounded once) is the same VALID correlation of g with
-the flipped, transposed weights, so it runs the forward's bf16 bodies on g
-read in place, zero-padded by Dh - 1 - top rows before it (and so on each
-side), their weights packed straight from w by ``DGRAD_PACK_BF16``; the
-body by :func:`bf16_body`'s rule at g's shape (``DGRAD_BF16``, the tap body
-``DGRAD_BF16_TAP`` counted with it); its plain version
-:func:`tapconv_dgrad_bf16_plain`. The weight gradient at bf16 sums in
-float32 and is cast to w's type.
+the flipped, transposed weights, on one of three bodies by
+:func:`dgrad_body_bf16`: the narrow-reduction body (``DGRAD_NARROW_BF16``,
+a reduction of at most 8 of the forward's N channels to at most 32 of its
+Cin: dec6), bound by bytes: g read once through a halo tile, the taps
+folded into the reduction (:func:`narrow_fold`), ``mma.sync`` on a 32-wide
+N tile whose columns :func:`narrow_channel` orders so that dx leaves as
+whole pixels, w read as it is; the forward's staged body on g read in
+place, zero-padded by Dh - 1 - top rows before it (and so on each side),
+reading the forward's own packing of w (kept by :class:`TapconvValid`, no
+packing of its own) MN-major through the transpose bit, taps reversed by
+index (``DGRAD_BF16``); and the tap body on weights packed flipped from w
+by ``DGRAD_PACK_BF16`` (``DGRAD_BF16_TAP``, counted with the staged body;
+off the model's path). Its plain version :func:`tapconv_dgrad_bf16_plain`.
+The weight gradient at bf16 sums in float32 and is cast to w's type.
 
 :func:`tapconv_valid` takes CPU tensors through the plain version and CUDA
 tensors through the kernel, never falling back between the two.
@@ -105,17 +112,22 @@ KERNEL_BF16_TAP = CudaKernel(
 PACK_BF16 = CudaKernel(
     "tapconv_pack_bf16", "tapconv.cu", "dcs_tapconv_pack_bf16",
     [_p, _p, _i, _i, _i, _i, _i, _p])
-# the input gradient's bf16 class: the forward's bf16 bodies on g, counted
-# on their own (a tap-body launch counts with the staged body's), and the
-# packing of the flipped, transposed weights
+# the input gradient's bf16 class: the staged body on g reading the
+# forward's packed weights as they are (its own entry), the tap body on g
+# (counted with the staged body's) with the packing of the flipped,
+# transposed weights, and the narrow-reduction body (dec6: w read as it is)
 DGRAD_BF16 = CudaKernel(
-    "tapconv_valid_dgrad_bf16", "tapconv.cu", "dcs_tapconv_valid_bf16", KERNEL.argtypes)
+    "tapconv_valid_dgrad_bf16", "tapconv.cu", "dcs_tapconv_dgrad_bf16",
+    [_p, _p, _p] + [_i] * 17 + [_p])
 DGRAD_BF16_TAP = CudaKernel(
     "tapconv_valid_dgrad_bf16_tap", "tapconv.cu", "dcs_tapconv_valid_bf16_tap",
     KERNEL.argtypes, counted_with=DGRAD_BF16)
 DGRAD_PACK_BF16 = CudaKernel(
     "tapconv_pack_dgrad_bf16", "tapconv.cu", "dcs_tapconv_pack_dgrad_bf16",
     PACK_BF16.argtypes)
+DGRAD_NARROW_BF16 = CudaKernel(
+    "tapconv_valid_dgrad_narrow_bf16", "tapconv.cu", "dcs_tapconv_dgrad_narrow_bf16",
+    [_p, _p, _p] + [_i] * 11 + [_p])
 
 BK = 32     # input channels per reduction chunk of the kernel (and of the
             # bf16 class's tap body)
@@ -248,6 +260,21 @@ def tapconv_valid_bf16_plain(x: torch.Tensor, w: torch.Tensor, dh_n: int,
     return tapconv_valid_plain(x.to(b16).float(), w.to(b16).float(), dh_n, dw_n).to(b16)
 
 
+# the forward's bf16 packing of w as the input gradient's staged body reads
+# it: (the tiles of pack_weights_bf16, their N tile, their chunk)
+Packing = Tuple[torch.Tensor, int, int]
+
+
+def pack_bf16(w: torch.Tensor, bn: int, kb: int) -> Packing:
+    """``PACK_BF16``'s launch on a CUDA w (taps, Cin, N) bf16: the tiles of
+    :func:`pack_weights_bf16` at N tile ``bn`` and chunk ``kb``."""
+    taps, cin, n = w.shape
+    packed = torch.empty((-(-n // bn), -(-cin // kb), taps, kb // 8, bn, 8),
+                         device=w.device, dtype=torch.bfloat16)
+    PACK_BF16(w.device, ptr(w), ptr(packed), taps, cin, n, bn, kb)
+    return packed, bn, kb
+
+
 def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
             pad: Optional[Pad] = None,
             plan: Optional[Tuple[int, int, int, int]] = None,
@@ -257,6 +284,16 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
     split), by default :func:`forward_plan`'s. bf16 x and w take the bf16
     class (its packing and the body ``body`` names, by default
     :func:`bf16_body`'s), float32 the 3xTF32 one."""
+    return _launch_packed(x, w, dh_n, dw_n, pad, plan, body)[0]
+
+
+def _launch_packed(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
+                   pad: Optional[Pad] = None,
+                   plan: Optional[Tuple[int, int, int, int]] = None,
+                   body: Optional[str] = None
+                   ) -> Tuple[torch.Tensor, Optional[Packing]]:
+    """:func:`_launch`, returning with y the bf16 class's packing of w
+    (None at float32), which the input gradient reads."""
     B, ho, wo, n = _out_shape(x, w, dh_n, dw_n, pad)
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
@@ -270,21 +307,20 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
     bn, flat, wgs, split = plan or forward_plan(B, H, W, cin, n, dh_n, dw_n, pad, dev,
                                                 bf16=bf16, body=body)
     taps = dh_n * dw_n
+    packing = None
     if bf16:
         kernel = KERNEL_BF16 if body == "staged" else KERNEL_BF16_TAP
-        kb = STAGED_KB if body == "staged" else BK
-        shape = (-(-n // bn), -(-cin // kb), taps, kb // 8, bn, 8)
+        packing = pack_bf16(w, bn, STAGED_KB if body == "staged" else BK)
+        packed = packing[0]
     else:
-        kernel, shape = KERNEL, (-(-n // bn), -(-cin // BK), taps, 2, BK // 4, bn, 4)
-    packed = torch.empty(shape, device=dev, dtype=dtype)
-    y = torch.empty((B, ho, wo, n), device=dev, dtype=dtype)
-    if bf16:
-        PACK_BF16(dev, ptr(w), ptr(packed), taps, cin, n, bn, kb)
-    else:
+        kernel = KERNEL
+        packed = torch.empty((-(-n // bn), -(-cin // BK), taps, 2, BK // 4, bn, 4),
+                             device=dev, dtype=dtype)
         PACK(dev, ptr(w), ptr(packed), taps, cin, n, bn)
+    y = torch.empty((B, ho, wo, n), device=dev, dtype=dtype)
     kernel(dev, ptr(x), ptr(packed), ptr(y), B, H, W, cin, ho, wo, n, dh_n, dw_n,
            top, left, flat, wgs, bn, split)
-    return y
+    return y, packing
 
 
 def dgrad_weights(w: torch.Tensor) -> torch.Tensor:
@@ -482,8 +518,16 @@ def staged_tiling(flat: int, wgs: int, H: int, W: int, dh_n: int, dw_n: int
     starting at any column: the copy brings min(its rows, H) + Dh - 1 rows,
     and its M rows read up to position pw - 1 + BM - 1 + (Dh - 1) pw + Dw -
     1; a row tile is BM output columns of one row (pw = BM + Dw - 1, Dh
-    rows). The plane holds the larger, rounded up to 8."""
+    rows). The plane holds the larger, rounded up to 8. ``flat`` = 2 (the
+    input gradient's flat tiles in planes): Dw planes a group, plane d the
+    halo's columns from d on, W pixels a row (pw = W): a tile is BM
+    consecutive output pixels, whose M rows read up to W - 1 + BM - 1 + (Dh
+    - 1) W."""
     bm = 64 * wgs
+    if flat == 2:
+        tiles = -(-H * W // bm)
+        arows = min((bm + W - 2) // W + 1, H) + dh_n - 1
+        return tiles, W, arows, -(-max(arows * W, dh_n * W + bm - 1) // 8) * 8
     if flat:
         pw = W + dw_n - 1
         tiles = -(-((H - 1) * pw + W) // bm)
@@ -521,27 +565,39 @@ def staged_smem(bn: int, wgs: int, taps: int, npix: int, cin: int, split: int) -
 
 
 def _staged_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
-                 pad: Pad, device: torch.device) -> Optional[Tuple[int, int, int, int]]:
+                 pad: Pad, device: torch.device, planes: bool = False
+                 ) -> Optional[Tuple[int, int, int, int]]:
     """(bn, flat, wgs, split) of the bf16 class's staged body, or None where
     no tiling of it fits shared memory. Flat tiles below 128 output
     columns, 128 M rows (two consumer warpgroups sharing each stage) unless
     64 fill the tiles better by a tenth or 128 would leave half of the SMs
     idle; where the grid is under half a wave, the (flat, wgs, split) of the
     least modelled time, as :func:`forward_plan`, at ``STEP_MS_BF16`` (every
-    tap runs in the staged body)."""
+    tap runs in the staged body). ``planes``: the input gradient's, whose
+    flat tiles are planes (``flat`` = 2, :func:`staged_tiling`) where the
+    halo grid's tiles would leave a third of their M rows or more on halo
+    columns and past the image (dec0 and dec1 of a train step: 0.50, 0.67
+    live): planes take three tensor copies a channel group in place of one,
+    which costs more than the dead rows elsewhere."""
     top, bottom, left, right = _pads(pad)
     HO, WO = H + top + bottom - dh_n + 1, W + left + right - dw_n + 1
     bn, nt, taps = tile_n(n), -(-n // tile_n(n)), dh_n * dw_n
     sms = _sm_count(device)
 
+    def a_pixels(flat, wgs):
+        npix = staged_tiling(flat, wgs, HO, WO, dh_n, dw_n)[3]
+        return npix * (dw_n if flat == 2 else 1)
+
     def stages(flat, wgs, split=1):
-        return staged_stages(bn, wgs, taps, staged_tiling(flat, wgs, HO, WO, dh_n, dw_n)[3],
-                             cin, split)
+        return staged_stages(bn, wgs, taps, a_pixels(flat, wgs), cin, split)
 
     flat = int(WO < 128 and stages(1, 1) > 0)
+    if flat and planes and max(HO * WO / (64 * w * staged_tiling(1, w, HO, WO, dh_n, dw_n)[0])
+                               for w in (1, 2)) < 2 / 3 + 1e-9 and stages(2, 1) > 0:
+        flat = 2
     if stages(flat, 1) == 0:
         return None
-    px = (HO - 1) * (WO + dw_n - 1) + WO if flat else WO
+    px = (HO * WO if flat == 2 else (HO - 1) * (WO + dw_n - 1) + WO) if flat else WO
 
     def fill(wgs):
         bm = 64 * wgs
@@ -555,11 +611,11 @@ def _staged_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
     if 2 * m_tiles(flat, wgs) * nt > sms:
         return bn, flat, wgs, 1
     nchunks = -(-cin // STAGED_KB)
-    best, plan = None, (bn, flat, wgs, 1)
-    for flat, wgs in ((0, 1), (0, 2), (1, 1), (1, 2)):
+    best, plan, tiled = None, (bn, flat, wgs, 1), flat or 1
+    for flat, wgs in ((0, 1), (0, 2), (tiled, 1), (tiled, 2)):
         if flat and WO >= 128:
             continue
-        npix = staged_tiling(flat, wgs, HO, WO, dh_n, dw_n)[3]
+        npix = a_pixels(flat, wgs)
         for split in (1, 2, 4, 8):
             if split > nchunks or stages(flat, wgs, split) == 0:
                 break
@@ -593,7 +649,7 @@ def bf16_body(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
 
 def forward_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
                  pad: Pad = (0, 0, 0, 0), device: torch.device = torch.device("meta"),
-                 bf16: bool = False, body: Optional[str] = None
+                 bf16: bool = False, body: Optional[str] = None, planes: bool = False
                  ) -> Tuple[int, int, int, int]:
     """(bn, flat, wgs, split) of the forward of x (B, H, W, Cin) zero-padded
     by ``pad`` to N = ``n`` channels on ``device``, from the shape alone: the
@@ -605,10 +661,11 @@ def forward_plan(B: int, H: int, W: int, cin: int, n: int, dh_n: int, dw_n: int,
     block runs at ``STEP_MS``, times the waves of clusters the card runs
     (:func:`_clusters_at_once`); of equal times, the fewer taps streamed.
     ``bf16``: the bf16 class's, of the body ``body`` names (by default
-    :func:`bf16_body`'s): the staged body's by :func:`_staged_plan`, the tap
+    :func:`bf16_body`'s): the staged body's by :func:`_staged_plan` (its
+    flat tiles in planes for the input gradient, ``planes``), the tap
     body's as the float32 class's, sized by its shared memory."""
     if bf16 and (body or bf16_body(B, H, W, cin, n, dh_n, dw_n, pad)) == "staged":
-        plan = _staged_plan(B, H, W, cin, n, dh_n, dw_n, _pads(pad), device)
+        plan = _staged_plan(B, H, W, cin, n, dh_n, dw_n, _pads(pad), device, planes)
         if plan is None:
             raise ValueError(f"the staged body takes no tiling of x ({B}, {H}, {W}, "
                              f"{cin}) to N {n} at {dh_n}x{dw_n}")
@@ -657,37 +714,88 @@ def dgrad_pad_bf16(pad: Pad, dh_n: int, dw_n: int) -> Pad:
     return dh_n - 1 - top, dh_n - 1 - bottom, dw_n - 1 - left, dw_n - 1 - right
 
 
+def dgrad_body_bf16(B: int, ho: int, wo: int, n: int, cin: int, dh_n: int, dw_n: int,
+                    gpad: Pad) -> str:
+    """The body of the input gradient's bf16 class for g (B, HO, WO, N) to dx
+    of Cin channels under ``gpad`` (:func:`dgrad_pad_bf16`), from the shape
+    alone: ``"narrow"`` (``DGRAD_NARROW_BF16``) for a 3 x 3 window reducing
+    at most 8 of the forward's N channels to at most 32 of its Cin (dec6 of
+    every variant: N = 4 or 8, Cin = 32); else the forward's rule
+    (:func:`bf16_body`) at the transposed shape, but ``"tap"`` where the
+    forward's N is at most 8 (the staged body reads the forward's packing in
+    16-channel runs of its N tile, 64 or 128 wide above 8)."""
+    if (dh_n, dw_n) == (3, 3) and n <= 8 and cin <= 32:
+        return "narrow"
+    if n <= 8:
+        return "tap"
+    return bf16_body(B, ho, wo, n, cin, dh_n, dw_n, gpad)
+
+
+# the narrow-reduction body's fixed tiling and its tap folding, as the source
+# has them (kNarrowRows, kNarrowCols, the channels a tap slot)
+NARROW_ROWS, NARROW_COLS = 4, 64
+
+
+def narrow_fold(n: int) -> Tuple[int, int]:
+    """(C, k16 steps) of the narrow body at a reduction of ``n`` <= 8
+    channels: each tap is C = 4 or 8 slots of the reduction (n zero-padded
+    to C), so a k16 step carries 16 / C taps; 9 taps take ceil(9 C / 16)
+    steps (36 -> 48, 72 -> 80)."""
+    c = 4 if n <= 4 else 8
+    return c, -(-9 * c // 16)
+
+
+def narrow_channel(j: int, col: int) -> int:
+    """The output channel of column ``col`` of n8 tile ``j`` of the narrow
+    body's 32-wide N tile: 8 (col / 2) + 2 j + col % 2, so a thread's
+    accumulators of a pixel are 8 consecutive channels."""
+    return 8 * (col // 2) + 2 * j + col % 2
+
+
 def _launch_dgrad_bf16(g: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
-                       pad: Pad, hw: Tuple[int, int]) -> torch.Tensor:
+                       pad: Pad, hw: Tuple[int, int],
+                       packing: Optional[Packing] = None) -> torch.Tensor:
     """The input gradient's bf16 class on CUDA tensors, g (B, HO, WO, N) and
-    w (Dh*Dw, Cin, N) bf16 -> dx (B, H, W, Cin) bf16: the flipped weights'
-    packing, then the forward's bf16 body on g read in place under
-    :func:`dgrad_pad_bf16`'s padding, at :func:`bf16_body`'s body and
-    :func:`forward_plan`'s plan for that correlation."""
+    w (Dh*Dw, Cin, N) bf16 -> dx (B, H, W, Cin) bf16, by
+    :func:`dgrad_body_bf16`'s body: the narrow body on g and w as they are;
+    the staged body on g read in place under :func:`dgrad_pad_bf16`'s
+    padding and on the forward's packing of w, ``packing`` (from the
+    forward's launch; packed here by ``PACK_BF16`` where None), at
+    :func:`forward_plan`'s plan for that correlation (flat tiles in
+    planes); the tap body on the flipped weights' packing
+    (``DGRAD_PACK_BF16``)."""
     B, ho, wo, n = g.shape
     taps, cin, _ = w.shape
     H, W = hw
     gpad = dgrad_pad_bf16(pad, dh_n, dw_n)
     dev = g.device
-    body = bf16_body(B, ho, wo, n, cin, dh_n, dw_n, gpad)
-    bn, flat, wgs, split = forward_plan(B, ho, wo, n, cin, dh_n, dw_n, gpad, dev,
-                                        bf16=True, body=body)
-    kb = STAGED_KB if body == "staged" else BK
-    packed = torch.empty((-(-cin // bn), -(-n // kb), taps, kb // 8, bn, 8),
-                         device=dev, dtype=torch.bfloat16)
     dx = torch.empty((B, H, W, cin), device=dev, dtype=torch.bfloat16)
-    DGRAD_PACK_BF16(dev, ptr(w), ptr(packed), taps, cin, n, bn, kb)
-    kernel = DGRAD_BF16 if body == "staged" else DGRAD_BF16_TAP
-    kernel(dev, ptr(g), ptr(packed), ptr(dx), B, ho, wo, n, H, W, cin, dh_n, dw_n,
-           gpad[0], gpad[2], flat, wgs, bn, split)
+    body = dgrad_body_bf16(B, ho, wo, n, cin, dh_n, dw_n, gpad)
+    if body == "narrow":
+        DGRAD_NARROW_BF16(dev, ptr(g), ptr(w), ptr(dx), B, ho, wo, n, H, W, cin, dh_n,
+                          dw_n, pad[0], pad[2])
+        return dx
+    bn, flat, wgs, split = forward_plan(B, ho, wo, n, cin, dh_n, dw_n, gpad, dev,
+                                        bf16=True, body=body, planes=True)
+    if body == "staged":
+        packed, bn_f, kb_f = packing or pack_bf16(w, tile_n(n), STAGED_KB)
+        DGRAD_BF16(dev, ptr(g), ptr(packed), ptr(dx), B, ho, wo, n, H, W, cin, dh_n, dw_n,
+                   gpad[0], gpad[2], flat, wgs, bn, split, bn_f, kb_f)
+        return dx
+    packed = torch.empty((-(-cin // bn), -(-n // BK), taps, BK // 8, bn, 8),
+                         device=dev, dtype=torch.bfloat16)
+    DGRAD_PACK_BF16(dev, ptr(w), ptr(packed), taps, cin, n, bn, BK)
+    DGRAD_BF16_TAP(dev, ptr(g), ptr(packed), ptr(dx), B, ho, wo, n, H, W, cin, dh_n, dw_n,
+                   gpad[0], gpad[2], flat, wgs, bn, split)
     return dx
 
 
 def _launch_dgrad(g: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
-                  pad: Pad, hw: Tuple[int, int]) -> torch.Tensor:
+                  pad: Pad, hw: Tuple[int, int],
+                  packing: Optional[Packing] = None) -> torch.Tensor:
     """The input gradient's packing and kernel launches on CUDA tensors:
     g (B, HO, WO, N), w (Dh*Dw, Cin, N) -> dx (B, H, W, Cin); bf16 g and w
-    take the bf16 class."""
+    take the bf16 class (on the forward's ``packing`` of w where given)."""
     dev = g.device
     dtype = torch.bfloat16 if g.dtype == torch.bfloat16 else torch.float32
     check_cuda_operand("g", g, dev, 4, dtype)
@@ -701,7 +809,7 @@ def _launch_dgrad(g: torch.Tensor, w: torch.Tensor, dh_n: int, dw_n: int,
         raise ValueError(f"g {tuple(g.shape)} and w {tuple(w.shape)} are not the "
                          f"{dh_n}x{dw_n} tap conv of a {H}x{W} input padded by {pad}")
     if dtype == torch.bfloat16:
-        return _launch_dgrad_bf16(g, w, dh_n, dw_n, pad, hw)
+        return _launch_dgrad_bf16(g, w, dh_n, dw_n, pad, hw, packing)
     kb, bn, flat, wgs = dgrad_plan(B, H, W, n, cin, dh_n, dw_n, _sm_count(dev))
     packed = torch.empty((-(-cin // bn), -(-n // kb), taps, 2, kb // 4, bn, 4),
                          device=dev, dtype=torch.float32)
@@ -740,9 +848,11 @@ class TapconvValid(torch.autograd.Function):
     def forward(ctx, x, w, dh_n, dw_n, pad=None):
         ctx.save_for_backward(x, w)
         ctx.taps, ctx.pad, ctx.hw = (dh_n, dw_n), _pads(pad), x.shape[1:3]
+        ctx.packing = None
         if x.device.type == "cpu":
             return tapconv_valid_plain(_pad(x, pad), w, dh_n, dw_n)
-        return _launch(x, w, dh_n, dw_n, pad)
+        y, ctx.packing = _launch_packed(x, w, dh_n, dw_n, pad)
+        return y
 
     @staticmethod
     def backward(ctx, g):
@@ -754,7 +864,7 @@ class TapconvValid(torch.autograd.Function):
             if g.device.type == "cpu":
                 dx = tapconv_dgrad_plain(g, w, dh_n, dw_n, ctx.pad, ctx.hw)
             else:
-                dx = _launch_dgrad(g, w, dh_n, dw_n, ctx.pad, ctx.hw)
+                dx = _launch_dgrad(g, w, dh_n, dw_n, ctx.pad, ctx.hw, ctx.packing)
         if ctx.needs_input_grad[1]:
             dw = weight_grad(_pad(x, ctx.pad), g, dh_n, dw_n).to(w.dtype)
         return dx, dw, None, None, None

@@ -570,7 +570,8 @@ def _record(monkeypatch):
     for mod, names in ((cuda_conv, ("KERNEL", "DGRAD", "KERNEL_BF16", "DGRAD_BF16")),
                        (cuda_tapconv, ("KERNEL", "PACK", "DGRAD", "DGRAD_PACK",
                                        "KERNEL_BF16", "KERNEL_BF16_TAP", "PACK_BF16",
-                                       "DGRAD_BF16", "DGRAD_BF16_TAP", "DGRAD_PACK_BF16"))):
+                                       "DGRAD_BF16", "DGRAD_BF16_TAP", "DGRAD_PACK_BF16",
+                                       "DGRAD_NARROW_BF16"))):
         for k in names:
             recs[f"{mod.__name__.rsplit('.', 1)[1]}.{k}"] = r = _Recorder(k)
             monkeypatch.setattr(mod, k, r)
@@ -599,7 +600,7 @@ def _entry_case(entry, device):
     x, w = t(2, 4, 251, 32), t(9, 32, 64)
     y = cuda_tapconv.tapconv_valid(x, w, 3, 3, (1, 1, 1, 1))
     return (x, w), y, {"cuda_tapconv.KERNEL_BF16": 1, "cuda_tapconv.PACK_BF16": 1,
-                       "cuda_tapconv.DGRAD_BF16": 1, "cuda_tapconv.DGRAD_PACK_BF16": 1}
+                       "cuda_tapconv.DGRAD_BF16": 1}
 
 
 @pytest.mark.parametrize("entry", ["conv entry", "tap conv", "real conv entry"])
@@ -623,19 +624,20 @@ def test_bf16_entry_takes_its_bf16_class_in_both_directions(entry, device, monke
 
 def test_tapconv_input_gradient_bf16_launch_takes_its_class(monkeypatch):
     """The input gradient's entry (the card's route: meta here) takes bf16 g
-    and w through its bf16 class, never a float32 cast: the flipped packing
-    and the forward's staged body on g, padded by the window less the
-    forward's padding, with bf16 packed weights (16-channel chunks of the
-    forward's N, N tiles of its Cin) and a bf16 dx of x's pixels; float32
-    takes the float32 entry."""
+    and w through its bf16 class, never a float32 cast: the staged body on
+    g, padded by the window less the forward's padding, reading the
+    forward's packing of w (16-channel chunks of its Cin, N tiles of its
+    N), which a caller without the forward's packs with the forward's own
+    packing kernel; a bf16 dx of x's pixels; float32 takes the float32
+    entry."""
     recs = _record(monkeypatch)
     seen = {}
 
     def pack(dev, w, wp, taps, cin, n, bn, kb):
         seen["pack"] = (taps, cin, n, bn, kb)
-        recs["cuda_tapconv.DGRAD_PACK_BF16"].launches += 1
+        recs["cuda_tapconv.PACK_BF16"].launches += 1
 
-    monkeypatch.setattr(cuda_tapconv, "DGRAD_PACK_BF16", pack)
+    monkeypatch.setattr(cuda_tapconv, "PACK_BF16", pack)
     g, w = _bf16(2, 4, 251, 64, device="meta"), _bf16(9, 32, 64, device="meta")
     dx = cuda_tapconv._launch_dgrad(g, w, 3, 3, (1, 1, 1, 1), (4, 251))
     assert dx.dtype == B16 and dx.shape == (2, 4, 251, 32)
@@ -645,7 +647,12 @@ def test_tapconv_input_gradient_bf16_launch_takes_its_class(monkeypatch):
     with pytest.raises(ValueError, match="window"):
         cuda_tapconv.dgrad_pad_bf16((3, 0, 0, 0), 3, 3)
     got = {k: r.launches for k, r in recs.items() if r.launches}
-    assert got == {"cuda_tapconv.DGRAD_BF16": 1, "cuda_tapconv.DGRAD_PACK_BF16": 1}
+    assert got == {"cuda_tapconv.DGRAD_BF16": 1, "cuda_tapconv.PACK_BF16": 1}
+    # on the forward's packing: the body alone
+    cuda_tapconv._launch_dgrad(g, w, 3, 3, (1, 1, 1, 1), (4, 251),
+                               (_bf16(1, 2, 9, 2, 64, 8, device="meta"), 64, 16))
+    got = {k: r.launches for k, r in recs.items() if r.launches}
+    assert got == {"cuda_tapconv.DGRAD_BF16": 2, "cuda_tapconv.PACK_BF16": 1}
     f32 = cuda_tapconv._launch_dgrad(g.float(), w.float(), 3, 3, (1, 1, 1, 1), (4, 251))
     assert f32.dtype == torch.float32
     assert recs["cuda_tapconv.DGRAD"].launches == recs["cuda_tapconv.DGRAD_PACK"].launches == 1

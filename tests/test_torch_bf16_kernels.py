@@ -57,6 +57,16 @@ def _desc(units, start, lbo, sbo, rows):
     return units[start + (k // 8) * lbo + (m // 8) * sbo + m % 8, k % 8]
 
 
+def _desc_mn(units, start, lbo, sbo, cols):
+    """The (16 x cols) operand a no-swizzle MN-major ``wgmma`` descriptor
+    (the transpose bit) reads: element (k, m) of core matrix (k // 8, m //
+    8), 8 k rows of 8 consecutive columns, at row start + (k // 8) lbo + (m
+    // 8) sbo + k % 8, column m % 8."""
+    k = np.arange(16)[:, None]
+    m = np.arange(cols)[None, :]
+    return units[start + (k // 8) * lbo + (m // 8) * sbo + k % 8, m % 8]
+
+
 # -- kernel 1: the span body ----------------------------------------------------
 
 def _reflect(i, n, pad):
@@ -188,7 +198,7 @@ def test_span_plan_and_routing():
 
 # -- kernel 3: the staged body --------------------------------------------------
 
-def staged_model(x, w, pad, plan):
+def staged_model(x, w, pad, plan, transposed=False, fkb=16):
     """The staged body: block (M tile, N tile, rank) runs its 16-channel
     chunks; a chunk's halo tile is two 8-channel planes of ``npix`` 16-byte
     rows, the tensor copy's box of arows x pw pixels from x's (r0, c0) (zeros
@@ -197,17 +207,38 @@ def staged_model(x, w, pad, plan):
     start s0 + 64 c + (t // 3) pw + t % 3 (LBO npix, SBO 8 units) against the
     slab at start 2 bn t (LBO bn, SBO 8), into one float32 chain over all the
     rank's chunks. Ranks add their partial tiles in rank order and round
-    once. Returns y (B, HO, WO, N) as float32 and each pixel's store count."""
+    once. Returns y (B, HO, WO, N) as float32 and each pixel's store count.
+
+    ``transposed``: the input gradient's form, x the upstream gradient g and
+    w the forward's (9, Cin_f, N_f), of which the body reads the forward's
+    packing (N tile ``ct.tile_n(N_f)``, ``fkb``-channel chunks) as it is: a
+    chunk's weights are the tensor copy's box (8, 16, fkb / 8, bn / fkb, 9)
+    of that packing seen as (8, N tile, fkb / 8, tiles x chunks, taps) from
+    (0, 16 chunk % N tile, 0, 16 chunk // N tile * chunks + bn / fkb N
+    tile, 0) (zeros past the tensor), landing as [tap][bn / 8][16][8]; tap t
+    reads tap 8 - t at start 2 bn (8 - t), MN-major (LBO 8, SBO 16 units).
+    Its flat tiles in planes (``flat`` = 2, ``staged_tiling``'s): three a
+    group, plane d the box of arows x W pixels from (r0, c0 + d), tap t of
+    warpgroup c read at start 2 npix (t % 3) + s0 + 64 c + (t // 3) W. The
+    output has Cin_f channels."""
     B, H, W, cin = x.shape
-    n = w.shape[-1]
     top, bottom, left, right = pad
     HO, WO = H + top + bottom - 2, W + left + right - 2
     bn, flat, wgs, split = plan
     bm = 64 * wgs
+    planes = 3 if flat == 2 else 1
     tiles, pw, arows, npix = ct.staged_tiling(flat, wgs, HO, WO, 3, 3)
-    packed = ct.pack_weights_bf16(torch.from_numpy(w).to(B16), bn, ct.STAGED_KB)
-    nt, nchunks = packed.shape[0], packed.shape[1]
-    packed = packed.float().numpy()
+    if transposed:
+        n, fbn = w.shape[1], ct.tile_n(w.shape[2])
+        fpk = ct.pack_weights_bf16(torch.from_numpy(w).to(B16), fbn, fkb).float().numpy()
+        fchunks = fpk.shape[1]
+        fpk = fpk.reshape(-1, 9, fkb // 8, fbn, 8)
+        nt, nchunks = -(-n // bn), -(-cin // 16)
+    else:
+        n = w.shape[-1]
+        packed = ct.pack_weights_bf16(torch.from_numpy(w).to(B16), bn, ct.STAGED_KB)
+        nt, nchunks = packed.shape[0], packed.shape[1]
+        packed = packed.float().numpy()
     xb = _bf16(x)
     y = np.full((B * HO * WO, n), np.nan, np.float32)
     stored = np.zeros(B * HO * WO, np.int64)
@@ -233,23 +264,39 @@ def staged_model(x, w, pad, plan):
             for rank in range(split):
                 acc = np.zeros((bm, bn), np.float32)
                 for chunk in range(rank * nchunks // split, (rank + 1) * nchunks // split):
-                    planes = np.full((2, npix, 8), np.nan, np.float32)
+                    image = np.full((planes, 2, npix, 8), np.nan, np.float32)
                     hr, pc = np.divmod(np.arange(arows * pw), pw)
-                    rr, cc = r0 + hr, c0 + pc
-                    inside = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
-                    for gi in range(2):
-                        ch = chunk * 16 + gi * 8 + np.arange(8)
-                        vals = xb[b, np.clip(rr, 0, H - 1)[:, None], np.clip(cc, 0, W - 1)[:, None],
-                                  np.clip(ch, 0, cin - 1)[None, :]]
-                        ok = inside[:, None] & (ch < cin)[None, :]
-                        planes[gi, :arows * pw] = np.where(ok, vals, 0.0)
-                    units_a = planes.reshape(-1, 8)
-                    units_b = packed[ntile, chunk].reshape(-1, 8)
+                    for pl in range(planes):
+                        rr, cc = r0 + hr, c0 + pl + pc
+                        inside = (rr >= 0) & (rr < H) & (cc >= 0) & (cc < W)
+                        for gi in range(2):
+                            ch = chunk * 16 + gi * 8 + np.arange(8)
+                            vals = xb[b, np.clip(rr, 0, H - 1)[:, None],
+                                      np.clip(cc, 0, W - 1)[:, None],
+                                      np.clip(ch, 0, cin - 1)[None, :]]
+                            ok = inside[:, None] & (ch < cin)[None, :]
+                            image[pl, gi, :arows * pw] = np.where(ok, vals, 0.0)
+                    units_a = image.reshape(-1, 8)
+                    if transposed:
+                        box = np.zeros((9, bn // fkb, fkb // 8, 16, 8), np.float32)
+                        k0 = 16 * chunk
+                        first = k0 // fbn * fchunks + ntile * (bn // fkb)
+                        rows = k0 % fbn + np.arange(16)
+                        for j in range(bn // fkb):
+                            if first + j < fpk.shape[0]:
+                                box[:, j][:, :, rows < fbn] = fpk[first + j][:, :, rows[rows < fbn]]
+                        units_b = box.reshape(-1, 8)
+                    else:
+                        units_b = packed[ntile, chunk].reshape(-1, 8)
                     for c in range(wgs):
                         for t in range(9):
-                            a = _desc(units_a, s0 + 64 * c + (t // 3) * pw + t % 3, npix, 8, 64)
-                            wb = _desc(units_b, 2 * bn * t, bn, 8, bn)
-                            acc[64 * c:64 * c + 64] += a @ wb.T
+                            shift = (t % 3) * 2 * npix if planes > 1 else t % 3
+                            a = _desc(units_a, s0 + 64 * c + (t // 3) * pw + shift, npix, 8, 64)
+                            if transposed:
+                                wb = _desc_mn(units_b, 2 * bn * (8 - t), 8, 16, bn)
+                            else:
+                                wb = _desc(units_b, 2 * bn * t, bn, 8, bn).T
+                            acc[64 * c:64 * c + 64] += a @ wb
                 parts.append(acc)
             total = parts[0].copy()
             for p in parts[1:]:

@@ -535,8 +535,10 @@ def test_drs_net_at_bf16_off_the_cpu_takes_the_bf16_classes(monkeypatch):
     stages) on the gates' tile, kernel 3's bf16 class at every stage (dec1
     at N = 8 and dec2 at N = 4 on its tap body); under autograd the un-fused form, the conv
     entry's bf16 class at (7, 2, 1) forward and (7, 1, 2) backward through
-    ``Conv2dSameSmallCout``, and kernel 3's bf16 input gradient. Nothing of
-    a float32 class."""
+    ``Conv2dSameSmallCout``, and kernel 3's bf16 input gradient (the staged
+    body on the forward's packing at dec0, the narrow body at dec1 and dec2,
+    whose reductions are N = 8 and 4 channels). Nothing of a float32
+    class."""
     recs = _record_all(monkeypatch)
     model = _drs16_net(monkeypatch).eval()
     with torch.no_grad():
@@ -560,8 +562,8 @@ def test_drs_net_at_bf16_off_the_cpu_takes_the_bf16_classes(monkeypatch):
     got = {k: len(r.calls) for k, r in recs.items() if r.calls}
     assert got == {"conv_same_small_cout_bf16": 5, "conv_same_small_cout_dgrad_bf16": 5,
                    "tapconv_valid_bf16": 1, "tapconv_valid_bf16_tap": 2,
-                   "tapconv_pack_bf16": 3, "tapconv_valid_dgrad_bf16": 2,
-                   "tapconv_valid_dgrad_bf16_tap": 1, "tapconv_pack_dgrad_bf16": 3}
+                   "tapconv_pack_bf16": 3, "tapconv_valid_dgrad_bf16": 1,
+                   "tapconv_valid_dgrad_narrow_bf16": 2}
     assert seen == [B16] * 5
     for args in recs["conv_same_small_cout_bf16"].calls:
         B, H, W = args[:3]
@@ -578,7 +580,7 @@ def test_kernel3_bf16_bodies_and_plans_at_the_drs_decoder(batch, frames):
     channel counts, not halved): dec0-dec5 on the staged body, dec6 at N =
     4 on the tap body (an 8-wide N tile), each with a plan; the input
     gradient at N' = Cin on the staged body but at dec6, whose reduction is
-    the forward's N = 4 channels: the tap body."""
+    the forward's N = 4 channels: the narrow body."""
     cfg = config_for_variant("drs")
     m = cfg.model
     skips = sites(cfg, batch, frames)[:m.n_layers]       # encoder outputs 7 ... 1
@@ -593,14 +595,15 @@ def test_kernel3_bf16_bodies_and_plans_at_the_drs_decoder(batch, frames):
         plan = cuda_tapconv.forward_plan(batch, h, w, cin, n, 3, 3, pad, bf16=True)
         assert plan[0] == cuda_tapconv.tile_n(n) if body == "tap" else plan[0] in (64, 128)
         gpad = cuda_tapconv.dgrad_pad_bf16(pad, 3, 3)
-        dbody = cuda_tapconv.bf16_body(batch, h, w, n, cin, 3, 3, gpad)
-        cuda_tapconv.forward_plan(batch, h, w, n, cin, 3, 3, gpad, bf16=True, body=dbody)
+        dbody = cuda_tapconv.dgrad_body_bf16(batch, h, w, n, cin, 3, 3, gpad)
+        if dbody != "narrow":
+            cuda_tapconv.forward_plan(batch, h, w, n, cin, 3, 3, gpad, bf16=True, body=dbody)
         bodies.append(body)
         dgrad_bodies.append(dbody)
         h, w = h * s_h, w * s_w
     assert n == 4 and cin == 32
     assert bodies == ["staged"] * 6 + ["tap"]
-    assert dgrad_bodies == ["staged"] * 6 + ["tap"]
+    assert dgrad_bodies == ["staged"] * 6 + ["narrow"]
 
 
 def test_full_drs_net_at_bf16_launches_the_smoke_counts(monkeypatch):
@@ -608,7 +611,8 @@ def test_full_drs_net_at_bf16_launches_the_smoke_counts(monkeypatch):
     ``chip_smoke.py`` holds the card to: in eval 13 + 13 real pool and gate
     launches, kernel 3's staged body 6 times and its tap body once (dec6),
     7 packings; a train step's forward and backward 13 + 13 conv-entry
-    launches and kernel 3's input gradient 6 + 1."""
+    launches and kernel 3's input gradient 6 (the staged body, on the
+    forward's packing: no packing of its own) + 1 (the narrow body)."""
     recs = _record_all(monkeypatch)
     model = _drs16_net(monkeypatch, full=True).eval()
     with torch.no_grad():
@@ -623,5 +627,4 @@ def test_full_drs_net_at_bf16_launches_the_smoke_counts(monkeypatch):
     assert {k: len(r.calls) for k, r in recs.items() if r.calls} == {
         "conv_same_small_cout_bf16": 13, "conv_same_small_cout_dgrad_bf16": 13,
         "tapconv_valid_bf16": 6, "tapconv_valid_bf16_tap": 1, "tapconv_pack_bf16": 7,
-        "tapconv_valid_dgrad_bf16": 6, "tapconv_valid_dgrad_bf16_tap": 1,
-        "tapconv_pack_dgrad_bf16": 7}
+        "tapconv_valid_dgrad_bf16": 6, "tapconv_valid_dgrad_narrow_bf16": 1}
