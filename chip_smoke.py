@@ -280,7 +280,9 @@ Phases (each prints one or more lines; any failure exits non-zero):
                ``conv_same_small_cout_dgrad_bf16``,
                ``tapconv_valid_dgrad_bf16`` (bf16 ``F.conv2d`` and
                ``conv2d_input`` as the library calls, bounds at 989
-               TFLOP/s); (f) DC at bf16 and at float32, card vs CPU; (g)
+               TFLOP/s), and kernel 2's conv entry at its four bf16
+               classes off the path (odd shapes, forced tiles, x off its
+               pixel); (f) DC at bf16 and at float32, card vs CPU; (g)
                ``cli.train dcs --dtype bfloat16 --synthetic`` for an epoch
                of 16 steps at K = 8, its checkpoint served by ``cli.enhance``
                at float32 and at bf16 against the CPU; (h) DRS at bf16 on
@@ -355,7 +357,7 @@ NATIVE_TOL = 1e-5            # native batches against the numpy path's
 PORT_KERNEL_SYMBOLS = ("stft_fft_kernel", "stft_fft_mixed_kernel", "stft_dense_kernel",
                        "stft_span_kernel", "conv_same_kernel", "conv7_kernel",
                        "sa_pool_kernel", "sa_gate_kernel", "sa_gate_real_kernel",
-                       "sa_fused_bf16_kernel", "conv7_bf16_kernel",
+                       "sa_fused_bf16_kernel", "conv7_mma_kernel",
                        "tapconv_kernel", "tapconv_staged_kernel", "pack_kernel",
                        "pack_bf16_kernel", "dgrad_narrow_kernel")
 # one train step's launches of each kernel, forward and input gradient (DCS and DRS)
@@ -485,16 +487,21 @@ KERNEL_INFO.update({
 })
 # the bf16 classes of the training path (phase "bf16train"): kernel 2's conv
 # entry (the un-fused gate's conv) and its input gradient, both the
-# register-tiled body with bf16 loads and float32 FMAs; kernel 3's input
+# tensor-core body (mma.sync m16n8k16 on a tile staged by cp.async, output
+# shifts in N, the B table built from w once a block); kernel 3's input
 # gradient: the staged body on g reading the forward's packing of w MN-major,
 # the tap body on g with the flipped, transposed weights packed from w (off
 # the path), and the narrow-reduction body (dec6: taps folded into the
 # reduction, mma.sync, w read as it is)
 KERNEL_INFO.update({
     "conv_same_small_cout_bf16": KERNEL_INFO["conv_same_small_cout"][:2]
-    + ("simt-f32-register-tiled-bf16-loads", BF16_FLOPS_PER_S),
+    + ("bf16-mma-sync-cp-async-tile-shifts-in-n", BF16_FLOPS_PER_S),
     "conv_same_small_cout_dgrad_bf16": KERNEL_INFO["conv_same_small_cout_dgrad"][:2]
-    + ("simt-f32-register-tiled-bf16-loads-input-gradient", BF16_FLOPS_PER_S),
+    + ("bf16-mma-sync-cp-async-tile-shifts-in-n-input-gradient", BF16_FLOPS_PER_S),
+    "conv_same_small_cout_bf16_drs": KERNEL_INFO["conv_same_small_cout"][:2]
+    + ("bf16-mma-sync-cp-async-tile-shifts-in-n-real", BF16_FLOPS_PER_S),
+    "conv_same_small_cout_dgrad_bf16_drs": KERNEL_INFO["conv_same_small_cout_dgrad"][:2]
+    + ("bf16-mma-sync-cp-async-tile-shifts-in-n-real-input-gradient", BF16_FLOPS_PER_S),
     "tapconv_valid_dgrad_bf16": KERNEL_INFO["tapconv_valid_dgrad"][:2]
     + ("bf16-wgmma-staged-body-on-g-forward-packing-mn-major", BF16_FLOPS_PER_S),
     "tapconv_valid_dgrad_bf16_tap": KERNEL_INFO["tapconv_valid_dgrad"][:2]
@@ -690,6 +697,20 @@ DGRAD_BF16_EXTRA = [((2, 5, 70, 32), 4, (1, 1, 1, 1)), ((2, 5, 70, 32), 8, (0, 2
                     ((2, 7, 33, 32), 1, (1, 1, 1, 1)), ((2, 5, 40, 72), 24, (1, 1, 1, 1)),
                     ((2, 6, 20, 40), 136, (1, 0, 1, 1)), ((2, 5, 12, 36), 16, (1, 1, 1, 1)),
                     ((2, 5, 40, 48), 8, (1, 1, 1, 1))]
+
+# kernel 2's bf16 conv entry (the tensor-core body) off the path, at its
+# four classes ((B, H, W)): one pixel, one row, one column, W = 33 (an odd
+# pixel pair at Cin 1), H = 7, images narrower and shorter than a tile, W
+# past several product spans, batch 32; and forced tiles a class ((TH, TW,
+# RB): several row and column tasks a block, rows no multiple of RB, every
+# RB the class takes)
+CONV_BF16_EXTRA = [(1, 1, 1), (2, 1, 40), (1, 9, 1), (2, 7, 33), (1, 5, 3), (3, 3, 70),
+                   (2, 33, 300), (32, 4, 8), (1, 130, 129)]
+CONV_BF16_TILES = {(4, 2): [(3, 64, 2), (16, 32, 8), (8, 64, 4)],
+                   (2, 4): [(5, 64, 4), (8, 96, 2), (16, 32, 8)],
+                   (2, 1): [(6, 32, 4), (16, 64, 8), (3, 96, 4)],
+                   (1, 2): [(3, 128, 2), (9, 64, 8), (16, 64, 4)]}
+
 
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
@@ -1209,6 +1230,7 @@ def kernel_cases(name, args, dev, cfg):
         # train step): x and w bf16, the float32 bias, y bf16. The library
         # call: one bf16 F.conv2d (cuDNN, float32 sums)
         B, H, W, cin, K, cout = args[:6]
+        mma_launch_text(name, args)
         x = randn(B, H, W, cin).to(b16)
         w = randn(K, K, cin, cout, scale=0.1).to(b16)
         bias = randn(cout)
@@ -1224,6 +1246,7 @@ def kernel_cases(name, args, dev, cfg):
         # bf16 upstream gradient and the dgrad kernel; the library call one
         # bf16 torch.nn.grad.conv2d_input
         B, H, W, cout, K, cin = args[:6]
+        mma_launch_text(name, args)
         gy = randn(B, H, W, cout).to(b16)
         w = randn(K, K, cin, cout, scale=0.1).to(b16)
         wt = cuda_conv.dgrad_kernel(w)
@@ -1289,6 +1312,22 @@ def kernel_cases(name, args, dev, cfg):
                 2 * (gy.numel() + w.numel() + B * H * W * cin),
                 2 * B * ho * wo * dh * dw * cin * n, None, {})
     raise KeyError(name)
+
+
+def mma_launch_text(name, args) -> None:
+    """Print how kernel 2's bf16 conv entry ran a recorded launch (B, H, W,
+    Cin, K, Cout, TH, TW, RB): its class, tile, grid and shared memory; fail
+    where the tile is not the rule's (``cuda_conv.mma_tile``)."""
+    from dcs_net_tpu_torch.ops import cuda_conv
+
+    B, H, W, cin, _, cout = args[:6]
+    tile = tuple(args[6:9])
+    if tile != cuda_conv.mma_tile(B, H, W, cin, cout):
+        fail(f"{name} at {args}: tile {tile} is not mma_tile's")
+    geo = cuda_conv.mma_geometry(B, H, W, cin, cout, tile)
+    print(f"kernel {name} args={args}: the tensor-core body at class (7, {cin}, {cout}), "
+          f"tile (TH, TW, RB) {tile}, grid {geo.grid}, {geo.smem} bytes of shared memory",
+          flush=True)
 
 
 def tapconv_pad(args):
@@ -1791,11 +1830,13 @@ def check_real_off_path(dev, bf16=False) -> None:
     at ``REAL_GATE_EXTRA``'s shapes (C = 1 and C no multiple of 4 or 8,
     H = 1, W below a tile, odd H and W, batch 32), on x one element off its
     16-byte line, the gate at every R of ``REAL_TILES``; the conv entry at
-    (7, 2, 1) and (7, 1, 2) routed and forced onto every R. At float32 also
-    on an input one float off (the generic body at (7, 2, 1)) and on the
-    generic body itself; at bf16 a pooled map one element off its 4-byte
-    pixel, which the bf16 class refuses. Every call launches its own class
-    and nothing else."""
+    (7, 2, 1) and (7, 1, 2) routed, and at float32 forced onto every R (the
+    bf16 class's tensor-core body has tiles of its own, which
+    ``check_conv_bf16_off_path`` forces). At float32 also on an input one
+    float off (the generic body at (7, 2, 1)) and on the generic body
+    itself; at bf16 a pooled map one element off its 4-byte pixel, which the
+    bf16 class refuses. Every call launches its own class and nothing
+    else."""
     import torch
 
     from dcs_net_tpu_torch.ops import cuda_conv as cc
@@ -1816,7 +1857,7 @@ def check_real_off_path(dev, bf16=False) -> None:
     w12 = cc.dgrad_kernel(randn(7, 7, 2, 1, scale=0.3))
     b1 = torch.randn(1, generator=g, device=dev)
     b2 = torch.randn(2, generator=g, device=dev)
-    n_conv = 2 * (len(REAL_TILES) + (1 if bf16 else 3))
+    n_conv = 2 * (1 if bf16 else len(REAL_TILES) + 3)
     want_launches = {f"sa_pool_real{sfx}": 3, f"sa_gate_real{sfx}": 3 + len(REAL_TILES),
                      f"conv_same_small_cout{sfx}": n_conv}
     for B, H, W, C in REAL_GATE_EXTRA:
@@ -1838,9 +1879,10 @@ def check_real_off_path(dev, bf16=False) -> None:
                                  ((7, 1, 2), pooled[..., :1].contiguous(), w12, b2)):
             want = conv_plain(xin, wk, bk)
             errs[f"conv {cls} routed"] = rel_err(cc.conv2d_same_small_cout(xin, wk, bk), want)
-            for tile in REAL_TILES:
-                errs[f"conv {cls} {tile}"] = rel_err(cc.launch_conv(xin, wk, bk, tile), want)
             if not bf16:
+                for tile in REAL_TILES:
+                    errs[f"conv {cls} {tile}"] = rel_err(cc.launch_conv(xin, wk, bk, tile),
+                                                         want)
                 offx = randn(xin.numel() + 1)[1:].view(xin.shape).copy_(xin)
                 errs[f"conv {cls} x one float off"] = rel_err(
                     cc.conv2d_same_small_cout(offx, wk, bk), want)
@@ -3617,6 +3659,68 @@ def check_bf16_off_path(dev, cfg) -> None:
 
 
 
+def check_conv_bf16_off_path(dev) -> None:
+    """Kernel 2's bf16 conv entry (the tensor-core body) where the train
+    path does not take it, at its four classes, against the plain versions
+    (``BF16_REL_TOL``): ``CONV_BF16_EXTRA``'s shapes routed (the forward
+    classes with a bias, the input gradients' on ``dgrad_kernel`` of the
+    forward's w) and forced onto ``CONV_BF16_TILES`` where they fit; at Cin 1
+    x one bf16 off its 4-byte line (its pixel pairs staged by two loads),
+    at Cin 2 and 4 such an x refused. Each call launches the class's
+    counter once, and nothing else."""
+    import torch
+
+    from dcs_net_tpu_torch.ops import cuda_conv as cc
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 29)
+    b16 = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(b16)
+
+    for (cin, cout), tiles in CONV_BF16_TILES.items():
+        dgrad = (cin, cout) in ((2, 4), (1, 2))
+        kern = cc.DGRAD_BF16 if dgrad else cc.KERNEL_BF16
+        wf = randn(7, 7, cout, cin, scale=0.2) if dgrad else randn(7, 7, cin, cout, scale=0.2)
+        wk = cc.dgrad_kernel(wf) if dgrad else wf
+        bk = (torch.zeros(cout, device=dev) if dgrad
+              else torch.randn(cout, generator=g, device=dev))
+        for B, H, W in CONV_BF16_EXTRA:
+            x = randn(B, H, W, cin)
+            want = (cc.conv2d_same_small_cout_dgrad_bf16_plain(x, wf) if dgrad
+                    else cc.conv2d_same_small_cout_bf16_plain(x, wk, bk))
+            torch.cuda.synchronize()
+            before = launch_counts()
+            errs = {"routed": rel_err(cc._same_conv(x, wk, bk, dgrad), want)}
+            for tile in tiles:
+                if cc.mma_fits(B, H, W, cin, cout, tile):
+                    errs[f"tile {tile}"] = rel_err(cc.launch_conv(x, wk, bk, tile, dgrad), want)
+            off = torch.empty(x.numel() + 1, device=dev, dtype=b16)[1:].view(x.shape).copy_(x)
+            if cin == 1:
+                errs["x one bf16 off"] = rel_err(cc._same_conv(off, wk, bk, dgrad), want)
+            else:
+                try:
+                    cc._same_conv(off, wk, bk, dgrad)
+                    fail(f"the bf16 conv entry took x off its {2 * cin}-byte pixel at "
+                         f"{(B, H, W, cin)}")
+                except ValueError:
+                    pass
+            torch.cuda.synchronize()
+            after = launch_counts()
+            got = {k: n - before.get(k, 0) for k, n in after.items() if n != before.get(k, 0)}
+            worst = max(errs, key=errs.get)
+            print(f"kernel {kern.name} off the path: x ({B}, {H}, {W}, {cin}) -> {cout}, tile "
+                  f"{cc.mma_tile(B, H, W, cin, cout)}: {len(errs)} checks, worst {worst} "
+                  f"rel_err={errs[worst]:.3e}", flush=True)
+            if got != {kern.name: len(errs)}:
+                fail(f"{kern.name} at {(B, H, W, cin)}: launches {got}, expected "
+                     f"{ {kern.name: len(errs)} }")
+            for k, v in errs.items():
+                if not math.isfinite(v) or v > BF16_REL_TOL:
+                    fail(f"{kern.name} ({k}) at {(B, H, W, cin)}: error {v:.3e} exceeds "
+                         f"{BF16_REL_TOL}")
+
+
 def check_dgrad_bf16_off_path(dev) -> None:
     """Kernel 3's bf16 input gradient where the paths do not take it
     (``DGRAD_BF16_EXTRA``), on the forward's packing of w made as the
@@ -4549,6 +4653,7 @@ def check_bf16_train(dev, card, tmp, noisy, clean, f32, drs_f32=None):
     rows = train_at_bf16(dev, card, noisy, clean, "dcs", f32, BF16_TRAIN_STEP_LAUNCHES,
                          SEED + 11, SEED + 13)
     check_dgrad_bf16_off_path(dev)
+    check_conv_bf16_off_path(dev)
 
     # (f) DC at bf16 and at float32, card vs CPU, batch 4, dropout off
     dcfg = config_for_variant("dc")

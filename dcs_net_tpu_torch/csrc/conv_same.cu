@@ -34,9 +34,11 @@
 // A single kernel that pooled inside the gate would read x again for the
 // 3-pixel halo of every tile.
 //
-// Why not the tensor cores: N = Cout = 2 padded to wgmma's n8 wastes 4x, and
-// float32 accuracy costs three TF32 passes, 495 / 12 = 41 TFLOP/s effective,
-// below the 67 TFLOP/s of the float32 pipes.
+// Why not the tensor cores at float32: N = Cout = 2 padded to wgmma's n8
+// wastes 4x, and float32 accuracy costs three TF32 passes, 495 / 12 = 41
+// TFLOP/s effective, below the 67 TFLOP/s of the float32 pipes. (The bf16
+// classes below run on the tensor cores: their operands need no split, and
+// N is filled with output shifts instead of zeros.)
 //
 // The bf16 class of the gate (serving at --dtype bfloat16) overturns both
 // arguments, and runs as one kernel (dcs_sa_fused_bf16, below; PR 15's pool
@@ -132,15 +134,30 @@
 // write of x), whose product spreads a tile's pixels over all 128 threads.
 //
 // Training at bf16 (the JAX _conv_fwd_pallas and _bwd at bf16 operands)
-// runs the register-tiled body at every tiled class with bf16 loads
-// (conv7_bf16_kernel, dcs_conv_same_small_cout_bf16): x and w widened to
-// float32 exactly as they are staged, float32 sums, the float32 bias added
-// and y rounded once to bf16; the input gradient, class (7, 2, 4) or, for
-// DR / DRS, (7, 1, 2), is the same entry on the bf16 gradient with the
-// flipped, transposed kernel. At the real classes a tap's 2 weights are one
-// 4-byte word (a bf16 pair) and a staged pixel 4 or 2 bytes, widened to the
-// float2 or float the float32 body stages, so the tile, the pitch and R = 8
-// are the float32 body's.
+// runs the conv entry's bf16 class (dcs_conv_same_small_cout_bf16) at every
+// tiled class on the tensor cores (conv7_mma_kernel): bf16 mma.sync
+// m16n8k16 with float32 sums, the float32 bias added and y rounded once to
+// bf16; the input gradient, class (7, 2, 4) or, for DR / DRS, (7, 1, 2), is
+// the same entry on the bf16 gradient with the flipped, transposed kernel.
+// The float32 SIMT body it replaced widened every bf16 operand and ran 49
+// Cin Cout FMAs a pixel (392 at the complex classes) on the float32 pipes:
+// at the 128 x 128 sites those alone take longer than the bytes. On the
+// tensor cores the products are ~1% of the work, and what is left is bytes
+// at the large sites (x once, y once: 12 bytes a pixel at the complex
+// classes, 6 at the real) and launch latency at the small ones. So a block
+// stages its tile with the 3-pixel halo once by cp.async (every copy in
+// flight at once, zeros outside the image by a zero source size: no row of
+// 16 bytes for a tensor copy to crawl through), builds the B table from w
+// while the copies fly, and each warp walks its task's staged rows once,
+// one staged row's A fragments serving every group of output rows it
+// reaches. N = 8 holds Cout outputs x column x row shifts, never zero
+// columns, and K the staged pixels x channels a thread's register holds:
+// the class table at MmaClass. The fused gate's conv is the (7, 4, 2)
+// instance of the same device function (mma_conv) with a sigmoid epilogue.
+// Tiles (ops/cuda_conv.py:mma_tile): 16 x 64 at the 128 x 128 sites (1.5x
+// staged per output), at most 8 rows at the others, where a launch's time
+// is its latency: the launch, a block's one round trip to device memory,
+// its table and a short chain of products.
 //
 // Serving DR / DRS at bf16 runs the real pool and gate's bf16 classes
 // (dcs_sa_pool_real_bf16, dcs_sa_gate_real_bf16): the same two kernels over
@@ -500,61 +517,6 @@ conv7_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// The conv entry's bf16 class, the Pallas function at bf16 operands: x (B,
-// H, W, CIN) and w bf16, widened to float32 exactly as they are staged (so
-// every product is exact), the taps summed in float32, the float32 bias
-// added and each output rounded once to bf16. The same register-tiled body
-// and tile as conv7_kernel at every tiled class; only the loads and the
-// store differ.
-template <int R, int CIN, int COUT>
-__global__ void __launch_bounds__(NT)
-conv7_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ w,
-                  const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
-                  const Tile t, int H, int W) {
-  extern __shared__ float4 smem[];
-  const int b = blockIdx.z, h0 = blockIdx.y * t.ty, w0 = blockIdx.x * t.tw;
-  const int tid = threadIdx.x;
-  float acc[R][COUT];
-  float* att = conv7_tile<R, CIN, COUT, __nv_bfloat16>(x, w, t, smem, b, h0, w0,
-                                                        H, W, acc);
-  if (tid < t.tx * t.ty) {
-    const int ty = tid / t.tx, tx = tid - ty * t.tx;
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-#pragma unroll
-      for (int co = 0; co < COUT; ++co)
-        att[(ty * t.tw + tx * R + r) * COUT + co] = acc[r][co] + bias[co];
-  }
-  __syncthreads();
-  if constexpr (COUT % 2 == 0) {
-    // a pixel's outputs as bf16 pairs
-    __nv_bfloat162* yv = reinterpret_cast<__nv_bfloat162*>(y) + (long long)b * H * W * (COUT / 2);
-    for (int e = tid; e < t.ty * t.tw; e += NT) {
-      const int row = e / t.tw, col = e - row * t.tw;
-      const int hh = h0 + row, ww = w0 + col;
-      if (hh < H && ww < W) {
-        __nv_bfloat162* dst = yv + ((long long)hh * W + ww) * (COUT / 2);
-#pragma unroll
-        for (int j = 0; j < COUT / 2; ++j)
-          dst[j] = __floats2bfloat162_rn(att[e * COUT + 2 * j], att[e * COUT + 2 * j + 1]);
-      }
-    }
-  } else {
-    // the real class's one output a pixel, 2 bytes
-    __nv_bfloat16* yv = y + (long long)b * H * W * COUT;
-    for (int e = tid; e < t.ty * t.tw; e += NT) {
-      const int row = e / t.tw, col = e - row * t.tw;
-      const int hh = h0 + row, ww = w0 + col;
-      if (hh < H && ww < W) {
-#pragma unroll
-        for (int co = 0; co < COUT; ++co)
-          yv[((long long)hh * W + ww) * COUT + co] = __float2bfloat16_rn(att[e * COUT + co]);
-      }
-    }
-  }
-}
-
 __device__ __forceinline__ float sigmoidf(float v) {
   return 1.f / (1.f + expf(-v));
 }
@@ -866,19 +828,6 @@ void launch_conv7(int R, dim3 grid, int smem, cudaStream_t s, const float* x,
     conv7_kernel<8, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
 }
 
-template <int CIN, int COUT>
-void launch_conv7_bf16(int R, dim3 grid, int smem, cudaStream_t s,
-                       const __nv_bfloat16* x, const __nv_bfloat16* w,
-                       const float* bias, __nv_bfloat16* y, const Tile& t, int H,
-                       int W) {
-  if (R == 2)
-    conv7_bf16_kernel<2, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
-  else if (CIN * COUT != 2 || R == 4)
-    conv7_bf16_kernel<4, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
-  else if constexpr (CIN * COUT == 2)
-    conv7_bf16_kernel<8, CIN, COUT><<<grid, NT, smem, s>>>(x, w, bias, y, t, H, W);
-}
-
 // log2(n) where n is a power of two, else -1
 int log2_exact(int n) {
   for (int k = 0; k < 31; ++k)
@@ -972,13 +921,311 @@ int launch_gate_real(const G* pooled, const G* w, const G* x, G* out, int B, int
 }
 
 // ---------------------------------------------------------------------------
+// the 7 x 7 conv at bf16 on tensor cores: the fused gate's conv (class
+// (7, 4, 2)) and the conv entry's bf16 class at every tiled class
+// ---------------------------------------------------------------------------
+
+constexpr int SMEM_LIMIT = 232448;         // 227 KB, a block's most on the H100
+
+// d (16 x 8, float32) += a (16 x 16 bf16, row-major fragments) b (16 x 8
+// bf16, column-major fragments)
+__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0, uint32_t a1,
+                                          uint32_t a2, uint32_t a3, uint32_t b0,
+                                          uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// The products of class (7, CIN, COUT) on mma m16n8k16 (mma_conv). N = 8 is
+// COUT outputs x SC column shifts x SR row shifts, n = (dy SC + s) COUT +
+// co: no column is dead. M row m of a product is tile column c0 + SC m, so
+// its 16 rows span 16 SC columns and the shifts fill the columns between.
+// K = 16 is staged pixels x CIN channels, in the order that makes a
+// thread's A register one staged word: at CIN 4 a step is 4 pixels x 4
+// channels (two steps cover the 8 pixels under SC = 2 shifts of 7 taps);
+// at CIN 2 one step is 8 pixels x 2 channels (the 7 taps and one shift);
+// at CIN 1 one step is 16 pixels (the 7 taps and 3 shifts; two pixels a
+// 4-byte word). The staged tile is th + 6 rows of words from LEAD columns
+// left of the tile: LEAD = 4 at CIN 1, so that a word's two pixels start
+// at an even column. One staged row feeds a group of SR tile rows at D = 6
+// + SR row offsets d, each product of (row, step) serving every group whose
+// offset it reaches.
+//
+//   class        A word          N = 8                  products a pixel
+//   (7, 4, 2)    8-byte pixel    2 out x 2 col x 2 row  0.25
+//   (7, 2, 4)    4-byte pixel    4 out x 2 col          0.22
+//   (7, 2, 1)    4-byte pixel    1 out x 2 col x 4 row  0.08
+//   (7, 1, 2)    2 pixels        2 out x 4 col          0.11
+template <int CIN, int COUT>
+struct MmaClass {
+  static constexpr int SC = CIN == 1 ? 4 : 2;      // column shifts
+  static constexpr int SR = 8 / (COUT * SC);       // row shifts
+  static constexpr int U = CIN == 4 ? 2 : 1;       // k16 steps a staged row
+  static constexpr int D = 6 + SR;                 // row offsets of a group
+  static constexpr int LEAD = CIN == 1 ? 4 : 3;    // staged columns left of the tile
+  static constexpr int SPAN = 16 * SC;             // tile columns of a product's M rows
+  static constexpr int PX = CIN == 1 ? 2 : 1;      // pixels a staged word
+  static constexpr int WIN = U * 16 / CIN;         // staged pixels a product's row reads
+  static constexpr int WORDS = D * U * 2;          // B registers a lane
+  using Word = typename std::conditional<CIN == 4, uint2, uint32_t>::type;
+};
+
+// The B table of the products, built once a block from w (7, 7, CIN, COUT)
+// as it lies: word e (< 32 WORDS) is lane l = e % 32's register r = (e /
+// 32) % 2 of step u = (e / 64) % U at row offset d = e / (64 U). Lane (gid,
+// tig) holds column n = gid and, in register r, k = 2 tig + 8 r + {0, 1}:
+// staged pixel (slot) 4 u + tig, channels 2 r + {0, 1} at CIN 4; slot tig
+// + 4 r, channels {0, 1} at CIN 2; slots 2 tig + 8 r + {0, 1} at CIN 1.
+// Column n is output co = n % COUT of the tile pixel dy rows down and s
+// columns right, n / COUT = dy SC + s. The value is w[kh][kw][ci][co] at kh
+// = d - dy, kw = slot - s - (LEAD - 3), 0 outside the kernel. Gives the
+// offsets into w of the word's two bf16 halves (k even, k odd), -1 for a 0.
+template <int CIN, int COUT>
+__device__ __forceinline__ void mma_b_taps(int e, int& lo, int& hi) {
+  using M = MmaClass<CIN, COUT>;
+  const int l = e & 31, r = (e >> 5) & 1, su = e >> 6, u = su % M::U, d = su / M::U;
+  const int n = l >> 2, t = l & 3, co = n % COUT, q = n / COUT;
+  const int s = q % M::SC, kh = d - q / M::SC;
+  int off[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int slot = CIN == 4 ? 4 * u + t : CIN == 2 ? t + 4 * r : 2 * t + 8 * r + h;
+    const int ci = CIN == 4 ? 2 * r + h : CIN == 2 ? h : 0;
+    const int kw = slot - s - (M::LEAD - 3);
+    off[h] = kh >= 0 && kh < 7 && kw >= 0 && kw < 7 ? ((kh * 7 + kw) * CIN + ci) * COUT + co
+                                                    : -1;
+  }
+  lo = off[0];
+  hi = off[1];
+}
+
+// The conv of a staged tile on tensor cores (class (7, CIN, COUT), see
+// MmaClass), shared by the fused gate and the conv entry: map holds th + 6
+// rows of `pitch` words, row i image row h0 - 3 + i, from LEAD columns left
+// of the tile, zero outside the image; bf is the lane's WORDS B registers
+// (the table's words l, l + 32, ...). One warp a task: SPAN tile columns of
+// RB tile rows (RB / SR groups). The task walks the RB + 6 staged rows under
+// them once, loading each row's A fragments (4 loads a step) and applying
+// them to every group it reaches (0 <= d < D): a staged word leaves shared
+// memory (RB + 6) / RB times a task. A load's 16 M rows x 4 threads read
+// consecutive words: no bank conflict. Consecutive products go to
+// different groups' sums. M rows past cmax (the tile's last column, or its
+// last product column) are computed on it and dropped by the epilogue;
+// rows past the map on its last row, feeding only tile rows past the tile.
+// epi(r, c, acc) takes each group's sums: tile row r (the group's first),
+// the lane's M row gid at tile column c and gid + 8 at c + 8 SC; acc[0],
+// acc[1] are its columns n = 2 tig + {0, 1} of row gid, acc[2], acc[3] of
+// row gid + 8.
+template <int CIN, int COUT, int RB, typename Epi>
+__device__ __forceinline__ void mma_conv(
+    const typename MmaClass<CIN, COUT>::Word* __restrict__ map, int pitch, int th, int tw,
+    int cmax, const uint32_t (&bf)[MmaClass<CIN, COUT>::WORDS], int warp, int nwarps,
+    int lane, Epi&& epi) {
+  using M = MmaClass<CIN, COUT>;
+  static_assert(RB % M::SR == 0, "a task holds whole groups");
+  constexpr int NG = RB / M::SR;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int nct = (tw + M::SPAN - 1) / M::SPAN, tasks = nct * ((th + RB - 1) / RB);
+  for (int task = warp; task < tasks; task += nwarps) {
+    const int q = task / nct, c0 = (task - q * nct) * M::SPAN + M::SC * gid, r0 = q * RB;
+    const int ca = min(c0, cmax) / M::PX, cb = min(c0 + 8 * M::SC, cmax) / M::PX;
+    float acc[NG][4];
+#pragma unroll
+    for (int j = 0; j < NG; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+    for (int i = 0; i < RB + 6; ++i) {
+      const typename M::Word* p = map + min(r0 + i, th + 5) * pitch + tig;
+      uint32_t a[M::U][4];
+      if constexpr (CIN == 4) {
+        // a pixel's channels (0, 1) and (2, 3) are a thread's k = 2 tig +
+        // {0, 1} and 2 tig + 8 + {0, 1}
+        const uint2 a0 = p[ca], a1 = p[cb], a2 = p[ca + 4], a3 = p[cb + 4];
+        a[0][0] = a0.x, a[0][1] = a1.x, a[0][2] = a0.y, a[0][3] = a1.y;
+        a[M::U - 1][0] = a2.x, a[M::U - 1][1] = a3.x, a[M::U - 1][2] = a2.y;
+        a[M::U - 1][3] = a3.y;
+      } else {
+        a[0][0] = p[ca], a[0][1] = p[cb], a[0][2] = p[ca + 4], a[0][3] = p[cb + 4];
+      }
+#pragma unroll
+      for (int u = 0; u < M::U; ++u)
+#pragma unroll
+        for (int j = 0; j < NG; ++j) {
+          const int d = i - M::SR * j;
+          if (d >= 0 && d < M::D)
+            mma_16816(acc[j], a[u][0], a[u][1], a[u][2], a[u][3], bf[(d * M::U + u) * 2],
+                      bf[(d * M::U + u) * 2 + 1]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < NG; ++j) epi(r0 + M::SR * j, c0, acc[j]);
+  }
+}
+
+// cp.async of BYTES (4 or 8) from device memory to shared memory; where !in,
+// BYTES zeros and src is not read
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst), "l"(src),
+               "n"(BYTES), "r"(in ? BYTES : 0)
+               : "memory");
+}
+
+// One launch of the conv entry's bf16 class (ops/cuda_conv.py:mma_geometry
+// states the same rule): a block a tile of th x tw pixels of one image at
+// (blockIdx.y th, blockIdx.x tw), tw a multiple of SPAN; its staged tile th
+// + 6 rows of pitch = (tw + WIN - SC) / PX words.
+struct MGeo {
+  int H, W;
+  int th, tw;
+  int pitch;
+};
+
+// y = bias + conv(x, w) at class (7, CIN, COUT): x (B, H, W, CIN), w (7, 7,
+// CIN, COUT) and y bf16, bias float32; the products in float32 on tensor
+// cores (mma_conv), the bias added in float32, each output rounded once.
+// The block: every staging copy of its tile in flight at once (cp.async,
+// one word a copy, zeros outside the image by a zero source size; at CIN 1
+// a pair that the image's edge splits, or that lies off 4 bytes at odd W,
+// by two loads); the B table built from w while they fly; the products, RB
+// tile rows a warp's task; the epilogue from registers: a lane's two sums
+// of an M row are a bf16 pair, one 4-byte store (a whole pixel at COUT 2,
+// half of one at COUT 4, two neighbouring pixels at COUT 1), a warp's
+// stores covering whole runs of a tile row.
+template <int CIN, int COUT, int RB>
+__global__ void __launch_bounds__(NT)
+conv7_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                 const float* __restrict__ bias, __nv_bfloat16* __restrict__ y,
+                 const MGeo g) {
+  using M = MmaClass<CIN, COUT>;
+  using Word = typename M::Word;
+  constexpr int TABLE = M::WORDS * 32, PER = (TABLE + NT - 1) / NT;
+  extern __shared__ __align__(128) unsigned char mma_smem[];
+  uint32_t* bt = reinterpret_cast<uint32_t*>(mma_smem);
+  Word* map = reinterpret_cast<Word*>(mma_smem + TABLE * 4);
+  const int b = blockIdx.z, h0 = blockIdx.y * g.th, w0 = blockIdx.x * g.tw;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, tig = lane & 3;
+
+  const __nv_bfloat16* xb = x + (long long)b * g.H * g.W * CIN;
+  const int nwords = (g.th + 6) * g.pitch;
+  for (int e = tid; e < nwords; e += NT) {
+    const int i = e / g.pitch, j = e - i * g.pitch;
+    const int hh = h0 - 3 + i, ww = w0 - M::LEAD + j * M::PX;
+    const bool row_in = hh >= 0 && hh < g.H;
+    const long long p = (long long)hh * g.W + ww;
+    const uint32_t dst = smem_u32(map + e);
+    if constexpr (CIN != 1) {
+      const bool in = row_in && ww >= 0 && ww < g.W;
+      cp_async_zfill<sizeof(Word)>(dst, in ? xb + p * CIN : x, in);
+    } else {
+      const bool in0 = row_in && ww >= 0 && ww < g.W;
+      const bool in1 = row_in && ww + 1 >= 0 && ww + 1 < g.W;
+      if (in0 == in1 && (!in0 || (reinterpret_cast<uintptr_t>(xb + p) & 3) == 0)) {
+        cp_async_zfill<4>(dst, in0 ? xb + p : x, in0);
+      } else {
+        const unsigned short* xs = reinterpret_cast<const unsigned short*>(xb);
+        map[e] = (in0 ? xs[p] : 0u) | (static_cast<uint32_t>(in1 ? xs[p + 1] : 0u) << 16);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+
+  // the B table's halves, every load in flight before the first store
+  const unsigned short* wh = reinterpret_cast<const unsigned short*>(w);
+  unsigned short wlo[PER], whi[PER];
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    int lo = -1, hi = -1;
+    if (tid + q * NT < TABLE) mma_b_taps<CIN, COUT>(tid + q * NT, lo, hi);
+    wlo[q] = lo >= 0 ? wh[lo] : 0;
+    whi[q] = hi >= 0 ? wh[hi] : 0;
+  }
+  float bv[4];
+#pragma unroll
+  for (int co = 0; co < 4; ++co) bv[co] = co < COUT ? bias[co] : 0.f;
+#pragma unroll
+  for (int q = 0; q < PER; ++q)
+    if (tid + q * NT < TABLE) bt[tid + q * NT] = wlo[q] | (static_cast<uint32_t>(whi[q]) << 16);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  uint32_t bf[M::WORDS];
+#pragma unroll
+  for (int i = 0; i < M::WORDS; ++i) bf[i] = bt[i * 32 + lane];
+  const int rows_v = min(g.th, g.H - h0), cols_v = min(g.tw, g.W - w0);
+  __nv_bfloat16* yb = y + ((long long)b * g.H + h0) * g.W * COUT;
+  // the lane's columns n = 2 tig + {0, 1}: at COUT 2 tile pixel (dy, s) =
+  // divmod(tig, SC), outputs 0 and 1; at COUT 4 pixel (0, tig / 2), outputs
+  // 2 (tig % 2) + {0, 1}; at COUT 1 pixels (tig, 0) and (tig, 1), output 0
+  const int dy = COUT == 1 ? tig : COUT == 2 ? tig / M::SC : 0;
+  const int s = COUT == 2 ? tig % M::SC : COUT == 4 ? tig >> 1 : 0;
+  const int ch = COUT == 4 ? 2 * (tig & 1) : 0;
+  const float b0 = COUT == 1 ? bv[0] : (tig & 1) && COUT == 4 ? bv[2] : bv[0];
+  const float b1 = COUT == 1 ? bv[0] : (tig & 1) && COUT == 4 ? bv[3] : bv[1];
+  mma_conv<CIN, COUT, RB>(
+      map, g.pitch, g.th, g.tw, g.tw - M::SC, bf, warp, NT / 32, lane,
+      [&](int r, int c, const float (&acc)[4]) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int row = r + dy, col = c + half * 8 * M::SC + s;
+          if (row >= rows_v || col >= cols_v) continue;
+          __nv_bfloat16* dst = yb + ((long long)row * g.W + w0 + col) * COUT + ch;
+          const float v0 = acc[2 * half] + b0, v1 = acc[2 * half + 1] + b1;
+          if (COUT > 1 ||
+              (col + 1 < cols_v && (reinterpret_cast<uintptr_t>(dst) & 3) == 0)) {
+            *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            dst[0] = __float2bfloat16_rn(v0);
+            if (col + 1 < cols_v) dst[1] = __float2bfloat16_rn(v1);
+          }
+        }
+      });
+}
+
+// shared memory of one block: the B table, then the staged tile
+template <int CIN, int COUT>
+int mma_smem_bytes(const MGeo& g) {
+  using M = MmaClass<CIN, COUT>;
+  return M::WORDS * 32 * 4 + (g.th + 6) * g.pitch * static_cast<int>(sizeof(typename M::Word));
+}
+
+// the conv entry's bf16 class at (7, CIN, COUT) on a tile of th x tw, RB
+// tile rows a task: tw a positive multiple of SPAN, RB in {2, 4, 8} and a
+// multiple of SR, a block's shared memory within 227 KB. The dynamic
+// shared-memory attribute is set at every launch.
+template <int CIN, int COUT>
+int launch_conv_mma(const __nv_bfloat16* x, const __nv_bfloat16* w, const float* bias,
+                    __nv_bfloat16* y, int B, int H, int W, int th, int tw, int rb,
+                    cudaStream_t s) {
+  using M = MmaClass<CIN, COUT>;
+  if (th < 1 || tw < M::SPAN || tw % M::SPAN || rb % M::SR ||
+      (rb != 2 && rb != 4 && rb != 8) || (H + th - 1) / th > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const MGeo g{H, W, th, tw, (tw + M::WIN - M::SC) / M::PX};
+  const int smem = mma_smem_bytes<CIN, COUT>(g);
+  if (smem > SMEM_LIMIT) return static_cast<int>(cudaErrorInvalidValue);
+  void (*kernel)(const __nv_bfloat16*, const __nv_bfloat16*, const float*, __nv_bfloat16*,
+                 const MGeo) = conv7_mma_kernel<CIN, COUT, 8>;
+  if (rb == 4) kernel = conv7_mma_kernel<CIN, COUT, 4>;
+  if constexpr (M::SR <= 2)
+    if (rb == 2) kernel = conv7_mma_kernel<CIN, COUT, 2>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((W + tw - 1) / tw, (H + th - 1) / th, B);
+  kernel<<<grid, NT, smem, s>>>(x, w, bias, y, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // the fused bf16 gate: pool, the conv on tensor cores, sigmoid and product,
 // one launch a site
 // ---------------------------------------------------------------------------
 
 constexpr int FT = 256;                    // threads of a fused-gate block
-constexpr int FUSED_SMEM_LIMIT = 232448;   // 227 KB, a block's most on the H100
-constexpr int FUSED_BT = 8 * 2 * 2 * 32;   // the conv's B fragments: words a block
+constexpr int FUSED_BT = MmaClass<4, 2>::WORDS * 32;   // the conv's B table: words a block
 
 // One launch's geometry (ops/cuda_conv.py:fused_geometry states the same
 // rule). A block owns a tile of th x tw pixels of one image at (h0, w0) =
@@ -1021,92 +1268,11 @@ __host__ __device__ inline int fused_smem_bytes(const FGeo& g) {
          8;
 }
 
-// d (16 x 8, float32) += a (16 x 16 bf16, row-major fragments) b (16 x 8
-// bf16, column-major fragments)
-__device__ __forceinline__ void mma_16816(float (&d)[4], uint32_t a0, uint32_t a1,
-                                          uint32_t a2, uint32_t a3, uint32_t b0,
-                                          uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// The conv of the pooled map on tensor cores: mma m16n8k16, bf16 operands,
-// float32 sums. N = 8 is not 2 outputs padded with 6 zero columns: it is 2
-// outputs x 2 horizontal x 2 vertical shifts, n = 4 dy + 2 s + c. M row m
-// of a product is tile column b + 2 m (16 rows: 32 columns), and column n
-// of its output is tile pixel (r + dy, b + 2 m + s), channel c, for the
-// pair of tile rows (r, r + 1). The A operand is one pooled row i, K = 16 a
-// step = 4 pooled pixels (b + 2 m + 4 u + t, t < 4; steps u = 0, 1 reach
-// the 7 taps of both shifts) x 4 channels; its B is the packed kernel at
-// tap row kh = i - r - dy, tap kw = 4 u + t - s (0 outside the kernel), so
-// one (pooled row, step) product serves both tile rows of a pair and both
-// shifts: 16 products a pair of tile rows x 32 columns, 0.25 a pixel (2
-// outputs in 8 columns, one tile row a product, would take 0.875). The k
-// order within a step is the fragments': thread (gid, tig) holds k = 2 tig
-// + {0, 1} and 2 tig + 8 + {0, 1} of M rows gid and gid + 8, so k = 2 t +
-// c and 8 + 2 t + c (t < 4, c < 2) are pixel t's channels c and 2 + c: a
-// thread's two words for a row are one pooled pixel's 4 channels, one
-// 8-byte load (any pixel is 8-byte aligned). Its B words are bt (built
-// once a block, sa_fused_bf16_kernel), 8 row offsets d = i - r x 2 steps x
-// 2 words.
-//
-// One warp a task: 32 tile columns (columns past the tile are computed on
-// the tile's last column and dropped) of RB tile rows (RB / 2 pairs). The
-// task walks the RB + 6 pooled rows under them once, loading each row's A
-// fragments (4 8-byte loads) and applying them to every pair it reaches
-// (d = i - r < 8): a pooled pixel leaves shared memory (RB + 6) / RB times a
-// task. The 16 M rows x 4 threads of a load read 18 consecutive 8-byte
-// pixels: no bank conflict. Consecutive products go to different pairs'
-// sums.
-template <int RB>
-__device__ __forceinline__ void fused_conv(const FGeo& g, const uint2* __restrict__ pooled,
-                                           const uint32_t (&bf)[8][2][2],
-                                           float2* __restrict__ att, int warp, int lane) {
-  constexpr int NP = RB / 2;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int nct = (g.tw + 31) >> 5, tasks = nct * ((g.th + RB - 1) / RB);
-  for (int task = warp; task < tasks; task += FT / 32) {
-    const int q = task / nct, c0 = (task - q * nct) * 32 + 2 * gid, r0 = q * RB;
-    const int ca = min(c0, g.tw - 1), cb = min(c0 + 16, g.tw - 1);
-    float acc[NP][4];
-#pragma unroll
-    for (int j = 0; j < NP; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-    for (int i = 0; i < RB + 6; ++i) {
-      // rows past the map feed only tile rows past the tile
-      const uint2* p = pooled + min(r0 + i, g.th + 5) * g.pp + tig;
-      const uint2 a0 = p[ca], a1 = p[cb], a2 = p[ca + 4], a3 = p[cb + 4];
-#pragma unroll
-      for (int j = 0; j < NP; ++j)
-        if (i - 2 * j >= 0 && i - 2 * j < 8)
-          mma_16816(acc[j], a0.x, a1.x, a0.y, a1.y, bf[i - 2 * j][0][0], bf[i - 2 * j][0][1]);
-#pragma unroll
-      for (int j = 0; j < NP; ++j)
-        if (i - 2 * j >= 0 && i - 2 * j < 8)
-          mma_16816(acc[j], a2.x, a3.x, a2.y, a3.y, bf[i - 2 * j][1][0], bf[i - 2 * j][1][1]);
-    }
-    // thread (gid, tig) holds n = 2 tig + {0, 1}: (dy, s) = (tig / 2, tig % 2)
-    // of tile columns c0 (M row gid) and c0 + 16 (gid + 8), both channels
-    const int c = c0 + (tig & 1);
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      const int r = r0 + 2 * j + (tig >> 1);
-      if (r < g.th && c < g.tw)
-        att[r * g.tw + c] = make_float2(sigmoidf(acc[j][0]), sigmoidf(acc[j][1]));
-      if (r < g.th && c + 16 < g.tw)
-        att[r * g.tw + c + 16] = make_float2(sigmoidf(acc[j][2]), sigmoidf(acc[j][3]));
-    }
-  }
-}
-
 // out = x * sigmoid(conv(pool(x))) for x = re + i im (B, H, W, C) bf16, w
 // (7, 7, 4, 2) bf16: the pair sa_pool_kernel<2, bf16> + sa_gate_kernel<R,
 // bf16> in one launch, x read from device memory once. The block: the
 // copies; the conv's B words into shared memory while they fly; the pooled
-// map from the boxes; the conv (fused_conv) and the sigmoid into the
+// map from the boxes; the conv (mma_conv) and the sigmoid into the
 // attention map; the product from the boxes, stored 16 bytes a thread. RB:
 // tile rows a conv task.
 template <int RB>
@@ -1143,24 +1309,18 @@ sa_fused_bf16_kernel(const __grid_constant__ CUtensorMap re_map,
         tma_load_4d(smem_u32(xs[q]), map, 0, sw, sh, b, bar);
     }
   }
-  // The conv's B words (fused_conv), their halves loaded while the copies
+  // The conv's B table (mma_b_taps), its halves loaded while the copies
   // fly and stored to the table after the pool, so that neither waits for
-  // the other: word e is lane l = e % 32's word r = (e / 32) % 2 of step u =
-  // (e / 64) % 2 at row offset d = e / 128; lane (gid, tig) holds n = gid =
-  // 4 dy + 2 s + c and, in word r, k = 2 tig + 8 r + {0, 1}: w[kh][kw][2 r +
-  // {0, 1}][c] at kh = d - dy, kw = 4 u + tig - s, 0 outside the kernel.
+  // the other
   constexpr int PER = FUSED_BT / FT;
   const unsigned short* wh = reinterpret_cast<const unsigned short*>(w);
   unsigned short wlo[PER], whi[PER];
 #pragma unroll
   for (int q = 0; q < PER; ++q) {
-    const int e = tid + q * FT;
-    const int l = e & 31, r = (e >> 5) & 1, u = (e >> 6) & 1, d = e >> 7;
-    const int n = l >> 2, kh = d - (n >> 2), kw = 4 * u + (l & 3) - ((n >> 1) & 1);
-    const bool on = kh >= 0 && kh < 7 && kw >= 0 && kw < 7;
-    const int k = on ? ((kh * 7 + kw) * 4 + 2 * r) * 2 + (n & 1) : 0;
-    wlo[q] = on ? wh[k] : 0;
-    whi[q] = on ? wh[k + 2] : 0;
+    int lo, hi;
+    mma_b_taps<4, 2>(tid + q * FT, lo, hi);
+    wlo[q] = lo >= 0 ? wh[lo] : 0;
+    whi[q] = hi >= 0 ? wh[hi] : 0;
   }
 
   // the pooled map: 0 outside the image and in the pad columns; the image's
@@ -1241,15 +1401,22 @@ sa_fused_bf16_kernel(const __grid_constant__ CUtensorMap re_map,
   __syncthreads();
 
   // the lane's 32 B words from the table, consecutive lanes on consecutive
-  // words
-  uint32_t bf[8][2][2];
+  // words; the conv, the sigmoid of lane (gid, tig)'s n = 2 tig + {0, 1},
+  // (dy, s) = (tig / 2, tig % 2) of tile columns c (M row gid) and c + 16
+  // (gid + 8), both channels, into the attention map. Columns past the tile
+  // are computed on its last column and dropped.
+  uint32_t bf[FUSED_BT / 32];
 #pragma unroll
-  for (int d = 0; d < 8; ++d)
-#pragma unroll
-    for (int u = 0; u < 2; ++u)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) bf[d][u][r] = bt[((d * 2 + u) * 2 + r) * 32 + lane];
-  fused_conv<RB>(g, pooled, bf, att, warp, lane);
+  for (int i = 0; i < FUSED_BT / 32; ++i) bf[i] = bt[i * 32 + lane];
+  mma_conv<4, 2, RB>(pooled, g.pp, g.th, g.tw, g.tw - 1, bf, warp, FT / 32, lane,
+                     [&](int r0, int c0, const float (&acc)[4]) {
+                       const int r = r0 + ((lane & 3) >> 1), c = c0 + (lane & 1);
+                       if (r < g.th && c < g.tw)
+                         att[r * g.tw + c] = make_float2(sigmoidf(acc[0]), sigmoidf(acc[1]));
+                       if (r < g.th && c + 16 < g.tw)
+                         att[r * g.tw + c + 16] =
+                             make_float2(sigmoidf(acc[2]), sigmoidf(acc[3]));
+                     });
   __syncthreads();
 
   // the product from the boxes: a tile row's pixels are contiguous in x, a
@@ -1292,7 +1459,7 @@ int launch_fused(const __nv_bfloat16* re, const __nv_bfloat16* im, const __nv_bf
   const int br = th + 6 < H ? th + 6 : H, bc = tw + 6 < W ? tw + 6 : W;
   const FGeo g{H, W, C, th, tw, br, bc, tw + 8, log2_exact(C / 8), bc * C <= 256};
   const int smem = fused_smem_bytes(g);
-  if (br > 256 || bc > 256 || smem > FUSED_SMEM_LIMIT || (H + th - 1) / th > 65535)
+  if (br > 256 || bc > 256 || smem > SMEM_LIMIT || (H + th - 1) / th > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiled encode = encode_tiled();
   if (!encode) return static_cast<int>(cudaErrorNotSupported);
@@ -1380,39 +1547,33 @@ extern "C" int dcs_conv_same_small_cout(const float* x, const float* w,
 }
 
 // The conv entry's bf16 class: x (B, H, W, Cin), w (7, 7, Cin, Cout) and y
-// (B, H, W, Cout) bf16, bias (Cout,) f32; float32 sums, the bias added, y
-// rounded once. The register-tiled body at the tiled classes, (7, 4, 2),
-// (7, 2, 4), (7, 2, 1) and (7, 1, 2), the tile as dcs_conv_same_small_cout's
-// (R in {2, 4}, and 8 at the real classes); x aligned to a pixel's 2 Cin
-// bytes, y to 2 Cout and w to a tap's word of weights (4 bf16, 8 bytes, at
-// the complex classes; 2, 4 bytes, at the real). Any other class is
+// (B, H, W, Cout) bf16, bias (Cout,) f32; float32 sums of the bf16
+// products, the bias added, y rounded once. The tensor-core body
+// (conv7_mma_kernel) at the tiled classes, (7, 4, 2), (7, 2, 4), (7, 2, 1)
+// and (7, 1, 2), on a tile of TH rows x TW columns with RB tile rows a
+// warp's task (ops/cuda_conv.py:mma_tile); x aligned to a pixel's 2 Cin
+// bytes, y to 4 bytes, w to a bf16. Any other class or tile is
 // cudaErrorInvalidValue. Launches on `stream`, allocates nothing, returns
 // cudaGetLastError().
 extern "C" int dcs_conv_same_small_cout_bf16(const void* x, const void* w,
                                              const float* bias, void* y, int B, int H,
-                                             int W, int Cin, int K, int Cout, int R,
-                                             int TX, int TY, void* stream) {
-  if (!tiled_class(K, Cin, Cout) || !image_ok(B, H, W) ||
-      !tile_ok(R, TX, TY, Cin, Cout) || !aligned(x, 2 * Cin) ||
-      !aligned(y, 2 * Cout) || !aligned(w, tap_word_bytes(Cin, Cout) / 2))
+                                             int W, int Cin, int K, int Cout, int TH,
+                                             int TW, int RB, void* stream) {
+  if (!tiled_class(K, Cin, Cout) || !image_ok(B, H, W) || !aligned(x, 2 * Cin) ||
+      !aligned(y, 4) || !aligned(w, 2))
     return static_cast<int>(cudaErrorInvalidValue);
   using bf = __nv_bfloat16;
-  const Tile t = make_tile(R, TX, TY, Cin, Cout);
-  const dim3 grid = tile_grid(t, B, H, W);
-  const int smem = t.smem4() * 16;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bf* xb = static_cast<const bf*>(x);
   const bf* wb = static_cast<const bf*>(w);
   bf* yb = static_cast<bf*>(y);
   if (Cin == 4)
-    launch_conv7_bf16<4, 2>(R, grid, smem, s, xb, wb, bias, yb, t, H, W);
-  else if (Cin == 2 && Cout == 4)
-    launch_conv7_bf16<2, 4>(R, grid, smem, s, xb, wb, bias, yb, t, H, W);
-  else if (Cin == 2)
-    launch_conv7_bf16<2, 1>(R, grid, smem, s, xb, wb, bias, yb, t, H, W);
-  else
-    launch_conv7_bf16<1, 2>(R, grid, smem, s, xb, wb, bias, yb, t, H, W);
-  return static_cast<int>(cudaGetLastError());
+    return launch_conv_mma<4, 2>(xb, wb, bias, yb, B, H, W, TH, TW, RB, s);
+  if (Cin == 2 && Cout == 4)
+    return launch_conv_mma<2, 4>(xb, wb, bias, yb, B, H, W, TH, TW, RB, s);
+  if (Cin == 2)
+    return launch_conv_mma<2, 1>(xb, wb, bias, yb, B, H, W, TH, TW, RB, s);
+  return launch_conv_mma<1, 2>(xb, wb, bias, yb, B, H, W, TH, TW, RB, s);
 }
 
 // re, im (B, H, W, C) -> pooled (B, H, W, 4) = [mean re, max re, mean im,

@@ -48,12 +48,16 @@ tiles :func:`fused_tile`, its launch :func:`fused_geometry`); the pair
 serves only the shapes it refuses (:func:`fused_takes`).
 
 Training at bf16 runs the un-fused gate, whose conv is the conv entry's
-bf16 class (``KERNEL_BF16``): the register-tiled body at every tiled class
+bf16 class (``KERNEL_BF16``): a tensor-core body at every tiled class
 (``TILED_CLASSES``: the complex (7, 4, 2), (7, 2, 4) and the real (7, 2,
-1), (7, 1, 2)) with x and w bf16, float32 sums, the float32 bias added and the
-output rounded once to bf16 (:func:`conv2d_same_small_cout_bf16_plain`); its
-input gradient is the same class on the bf16 gradient (``DGRAD_BF16``,
-:func:`conv2d_same_small_cout_dgrad_bf16_plain`).
+1), (7, 1, 2)), bf16 ``mma.sync`` m16n8k16 on a tile staged once with its
+halo, N = 8 filled with output shifts (:func:`mma_class`), the B operands
+built from w as it lies (:func:`mma_b_table`), x and w bf16, float32 sums,
+the float32 bias added and the output rounded once to bf16
+(:func:`conv2d_same_small_cout_bf16_plain`); its tiles :func:`mma_tile`,
+its launch :func:`mma_geometry`. The fused gate's conv is the same body's
+(7, 4, 2) instance. The input gradient is the same class on the bf16
+gradient (``DGRAD_BF16``, :func:`conv2d_same_small_cout_dgrad_bf16_plain`).
 
 The real pool and gate have bf16 classes too (``POOL_REAL_BF16``,
 ``GATE_REAL_BF16``), which :func:`sa_pool_real` and :func:`sa_gate_real`
@@ -154,7 +158,7 @@ POOL_REAL_BF16 = CudaKernel("sa_pool_real_bf16", "conv_same.cu", "dcs_sa_pool_re
                             POOL_REAL.argtypes)
 GATE_REAL_BF16 = CudaKernel("sa_gate_real_bf16", "conv_same.cu", "dcs_sa_gate_real_bf16",
                             GATE_REAL.argtypes)
-FUSED_SMEM_LIMIT = 232448        # 227 KB, a block's most on the H100
+FUSED_SMEM_LIMIT = 232448        # 227 KB, a block's most on the H100 (either bf16 body)
 FUSED_TILE_BYTES = 32 * 1024     # a tile's x, both planes, at most
 FUSED_MIN_BLOCKS = 132           # the H100's SMs: a tile shrinks to give each a block
 
@@ -275,6 +279,154 @@ def _check_tile(tile: Tile, cin: int = 4, cout: int = 2) -> None:
                          f"{_MAX_SMEM} bytes of shared memory")
 
 
+# --- the bf16 class's tensor-core body ------------------------------------------
+
+class MmaClass(NamedTuple):
+    """The products of class (7, Cin, Cout) on ``mma.sync`` m16n8k16
+    (``MmaClass`` in the source): N = 8 is Cout outputs x ``sc`` column x
+    ``sr`` row shifts, n = (dy sc + s) Cout + co; M row m is tile column c0
+    + sc m; K = 16 is staged pixels x Cin channels (:func:`mma_k_order`),
+    ``u`` k16 steps a staged row; a staged row feeds a group of ``sr`` tile
+    rows at ``d`` row offsets; the staged tile starts ``lead`` columns left
+    of the tile; a product's M rows span ``span`` columns; a staged word
+    holds ``px`` pixels; a product's row reads ``win`` staged pixels; a
+    lane holds ``words`` B registers."""
+    sc: int
+    sr: int
+    u: int
+    d: int
+    lead: int
+    span: int
+    px: int
+    win: int
+    words: int
+
+
+def mma_class(cin: int, cout: int) -> MmaClass:
+    """The tensor-core body's layout at class (7, Cin, Cout): (7, 4, 2) 2
+    outputs x 2 column x 2 row shifts over two steps of 4 pixels x 4
+    channels; (7, 2, 4) 4 outputs x 2 column shifts, one step of 8 pixels x
+    2 channels; (7, 2, 1) 1 output x 2 column x 4 row shifts, the same
+    step; (7, 1, 2) 2 outputs x 4 column shifts, one step of 16 pixels."""
+    if (7, cin, cout) not in TILED_CLASSES:
+        raise ValueError(f"(Cin, Cout) = {(cin, cout)} is no tiled class")
+    sc = 4 if cin == 1 else 2
+    sr = 8 // (cout * sc)
+    u = 2 if cin == 4 else 1
+    win = u * 16 // cin
+    return MmaClass(sc, sr, u, 6 + sr, 4 if cin == 1 else 3, 16 * sc, 2 if cin == 1 else 1,
+                    win, (6 + sr) * u * 2)
+
+
+def mma_k_order(cin: int) -> Tuple[Tuple[int, int], ...]:
+    """(staged pixel within the step, channel) of each k of a k16 step: the
+    fragments give a thread k = 2 t + {0, 1} and 2 t + 8 + {0, 1}, one
+    staged word: at Cin 4 pixel t's channels (0, 1) and (2, 3); at Cin 2
+    pixels t and t + 4; at Cin 1 the pixel pairs 2 t and 2 t + 8."""
+    if cin == 4:
+        return tuple(((k % 8) // 2, k % 2 + 2 * (k // 8)) for k in range(16))
+    if cin == 2:
+        return tuple(((k % 8) // 2 + 4 * (k // 8), k % 2) for k in range(16))
+    return tuple((k, 0) for k in range(16))
+
+
+def mma_b_table(w: torch.Tensor) -> torch.Tensor:
+    """The B operands (D, U, 16, 8) of the tensor-core body from w (7, 7,
+    Cin, Cout) as the kernel builds them (``mma_b_taps``): [d][u][k][n] for
+    a staged row d rows below a group's first tile row, step u, k = (pixel
+    p, channel ci) = ``mma_k_order(Cin)[k]`` at staged pixel 4 u + p past a
+    product's column (less ``lead`` - 3), n = (dy sc + s) Cout + co, output
+    co of the tile pixel dy rows down and s columns right:
+    w[d - dy][4 u + p - s - (lead - 3)][ci][co], 0 outside the kernel."""
+    _, _, cin, cout = w.shape
+    m = mma_class(cin, cout)
+    b = torch.zeros((m.d, m.u, 16, 8), dtype=w.dtype, device=w.device)
+    for d in range(m.d):
+        for u in range(m.u):
+            for k, (p, ci) in enumerate(mma_k_order(cin)):
+                for n in range(8):
+                    co, q = n % cout, n // cout
+                    dy, s = divmod(q, m.sc)
+                    kh, kw = d - dy, 4 * u + p - s - (m.lead - 3)
+                    if 0 <= kh < 7 and 0 <= kw < 7:
+                        b[d, u, k, n] = w[kh, kw, ci, co]
+    return b
+
+
+MMA_WARPS = BLOCK_THREADS // 32   # warps a block of the tensor-core body
+MMA_MIN_BLOCKS = 2 * 132          # two blocks an H100 SM: the grid a 16-row tile needs
+
+
+def mma_rows(th: int, tw: int, cin: int, cout: int) -> int:
+    """RB, the tile rows of a warp's task: 8, halved (down to 2, or the
+    class's row shifts) while the tile would leave a warp without a task."""
+    m = mma_class(cin, cout)
+    rb = 8
+    while rb > max(2, m.sr) and -(-tw // m.span) * -(-th // rb) < MMA_WARPS:
+        rb //= 2
+    return rb
+
+
+def mma_tile(B: int, H: int, W: int, cin: int, cout: int) -> Tile:
+    """The tensor-core body's tile (TH, TW, RB) for an image of class (7,
+    Cin, Cout), from its shape alone. TW: one product's span (32 columns, 64
+    at Cin 1) or two, up to 64, as the width allows. TH: the image's height
+    rounded up to a power of two, at most 16 where that grid has two blocks
+    an SM (the 128 x 128 sites: 16 x 64 tiles, 1.5x staged per output) and
+    at most 8 elsewhere: at the small sites, whose time is a launch and a
+    block's round trips, 8-row tiles ran faster than tiles halved down to
+    2 rows to give every SM two blocks (``tools/time_gate --dtype bfloat16
+    --all-classes``'s sweep on the H100)."""
+    m = mma_class(cin, cout)
+    tw = m.span * max(1, min(-(-W // m.span), 64 // m.span))
+    th = min(16, _pow2_ceil(H))
+    if B * -(-H // th) * -(-W // tw) < MMA_MIN_BLOCKS:
+        th = min(th, 8)
+    return th, tw, mma_rows(th, tw, cin, cout)
+
+
+class MmaGeometry(NamedTuple):
+    """One launch of the tensor-core body (``MGeo`` in the source): a block
+    a tile of ``th`` x ``tw`` pixels, ``rb`` tile rows a task; the staged
+    tile ``th`` + 6 rows of ``pitch`` words; ``smem`` bytes of shared
+    memory a block (the B table, then the staged tile); ``grid`` (W tiles,
+    H tiles, B)."""
+    th: int
+    tw: int
+    rb: int
+    pitch: int
+    smem: int
+    grid: Tuple[int, int, int]
+
+
+def mma_geometry(B: int, H: int, W: int, cin: int, cout: int,
+                 tile: Optional[Tile] = None) -> MmaGeometry:
+    """The launch the bf16 conv entry makes at ``tile`` (default
+    :func:`mma_tile`'s), as the source computes it."""
+    m = mma_class(cin, cout)
+    th, tw, rb = mma_tile(B, H, W, cin, cout) if tile is None else tile
+    pitch = (tw + m.win - m.sc) // m.px
+    word = 8 if cin == 4 else 4
+    smem = m.words * 32 * 4 + (th + 6) * pitch * word
+    return MmaGeometry(th, tw, rb, pitch, smem, (-(-W // tw), -(-H // th), B))
+
+
+def mma_fits(B: int, H: int, W: int, cin: int, cout: int, tile: Tile) -> bool:
+    """Whether the tensor-core body takes (B, H, W) at class (7, Cin, Cout)
+    on ``tile`` = (TH, TW, RB): TW a positive multiple of the span, RB 2, 4
+    or 8 and a multiple of the row shifts, the grid and a block's shared
+    memory within the card's limits."""
+    if (7, cin, cout) not in TILED_CLASSES or len(tile) != 3:
+        return False
+    m = mma_class(cin, cout)
+    th, tw, rb = tile
+    if (min(B, H, W, th) < 1 or B > 65535 or tw < m.span or tw % m.span
+            or rb not in (2, 4, 8) or rb % m.sr):
+        return False
+    geo = mma_geometry(B, H, W, cin, cout, tile)
+    return geo.smem <= FUSED_SMEM_LIMIT and geo.grid[1] <= 65535
+
+
 def _check_shapes(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> None:
     if x.dim() != 4 or w.dim() != 4 or bias.dim() != 1:
         raise ValueError(f"expected x (B,H,W,Cin), w (K,K,Cin,Cout), bias "
@@ -344,8 +496,9 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     ``GENERIC_TILE``, or (R, TX, TY) for the register-tiled body. ``dgrad``
     counts the launch as an input gradient's (``DGRAD``). bf16 x and w (the
     bias float32) take the bf16 class (``KERNEL_BF16``, ``DGRAD_BF16``),
-    which has the register-tiled body only (x aligned to its pixel, w to its
-    tap word), and give a bf16 output."""
+    the tensor-core body at the tiled classes, whose ``tile`` is (TH, TW,
+    RB) (:func:`mma_tile`; x aligned to its pixel), and give a bf16
+    output."""
     _check_shapes(x, w, bias)
     dev = x.device
     bf16 = x.dtype == torch.bfloat16
@@ -355,15 +508,15 @@ def launch_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
     check_cuda_operand("bias", bias, dev, 1)
     B, H, W, cin = x.shape
     K, _, _, cout = w.shape
-    if bf16 and ((K, cin, cout) not in TILED_CLASSES or tile == GENERIC_TILE):
-        raise ValueError(f"the conv entry's bf16 class takes the tiled body at "
-                         f"(K, Cin, Cout) in {TILED_CLASSES}, not {(K, cin, cout)} "
-                         f"at tile {tile}")
-    if bf16 and (x.data_ptr() % (2 * cin) or w.data_ptr() % tap_word_bytes(cin, cout, 2)):
-        raise ValueError(f"the conv entry's bf16 class reads x in {2 * cin}-byte pixels "
-                         f"and w in {tap_word_bytes(cin, cout, 2)}-byte tap words: an "
-                         "operand is off its word")
-    if tile != GENERIC_TILE:
+    if bf16:
+        if (K, cin, cout) not in TILED_CLASSES or not mma_fits(B, H, W, cin, cout, tile):
+            raise ValueError(f"the conv entry's bf16 class takes the tensor-core body at "
+                             f"(K, Cin, Cout) in {TILED_CLASSES} on a tile (TH, TW, RB) "
+                             f"it fits (mma_fits), not {(K, cin, cout)} at {tile}")
+        if x.data_ptr() % (2 * cin):
+            raise ValueError(f"the conv entry's bf16 class reads x in {2 * cin}-byte "
+                             "pixels: x is off its word")
+    elif tile != GENERIC_TILE:
         if (K, cin, cout) not in TILED_CLASSES:
             raise ValueError(f"(K, Cin, Cout) = {(K, cin, cout)} has no tiled body")
         _check_tile(tile, cin, cout)
@@ -394,14 +547,17 @@ def _same_conv(x: torch.Tensor, w: torch.Tensor, bias: torch.Tensor,
                dgrad: bool = False) -> torch.Tensor:
     """The conv without autograd: the plain version on the CPU; on CUDA the
     conv entry, with the body the shape class and the alignment allow (at
-    bf16 the tiled body, whose entry refuses an operand off its word)."""
+    bf16 the tensor-core body on :func:`mma_tile`'s tile, whose entry
+    refuses x off its pixel)."""
     if x.device.type == "cpu":
         return _plain(x, w, bias)
     _check_shapes(x, w, bias)
     B, H, W, cin = x.shape
     K, cout = w.shape[0], w.shape[-1]
     if x.dtype == torch.bfloat16:
-        return launch_conv(x, w, bias, choose_tile(B, H, W, cin, cout), dgrad)
+        tiled = (K, cin, cout) in TILED_CLASSES
+        return launch_conv(x, w, bias, mma_tile(B, H, W, cin, cout) if tiled
+                           else GENERIC_TILE, dgrad)
     # the tiled body reads a pixel's channels as one word of 4 Cin bytes and
     # a tap's weights as words of 16 or 8 (its output is freshly allocated)
     tiled = ((K, cin, cout) in TILED_CLASSES and x.data_ptr() % (4 * cin) == 0
@@ -592,7 +748,7 @@ class FusedGeometry(NamedTuple):
 # the fused conv's k order within a k16 step, (pixel, channel) of each k:
 # the fragments give a thread k = 2 t + {0, 1} and 2 t + 8 + {0, 1}, which
 # are pooled pixel t's channels (0, 1) and (2, 3): one pixel, one 8-byte load
-FUSED_K_ORDER = tuple(((k % 8) // 2, k % 2 + 2 * (k // 8)) for k in range(16))
+FUSED_K_ORDER = mma_k_order(4)
 
 
 def _fused_shape(H: int, W: int, C: int, tile_px: int) -> Tile:
@@ -677,21 +833,15 @@ def fused_takes(re: torch.Tensor, im: torch.Tensor) -> bool:
 
 def fused_b_table(w: torch.Tensor) -> torch.Tensor:
     """The fused conv's B operands (8, 2, 16, 8) from the packed kernel w (7,
-    7, 4, 2), as the kernel builds them: [d][u][k][n] for a pooled row d rows
-    below a pair of tile rows, step u, k = (pooled pixel t, channel ch) =
+    7, 4, 2): the tensor-core body's table at class (7, 4, 2)
+    (:func:`mma_b_table`), [d][u][k][n] for a pooled row d rows below a pair
+    of tile rows, step u, k = (pooled pixel t, channel ch) =
     ``FUSED_K_ORDER[k]`` of the pixels 4 u + t past a product's column, and
     n = 4 dy + 2 s + c, output c of the tile pixel dy rows down and s
     columns right: w[d - dy][4 u + t - s][ch][c], 0 outside the kernel."""
-    b = torch.zeros((8, 2, 16, 8), dtype=w.dtype, device=w.device)
-    for d in range(8):
-        for u in range(2):
-            for k, (t, ch) in enumerate(FUSED_K_ORDER):
-                for n in range(8):
-                    dy, sx, c = n // 4, (n // 2) % 2, n % 2
-                    kh, kw = d - dy, 4 * u + t - sx
-                    if 0 <= kh < 7 and 0 <= kw < 7:
-                        b[d, u, k, n] = w[kh, kw, ch, c]
-    return b
+    if tuple(w.shape) != (7, 7, 4, 2):
+        raise ValueError(f"the gate's packed kernel is (7, 7, 4, 2), got {tuple(w.shape)}")
+    return mma_b_table(w)
 
 
 def _check_fused_shapes(re: torch.Tensor, im: torch.Tensor, w: torch.Tensor) -> None:

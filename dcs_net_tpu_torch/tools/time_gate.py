@@ -22,10 +22,23 @@ eager sequence the gate replaces (mean, max, concatenation, ``F.conv2d``,
 sigmoid, product). ``--dgrad`` sweeps the conv entry at the input gradient's
 class instead, (7, 2, 4) or with ``--real`` (7, 1, 2) (g (B, H, W, Cout) ->
 (B, H, W, Cin)), beside the generic body; ``--dgrad --frames 256 --batch
-32`` gives the 13 launches of a train step. ``--dtype bfloat16`` (with
-``--real`` or ``--dgrad``) times the bf16 classes instead on bf16 tensors:
-the conv entry's, the real pool's and gate's, beside the bf16 eager
-sequence; the generic body, which has no bf16 class, is then left out.
+32`` gives the 13 launches of a train step.
+
+``--dtype bfloat16`` times the conv entry's bf16 class (the un-fused gate's
+conv in a bf16 train step) as the package on the path routes it
+(``cuda_conv._same_conv``): (7, 4, 2), with ``--dgrad`` (7, 2, 4), with
+``--real`` (7, 2, 1) (and the real pool's and gate's bf16 classes beside
+the bf16 eager sequence, as at float32), with both (7, 1, 2); ``--all-classes``
+all four. Each site prints the body's ms, its tile, the error against the
+plain version, the bound (bytes at 3.35 TB/s, operations at 989 TFLOP/s)
+and one bf16 library call (``F.conv2d``, or ``conv2d_input`` for an input
+gradient); without ``--no-sweep`` also the fastest tile of the
+tensor-core body's (TH, TW, RB) where the package has that body. The tool
+imports the package from the path, so one copy times two trees in one
+call: ``git archive <parent> | tar -x -C build/parent``, then ``for t in
+build/parent . . build/parent; do PYTHONPATH=$t python3
+dcs_net_tpu_torch/tools/time_gate.py --dtype bfloat16 --all-classes
+--frames 256 --batch 32 --no-sweep; done``.
 """
 
 from __future__ import annotations
@@ -81,11 +94,15 @@ def main(argv=None) -> None:
     p.add_argument("--dgrad", action="store_true",
                    help="the conv entry at the input gradient's class")
     p.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
-                   help="bfloat16: the bf16 classes (with --real or --dgrad)")
+                   help="bfloat16: the conv entry's bf16 class (and with --real the real "
+                        "pool's and gate's)")
+    p.add_argument("--all-classes", action="store_true",
+                   help="with --dtype bfloat16: the conv entry's four bf16 classes")
     args = p.parse_args(argv)
-    if args.dtype == "bfloat16" and not (args.real or args.dgrad):
-        p.error("--dtype bfloat16 takes --real or --dgrad: the complex gate at bf16 is "
-                "the fused entry, which chip_smoke.py's phase \"bf16\" sweeps")
+    if args.all_classes and args.dtype != "bfloat16":
+        p.error("--all-classes takes --dtype bfloat16")
+    if args.dtype == "bfloat16" and (args.all_classes or not args.real or args.dgrad):
+        return time_bf16(args)
     if args.dgrad:
         return sweep_dgrad(args)
     if args.real:
@@ -184,7 +201,10 @@ def sweep_real(args) -> None:
             sweep = [] if args.no_sweep else candidate_tiles(H, 2, 1)
             for t in sweep + [cc.choose_tile(B, H, W, 2, 1), cc.gate_tile(B, H, W, 2, 1)]:
                 if t not in conv:
-                    conv[t] = graph_ms(lambda: cc.launch_conv(pooled, w, zb, t),
+                    # at bf16 the conv entry runs its own body and tile
+                    # (time_bf16 sweeps them): the routed call at each tile
+                    conv[t] = graph_ms((lambda: cc.launch_conv(pooled, w, zb, t)) if f32
+                                       else (lambda: cc._same_conv(pooled, w, zb)),
                                        args.iters)
                     gate[t] = graph_ms(lambda: cc.sa_gate_real(pooled, w, x, t),
                                        args.iters)
@@ -214,10 +234,116 @@ def sweep_real(args) -> None:
           + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()) + f" [{smi}]")
 
 
+BF16_CLASSES = {(False, False): (4, 2), (False, True): (2, 4), (True, False): (2, 1),
+                (True, True): (1, 2)}
+BF16_FLOPS_PER_S = 989e12
+
+
+def mma_candidates(B: int, H: int, W: int, cin: int, cout: int):
+    """The tensor-core body's tiles (TH, TW, RB) that fit a site: TH a power
+    of two to 16, TW one to four product spans up to the width, every RB."""
+    from dcs_net_tpu_torch.ops import cuda_conv as cc
+
+    m = cc.mma_class(cin, cout)
+    out = []
+    for th in (1, 2, 4, 8, 16):
+        for k in (1, 2, 4):
+            tw = k * m.span
+            for rb in (2, 4, 8):
+                if (th <= max(1, 2 * H) and (k == 1 or tw <= 2 * W)
+                        and cc.mma_fits(B, H, W, cin, cout, (th, tw, rb))):
+                    out.append((th, tw, rb))
+    return out
+
+
+def _time_bf16_site(args, cc, graph_ms, B, H, W, cin, cout, w, wf, bias, dgrad, mma, g):
+    """One site of :func:`time_bf16`: prints its line, returns its times."""
+    import torch
+    import torch.nn.functional as F
+
+    dev, b16 = w.device, torch.bfloat16
+    w_oihw = wf.permute(3, 2, 0, 1).contiguous()
+    x = torch.randn((B, H, W, cin), generator=g, device=dev).to(b16)
+    x_nchw = x.permute(0, 3, 1, 2).contiguous()
+    got = cc._same_conv(x, w, bias, dgrad)
+    want = (cc.conv2d_same_small_cout_dgrad_bf16_plain(x, wf) if dgrad
+            else cc.conv2d_same_small_cout_bf16_plain(x, w, bias))
+    err = float((got.float() - want.float()).abs().max()
+                / want.float().abs().max().clamp_min(1e-30))
+    ms = graph_ms(lambda: cc._same_conv(x, w, bias, dgrad), args.iters)
+    if dgrad:
+        lib = graph_ms(lambda: torch.nn.grad.conv2d_input(
+            (B, cout, H, W), w_oihw, x_nchw, padding=3), args.iters)
+    else:
+        lib = graph_ms(lambda: F.conv2d(x_nchw, w_oihw, bias.to(b16), padding=3), args.iters)
+    nbytes = 2 * (x.numel() + w.numel() + B * H * W * cout) + 4 * cout
+    bound = max(nbytes / HBM_BYTES_PER_S,
+                2 * B * H * W * 49 * cin * cout / BF16_FLOPS_PER_S) * 1e3
+    tile = cc.mma_tile(B, H, W, cin, cout) if mma else cc.choose_tile(B, H, W, cin, cout)
+    best, best_ms = tile, ms
+    if mma and not args.no_sweep:
+        t = {c: graph_ms(lambda: cc.launch_conv(x, w, bias, c, dgrad), args.iters)
+             for c in mma_candidates(B, H, W, cin, cout)}
+        best = min(t, key=t.get)
+        best_ms = t[best]
+        top = sorted(t, key=t.get)[:5]
+        print("    top 5: " + ", ".join(f"{k} {t[k]:.4f}" for k in top), flush=True)
+    print(f"bf16 (7, {cin}, {cout}) site ({B}, {H}, {W}): tile {tile} {ms:.4f} ms | best "
+          f"{best} {best_ms:.4f} | bound {bound:.4f} | library {lib:.4f} | rel_err "
+          f"{err:.3e}", flush=True)
+    if not err <= 2.0 ** -7:
+        raise SystemExit(f"({cin}, {cout}) at {(B, H, W)}: error {err:.3e} exceeds 2^-7 "
+                         "of max |plain|")
+    return {"ms": ms, "best": best_ms, "bound": bound, "library": lib}
+
+
+def time_bf16(args) -> None:
+    """The conv entry's bf16 classes at the sites of the train step (or of
+    ``--frames``/``--batch``), as the package on the path routes them: a
+    site's ms, tile, error against the plain version, bound and library
+    call; the fastest tensor-core tile where the package has that body and
+    the sweep is asked for; summed over the sites."""
+    import torch
+
+    from dcs_net_tpu_torch.core.config import config_for_variant
+    from dcs_net_tpu_torch.ops import cuda_conv as cc
+    from dcs_net_tpu_torch.utils.timing import graph_ms
+
+    dev = torch.device("cuda", 0)
+    smi = card_line()
+    mma = hasattr(cc, "mma_tile")
+    print(f"card: {smi}; package {cc.__file__}; tensor-core body: {mma}", flush=True)
+    classes = (list(BF16_CLASSES.values()) if args.all_classes
+               else [BF16_CLASSES[(args.real, args.dgrad)]])
+    g = torch.Generator(device=dev).manual_seed(0)
+    for cin, cout in classes:
+        dgrad = (cin, cout) in ((2, 4), (1, 2))
+        real = cin * cout == 2
+        # the forward's kernel (7, 7, Cin_f, Cout_f); an input gradient's
+        # entry takes its dgrad_kernel and a zero bias
+        fin, fout = (cout, cin) if dgrad else (cin, cout)
+        wf = (torch.randn((7, 7, fin, fout), generator=g, device=dev) * 0.2).to(torch.bfloat16)
+        w = cc.dgrad_kernel(wf) if dgrad else wf
+        bias = (torch.zeros(cout, device=dev) if dgrad
+                else torch.randn(cout, generator=g, device=dev))
+        tot = dict(ms=0.0, best=0.0, bound=0.0, library=0.0)
+        timed = {}
+        for B, H, W, _ in sites(config_for_variant("drs" if real else "dcs"), args.batch,
+                                args.frames):
+            if (B, H, W) not in timed:
+                timed[(B, H, W)] = _time_bf16_site(args, cc, graph_ms, B, H, W, cin, cout,
+                                                   w, wf, bias, dgrad, mma, g)
+            for k, v in timed[(B, H, W)].items():
+                tot[k] += v
+        print(f"bf16 (7, {cin}, {cout}): summed over the 13 sites (ms): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()) + f" [{smi}]", flush=True)
+
+
 def sweep_dgrad(args) -> None:
     """The conv entry at the input gradient's class, (7, 2, 4) or with
-    ``--real`` (7, 1, 2), at each site: the chosen tile, the best of the
-    sweep, the generic body; summed over the sites."""
+    ``--real`` (7, 1, 2), in float32 at each site: the chosen tile, the best
+    of the sweep, the generic body; summed over the sites (at bf16:
+    :func:`time_bf16`)."""
     import torch
 
     from dcs_net_tpu_torch.core.config import config_for_variant
@@ -228,21 +354,18 @@ def sweep_dgrad(args) -> None:
     smi = card_line()
     # the forward class (Cin, Cout); the input gradient's is (Cout, Cin)
     fin, fout = (2, 1) if args.real else (4, 2)
-    dt = getattr(torch, args.dtype)
     g = torch.Generator(device=dev).manual_seed(0)
-    wt = cc.dgrad_kernel(torch.randn((7, 7, fin, fout), generator=g, device=dev) * 0.1
-                         ).to(dt)
+    wt = cc.dgrad_kernel(torch.randn((7, 7, fin, fout), generator=g, device=dev) * 0.1)
     zb = torch.zeros(fin, device=dev)
     tot = dict(chosen=0.0, best=0.0, generic=0.0)
     variant = "drs" if args.real else "dcs"
     for B, H, W, _ in sites(config_for_variant(variant), args.batch, args.frames):
-        gy = torch.randn((B, H, W, fout), generator=g, device=dev).to(dt)
+        gy = torch.randn((B, H, W, fout), generator=g, device=dev)
         chosen = cc.choose_tile(B, H, W, fout, fin)
         tiles = [] if args.no_sweep else candidate_tiles(H, fout, fin)
         t = {tile: graph_ms(lambda: cc.launch_conv(gy, wt, zb, tile), args.iters)
              for tile in tiles + [chosen]}
-        generic = (graph_ms(lambda: cc.launch_conv(gy, wt, zb, cc.GENERIC_TILE), args.iters)
-                   if dt == torch.float32 else float("nan"))
+        generic = graph_ms(lambda: cc.launch_conv(gy, wt, zb, cc.GENERIC_TILE), args.iters)
         best = min(t, key=t.get)
         print(f"dgrad ({fout}, {fin}) site ({B}, {H}, {W}): chosen {chosen} "
               f"{t[chosen]:.4f} | best {best} {t[best]:.4f} | generic {generic:.4f} ms")
@@ -251,7 +374,7 @@ def sweep_dgrad(args) -> None:
             print("    top 5: " + ", ".join(f"{k} {t[k]:.4f}" for k in top))
         for k, v in (("chosen", t[chosen]), ("best", t[best]), ("generic", generic)):
             tot[k] += v
-    print(f"dgrad ({fout}, {fin}) at {args.dtype}: summed over the 13 sites (ms): "
+    print(f"dgrad ({fout}, {fin}): summed over the 13 sites (ms): "
           + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()) + f" [{smi}]")
 
 

@@ -659,7 +659,7 @@ def test_tapconv_input_gradient_bf16_launch_takes_its_class(monkeypatch):
 
 
 def test_conv_entry_bf16_launch_refuses_a_class_without_a_tiled_body(monkeypatch):
-    """The conv entry's bf16 class has the register-tiled body at the tiled
+    """The conv entry's bf16 class has the tensor-core body at the tiled
     classes only (the complex and the real ones): any other class at bf16
     ((7, 2, 2), or 3 x 3) raises off the CPU and launches nothing; the CPU's
     plain version takes every class, its float32 sums rounded once."""

@@ -19,8 +19,8 @@ Bands, the bf16 serving path's (``test_torch_bf16.py``):
 * the real gate and the LSTM at bf16: 2^-6 of the largest value (XLA on the
   CPU may round its fused bf16 elementwise ops at other points).
 Then the CPU models of the new kernel classes (the conv entry's bf16 class
-at the real classes, whose tap word is a 4-byte bf16 pair, at every R; the
-real gate's rounding points and its product's walk over 16-byte words of 8
+at the real classes on its tensor-core body, at forced tiles; the real
+gate's rounding points and its product's walk over 16-byte words of 8
 bf16), the routing of a narrow DRS net at bf16 on meta tensors, and kernel
 3's bf16 bodies and plans at the full DRS decoder's shapes.
 """
@@ -384,31 +384,34 @@ def _tap_words(w: torch.Tensor) -> np.ndarray:
 
 
 @pytest.mark.parametrize("shape,tile", [
-    ((1, 5, 11, 2), (2, 4, 2)),
-    ((2, 3, 9, 2), (4, 2, 16)),
-    ((1, 9, 41, 2), (8, 4, 4)),        # R = 8
-    ((1, 4, 3, 2), (8, 1, 1)),         # W below one thread's run
-    ((1, 5, 11, 1), (2, 4, 2)),        # the input gradient's class (7, 1, 2)
-    ((2, 9, 41, 1), (8, 16, 8)),
-    ((1, 18, 70, 1), (4, 8, 16)),
+    ((1, 5, 11, 2), (2, 32, 4)),
+    ((2, 3, 9, 2), (16, 32, 8)),
+    ((1, 9, 41, 2), (4, 64, 4)),       # two column tasks, one past the image
+    ((1, 4, 3, 2), (1, 32, 4)),        # W below one product's span
+    ((1, 5, 11, 1), (2, 64, 2)),       # the input gradient's class (7, 1, 2)
+    ((2, 9, 41, 1), (8, 128, 8)),
+    ((1, 18, 70, 1), (16, 64, 4)),
 ])
 def test_conv_entry_bf16_model_at_the_real_classes(shape, tile):
-    """The conv entry's bf16 class at (7, 2, 1) and (7, 1, 2): x and w read
-    as bf16 (a pixel of 2 Cin bytes, a tap's 2 weights as one 4-byte word)
-    and widened exactly as they are staged, the float32 body's tile and
-    slots (every R, 8 included), the float32 bias added and each output
-    rounded once: the same as the class's plain version within a bf16 unit;
-    the words the entry asks w and x to be aligned to."""
+    """The conv entry's bf16 class at (7, 2, 1) and (7, 1, 2): the
+    tensor-core body's model (``test_torch_conv7_mma_bf16.mma_model``: x
+    staged as 4-byte words, one pixel at Cin 2, two at Cin 1; w read as it
+    lies into the B table; float32 sums of each m16n8k16 product) at forced
+    tiles, the float32 bias added and each output rounded once: the same as
+    the class's plain version within a bf16 unit, every output stored once;
+    the entry asks x to lie on its pixel only (2 Cin bytes)."""
+    from test_torch_conv7_mma_bf16 import mma_model
+
     cin = shape[-1]
     cout = 3 - cin
-    assert cuda_conv.tap_word_bytes(cin, cout, 2) == 4
-    assert cuda_conv.tap_word_bytes(4, 2, 2) == 8 == cuda_conv.tap_word_bytes(2, 1)
-    cuda_conv._check_tile(tile, cin, cout)
+    assert cuda_conv.mma_fits(*shape[:3], cin, cout, tile)
+    m = cuda_conv.mma_class(cin, cout)
+    assert (m.px, m.sc * m.sr * cout) == (2 if cin == 1 else 1, 8)
     x, w = _b16(_np(shape, 60)), _b16(_np((7, 7, cin, cout), 61, 0.2))
     b = _np((cout,), 62)
-    got = _bf16_np(_tiled_conv_model(x.float().numpy(), _tap_words(w), b, tile))
+    got, stores = mma_model(x, w, b, tile)
     want = cuda_conv.conv2d_same_small_cout_bf16_plain(x, w, torch.from_numpy(b))
-    assert not np.isnan(got).any()
+    assert (stores == 1).all()
     assert _rel(got, want) <= BF16_OUT
 
 
@@ -491,9 +494,9 @@ def test_real_entries_take_their_bf16_classes_on_meta(monkeypatch):
     dx = cuda_conv._same_conv(y, cuda_conv.dgrad_kernel(w), torch.zeros(2, device="meta"),
                               dgrad=True)
     assert y.dtype == dx.dtype == B16 and dx.shape == (2, 8, 20, 2)
-    assert recs["KERNEL_BF16"].calls == [(2, 8, 20, 2, 7, 1) + cuda_conv.choose_tile(
+    assert recs["KERNEL_BF16"].calls == [(2, 8, 20, 2, 7, 1) + cuda_conv.mma_tile(
         2, 8, 20, 2, 1)]
-    assert recs["DGRAD_BF16"].calls == [(2, 8, 20, 1, 7, 2) + cuda_conv.choose_tile(
+    assert recs["DGRAD_BF16"].calls == [(2, 8, 20, 1, 7, 2) + cuda_conv.mma_tile(
         2, 8, 20, 1, 2)]
     for name in ("KERNEL", "DGRAD", "POOL_REAL", "GATE_REAL"):
         assert not recs[name].calls, name
@@ -567,10 +570,10 @@ def test_drs_net_at_bf16_off_the_cpu_takes_the_bf16_classes(monkeypatch):
     assert seen == [B16] * 5
     for args in recs["conv_same_small_cout_bf16"].calls:
         B, H, W = args[:3]
-        assert args[3:] == (2, 7, 1) + cuda_conv.choose_tile(B, H, W, 2, 1)
+        assert args[3:] == (2, 7, 1) + cuda_conv.mma_tile(B, H, W, 2, 1)
     for args in recs["conv_same_small_cout_dgrad_bf16"].calls:
         B, H, W = args[:3]
-        assert args[3:] == (1, 7, 2) + cuda_conv.choose_tile(B, H, W, 1, 2)
+        assert args[3:] == (1, 7, 2) + cuda_conv.mma_tile(B, H, W, 1, 2)
 
 
 @pytest.mark.parametrize("batch,frames", [(4, 2008), (32, 256), (1, 251)],
